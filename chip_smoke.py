@@ -1,0 +1,416 @@
+"""Drive the PyTorch/CUDA port (infinitensor_tpu_torch) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases, each failing with a nonzero exit:
+  1. the card: CUDA present; its name and power limit (nvidia-smi);
+  2. build every kernel from kernels/csrc/ (one nvcc per source, in
+     parallel), timed;
+  3. each kernel against its plain PyTorch version on the card at the
+     Llama-2-7B decode shapes (bs=1, ctx=1024): max error, median time,
+     the least time the card could take (bytes over the published 3.35
+     TB/s, and over the device-to-device copy rate measured here), the
+     plain version's time and one PyTorch library call's time;
+  4. the 7B INT4 + INT8-KV decode path with random weights built on the
+     card as bench.py builds them: one step with the kernels against the
+     same step on the plain versions (CPU), then llama_decode_multi for
+     128 greedy steps under a CUDA graph (tokens equal to an eager loop),
+     tok/s (min of 3 fresh runs) against the copy-rate roofline, and each
+     kernel's launch count on that path.
+The last lines are the kernels JSON, nvidia-smi's name and power limit,
+and {"ok": true, "device": {...}}. A report goes to chiprun_out/.
+"""
+
+import json
+import math
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+HBM_BYTES_S = 3.35e12        # H100 SXM published device-memory rate
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}    # dense tensor-core peaks
+SEED = 0
+CTX = 1024                   # decode position (bench.py BENCH_CTX)
+MAX_SEQ = 1664               # bench.py cache capacity at ctx 1024
+STEPS = 128                  # tokens per CUDA-graph region (BENCH_MULTI)
+TOL = 1e-2                   # kernel vs plain: max err <= TOL * max|plain|
+SRC = "infinitensor_tpu_torch/kernels/csrc/"
+TPU = "infinitensor_tpu/kernels/"
+
+
+def fail(msg):
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def smi_line():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(torch, fn, reps, flush=None):
+    """Median milliseconds of fn() over `reps` CUDA-event timings, with
+    the L2 cache overwritten before each (cold weights, as in decode)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        if flush is not None:
+            flush.zero_()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return statistics.median(times)
+
+
+def copy_rate(torch):
+    """Device-to-device copy_ of 1 GB: bytes read + written per second."""
+    n = 1 << 30
+    a = torch.empty(n, dtype=torch.uint8, device="cuda")
+    b = torch.empty_like(a)
+    ms = cuda_ms(torch, lambda: b.copy_(a), 10)
+    del a, b
+    return 2 * n / (ms * 1e-3)
+
+
+def main():
+    import torch
+
+    # 1. the card
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false")
+    from infinitensor_tpu_torch.kernels import _build
+    from infinitensor_tpu_torch.kernels import attention as att
+    from infinitensor_tpu_torch.kernels import quant_matmul as qm
+    from infinitensor_tpu_torch.models import llama
+    from infinitensor_tpu_torch.quant.weight_only import (
+        QuantizedLinear, dequantize_weight)
+
+    smi = smi_line()
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    name = torch.cuda.get_device_name(0)
+    print(f"# card: {smi}; torch {torch.__version__} cuda "
+          f"{torch.version.cuda}", flush=True)
+    report = {"card": smi, "torch": torch.__version__}
+
+    # 2. build
+    t0 = time.perf_counter()
+    took = _build.build_all()
+    build_s = time.perf_counter() - t0
+    per_src = {k: round(v, 1) for k, v in took.items()}
+    print(f"# kernels built in {build_s:.1f}s (per source: {per_src})",
+          flush=True)
+    for log in sorted(_build.build_dir().glob("*.log")):
+        for line in log.read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"# {log.stem}: {line.strip()}")
+    report["build_s"] = build_s
+
+    # 3. kernels against their plain versions at the 7B shapes
+    bw_copy = copy_rate(torch)
+    print(f"# device-to-device copy: {bw_copy / 1e9:.1f} GB/s", flush=True)
+    report["copy_gbps"] = bw_copy / 1e9
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    cfg = llama.LlamaConfig(max_seq=MAX_SEQ)
+    params = build_params(torch, cfg, gen, dev, QuantizedLinear)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    eps = cfg.norm_eps
+    layer0 = params["layers"][0]
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    cases = []
+    for label, q in (("wqkv", layer0["wqkv"]),
+                     ("w_gateup", layer0["w_gateup"])):
+        x = randn(1, cfg.dim)
+        nw = (torch.rand(cfg.dim, generator=gen, device=dev) + 0.5).to(
+            torch.bfloat16)
+        xn = qm.rmsnorm_bf16(x, nw, eps)
+        w = dequantize_weight(q)
+        cases.append(dict(
+            name="qmm_group_norm", shape=label,
+            replaces=TPU + "quant_matmul.py:85",
+            source=SRC + "quant_matmul.cu",
+            kernel=lambda x=x, nw=nw, q=q: qm.quant_matmul_norm(x, nw, q, eps),
+            plain=lambda x=x, nw=nw, q=q: qm.qmm_group_plain(
+                qm.rmsnorm_bf16(x, nw, eps), q)[:, :q.out_features],
+            library=lambda xn=xn, w=w: torch.matmul(xn, w),
+            bytes=nbytes(x, nw, q.qweight, q.scales) + 2 * q.out_physical,
+            ops=2 * cfg.dim * q.out_physical, kind="bf16"))
+    for label, q, din in (("wo", layer0["wo"], cfg.dim),
+                          ("w_down", layer0["w_down"], cfg.intermediate)):
+        x = randn(1, din)
+        w = dequantize_weight(q)
+        cases.append(dict(
+            name="qmm_group", shape=label,
+            replaces=TPU + "quant_matmul.py:100",
+            source=SRC + "quant_matmul.cu",
+            kernel=lambda x=x, q=q: qm.quant_matmul(x, q),
+            plain=lambda x=x, q=q: qm.qmm_group_plain(x, q)[
+                :, :q.out_features],
+            library=lambda x=x, w=w: torch.matmul(x, w),
+            bytes=nbytes(x, q.qweight, q.scales) + 2 * q.out_physical,
+            ops=2 * din * q.out_physical, kind="bf16"))
+    q = params["lm_head"]
+    x = randn(1, cfg.dim)
+    w = dequantize_weight(q)
+    if qm.variant_for(cfg.dim, q) != "w4a8":
+        fail("the variant table does not route the lm_head to w4a8")
+    cases.append(dict(
+        name="qmm_w4a8", shape="lm_head", replaces=TPU + "quant_matmul.py:283",
+        source=SRC + "quant_matmul.cu",
+        kernel=lambda x=x, q=q: qm.quant_matmul(x, q),
+        plain=lambda x=x, q=q: qm.qmm_w4a8_plain(x, q)[:, :q.out_features],
+        library=lambda x=x, w=w: torch.matmul(x, w),
+        bytes=nbytes(x, q.qweight, q.scales) + 2 * q.out_physical,
+        ops=2 * cfg.dim * q.out_physical, kind="int8"))
+    for label, H, Hkv in (("mha 32/32", 32, 32), ("gqa 32/8", 32, 8)):
+        D, S = cfg.head_dim, MAX_SEQ
+        qh = randn(1, H, 1, D)
+        kc = torch.randint(-127, 128, (1, Hkv, S, D), generator=gen,
+                           device=dev, dtype=torch.int8)
+        vc = torch.randint(-127, 128, (1, Hkv, S, D), generator=gen,
+                           device=dev, dtype=torch.int8)
+        ks = torch.rand(1, Hkv, S, generator=gen, device=dev) * 0.015 + 0.005
+        vs = torch.rand(1, Hkv, S, generator=gen, device=dev) * 0.015 + 0.005
+        pos = torch.full((1,), CTX, dtype=torch.int32, device=dev)
+        live = CTX + 1
+        rep = H // Hkv
+        kf = (kc[:, :, :live].float() * ks[:, :, :live, None]).to(
+            torch.bfloat16).repeat_interleave(rep, 1)
+        vf = (vc[:, :, :live].float() * vs[:, :, :live, None]).to(
+            torch.bfloat16).repeat_interleave(rep, 1)
+        args = (qh, kc, vc, ks, vs, pos)
+        cases.append(dict(
+            name="flash_decode_q8", shape=f"{label} pos {CTX}",
+            replaces=TPU + "attention.py:345",
+            source=SRC + "flash_decode_q8.cu",
+            kernel=lambda a=args: att.flash_decode_q8(*a),
+            plain=lambda a=args: att.flash_decode_q8_plain(*a),
+            library=lambda qh=qh, kf=kf, vf=vf:
+                torch.nn.functional.scaled_dot_product_attention(qh, kf, vf),
+            bytes=2 * Hkv * live * (D + 4) + 2 * nbytes(qh),
+            ops=4 * H * live * D, kind="bf16"))
+
+    for c in cases:
+        got, want = c["kernel"](), c["plain"]()
+        torch.cuda.synchronize()
+        if got.shape != want.shape:
+            fail(f"{c['name']} {c['shape']}: shape {tuple(got.shape)} vs "
+                 f"{tuple(want.shape)}")
+        err = (got.float() - want.float()).abs().max().item()
+        ref = want.float().abs().max().item()
+        c["max_abs_err"], c["max_abs_ref"] = err, ref
+        if not (math.isfinite(err) and err <= TOL * ref):
+            fail(f"{c['name']} {c['shape']}: max err {err} > {TOL} * {ref}")
+        c["ms"] = cuda_ms(torch, c["kernel"], 50, flush)
+        c["plain_ms"] = cuda_ms(torch, c["plain"], 5, flush)
+        c["library_ms"] = cuda_ms(torch, c["library"], 50, flush)
+        c["bound_ms"] = 1e3 * max(c["bytes"] / HBM_BYTES_S,
+                                  c["ops"] / PEAK_OPS[c["kind"]])
+        c["bound_by"] = ("bytes" if c["bytes"] / HBM_BYTES_S
+                         >= c["ops"] / PEAK_OPS[c["kind"]] else "operations")
+        c["copy_bound_ms"] = 1e3 * c["bytes"] / bw_copy
+        print(f"# {c['name']:16s} {c['shape']:18s} err {err:.3g} "
+              f"(max|ref| {ref:.3g})  kernel {c['ms']:.4f} ms  bound "
+              f"{c['bound_ms']:.4f} ms (copy-rate {c['copy_bound_ms']:.4f})"
+              f"  plain {c['plain_ms']:.4f} ms  library "
+              f"{c['library_ms']:.4f} ms  {c['bytes'] / 1e6:.2f} MB",
+              flush=True)
+    del flush
+
+    # 4. the 7B decode path
+    per_token = decode_path(torch, llama, qm, att, params, cfg, dev, report)
+    main_counts = report["launches_main_path"]
+    for kname in ("qmm_group_norm", "qmm_group", "qmm_w4a8",
+                  "flash_decode_q8"):
+        if main_counts.get(kname, 0) <= 0:
+            fail(f"{kname} was never launched on the main path")
+
+    kernels = []
+    for c in cases:
+        kernels.append({
+            "name": c["name"], "shape": c["shape"], "route": "cuda",
+            "source": c["source"], "replaces": c["replaces"],
+            "launches": main_counts[c["name"]],
+            "launches_per_token": per_token[c["name"]],
+            "max_abs_err": c["max_abs_err"], "ms": c["ms"],
+            "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+            "bound_by": c["bound_by"], "copy_bound_ms": c["copy_bound_ms"],
+            "bytes": c["bytes"], "library_ms": c["library_ms"]})
+    report["kernels"] = kernels
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open("chiprun_out/chip_smoke_report.json", "w") as f:
+        json.dump(report, f, indent=1)
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+def build_params(torch, cfg, gen, dev, QuantizedLinear):
+    """Random INT4 weights on the card, as bench.py:24-97 builds them:
+    codes uniform in [-127, 126], bf16 scales uniform in [0.001, 0.02],
+    group 128, w_gateup padded to a multiple of 2048 columns (22528),
+    a 0.02-scaled bf16 embedding, unit norms."""
+    def qlin(din, dout, pad_to=0, group=128):
+        logical = 0
+        if pad_to and dout % pad_to:
+            logical, dout = dout, dout + pad_to - dout % pad_to
+        qw = torch.randint(-127, 127, (din // 2, dout), generator=gen,
+                           device=dev, dtype=torch.int8)
+        sc = (torch.rand(din // group, dout, generator=gen, device=dev)
+              * 0.019 + 0.001).to(torch.bfloat16)
+        return QuantizedLinear(qw, sc, 4, group, logical)
+
+    kvd = cfg.n_kv_heads * cfg.head_dim
+    ones = torch.ones(cfg.dim, dtype=torch.bfloat16, device=dev)
+    layers = [{
+        "attn_norm": ones, "wqkv": qlin(cfg.dim, cfg.dim + 2 * kvd),
+        "wo": qlin(cfg.dim, cfg.dim), "mlp_norm": ones,
+        "w_gateup": qlin(cfg.dim, 2 * cfg.intermediate, pad_to=2048),
+        "w_down": qlin(cfg.intermediate, cfg.dim),
+    } for _ in range(cfg.n_layers)]
+    embed = (torch.randn(cfg.vocab_size, cfg.dim, generator=gen, device=dev)
+             * 0.02).to(torch.bfloat16)
+    return {"embed": embed, "final_norm": ones,
+            "lm_head": qlin(cfg.dim, cfg.vocab_size), "layers": layers}
+
+
+def to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_cpu(v) for v in tree]
+    return tree.to("cpu")
+
+
+def decode_path(torch, llama, qm, att, params, cfg, dev, report):
+    """Phase 4; returns each kernel's launches in one eager decode step."""
+    def counts():
+        c = dict(qm.launches)
+        c.update(att.launches)
+        return c
+
+    def reset_counts():
+        qm.launches.clear()
+        att.launches.clear()
+
+    def fresh(cache):
+        for bufs in cache.values():
+            for t in bufs:
+                t.zero_()
+
+    token = torch.zeros(1, dtype=torch.int32, device=dev)
+    pos = torch.full((1,), CTX, dtype=torch.int32, device=dev)
+    cache = llama.init_kv_cache(cfg, 1, device=dev)
+
+    # one step, kernels on the card against plain versions on the CPU
+    reset_counts()
+    logits, _ = llama.llama_decode_step(params, cfg, token, pos, cache)
+    torch.cuda.synchronize()
+    per_token = counts()
+    t0 = time.perf_counter()
+    ref, _ = llama.llama_decode_step(
+        to_cpu(params), cfg, token.cpu(), pos.cpu(),
+        llama.init_kv_cache(cfg, 1, device="cpu"))
+    plain_s = time.perf_counter() - t0
+    lk, lp = logits.float().cpu(), ref.float()
+    if not torch.isfinite(lk).all():
+        fail("non-finite logits")
+    err = (lk - lp).abs().max().item()
+    rel = err / lp.abs().max().item()
+    top_k, top_p = int(lk.argmax()), int(lp.argmax())
+    # a top-1 change is a near-tie only if the plain logits of the two
+    # candidates lie within the measured error of each other
+    tie = float(lp[0, top_p] - lp[0, top_k]) <= 2 * err
+    print(f"# 7B step, kernels vs plain (CPU, {plain_s:.1f}s): rel logit "
+          f"err {rel:.3g}, top-1 {top_k} vs {top_p}", flush=True)
+    report["step_rel_logit_err"], report["step_top1"] = rel, [top_k, top_p]
+    if rel > 5e-2 or (top_k != top_p and not tie):
+        fail(f"7B step disagrees with its plain version: rel {rel}, "
+             f"top-1 {top_k} vs {top_p}")
+
+    # the main path: llama_decode_multi under a CUDA graph
+    fresh(cache)
+    reset_counts()
+    t0 = time.perf_counter()
+    toks, last, next_pos, cache = llama.llama_decode_multi(
+        params, cfg, token, pos, cache, STEPS)
+    torch.cuda.synchronize()
+    multi_s = time.perf_counter() - t0
+    report["launches_main_path"] = counts()
+    if toks.shape != (1, STEPS) or int(next_pos) != CTX + STEPS:
+        fail(f"decode_multi returned {tuple(toks.shape)}, pos {next_pos}")
+
+    # eager loop from the same state
+    fresh(cache)
+    tok, p, eager = token.clone(), pos.clone(), []
+    for _ in range(STEPS):
+        lg, cache = llama.llama_decode_step(params, cfg, tok, p, cache)
+        tok = torch.argmax(lg, -1).to(torch.int32)
+        eager.append(tok)
+        p = p + 1
+    eager = torch.stack(eager, 1)
+    same = (toks == eager)[0].int().cumprod(0).sum().item()
+    print(f"# graph vs eager greedy tokens: first {same} of {STEPS} equal; "
+          f"first tokens {toks[0, :8].tolist()}", flush=True)
+    report["graph_eager_equal_prefix"] = same
+    if same < 32:
+        fail(f"graph and eager tokens differ at step {same}")
+
+    # timing: one captured graph, 3 runs of 128 tokens from fresh state
+    fresh(cache)
+    g = llama.DecodeGraph(params, cfg, token, pos, cache, STEPS)
+    samples = []
+    for _ in range(3):
+        fresh(cache)
+        g.reset(token, pos)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = g.run()
+        torch.cuda.synchronize()
+        samples.append(time.perf_counter() - t0)
+        if not torch.equal(out, toks):
+            fail("a timed graph run gave other tokens")
+    dt = min(samples)
+    kvd = cfg.n_kv_heads * cfg.head_dim
+    per_layer = (cfg.dim * cfg.dim * 2 + cfg.dim * kvd * 2
+                 + cfg.dim * cfg.intermediate * 3)
+    total = per_layer * cfg.n_layers + cfg.dim * cfg.vocab_size
+    w_bytes = total * 4 / 8 + total / 128 * 2          # int4 + bf16 scales
+    kv_bytes = 2 * cfg.n_layers * cfg.n_kv_heads * CTX * (cfg.head_dim + 4)
+    bytes_tok = w_bytes + kv_bytes
+    tok_s = STEPS / dt
+    res = {
+        "tok_s": tok_s, "ms_per_token": 1e3 * dt / STEPS,
+        "tok_s_samples": [STEPS / s for s in samples],
+        "decode_multi_call_s": multi_s, "bytes_per_token": bytes_tok,
+        "roofline_tok_s_copy": report["copy_gbps"] * 1e9 / bytes_tok,
+        "roofline_tok_s_published": HBM_BYTES_S / bytes_tok,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches_main_path": report["launches_main_path"],
+        "launches_per_token": per_token}
+    report.update(res)
+    print("# decode " + json.dumps(res), flush=True)
+    return per_token
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,387 @@
+// Weight-only int4/int8 group-dot matmuls for decode, hand-written for
+// Hopper (sm_90a). Python wrappers: kernels/quant_matmul.py.
+//
+// Replaces the TPU kernels of infinitensor_tpu/kernels/quant_matmul.py:
+//   qmm_group (HAS_NORM=false)  <- _kernel_group        (:100, _group_dots :115)
+//   qmm_group (HAS_NORM=true)   <- _kernel_group_norm   (:85)
+//   qmm_w4a8                    <- _kernel_group_w4a8   (:283,
+//                                  _group_dots_w4a8 :229, _quantize_rows_i8 :217)
+//
+// What bounds it on this card: at decode (rows = batch = 1) every weight
+// byte is used for 2 multiply-adds per row, far below the ~295 ops/byte
+// where the H100 stops being memory-bound, so the time floor is the
+// packed weights + scales over device-memory bandwidth (wqkv 25.95 MB,
+// w_gateup 47.58 MB, wo 8.65 MB, w_down 23.25 MB, lm_head 67.58 MB at
+// Llama-2-7B int4 with bf16 scales).
+//
+// Design for that bound, kept simple (no wgmma, TMA or split-K yet):
+//  * a block owns 128 output columns; its 32 lanes each read 4 adjacent
+//    columns as one 32-bit load, so a warp reads 128 contiguous bytes of a
+//    packed row, and the 16 warps of the block split the scale groups of
+//    the contraction between them; partials meet in shared memory in a
+//    fixed order (no atomics, so results repeat bit for bit);
+//  * the activation rows (<= 4 per block; more rows take more blocks) sit
+//    in shared memory, normalized there first when HAS_NORM, in the TPU
+//    kernel's rounding order (f32 mean of squares, x * 1/sqrt(ms + eps)
+//    rounded to bf16, times the bf16 norm weight rounded to bf16);
+//  * nibbles decode to floats with the 2^23 bit trick (no I2F), the
+//    offset-binary low nibble and the signed high nibble both to their
+//    exact values, so the per-group partials need no -8*sum(x)
+//    correction; the group scale multiplies the f32 partial once per
+//    group, as in the TPU kernel;
+//  * qmm_w4a8 quantizes each activation row to int8 per block (sx =
+//    max(amax, 1e-30) * f32(1/127), round half to even, clip +-127),
+//    transposes 4 packed rows x 4 columns with byte permutes, and runs
+//    __dp4a against (b & 0x0F) = lo + 8 and (b & 0xF0) = 16 * hi as signed
+//    bytes; the i32 partials are exact, then rescaled per group in f32
+//    (s_lo and s_hi / 16, minus 8 * sum(xq) for the low half) and by sx
+//    at the end, as the TPU kernel does.
+#include "common.cuh"
+
+namespace {
+
+constexpr int kLanes = 32;          // 4 columns each -> 128 columns/block
+constexpr int kWarps = 16;          // split the scale groups of K
+constexpr int kCols = kLanes * 4;
+constexpr int kSmemMax = 232448;    // dynamic shared memory per block
+
+// Block-wide reduction of one value per thread (sum or max); every thread
+// gets the result. `part` holds kWarps floats.
+template <bool MAX>
+__device__ float block_reduce(float v, float* part) {
+  v = MAX ? warp_max(v) : warp_sum(v);
+  if (threadIdx.x == 0) part[threadIdx.y] = v;
+  __syncthreads();
+  float r = part[0];
+  for (int w = 1; w < kWarps; ++w) r = MAX ? fmaxf(r, part[w]) : r + part[w];
+  __syncthreads();
+  return r;
+}
+
+// Sum the kWarps partial tiles in `red` and write bf16 outputs.
+template <int R>
+__device__ void write_out(const float* red, const float* row_scale,
+                          __nv_bfloat16* out, int row0, int nrows,
+                          int dout_p) {
+  const int tid = threadIdx.y * kLanes + threadIdx.x;
+  for (int o = tid; o < R * kCols; o += kLanes * kWarps) {
+    const int r = o / kCols, cc = o % kCols;
+    const int n = blockIdx.x * kCols + cc;
+    if (r >= nrows || n >= dout_p) continue;
+    float s = 0.f;
+    for (int w = 0; w < kWarps; ++w) s += red[(w * R + r) * kCols + cc];
+    if (row_scale) s *= row_scale[r];
+    out[(size_t)(row0 + r) * dout_p + n] = __float2bfloat16_rn(s);
+  }
+}
+
+template <int BITS, int R, bool HAS_NORM>
+__global__ void __launch_bounds__(kLanes * kWarps)
+qmm_group_kernel(const __nv_bfloat16* __restrict__ x,
+                 const __nv_bfloat16* __restrict__ nw,
+                 const int8_t* __restrict__ qw, const void* __restrict__ sc,
+                 bool sc_bf16, __nv_bfloat16* __restrict__ out, int rows,
+                 int din, int dout_p, int group, float eps) {
+  extern __shared__ float smem[];
+  float* xs = smem;                       // [R][din]
+  float* red = smem + R * din;            // [kWarps][R][kCols]
+  __shared__ float part[kWarps];
+  const int lane = threadIdx.x, warp = threadIdx.y;
+  const int tid = warp * kLanes + lane, nthr = kLanes * kWarps;
+  const int row0 = blockIdx.y * R;
+  const int nrows = min(R, rows - row0);
+
+  for (int r = 0; r < R; ++r) {
+    const __nv_bfloat16* xr = x + (size_t)(row0 + r) * din;
+    if (r >= nrows) {
+      for (int k = tid; k < din; k += nthr) xs[r * din + k] = 0.f;
+      continue;
+    }
+    float rinv = 1.f;
+    if (HAS_NORM) {
+      float ss = 0.f;
+      for (int k = tid; k < din; k += nthr) {
+        const float v = bf16_to_f32(xr[k]);
+        ss += v * v;
+      }
+      const float ms = block_reduce<false>(ss, part) / (float)din;
+      rinv = 1.f / sqrtf(ms + eps);
+    }
+    for (int k = tid; k < din; k += nthr) {
+      float v = bf16_to_f32(xr[k]);
+      if (HAS_NORM) v = round_bf16(round_bf16(v * rinv) * bf16_to_f32(nw[k]));
+      xs[r * din + k] = v;
+    }
+  }
+  __syncthreads();
+
+  const int col = blockIdx.x * kCols + lane * 4;
+  const int krows = BITS == 4 ? din / 2 : din;   // stored (packed) rows
+  const int ngs = krows / group;                 // stored groups
+  float acc[R][4];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[r][j] = 0.f;
+
+  if (col < dout_p) {
+    for (int c = warp; c < ngs; c += kWarps) {
+      float pl[R][4], ph[R][4];
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) pl[r][j] = ph[r][j] = 0.f;
+      const int8_t* qp = qw + (size_t)c * group * dout_p + col;
+#pragma unroll 16
+      for (int i = 0; i < group; ++i) {
+        const uint32_t w =
+            __ldg(reinterpret_cast<const uint32_t*>(qp + (size_t)i * dout_p));
+        const int k = c * group + i;
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const float xl = xs[r * din + k];
+          if (BITS == 4) {
+            const float xh = xs[r * din + krows + k];
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              pl[r][j] = fmaf(xl, nib_lo(w, 8 * j), pl[r][j]);
+              ph[r][j] = fmaf(xh, nib_hi(w, 8 * j + 4), ph[r][j]);
+            }
+          } else {
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              pl[r][j] = fmaf(xl, i8_val(w, 8 * j), pl[r][j]);
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float s_lo = load_scale(sc, sc_bf16, (size_t)c * dout_p + col + j);
+        const float s_hi =
+            BITS == 4 ? load_scale(sc, sc_bf16, (size_t)(ngs + c) * dout_p + col + j)
+                      : 0.f;
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          acc[r][j] += BITS == 4 ? pl[r][j] * s_lo + ph[r][j] * s_hi
+                                 : pl[r][j] * s_lo;
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      red[(warp * R + r) * kCols + lane * 4 + j] = acc[r][j];
+  __syncthreads();
+  write_out<R>(red, nullptr, out, row0, nrows, dout_p);
+}
+
+template <int BITS, int R>
+__global__ void __launch_bounds__(kLanes * kWarps)
+qmm_w4a8_kernel(const __nv_bfloat16* __restrict__ x,
+                const int8_t* __restrict__ qw, const void* __restrict__ sc,
+                bool sc_bf16, __nv_bfloat16* __restrict__ out, int rows,
+                int din, int dout_p, int group) {
+  extern __shared__ float smem[];
+  float* red = smem;                                        // [kWarps][R][kCols]
+  int8_t* xq = reinterpret_cast<int8_t*>(smem + kWarps * R * kCols);  // [R][din]
+  __shared__ float part[kWarps];
+  __shared__ float sx[R];
+  const int lane = threadIdx.x, warp = threadIdx.y;
+  const int tid = warp * kLanes + lane, nthr = kLanes * kWarps;
+  const int row0 = blockIdx.y * R;
+  const int nrows = min(R, rows - row0);
+
+  // per-row int8 activations, as _quantize_rows_i8
+  for (int r = 0; r < R; ++r) {
+    const __nv_bfloat16* xr = x + (size_t)(row0 + r) * din;
+    if (r >= nrows) {
+      for (int k = tid; k < din; k += nthr) xq[r * din + k] = 0;
+      if (tid == 0) sx[r] = 0.f;
+      continue;
+    }
+    float amax = 0.f;
+    for (int k = tid; k < din; k += nthr) amax = fmaxf(amax, fabsf(bf16_to_f32(xr[k])));
+    amax = block_reduce<true>(amax, part);
+    const float s = fmaxf(amax, 1e-30f) * (1.0f / 127.0f);
+    for (int k = tid; k < din; k += nthr) {
+      const float q = rintf(bf16_to_f32(xr[k]) / s);
+      xq[r * din + k] = (int8_t)fminf(fmaxf(q, -127.f), 127.f);
+    }
+    if (tid == 0) sx[r] = s;
+  }
+  __syncthreads();
+
+  const int col = blockIdx.x * kCols + lane * 4;
+  const int krows = BITS == 4 ? din / 2 : din;
+  const int ngs = krows / group;
+  float acc[R][4];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[r][j] = 0.f;
+
+  if (col < dout_p) {
+    for (int c = warp; c < ngs; c += kWarps) {
+      int il[R][4], ih[R][4], sxl[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        sxl[r] = 0;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) il[r][j] = ih[r][j] = 0;
+      }
+      const int8_t* qp = qw + (size_t)c * group * dout_p + col;
+#pragma unroll 2
+      for (int i = 0; i < group; i += 4) {
+        uint32_t w[4];
+#pragma unroll
+        for (int t = 0; t < 4; ++t)
+          w[t] = __ldg(reinterpret_cast<const uint32_t*>(qp + (size_t)(i + t) * dout_p));
+        // rows i..i+3 x columns j -> one word per column, rows in bytes
+        const uint32_t a_lo = __byte_perm(w[0], w[1], 0x5140);
+        const uint32_t a_hi = __byte_perm(w[0], w[1], 0x7362);
+        const uint32_t b_lo = __byte_perm(w[2], w[3], 0x5140);
+        const uint32_t b_hi = __byte_perm(w[2], w[3], 0x7362);
+        uint32_t cw[4];
+        cw[0] = __byte_perm(a_lo, b_lo, 0x5410);
+        cw[1] = __byte_perm(a_lo, b_lo, 0x7632);
+        cw[2] = __byte_perm(a_hi, b_hi, 0x5410);
+        cw[3] = __byte_perm(a_hi, b_hi, 0x7632);
+        const int k = c * group + i;
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const int xl = *reinterpret_cast<const int*>(xq + r * din + k);
+          if (BITS == 4) {
+            const int xh = *reinterpret_cast<const int*>(xq + r * din + krows + k);
+            sxl[r] = __dp4a(xl, 0x01010101, sxl[r]);
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              il[r][j] = __dp4a(xl, (int)(cw[j] & 0x0F0F0F0Fu), il[r][j]);
+              ih[r][j] = __dp4a(xh, (int)(cw[j] & 0xF0F0F0F0u), ih[r][j]);
+            }
+          } else {
+#pragma unroll
+            for (int j = 0; j < 4; ++j) il[r][j] = __dp4a(xl, (int)cw[j], il[r][j]);
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float s_lo = load_scale(sc, sc_bf16, (size_t)c * dout_p + col + j);
+        const float s_hi =
+            BITS == 4
+                ? load_scale(sc, sc_bf16, (size_t)(ngs + c) * dout_p + col + j) * 0.0625f
+                : 0.f;
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          acc[r][j] += BITS == 4 ? (float)(il[r][j] - 8 * sxl[r]) * s_lo +
+                                       (float)ih[r][j] * s_hi
+                                 : (float)il[r][j] * s_lo;
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      red[(warp * R + r) * kCols + lane * 4 + j] = acc[r][j];
+  __syncthreads();
+  write_out<R>(red, sx, out, row0, nrows, dout_p);
+}
+
+// Raise the dynamic shared-memory cap of `kernel` to what it needs, once
+// per new maximum (the first launch of a shape, before any graph capture).
+// Always set, since static shared memory counts against the default 48 KB.
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes, size_t* granted) {
+  if (bytes <= *granted) return cudaSuccess;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e == cudaSuccess) *granted = bytes;
+  return e;
+}
+
+template <int BITS, int R, bool NORM>
+cudaError_t launch_group(const void* x, const void* nw, const void* qw,
+                         const void* sc, bool sc_bf16, void* out, int rows,
+                         int din, int dout_p, int group, float eps,
+                         cudaStream_t stream) {
+  static size_t granted = 0;
+  auto kernel = qmm_group_kernel<BITS, R, NORM>;
+  const size_t smem = sizeof(float) * ((size_t)R * din + (size_t)kWarps * R * kCols);
+  cudaError_t e = allow_smem(kernel, smem, &granted);
+  if (e != cudaSuccess) return e;
+  dim3 grid((dout_p + kCols - 1) / kCols, (rows + R - 1) / R);
+  kernel<<<grid, dim3(kLanes, kWarps), smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(nw),
+      static_cast<const int8_t*>(qw), sc, sc_bf16, static_cast<__nv_bfloat16*>(out),
+      rows, din, dout_p, group, eps);
+  return cudaGetLastError();
+}
+
+template <int BITS, int R>
+cudaError_t launch_w4a8(const void* x, const void* qw, const void* sc,
+                        bool sc_bf16, void* out, int rows, int din,
+                        int dout_p, int group, cudaStream_t stream) {
+  static size_t granted = 0;
+  auto kernel = qmm_w4a8_kernel<BITS, R>;
+  const size_t smem = sizeof(float) * (size_t)kWarps * R * kCols + (size_t)R * din;
+  cudaError_t e = allow_smem(kernel, smem, &granted);
+  if (e != cudaSuccess) return e;
+  dim3 grid((dout_p + kCols - 1) / kCols, (rows + R - 1) / R);
+  kernel<<<grid, dim3(kLanes, kWarps), smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(qw), sc,
+      sc_bf16, static_cast<__nv_bfloat16*>(out), rows, din, dout_p, group);
+  return cudaGetLastError();
+}
+
+// Rows per block: up to 4, fewer when the activation tile would not fit.
+int rows_per_block(int rows, size_t bytes_per_row) {
+  int r = rows >= 4 ? 4 : rows >= 2 ? 2 : 1;
+  while (r > 1 && r * bytes_per_row + sizeof(float) * kWarps * r * kCols > kSmemMax)
+    r /= 2;
+  return r;
+}
+
+}  // namespace
+
+ITT_DEFINE_ERROR_STRING()
+
+// x bf16 [rows, din]; nw bf16 [din] (read when has_norm); qw int8
+// [din/2 or din, dout_p]; sc bf16/f32 [ng, dout_p]; out bf16 [rows, dout_p].
+ITT_EXPORT int qmm_group(const void* x, const void* nw, const void* qw,
+                         const void* sc, int sc_bf16, void* out, int rows,
+                         int din, int dout_p, int bits, int group,
+                         int has_norm, float eps, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int R = rows_per_block(rows, sizeof(float) * din);
+  if (sizeof(float) * ((size_t)R * din + (size_t)kWarps * R * kCols) > kSmemMax)
+    return (int)cudaErrorInvalidValue;
+#define ITT_QMM(B, RR, N)                                                     \
+  if (bits == B && R == RR && (bool)has_norm == N)                            \
+    return (int)launch_group<B, RR, N>(x, nw, qw, sc, sc_bf16, out, rows, din, \
+                                       dout_p, group, eps, s);
+  ITT_QMM(4, 1, false) ITT_QMM(4, 2, false) ITT_QMM(4, 4, false)
+  ITT_QMM(4, 1, true) ITT_QMM(4, 2, true) ITT_QMM(4, 4, true)
+  ITT_QMM(8, 1, false) ITT_QMM(8, 2, false) ITT_QMM(8, 4, false)
+  ITT_QMM(8, 1, true) ITT_QMM(8, 2, true) ITT_QMM(8, 4, true)
+#undef ITT_QMM
+  return (int)cudaErrorInvalidValue;
+}
+
+// As qmm_group without the norm, through int8 activations (W4A8; bits=8
+// gives W8A8).
+ITT_EXPORT int qmm_w4a8(const void* x, const void* qw, const void* sc,
+                        int sc_bf16, void* out, int rows, int din,
+                        int dout_p, int bits, int group, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int R = rows_per_block(rows, din);
+#define ITT_W4A8(B, RR)                                                       \
+  if (bits == B && R == RR)                                                   \
+    return (int)launch_w4a8<B, RR>(x, qw, sc, sc_bf16, out, rows, din, dout_p, \
+                                   group, s);
+  ITT_W4A8(4, 1) ITT_W4A8(4, 2) ITT_W4A8(4, 4)
+  ITT_W4A8(8, 1) ITT_W4A8(8, 2) ITT_W4A8(8, 4)
+#undef ITT_W4A8
+  return (int)cudaErrorInvalidValue;
+}

@@ -1,0 +1,43 @@
+"""Carry parameters (or a KV cache) from the JAX package into the port.
+
+The input is the JAX pytree after ``jax.tree.map(np.asarray, tree)``:
+dicts, lists, numpy arrays, and quantized leaves (any object with
+qweight, scales, bits, group_size and out_logical). JAX's numpy bf16 has
+the dtype ``ml_dtypes.bfloat16``, which torch.from_numpy refuses; it is
+recognised by name and carried through its uint16 bits, so ml_dtypes is
+not needed.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from infinitensor_tpu_torch.quant.weight_only import QuantizedLinear
+from infinitensor_tpu_torch.utils.platform import resolve_device
+
+
+def _tensor(a, device: torch.device) -> torch.Tensor:
+    a = np.array(a, order="C")          # a writable copy: caches mutate
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.uint16).view(np.int16)).view(
+            torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t.to(device)
+
+
+def params_from_jax_numpy(tree, device=None):
+    """Same structure with torch tensors on `device` and QuantizedLinear
+    leaves; bit-exact for every dtype."""
+    device = resolve_device(device)
+    if all(hasattr(tree, f) for f in ("qweight", "scales", "bits",
+                                       "group_size", "out_logical")):
+        return QuantizedLinear(_tensor(tree.qweight, device),
+                               _tensor(tree.scales, device), int(tree.bits),
+                               int(tree.group_size), int(tree.out_logical))
+    if isinstance(tree, dict):
+        return {k: params_from_jax_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(params_from_jax_numpy(v, device) for v in tree)
+    return _tensor(tree, device)

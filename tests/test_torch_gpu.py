@@ -1,0 +1,130 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card. Skipped where CUDA is unavailable. On a machine with a card and no
+jax, run without the repository's conftest (which imports jax):
+
+    python -m pytest --noconftest tests/test_torch_gpu.py -q
+
+Tolerance: within 1e-2 of max|plain| (both sides round f32 sums, taken
+in another order, to bf16); graph and eager decode give equal tokens.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from infinitensor_tpu_torch.kernels import attention as att
+from infinitensor_tpu_torch.kernels import quant_matmul as qm
+from infinitensor_tpu_torch.models import llama
+from infinitensor_tpu_torch.quant.weight_only import (
+    QuantizedLinear, quantize_weight)
+
+pytestmark = pytest.mark.cuda
+TOL = 1e-2
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _close(got, want):
+    assert got.shape == want.shape and got.dtype == want.dtype
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= TOL * want.float().abs().max().item(), err
+
+
+def _qlin(dev, din, dout, bits, sdt, pad_out=0, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    w = torch.randn(din, dout, generator=g)
+    q = quantize_weight(w, bits=bits, group_size=128, pad_out=pad_out)
+    return QuantizedLinear(q.qweight.to(dev), q.scales.to(sdt).to(dev),
+                           q.bits, q.group_size, q.out_logical)
+
+
+def _x(dev, rows, din, seed=1):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn(rows, din, generator=g).to(torch.bfloat16).to(dev)
+
+
+@pytest.mark.parametrize("rows", [1, 3, 5])
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("sdt", [torch.bfloat16, torch.float32])
+def test_group_kernel(dev, rows, bits, sdt):
+    q = _qlin(dev, 1024, 260, bits, sdt)
+    x = _x(dev, rows, 1024)
+    _close(qm.quant_matmul(x, q, variant="group"), qm.qmm_group_plain(x, q))
+    nw = (torch.rand(1024, generator=torch.Generator().manual_seed(2))
+          + 0.5).to(torch.bfloat16).to(dev)
+    _close(qm.quant_matmul_norm(x * 4, nw, q),
+           qm.qmm_group_plain(qm.rmsnorm_bf16(x * 4, nw, 1e-5), q))
+
+
+@pytest.mark.parametrize("rows", [1, 3, 5])
+@pytest.mark.parametrize("bits", [4, 8])
+def test_w4a8_kernel(dev, rows, bits):
+    q = _qlin(dev, 1024, 384, bits, torch.bfloat16)
+    x = _x(dev, rows, 1024)
+    _close(qm.quant_matmul(x, q, variant="w4a8"), qm.qmm_w4a8_plain(x, q))
+
+
+def test_padded_columns_sliced(dev):
+    q = _qlin(dev, 512, 300, 4, torch.bfloat16, pad_out=128)
+    x = _x(dev, 2, 512)
+    got = qm.quant_matmul(x, q)
+    assert got.shape == (2, 300)
+    _close(got, qm.qmm_group_plain(x, q)[:, :300])
+
+
+@pytest.mark.parametrize("rep", [1, 3, 4])
+def test_flash_decode_q8_kernel(dev, rep):
+    g = torch.Generator(device=dev).manual_seed(rep)
+    B, Hkv, S, D = 4, 2, 256, 128
+    q = torch.randn(B, Hkv * rep, 1, D, generator=g, device=dev).to(
+        torch.bfloat16)
+    kc = torch.randint(-127, 128, (B, Hkv, S, D), generator=g, device=dev,
+                       dtype=torch.int8)
+    vc = torch.randint(-127, 128, (B, Hkv, S, D), generator=g, device=dev,
+                       dtype=torch.int8)
+    ks = torch.rand(B, Hkv, S, generator=g, device=dev) * 0.015 + 0.005
+    vs = torch.rand(B, Hkv, S, generator=g, device=dev) * 0.015 + 0.005
+    pos = torch.tensor([0, 63, 64, 255], dtype=torch.int32, device=dev)
+    args = (q, kc, vc, ks, vs, pos)
+    _close(att.flash_decode_q8(*args), att.flash_decode_q8_plain(*args))
+
+
+def test_cuda_wrappers_raise_instead_of_falling_back(dev):
+    q = torch.zeros(1, 2, 1, 64, dtype=torch.bfloat16, device=dev)
+    kc = torch.zeros(1, 2, 16, 64, dtype=torch.int8, device=dev)
+    s = torch.zeros(1, 2, 16, device=dev)
+    pos = torch.zeros(1, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        att.flash_decode_q8(q, kc, kc, s, s, pos)       # D = 64
+    qq = _qlin(dev, 512, 256, 4, torch.bfloat16)
+    with pytest.raises(ValueError):
+        qm.quant_matmul(_x(dev, 1, 512).float(), qq)
+
+
+def test_decode_graph_equals_eager(dev):
+    cfg = llama.LlamaConfig(vocab_size=512, dim=512, n_layers=2, n_heads=4,
+                            n_kv_heads=2, intermediate=1024, max_seq=128)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = llama.quantize_llama_params(
+        llama.init_llama_params(cfg, gen, device=dev), bits=4,
+        group_size=128)
+    tok0 = torch.tensor([3, 7], dtype=torch.int32, device=dev)
+    pos0 = torch.tensor([5, 9], dtype=torch.int32, device=dev)
+    toks, last, pos, _ = llama.llama_decode_multi(
+        params, cfg, tok0, pos0, llama.init_kv_cache(cfg, 2, device=dev), 6)
+    cache = llama.init_kv_cache(cfg, 2, device=dev)
+    tok, p, want = tok0, pos0, []
+    for _ in range(6):
+        logits, cache = llama.llama_decode_step(params, cfg, tok, p, cache)
+        assert torch.isfinite(logits.float()).all()
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        want.append(tok)
+        p = p + 1
+    np.testing.assert_array_equal(toks.cpu().numpy(),
+                                  torch.stack(want, 1).cpu().numpy())
+    assert torch.equal(pos, pos0 + 6) and torch.equal(last, tok)

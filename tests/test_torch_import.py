@@ -1,0 +1,68 @@
+"""The port stands alone: importing it (and chip_smoke.py) loads neither
+jax nor infinitensor_tpu, and no module of it names either."""
+
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PKG = ROOT / "infinitensor_tpu_torch"
+
+
+def _modules():
+    return sorted(
+        ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(
+            ".__init__")
+        for p in PKG.rglob("*.py"))
+
+
+def test_import_loads_no_jax():
+    mods = _modules()
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "import chip_smoke\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'infinitensor_tpu' or "
+        "m.startswith('infinitensor_tpu.'))\n"
+        "print(bad)\n")
+    env = {"PATH": "/usr/bin:/bin", "PYTHONPATH": str(ROOT)}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+
+
+def test_sources_name_no_jax():
+    pat = re.compile(r"^\s*(import|from)\s+(jax|infinitensor_tpu)\b",
+                     re.MULTILINE)
+    files = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    hits = [str(p) for p in files if pat.search(p.read_text())]
+    assert not hits
+
+
+def test_entry_points_refuse_without_cuda_device(monkeypatch):
+    from infinitensor_tpu_torch import LlamaConfig, init_kv_cache
+    from infinitensor_tpu_torch.utils.platform import resolve_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError):
+        resolve_device()
+    with pytest.raises(RuntimeError):
+        resolve_device("cuda")
+    with pytest.raises(RuntimeError):
+        init_kv_cache(LlamaConfig.tiny(), 1)
+    assert resolve_device("cpu").type == "cpu"
+    with pytest.raises(NotImplementedError, match="Queue 2 item 8"):
+        init_kv_cache(LlamaConfig.tiny(), 1, device="cpu", kv_quant=False)
+
+
+def test_kernel_sources_shipped():
+    csrc = PKG / "kernels" / "csrc"
+    assert {p.name for p in csrc.glob("*.cu")} == {
+        "quant_matmul.cu", "flash_decode_q8.cu"}

@@ -1,0 +1,147 @@
+"""Plain PyTorch versions of the port's kernels against the JAX package's
+Pallas kernels run in interpret mode, on the same seeded inputs.
+
+Tolerances: outputs agree within one bf16 ulp at max|ref| (4e-3 of it:
+both sides round f32 sums, taken in another order, to bf16); KV-cache
+int8 codes within +-1 (a row scale one ulp apart can move a code across
+a rounding boundary) and scales within 1e-6 relative.
+"""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from infinitensor_tpu.kernels import attention as att
+from infinitensor_tpu.kernels import quant_matmul as qm
+from infinitensor_tpu.quant.weight_only import QuantizedLinear as JQ
+from infinitensor_tpu.quant.weight_only import quantize_weight
+from infinitensor_tpu.utils.config import config
+
+from infinitensor_tpu_torch.kernels import attention as tatt
+from infinitensor_tpu_torch.kernels import quant_matmul as tqm
+from infinitensor_tpu_torch.models.convert import params_from_jax_numpy
+
+OUT_TOL = 4e-3
+
+
+def _t(a):
+    return params_from_jax_numpy(np.asarray(a), "cpu")
+
+
+def _f32(a):
+    if isinstance(a, torch.Tensor):
+        return a.float().numpy()
+    return np.asarray(a, np.float32)
+
+
+def _close(got, want, tol=OUT_TOL):
+    got, want = _f32(got), _f32(want)
+    assert got.shape == want.shape
+    err = np.max(np.abs(got - want))
+    assert err <= tol * np.max(np.abs(want)), (err, np.max(np.abs(want)))
+
+
+def _weights(seed, din=512, dout=384, sdt=jnp.float32, bits=4):
+    rng = np.random.default_rng(seed)
+    w = rng.standard_normal((din, dout)).astype(np.float32)
+    q = quantize_weight(jnp.asarray(w), bits=bits, group_size=128)
+    q = JQ(q.qweight, q.scales.astype(sdt), q.bits, q.group_size)
+    x = jnp.asarray(rng.standard_normal((3, din)), jnp.bfloat16)
+    return rng, q, x
+
+
+def _port_q(q):
+    return params_from_jax_numpy(
+        JQ(np.asarray(q.qweight), np.asarray(q.scales), q.bits,
+           q.group_size, q.out_logical), "cpu")
+
+
+@pytest.mark.parametrize("rows", [1, 3])
+@pytest.mark.parametrize("sdt", [jnp.bfloat16, jnp.float32])
+def test_group_matmul_plain_vs_pallas(rows, sdt):
+    _, q, x = _weights(1, sdt=sdt)
+    x = x[:rows]
+    want = qm.quant_matmul(x, q, interpret=True, variant="group")
+    got = tqm.quant_matmul(_t(x), _port_q(q), variant="group")
+    _close(got, want)
+
+
+@pytest.mark.parametrize("rows", [1, 3])
+def test_group_norm_matmul_plain_vs_pallas(rows):
+    rng, q, x = _weights(2, sdt=jnp.bfloat16)
+    x = x[:rows] * 3.0
+    nw = jnp.asarray(rng.uniform(0.5, 1.5, (512,)), jnp.bfloat16)
+    want = qm.quant_matmul_norm(x, nw, q, eps=1e-5, interpret=True)
+    got = tqm.quant_matmul_norm(_t(x), _t(nw), _port_q(q), eps=1e-5)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+def test_w4a8_matmul_plain_vs_pallas(bits):
+    _, q, x = _weights(3, sdt=jnp.bfloat16, bits=bits)
+    want = qm.quant_matmul(x, q, interpret=True, variant="w4a8")
+    got = tqm.quant_matmul(_t(x), _port_q(q), variant="w4a8")
+    _close(got, want)
+
+
+def test_quant_matmul_refuses_what_the_kernel_refuses():
+    _, q, x = _weights(4)
+    tq = _port_q(q)
+    with pytest.raises(ValueError):
+        tqm.quant_matmul(_t(x).float(), tq)
+    with pytest.raises(ValueError):
+        tqm.quant_matmul(torch.zeros(257, 512, dtype=torch.bfloat16), tq)
+    q64 = quantize_weight(jnp.ones((512, 256)), bits=4, group_size=64)
+    with pytest.raises(ValueError):
+        tqm.quant_matmul(_t(x), _port_q(q64))
+
+
+def _q8_cache(rng, B, Hkv, S, D):
+    kc = jnp.asarray(rng.integers(-127, 128, (B, Hkv, S, D)), jnp.int8)
+    vc = jnp.asarray(rng.integers(-127, 128, (B, Hkv, S, D)), jnp.int8)
+    ks = jnp.asarray(rng.uniform(0.005, 0.02, (B, Hkv, S)), jnp.float32)
+    vs = jnp.asarray(rng.uniform(0.005, 0.02, (B, Hkv, S)), jnp.float32)
+    return kc, vc, ks, vs
+
+
+@pytest.mark.parametrize("rep", [1, 4])
+def test_flash_decode_q8_plain_vs_pallas(rep):
+    rng = np.random.default_rng(5 + rep)
+    B, Hkv, S, D = 4, 2, 256, 128
+    q = jnp.asarray(rng.standard_normal((B, Hkv * rep, 1, D)), jnp.bfloat16)
+    kc, vc, ks, vs = _q8_cache(rng, B, Hkv, S, D)
+    pos = jnp.asarray([0, 5, 200, 255], jnp.int32)
+    want = att.flash_decode_q8(q, kc, vc, ks, vs, pos, seq_block=128,
+                               interpret=True)
+    got = tatt.flash_decode_q8(*(_t(a) for a in (q, kc, vc, ks, vs, pos)))
+    _close(got, want)
+
+
+def _close_cache(got_q, got_s, want_q, want_s):
+    dq = np.abs(got_q.numpy().astype(np.int32)
+                - np.asarray(want_q).astype(np.int32))
+    assert dq.max() <= 1, dq.max()
+    np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s),
+                               rtol=1e-6, atol=0)
+
+
+def test_append_and_attention_vs_jax():
+    rng = np.random.default_rng(9)
+    B, H, Hkv, S, D = 2, 4, 2, 256, 128
+    kc, vc, ks, vs = _q8_cache(rng, B, Hkv, S, D)
+    q = jnp.asarray(rng.standard_normal((B, H, 1, D)), jnp.bfloat16)
+    k = jnp.asarray(rng.standard_normal((B, Hkv, 1, D)), jnp.bfloat16)
+    v = jnp.asarray(rng.standard_normal((B, Hkv, 1, D)), jnp.bfloat16)
+    pos = jnp.asarray([17, 130], jnp.int32)
+    port_in = [_t(a) for a in (kc, vc, ks, vs, q, k, v, pos)]
+    with config.override(pallas_interpret=True):
+        want = att.decode_attention_gqa_q8(kc, vc, ks, vs, q, k, v, pos)
+    got = tatt.decode_attention_gqa_q8(*port_in)
+    _close(got[0], want[0])
+    _close_cache(got[1], got[3], want[1], want[3])
+    _close_cache(got[2], got[4], want[2], want[4])
+    # the append wrote in place, at pos only
+    assert got[1] is port_in[0] and got[3] is port_in[2]
+    np.testing.assert_array_equal(got[1][:, :, :17].numpy(),
+                                  np.asarray(kc)[:, :, :17])
