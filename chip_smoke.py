@@ -2,25 +2,38 @@
 
     python3 chip_smoke.py
 
-Phases, each failing with a nonzero exit:
+Phases, each failing with a nonzero exit, each printing its seconds:
   1. the card: CUDA present; its name and power limit (nvidia-smi);
   2. build every kernel from kernels/csrc/ (one nvcc per source, in
      parallel), timed;
   3. each kernel against its plain PyTorch version on the card at the
-     Llama-2-7B decode shapes (bs=1, ctx=1024): max error, median time,
-     the least time the card could take (bytes over the published 3.35
-     TB/s, and over the device-to-device copy rate measured here), the
-     plain version's time and one PyTorch library call's time;
+     Llama-2-7B shapes of its path: decode (bs=1, ctx=1024), the prompt's
+     attention (S=1024) and its matmuls at 256 rows; max error, median
+     time, the least time the card could take (bytes over the published
+     3.35 TB/s or operations over the published tensor-core peak,
+     whichever is larger, and bytes over the device-to-device copy rate
+     measured here), the plain version's time and one PyTorch library
+     call's time;
   4. the 7B INT4 + INT8-KV decode path with random weights built on the
      card as bench.py builds them: one step with the kernels against the
      same step on the plain versions (CPU), then llama_decode_multi for
      128 greedy steps under a CUDA graph (tokens equal to an eager loop),
      tok/s (min of 3 fresh runs) against the copy-rate roofline, and each
-     kernel's launch count on that path.
+     kernel's launch count on that path;
+  5. the prompt -> generate path (greedy_generate) with the same weights
+     and a seeded 1024-token prompt, for 128 tokens with the default bf16
+     cache and again with an INT8 cache: prefill ms, prompt tok/s, the
+     decode tok/s of the generate loop (min of 3 runs) against its
+     roofline, the launches of every kernel and of the dequant route;
+     a 256-token prompt, whose matmuls take the kernels; prefill of S-1
+     tokens plus one bf16 decode step against the S-token prefill; a
+     2-layer model of 7B width, kernels on the card against the plain
+     versions on the CPU.
 The last lines are the kernels JSON, nvidia-smi's name and power limit,
 and {"ok": true, "device": {...}}. A report goes to chiprun_out/.
 """
 
+import dataclasses
 import json
 import math
 import os
@@ -35,6 +48,9 @@ SEED = 0
 CTX = 1024                   # decode position (bench.py BENCH_CTX)
 MAX_SEQ = 1664               # bench.py cache capacity at ctx 1024
 STEPS = 128                  # tokens per CUDA-graph region (BENCH_MULTI)
+PROMPT = 1024                # phase 5 prompt length (ctx of the decode)
+SHORT = 256                  # the longest prompt whose matmuls take kernels
+GEN = 128                    # greedy_generate tokens in phase 5
 TOL = 1e-2                   # kernel vs plain: max err <= TOL * max|plain|
 SRC = "infinitensor_tpu_torch/kernels/csrc/"
 TPU = "infinitensor_tpu/kernels/"
@@ -82,18 +98,43 @@ def copy_rate(torch):
     return 2 * n / (ms * 1e-3)
 
 
+class Counters:
+    """The launch counters of the kernel modules: zeroed just before a
+    path runs, read just after."""
+
+    def __init__(self, *modules):
+        self.modules = modules
+
+    def reset(self):
+        for m in self.modules:
+            m.launches.clear()
+
+    def read(self):
+        out = {}
+        for m in self.modules:
+            out.update(m.launches)
+        return out
+
+
+def phase(n, t0):
+    print(f"# phase {n} done in {time.perf_counter() - t0:.1f}s", flush=True)
+    return time.perf_counter()
+
+
 def main():
     import torch
 
+    t_phase = time.perf_counter()
     # 1. the card
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
     from infinitensor_tpu_torch.kernels import _build
     from infinitensor_tpu_torch.kernels import attention as att
+    from infinitensor_tpu_torch.kernels import flash_attention as fa
     from infinitensor_tpu_torch.kernels import quant_matmul as qm
     from infinitensor_tpu_torch.models import llama
     from infinitensor_tpu_torch.quant.weight_only import (
-        QuantizedLinear, dequantize_weight)
+        QuantizedLinear, dequant_matmul, dequantize_weight)
 
     smi = smi_line()
     dev = torch.device("cuda", 0)
@@ -102,6 +143,8 @@ def main():
     print(f"# card: {smi}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}", flush=True)
     report = {"card": smi, "torch": torch.__version__}
+    counters = Counters(qm, att, fa)
+    t_phase = phase(1, t_phase)
 
     # 2. build
     t0 = time.perf_counter()
@@ -115,6 +158,7 @@ def main():
             if "registers" in line or "spill" in line:
                 print(f"# {log.stem}: {line.strip()}")
     report["build_s"] = build_s
+    t_phase = phase(2, t_phase)
 
     # 3. kernels against their plain versions at the 7B shapes
     bw_copy = copy_rate(torch)
@@ -134,6 +178,8 @@ def main():
     def nbytes(*ts):
         return sum(t.numel() * t.element_size() for t in ts)
 
+    # path: the run whose launch counts a case reports (phase 4 "decode",
+    # phase 5 "prompt 1024" with the bf16 cache, phase 5 "prompt 256")
     cases = []
     for label, q in (("wqkv", layer0["wqkv"]),
                      ("w_gateup", layer0["w_gateup"])):
@@ -143,7 +189,7 @@ def main():
         xn = qm.rmsnorm_bf16(x, nw, eps)
         w = dequantize_weight(q)
         cases.append(dict(
-            name="qmm_group_norm", shape=label,
+            name="qmm_group_norm", shape=label, path="decode",
             replaces=TPU + "quant_matmul.py:85",
             source=SRC + "quant_matmul.cu",
             kernel=lambda x=x, nw=nw, q=q: qm.quant_matmul_norm(x, nw, q, eps),
@@ -152,33 +198,44 @@ def main():
             library=lambda xn=xn, w=w: torch.matmul(xn, w),
             bytes=nbytes(x, nw, q.qweight, q.scales) + 2 * q.out_physical,
             ops=2 * cfg.dim * q.out_physical, kind="bf16"))
-    for label, q, din in (("wo", layer0["wo"], cfg.dim),
-                          ("w_down", layer0["w_down"], cfg.intermediate)):
-        x = randn(1, din)
-        w = dequantize_weight(q)
-        cases.append(dict(
-            name="qmm_group", shape=label,
-            replaces=TPU + "quant_matmul.py:100",
-            source=SRC + "quant_matmul.cu",
-            kernel=lambda x=x, q=q: qm.quant_matmul(x, q),
-            plain=lambda x=x, q=q: qm.qmm_group_plain(x, q)[
-                :, :q.out_features],
-            library=lambda x=x, w=w: torch.matmul(x, w),
-            bytes=nbytes(x, q.qweight, q.scales) + 2 * q.out_physical,
-            ops=2 * din * q.out_physical, kind="bf16"))
+    decode_mm = (("wo", layer0["wo"], cfg.dim),
+                 ("w_down", layer0["w_down"], cfg.intermediate))
+    prompt_mm = (("wqkv", layer0["wqkv"], cfg.dim), decode_mm[0],
+                 ("w_gateup", layer0["w_gateup"], cfg.dim), decode_mm[1])
+    for rows, path, shapes in ((1, "decode", decode_mm),
+                               (SHORT, f"prompt {SHORT}", prompt_mm)):
+        for label, q, din in shapes:
+            x = randn(rows, din)
+            w = dequantize_weight(q)
+            cases.append(dict(
+                name="qmm_group",
+                shape=label if rows == 1 else f"{label} {rows} rows",
+                path=path, replaces=TPU + "quant_matmul.py:100",
+                source=SRC + "quant_matmul.cu",
+                kernel=lambda x=x, q=q: qm.quant_matmul(x, q),
+                plain=lambda x=x, q=q: qm.qmm_group_plain(x, q)[
+                    :, :q.out_features],
+                library=lambda x=x, w=w: torch.matmul(x, w),
+                bytes=nbytes(x, q.qweight, q.scales)
+                + 2 * rows * q.out_physical,
+                ops=2 * rows * din * q.out_physical, kind="bf16"))
     q = params["lm_head"]
-    x = randn(1, cfg.dim)
     w = dequantize_weight(q)
     if qm.variant_for(cfg.dim, q) != "w4a8":
         fail("the variant table does not route the lm_head to w4a8")
-    cases.append(dict(
-        name="qmm_w4a8", shape="lm_head", replaces=TPU + "quant_matmul.py:283",
-        source=SRC + "quant_matmul.cu",
-        kernel=lambda x=x, q=q: qm.quant_matmul(x, q),
-        plain=lambda x=x, q=q: qm.qmm_w4a8_plain(x, q)[:, :q.out_features],
-        library=lambda x=x, w=w: torch.matmul(x, w),
-        bytes=nbytes(x, q.qweight, q.scales) + 2 * q.out_physical,
-        ops=2 * cfg.dim * q.out_physical, kind="int8"))
+    for rows, path in ((1, "decode"), (SHORT, f"prompt {SHORT}")):
+        x = randn(rows, cfg.dim)
+        cases.append(dict(
+            name="qmm_w4a8",
+            shape="lm_head" if rows == 1 else f"lm_head {rows} rows",
+            path=path, replaces=TPU + "quant_matmul.py:283",
+            source=SRC + "quant_matmul.cu",
+            kernel=lambda x=x, q=q: qm.quant_matmul(x, q),
+            plain=lambda x=x, q=q: qm.qmm_w4a8_plain(x, q)[
+                :, :q.out_features],
+            library=lambda x=x, w=w: torch.matmul(x, w),
+            bytes=nbytes(x, q.qweight, q.scales) + 2 * rows * q.out_physical,
+            ops=2 * rows * cfg.dim * q.out_physical, kind="int8"))
     for label, H, Hkv in (("mha 32/32", 32, 32), ("gqa 32/8", 32, 8)):
         D, S = cfg.head_dim, MAX_SEQ
         qh = randn(1, H, 1, D)
@@ -198,14 +255,41 @@ def main():
         args = (qh, kc, vc, ks, vs, pos)
         cases.append(dict(
             name="flash_decode_q8", shape=f"{label} pos {CTX}",
-            replaces=TPU + "attention.py:345",
-            source=SRC + "flash_decode_q8.cu",
+            path="decode", replaces=TPU + "attention.py:345",
+            source=SRC + "flash_decode.cu",
             kernel=lambda a=args: att.flash_decode_q8(*a),
             plain=lambda a=args: att.flash_decode_q8_plain(*a),
             library=lambda qh=qh, kf=kf, vf=vf:
                 torch.nn.functional.scaled_dot_product_attention(qh, kf, vf),
             bytes=2 * Hkv * live * (D + 4) + 2 * nbytes(qh),
             ops=4 * H * live * D, kind="bf16"))
+        kb, vb = randn(1, Hkv, S, D), randn(1, Hkv, S, D)
+        args = (qh, kb, vb, pos)
+        kr = kb[:, :, :live].repeat_interleave(rep, 1)
+        vr = vb[:, :, :live].repeat_interleave(rep, 1)
+        cases.append(dict(
+            name="flash_decode", shape=f"{label} pos {CTX}",
+            path=f"prompt {PROMPT}", replaces=TPU + "attention.py:294",
+            source=SRC + "flash_decode.cu",
+            kernel=lambda a=args: att.flash_decode(*a),
+            plain=lambda a=args: att.flash_decode_plain(*a),
+            library=lambda qh=qh, kr=kr, vr=vr:
+                torch.nn.functional.scaled_dot_product_attention(qh, kr, vr),
+            bytes=2 * Hkv * live * D * 2 + 2 * nbytes(qh),
+            ops=4 * H * live * D, kind="bf16"))
+    H, D = cfg.n_heads, cfg.head_dim
+    qa, ka, va = (randn(1, H, PROMPT, D) for _ in range(3))
+    cases.append(dict(
+        name="flash_attention", shape=f"causal 1x{H}x{PROMPT}x{D}",
+        path=f"prompt {PROMPT}", replaces=TPU + "flash_attention.py:37",
+        source=SRC + "flash_attention.cu",
+        kernel=lambda: fa.flash_attention(qa, ka, va, causal=True),
+        plain=lambda: fa.mha_plain(qa, ka, va, causal=True),
+        library=lambda: torch.nn.functional.scaled_dot_product_attention(
+            qa, ka, va, is_causal=True),
+        bytes=4 * nbytes(qa),
+        # the (i, j <= i) pairs this causal input needs, 4 D flops each
+        ops=4 * H * (PROMPT * (PROMPT + 1) // 2) * D, kind="bf16"))
 
     for c in cases:
         got, want = c["kernel"](), c["plain"]()
@@ -226,33 +310,58 @@ def main():
         c["bound_by"] = ("bytes" if c["bytes"] / HBM_BYTES_S
                          >= c["ops"] / PEAK_OPS[c["kind"]] else "operations")
         c["copy_bound_ms"] = 1e3 * c["bytes"] / bw_copy
-        print(f"# {c['name']:16s} {c['shape']:18s} err {err:.3g} "
+        print(f"# {c['name']:16s} {c['shape']:22s} err {err:.3g} "
               f"(max|ref| {ref:.3g})  kernel {c['ms']:.4f} ms  bound "
-              f"{c['bound_ms']:.4f} ms (copy-rate {c['copy_bound_ms']:.4f})"
-              f"  plain {c['plain_ms']:.4f} ms  library "
-              f"{c['library_ms']:.4f} ms  {c['bytes'] / 1e6:.2f} MB",
+              f"{c['bound_ms']:.4f} ms {c['bound_by']} (copy-rate "
+              f"{c['copy_bound_ms']:.4f})  plain {c['plain_ms']:.4f} ms  "
+              f"library {c['library_ms']:.4f} ms  {c['bytes'] / 1e6:.2f} MB",
               flush=True)
-    del flush
+    del flush, qa, ka, va
+    t_phase = phase(3, t_phase)
 
     # 4. the 7B decode path
-    per_token = decode_path(torch, llama, qm, att, params, cfg, dev, report)
-    main_counts = report["launches_main_path"]
+    per_token = decode_path(torch, llama, counters, params, cfg, dev, report)
+    paths = {"decode": report["launches_main_path"]}
     for kname in ("qmm_group_norm", "qmm_group", "qmm_w4a8",
                   "flash_decode_q8"):
-        if main_counts.get(kname, 0) <= 0:
+        if paths["decode"].get(kname, 0) <= 0:
             fail(f"{kname} was never launched on the main path")
+    t_phase = phase(4, t_phase)
 
+    # 5. the 7B prompt -> generate path
+    paths.update(generate_path(torch, llama, counters, params, cfg, dev,
+                               report, per_token, dequantize_weight,
+                               dequant_matmul))
+    for path, knames in ((f"prompt {PROMPT}", ("flash_attention",
+                                               "flash_decode")),
+                         (f"prompt {PROMPT} int8", ("flash_attention",
+                                                    "flash_decode_q8")),
+                         (f"prompt {SHORT}", ("qmm_group", "qmm_w4a8",
+                                              "flash_attention",
+                                              "flash_decode"))):
+        for kname in knames:
+            if paths[path].get(kname, 0) <= 0:
+                fail(f"{kname} was never launched on the path {path}")
+    t_phase = phase(5, t_phase)
+
+    per_prompt = report["generate"][f"prompt {SHORT}"]["launches_per_prompt"]
     kernels = []
     for c in cases:
+        prefill = c["name"] == "flash_attention" or c["path"] == \
+            f"prompt {SHORT}"
         kernels.append({
             "name": c["name"], "shape": c["shape"], "route": "cuda",
             "source": c["source"], "replaces": c["replaces"],
-            "launches": main_counts[c["name"]],
-            "launches_per_token": per_token[c["name"]],
+            "path": c["path"], "launches": paths[c["path"]].get(c["name"], 0),
+            "launches_per_token": None if prefill
+            else per_token.get(c["name"], 0),
+            "launches_per_prompt": per_prompt.get(c["name"], 0) if prefill
+            else None,
             "max_abs_err": c["max_abs_err"], "ms": c["ms"],
             "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"], "copy_bound_ms": c["copy_bound_ms"],
-            "bytes": c["bytes"], "library_ms": c["library_ms"]})
+            "bytes": c["bytes"], "ops": c["ops"],
+            "library_ms": c["library_ms"]})
     report["kernels"] = kernels
     os.makedirs("chiprun_out", exist_ok=True)
     with open("chiprun_out/chip_smoke_report.json", "w") as f:
@@ -301,61 +410,61 @@ def to_cpu(tree):
     return tree.to("cpu")
 
 
-def decode_path(torch, llama, qm, att, params, cfg, dev, report):
-    """Phase 4; returns each kernel's launches in one eager decode step."""
-    def counts():
-        c = dict(qm.launches)
-        c.update(att.launches)
-        return c
+def fresh(cache):
+    for bufs in cache.values():
+        for t in bufs:
+            t.zero_()
 
-    def reset_counts():
-        qm.launches.clear()
-        att.launches.clear()
 
-    def fresh(cache):
-        for bufs in cache.values():
-            for t in bufs:
-                t.zero_()
-
-    token = torch.zeros(1, dtype=torch.int32, device=dev)
-    pos = torch.full((1,), CTX, dtype=torch.int32, device=dev)
-    cache = llama.init_kv_cache(cfg, 1, device=dev)
-
-    # one step, kernels on the card against plain versions on the CPU
-    reset_counts()
-    logits, _ = llama.llama_decode_step(params, cfg, token, pos, cache)
-    torch.cuda.synchronize()
-    per_token = counts()
-    t0 = time.perf_counter()
-    ref, _ = llama.llama_decode_step(
-        to_cpu(params), cfg, token.cpu(), pos.cpu(),
-        llama.init_kv_cache(cfg, 1, device="cpu"))
-    plain_s = time.perf_counter() - t0
-    lk, lp = logits.float().cpu(), ref.float()
+def compare_logits(torch, what, got, want, report):
+    """Fail unless got [vocab] agrees with want: relative error <= 5e-2 and
+    the same top-1, or a near-tie: want's logits of the two candidates lie
+    within the measured error of each other."""
+    lk, lp = got.float().cpu().reshape(-1), want.float().cpu().reshape(-1)
     if not torch.isfinite(lk).all():
-        fail("non-finite logits")
+        fail(f"{what}: non-finite logits")
     err = (lk - lp).abs().max().item()
     rel = err / lp.abs().max().item()
     top_k, top_p = int(lk.argmax()), int(lp.argmax())
-    # a top-1 change is a near-tie only if the plain logits of the two
-    # candidates lie within the measured error of each other
-    tie = float(lp[0, top_p] - lp[0, top_k]) <= 2 * err
-    print(f"# 7B step, kernels vs plain (CPU, {plain_s:.1f}s): rel logit "
-          f"err {rel:.3g}, top-1 {top_k} vs {top_p}", flush=True)
-    report["step_rel_logit_err"], report["step_top1"] = rel, [top_k, top_p]
+    tie = float(lp[top_p] - lp[top_k]) <= 2 * err
+    print(f"# {what}: rel logit err {rel:.3g}, top-1 {top_k} vs {top_p}",
+          flush=True)
+    report[what] = {"rel_logit_err": rel, "top1": [top_k, top_p]}
     if rel > 5e-2 or (top_k != top_p and not tie):
-        fail(f"7B step disagrees with its plain version: rel {rel}, "
-             f"top-1 {top_k} vs {top_p}")
+        fail(f"{what}: rel {rel}, top-1 {top_k} vs {top_p}")
+    return rel, top_k, top_p
+
+
+def decode_path(torch, llama, counters, params, cfg, dev, report):
+    """Phase 4; returns each kernel's launches in one eager decode step."""
+    token = torch.zeros(1, dtype=torch.int32, device=dev)
+    pos = torch.full((1,), CTX, dtype=torch.int32, device=dev)
+    cache = llama.init_kv_cache(cfg, 1, kv_quant=True, device=dev)
+
+    # one step, kernels on the card against plain versions on the CPU
+    counters.reset()
+    logits, _ = llama.llama_decode_step(params, cfg, token, pos, cache)
+    torch.cuda.synchronize()
+    per_token = counters.read()
+    t0 = time.perf_counter()
+    ref, _ = llama.llama_decode_step(
+        to_cpu(params), cfg, token.cpu(), pos.cpu(),
+        llama.init_kv_cache(cfg, 1, kv_quant=True, device="cpu"))
+    plain_s = time.perf_counter() - t0
+    print(f"# 7B step on the plain versions (CPU): {plain_s:.1f}s")
+    rel, top_k, top_p = compare_logits(
+        torch, "7B step, kernels vs plain", logits[0], ref[0], report)
+    report["step_rel_logit_err"], report["step_top1"] = rel, [top_k, top_p]
 
     # the main path: llama_decode_multi under a CUDA graph
     fresh(cache)
-    reset_counts()
+    counters.reset()
     t0 = time.perf_counter()
     toks, last, next_pos, cache = llama.llama_decode_multi(
         params, cfg, token, pos, cache, STEPS)
     torch.cuda.synchronize()
     multi_s = time.perf_counter() - t0
-    report["launches_main_path"] = counts()
+    report["launches_main_path"] = counters.read()
     if toks.shape != (1, STEPS) or int(next_pos) != CTX + STEPS:
         fail(f"decode_multi returned {tuple(toks.shape)}, pos {next_pos}")
 
@@ -390,13 +499,8 @@ def decode_path(torch, llama, qm, att, params, cfg, dev, report):
         if not torch.equal(out, toks):
             fail("a timed graph run gave other tokens")
     dt = min(samples)
-    kvd = cfg.n_kv_heads * cfg.head_dim
-    per_layer = (cfg.dim * cfg.dim * 2 + cfg.dim * kvd * 2
-                 + cfg.dim * cfg.intermediate * 3)
-    total = per_layer * cfg.n_layers + cfg.dim * cfg.vocab_size
-    w_bytes = total * 4 / 8 + total / 128 * 2          # int4 + bf16 scales
     kv_bytes = 2 * cfg.n_layers * cfg.n_kv_heads * CTX * (cfg.head_dim + 4)
-    bytes_tok = w_bytes + kv_bytes
+    bytes_tok = weight_bytes(cfg) + kv_bytes
     tok_s = STEPS / dt
     res = {
         "tok_s": tok_s, "ms_per_token": 1e3 * dt / STEPS,
@@ -410,6 +514,160 @@ def decode_path(torch, llama, qm, att, params, cfg, dev, report):
     report.update(res)
     print("# decode " + json.dumps(res), flush=True)
     return per_token
+
+
+def weight_bytes(cfg):
+    """INT4 weights + bf16 group-128 scales read by one decode step."""
+    kvd = cfg.n_kv_heads * cfg.head_dim
+    per_layer = (cfg.dim * cfg.dim * 2 + cfg.dim * kvd * 2
+                 + cfg.dim * cfg.intermediate * 3)
+    total = per_layer * cfg.n_layers + cfg.dim * cfg.vocab_size
+    return total * 4 / 8 + total / 128 * 2
+
+
+def time_prefill(torch, llama, params, cfg, prompt, cache, reps=3):
+    """Min seconds of llama_prefill over `reps` runs (each rewrites the
+    cache rows [0, S) with the same values); returns (s, logits)."""
+    samples = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, _ = llama.llama_prefill(params, cfg, prompt, cache)
+        torch.cuda.synchronize()
+        samples.append(time.perf_counter() - t0)
+    return min(samples), logits
+
+
+def generate_path(torch, llama, counters, params, cfg, dev, report,
+                  per_token, dequantize_weight, dequant_matmul):
+    """Phase 5. Returns each path's launch counts; adds one bf16 decode
+    step's launches to per_token."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    prompt = torch.randint(0, cfg.vocab_size, (1, PROMPT), generator=gen,
+                           device=dev, dtype=torch.int32)
+    paths, res = {}, {}
+    for label, kv_quant in ((f"prompt {PROMPT}", False),
+                            (f"prompt {PROMPT} int8", True)):
+        # the main path: greedy_generate, the default bf16 cache first
+        cache = (llama.init_kv_cache(cfg, 1, kv_quant=True, device=dev)
+                 if kv_quant else None)
+        counters.reset()
+        t0 = time.perf_counter()
+        toks, cache = llama.greedy_generate(params, cfg, prompt, GEN,
+                                            cache=cache)
+        torch.cuda.synchronize()
+        call_s = time.perf_counter() - t0
+        paths[label] = counters.read()
+        if toks.shape != (1, GEN) or toks.dtype != torch.int32:
+            fail(f"{label}: greedy_generate gave {tuple(toks.shape)} "
+                 f"{toks.dtype}")
+        if not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+            fail(f"{label}: token ids out of range")
+        prefill_s, logits = time_prefill(torch, llama, params, cfg, prompt,
+                                         cache)
+        first = torch.argmax(logits[:, -1], -1).to(torch.int32)
+        if not torch.equal(first, toks[:, 0]):
+            fail(f"{label}: prefill argmax {first.tolist()} is not the "
+                 f"first generated token {toks[:, 0].tolist()}")
+        # the generate loop's decode: one captured step, 3 runs of GEN - 1
+        # tokens from pos PROMPT (rows >= PROMPT are written before read)
+        pos = torch.full((1,), PROMPT, dtype=torch.int32, device=dev)
+        g = llama.DecodeGraph(params, cfg, first, pos, cache, GEN - 1)
+        samples = []
+        for _ in range(3):
+            g.reset(first, pos)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = g.run()
+            torch.cuda.synchronize()
+            samples.append(time.perf_counter() - t0)
+            if not torch.equal(out, toks[:, 1:]):
+                fail(f"{label}: a timed decode run gave other tokens")
+        del g
+        row = 2 * cfg.n_layers * cfg.n_kv_heads * PROMPT
+        kv_bytes = row * (cfg.head_dim + 4) if kv_quant \
+            else row * cfg.head_dim * 2
+        bytes_tok = weight_bytes(cfg) + kv_bytes
+        tok_s = (GEN - 1) / min(samples)
+        res[label] = {
+            "greedy_generate_call_s": call_s, "prefill_ms": 1e3 * prefill_s,
+            "prompt_tok_s": PROMPT / prefill_s, "decode_tok_s": tok_s,
+            "decode_tok_s_samples": [(GEN - 1) / t for t in samples],
+            "kv_bytes_per_token": kv_bytes, "bytes_per_token": bytes_tok,
+            "roofline_tok_s_copy": report["copy_gbps"] * 1e9 / bytes_tok,
+            "roofline_tok_s_published": HBM_BYTES_S / bytes_tok,
+            "launches": paths[label], "first_tokens": toks[0, :8].tolist()}
+        print(f"# {label}: " + json.dumps(res[label]), flush=True)
+        del cache
+
+    # a 256-token prompt: its matmuls take the kernels
+    label = f"prompt {SHORT}"
+    short = prompt[:, :SHORT].contiguous()
+    counters.reset()
+    toks, cache = llama.greedy_generate(params, cfg, short, 8)
+    torch.cuda.synchronize()
+    paths[label] = counters.read()
+    counters.reset()
+    prefill_s, _ = time_prefill(torch, llama, params, cfg, short, cache, 1)
+    per_prompt = counters.read()
+    prefill_s, _ = time_prefill(torch, llama, params, cfg, short, cache)
+    res[label] = {"prefill_ms": 1e3 * prefill_s,
+                  "prompt_tok_s": SHORT / prefill_s,
+                  "launches": paths[label], "launches_per_prompt": per_prompt,
+                  "first_tokens": toks[0].tolist()}
+    print(f"# {label}: " + json.dumps(res[label]), flush=True)
+    del cache
+
+    # prefill of S-1 tokens + one bf16 decode step = the S-token prefill
+    cache = llama.init_kv_cache(cfg, 1, device=dev)
+    full, _ = llama.llama_prefill(params, cfg, prompt, cache)
+    fresh(cache)
+    llama.llama_prefill(params, cfg, prompt[:, :-1].contiguous(), cache)
+    counters.reset()
+    step, _ = llama.llama_decode_step(
+        params, cfg, prompt[:, -1],
+        torch.full((1,), PROMPT - 1, dtype=torch.int32, device=dev), cache)
+    torch.cuda.synchronize()
+    per_token["flash_decode"] = counters.read().get("flash_decode", 0)
+    compare_logits(torch, f"7B prefill {PROMPT - 1} + bf16 step vs "
+                   f"prefill {PROMPT}", step[0], full[0, -1], report)
+    del cache, full
+
+    # 2 layers at 7B width: kernels on the card against the plain versions
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    params2 = dict(params, layers=params["layers"][:2])
+    got, _ = llama.llama_prefill(params2, cfg2, short,
+                                 llama.init_kv_cache(cfg2, 1, device=dev))
+    t0 = time.perf_counter()
+    want, _ = llama.llama_prefill(
+        to_cpu(params2), cfg2, short.cpu(),
+        llama.init_kv_cache(cfg2, 1, device="cpu"))
+    print(f"# 2-layer prefill on the plain versions (CPU): "
+          f"{time.perf_counter() - t0:.1f}s")
+    compare_logits(torch, f"2-layer prefill {SHORT}, kernels vs plain",
+                   got[0, -1], want[0, -1], report)
+    report["generate"] = res
+
+    # the dequant route of a long prompt, per shape: dequantize_weight
+    # alone, and with its cuBLAS product at PROMPT rows
+    route = {}
+    layer0 = params["layers"][0]
+    for label, q, din in (("wqkv", layer0["wqkv"], cfg.dim),
+                          ("wo", layer0["wo"], cfg.dim),
+                          ("w_gateup", layer0["w_gateup"], cfg.dim),
+                          ("w_down", layer0["w_down"], cfg.intermediate),
+                          ("lm_head", params["lm_head"], cfg.dim)):
+        x = torch.randn(PROMPT, din, generator=gen, device=dev).to(
+            torch.bfloat16)
+        route[label] = {
+            "dequantize_ms": cuda_ms(torch, lambda q=q:
+                                     dequantize_weight(q), 10),
+            "dequant_matmul_ms": cuda_ms(torch, lambda x=x, q=q:
+                                         dequant_matmul(x, q), 10)}
+    report["dequant_route_ms"] = route
+    print(f"# dequant route at {PROMPT} rows: " + json.dumps(route),
+          flush=True)
+    return paths
 
 
 if __name__ == "__main__":

@@ -5,8 +5,9 @@ jax nor infinitensor_tpu; its kernels are CUDA C++ under kernels/csrc/,
 built with nvcc at their first launch (kernels/_build.py), never on
 import.
 
-Slice ported so far: Llama-2 INT4 weight-only + INT8-KV greedy decode
-(models/llama.py llama_decode_step / llama_decode_multi).
+Slices ported so far: Llama-2 INT4/INT8 weight-only prompt -> generate
+over a bf16 or an INT8 KV cache (models/llama.py greedy_generate,
+llama_prefill, llama_decode_step / llama_decode_multi, llama_verify_step).
 """
 
 from infinitensor_tpu_torch.utils.platform import resolve_device
@@ -14,14 +15,16 @@ from infinitensor_tpu_torch.quant.weight_only import (
     INT4_PACK_VERSION, QuantizedLinear, dequantize_weight, quantize_weight,
 )
 from infinitensor_tpu_torch.models.llama import (
-    LlamaConfig, init_kv_cache, init_llama_params, llama_decode_multi,
-    llama_decode_step, quantize_llama_params,
+    LlamaConfig, greedy_generate, init_kv_cache, init_llama_params,
+    llama_decode_multi, llama_decode_step, llama_prefill, llama_verify_step,
+    quantize_llama_params,
 )
 from infinitensor_tpu_torch.models.convert import params_from_jax_numpy
 
 __all__ = [
     "resolve_device", "INT4_PACK_VERSION", "QuantizedLinear",
-    "dequantize_weight", "quantize_weight", "LlamaConfig", "init_kv_cache",
-    "init_llama_params", "llama_decode_multi", "llama_decode_step",
+    "dequantize_weight", "quantize_weight", "LlamaConfig", "greedy_generate",
+    "init_kv_cache", "init_llama_params", "llama_decode_multi",
+    "llama_decode_step", "llama_prefill", "llama_verify_step",
     "quantize_llama_params", "params_from_jax_numpy",
 ]

@@ -1,13 +1,14 @@
-"""INT8-KV decode attention with cache append (counterpart of
-infinitensor_tpu/kernels/attention.py:37-122,395-476).
+"""Decode attention with cache append, over a bf16 or an INT8 KV cache
+(counterpart of infinitensor_tpu/kernels/attention.py:37-160,395-476).
 
-The cache is a static [B, Hkv, S_max, D] int8 buffer with per-(b, h, s)
-f32 scales. The append (quantize_kv_row + _append_kv) is plain PyTorch and
-writes the new row IN PLACE with scatter_ at `pos` (the JAX package
-donates the buffer instead); `pos` stays a device tensor throughout, so a
-decode step can be captured in a CUDA graph. The read side is the
-flash_decode_q8 kernel (csrc/flash_decode_q8.cu), replacing
-_flash_decode_q8_hb_kernel; flash_decode_q8_plain is its plain version.
+The cache is a static [B, Hkv, S_max, D] buffer: bf16, or int8 with
+per-(b, h, s) f32 scales. The append (_append_kv, and quantize_kv_row for
+int8) is plain PyTorch and writes the new row IN PLACE with scatter_ at
+`pos` (the JAX package donates the buffer instead); `pos` stays a device
+tensor throughout, so a decode step can be captured in a CUDA graph. The
+read side is a kernel in csrc/flash_decode.cu: flash_decode (bf16 cache)
+replacing _flash_decode_hb_kernel, flash_decode_q8 (int8 cache) replacing
+_flash_decode_q8_hb_kernel; *_plain are their plain versions.
 `launches` counts kernel launches (captures, not CUDA-graph replays).
 """
 
@@ -28,8 +29,9 @@ launches = collections.Counter()
 @functools.cache
 def _lib() -> ctypes.CDLL:
     P, I, F = _build.P, _build.I, _build.F
-    return _build.typed("flash_decode_q8",
-                        flash_decode_q8=[P] * 7 + [I] * 5 + [F, P])
+    return _build.typed("flash_decode",
+                        flash_decode_q8=[P] * 7 + [I] * 5 + [F, P],
+                        flash_decode=[P] * 5 + [I] * 5 + [F, P])
 
 
 def _normalize_pos(pos, batch: int) -> torch.Tensor:
@@ -67,6 +69,22 @@ def _append_scale(scale_cache, s, pos):
     return scale_cache
 
 
+def decode_attention_gqa(k_cache, v_cache, q, k, v, pos):
+    """Grouped-query decode attention over a bf16 cache: caches [B, Hkv, S,
+    D]; q [B, H, 1, D] (H = Hkv * rep); k/v [B, Hkv, 1, D]; pos [B] (the
+    row the new k/v go to, attended inclusively). The caches are updated in
+    place. Returns (out [B, H, 1, D], k_cache, v_cache)."""
+    pos = _normalize_pos(pos, k_cache.shape[0]).to(k_cache.device)
+    _append_kv(k_cache, v_cache, k, v, pos)
+    out = flash_decode(q.contiguous(), k_cache, v_cache, pos)
+    return out, k_cache, v_cache
+
+
+def decode_attention(k_cache, v_cache, q, k, v, pos):
+    """MHA decode (H == Hkv): append + flash_decode."""
+    return decode_attention_gqa(k_cache, v_cache, q, k, v, pos)
+
+
 def decode_attention_gqa_q8(k_cache, v_cache, k_scale, v_scale, q, k, v,
                             pos):
     """INT8-KV-cache decode attention: caches int8 [B, Hkv, S, D], scales
@@ -86,53 +104,112 @@ def decode_attention_gqa_q8(k_cache, v_cache, k_scale, v_scale, q, k, v,
     return out, k_cache, v_cache, k_scale, v_scale
 
 
+def _live(S: int, pos, device) -> torch.Tensor:
+    """[B, 1, 1, S] mask of the cache rows s <= pos[b]."""
+    rows = torch.arange(S, device=device)[None, :] <= pos.to(device)[:, None]
+    return rows[:, None, None, :]
+
+
+def flash_decode_plain(q, k_cache, v_cache, pos):
+    """The TPU kernel's function, dense: scores = (q . K) / sqrt(D) in f32
+    over rows s <= pos, softmax, p . V. Returns bf16 [B, H, 1, D]."""
+    B, H, _, D = q.shape
+    _, Hkv, S, _ = k_cache.shape
+    qf = q.float().reshape(B, Hkv, H // Hkv, D)
+    s = torch.einsum("bgrd,bgsd->bgrs", qf, k_cache.float()) \
+        * (1.0 / math.sqrt(D))
+    p = torch.softmax(torch.where(_live(S, pos, q.device), s,
+                                  float("-inf")), dim=-1)
+    out = torch.einsum("bgrs,bgsd->bgrd", p, v_cache.float())
+    return out.reshape(B, H, 1, D).to(torch.bfloat16)
+
+
 def flash_decode_q8_plain(q, k_cache, v_cache, k_scale, v_scale, pos):
     """The TPU kernel's function, dense: scores = q . K_int8 * (ks / sqrt(D))
     over rows s <= pos, softmax, (p * vs) . V_int8. Returns bf16 [B, H, 1,
     D]."""
     B, H, _, D = q.shape
     _, Hkv, S, _ = k_cache.shape
-    rep = H // Hkv
     scale = 1.0 / math.sqrt(D)
-    qf = q.float().reshape(B, Hkv, rep, D)
+    qf = q.float().reshape(B, Hkv, H // Hkv, D)
     s = torch.einsum("bgrd,bgsd->bgrs", qf, k_cache.float())
     s = s * (k_scale.float() * scale)[:, :, None, :]
-    live = torch.arange(S, device=q.device)[None, :] <= \
-        pos.to(q.device)[:, None]                               # [B, S]
-    s = torch.where(live[:, None, None, :], s, float("-inf"))
-    p = torch.softmax(s, dim=-1)
+    p = torch.softmax(torch.where(_live(S, pos, q.device), s,
+                                  float("-inf")), dim=-1)
     pv = p * v_scale.float()[:, :, None, :]
     out = torch.einsum("bgrs,bgsd->bgrd", pv, v_cache.float())
     return out.reshape(B, H, 1, D).to(torch.bfloat16)
 
 
+def _check_launch(name, q, pos, tensors) -> None:
+    """Refuse on the card what the kernel does not take: D = 128, H / Hkv
+    <= 16, contiguous tensors of the expected types on q's device, pos
+    [B], 16-byte aligned caches."""
+    B, H, _, D = q.shape
+    Hkv = tensors["k_cache"][0].shape[1]
+    if D != 128 or H // Hkv > 16:
+        raise ValueError(f"{name} kernel takes D=128, H/Hkv<=16")
+    tensors = {"q": (q, torch.bfloat16), "pos": (pos, torch.int32),
+               **tensors}
+    for what, (t, dt) in tensors.items():
+        if t.device != q.device or t.dtype != dt or not t.is_contiguous():
+            raise ValueError(f"{what} must be contiguous {dt} on {q.device}")
+    if pos.shape != (B,):
+        raise ValueError(f"pos must be [{B}]")
+    if any(tensors[c][0].data_ptr() % 16 for c in ("k_cache", "v_cache")):
+        raise ValueError("k_cache and v_cache must be 16-byte aligned")
+
+
+def _check_shapes(name, q, k_cache, v_cache) -> None:
+    B, H, _, D = q.shape
+    Bk, Hkv, _, Dk = k_cache.shape
+    if (Bk, Dk) != (B, D) or H % Hkv or v_cache.shape != k_cache.shape:
+        raise ValueError(f"{name}: inconsistent shapes")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {q.device}")
+
+
+def flash_decode(q, k_cache, v_cache, pos):
+    """bf16-cache flash decode over caches already appended at pos [B]
+    int32. q [B, H, 1, D] bf16 -> [B, H, 1, D] bf16. CPU tensors take the
+    plain version; CUDA tensors launch the kernel (D = 128, H / Hkv <= 16)
+    or raise."""
+    _check_shapes("flash_decode", q, k_cache, v_cache)
+    if q.device.type == "cpu":
+        return flash_decode_plain(q, k_cache, v_cache, pos)
+    _check_launch("flash_decode", q, pos,
+                  {"k_cache": (k_cache, torch.bfloat16),
+                   "v_cache": (v_cache, torch.bfloat16)})
+    B, H, _, D = q.shape
+    _, Hkv, S, _ = k_cache.shape
+    out = torch.empty_like(q)
+    lib = _lib()
+    p = _build.ptr
+    err = lib.flash_decode(p(q), p(k_cache), p(v_cache), p(pos), p(out), B,
+                           H, Hkv, S, D, 1.0 / math.sqrt(D), _build.stream())
+    _build.raise_on(lib, err, "flash_decode")
+    launches["flash_decode"] += 1
+    return out
+
+
 def flash_decode_q8(q, k_cache, v_cache, k_scale, v_scale, pos):
     """INT8-KV flash decode over caches already appended at pos [B] int32.
     q [B, H, 1, D] bf16 -> [B, H, 1, D] bf16. CPU tensors take the plain
-    version; CUDA tensors launch the kernel (D = 128, H / Hkv <= 16)."""
+    version; CUDA tensors launch the kernel (D = 128, H / Hkv <= 16) or
+    raise."""
+    _check_shapes("flash_decode_q8", q, k_cache, v_cache)
     B, H, _, D = q.shape
-    Bk, Hkv, S, Dk = k_cache.shape
-    if (Bk, Dk) != (B, D) or H % Hkv or v_cache.shape != k_cache.shape \
-            or k_scale.shape != (B, Hkv, S) or v_scale.shape != (B, Hkv, S):
+    _, Hkv, S, _ = k_cache.shape
+    if k_scale.shape != (B, Hkv, S) or v_scale.shape != (B, Hkv, S):
         raise ValueError("flash_decode_q8: inconsistent shapes")
     if q.device.type == "cpu":
         return flash_decode_q8_plain(q, k_cache, v_cache, k_scale, v_scale,
                                      pos)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
-    if D != 128 or H // Hkv > 16:
-        raise ValueError("flash_decode_q8 kernel takes D=128, H/Hkv<=16")
-    tensors = {"q": (q, torch.bfloat16), "k_cache": (k_cache, torch.int8),
-               "v_cache": (v_cache, torch.int8),
-               "k_scale": (k_scale, torch.float32),
-               "v_scale": (v_scale, torch.float32), "pos": (pos, torch.int32)}
-    for name, (t, dt) in tensors.items():
-        if t.device != q.device or t.dtype != dt or not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous {dt} on {q.device}")
-    if pos.shape != (B,):
-        raise ValueError(f"pos must be [{B}]")
-    if k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
-        raise ValueError("k_cache and v_cache must be 16-byte aligned")
+    _check_launch("flash_decode_q8", q, pos,
+                  {"k_cache": (k_cache, torch.int8),
+                   "v_cache": (v_cache, torch.int8),
+                   "k_scale": (k_scale, torch.float32),
+                   "v_scale": (v_scale, torch.float32)})
     out = torch.empty_like(q)
     lib = _lib()
     p = _build.ptr

@@ -11,6 +11,14 @@ by step (`*_plain`). A wrapper given a CPU tensor runs the plain version;
 given a CUDA tensor it launches the kernel or raises. `launches` counts
 kernel launches per kernel; under CUDA-graph replay it counts the capture,
 not the replays.
+
+Above 256 rows (a long prompt) the JAX package takes no kernel: it
+dequantizes the weight and runs one matmul (quant_matmul_ref,
+quant_matmul.py:39-41,599-604,708-710), with the "group" semantics even
+for a shape tuned to w4a8. The wrappers follow that rule on every device
+(weight_only.dequant_matmul, after rmsnorm_bf16 for the fused-norm
+wrapper) and count it in `launches` as "dequant_matmul", a route and not
+a kernel of this package.
 """
 
 from __future__ import annotations
@@ -23,7 +31,9 @@ from typing import Optional
 import torch
 
 from infinitensor_tpu_torch.kernels import _build
-from infinitensor_tpu_torch.quant.weight_only import QuantizedLinear
+from infinitensor_tpu_torch.quant.weight_only import (
+    QuantizedLinear, dequant_matmul,
+)
 
 # The variant column of the JAX package's tuning table (docs/qmm_tune.json,
 # keyed "din:dout:bits"); its TPU output tiles do not apply here. Shapes
@@ -43,12 +53,19 @@ def variant_for(din: int, q: QuantizedLinear) -> str:
     return QMM_VARIANTS.get(f"{din}:{q.out_features}:{q.bits}", "group")
 
 
+KERNEL_MAX_ROWS = 256
+
+
+def _rows(x: torch.Tensor) -> int:
+    return x.numel() // max(x.shape[-1], 1)
+
+
 def _check(x: torch.Tensor, q: QuantizedLinear) -> None:
     """Refuse the shapes the TPU kernels refuse
-    (quant_matmul.py:596-604, :696-710)."""
+    (quant_matmul.py:596-604, :696-710); callers send more than
+    KERNEL_MAX_ROWS rows to dequant_matmul instead."""
     pack = 2 if q.bits == 4 else 1
     din = x.shape[-1]
-    rows = x.numel() // max(din, 1)
     if q.bits not in (4, 8):
         raise ValueError(f"bits={q.bits}: only 4 and 8")
     if din != q.in_features:
@@ -61,10 +78,16 @@ def _check(x: torch.Tensor, q: QuantizedLinear) -> None:
                          "kernel (not ported)")
     if x.dtype != torch.bfloat16:
         raise ValueError(f"x must be bf16, got {x.dtype}")
-    if rows > 256:
-        raise ValueError(f"{rows} rows: at most 256")
     if q.out_physical % 4:
         raise ValueError("physical output columns must be a multiple of 4")
+
+
+def _dequant_route(x: torch.Tensor, q: QuantizedLinear) -> torch.Tensor:
+    if x.shape[-1] != q.in_features:
+        raise ValueError(f"x has {x.shape[-1]} features, weight "
+                         f"{q.in_features}")
+    launches["dequant_matmul"] += 1
+    return dequant_matmul(x, q)
 
 
 def _per_group(x2: torch.Tensor, q: QuantizedLinear, w_lo, w_hi):
@@ -215,8 +238,11 @@ def quant_matmul(x: torch.Tensor, q: QuantizedLinear,
     """x [..., din] bf16 @ q -> [..., out_features] bf16.
 
     variant: "group" or "w4a8"; None takes the table entry for the shape
-    (QMM_VARIANTS), else "group"."""
+    (QMM_VARIANTS), else "group". Above KERNEL_MAX_ROWS rows every
+    variant takes dequant_matmul."""
     *lead, din = x.shape
+    if _rows(x) > KERNEL_MAX_ROWS:
+        return _dequant_route(x, q)
     _check(x, q)
     variant = variant or variant_for(din, q)
     x2 = x.reshape(-1, din).contiguous()
@@ -238,6 +264,8 @@ def quant_matmul_norm(x: torch.Tensor, norm_w: torch.Tensor,
     """rmsnorm(x) * norm_w @ q with the norm fused into the kernel; x is
     the raw residual stream [..., din] bf16."""
     *lead, din = x.shape
+    if _rows(x) > KERNEL_MAX_ROWS:
+        return _dequant_route(rmsnorm_bf16(x, norm_w, eps), q)
     _check(x, q)
     if variant_for(din, q) != "group":
         raise NotImplementedError(

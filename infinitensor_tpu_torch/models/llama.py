@@ -1,19 +1,29 @@
-"""Llama-family decode (counterpart of infinitensor_tpu/models/llama.py).
+"""Llama-family forward passes (counterpart of
+infinitensor_tpu/models/llama.py).
 
 Plain functions on tensors; parameters are a dict laid out like the JAX
 pytree (params["layers"][i]["wqkv"], ...), with QuantizedLinear leaves.
-The slice ported here is greedy decode with INT4/INT8 weight-only
-matmuls and an INT8 KV cache:
+The slices ported here are prompt -> generate with INT4/INT8 weight-only
+matmuls over a bf16 or an INT8 KV cache:
 
-  llama_decode_multi -> llama_decode_step -> _block_decode x L
-    (_qkv: fused RMSNorm + wqkv, quant_matmul_norm;
-     decode_attention_gqa_q8: in-place append + flash_decode_q8;
-     wo: quant_matmul; _mlp: fused RMSNorm + w_gateup, w_down)
-  -> rmsnorm -> lm_head (quant_matmul, W4A8 at the 7B shape) -> argmax.
+  greedy_generate -> llama_prefill -> _block_prefill x L
+      (rmsnorm; _qkv unfused: quant_matmul, or dequant_matmul above 256
+       rows; rope at [0, S); cache rows [0, S) written in place;
+       flash_attention on the unquantized k/v, kv heads repeated for GQA;
+       wo; rmsnorm; _mlp)
+    -> rmsnorm -> lm_head (all S positions) -> argmax of the last
+  -> llama_decode_multi -> llama_decode_step -> _block_decode x L
+      (_qkv: fused RMSNorm + wqkv, quant_matmul_norm;
+       decode_attention_gqa (bf16 cache: append + flash_decode) or
+       decode_attention_gqa_q8 (INT8 cache: append + flash_decode_q8);
+       wo: quant_matmul; _mlp: fused RMSNorm + w_gateup, w_down)
+    -> rmsnorm -> lm_head (quant_matmul, W4A8 at the 7B shape) -> argmax.
 
-The KV cache is updated IN PLACE (the JAX package donates it instead), and
-`pos` stays a device int32 tensor, so on the card one step captures into a
-CUDA graph. Prefill, the bf16 cache and paged caches are later slices.
+llama_verify_step (speculative verification) is plain torch, as the JAX
+package leaves it to XLA. The KV cache is updated IN PLACE (the JAX
+package donates it instead), and a decode step's `pos` stays a device
+int32 tensor, so on the card one step captures into a CUDA graph. Paged
+caches are a later slice.
 """
 
 from __future__ import annotations
@@ -24,7 +34,10 @@ from typing import Optional
 
 import torch
 
-from infinitensor_tpu_torch.kernels.attention import decode_attention_gqa_q8
+from infinitensor_tpu_torch.kernels.attention import (
+    decode_attention_gqa, decode_attention_gqa_q8, quantize_kv_row,
+)
+from infinitensor_tpu_torch.kernels.flash_attention import flash_attention
 from infinitensor_tpu_torch.kernels.quant_matmul import quant_matmul_norm
 from infinitensor_tpu_torch.quant.weight_only import (
     QuantizedLinear, concat_qlinear, quantize_weight, wo_matmul,
@@ -150,13 +163,10 @@ def rope(x, pos, theta: float):
 
 
 def init_kv_cache(cfg: LlamaConfig, batch: int,
-                  max_seq: Optional[int] = None, device=None,
-                  kv_quant: bool = True) -> dict:
-    """Per-layer int8 K/V [B, Hkv, S, D] plus f32 scales [B, Hkv, S]."""
-    if not kv_quant:
-        raise NotImplementedError(
-            "bf16 KV cache: its kernel flash_decode is not ported yet "
-            "(ROADMAP Queue 2 item 8)")
+                  max_seq: Optional[int] = None, dtype=None,
+                  kv_quant: bool = False, *, device=None) -> dict:
+    """Per-layer K/V [B, Hkv, S, D] in `dtype` (default cfg.dtype); with
+    kv_quant, int8 K/V plus f32 scales [B, Hkv, S]."""
     device = resolve_device(device)
     S = max_seq or cfg.max_seq
     shape = (batch, cfg.n_kv_heads, S, cfg.head_dim)
@@ -165,64 +175,211 @@ def init_kv_cache(cfg: LlamaConfig, batch: int,
         return [torch.zeros(shp, dtype=dt, device=device)
                 for _ in range(cfg.n_layers)]
 
+    if not kv_quant:
+        dtype = dtype or cfg.dtype
+        return {"k": zeros(shape, dtype), "v": zeros(shape, dtype)}
     return {"k": zeros(shape, torch.int8), "v": zeros(shape, torch.int8),
             "k_scale": zeros(shape[:-1], torch.float32),
             "v_scale": zeros(shape[:-1], torch.float32)}
 
 
-def _qkv(cfg, layer, h, norm_w, eps):
-    """q/k/v from the fused wqkv; h is the raw residual, normalized inside
-    the matmul (_linear_norm)."""
+def _qkv(cfg, layer, h, norm_w=None, eps=1e-5):
+    """Project to q/k/v, through the fused QKV matrix when present. With
+    norm_w given, h is the RAW residual and the rmsnorm fuses into the
+    matmul (_linear_norm)."""
     B, S, _ = h.shape
     kvd = cfg.n_kv_heads * cfg.head_dim
-    qkv = _linear_norm(h, norm_w, layer["wqkv"], eps)
-    q = qkv[..., :cfg.dim]
-    k = qkv[..., cfg.dim:cfg.dim + kvd]
-    v = qkv[..., cfg.dim + kvd:]
+
+    def lin(w):
+        if norm_w is not None:
+            return _linear_norm(h, norm_w, w, eps)
+        return _linear(h, w)
+
+    if "wqkv" in layer:
+        qkv = lin(layer["wqkv"])
+        q = qkv[..., :cfg.dim]
+        k = qkv[..., cfg.dim:cfg.dim + kvd]
+        v = qkv[..., cfg.dim + kvd:]
+    else:
+        q, k, v = lin(layer["wq"]), lin(layer["wk"]), lin(layer["wv"])
     return (q.reshape(B, S, cfg.n_heads, cfg.head_dim),
             k.reshape(B, S, cfg.n_kv_heads, cfg.head_dim),
             v.reshape(B, S, cfg.n_kv_heads, cfg.head_dim))
 
 
-def _mlp(cfg, layer, x, norm_w, eps):
-    """SwiGLU MLP on the raw residual x, its RMSNorm fused into w_gateup."""
-    gu = _linear_norm(x, norm_w, layer["w_gateup"], eps).float()
-    gate, up = gu[..., :cfg.intermediate], gu[..., cfg.intermediate:]
+def _mlp(cfg, layer, h2, norm_w=None, eps=1e-5):
+    """SwiGLU MLP; with norm_w given, h2 is the RAW residual and the
+    rmsnorm fuses into the gate/up matmul."""
+    def lin(w):
+        if norm_w is not None:
+            return _linear_norm(h2, norm_w, w, eps)
+        return _linear(h2, w)
+
+    if "w_gateup" in layer:
+        gu = lin(layer["w_gateup"]).float()
+        gate, up = gu[..., :cfg.intermediate], gu[..., cfg.intermediate:]
+    else:
+        gate, up = lin(layer["w_gate"]).float(), lin(layer["w_up"]).float()
     gate = torch.nn.functional.silu(gate)
-    return _linear((gate * up).to(x.dtype), layer["w_down"])
+    return _linear((gate * up).to(h2.dtype), layer["w_down"])
 
 
-def _block_decode(cfg, layer, x, pos, cache_k, cache_v, k_scale, v_scale):
-    """x [B, 1, dim]; pos [B]; INT8 cache [B, Hkv, Smax, D] with scales
-    [B, Hkv, Smax], appended in place at pos."""
+def _block_decode(cfg, layer, x, pos, cache_k, cache_v, k_scale=None,
+                  v_scale=None):
+    """x [B, 1, dim]; pos [B]; cache [B, Hkv, Smax, D], bf16 or (with
+    k_scale/v_scale [B, Hkv, Smax]) INT8, appended in place at pos."""
     B = x.shape[0]
     q, k, v = _qkv(cfg, layer, x, layer["attn_norm"], cfg.norm_eps)
     pos2 = pos[:, None]
     q = rope(q, pos2, cfg.rope_theta)
     k = rope(k, pos2, cfg.rope_theta)
-    out, *_ = decode_attention_gqa_q8(
-        cache_k, cache_v, k_scale, v_scale, q.transpose(1, 2),
-        k.transpose(1, 2), v.transpose(1, 2), pos)
+    qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    if k_scale is not None:
+        out, *_ = decode_attention_gqa_q8(cache_k, cache_v, k_scale, v_scale,
+                                          qh, kh, vh, pos)
+    else:
+        out, *_ = decode_attention_gqa(cache_k, cache_v, qh, kh, vh, pos)
     attn = out.transpose(1, 2).reshape(B, 1, cfg.dim)
     x = x + _linear(attn, layer["wo"])
     return x + _mlp(cfg, layer, x, layer["mlp_norm"], cfg.norm_eps)
 
 
+def _embed(params, tokens):
+    """tokens [...] -> [..., dim]."""
+    x = params["embed"].index_select(0, tokens.reshape(-1))
+    return x.reshape(*tokens.shape, x.shape[-1])
+
+
+def _layer_caches(cache, i):
+    """Layer i's (k, v, k_scale, v_scale); the scales are None for a bf16
+    cache."""
+    quant = "k_scale" in cache
+    return (cache["k"][i], cache["v"][i],
+            cache["k_scale"][i] if quant else None,
+            cache["v_scale"][i] if quant else None)
+
+
+def _block_prefill(cfg, layer, x, pos, cache_k, cache_v, k_scale=None,
+                   v_scale=None):
+    """x [B, S, dim]; pos [B, S] = [0, S). Writes the cache rows [0, S)
+    in place (quantized per row for an INT8 cache) and attends with
+    flash_attention on the unquantized k/v."""
+    B, S, _ = x.shape
+    h = rmsnorm(x, layer["attn_norm"], cfg.norm_eps)
+    q, k, v = _qkv(cfg, layer, h)
+    q = rope(q, pos, cfg.rope_theta)
+    k = rope(k, pos, cfg.rope_theta)
+    kh, vh = k.transpose(1, 2), v.transpose(1, 2)      # [B, Hkv, S, D]
+    if k_scale is not None:
+        kq, ks = quantize_kv_row(kh)
+        vq, vs = quantize_kv_row(vh)
+        for buf, new in ((cache_k, kq), (cache_v, vq), (k_scale, ks),
+                         (v_scale, vs)):
+            buf[:, :, :S].copy_(new)
+    else:
+        cache_k[:, :, :S].copy_(kh)
+        cache_v[:, :, :S].copy_(vh)
+    rep = cfg.n_heads // cfg.n_kv_heads
+    kf = kh.repeat_interleave(rep, dim=1) if rep > 1 else kh
+    vf = vh.repeat_interleave(rep, dim=1) if rep > 1 else vh
+    attn = flash_attention(q.transpose(1, 2).contiguous(), kf.contiguous(),
+                           vf.contiguous(), causal=True)
+    x = x + _linear(attn.transpose(1, 2).reshape(B, S, cfg.dim),
+                    layer["wo"])
+    h2 = rmsnorm(x, layer["mlp_norm"], cfg.norm_eps)
+    return x + _mlp(cfg, layer, h2)
+
+
+def llama_prefill(params, cfg: LlamaConfig, tokens, cache):
+    """tokens [B, S] int32 -> (logits [B, S, vocab], cache); the cache
+    rows [0, S) are written in place."""
+    B, S = tokens.shape
+    if S > cache["k"][0].shape[2]:
+        raise ValueError(f"prompt of {S} tokens exceeds the cache's "
+                         f"{cache['k'][0].shape[2]} rows")
+    x = _embed(params, tokens)
+    pos = torch.arange(S, dtype=torch.int32,
+                       device=tokens.device)[None].expand(B, S)
+    for i, layer in enumerate(params["layers"]):
+        x = _block_prefill(cfg, layer, x, pos, *_layer_caches(cache, i))
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    return _linear(x, params["lm_head"]), cache
+
+
 def llama_decode_step(params, cfg: LlamaConfig, token, pos, cache):
     """One decode step. token [B] int32, pos [B] int32 (write positions).
 
-    Returns (logits [B, vocab], cache); the cache dict is the one passed
-    in, its tensors updated in place."""
-    if "k_scale" not in cache:
-        raise NotImplementedError(
-            "bf16 KV cache: its kernel flash_decode is not ported yet "
-            "(ROADMAP Queue 2 item 8)")
-    x = params["embed"].index_select(0, token)[:, None, :]
+    Returns (logits [B, vocab], cache); the cache dict (bf16, or INT8
+    with "k_scale") is the one passed in, its tensors updated in place."""
+    x = _embed(params, token)[:, None, :]
     for i, layer in enumerate(params["layers"]):
-        x = _block_decode(cfg, layer, x, pos, cache["k"][i], cache["v"][i],
-                          cache["k_scale"][i], cache["v_scale"][i])
+        x = _block_decode(cfg, layer, x, pos, *_layer_caches(cache, i))
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return _linear(x[:, 0], params["lm_head"]), cache
+
+
+def _attention(q, k, v, mask):
+    """q [B, S, H, D], k/v [B, T, Hkv, D], mask [B, S, T] -> [B, S, H, D];
+    GQA by grouping the query heads, f32 scores and softmax."""
+    B, S, H, D = q.shape
+    Hkv = k.shape[2]
+    qf = q.float().reshape(B, S, Hkv, H // Hkv, D)
+    scores = torch.einsum("bshrd,bthd->bhrst", qf, k.float()) / math.sqrt(D)
+    scores = torch.where(mask[:, None, None], scores, -1e30)
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhrst,bthd->bshrd", p, v.float())
+    return out.reshape(B, S, H, D).to(q.dtype)
+
+
+def _block_verify(cfg, layer, x, positions, cache_k, cache_v, k_scale=None,
+                  v_scale=None):
+    """Multi-token decode block for speculative verification. x [B, K,
+    dim]; positions [B, K] = pos0[:, None] + arange(K). Writes the K/V rows
+    of all K positions in place, then each token attends to the cache rows
+    <= its own position."""
+    B, K, _ = x.shape
+    S = cache_k.shape[2]
+    h = rmsnorm(x, layer["attn_norm"], cfg.norm_eps)
+    q, k, v = _qkv(cfg, layer, h)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    kh, vh = k.transpose(1, 2), v.transpose(1, 2)      # [B, Hkv, K, D]
+    rows = positions.to(torch.int64)[:, None, :].expand(B, kh.shape[1], K)
+    idx = rows[..., None].expand(*rows.shape, kh.shape[3])
+    if k_scale is not None:
+        kq, ks = quantize_kv_row(kh)
+        vq, vs = quantize_kv_row(vh)
+        cache_k.scatter_(2, idx, kq)
+        cache_v.scatter_(2, idx, vq)
+        k_scale.scatter_(2, rows, ks)
+        v_scale.scatter_(2, rows, vs)
+        kf = (cache_k.float() * k_scale[..., None]).to(q.dtype)
+        vf = (cache_v.float() * v_scale[..., None]).to(q.dtype)
+    else:
+        cache_k.scatter_(2, idx, kh.to(cache_k.dtype))
+        cache_v.scatter_(2, idx, vh.to(cache_v.dtype))
+        kf, vf = cache_k.to(q.dtype), cache_v.to(q.dtype)
+    cols = torch.arange(S, device=x.device)
+    mask = cols[None, None, :] <= positions[:, :, None]       # [B, K, S]
+    attn = _attention(q, kf.transpose(1, 2), vf.transpose(1, 2), mask)
+    x = x + _linear(attn.reshape(B, K, cfg.dim), layer["wo"])
+    h2 = rmsnorm(x, layer["mlp_norm"], cfg.norm_eps)
+    return x + _mlp(cfg, layer, h2)
+
+
+def llama_verify_step(params, cfg: LlamaConfig, tokens, pos, cache):
+    """Speculative-decoding verify pass: tokens [B, K] int32 (token j is
+    the input at write position pos + j); pos [B] int32. Returns (logits
+    [B, K, vocab], cache). Rows past the accepted prefix stay in the cache
+    unseen until overwritten: not advancing pos is the rollback."""
+    B, K = tokens.shape
+    x = _embed(params, tokens)
+    positions = pos.to(torch.int32)[:, None] + torch.arange(
+        K, dtype=torch.int32, device=tokens.device)[None]
+    for i, layer in enumerate(params["layers"]):
+        x = _block_verify(cfg, layer, x, positions, *_layer_caches(cache, i))
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    return _linear(x, params["lm_head"]), cache
 
 
 def _greedy(logits) -> torch.Tensor:
@@ -295,3 +452,22 @@ def llama_decode_multi(params, cfg: LlamaConfig, token, pos, cache,
         toks.append(token)
         pos = pos + 1
     return torch.stack(toks, dim=1), token, pos, cache
+
+
+def greedy_generate(params, cfg: LlamaConfig, prompt_tokens, n_steps: int,
+                    cache=None):
+    """Prefill the prompt [B, S], take the argmax of its last logits, then
+    n_steps - 1 greedy decode steps from pos S (llama_decode_multi: one
+    CUDA graph on the card, a loop on the CPU). The default cache is bf16
+    (init_kv_cache's default). Returns ([B, n_steps] int32, cache)."""
+    B, S = prompt_tokens.shape
+    if cache is None:
+        cache = init_kv_cache(cfg, B, device=prompt_tokens.device)
+    logits, cache = llama_prefill(params, cfg, prompt_tokens, cache)
+    token = _greedy(logits[:, -1])
+    if n_steps <= 1:
+        return token[:, None], cache
+    pos = torch.full((B,), S, dtype=torch.int32, device=token.device)
+    toks, *_ = llama_decode_multi(params, cfg, token, pos, cache,
+                                  n_steps - 1)
+    return torch.cat([token[:, None], toks], dim=1), cache

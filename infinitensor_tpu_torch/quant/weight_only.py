@@ -190,14 +190,24 @@ def concat_qlinear(*qs: QuantizedLinear) -> QuantizedLinear:
                            first.bits, first.group_size)
 
 
+def dequant_matmul(x: torch.Tensor, q: QuantizedLinear) -> torch.Tensor:
+    """x [..., in] @ dequantize_weight(q) in x's dtype, f32 accumulation:
+    the JAX package's non-kernel product (quant_matmul_ref). On the card
+    one cuBLAS product of the dequantized weight (bf16 operands accumulate
+    in f32 there); on the CPU in f32, rounded once."""
+    w = dequantize_weight(q, dtype=x.dtype)
+    if x.device.type == "cuda":
+        return torch.matmul(x, w)
+    return torch.matmul(x.float(), w.float()).to(x.dtype)
+
+
 def wo_matmul(x: torch.Tensor, q: QuantizedLinear) -> torch.Tensor:
     """x [..., in] @ quantized w -> [..., out].
 
     Same dispatch rule as the JAX package on its chip
-    (weight_only.py:273-287): the quant_matmul kernel when in >= 512, else
-    dequantize + torch.matmul (small shapes were left to XLA there)."""
+    (weight_only.py:273-287): quant_matmul when in >= 512, else
+    dequant_matmul (small shapes were left to XLA there)."""
     if x.shape[-1] >= 512:
         from infinitensor_tpu_torch.kernels.quant_matmul import quant_matmul
         return quant_matmul(x, q)
-    w = dequantize_weight(q, dtype=x.dtype)
-    return torch.matmul(x.float(), w.float()).to(x.dtype)
+    return dequant_matmul(x, q)

@@ -5,7 +5,9 @@ jax, run without the repository's conftest (which imports jax):
     python -m pytest --noconftest tests/test_torch_gpu.py -q
 
 Tolerance: within 1e-2 of max|plain| (both sides round f32 sums, taken
-in another order, to bf16); graph and eager decode give equal tokens.
+in another order, to bf16; flash_attention also splits P into two bf16
+terms for its tensor-core product); graph and eager decode give equal
+tokens.
 """
 
 import numpy as np
@@ -13,10 +15,11 @@ import pytest
 import torch
 
 from infinitensor_tpu_torch.kernels import attention as att
+from infinitensor_tpu_torch.kernels import flash_attention as fa
 from infinitensor_tpu_torch.kernels import quant_matmul as qm
 from infinitensor_tpu_torch.models import llama
 from infinitensor_tpu_torch.quant.weight_only import (
-    QuantizedLinear, quantize_weight)
+    QuantizedLinear, dequantize_weight, quantize_weight)
 
 pytestmark = pytest.mark.cuda
 TOL = 1e-2
@@ -61,6 +64,25 @@ def test_group_kernel(dev, rows, bits, sdt):
            qm.qmm_group_plain(qm.rmsnorm_bf16(x * 4, nw, 1e-5), q))
 
 
+@pytest.mark.parametrize("bits", [4, 8])
+def test_group_and_w4a8_kernels_at_256_rows(dev, bits):
+    """A 256-token prompt's matmuls: the most rows a kernel takes."""
+    q = _qlin(dev, 4096, 512, bits, torch.bfloat16)
+    x = _x(dev, 256, 4096)
+    before = dict(qm.launches)
+    _close(qm.quant_matmul(x, q, variant="group"), qm.qmm_group_plain(x, q))
+    _close(qm.quant_matmul(x, q, variant="w4a8"), qm.qmm_w4a8_plain(x, q))
+    assert qm.launches["qmm_group"] == before.get("qmm_group", 0) + 1
+    assert qm.launches["qmm_w4a8"] == before.get("qmm_w4a8", 0) + 1
+    # one more row takes the dequant route, as in the JAX package
+    x = _x(dev, 257, 4096)
+    got = qm.quant_matmul(x, q, variant="w4a8")
+    assert qm.launches["dequant_matmul"] == \
+        before.get("dequant_matmul", 0) + 1
+    want = (x.float() @ dequantize_weight(q).float()).to(x.dtype)
+    _close(got, want)
+
+
 @pytest.mark.parametrize("rows", [1, 3, 5])
 @pytest.mark.parametrize("bits", [4, 8])
 def test_w4a8_kernel(dev, rows, bits):
@@ -94,6 +116,33 @@ def test_flash_decode_q8_kernel(dev, rep):
     _close(att.flash_decode_q8(*args), att.flash_decode_q8_plain(*args))
 
 
+@pytest.mark.parametrize("S", [1, 200, 512])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_kernel(dev, S, causal):
+    g = torch.Generator(device=dev).manual_seed(S)
+    q, k, v = (torch.randn(2, 3, S, 128, generator=g, device=dev).mul(2)
+               .to(torch.bfloat16) for _ in range(3))
+    _close(fa.flash_attention(q, k, v, causal), fa.mha_plain(q, k, v, causal))
+
+
+@pytest.mark.parametrize("rep", [1, 4])
+def test_flash_decode_kernel(dev, rep):
+    g = torch.Generator(device=dev).manual_seed(10 + rep)
+    B, Hkv, S, D = 4, 2, 300, 128
+    q = torch.randn(B, Hkv * rep, 1, D, generator=g, device=dev).to(
+        torch.bfloat16)
+    kc, vc = (torch.randn(B, Hkv, S, D, generator=g, device=dev).to(
+        torch.bfloat16) for _ in range(2))
+    pos = torch.tensor([0, 100, 256, 299], dtype=torch.int32, device=dev)
+    args = (q, kc, vc, pos)
+    _close(att.flash_decode(*args), att.flash_decode_plain(*args))
+    # rows past pos are never read: garbage there changes nothing
+    kc[1, :, 101:] = float("nan")
+    vc[1, :, 101:] = float("nan")
+    _close(att.flash_decode(*args)[1], att.flash_decode_plain(
+        q[1:2], kc[1:2, :, :101], vc[1:2, :, :101], pos[1:2])[0])
+
+
 def test_cuda_wrappers_raise_instead_of_falling_back(dev):
     q = torch.zeros(1, 2, 1, 64, dtype=torch.bfloat16, device=dev)
     kc = torch.zeros(1, 2, 16, 64, dtype=torch.int8, device=dev)
@@ -101,23 +150,41 @@ def test_cuda_wrappers_raise_instead_of_falling_back(dev):
     pos = torch.zeros(1, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError):
         att.flash_decode_q8(q, kc, kc, s, s, pos)       # D = 64
+    kb = torch.zeros(1, 2, 16, 64, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError):
+        att.flash_decode(q, kb, kb, pos)                # D = 64
     qq = _qlin(dev, 512, 256, 4, torch.bfloat16)
     with pytest.raises(ValueError):
         qm.quant_matmul(_x(dev, 1, 512).float(), qq)
+    x64 = torch.zeros(1, 2, 8, 64, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError):
+        fa.flash_attention(x64, x64, x64)               # D = 64
+    x32 = torch.zeros(1, 2, 8, 128, device=dev)
+    with pytest.raises(ValueError):
+        fa.flash_attention(x32, x32, x32)               # f32
+    with pytest.raises(ValueError):
+        att.flash_decode(x32[:, :, :1], x32, x32, pos)  # f32 cache
 
 
-def test_decode_graph_equals_eager(dev):
+def _small_model(dev):
     cfg = llama.LlamaConfig(vocab_size=512, dim=512, n_layers=2, n_heads=4,
                             n_kv_heads=2, intermediate=1024, max_seq=128)
     gen = torch.Generator(device=dev).manual_seed(0)
     params = llama.quantize_llama_params(
         llama.init_llama_params(cfg, gen, device=dev), bits=4,
         group_size=128)
+    return cfg, params
+
+
+@pytest.mark.parametrize("kv_quant", [True, False])
+def test_decode_graph_equals_eager(dev, kv_quant):
+    cfg, params = _small_model(dev)
     tok0 = torch.tensor([3, 7], dtype=torch.int32, device=dev)
     pos0 = torch.tensor([5, 9], dtype=torch.int32, device=dev)
     toks, last, pos, _ = llama.llama_decode_multi(
-        params, cfg, tok0, pos0, llama.init_kv_cache(cfg, 2, device=dev), 6)
-    cache = llama.init_kv_cache(cfg, 2, device=dev)
+        params, cfg, tok0, pos0,
+        llama.init_kv_cache(cfg, 2, kv_quant=kv_quant, device=dev), 6)
+    cache = llama.init_kv_cache(cfg, 2, kv_quant=kv_quant, device=dev)
     tok, p, want = tok0, pos0, []
     for _ in range(6):
         logits, cache = llama.llama_decode_step(params, cfg, tok, p, cache)
@@ -128,3 +195,28 @@ def test_decode_graph_equals_eager(dev):
     np.testing.assert_array_equal(toks.cpu().numpy(),
                                   torch.stack(want, 1).cpu().numpy())
     assert torch.equal(pos, pos0 + 6) and torch.equal(last, tok)
+
+
+def test_greedy_generate_graph_equals_eager(dev):
+    """bf16 cache (the default): greedy_generate's CUDA-graph decode gives
+    the tokens of prefill + an eager decode loop."""
+    cfg, params = _small_model(dev)
+    prompt = torch.randint(0, cfg.vocab_size, (2, 40), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(1),
+                           dtype=torch.int32)
+    launches = fa.launches["flash_attention"], att.launches["flash_decode"]
+    toks, cache = llama.greedy_generate(params, cfg, prompt, 6)
+    assert toks.shape == (2, 6) and cache["k"][0].dtype == torch.bfloat16
+    assert fa.launches["flash_attention"] > launches[0]
+    assert att.launches["flash_decode"] > launches[1]
+    cache = llama.init_kv_cache(cfg, 2, device=dev)
+    logits, cache = llama.llama_prefill(params, cfg, prompt, cache)
+    tok = torch.argmax(logits[:, -1], -1).to(torch.int32)
+    p, want = torch.full((2,), 40, dtype=torch.int32, device=dev), [tok]
+    for _ in range(5):
+        logits, cache = llama.llama_decode_step(params, cfg, tok, p, cache)
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        want.append(tok)
+        p = p + 1
+    np.testing.assert_array_equal(toks.cpu().numpy(),
+                                  torch.stack(want, 1).cpu().numpy())

@@ -58,11 +58,14 @@ def test_entry_points_refuse_without_cuda_device(monkeypatch):
     with pytest.raises(RuntimeError):
         init_kv_cache(LlamaConfig.tiny(), 1)
     assert resolve_device("cpu").type == "cpu"
-    with pytest.raises(NotImplementedError, match="Queue 2 item 8"):
-        init_kv_cache(LlamaConfig.tiny(), 1, device="cpu", kv_quant=False)
+    # the JAX package's defaults: a bf16 cache unless kv_quant is asked for
+    cache = init_kv_cache(LlamaConfig.tiny(), 1, device="cpu")
+    assert cache["k"][0].dtype == torch.bfloat16 and "k_scale" not in cache
+    assert init_kv_cache(LlamaConfig.tiny(), 1, device="cpu",
+                         kv_quant=True)["k"][0].dtype == torch.int8
 
 
 def test_kernel_sources_shipped():
     csrc = PKG / "kernels" / "csrc"
     assert {p.name for p in csrc.glob("*.cu")} == {
-        "quant_matmul.cu", "flash_decode_q8.cu"}
+        "quant_matmul.cu", "flash_decode.cu", "flash_attention.cu"}

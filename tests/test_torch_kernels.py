@@ -4,7 +4,12 @@ Pallas kernels run in interpret mode, on the same seeded inputs.
 Tolerances: outputs agree within one bf16 ulp at max|ref| (4e-3 of it:
 both sides round f32 sums, taken in another order, to bf16); KV-cache
 int8 codes within +-1 (a row scale one ulp apart can move a code across
-a rounding boundary) and scales within 1e-6 relative.
+a rounding boundary) and scales within 1e-6 relative; a bf16 cache row
+appended by both sides is equal bit for bit.
+
+Above 256 rows the JAX package runs no kernel (quant_matmul_ref: bf16
+dequantized weight, f32 product), and the port's dequant route computes
+the same, so those outputs are held to the same one-ulp bound.
 """
 
 import numpy as np
@@ -13,12 +18,14 @@ import pytest
 import torch
 
 from infinitensor_tpu.kernels import attention as att
+from infinitensor_tpu.kernels import flash_attention as fa
 from infinitensor_tpu.kernels import quant_matmul as qm
 from infinitensor_tpu.quant.weight_only import QuantizedLinear as JQ
 from infinitensor_tpu.quant.weight_only import quantize_weight
 from infinitensor_tpu.utils.config import config
 
 from infinitensor_tpu_torch.kernels import attention as tatt
+from infinitensor_tpu_torch.kernels import flash_attention as tfa
 from infinitensor_tpu_torch.kernels import quant_matmul as tqm
 from infinitensor_tpu_torch.models.convert import params_from_jax_numpy
 
@@ -90,11 +97,94 @@ def test_quant_matmul_refuses_what_the_kernel_refuses():
     tq = _port_q(q)
     with pytest.raises(ValueError):
         tqm.quant_matmul(_t(x).float(), tq)
-    with pytest.raises(ValueError):
-        tqm.quant_matmul(torch.zeros(257, 512, dtype=torch.bfloat16), tq)
     q64 = quantize_weight(jnp.ones((512, 256)), bits=4, group_size=64)
     with pytest.raises(ValueError):
         tqm.quant_matmul(_t(x), _port_q(q64))
+    # 257 rows take the dequant route, as the JAX package does: no kernel,
+    # nothing refused for want of one
+    before = tqm.launches["dequant_matmul"]
+    out = tqm.quant_matmul(torch.zeros(257, 512, dtype=torch.bfloat16), tq)
+    assert out.shape == (257, 384)
+    assert tqm.launches["dequant_matmul"] == before + 1
+    with pytest.raises(ValueError):
+        tqm.quant_matmul(torch.zeros(257, 256, dtype=torch.bfloat16), tq)
+
+
+def _rows300(seed, bits=4):
+    rng, q, _ = _weights(seed, sdt=jnp.bfloat16, bits=bits)
+    x = jnp.asarray(rng.standard_normal((300, 512)) * 2.0, jnp.bfloat16)
+    return rng, q, x
+
+
+@pytest.mark.parametrize("variant", ["group", "w4a8"])
+@pytest.mark.parametrize("bits", [4, 8])
+def test_quant_matmul_over_256_rows_vs_jax(variant, bits):
+    _, q, x = _rows300(11, bits)
+    want = qm.quant_matmul(x, q, interpret=True, variant=variant)
+    before = tqm.launches["dequant_matmul"]
+    got = tqm.quant_matmul(_t(x), _port_q(q), variant=variant)
+    assert tqm.launches["dequant_matmul"] == before + 1
+    _close(got, want)
+    # JAX there runs quant_matmul_ref, the group semantics, for w4a8 too
+    _close(got, qm.quant_matmul_ref(x, q))
+
+
+def test_quant_matmul_norm_over_256_rows_vs_jax():
+    rng, q, x = _rows300(12)
+    nw = jnp.asarray(rng.uniform(0.5, 1.5, (512,)), jnp.bfloat16)
+    want = qm.quant_matmul_norm(x, nw, q, eps=1e-5, interpret=True)
+    got = tqm.quant_matmul_norm(_t(x), _t(nw), _port_q(q), eps=1e-5)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("S", [1, 200, 512])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_plain_vs_pallas(S, causal):
+    rng = np.random.default_rng(20 + S)
+    q, k, v = (jnp.asarray(rng.standard_normal((1, 2, S, 128)) * 2.0,
+                           jnp.bfloat16) for _ in range(3))
+    got = tfa.flash_attention(_t(q), _t(k), _t(v), causal=causal)
+    _close(got, fa.flash_attention(q, k, v, causal=causal, interpret=True))
+    _close(got, fa.mha_ref(q, k, v, causal))
+
+
+@pytest.mark.parametrize("rep", [1, 4])
+def test_flash_decode_plain_vs_pallas(rep):
+    rng = np.random.default_rng(30 + rep)
+    B, Hkv, S, D = 2, 2, 256, 128
+    q = jnp.asarray(rng.standard_normal((B, Hkv * rep, 1, D)), jnp.bfloat16)
+    kc, vc = (jnp.asarray(rng.standard_normal((B, Hkv, S, D)), jnp.bfloat16)
+              for _ in range(2))
+    pos = jnp.asarray([100, S - 1], jnp.int32)
+    want = att.flash_decode(q, kc, vc, pos, seq_block=128, interpret=True)
+    got = tatt.flash_decode(*(_t(a) for a in (q, kc, vc, pos)))
+    _close(got, want)
+
+
+def test_decode_attention_gqa_bf16_vs_jax():
+    rng = np.random.default_rng(40)
+    B, H, Hkv, S, D = 2, 8, 2, 256, 128
+    kc, vc = (jnp.asarray(rng.standard_normal((B, Hkv, S, D)), jnp.bfloat16)
+              for _ in range(2))
+    q = jnp.asarray(rng.standard_normal((B, H, 1, D)), jnp.bfloat16)
+    k, v = (jnp.asarray(rng.standard_normal((B, Hkv, 1, D)), jnp.bfloat16)
+            for _ in range(2))
+    pos = jnp.asarray([100, S - 1], jnp.int32)
+    port_in = [_t(a) for a in (kc, vc, q, k, v, pos)]
+    with config.override(pallas_interpret=True):
+        want = att.decode_attention_gqa(kc, vc, q, k, v, pos)
+    got = tatt.decode_attention_gqa(*port_in)
+    _close(got[0], want[0])
+    for g, w in zip(got[1:], want[1:]):
+        np.testing.assert_array_equal(_f32(g), _f32(w))
+    assert got[1] is port_in[0] and got[2] is port_in[1]
+    # MHA form: Hkv = H
+    q1 = q[:, :Hkv]
+    with config.override(pallas_interpret=True):
+        want = att.decode_attention(kc, vc, q1, k, v, pos)
+    got = tatt.decode_attention(_t(kc), _t(vc), _t(q1), _t(k), _t(v),
+                                _t(pos))
+    _close(got[0], want[0])
 
 
 def _q8_cache(rng, B, Hkv, S, D):
