@@ -8,7 +8,10 @@ Phases, each failing with a nonzero exit, each printing its seconds:
      parallel), timed;
   3. each kernel against its plain PyTorch version on the card at the
      Llama-2-7B shapes of its path: decode (bs=1, ctx=1024), the prompt's
-     attention (S=1024) and its matmuls at 256 rows; max error, median
+     attention (S=1024) and its matmuls at 256 rows, and the serving
+     engine's paged decode (8 slots, pages of 64 rows, ragged positions
+     around 1024, a shuffled block table, NaN in every row no slot owns or
+     past its position); max error, median
      time, the least time the card could take (bytes over the published
      3.35 TB/s or operations over the published tensor-core peak,
      whichever is larger, and bytes over the device-to-device copy rate
@@ -28,7 +31,22 @@ Phases, each failing with a nonzero exit, each printing its seconds:
      a 256-token prompt, whose matmuls take the kernels; prefill of S-1
      tokens plus one bf16 decode step against the S-token prefill; a
      2-layer model of 7B width, kernels on the card against the plain
-     versions on the CPU.
+     versions on the CPU;
+  6. the serving path at full width: PagedServingEngine over the same 7B
+     INT4 weights, 8 slots, pages of 64 rows, buckets (128, 512, 1024),
+     decode chunks of 8 under one captured CUDA graph, and a pool of 96
+     usable pages (6144 tokens, against 8 x 1664 for a dense cache) so
+     that admission waits for reclaim; 24 seeded requests of 64-900 prompt
+     tokens and 32-128 new tokens; once with the bf16 pool and once with
+     the INT8 pool. Every request ends with its token count and every page
+     returns to the free list; the tokens equal the dense ServingEngine's
+     on the same stream and one request's equal greedy_generate's, each
+     up to a first near-tie whose logit gap is printed; a snapshot taken
+     mid-stream and restored into a fresh engine ends in the same tokens;
+     the paged kernel is launched 32 times per decode step and
+     flash_attention 32 times per prefill pass. Prints generated tok/s
+     over the drain, decode ms per step at 8 live slots and the engine's
+     stats slices.
 The last lines are the kernels JSON, nvidia-smi's name and power limit,
 and {"ok": true, "device": {...}}. A report goes to chiprun_out/.
 """
@@ -52,6 +70,13 @@ PROMPT = 1024                # phase 5 prompt length (ctx of the decode)
 SHORT = 256                  # the longest prompt whose matmuls take kernels
 GEN = 128                    # greedy_generate tokens in phase 5
 TOL = 1e-2                   # kernel vs plain: max err <= TOL * max|plain|
+SLOTS = 8                    # phase 6: decode batch of the serving engines
+PAGE = 64                    # rows per KV page
+POOL_PAGES = 97              # page 0 is the trash page: 96 usable
+BUCKETS = (128, 512, 1024)   # prefill buckets
+CHUNK = 8                    # decode steps per fetch
+REQUESTS = 24
+TIE = 5e-2                   # near-tie: logit gap <= TIE * max|logit|
 SRC = "infinitensor_tpu_torch/kernels/csrc/"
 TPU = "infinitensor_tpu/kernels/"
 
@@ -131,6 +156,7 @@ def main():
     from infinitensor_tpu_torch.kernels import _build
     from infinitensor_tpu_torch.kernels import attention as att
     from infinitensor_tpu_torch.kernels import flash_attention as fa
+    from infinitensor_tpu_torch.kernels import paged_attention as pa
     from infinitensor_tpu_torch.kernels import quant_matmul as qm
     from infinitensor_tpu_torch.models import llama
     from infinitensor_tpu_torch.quant.weight_only import (
@@ -143,7 +169,7 @@ def main():
     print(f"# card: {smi}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}", flush=True)
     report = {"card": smi, "torch": torch.__version__}
-    counters = Counters(qm, att, fa)
+    counters = Counters(qm, att, fa, pa)
     t_phase = phase(1, t_phase)
 
     # 2. build
@@ -202,7 +228,10 @@ def main():
                  ("w_down", layer0["w_down"], cfg.intermediate))
     prompt_mm = (("wqkv", layer0["wqkv"], cfg.dim), decode_mm[0],
                  ("w_gateup", layer0["w_gateup"], cfg.dim), decode_mm[1])
+    # SLOTS rows: the paged engine's decode step, which does not fuse the
+    # norm, so all four matmuls of a layer are qmm_group
     for rows, path, shapes in ((1, "decode", decode_mm),
+                               (SLOTS, "serving paged bf16", prompt_mm),
                                (SHORT, f"prompt {SHORT}", prompt_mm)):
         for label, q, din in shapes:
             x = randn(rows, din)
@@ -223,7 +252,8 @@ def main():
     w = dequantize_weight(q)
     if qm.variant_for(cfg.dim, q) != "w4a8":
         fail("the variant table does not route the lm_head to w4a8")
-    for rows, path in ((1, "decode"), (SHORT, f"prompt {SHORT}")):
+    for rows, path in ((1, "decode"), (SLOTS, "serving paged bf16"),
+                       (SHORT, f"prompt {SHORT}")):
         x = randn(rows, cfg.dim)
         cases.append(dict(
             name="qmm_w4a8",
@@ -291,6 +321,8 @@ def main():
         # the (i, j <= i) pairs this causal input needs, 4 D flops each
         ops=4 * H * (PROMPT * (PROMPT + 1) // 2) * D, kind="bf16"))
 
+    cases += paged_cases(torch, pa, cfg, gen, dev, randn)
+
     for c in cases:
         got, want = c["kernel"](), c["plain"]()
         torch.cuda.synchronize()
@@ -344,17 +376,29 @@ def main():
                 fail(f"{kname} was never launched on the path {path}")
     t_phase = phase(5, t_phase)
 
+    # 6. the 7B serving path, paged against dense
+    paths.update(serving_path(torch, llama, counters, params, cfg, dev,
+                              report, per_token))
+    for path, kname in (("serving paged bf16", "paged_flash_decode"),
+                        ("serving paged int8", "paged_flash_decode_q8")):
+        for k in (kname, "flash_attention", "qmm_group", "qmm_w4a8"):
+            if paths[path].get(k, 0) <= 0:
+                fail(f"{k} was never launched on the path {path}")
+    t_phase = phase(6, t_phase)
+
     per_prompt = report["generate"][f"prompt {SHORT}"]["launches_per_prompt"]
     kernels = []
     for c in cases:
         prefill = c["name"] == "flash_attention" or c["path"] == \
             f"prompt {SHORT}"
+        step = report["serving"][c["path"]]["launches_per_step"] \
+            if c["path"].startswith("serving") else per_token
         kernels.append({
             "name": c["name"], "shape": c["shape"], "route": "cuda",
             "source": c["source"], "replaces": c["replaces"],
             "path": c["path"], "launches": paths[c["path"]].get(c["name"], 0),
             "launches_per_token": None if prefill
-            else per_token.get(c["name"], 0),
+            else step.get(c["name"], 0),
             "launches_per_prompt": per_prompt.get(c["name"], 0) if prefill
             else None,
             "max_abs_err": c["max_abs_err"], "ms": c["ms"],
@@ -371,6 +415,77 @@ def main():
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+def paged_cases(torch, pa, cfg, gen, dev, randn):
+    """Phase 3 rows of the two paged kernels at the serving shape: SLOTS
+    slots, ragged positions around CTX, a shuffled block table over a pool
+    with spare pages, NaN wherever no live row lies (pages for bf16, scale
+    pages for int8)."""
+    B, D, P = SLOTS, cfg.head_dim, PAGE
+    MP = MAX_SEQ // P
+    N = B * MP + 1
+    pos = torch.tensor([CTX - 331, CTX - 64, CTX - 1, CTX, CTX + 1,
+                        CTX + 63, CTX + 200, CTX + 477][:B],
+                       dtype=torch.int32, device=dev)
+    table = (torch.randperm(N - 1, generator=gen, device=dev)[:B * MP] + 1
+             ).reshape(B, MP).to(torch.int32)
+    live_rows = int((pos + 1).sum())
+    live = torch.zeros(N, P, dtype=torch.bool, device=dev)
+    rows = torch.arange(MP * P, device=dev)
+    for b in range(B):
+        s = rows[:int(pos[b]) + 1]
+        live[table[b].long()[s // P], s % P] = True
+    mask = (rows[None] <= pos[:, None])[:, None, None]     # [B, 1, 1, S]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = []
+    for label, H, Hkv in (("mha 32/32", 32, 32), ("gqa 32/8", 32, 8)):
+        rep = H // Hkv
+        dead = ~live[:, None, :].expand(N, Hkv, P)
+        qh = randn(B, H, 1, D)
+        shape = f"{label} {B} slots P{P} pos~{CTX}"
+        kp, vp = (torch.randint(-127, 128, (N, Hkv, P, D), generator=gen,
+                                device=dev, dtype=torch.int8)
+                  for _ in range(2))
+        ks, vs = (torch.rand(N, Hkv, P, generator=gen, device=dev) * 0.015
+                  + 0.005 for _ in range(2))
+        kf, vf = ((pa.gather_pages(x, table).float()
+                   * pa.gather_scale_pages(sc, table)[..., None]).to(
+                       torch.bfloat16).repeat_interleave(rep, 1)
+                  for x, sc in ((kp, ks), (vp, vs)))
+        ks[dead] = float("nan")
+        vs[dead] = float("nan")
+        args = (qh, kp, vp, ks, vs, table, pos)
+        small = 2 * qh.numel() * 2 + table.numel() * 4 + pos.numel() * 4
+        out.append(dict(
+            name="paged_flash_decode_q8", shape=shape,
+            path="serving paged int8",
+            replaces=TPU + "paged_attention.py:187",
+            source=SRC + "paged_flash_decode.cu",
+            kernel=lambda a=args: pa.paged_flash_decode_q8(*a),
+            plain=lambda a=args: pa.paged_decode_q8_plain(*a),
+            library=lambda qh=qh, kf=kf, vf=vf: sdpa(qh, kf, vf,
+                                                     attn_mask=mask),
+            bytes=2 * Hkv * live_rows * (D + 4) + small,
+            ops=4 * H * live_rows * D, kind="bf16"))
+        kb, vb = randn(N, Hkv, P, D), randn(N, Hkv, P, D)
+        kr, vr = (pa.gather_pages(x, table).repeat_interleave(rep, 1)
+                  for x in (kb, vb))
+        kb[dead] = float("nan")
+        vb[dead] = float("nan")
+        args = (qh, kb, vb, table, pos)
+        out.append(dict(
+            name="paged_flash_decode", shape=shape,
+            path="serving paged bf16",
+            replaces=TPU + "paged_attention.py:146",
+            source=SRC + "paged_flash_decode.cu",
+            kernel=lambda a=args: pa.paged_flash_decode(*a),
+            plain=lambda a=args: pa.paged_decode_plain(*a),
+            library=lambda qh=qh, kr=kr, vr=vr: sdpa(qh, kr, vr,
+                                                     attn_mask=mask),
+            bytes=2 * Hkv * live_rows * D * 2 + small,
+            ops=4 * H * live_rows * D, kind="bf16"))
+    return out
 
 
 def build_params(torch, cfg, gen, dev, QuantizedLinear):
@@ -668,6 +783,289 @@ def generate_path(torch, llama, counters, params, cfg, dev, report,
     print(f"# dequant route at {PROMPT} rows: " + json.dumps(route),
           flush=True)
     return paths
+
+
+def serving_requests(np, cfg):
+    """REQUESTS seeded (prompt, max_new_tokens): 64-900 prompt tokens,
+    32-128 new tokens. With eos unset the engine's schedule follows from
+    the lengths alone; this seed's stream makes admission wait for pages
+    and never leaves an idle slot's stale block-table row aimed at a live
+    request's page (stale_row_hazards; ROADMAP.md Queue 3 has the
+    finding), which would make paged and dense tokens differ."""
+    rng = np.random.default_rng(SEED + 4)
+    return [(rng.integers(0, cfg.vocab_size, int(n)).tolist(), int(m))
+            for n, m in zip(rng.integers(64, 901, REQUESTS),
+                            rng.integers(32, 129, REQUESTS))]
+
+
+def device_profile(torch, fn):
+    """Run fn() under torch.profiler and read the card's side of it: the
+    span from the first kernel's start to the last one's end, the share of
+    it in which some kernel ran, and kernel milliseconds by kind. None
+    where the profiler recorded no device event (then: not measured)."""
+    from torch.profiler import ProfilerActivity, profile
+    kinds = (("qmm_group_kernel", "qmm_group"),
+             ("qmm_w4a8_kernel", "qmm_w4a8"),
+             ("flash_decode_kernel", "decode attention"),
+             ("flash_attention_kernel", "flash_attention"))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans, by_kind = [], {}
+    for e in prof.events():
+        if "CUDA" not in str(e.device_type):
+            continue
+        spans.append((e.time_range.start, e.time_range.end))
+        kind = next((k for sub, k in kinds if sub in e.name), "torch ops")
+        by_kind[kind] = by_kind.get(kind, 0.0) \
+            + (e.time_range.end - e.time_range.start) / 1e3
+    if not spans:
+        return None
+    spans.sort()
+    busy, (lo, hi) = 0.0, spans[0]
+    for start, end in spans[1:]:
+        if start > hi:
+            busy, lo, hi = busy + hi - lo, start, end
+        else:
+            hi = max(hi, end)
+    busy += hi - lo
+    span = spans[-1][1] - spans[0][0]
+    return {"span_ms": span / 1e3, "busy_share": busy / span,
+            "idle_share": 1 - busy / span, "kernel_ms": by_kind,
+            "device_events": len(spans)}
+
+
+def stale_row_hazards(eng):
+    """(uid, page index) of every live request one of whose pages is the
+    first entry of an idle slot's block-table row: the idle slot's decode
+    step (pos 0) writes row 0 of that page. Reads the device table."""
+    table = eng.cache["block_table"].cpu().numpy()
+    out = set()
+    for s in range(eng.B):
+        if eng.slots[s] is not None:
+            continue
+        for t, req in enumerate(eng.slots):
+            owned = eng.allocator.owned[t]
+            if req is not None and int(table[s, 0]) in owned:
+                out.add((req.uid, owned.index(int(table[s, 0]))))
+    return out
+
+
+def serving_path(torch, llama, counters, params, cfg, dev, report,
+                 per_token):
+    """Phase 6. Returns the launch counts of the paged engine's drain per
+    pool type; adds one paged decode step's launches to per_token."""
+    import numpy as np
+    from infinitensor_tpu_torch.serving import (PagedServingEngine,
+                                                ServingEngine)
+
+    reqs = serving_requests(np, cfg)
+    n_layers = cfg.n_layers
+    ref_cache = llama.init_kv_cache(cfg, 1, device=dev)
+
+    def tie_gap(prefix, a, b):
+        """The gap between the logits of tokens a and b after `prefix`
+        (one prefill), relative to max|logit|."""
+        toks = torch.tensor([prefix], dtype=torch.int32, device=dev)
+        logits, _ = llama.llama_prefill(params, cfg, toks, ref_cache)
+        last = logits[0, -1].float()
+        return (abs(float(last[a] - last[b])) / float(last.abs().max()))
+
+    def same_up_to_ties(what, got, want, prompts):
+        """Fail unless each got[i] equals want[i], or first differs at a
+        near-tie (the rest of that request then follows another history).
+        Returns [(request, index, gap)] of the near-ties."""
+        ties = []
+        for i, (g, w) in enumerate(zip(got, want)):
+            if g == w:
+                continue
+            j = next((j for j, (x, y) in enumerate(zip(g, w)) if x != y),
+                     None)
+            if j is None:
+                fail(f"{what}: request {i} has {len(g)} vs {len(w)} tokens")
+            gap = tie_gap(prompts[i] + g[:j], g[j], w[j])
+            ties.append((i, j, gap))
+            if gap > TIE:
+                fail(f"{what}: request {i} differs at token {j} "
+                     f"({g[j]} vs {w[j]}), logit gap {gap:.3g} of max|logit|")
+        return ties
+
+    def drain(eng, snap_after=None):
+        """Submit the stream and step to the end; returns (tokens per
+        request, seconds without the snapshot's, steps, the snapshot)."""
+        handles = [eng.submit(p, max_new_tokens=m, uid=i)
+                   for i, (p, m) in enumerate(reqs)]
+        snap, snap_s, n = None, 0.0, 0
+        waited, hazards = [0], set()
+        paged = hasattr(eng, "allocator")
+        admit = eng._admit
+
+        def counted_admit():
+            """Count the admissions that left a request waiting for pages
+            beside a free slot."""
+            admit()
+            waited[0] += bool(eng.pending) and None in eng.slots
+
+        if paged:
+            eng._admit = counted_admit
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        while eng.pending or any(r is not None for r in eng.slots):
+            eng.step()
+            n += 1
+            if paged:
+                hazards |= stale_row_hazards(eng)
+            if n == snap_after:
+                t1 = time.perf_counter()
+                snap = eng.snapshot()
+                snap_s = time.perf_counter() - t1
+            if n > 10_000:
+                fail("the serving engine did not drain")
+        torch.cuda.synchronize()
+        took = time.perf_counter() - t0 - snap_s
+        waited = waited[0]
+        if paged and (not waited or hazards):
+            fail(f"the stream made admission wait in {waited} steps and "
+                 f"aimed stale table rows at live pages {sorted(hazards)}")
+        for h, (_, m) in zip(handles, reqs):
+            if not h.done or len(h.generated) != m:
+                fail(f"request {h.uid}: done={h.done}, "
+                     f"{len(h.generated)} of {m} tokens")
+            if not all(0 <= t < cfg.vocab_size for t in h.generated):
+                fail(f"request {h.uid}: token ids out of range")
+        return ([list(h.generated) for h in handles], took, n, snap,
+                snap_s, waited)
+
+    prompts = [p for p, _ in reqs]
+    n_new = sum(m for _, m in reqs)
+    paths, res = {}, {}
+    for label, kv_quant in (("serving paged bf16", False),
+                            ("serving paged int8", True)):
+        kname = "paged_flash_decode_q8" if kv_quant else "paged_flash_decode"
+        kw = dict(max_slots=SLOTS, prefill_buckets=BUCKETS,
+                  decode_chunk=CHUNK, kv_quant=kv_quant)
+        paged_kw = dict(kw, n_pages=POOL_PAGES, page_size=PAGE)
+        # the main path: the paged engine drains the stream
+        eng = PagedServingEngine(params, cfg, **paged_kw)
+        counters.reset()
+        got, took, n_steps, snap, snap_s, waited = drain(eng, snap_after=6)
+        paths[label] = counters.read()
+        stats = dict(eng.stats)
+        if eng.free_pages != POOL_PAGES - 1 or any(eng.allocator.owned):
+            fail(f"{label}: {eng.free_pages} of {POOL_PAGES - 1} pages free "
+                 "after the drain")
+        if eng._program.graph is None:
+            fail(f"{label}: the decode step was not captured")
+        # warm-up + capture of the one decode graph; one pass per prefill
+        if paths[label].get(kname, 0) != 2 * n_layers:
+            fail(f"{label}: {paths[label].get(kname, 0)} launches of "
+                 f"{kname}, expected {2 * n_layers}")
+        passes = int(stats["prefill_launches"])
+        if paths[label].get("flash_attention", 0) != n_layers * passes:
+            fail(f"{label}: flash_attention launched "
+                 f"{paths[label].get('flash_attention', 0)} times in "
+                 f"{passes} prefill passes")
+        pool_tokens = (POOL_PAGES - 1) * PAGE
+        if pool_tokens >= SLOTS * cfg.max_seq:
+            fail("the pool is not smaller than the dense reservation")
+
+        # decode ms per step with all slots live: the engine's own graph,
+        # 12 pages per slot, positions 640-703
+        table = (torch.arange(SLOTS * 12, device=dev, dtype=torch.int32)
+                 .reshape(SLOTS, 12) + 1)
+        eng.cache["block_table"].zero_()
+        eng.cache["block_table"][:, :12] = table
+        tok0 = torch.zeros(SLOTS, dtype=torch.int32, device=dev)
+        pos0 = torch.full((SLOTS,), 640, dtype=torch.int32, device=dev)
+        samples = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(8):
+                eng._program.run(tok0, pos0, CHUNK)
+            torch.cuda.synchronize()
+            samples.append((time.perf_counter() - t0) / (8 * CHUNK))
+        # the card's side of two chunks (2 * CHUNK replays of the graph)
+        prof = device_profile(torch, lambda: [
+            eng._program.run(tok0, pos0, CHUNK) for _ in range(2)])
+        # one eager step on the same cache: launches per decode step
+        counters.reset()
+        llama.llama_decode_step(params, cfg, tok0, pos0, eng.cache)
+        torch.cuda.synchronize()
+        step_launches = counters.read()
+        per_token[kname] = step_launches.get(kname, 0)
+        if per_token[kname] != n_layers:
+            fail(f"{label}: {per_token[kname]} launches of {kname} in one "
+                 f"decode step, expected {n_layers}")
+        del eng
+
+        # a fresh engine resumes the mid-stream snapshot to the same tokens
+        eng = PagedServingEngine(params, cfg, **paged_kw)
+        eng.restore(snap)
+        handles = {r.uid: r for r in list(eng.pending)
+                   + [r for r in eng.slots if r is not None]}
+        eng.run_to_completion()
+        resumed = sum(1 for uid, h in handles.items()
+                      if list(h.generated) == got[uid])
+        if resumed != len(handles) or eng.free_pages != POOL_PAGES - 1:
+            fail(f"{label}: {resumed} of {len(handles)} resumed requests "
+                 "ended in the tokens of the uninterrupted run")
+        del eng, snap
+
+        # the dense engine on the same stream
+        dense = ServingEngine(params, cfg, **kw)
+        want, dense_s, dense_steps, _, _, _ = drain(dense)
+        dense_stats = dict(dense.stats)
+        del dense
+        ties = same_up_to_ties(f"{label} vs dense engine", got, want,
+                               prompts)
+        # one request against greedy_generate at batch 1
+        i = min(range(REQUESTS), key=lambda i: len(prompts[i]))
+        cache = llama.init_kv_cache(cfg, 1, kv_quant=kv_quant, device=dev)
+        solo, _ = llama.greedy_generate(
+            params, cfg, torch.tensor([prompts[i]], dtype=torch.int32,
+                                      device=dev), reqs[i][1], cache=cache)
+        del cache
+        solo_ties = same_up_to_ties(
+            f"{label} vs greedy_generate", [got[i]], [solo[0].tolist()],
+            [prompts[i]])
+        decode_s = stats["decode_dispatch_s"] + stats["decode_fetch_s"]
+        res[label] = {
+            "requests": REQUESTS, "generated_tokens": n_new,
+            "prompt_tokens": sum(len(p) for p in prompts),
+            "drain_s": took, "generated_tok_s": n_new / took,
+            "engine_steps": n_steps, "steps_admission_waited": waited,
+            "decode_steps": eng_steps(stats),
+            "mean_live_slots": stats["slot_steps_active"]
+            / max(stats["slot_steps_total"] / SLOTS, 1),
+            "decode_ms_per_step_drain": 1e3 * decode_s
+            / max(eng_steps(stats), 1),
+            "decode_ms_per_step_8_live": 1e3 * min(samples),
+            "decode_tok_s_8_live": SLOTS / min(samples),
+            "decode_device_profile_8_live": prof,
+            "stats": stats, "snapshot_s": snap_s,
+            "pool_tokens": pool_tokens,
+            "dense_reservation_tokens": SLOTS * cfg.max_seq,
+            "launches": paths[label], "launches_per_step": step_launches,
+            "dense_engine": {"drain_s": dense_s,
+                             "generated_tok_s": n_new / dense_s,
+                             "engine_steps": dense_steps,
+                             "stats": dense_stats},
+            "equal_to_dense": REQUESTS - len(ties),
+            "near_ties_vs_dense": ties,
+            "greedy_generate_request": i,
+            "near_ties_vs_greedy_generate": solo_ties,
+            "resumed_requests_equal": resumed,
+            "first_tokens": got[0][:8]}
+        print(f"# {label}: " + json.dumps(res[label]), flush=True)
+    report["serving"] = res
+    return paths
+
+
+def eng_steps(stats):
+    """Decode steps the engine ran (every slot steps in each)."""
+    return int(stats["slot_steps_total"]) // SLOTS
 
 
 if __name__ == "__main__":

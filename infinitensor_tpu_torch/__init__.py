@@ -7,7 +7,9 @@ import.
 
 Slices ported so far: Llama-2 INT4/INT8 weight-only prompt -> generate
 over a bf16 or an INT8 KV cache (models/llama.py greedy_generate,
-llama_prefill, llama_decode_step / llama_decode_multi, llama_verify_step).
+llama_prefill, llama_decode_step / llama_decode_multi, llama_verify_step),
+and continuous-batching serving over the dense or the paged KV cache
+(serving/: ServingEngine, PagedServingEngine, speculative_generate).
 """
 
 from infinitensor_tpu_torch.utils.platform import resolve_device
@@ -16,15 +18,21 @@ from infinitensor_tpu_torch.quant.weight_only import (
 )
 from infinitensor_tpu_torch.models.llama import (
     LlamaConfig, greedy_generate, init_kv_cache, init_llama_params,
-    llama_decode_multi, llama_decode_step, llama_prefill, llama_verify_step,
+    init_paged_kv_cache, llama_decode_multi, llama_decode_step, llama_prefill, llama_verify_step,
     quantize_llama_params,
 )
 from infinitensor_tpu_torch.models.convert import params_from_jax_numpy
+from infinitensor_tpu_torch.serving import (
+    ModelDraft, PagedServingEngine, PromptLookupDraft, Request, ServingEngine,
+    speculative_generate,
+)
 
 __all__ = [
     "resolve_device", "INT4_PACK_VERSION", "QuantizedLinear",
     "dequantize_weight", "quantize_weight", "LlamaConfig", "greedy_generate",
     "init_kv_cache", "init_llama_params", "llama_decode_multi",
     "llama_decode_step", "llama_prefill", "llama_verify_step",
-    "quantize_llama_params", "params_from_jax_numpy",
+    "quantize_llama_params", "params_from_jax_numpy", "init_paged_kv_cache",
+    "ServingEngine", "PagedServingEngine", "Request", "speculative_generate",
+    "ModelDraft", "PromptLookupDraft",
 ]

@@ -1,6 +1,6 @@
-// Grouped-query flash decode over a bf16 or an INT8 KV cache, hand-written
-// for Hopper (sm_90a). Python wrappers: kernels/attention.py flash_decode
-// and flash_decode_q8.
+// Grouped-query flash decode over a dense bf16 or INT8 KV cache,
+// hand-written for Hopper (sm_90a); the kernel body is flash_decode.cuh.
+// Python wrappers: kernels/attention.py flash_decode and flash_decode_q8.
 //
 // Replaces the TPU kernels (infinitensor_tpu/kernels/attention.py)
 //   flash_decode     <- _flash_decode_hb_kernel     (:294, via flash_decode :219)
@@ -11,249 +11,11 @@
 // for bf16 (16.8 MB per layer for Llama-2-7B at pos 1024), or
 // 2 * Hkv * (pos + 1) * (D + 4) bytes for int8 rows with their f32 scales
 // (8.66 MB), against ~4 * H * (pos + 1) * D flops, so device-memory
-// bandwidth is the floor.
-//
-// Design: one block per (batch, kv head), 256 threads, holding the
-// rep = H / Hkv query rows of that head. The block reads pos[b] from device
-// memory (no host sync, so the launch can sit in a CUDA graph) and walks
-// the cache in tiles of 256 rows up to pos inclusive, never reading a row
-// past it. Per tile: each thread scores one row, its K bytes read as
-// independent 16-byte loads (eight for an int8 row, sixteen for bf16; many
-// bytes in flight, no shuffles): s = q.k / sqrt(D), with the int8 row's
-// scale folded in as the TPU kernel does (s = q.k * (ks * 1/sqrt(D)));
-// one warp per query row updates the online softmax (m, l) in shared
-// memory and, for int8, turns p into p * vs, as the TPU kernel does before
-// its PV product; then the 8 warps split the tile's V rows, each lane
-// owning 4 columns (a warp reads whole rows), and meet in shared memory
-// once at the end. Output is acc / l in bf16. At batch 1 a 7B layer is 32
-// blocks on 132 SMs: a sequence split across blocks is a later change.
-#include "common.cuh"
+// bandwidth is the floor. At batch 1 a 7B layer is 32 blocks on 132 SMs:
+// a sequence split across blocks is a later change.
+#include "flash_decode.cuh"
 
-#include <type_traits>
-
-namespace {
-
-constexpr int kD = 128;                 // head dim
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kTile = kThreads;         // cache rows per tile
-
-// d[r] += q_r . (cache row), over the 128 elements of one row.
-template <int REP>
-__device__ __forceinline__ void row_dots(const int8_t* kr, const float (*qs)[kD],
-                                         float (&d)[REP]) {
-  uint4 w[kD / 16];
-#pragma unroll
-  for (int j = 0; j < kD / 16; ++j) w[j] = __ldg(reinterpret_cast<const uint4*>(kr) + j);
-#pragma unroll
-  for (int j = 0; j < kD / 16; ++j) {
-    const uint32_t u[4] = {w[j].x, w[j].y, w[j].z, w[j].w};
-#pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      const float k0 = i8_val(u[t], 0), k1 = i8_val(u[t], 8),
-                  k2 = i8_val(u[t], 16), k3 = i8_val(u[t], 24);
-#pragma unroll
-      for (int r = 0; r < REP; ++r) {
-        const float4 qv = reinterpret_cast<const float4*>(qs[r])[j * 4 + t];
-        d[r] += qv.x * k0 + qv.y * k1 + qv.z * k2 + qv.w * k3;
-      }
-    }
-  }
-}
-
-template <int REP>
-__device__ __forceinline__ void row_dots(const __nv_bfloat16* kr, const float (*qs)[kD],
-                                         float (&d)[REP]) {
-  // two halves of 64 elements, eight 16-byte loads each
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    uint4 w[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      w[j] = __ldg(reinterpret_cast<const uint4*>(kr + half * 64) + j);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const uint32_t u[4] = {w[j].x, w[j].y, w[j].z, w[j].w};
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        const float k0 = __uint_as_float(u[t] << 16), k1 = __uint_as_float(u[t] & 0xffff0000u);
-        const int c = half * 64 + j * 8 + t * 2;
-#pragma unroll
-        for (int r = 0; r < REP; ++r) {
-          const float2 qv = *reinterpret_cast<const float2*>(&qs[r][c]);
-          d[r] += qv.x * k0 + qv.y * k1;
-        }
-      }
-    }
-  }
-}
-
-// The 4 cache values of columns 4 * lane .. 4 * lane + 3 of one row.
-__device__ __forceinline__ void lane_cols(const int8_t* vr, int lane, float (&v)[4]) {
-  const uint32_t u = __ldg(reinterpret_cast<const uint32_t*>(vr) + lane);
-  v[0] = i8_val(u, 0);
-  v[1] = i8_val(u, 8);
-  v[2] = i8_val(u, 16);
-  v[3] = i8_val(u, 24);
-}
-
-__device__ __forceinline__ void lane_cols(const __nv_bfloat16* vr, int lane, float (&v)[4]) {
-  const uint2 u = __ldg(reinterpret_cast<const uint2*>(vr) + lane);
-  v[0] = __uint_as_float(u.x << 16);
-  v[1] = __uint_as_float(u.x & 0xffff0000u);
-  v[2] = __uint_as_float(u.y << 16);
-  v[3] = __uint_as_float(u.y & 0xffff0000u);
-}
-
-// T = int8_t: ks / vs are the rows' f32 scales; T = __nv_bfloat16: unused.
-template <int REP, typename T>
-__global__ void __launch_bounds__(kThreads)
-flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
-                    const T* __restrict__ kc, const T* __restrict__ vc,
-                    const float* __restrict__ ks, const float* __restrict__ vs,
-                    const int* __restrict__ pos, __nv_bfloat16* __restrict__ out,
-                    int rep, int Hkv, int S, float scale) {
-  constexpr bool Q8 = std::is_same<T, int8_t>::value;
-  __shared__ __align__(16) float qs[REP][kD];
-  __shared__ float sc[REP][kTile];      // scores, then p (times vs for int8)
-  __shared__ float m_s[REP], l_s[REP], alpha_s[REP];
-  __shared__ float red[kWarps][kD];
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const size_t head = (size_t)b * Hkv + h;
-  const T* kh = kc + head * S * kD;
-  const T* vh = vc + head * S * kD;
-  const float* ksh = Q8 ? ks + head * S : nullptr;
-  const float* vsh = Q8 ? vs + head * S : nullptr;
-  const int n_live = min(max(pos[b], 0), S - 1) + 1;
-
-  for (int i = tid; i < REP * kD; i += kThreads) {
-    const int r = i / kD;
-    qs[r][i % kD] = r < rep ? bf16_to_f32(q[(head * rep + r) * kD + i % kD]) : 0.f;
-  }
-  if (tid < REP) {
-    m_s[tid] = neg_inf();
-    l_s[tid] = 0.f;
-  }
-  float acc[REP][4];
-#pragma unroll
-  for (int r = 0; r < REP; ++r)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[r][j] = 0.f;
-  __syncthreads();
-
-  for (int t0 = 0; t0 < n_live; t0 += kTile) {
-    // scores: thread tid takes row t0 + tid
-    const int s = t0 + tid;
-    if (s < n_live) {
-      float d[REP];
-#pragma unroll
-      for (int r = 0; r < REP; ++r) d[r] = 0.f;
-      row_dots<REP>(kh + (size_t)s * kD, qs, d);
-      const float f = Q8 ? __ldg(ksh + s) * scale : scale;
-#pragma unroll
-      for (int r = 0; r < REP; ++r) sc[r][tid] = d[r] * f;
-    } else {
-#pragma unroll
-      for (int r = 0; r < REP; ++r) sc[r][tid] = neg_inf();
-    }
-    __syncthreads();
-    // online softmax: warp w updates query rows r = w, w + kWarps, ...
-    for (int r = warp; r < REP; r += kWarps) {
-      float v[kTile / 32];
-      float mx = neg_inf();
-#pragma unroll
-      for (int i = 0; i < kTile / 32; ++i) {
-        v[i] = sc[r][lane + 32 * i];
-        mx = fmaxf(mx, v[i]);
-      }
-      const float m_prev = m_s[r];
-      const float m_cur = fmaxf(m_prev, warp_max(mx));
-      float psum = 0.f;
-#pragma unroll
-      for (int i = 0; i < kTile / 32; ++i) {
-        const int idx = lane + 32 * i;
-        const float p = expf(v[i] - m_cur);
-        psum += p;
-        sc[r][idx] = t0 + idx >= n_live ? 0.f : Q8 ? p * __ldg(vsh + t0 + idx) : p;
-      }
-      psum = warp_sum(psum);
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_cur);
-        alpha_s[r] = alpha;
-        l_s[r] = l_s[r] * alpha + psum;
-        m_s[r] = m_cur;
-      }
-    }
-    __syncthreads();
-    // acc (columns lane*4..+3) = acc * alpha + sum over this warp's rows
-    // of p[s] * V[s, :]
-#pragma unroll
-    for (int r = 0; r < REP; ++r) {
-      const float a = alpha_s[r];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[r][j] *= a;
-    }
-    const int n = min(kTile, n_live - t0);
-    const T* vt = vh + (size_t)t0 * kD;
-#pragma unroll 4
-    for (int i = warp; i < n; i += kWarps) {
-      float vv[4];
-      lane_cols(vt + (size_t)i * kD, lane, vv);
-#pragma unroll
-      for (int r = 0; r < REP; ++r) {
-        const float p = sc[r][i];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[r][j] = fmaf(p, vv[j], acc[r][j]);
-      }
-    }
-    __syncthreads();
-  }
-  // the warps' partial accumulators meet in a fixed order
-#pragma unroll
-  for (int r = 0; r < REP; ++r) {
-    if (r >= rep) break;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) red[warp][lane * 4 + j] = acc[r][j];
-    __syncthreads();
-    if (tid < kD) {
-      float sum = 0.f;
-      for (int w = 0; w < kWarps; ++w) sum += red[w][tid];
-      out[(head * rep + r) * kD + tid] = __float2bfloat16_rn(sum / l_s[r]);
-    }
-    __syncthreads();
-  }
-}
-
-template <int REP, typename T>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* ks, const void* vs, const void* pos, void* out,
-                   int B, int rep, int Hkv, int S, float scale,
-                   cudaStream_t stream) {
-  flash_decode_kernel<REP, T><<<dim3(Hkv, B), kThreads, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const float*>(ks),
-      static_cast<const float*>(vs), static_cast<const int*>(pos),
-      static_cast<__nv_bfloat16*>(out), rep, Hkv, S, scale);
-  return cudaGetLastError();
-}
-
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, const void* ks,
-             const void* vs, const void* pos, void* out, int B, int H,
-             int Hkv, int S, int D, float scale, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D != kD || Hkv <= 0 || H % Hkv || S <= 0) return (int)cudaErrorInvalidValue;
-  const int rep = H / Hkv;
-  if (rep <= 1) return (int)launch<1, T>(q, k, v, ks, vs, pos, out, B, rep, Hkv, S, scale, s);
-  if (rep <= 2) return (int)launch<2, T>(q, k, v, ks, vs, pos, out, B, rep, Hkv, S, scale, s);
-  if (rep <= 4) return (int)launch<4, T>(q, k, v, ks, vs, pos, out, B, rep, Hkv, S, scale, s);
-  if (rep <= 8) return (int)launch<8, T>(q, k, v, ks, vs, pos, out, B, rep, Hkv, S, scale, s);
-  if (rep <= 16) return (int)launch<16, T>(q, k, v, ks, vs, pos, out, B, rep, Hkv, S, scale, s);
-  return (int)cudaErrorInvalidValue;
-}
-
-}  // namespace
+using flash_decode_detail::dispatch;
 
 ITT_DEFINE_ERROR_STRING()
 
@@ -265,13 +27,14 @@ ITT_EXPORT int flash_decode_q8(const void* q, const void* k, const void* v,
                                const void* pos, void* out, int B, int H,
                                int Hkv, int S, int D, float scale,
                                void* stream) {
-  return dispatch<int8_t>(q, k, v, ks, vs, pos, out, B, H, Hkv, S, D, scale, stream);
+  return dispatch<int8_t, false>(q, k, v, ks, vs, pos, out, nullptr, 0, B, H, Hkv,
+                                 S, D, scale, stream);
 }
 
 // As flash_decode_q8 over bf16 k/v [B, Hkv, S, D], with no scales.
 ITT_EXPORT int flash_decode(const void* q, const void* k, const void* v,
                             const void* pos, void* out, int B, int H, int Hkv,
                             int S, int D, float scale, void* stream) {
-  return dispatch<__nv_bfloat16>(q, k, v, nullptr, nullptr, pos, out, B, H, Hkv, S,
-                                 D, scale, stream);
+  return dispatch<__nv_bfloat16, false>(q, k, v, nullptr, nullptr, pos, out, nullptr,
+                                        0, B, H, Hkv, S, D, scale, stream);
 }

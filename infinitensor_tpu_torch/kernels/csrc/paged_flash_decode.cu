@@ -1,0 +1,46 @@
+// Paged flash decode: one query token per slot over a pool of fixed-size
+// KV pages reached through a block table, hand-written for Hopper
+// (sm_90a); the kernel body is flash_decode.cuh with PAGED set. Python
+// wrappers: kernels/paged_attention.py paged_flash_decode and
+// paged_flash_decode_q8.
+//
+// Replaces the TPU kernels (infinitensor_tpu/kernels/paged_attention.py)
+//   paged_flash_decode     <- _paged_kernel     (:146, via paged_flash_decode :288)
+//   paged_flash_decode_q8  <- _paged_q8_kernel  (:187, via paged_flash_decode_q8 :234)
+//
+// What bounds it on this card: every live row of every slot is read once,
+// 2 * Hkv * (pos[b] + 1) * D * 2 bytes per slot for bf16 pages, or
+// 2 * Hkv * (pos[b] + 1) * (D + 4) for int8 pages with their f32 scales,
+// against ~4 * H * (pos[b] + 1) * D flops: device-memory bandwidth. The
+// TPU kernel's grid covers every page of the table and still copies the
+// pages past pos; here the block's loop ends at pos[b], so those pages cost
+// nothing and may hold anything. The block table and pos are read on the
+// device, so the launch sits in a CUDA graph; the page size is a runtime
+// argument. With 8 slots a 7B layer is 256 blocks on 132 SMs.
+#include "flash_decode.cuh"
+
+using flash_decode_detail::dispatch;
+
+ITT_DEFINE_ERROR_STRING()
+
+// q bf16 [B, H, 1, D]; k/v pages int8 [N, Hkv, P, D]; ks/vs pages f32
+// [N, Hkv, P]; table int32 [B, MP] (page ids); pos int32 [B] (inclusive);
+// out bf16 [B, H, 1, D]. D must be 128 and rep = H / Hkv at most 16.
+ITT_EXPORT int paged_flash_decode_q8(const void* q, const void* k,
+                                     const void* v, const void* ks,
+                                     const void* vs, const void* table,
+                                     const void* pos, void* out, int B, int H,
+                                     int Hkv, int P, int MP, int D,
+                                     float scale, void* stream) {
+  return dispatch<int8_t, true>(q, k, v, ks, vs, pos, out, table, P, B, H, Hkv,
+                                MP * P, D, scale, stream);
+}
+
+// As paged_flash_decode_q8 over bf16 pages, with no scales.
+ITT_EXPORT int paged_flash_decode(const void* q, const void* k, const void* v,
+                                  const void* table, const void* pos,
+                                  void* out, int B, int H, int Hkv, int P,
+                                  int MP, int D, float scale, void* stream) {
+  return dispatch<__nv_bfloat16, true>(q, k, v, nullptr, nullptr, pos, out, table, P,
+                                       B, H, Hkv, MP * P, D, scale, stream);
+}

@@ -1,4 +1,5 @@
-"""Carry parameters (or a KV cache) from the JAX package into the port.
+"""Carry parameters (or a KV cache, dense or paged) from the JAX package
+into the port.
 
 The input is the JAX pytree after ``jax.tree.map(np.asarray, tree)``:
 dicts, lists, numpy arrays, and quantized leaves (any object with
@@ -41,3 +42,13 @@ def params_from_jax_numpy(tree, device=None):
     if isinstance(tree, (list, tuple)):
         return type(tree)(params_from_jax_numpy(v, device) for v in tree)
     return _tensor(tree, device)
+
+
+def paged_cache_from_jax_numpy(cache, device=None) -> dict:
+    """The JAX package's paged cache dict after
+    ``jax.tree.map(np.asarray, cache)`` ("k_pages", "v_pages", with
+    kv_quant "ks_pages" and "vs_pages", and "block_table") as the port's:
+    the same keys, bit-exact pools, and an int32 block table."""
+    out = params_from_jax_numpy(dict(cache), device)
+    out["block_table"] = out["block_table"].to(torch.int32)
+    return out

@@ -22,8 +22,13 @@ matmuls over a bf16 or an INT8 KV cache:
 llama_verify_step (speculative verification) is plain torch, as the JAX
 package leaves it to XLA. The KV cache is updated IN PLACE (the JAX
 package donates it instead), and a decode step's `pos` stays a device
-int32 tensor, so on the card one step captures into a CUDA graph. Paged
-caches are a later slice.
+int32 tensor, so on the card one step captures into a CUDA graph.
+
+A paged cache ("k_pages", init_paged_kv_cache) sends llama_decode_step
+through _block_decode_paged: rmsnorm and the projections UNFUSED (as the
+JAX package has it: wqkv and w_gateup take quant_matmul, not
+quant_matmul_norm), paged_append(_q8) and paged_flash_decode(_q8) over the
+page pool and the device block table.
 """
 
 from __future__ import annotations
@@ -38,6 +43,9 @@ from infinitensor_tpu_torch.kernels.attention import (
     decode_attention_gqa, decode_attention_gqa_q8, quantize_kv_row,
 )
 from infinitensor_tpu_torch.kernels.flash_attention import flash_attention
+from infinitensor_tpu_torch.kernels.paged_attention import (
+    paged_append, paged_append_q8, paged_flash_decode, paged_flash_decode_q8,
+)
 from infinitensor_tpu_torch.kernels.quant_matmul import quant_matmul_norm
 from infinitensor_tpu_torch.quant.weight_only import (
     QuantizedLinear, concat_qlinear, quantize_weight, wo_matmul,
@@ -183,6 +191,32 @@ def init_kv_cache(cfg: LlamaConfig, batch: int,
             "v_scale": zeros(shape[:-1], torch.float32)}
 
 
+def init_paged_kv_cache(cfg: LlamaConfig, n_pages: int, page_size: int,
+                        max_slots: int, max_seq: Optional[int] = None,
+                        dtype=None, kv_quant: bool = False, *,
+                        device=None) -> dict:
+    """Paged cache dict (serving/paged_cache.py manages the host-side free
+    list): per-layer "k_pages"/"v_pages" [N, Hkv, P, D] and one
+    "block_table" [max_slots, ceil(max_seq / P)] int32. llama_decode_step
+    dispatches on "k_pages"; kv_quant makes the pages int8 and adds per-row
+    f32 scale pages "ks_pages"/"vs_pages" [N, Hkv, P]."""
+    from infinitensor_tpu_torch.serving.paged_cache import init_paged_cache
+    device = resolve_device(device)
+    c = init_paged_cache(cfg.n_layers, n_pages, cfg.n_kv_heads, page_size,
+                         cfg.head_dim, max_slots, max_seq or cfg.max_seq,
+                         torch.int8 if kv_quant else (dtype or cfg.dtype),
+                         device=device)
+    out = {"k_pages": c.k_pages, "v_pages": c.v_pages,
+           "block_table": c.block_table}
+    if kv_quant:
+        sshape = (n_pages, cfg.n_kv_heads, page_size)
+        for key in ("ks_pages", "vs_pages"):
+            out[key] = [torch.zeros(sshape, dtype=torch.float32,
+                                    device=device)
+                        for _ in range(cfg.n_layers)]
+    return out
+
+
 def _qkv(cfg, layer, h, norm_w=None, eps=1e-5):
     """Project to q/k/v, through the fused QKV matrix when present. With
     norm_w given, h is the RAW residual and the rmsnorm fuses into the
@@ -242,6 +276,34 @@ def _block_decode(cfg, layer, x, pos, cache_k, cache_v, k_scale=None,
     attn = out.transpose(1, 2).reshape(B, 1, cfg.dim)
     x = x + _linear(attn, layer["wo"])
     return x + _mlp(cfg, layer, x, layer["mlp_norm"], cfg.norm_eps)
+
+
+def _block_decode_paged(cfg, layer, x, pos, k_pages, v_pages, table,
+                        ks_pages=None, vs_pages=None):
+    """Decode block against a paged KV cache (kernels/paged_attention.py):
+    x [B, 1, dim]; pos [B]; pages [N, Hkv, P, D], appended in place; table
+    [B, MP] int32. With ks_pages/vs_pages the pages are INT8 with per-row
+    f32 scales. The norms are not fused into the matmuls here."""
+    B = x.shape[0]
+    h = rmsnorm(x, layer["attn_norm"], cfg.norm_eps)
+    q, k, v = _qkv(cfg, layer, h)
+    pos2 = pos[:, None]
+    q = rope(q, pos2, cfg.rope_theta)
+    k = rope(k, pos2, cfg.rope_theta)
+    qh = q.transpose(1, 2).contiguous()
+    kh, vh = k.transpose(1, 2), v.transpose(1, 2)
+    if ks_pages is not None:
+        paged_append_q8(k_pages, v_pages, ks_pages, vs_pages, kh, vh, table,
+                        pos)
+        out = paged_flash_decode_q8(qh, k_pages, v_pages, ks_pages, vs_pages,
+                                    table, pos)
+    else:
+        paged_append(k_pages, v_pages, kh, vh, table, pos)
+        out = paged_flash_decode(qh, k_pages, v_pages, table, pos)
+    attn = out.transpose(1, 2).reshape(B, 1, cfg.dim)
+    x = x + _linear(attn, layer["wo"])
+    h2 = rmsnorm(x, layer["mlp_norm"], cfg.norm_eps)
+    return x + _mlp(cfg, layer, h2)
 
 
 def _embed(params, tokens):
@@ -309,11 +371,20 @@ def llama_prefill(params, cfg: LlamaConfig, tokens, cache):
 def llama_decode_step(params, cfg: LlamaConfig, token, pos, cache):
     """One decode step. token [B] int32, pos [B] int32 (write positions).
 
-    Returns (logits [B, vocab], cache); the cache dict (bf16, or INT8
-    with "k_scale") is the one passed in, its tensors updated in place."""
+    Returns (logits [B, vocab], cache); the cache dict (dense bf16, dense
+    INT8 with "k_scale", or paged with "k_pages" and "block_table") is the
+    one passed in, its tensors updated in place."""
     x = _embed(params, token)[:, None, :]
+    paged = "k_pages" in cache
+    q8 = "ks_pages" in cache
     for i, layer in enumerate(params["layers"]):
-        x = _block_decode(cfg, layer, x, pos, *_layer_caches(cache, i))
+        if paged:
+            x = _block_decode_paged(
+                cfg, layer, x, pos, cache["k_pages"][i], cache["v_pages"][i],
+                cache["block_table"], cache["ks_pages"][i] if q8 else None,
+                cache["vs_pages"][i] if q8 else None)
+        else:
+            x = _block_decode(cfg, layer, x, pos, *_layer_caches(cache, i))
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return _linear(x[:, 0], params["lm_head"]), cache
 

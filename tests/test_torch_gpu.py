@@ -7,7 +7,7 @@ jax, run without the repository's conftest (which imports jax):
 Tolerance: within 1e-2 of max|plain| (both sides round f32 sums, taken
 in another order, to bf16; flash_attention also splits P into two bf16
 terms for its tensor-core product); graph and eager decode give equal
-tokens.
+tokens, and so do the paged and the dense serving engine.
 """
 
 import numpy as np
@@ -16,10 +16,12 @@ import torch
 
 from infinitensor_tpu_torch.kernels import attention as att
 from infinitensor_tpu_torch.kernels import flash_attention as fa
+from infinitensor_tpu_torch.kernels import paged_attention as pa
 from infinitensor_tpu_torch.kernels import quant_matmul as qm
 from infinitensor_tpu_torch.models import llama
 from infinitensor_tpu_torch.quant.weight_only import (
     QuantizedLinear, dequantize_weight, quantize_weight)
+from infinitensor_tpu_torch.serving import PagedServingEngine, ServingEngine
 
 pytestmark = pytest.mark.cuda
 TOL = 1e-2
@@ -220,3 +222,110 @@ def test_greedy_generate_graph_equals_eager(dev):
         p = p + 1
     np.testing.assert_array_equal(toks.cpu().numpy(),
                                   torch.stack(want, 1).cpu().numpy())
+
+
+def _paged_case(dev, rep, P, q8, seed):
+    """A shuffled block table over a pool with spare pages; pos ragged,
+    with 0 and both sides of a page boundary. Every page that no live row
+    of a slot lies in, and every row past pos of a slot's last live page,
+    holds NaN (in the scales for int8 pages)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    B, Hkv, D, MP = 5, 2, 128, 6
+    N = B * MP + 3
+    pos = torch.tensor([0, P - 1, P, 3 * P + 5, MP * P - 1],
+                       dtype=torch.int32, device=dev)
+    table = torch.randperm(N - 1, generator=g, device=dev)[:B * MP].add(1) \
+        .reshape(B, MP).to(torch.int32)
+    q = torch.randn(B, Hkv * rep, 1, D, generator=g, device=dev).to(
+        torch.bfloat16)
+    live = torch.zeros(N, P, dtype=torch.bool, device=dev)
+    for b in range(B):
+        for s in range(int(pos[b]) + 1):
+            live[table[b, s // P], s % P] = True
+    dead = ~live[:, None, :].expand(N, Hkv, P)
+    if q8:
+        kp, vp = (torch.randint(-127, 128, (N, Hkv, P, D), generator=g,
+                                device=dev, dtype=torch.int8)
+                  for _ in range(2))
+        ks, vs = (torch.rand(N, Hkv, P, generator=g, device=dev) * 0.015
+                  + 0.005 for _ in range(2))
+        ks[dead] = float("nan")
+        vs[dead] = float("nan")
+        return (q, kp, vp, ks, vs, table, pos)
+    kp, vp = (torch.randn(N, Hkv, P, D, generator=g, device=dev).to(
+        torch.bfloat16) for _ in range(2))
+    kp[dead] = float("nan")
+    vp[dead] = float("nan")
+    return (q, kp, vp, table, pos)
+
+
+@pytest.mark.parametrize("P", [16, 64, 128])
+@pytest.mark.parametrize("rep", [1, 2, 4])
+def test_paged_flash_decode_kernel(dev, rep, P):
+    args = _paged_case(dev, rep, P, False, 100 + rep + P)
+    before = pa.launches["paged_flash_decode"]
+    got = pa.paged_flash_decode(*args)
+    assert pa.launches["paged_flash_decode"] == before + 1
+    assert torch.isfinite(got.float()).all()    # no dead row was read
+    _close(got, pa.paged_decode_plain(*args))
+
+
+@pytest.mark.parametrize("P", [16, 64, 128])
+@pytest.mark.parametrize("rep", [1, 2, 4])
+def test_paged_flash_decode_q8_kernel(dev, rep, P):
+    args = _paged_case(dev, rep, P, True, 200 + rep + P)
+    before = pa.launches["paged_flash_decode_q8"]
+    got = pa.paged_flash_decode_q8(*args)
+    assert pa.launches["paged_flash_decode_q8"] == before + 1
+    assert torch.isfinite(got.float()).all()
+    _close(got, pa.paged_decode_q8_plain(*args))
+
+
+def test_paged_wrappers_raise_instead_of_falling_back(dev):
+    q = torch.zeros(1, 2, 1, 64, dtype=torch.bfloat16, device=dev)
+    kp = torch.zeros(4, 2, 16, 64, dtype=torch.bfloat16, device=dev)
+    table = torch.zeros(1, 2, dtype=torch.int32, device=dev)
+    pos = torch.zeros(1, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        pa.paged_flash_decode(q, kp, kp, table, pos)            # D = 64
+    q = torch.zeros(1, 2, 1, 128, dtype=torch.bfloat16, device=dev)
+    kp = torch.zeros(4, 2, 16, 128, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError):
+        pa.paged_flash_decode(q, kp, kp, table.long(), pos)     # int64 table
+    with pytest.raises(ValueError):
+        pa.paged_flash_decode(q, kp.float(), kp.float(), table, pos)
+    s = torch.zeros(4, 2, 16, device=dev)
+    with pytest.raises(ValueError):
+        pa.paged_flash_decode_q8(q, kp, kp, s, s, table, pos)   # bf16 pages
+
+
+@pytest.mark.parametrize("kv_quant", [False, True])
+def test_paged_engine_under_graph_equals_dense_and_eager(dev, kv_quant):
+    """A tiny engine on the card: the paged engine's captured decode step
+    gives the tokens of the same engine run eagerly and of the dense
+    engine, with a pool that makes admission wait for reclaim."""
+    cfg, params = _small_model(dev)
+    rng = np.random.default_rng(3)
+    reqs = [(rng.integers(1, cfg.vocab_size, int(n)).tolist(), int(m))
+            for n, m in zip(rng.integers(4, 40, 9), rng.integers(5, 20, 9))]
+
+    def drain(eng, eager=False):
+        eng.use_cuda_graph = not eager
+        rs = [eng.submit(p, max_new_tokens=m) for p, m in reqs]
+        eng.run_to_completion()
+        assert (eng._program.graph is None) == eager
+        assert all(r.done for r in rs)
+        return [list(r.generated) for r in rs]
+
+    kw = dict(max_slots=4, prefill_buckets=(16, 48), decode_chunk=4,
+              kv_quant=kv_quant)
+    paged_kw = dict(kw, n_pages=13, page_size=16)
+    kname = "paged_flash_decode_q8" if kv_quant else "paged_flash_decode"
+    before = pa.launches[kname]
+    eng = PagedServingEngine(params, cfg, **paged_kw)
+    got = drain(eng)
+    # warm-up + capture: n_layers launches each, replays launch nothing new
+    assert pa.launches[kname] == before + 2 * cfg.n_layers
+    assert eng.free_pages == 12
+    assert got == drain(PagedServingEngine(params, cfg, **paged_kw), True)
+    assert got == drain(ServingEngine(params, cfg, **kw))

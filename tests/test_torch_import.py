@@ -57,6 +57,13 @@ def test_entry_points_refuse_without_cuda_device(monkeypatch):
         resolve_device("cuda")
     with pytest.raises(RuntimeError):
         init_kv_cache(LlamaConfig.tiny(), 1)
+    from infinitensor_tpu_torch import (PagedServingEngine, ServingEngine,
+                                        init_paged_kv_cache)
+    with pytest.raises(RuntimeError):
+        init_paged_kv_cache(LlamaConfig.tiny(), 4, 8, 2)
+    for engine in (ServingEngine, PagedServingEngine):
+        with pytest.raises(RuntimeError):
+            engine({}, LlamaConfig.tiny())
     assert resolve_device("cpu").type == "cpu"
     # the JAX package's defaults: a bf16 cache unless kv_quant is asked for
     cache = init_kv_cache(LlamaConfig.tiny(), 1, device="cpu")
@@ -68,4 +75,7 @@ def test_entry_points_refuse_without_cuda_device(monkeypatch):
 def test_kernel_sources_shipped():
     csrc = PKG / "kernels" / "csrc"
     assert {p.name for p in csrc.glob("*.cu")} == {
-        "quant_matmul.cu", "flash_decode.cu", "flash_attention.cu"}
+        "quant_matmul.cu", "flash_decode.cu", "paged_flash_decode.cu",
+        "flash_attention.cu"}
+    # the body the dense and the paged decode kernels share
+    assert (csrc / "flash_decode.cuh").exists()

@@ -276,3 +276,48 @@ def test_dense_unfused_prefill_and_step_match_jax():
     _close_logits(lt, lj, ties=True)
     _close_logits(st, sj, ties=True)
     _close_caches(cache_t, cache_j)
+
+
+def test_hf_transformers_parity():
+    """f32 logits of the port's llama_prefill against a randomly
+    initialised HuggingFace LlamaForCausalLM (eager attention, CPU) with
+    the same weights, within rtol/atol 1e-3 as tests/test_llama.py holds
+    the JAX package: both are f32 throughout, so only summation order
+    differs."""
+    transformers = pytest.importorskip("transformers")
+    hf_cfg = transformers.LlamaConfig(
+        vocab_size=128, hidden_size=64, intermediate_size=128,
+        num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+        max_position_embeddings=64, rms_norm_eps=1e-5, rope_theta=10000.0,
+        attn_implementation="eager", tie_word_embeddings=False)
+    torch.manual_seed(0)
+    hf = transformers.LlamaForCausalLM(hf_cfg).eval()
+    cfg = tl.LlamaConfig(vocab_size=128, dim=64, n_layers=2, n_heads=4,
+                         n_kv_heads=2, intermediate=128, max_seq=64,
+                         norm_eps=1e-5, dtype=torch.float32)
+    sd = {k: v.detach().clone() for k, v in hf.state_dict().items()}
+    names = {"wq": "self_attn.q_proj", "wk": "self_attn.k_proj",
+             "wv": "self_attn.v_proj", "wo": "self_attn.o_proj",
+             "w_gate": "mlp.gate_proj", "w_up": "mlp.up_proj",
+             "w_down": "mlp.down_proj"}
+    layers = []
+    for i in range(cfg.n_layers):
+        p = f"model.layers.{i}."
+        layer = {k: sd[p + n + ".weight"].T.contiguous()
+                 for k, n in names.items()}
+        layer["attn_norm"] = sd[p + "input_layernorm.weight"]
+        layer["mlp_norm"] = sd[p + "post_attention_layernorm.weight"]
+        layers.append(layer)
+    params = {"embed": sd["model.embed_tokens.weight"],
+              "final_norm": sd["model.norm.weight"],
+              "lm_head": sd["lm_head.weight"].T.contiguous(),
+              "layers": layers}
+    tokens = np.random.default_rng(0).integers(0, 128, (2, 10))
+    with torch.no_grad():
+        ref = hf(torch.from_numpy(tokens)).logits.numpy()
+    cache = tl.init_kv_cache(cfg, 2, dtype=torch.float32, device="cpu")
+    got, _ = tl.llama_prefill(params, cfg,
+                              torch.from_numpy(tokens.astype(np.int32)),
+                              cache)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-3, atol=1e-3)
