@@ -46,7 +46,33 @@ Phases, each failing with a nonzero exit, each printing its seconds:
      the paged kernel is launched 32 times per decode step and
      flash_attention 32 times per prefill pass. Prints generated tok/s
      over the drain, decode ms per step at 8 live slots and the engine's
-     stats slices.
+     stats slices;
+  7. GPT-2 345M INT8 continuous batching at full width and depth (dim
+     1024, 24 layers, 16 heads of 64, vocab 50257 with the int8 lm_head
+     padded to 51200 columns, max_seq 384), weights made on the card from
+     seed 0: one decode step at 64 slots with the kernels against the same
+     step on the plain versions (CPU), per cache type; then the serving
+     bench (infinitensor_tpu_torch/tools/serving_bench.py: 64 slots,
+     buckets (64, 256), chunks of 64, pipeline depth 2, lookahead, 192
+     requests of 16-249 prompt tokens and 64 new tokens) with the bf16
+     cache and again with the INT8 cache. Every request ends with 64
+     tokens; the tokens with INFINITPU_GPT2_FUSED_LN=1 equal those with
+     =0, and one request's equal a batch-1 prefill + decode loop, each up
+     to a first near-tie whose logit gap is printed; a decode step
+     launches qmm_group_ln 48 times, qmm_group 49 and flash_decode (or
+     flash_decode_q8) 24. Prints generated tok/s over the drain (every
+     sample), ms per step at 64 live slots, the stats slices and a
+     torch.profiler window over one chunk;
+  8. Llama-2-7B INT4 decode with paired scales (one scale row per pair of
+     split-half groups), INT8 KV, bs=1, ctx 1024: one step with the
+     kernels against the plain versions (CPU), 128 graph-replayed steps
+     with tokens equal to an eager loop, tok/s (min of 3) against the
+     copy-rate roofline with the paired byte count; a token launches
+     qmm_slab_norm 64 times, qmm_slab 65, flash_decode_q8 32 and no
+     qmm_group, qmm_group_norm or qmm_w4a8.
+Phase 3 also holds the kernels of phases 7 and 8 against their plain
+versions at those shapes (64 rows of 1024 features; B 64, 16 heads of 64,
+S 384, ragged pos in [16, 313]; the paired 7B matmuls at 1 row).
 The last lines are the kernels JSON, nvidia-smi's name and power limit,
 and {"ok": true, "device": {...}}. A report goes to chiprun_out/.
 """
@@ -77,6 +103,13 @@ BUCKETS = (128, 512, 1024)   # prefill buckets
 CHUNK = 8                    # decode steps per fetch
 REQUESTS = 24
 TIE = 5e-2                   # near-tie: logit gap <= TIE * max|logit|
+G_SLOTS = 64                 # phase 7: tools/serving_bench.py defaults
+G_MAXSEQ = 384
+G_CHUNK = 64
+G_PIPELINE = 2
+G_REPS = 2
+GPT2_BF16, GPT2_INT8 = "gpt2 serving bf16", "gpt2 serving int8"
+PAIRED = "paired decode"
 SRC = "infinitensor_tpu_torch/kernels/csrc/"
 TPU = "infinitensor_tpu/kernels/"
 
@@ -158,7 +191,8 @@ def main():
     from infinitensor_tpu_torch.kernels import flash_attention as fa
     from infinitensor_tpu_torch.kernels import paged_attention as pa
     from infinitensor_tpu_torch.kernels import quant_matmul as qm
-    from infinitensor_tpu_torch.models import llama
+    from infinitensor_tpu_torch.models import gpt2, llama
+    from infinitensor_tpu_torch.tools import serving_bench
     from infinitensor_tpu_torch.quant.weight_only import (
         QuantizedLinear, dequant_matmul, dequantize_weight)
 
@@ -193,6 +227,8 @@ def main():
     gen = torch.Generator(device=dev).manual_seed(SEED)
     cfg = llama.LlamaConfig(max_seq=MAX_SEQ)
     params = build_params(torch, cfg, gen, dev, QuantizedLinear)
+    gcfg = gpt2.GPT2Config(max_seq=G_MAXSEQ)
+    gparams = serving_bench.build_params(gcfg, dev, seed=SEED)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     eps = cfg.norm_eps
     layer0 = params["layers"][0]
@@ -322,6 +358,11 @@ def main():
         ops=4 * H * (PROMPT * (PROMPT + 1) // 2) * D, kind="bf16"))
 
     cases += paged_cases(torch, pa, cfg, gen, dev, randn)
+    cases += gpt2_cases(torch, qm, att, gcfg, gparams, gen, dev, randn,
+                        dequantize_weight)
+    cases += paired_cases(torch, qm, cfg, build_params(
+        torch, dataclasses.replace(cfg, n_layers=1), gen, dev,
+        QuantizedLinear, paired=True), randn, dequantize_weight)
 
     for c in cases:
         got, want = c["kernel"](), c["plain"]()
@@ -385,6 +426,29 @@ def main():
             if paths[path].get(k, 0) <= 0:
                 fail(f"{k} was never launched on the path {path}")
     t_phase = phase(6, t_phase)
+    del params
+
+    # 7. GPT-2 345M INT8 continuous batching
+    steps = {}
+    paths.update(gpt2_path(torch, gpt2, serving_bench, counters, gparams,
+                           gcfg, dev, report, steps))
+    for path, kname in ((GPT2_BF16, "flash_decode"),
+                        (GPT2_INT8, "flash_decode_q8")):
+        for k in (kname, "qmm_group_ln", "qmm_group"):
+            if paths[path].get(k, 0) <= 0:
+                fail(f"{k} was never launched on the path {path}")
+    del gparams
+    t_phase = phase(7, t_phase)
+
+    # 8. the 7B decode path with paired scales
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    pparams = build_params(torch, cfg, gen, dev, QuantizedLinear, paired=True)
+    paths[PAIRED] = paired_path(torch, llama, counters, pparams, cfg, dev,
+                                report, steps)
+    for kname in ("qmm_slab_norm", "qmm_slab", "flash_decode_q8"):
+        if paths[PAIRED].get(kname, 0) <= 0:
+            fail(f"{kname} was never launched on the path {PAIRED}")
+    t_phase = phase(8, t_phase)
 
     per_prompt = report["generate"][f"prompt {SHORT}"]["launches_per_prompt"]
     kernels = []
@@ -392,7 +456,8 @@ def main():
         prefill = c["name"] == "flash_attention" or c["path"] == \
             f"prompt {SHORT}"
         step = report["serving"][c["path"]]["launches_per_step"] \
-            if c["path"].startswith("serving") else per_token
+            if c["path"].startswith("serving") \
+            else steps.get(c["path"], per_token)
         kernels.append({
             "name": c["name"], "shape": c["shape"], "route": "cuda",
             "source": c["source"], "replaces": c["replaces"],
@@ -488,18 +553,21 @@ def paged_cases(torch, pa, cfg, gen, dev, randn):
     return out
 
 
-def build_params(torch, cfg, gen, dev, QuantizedLinear):
+def build_params(torch, cfg, gen, dev, QuantizedLinear, paired=False):
     """Random INT4 weights on the card, as bench.py:24-97 builds them:
     codes uniform in [-127, 126], bf16 scales uniform in [0.001, 0.02],
     group 128, w_gateup padded to a multiple of 2048 columns (22528),
-    a 0.02-scaled bf16 embedding, unit norms."""
+    a 0.02-scaled bf16 embedding, unit norms. paired: one scale row per
+    pair of split-half groups (din / 256 rows), the layout of
+    quantize_weight(paired=True)."""
     def qlin(din, dout, pad_to=0, group=128):
         logical = 0
         if pad_to and dout % pad_to:
             logical, dout = dout, dout + pad_to - dout % pad_to
         qw = torch.randint(-127, 127, (din // 2, dout), generator=gen,
                            device=dev, dtype=torch.int8)
-        sc = (torch.rand(din // group, dout, generator=gen, device=dev)
+        rows = din // (2 * group) if paired else din // group
+        sc = (torch.rand(rows, dout, generator=gen, device=dev)
               * 0.019 + 0.001).to(torch.bfloat16)
         return QuantizedLinear(qw, sc, 4, group, logical)
 
@@ -631,13 +699,14 @@ def decode_path(torch, llama, counters, params, cfg, dev, report):
     return per_token
 
 
-def weight_bytes(cfg):
-    """INT4 weights + bf16 group-128 scales read by one decode step."""
+def weight_bytes(cfg, paired=False):
+    """INT4 weights + bf16 group-128 scales read by one decode step (a
+    paired weight has one scale per 256 weights of a column)."""
     kvd = cfg.n_kv_heads * cfg.head_dim
     per_layer = (cfg.dim * cfg.dim * 2 + cfg.dim * kvd * 2
                  + cfg.dim * cfg.intermediate * 3)
     total = per_layer * cfg.n_layers + cfg.dim * cfg.vocab_size
-    return total * 4 / 8 + total / 128 * 2
+    return total * 4 / 8 + total / (256 if paired else 128) * 2
 
 
 def time_prefill(torch, llama, params, cfg, prompt, cache, reps=3):
@@ -804,7 +873,7 @@ def device_profile(torch, fn):
     it in which some kernel ran, and kernel milliseconds by kind. None
     where the profiler recorded no device event (then: not measured)."""
     from torch.profiler import ProfilerActivity, profile
-    kinds = (("qmm_group_kernel", "qmm_group"),
+    kinds = (("qmm_group_kernel", "qmm_group*"),
              ("qmm_w4a8_kernel", "qmm_w4a8"),
              ("flash_decode_kernel", "decode attention"),
              ("flash_attention_kernel", "flash_attention"))
@@ -817,7 +886,8 @@ def device_profile(torch, fn):
         if "CUDA" not in str(e.device_type):
             continue
         spans.append((e.time_range.start, e.time_range.end))
-        kind = next((k for sub, k in kinds if sub in e.name), "torch ops")
+        kind = group_kernel_kind(e.name) or next(
+            (k for sub, k in kinds if sub in e.name), "torch ops")
         by_kind[kind] = by_kind.get(kind, 0.0) \
             + (e.time_range.end - e.time_range.start) / 1e3
     if not spans:
@@ -836,6 +906,23 @@ def device_profile(torch, fn):
             "device_events": len(spans)}
 
 
+def group_kernel_kind(name):
+    """Which wrapper a qmm_group_kernel<BITS, R, PRO, PAIRED> instantiation
+    serves, from its demangled name; None for any other kernel or a name
+    whose template arguments do not parse."""
+    import re
+    m = re.search(r"qmm_group_kernel<\D*\d+, \D*\d+, \D*(\d+), "
+                  r"(?:\(bool\))?(true|false|0|1)>", name)
+    if not m:
+        return None
+    pro, paired = int(m.group(1)), m.group(2) in ("true", "1")
+    if pro == 2:
+        return "qmm_group_ln"
+    if paired:
+        return "qmm_slab_norm" if pro else "qmm_slab"
+    return "qmm_group_norm" if pro else "qmm_group"
+
+
 def stale_row_hazards(eng):
     """(uid, page index) of every live request one of whose pages is the
     first entry of an idle slot's block-table row: the idle slot's decode
@@ -850,6 +937,31 @@ def stale_row_hazards(eng):
             if req is not None and int(table[s, 0]) in owned:
                 out.add((req.uid, owned.index(int(table[s, 0]))))
     return out
+
+
+def same_up_to_ties(what, got, want, prompts, tie_gap):
+    """Fail unless each got[i] equals want[i], or first differs at a
+    near-tie (the rest of that request then follows another history):
+    tie_gap(prefix, a, b), the gap between the logits of tokens a and b
+    after `prefix` relative to max|logit|, is at most TIE. Returns
+    [(index, token index, gap)] of the near-ties."""
+    ties = []
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g == w:
+            continue
+        j = next((j for j, (x, y) in enumerate(zip(g, w)) if x != y), None)
+        if j is None:
+            fail(f"{what}: request {i} has {len(g)} vs {len(w)} tokens")
+        gap = tie_gap(prompts[i] + g[:j], g[j], w[j])
+        ties.append((i, j, gap))
+        if gap > TIE:
+            fail(f"{what}: request {i} differs at token {j} "
+                 f"({g[j]} vs {w[j]}), logit gap {gap:.3g} of max|logit|")
+    worst = max((t[2] for t in ties), default=0.0)
+    print(f"# {what}: {len(got) - len(ties)} of {len(got)} equal, "
+          f"{len(ties)} part at a near-tie (largest gap {worst:.3g} of "
+          "max|logit|)", flush=True)
+    return ties
 
 
 def serving_path(torch, llama, counters, params, cfg, dev, report,
@@ -871,25 +983,6 @@ def serving_path(torch, llama, counters, params, cfg, dev, report,
         logits, _ = llama.llama_prefill(params, cfg, toks, ref_cache)
         last = logits[0, -1].float()
         return (abs(float(last[a] - last[b])) / float(last.abs().max()))
-
-    def same_up_to_ties(what, got, want, prompts):
-        """Fail unless each got[i] equals want[i], or first differs at a
-        near-tie (the rest of that request then follows another history).
-        Returns [(request, index, gap)] of the near-ties."""
-        ties = []
-        for i, (g, w) in enumerate(zip(got, want)):
-            if g == w:
-                continue
-            j = next((j for j, (x, y) in enumerate(zip(g, w)) if x != y),
-                     None)
-            if j is None:
-                fail(f"{what}: request {i} has {len(g)} vs {len(w)} tokens")
-            gap = tie_gap(prompts[i] + g[:j], g[j], w[j])
-            ties.append((i, j, gap))
-            if gap > TIE:
-                fail(f"{what}: request {i} differs at token {j} "
-                     f"({g[j]} vs {w[j]}), logit gap {gap:.3g} of max|logit|")
-        return ties
 
     def drain(eng, snap_after=None):
         """Submit the stream and step to the end; returns (tokens per
@@ -1019,7 +1112,7 @@ def serving_path(torch, llama, counters, params, cfg, dev, report,
         dense_stats = dict(dense.stats)
         del dense
         ties = same_up_to_ties(f"{label} vs dense engine", got, want,
-                               prompts)
+                               prompts, tie_gap)
         # one request against greedy_generate at batch 1
         i = min(range(REQUESTS), key=lambda i: len(prompts[i]))
         cache = llama.init_kv_cache(cfg, 1, kv_quant=kv_quant, device=dev)
@@ -1029,7 +1122,7 @@ def serving_path(torch, llama, counters, params, cfg, dev, report,
         del cache
         solo_ties = same_up_to_ties(
             f"{label} vs greedy_generate", [got[i]], [solo[0].tolist()],
-            [prompts[i]])
+            [prompts[i]], tie_gap)
         decode_s = stats["decode_dispatch_s"] + stats["decode_fetch_s"]
         res[label] = {
             "requests": REQUESTS, "generated_tokens": n_new,
@@ -1066,6 +1159,392 @@ def serving_path(torch, llama, counters, params, cfg, dev, report,
 def eng_steps(stats):
     """Decode steps the engine ran (every slot steps in each)."""
     return int(stats["slot_steps_total"]) // SLOTS
+
+
+def gpt2_cases(torch, qm, att, gcfg, gparams, gen, dev, randn,
+               dequantize_weight):
+    """Phase 3 rows at the GPT-2 345M serving shapes: qmm_group_ln for
+    w_qkv and w_up at G_SLOTS rows (and w_qkv at 1 row), qmm_group int8 for
+    w_o, w_down and the padded lm_head at G_SLOTS rows, and both dense
+    decode-attention kernels at B G_SLOTS, 16 heads of 64, S G_MAXSEQ with
+    ragged pos in [16, 313] and NaN (in the scales for int8) past pos."""
+    layer0, eps, dim = gparams["layers"][0], gcfg.layer_norm_eps, gcfg.dim
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    def vec(scale, shift):
+        return (torch.randn(dim, generator=gen, device=dev) * scale
+                + shift).to(torch.bfloat16)
+
+    out = []
+    for label, rows, wkey, bkey in (("w_qkv", G_SLOTS, "w_qkv", "b_qkv"),
+                                    ("w_up", G_SLOTS, "w_up", "b_up"),
+                                    ("w_qkv", 1, "w_qkv", "b_qkv")):
+        q = layer0[wkey]
+        x = randn(rows, dim)
+        g, b = vec(0.1, 1.0), vec(0.1, 0.0)
+        bias = (torch.randn(q.out_features, generator=gen, device=dev)
+                * 0.1).to(torch.bfloat16)
+        xn, w = qm.layer_norm(x, g, b, eps), dequantize_weight(q)
+        out.append(dict(
+            name="qmm_group_ln", shape=f"{label} {rows} rows",
+            path=GPT2_BF16, replaces=TPU + "quant_matmul.py:300",
+            source=SRC + "quant_matmul_fused.cu",
+            kernel=lambda x=x, g=g, b=b, q=q, bias=bias:
+                qm.quant_matmul_ln(x, g, b, q, bias=bias, eps=eps),
+            plain=lambda x=x, g=g, b=b, q=q, bias=bias:
+                qm.qmm_group_ln_plain(x, g, b, q, bias, eps)[
+                    :, :q.out_features],
+            library=lambda xn=xn, w=w, bias=bias: torch.addmm(bias, xn, w),
+            bytes=nbytes(x, g, b, q.qweight, q.scales, bias)
+            + 2 * rows * q.out_physical,
+            ops=2 * rows * dim * q.out_physical, kind="bf16"))
+    for label, q in (("w_o", layer0["w_o"]), ("w_down", layer0["w_down"]),
+                     ("lm_head", gparams["lm_head_q"])):
+        x = randn(G_SLOTS, q.in_features)
+        w = dequantize_weight(q)
+        out.append(dict(
+            name="qmm_group", shape=f"gpt2 {label} int8 {G_SLOTS} rows",
+            path=GPT2_BF16, replaces=TPU + "quant_matmul.py:100",
+            source=SRC + "quant_matmul.cu",
+            kernel=lambda x=x, q=q: qm.quant_matmul(x, q),
+            plain=lambda x=x, q=q: qm.qmm_group_plain(x, q)[
+                :, :q.out_features],
+            library=lambda x=x, w=w: torch.matmul(x, w),
+            bytes=nbytes(x, q.qweight, q.scales)
+            + 2 * G_SLOTS * q.out_physical,
+            ops=2 * G_SLOTS * q.in_features * q.out_physical, kind="bf16"))
+
+    B, H, S, D = G_SLOTS, gcfg.n_heads, G_MAXSEQ, gcfg.head_dim
+    pos = torch.randint(16, 314, (B,), generator=gen, device=dev).to(
+        torch.int32)
+    pos[0], pos[-1] = 16, 313
+    live_rows = int((pos + 1).sum())
+    cols = torch.arange(S, device=dev)
+    mask = (cols[None] <= pos[:, None])[:, None, None]      # [B, 1, 1, S]
+    dead = ~mask[:, 0].expand(B, H, S)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qh = randn(B, H, 1, D)
+    small = 2 * nbytes(qh) + nbytes(pos)
+    shape = f"{B}x{H}x{S}x{D} pos {int(pos.min())}-{int(pos.max())}"
+    kc, vc = (torch.randint(-127, 128, (B, H, S, D), generator=gen,
+                            device=dev, dtype=torch.int8) for _ in range(2))
+    ks, vs = (torch.rand(B, H, S, generator=gen, device=dev) * 0.015 + 0.005
+              for _ in range(2))
+    kf, vf = ((c.float() * sc[..., None]).to(torch.bfloat16)
+              for c, sc in ((kc, ks), (vc, vs)))
+    # the kernel gets NaN past pos; the plain version (which multiplies
+    # every row by its probability, 0 there) the clean tensors
+    clean = (qh, kc, vc, ks.clone(), vs.clone(), pos)
+    ks[dead] = float("nan")
+    vs[dead] = float("nan")
+    args = (qh, kc, vc, ks, vs, pos)
+    out.append(dict(
+        name="flash_decode_q8", shape=shape, path=GPT2_INT8,
+        replaces=TPU + "attention.py:345", source=SRC + "flash_decode.cu",
+        kernel=lambda a=args: att.flash_decode_q8(*a),
+        plain=lambda a=clean: att.flash_decode_q8_plain(*a),
+        library=lambda kf=kf, vf=vf: sdpa(qh, kf, vf, attn_mask=mask),
+        bytes=2 * H * live_rows * (D + 4) + small,
+        ops=4 * H * live_rows * D, kind="bf16"))
+    kb, vb = randn(B, H, S, D), randn(B, H, S, D)
+    kr, vr = kb.clone(), vb.clone()
+    kb[dead] = float("nan")
+    vb[dead] = float("nan")
+    args = (qh, kb, vb, pos)
+    out.append(dict(
+        name="flash_decode", shape=shape, path=GPT2_BF16,
+        replaces=TPU + "attention.py:294", source=SRC + "flash_decode.cu",
+        kernel=lambda a=args: att.flash_decode(*a),
+        plain=lambda a=(qh, kr, vr, pos): att.flash_decode_plain(*a),
+        library=lambda kr=kr, vr=vr: sdpa(qh, kr, vr, attn_mask=mask),
+        bytes=2 * H * live_rows * D * 2 + small,
+        ops=4 * H * live_rows * D, kind="bf16"))
+    return out
+
+
+def paired_cases(torch, qm, cfg, pparams, randn, dequantize_weight):
+    """Phase 3 rows of the slab kernels at the 7B decode shapes (1 row):
+    qmm_slab_norm for wqkv and w_gateup, qmm_slab for wo, w_down and the
+    lm_head; pparams is a one-layer paired build."""
+    layer0, eps = pparams["layers"][0], cfg.norm_eps
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    out = []
+    for label, q in (("wqkv", layer0["wqkv"]),
+                     ("w_gateup", layer0["w_gateup"])):
+        if not q.paired:
+            fail(f"{label}: the paired build is not paired")
+        x = randn(1, cfg.dim)
+        nw = (randn(cfg.dim).float() * 0.1 + 1.0).to(torch.bfloat16)
+        xn, w = qm.rmsnorm_bf16(x, nw, eps), dequantize_weight(q)
+        out.append(dict(
+            name="qmm_slab_norm", shape=f"paired {label}", path=PAIRED,
+            replaces=TPU + "quant_matmul.py:208",
+            source=SRC + "quant_matmul_fused.cu",
+            kernel=lambda x=x, nw=nw, q=q: qm.quant_matmul_norm(x, nw, q,
+                                                                eps),
+            plain=lambda x=x, nw=nw, q=q: qm.qmm_slab_plain(
+                qm.rmsnorm_bf16(x, nw, eps), q)[:, :q.out_features],
+            library=lambda xn=xn, w=w: torch.matmul(xn, w),
+            bytes=nbytes(x, nw, q.qweight, q.scales) + 2 * q.out_physical,
+            ops=2 * cfg.dim * q.out_physical, kind="bf16"))
+    for label, q in (("wo", layer0["wo"]), ("w_down", layer0["w_down"]),
+                     ("lm_head", pparams["lm_head"])):
+        x = randn(1, q.in_features)
+        w = dequantize_weight(q)
+        out.append(dict(
+            name="qmm_slab", shape=f"paired {label}", path=PAIRED,
+            replaces=TPU + "quant_matmul.py:203",
+            source=SRC + "quant_matmul_fused.cu",
+            kernel=lambda x=x, q=q: qm.quant_matmul(x, q),
+            plain=lambda x=x, q=q: qm.qmm_slab_plain(x, q)[
+                :, :q.out_features],
+            library=lambda x=x, w=w: torch.matmul(x, w),
+            bytes=nbytes(x, q.qweight, q.scales) + 2 * q.out_physical,
+            ops=2 * q.in_features * q.out_physical, kind="bf16"))
+    return out
+
+
+def compare_logits_rows(torch, what, got, want, report):
+    """compare_logits for a batch [B, vocab]: the worst row's relative
+    error <= 5e-2, and every row's top-1 equal or a near-tie within twice
+    the measured error."""
+    lk, lp = got.float().cpu(), want.float().cpu()
+    if lk.shape != lp.shape or not torch.isfinite(lk).all():
+        fail(f"{what}: shape {tuple(lk.shape)} vs {tuple(lp.shape)} or "
+             "non-finite logits")
+    err = (lk - lp).abs().max().item()
+    rel = err / lp.abs().max().item()
+    top_k, top_p = lk.argmax(-1), lp.argmax(-1)
+    gap = lp.gather(1, top_p[:, None]) - lp.gather(1, top_k[:, None])
+    differ = int((top_k != top_p).sum())
+    print(f"# {what}: rel logit err {rel:.3g}, top-1 differs in {differ} of "
+          f"{lk.shape[0]} rows (largest gap {gap.max().item():.3g})",
+          flush=True)
+    report[what] = {"rel_logit_err": rel, "top1_differ": differ,
+                    "largest_gap": gap.max().item()}
+    if rel > 5e-2 or bool((gap > 2 * err).any()):
+        fail(f"{what}: rel {rel}, top-1 gap {gap.max().item()} vs err {err}")
+
+
+def gpt2_path(torch, gpt2, sb, counters, gparams, gcfg, dev, report, steps):
+    """Phase 7. Returns the launch counts of the serving bench's drain per
+    cache type; steps[path] gets one decode step's launches."""
+    B = G_SLOTS
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    prompt = torch.randint(1, 50000, (B, 256), generator=gen, device=dev,
+                           dtype=torch.int32)
+    token = torch.randint(1, 50000, (B,), generator=gen, device=dev,
+                          dtype=torch.int32)
+    pos = torch.randint(16, 256, (B,), generator=gen, device=dev).to(
+        torch.int32)
+    cpu_params = to_cpu(gparams)
+    prompts = sb.workload(B, seed=SEED)
+    n_new = sb.NEW_TOKENS * len(prompts)
+    ref_cache = gpt2.init_gpt2_cache(gcfg, 1, device=dev)
+
+    def tie_gap(prefix, a, b):
+        toks = torch.tensor([prefix], dtype=torch.int32, device=dev)
+        logits, _ = gpt2.gpt2_prefill(gparams, gcfg, toks, ref_cache)
+        last = logits[0, -1]
+        return abs(float(last[a] - last[b])) / float(last.abs().max())
+
+    paths, res = {}, {}
+    for label, kv_int8 in ((GPT2_BF16, False), (GPT2_INT8, True)):
+        kname = "flash_decode_q8" if kv_int8 else "flash_decode"
+        # one decode step at 64 slots after a 256-token prefill: kernels
+        # on the card against the plain versions on the CPU
+        cache = gpt2.init_gpt2_cache(gcfg, B, kv_quant=kv_int8, device=dev)
+        gpt2.gpt2_prefill(gparams, gcfg, prompt, cache)
+        cpu_cache = to_cpu(cache)
+        counters.reset()
+        logits, _ = gpt2.gpt2_decode_step(gparams, gcfg, token, pos, cache)
+        torch.cuda.synchronize()
+        steps[label] = counters.read()
+        want_step = {"qmm_group_ln": 2 * gcfg.n_layers,
+                     "qmm_group": 2 * gcfg.n_layers + 1,
+                     kname: gcfg.n_layers}
+        if steps[label] != want_step:
+            fail(f"{label}: a decode step launched {steps[label]}, expected "
+                 f"{want_step}")
+        if logits.shape != (B, gcfg.vocab_size) or \
+                logits.dtype != torch.float32:
+            fail(f"{label}: logits {tuple(logits.shape)} {logits.dtype}")
+        t0 = time.perf_counter()
+        ref, _ = gpt2.gpt2_decode_step(cpu_params, gcfg, token.cpu(),
+                                       pos.cpu(), cpu_cache)
+        print(f"# GPT-2 step at {B} slots on the plain versions (CPU): "
+              f"{time.perf_counter() - t0:.1f}s")
+        compare_logits_rows(torch, f"{label}: 345M step at {B} slots, "
+                            "kernels vs plain", logits, ref, report)
+        del cache, cpu_cache, logits, ref
+
+        # the main path: the serving bench drains its stream
+        os.environ["INFINITPU_GPT2_FUSED_LN"] = "1"
+        counters.reset()
+        result, got, eng = sb.serve(
+            gparams, gcfg, slots=B, chunk=G_CHUNK, pipeline=G_PIPELINE,
+            kv_int8=kv_int8, lookahead=True, reps=G_REPS, prompts=prompts,
+            device=dev)
+        paths[label] = counters.read()
+        if not result["all_done"] or len(got) != len(prompts):
+            fail(f"{label}: not every request ended with "
+                 f"{sb.NEW_TOKENS} tokens")
+        if not all(0 <= t < gcfg.vocab_size for g in got for t in g):
+            fail(f"{label}: token ids out of range")
+        if eng._program.graph is None:
+            fail(f"{label}: the decode step was not captured")
+
+        # ms per step with all 64 slots live: the engine's own graph
+        tok0 = torch.ones(B, dtype=torch.int32, device=dev)
+        pos0 = torch.full((B,), 200, dtype=torch.int32, device=dev)
+        samples = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng._program.run(tok0, pos0, G_CHUNK)
+            torch.cuda.synchronize()
+            samples.append((time.perf_counter() - t0) / G_CHUNK)
+        prof = device_profile(
+            torch, lambda: eng._program.run(tok0, pos0, G_CHUNK))
+        del eng
+
+        # the same stream with the LayerNorm gate off
+        os.environ["INFINITPU_GPT2_FUSED_LN"] = "0"
+        counters.reset()
+        off_result, off, eng = sb.serve(
+            gparams, gcfg, slots=B, chunk=G_CHUNK, pipeline=G_PIPELINE,
+            kv_int8=kv_int8, lookahead=True, reps=1, prompts=prompts,
+            device=dev)
+        off_launches = counters.read()
+        os.environ["INFINITPU_GPT2_FUSED_LN"] = "1"
+        del eng
+        if off_launches.get("qmm_group_ln", 0) or not off_result["all_done"]:
+            fail(f"{label}: with the gate off qmm_group_ln was launched "
+                 f"{off_launches.get('qmm_group_ln', 0)} times")
+        ties = same_up_to_ties(f"{label}: fused LayerNorm on vs off", got,
+                               off, prompts, tie_gap)
+
+        # one request against a batch-1 prefill + decode loop
+        i = min(range(len(prompts)), key=lambda i: len(prompts[i]))
+        cache = gpt2.init_gpt2_cache(gcfg, 1, kv_quant=kv_int8, device=dev)
+        lg, _ = gpt2.gpt2_prefill(
+            gparams, gcfg, torch.tensor([prompts[i]], dtype=torch.int32,
+                                        device=dev), cache)
+        tok = torch.argmax(lg[:, -1], -1).to(torch.int32)
+        p1 = torch.full((1,), len(prompts[i]), dtype=torch.int32, device=dev)
+        solo = [int(tok)]
+        for _ in range(sb.NEW_TOKENS - 1):
+            lg, _ = gpt2.gpt2_decode_step(gparams, gcfg, tok, p1, cache)
+            tok = torch.argmax(lg, -1).to(torch.int32)
+            solo.append(int(tok))
+            p1 = p1 + 1
+        del cache
+        solo_ties = same_up_to_ties(f"{label}: request {i} vs batch-1 loop",
+                                    [got[i]], [solo], [prompts[i]], tie_gap)
+
+        stats = result["stats"]
+        res[label] = dict(
+            result, generated_tokens=n_new,
+            prompt_tokens=sum(len(p) for p in prompts),
+            mean_live_slots=stats["slot_steps_active"]
+            / max(stats["slot_steps_total"] / B, 1),
+            decode_ms_per_step_64_live=1e3 * min(samples),
+            decode_tok_s_64_live=B / min(samples),
+            decode_device_profile_64_live=prof,
+            launches=paths[label], launches_per_step=steps[label],
+            fused_ln_off={"tok_s": off_result["value"],
+                          "launches": off_launches,
+                          "equal": len(got) - len(ties), "near_ties": ties},
+            batch1_request=i, near_ties_vs_batch1=solo_ties,
+            first_tokens=got[0][:8])
+        print(f"# {label}: " + json.dumps(res[label]), flush=True)
+    report["gpt2_serving"] = res
+    return paths
+
+
+def paired_path(torch, llama, counters, pparams, cfg, dev, report, steps):
+    """Phase 8: decode_path's checks on the paired-scale weights. Returns
+    the launch counts of llama_decode_multi; steps[PAIRED] gets one decode
+    step's."""
+    token = torch.zeros(1, dtype=torch.int32, device=dev)
+    pos = torch.full((1,), CTX, dtype=torch.int32, device=dev)
+    cache = llama.init_kv_cache(cfg, 1, kv_quant=True, device=dev)
+
+    counters.reset()
+    logits, _ = llama.llama_decode_step(pparams, cfg, token, pos, cache)
+    torch.cuda.synchronize()
+    steps[PAIRED] = counters.read()
+    want_step = {"qmm_slab_norm": 2 * cfg.n_layers,
+                 "qmm_slab": 2 * cfg.n_layers + 1,
+                 "flash_decode_q8": cfg.n_layers}
+    if steps[PAIRED] != want_step:
+        fail(f"{PAIRED}: a decode step launched {steps[PAIRED]}, expected "
+             f"{want_step}")
+    t0 = time.perf_counter()
+    ref, _ = llama.llama_decode_step(
+        to_cpu(pparams), cfg, token.cpu(), pos.cpu(),
+        llama.init_kv_cache(cfg, 1, kv_quant=True, device="cpu"))
+    print(f"# paired 7B step on the plain versions (CPU): "
+          f"{time.perf_counter() - t0:.1f}s")
+    compare_logits(torch, "paired 7B step, kernels vs plain", logits[0],
+                   ref[0], report)
+
+    # the path: llama_decode_multi under a CUDA graph
+    fresh(cache)
+    counters.reset()
+    toks, last, next_pos, cache = llama.llama_decode_multi(
+        pparams, cfg, token, pos, cache, STEPS)
+    torch.cuda.synchronize()
+    launches = counters.read()
+    if toks.shape != (1, STEPS) or int(next_pos) != CTX + STEPS:
+        fail(f"paired decode_multi returned {tuple(toks.shape)}, pos "
+             f"{next_pos}")
+    fresh(cache)
+    tok, p, eager = token.clone(), pos.clone(), []
+    for _ in range(STEPS):
+        lg, cache = llama.llama_decode_step(pparams, cfg, tok, p, cache)
+        tok = torch.argmax(lg, -1).to(torch.int32)
+        eager.append(tok)
+        p = p + 1
+    eager = torch.stack(eager, 1)
+    same = (toks == eager)[0].int().cumprod(0).sum().item()
+    print(f"# paired: graph vs eager greedy tokens: first {same} of {STEPS} "
+          f"equal; first tokens {toks[0, :8].tolist()}", flush=True)
+    if same < 32:
+        fail(f"paired: graph and eager tokens differ at step {same}")
+
+    fresh(cache)
+    g = llama.DecodeGraph(pparams, cfg, token, pos, cache, STEPS)
+    samples = []
+    for _ in range(3):
+        fresh(cache)
+        g.reset(token, pos)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = g.run()
+        torch.cuda.synchronize()
+        samples.append(time.perf_counter() - t0)
+        if not torch.equal(out, toks):
+            fail("paired: a timed graph run gave other tokens")
+    dt = min(samples)
+    kv_bytes = 2 * cfg.n_layers * cfg.n_kv_heads * CTX * (cfg.head_dim + 4)
+    bytes_tok = weight_bytes(cfg, paired=True) + kv_bytes
+    res = {
+        "tok_s": STEPS / dt, "ms_per_token": 1e3 * dt / STEPS,
+        "tok_s_samples": [STEPS / s for s in samples],
+        "unpaired_tok_s": report["tok_s"], "bytes_per_token": bytes_tok,
+        "roofline_tok_s_copy": report["copy_gbps"] * 1e9 / bytes_tok,
+        "roofline_tok_s_published": HBM_BYTES_S / bytes_tok,
+        "graph_eager_equal_prefix": same, "launches": launches,
+        "launches_per_token": steps[PAIRED]}
+    report["paired_decode"] = res
+    print("# paired decode " + json.dumps(res), flush=True)
+    return launches
 
 
 if __name__ == "__main__":

@@ -9,7 +9,10 @@ Slices ported so far: Llama-2 INT4/INT8 weight-only prompt -> generate
 over a bf16 or an INT8 KV cache (models/llama.py greedy_generate,
 llama_prefill, llama_decode_step / llama_decode_multi, llama_verify_step),
 and continuous-batching serving over the dense or the paged KV cache
-(serving/: ServingEngine, PagedServingEngine, speculative_generate).
+(serving/: ServingEngine, PagedServingEngine, speculative_generate);
+the same decode with paired-scale int4 weights (the slab kernels); and
+GPT-2 INT8 weight-only serving (models/gpt2.py, models/loader.py,
+tools/serving_bench.py).
 """
 
 from infinitensor_tpu_torch.utils.platform import resolve_device
@@ -20,6 +23,13 @@ from infinitensor_tpu_torch.models.llama import (
     LlamaConfig, greedy_generate, init_kv_cache, init_llama_params,
     init_paged_kv_cache, llama_decode_multi, llama_decode_step, llama_prefill, llama_verify_step,
     quantize_llama_params,
+)
+from infinitensor_tpu_torch.models.gpt2 import (
+    GPT2Config, gpt2_decode_step, gpt2_prefill, init_gpt2_cache,
+    init_gpt2_params, quantize_gpt2_params,
+)
+from infinitensor_tpu_torch.models.loader import (
+    load_gpt2_params, load_llama_params,
 )
 from infinitensor_tpu_torch.models.convert import params_from_jax_numpy
 from infinitensor_tpu_torch.serving import (
@@ -34,5 +44,7 @@ __all__ = [
     "llama_decode_step", "llama_prefill", "llama_verify_step",
     "quantize_llama_params", "params_from_jax_numpy", "init_paged_kv_cache",
     "ServingEngine", "PagedServingEngine", "Request", "speculative_generate",
-    "ModelDraft", "PromptLookupDraft",
+    "ModelDraft", "PromptLookupDraft", "GPT2Config", "gpt2_decode_step",
+    "gpt2_prefill", "init_gpt2_cache", "init_gpt2_params",
+    "quantize_gpt2_params", "load_gpt2_params", "load_llama_params",
 ]

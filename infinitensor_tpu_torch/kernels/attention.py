@@ -24,6 +24,7 @@ import torch
 from infinitensor_tpu_torch.kernels import _build
 
 launches = collections.Counter()
+KERNEL_HEAD_DIMS = (64, 128)     # instantiated in csrc/flash_decode.cu
 
 
 @functools.cache
@@ -112,7 +113,8 @@ def _live(S: int, pos, device) -> torch.Tensor:
 
 def flash_decode_plain(q, k_cache, v_cache, pos):
     """The TPU kernel's function, dense: scores = (q . K) / sqrt(D) in f32
-    over rows s <= pos, softmax, p . V. Returns bf16 [B, H, 1, D]."""
+    over rows s <= pos, softmax, p . V. Returns [B, H, 1, D] in q's
+    dtype."""
     B, H, _, D = q.shape
     _, Hkv, S, _ = k_cache.shape
     qf = q.float().reshape(B, Hkv, H // Hkv, D)
@@ -121,13 +123,13 @@ def flash_decode_plain(q, k_cache, v_cache, pos):
     p = torch.softmax(torch.where(_live(S, pos, q.device), s,
                                   float("-inf")), dim=-1)
     out = torch.einsum("bgrs,bgsd->bgrd", p, v_cache.float())
-    return out.reshape(B, H, 1, D).to(torch.bfloat16)
+    return out.reshape(B, H, 1, D).to(q.dtype)
 
 
 def flash_decode_q8_plain(q, k_cache, v_cache, k_scale, v_scale, pos):
     """The TPU kernel's function, dense: scores = q . K_int8 * (ks / sqrt(D))
-    over rows s <= pos, softmax, (p * vs) . V_int8. Returns bf16 [B, H, 1,
-    D]."""
+    over rows s <= pos, softmax, (p * vs) . V_int8. Returns [B, H, 1, D]
+    in q's dtype."""
     B, H, _, D = q.shape
     _, Hkv, S, _ = k_cache.shape
     scale = 1.0 / math.sqrt(D)
@@ -138,17 +140,18 @@ def flash_decode_q8_plain(q, k_cache, v_cache, k_scale, v_scale, pos):
                                   float("-inf")), dim=-1)
     pv = p * v_scale.float()[:, :, None, :]
     out = torch.einsum("bgrs,bgsd->bgrd", pv, v_cache.float())
-    return out.reshape(B, H, 1, D).to(torch.bfloat16)
+    return out.reshape(B, H, 1, D).to(q.dtype)
 
 
 def _check_launch(name, q, pos, tensors) -> None:
-    """Refuse on the card what the kernel does not take: D = 128, H / Hkv
-    <= 16, contiguous tensors of the expected types on q's device, pos
-    [B], 16-byte aligned caches."""
+    """Refuse on the card what the kernel does not take: D = 64 or 128,
+    H / Hkv <= 16, contiguous tensors of the expected types on q's device
+    (a bf16 q), pos [B], 16-byte aligned caches."""
     B, H, _, D = q.shape
     Hkv = tensors["k_cache"][0].shape[1]
-    if D != 128 or H // Hkv > 16:
-        raise ValueError(f"{name} kernel takes D=128, H/Hkv<=16")
+    if D not in KERNEL_HEAD_DIMS or H // Hkv > 16:
+        raise ValueError(f"{name} kernel takes D in {KERNEL_HEAD_DIMS}, "
+                         "H/Hkv<=16")
     tensors = {"q": (q, torch.bfloat16), "pos": (pos, torch.int32),
                **tensors}
     for what, (t, dt) in tensors.items():
@@ -171,9 +174,9 @@ def _check_shapes(name, q, k_cache, v_cache) -> None:
 
 def flash_decode(q, k_cache, v_cache, pos):
     """bf16-cache flash decode over caches already appended at pos [B]
-    int32. q [B, H, 1, D] bf16 -> [B, H, 1, D] bf16. CPU tensors take the
-    plain version; CUDA tensors launch the kernel (D = 128, H / Hkv <= 16)
-    or raise."""
+    int32. q [B, H, 1, D] -> [B, H, 1, D] in q's dtype. CPU tensors take
+    the plain version (any float dtype); CUDA tensors launch the kernel
+    (bf16, D = 64 or 128, H / Hkv <= 16) or raise."""
     _check_shapes("flash_decode", q, k_cache, v_cache)
     if q.device.type == "cpu":
         return flash_decode_plain(q, k_cache, v_cache, pos)
@@ -194,9 +197,9 @@ def flash_decode(q, k_cache, v_cache, pos):
 
 def flash_decode_q8(q, k_cache, v_cache, k_scale, v_scale, pos):
     """INT8-KV flash decode over caches already appended at pos [B] int32.
-    q [B, H, 1, D] bf16 -> [B, H, 1, D] bf16. CPU tensors take the plain
-    version; CUDA tensors launch the kernel (D = 128, H / Hkv <= 16) or
-    raise."""
+    q [B, H, 1, D] -> [B, H, 1, D] in q's dtype. CPU tensors take the
+    plain version (any float dtype); CUDA tensors launch the kernel (bf16
+    q, D = 64 or 128, H / Hkv <= 16) or raise."""
     _check_shapes("flash_decode_q8", q, k_cache, v_cache)
     B, H, _, D = q.shape
     _, Hkv, S, _ = k_cache.shape

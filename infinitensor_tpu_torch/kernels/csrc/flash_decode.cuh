@@ -18,6 +18,12 @@
 // owning 4 columns (a warp reads whole rows), and meet in shared memory
 // once at the end. Output is acc / l in bf16.
 //
+// The head dim is a template parameter, 128 (Llama) or 64 (GPT-2). A row
+// of 64 columns is half the loads per score, and in the PV loop its 16
+// column quads leave a warp room for two V rows per pass: lanes 0-15 take
+// one row, lanes 16-31 the next, and the two halves meet in the final
+// reduction with the warps' partials. At 128 this folds to the code it was.
+//
 // Paged: row s of slot b lives in page table[b, s / P] at offset s % P.
 // The thread that scores a row computes the row's index in the pool once
 // and leaves it in shared memory for the softmax (the V scale) and the PV
@@ -32,13 +38,12 @@
 
 namespace flash_decode_detail {
 
-constexpr int kD = 128;                 // head dim
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTile = kThreads;         // cache rows per tile
 
-// d[r] += q_r . (cache row), over the 128 elements of one row.
-template <int REP>
+// d[r] += q_r . (cache row), over the kD elements of one row.
+template <int REP, int kD>
 __device__ __forceinline__ void row_dots(const int8_t* kr, const float (*qs)[kD],
                                          float (&d)[REP]) {
   uint4 w[kD / 16];
@@ -60,12 +65,12 @@ __device__ __forceinline__ void row_dots(const int8_t* kr, const float (*qs)[kD]
   }
 }
 
-template <int REP>
+template <int REP, int kD>
 __device__ __forceinline__ void row_dots(const __nv_bfloat16* kr, const float (*qs)[kD],
                                          float (&d)[REP]) {
-  // two halves of 64 elements, eight 16-byte loads each
+  // halves of 64 elements (two at kD = 128), eight 16-byte loads each
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
+  for (int half = 0; half < kD / 64; ++half) {
     uint4 w[8];
 #pragma unroll
     for (int j = 0; j < 8; ++j)
@@ -87,7 +92,8 @@ __device__ __forceinline__ void row_dots(const __nv_bfloat16* kr, const float (*
   }
 }
 
-// The 4 cache values of columns 4 * lane .. 4 * lane + 3 of one row.
+// The 4 cache values of columns 4 * lane .. 4 * lane + 3 of one row
+// (lane < kD / 4).
 __device__ __forceinline__ void lane_cols(const int8_t* vr, int lane, float (&v)[4]) {
   const uint32_t u = __ldg(reinterpret_cast<const uint32_t*>(vr) + lane);
   v[0] = i8_val(u, 0);
@@ -107,7 +113,7 @@ __device__ __forceinline__ void lane_cols(const __nv_bfloat16* vr, int lane, flo
 // T = int8_t: ks / vs are the rows' f32 scales; T = __nv_bfloat16: unused.
 // PAGED: kc / vc / ks / vs are page pools, table is int32 [B, MP] and S is
 // MP * P; else table is unused and P is ignored.
-template <int REP, typename T, bool PAGED>
+template <int REP, typename T, bool PAGED, int kD>
 __global__ void __launch_bounds__(kThreads)
 flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
                     const T* __restrict__ kc, const T* __restrict__ vc,
@@ -119,10 +125,13 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
   __shared__ __align__(16) float qs[REP][kD];
   __shared__ float sc[REP][kTile];      // scores, then p (times vs for int8)
   __shared__ float m_s[REP], l_s[REP], alpha_s[REP];
-  __shared__ float red[kWarps][kD];
+  constexpr int kQuads = kD / 4;          // lanes that cover one V row
+  constexpr int kRowsPass = 32 / kQuads;  // V rows a warp takes per pass
+  __shared__ float red[kWarps * kRowsPass][kD];
   __shared__ int row_s[PAGED ? kTile : 1];   // pool row index of a tile row
   const int h = blockIdx.x, b = blockIdx.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int quad = lane % kQuads, sub = lane / kQuads;
   const size_t head = (size_t)b * Hkv + h;
   // dense: this head's rows; paged: the pool (rows are found per tile)
   const T* kh = PAGED ? kc : kc + head * S * kD;
@@ -160,7 +169,7 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
         row = (__ldg(tb + pg) * Hkv + h) * P + (s - pg * P);
         row_s[tid] = row;
       }
-      row_dots<REP>(kh + (size_t)row * kD, qs, d);
+      row_dots<REP, kD>(kh + (size_t)row * kD, qs, d);
       const float f = Q8 ? __ldg(ksh + row) * scale : scale;
 #pragma unroll
       for (int r = 0; r < REP; ++r) sc[r][tid] = d[r] * f;
@@ -198,8 +207,8 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
       }
     }
     __syncthreads();
-    // acc (columns lane*4..+3) = acc * alpha + sum over this warp's rows
-    // of p[s] * V[s, :]
+    // acc (columns quad*4..+3) = acc * alpha + sum over this lane's rows
+    // (every kRowsPass-th of the warp's) of p[s] * V[s, :]
 #pragma unroll
     for (int r = 0; r < REP; ++r) {
       const float a = alpha_s[r];
@@ -209,9 +218,9 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
     const int n = min(kTile, n_live - t0);
     const T* vt = PAGED ? vh : vh + (size_t)t0 * kD;
 #pragma unroll 4
-    for (int i = warp; i < n; i += kWarps) {
+    for (int i = warp * kRowsPass + sub; i < n; i += kWarps * kRowsPass) {
       float vv[4];
-      lane_cols(vt + (size_t)(PAGED ? row_s[i] : i) * kD, lane, vv);
+      lane_cols(vt + (size_t)(PAGED ? row_s[i] : i) * kD, quad, vv);
 #pragma unroll
       for (int r = 0; r < REP; ++r) {
         const float p = sc[r][i];
@@ -226,23 +235,23 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
   for (int r = 0; r < REP; ++r) {
     if (r >= rep) break;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) red[warp][lane * 4 + j] = acc[r][j];
+    for (int j = 0; j < 4; ++j) red[warp * kRowsPass + sub][quad * 4 + j] = acc[r][j];
     __syncthreads();
     if (tid < kD) {
       float sum = 0.f;
-      for (int w = 0; w < kWarps; ++w) sum += red[w][tid];
+      for (int w = 0; w < kWarps * kRowsPass; ++w) sum += red[w][tid];
       out[(head * rep + r) * kD + tid] = __float2bfloat16_rn(sum / l_s[r]);
     }
     __syncthreads();
   }
 }
 
-template <int REP, typename T, bool PAGED>
+template <int REP, typename T, bool PAGED, int kD>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* ks, const void* vs, const void* pos, void* out,
                    const void* table, int P, int B, int rep, int Hkv, int S,
                    float scale, cudaStream_t stream) {
-  flash_decode_kernel<REP, T, PAGED><<<dim3(Hkv, B), kThreads, 0, stream>>>(
+  flash_decode_kernel<REP, T, PAGED, kD><<<dim3(Hkv, B), kThreads, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const float*>(ks),
       static_cast<const float*>(vs), static_cast<const int*>(pos),
@@ -251,20 +260,20 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// The instantiation for rep = H / Hkv query rows per kv head (at most 16).
-template <typename T, bool PAGED>
+// The instantiation for head dim kD and rep = H / Hkv query rows per kv
+// head (at most 16).
+template <typename T, bool PAGED, int kD>
 int dispatch(const void* q, const void* k, const void* v, const void* ks,
              const void* vs, const void* pos, void* out, const void* table,
-             int P, int B, int H, int Hkv, int S, int D, float scale,
-             void* stream) {
+             int P, int B, int H, int Hkv, int S, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D != kD || Hkv <= 0 || H % Hkv || S <= 0) return (int)cudaErrorInvalidValue;
+  if (Hkv <= 0 || H % Hkv || S <= 0) return (int)cudaErrorInvalidValue;
   if (PAGED && (P <= 0 || S % P)) return (int)cudaErrorInvalidValue;
   const int rep = H / Hkv;
 #define ITT_FD_CASE(R)                                                        \
   if (rep <= R)                                                               \
-    return (int)launch<R, T, PAGED>(q, k, v, ks, vs, pos, out, table, P, B,   \
-                                    rep, Hkv, S, scale, s);
+    return (int)launch<R, T, PAGED, kD>(q, k, v, ks, vs, pos, out, table, P,  \
+                                        B, rep, Hkv, S, scale, s);
   ITT_FD_CASE(1) ITT_FD_CASE(2) ITT_FD_CASE(4) ITT_FD_CASE(8) ITT_FD_CASE(16)
 #undef ITT_FD_CASE
   return (int)cudaErrorInvalidValue;

@@ -32,8 +32,9 @@ ITT_EXPORT int paged_flash_decode_q8(const void* q, const void* k,
                                      const void* pos, void* out, int B, int H,
                                      int Hkv, int P, int MP, int D,
                                      float scale, void* stream) {
-  return dispatch<int8_t, true>(q, k, v, ks, vs, pos, out, table, P, B, H, Hkv,
-                                MP * P, D, scale, stream);
+  if (D != 128) return (int)cudaErrorInvalidValue;
+  return dispatch<int8_t, true, 128>(q, k, v, ks, vs, pos, out, table, P, B, H, Hkv,
+                                     MP * P, scale, stream);
 }
 
 // As paged_flash_decode_q8 over bf16 pages, with no scales.
@@ -41,6 +42,7 @@ ITT_EXPORT int paged_flash_decode(const void* q, const void* k, const void* v,
                                   const void* table, const void* pos,
                                   void* out, int B, int H, int Hkv, int P,
                                   int MP, int D, float scale, void* stream) {
-  return dispatch<__nv_bfloat16, true>(q, k, v, nullptr, nullptr, pos, out, table, P,
-                                       B, H, Hkv, MP * P, D, scale, stream);
+  if (D != 128) return (int)cudaErrorInvalidValue;
+  return dispatch<__nv_bfloat16, true, 128>(q, k, v, nullptr, nullptr, pos, out, table,
+                                            P, B, H, Hkv, MP * P, scale, stream);
 }

@@ -1,16 +1,26 @@
 """Fused weight-only dequant + matmul for decode (counterpart of
 infinitensor_tpu/kernels/quant_matmul.py).
 
-Three kernels, CUDA C++ in csrc/quant_matmul.cu:
-  qmm_group       <- _kernel_group       (group-partial dots, scale per group)
-  qmm_group_norm  <- _kernel_group_norm  (RMSNorm fused ahead of the dots)
-  qmm_w4a8        <- _kernel_group_w4a8  (int8 activations, int8 dots)
+Six kernels, CUDA C++ over one group-dot body (csrc/quant_matmul.cuh):
+  csrc/quant_matmul.cu
+    qmm_group       <- _kernel_group       (group-partial dots, scale per group)
+    qmm_group_norm  <- _kernel_group_norm  (RMSNorm fused ahead of the dots)
+    qmm_w4a8        <- _kernel_group_w4a8  (int8 activations, int8 dots)
+  csrc/quant_matmul_fused.cu
+    qmm_group_ln    <- _kernel_group_ln    (LayerNorm ahead, bias behind)
+    qmm_slab        <- _kernel_group_slab  (paired int4 scales)
+    qmm_slab_norm   <- _kernel_group_norm_slab (RMSNorm ahead of qmm_slab)
 
 Each has a plain PyTorch version here that computes the same function step
 by step (`*_plain`). A wrapper given a CPU tensor runs the plain version;
 given a CUDA tensor it launches the kernel or raises. `launches` counts
 kernel launches per kernel; under CUDA-graph replay it counts the capture,
 not the replays.
+
+A paired int4 weight (quantize_weight(paired=True)) takes the slab kernels
+whatever the variant table or the caller says, and "slab" asked for an
+unpaired weight becomes "group", as in the JAX package
+(quant_matmul.py:697-701).
 
 Above 256 rows (a long prompt) the JAX package takes no kernel: it
 dequantizes the weight and runs one matmul (quant_matmul_ref,
@@ -60,26 +70,38 @@ def _rows(x: torch.Tensor) -> int:
     return x.numel() // max(x.shape[-1], 1)
 
 
-def _check(x: torch.Tensor, q: QuantizedLinear) -> None:
-    """Refuse the shapes the TPU kernels refuse
-    (quant_matmul.py:596-604, :696-710); callers send more than
-    KERNEL_MAX_ROWS rows to dequant_matmul instead."""
+def _refusal(x: torch.Tensor, q: QuantizedLinear) -> Optional[str]:
+    """Why the kernels do not take (x, q), or None: the shapes the TPU
+    kernels refuse (quant_matmul.py:596-604, :696-710). A paired int4
+    weight has din / (2 * group) scale rows and goes to the slab kernels;
+    an unpaired one needs an even number of scale rows."""
     pack = 2 if q.bits == 4 else 1
     din = x.shape[-1]
     if q.bits not in (4, 8):
-        raise ValueError(f"bits={q.bits}: only 4 and 8")
+        return f"bits={q.bits}: only 4 and 8"
     if din != q.in_features:
-        raise ValueError(f"x has {din} features, weight {q.in_features}")
+        return f"x has {din} features, weight {q.in_features}"
     if q.group_size % 128 or (din // pack) % q.group_size:
-        raise ValueError(f"group_size={q.group_size} must be a multiple of "
-                         f"128 dividing {din // pack} stored rows")
-    if q.bits == 4 and (q.paired or q.scales.shape[0] % 2):
-        raise ValueError("paired or odd-group int4 scales need the slab "
-                         "kernel (not ported)")
+        return (f"group_size={q.group_size} must be a multiple of 128 "
+                f"dividing {din // pack} stored rows")
+    if q.scales.shape[0] * q.group_size * (2 if q.paired else 1) != din:
+        return (f"{q.scales.shape[0]} scale rows do not cover {din} "
+                f"features in groups of {q.group_size}")
+    if q.bits == 4 and not q.paired and q.scales.shape[0] % 2:
+        return "unpaired int4 scales need an even number of groups"
     if x.dtype != torch.bfloat16:
-        raise ValueError(f"x must be bf16, got {x.dtype}")
+        return f"x must be bf16, got {x.dtype}"
     if q.out_physical % 4:
-        raise ValueError("physical output columns must be a multiple of 4")
+        return "physical output columns must be a multiple of 4"
+    return None
+
+
+def _check(x: torch.Tensor, q: QuantizedLinear) -> None:
+    """Raise on what the kernels refuse; callers send more than
+    KERNEL_MAX_ROWS rows to dequant_matmul instead."""
+    why = _refusal(x, q)
+    if why:
+        raise ValueError(why)
 
 
 def _dequant_route(x: torch.Tensor, q: QuantizedLinear) -> torch.Tensor:
@@ -126,6 +148,46 @@ def qmm_group_plain(x2: torch.Tensor, q: QuantizedLinear) -> torch.Tensor:
     acc = (pd_lo - sxl * 8.0) * sc[None, :ngh] \
         + pd_hi * (sc[None, ngh:] * 0.0625)
     return acc.sum(1).to(torch.bfloat16)
+
+
+def qmm_slab_plain(x2: torch.Tensor, q: QuantizedLinear) -> torch.Tensor:
+    """_group_dots_slab step by step, for a paired int4 weight: per packed
+    group c one dot of [x_lo, x_hi / 16] (the /16 in bf16, exact) against
+    [u & 15; u & 0xF0], minus 8 * sum(x_lo), times the one scale s[c]; f32
+    accumulation. x [rows, din] bf16 -> [rows, dout_p] bf16."""
+    sc = q.scales.float()
+    u = q.qweight
+    x_hi = (x2[:, q.qweight.shape[0]:] * 0.0625).float()
+    xf = torch.cat([x2[:, :q.qweight.shape[0]].float(), x_hi], dim=1)
+    pd_lo, pd_hi, sxl = _per_group(xf, q, (u & 15).float(),
+                                   (u & -16).float())
+    acc = (pd_lo + pd_hi - sxl * 8.0) * sc[None]
+    return acc.sum(1).to(torch.bfloat16)
+
+
+def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+               eps: float) -> torch.Tensor:
+    """_kernel_group_ln's norm (quant_matmul.py:308-313; gpt2._ln is the
+    same): f32 mean, f32 variance of x - mean, (x - mean) * rsqrt(var +
+    eps) * gamma + beta in f32, rounded once to x's dtype."""
+    x32 = x.float()
+    mu = x32.mean(-1, keepdim=True)
+    var = (x32 - mu).square().mean(-1, keepdim=True)
+    out = (x32 - mu) * torch.rsqrt(var + eps)
+    return (out * gamma.float() + beta.float()).to(x.dtype)
+
+
+def qmm_group_ln_plain(x2: torch.Tensor, gamma: torch.Tensor,
+                       beta: torch.Tensor, q: QuantizedLinear,
+                       bias: Optional[torch.Tensor], eps: float
+                       ) -> torch.Tensor:
+    """_kernel_group_ln step by step: LayerNorm rounded to bf16, the group
+    dots rounded to bf16, then + bias (zero-padded to the physical
+    columns) in f32, rounded again. -> [rows, dout_p] bf16."""
+    out = qmm_group_plain(layer_norm(x2, gamma, beta, eps), q).float()
+    if bias is not None:
+        out[:, :bias.shape[-1]] += bias.float()
+    return out.to(torch.bfloat16)
 
 
 def rmsnorm_bf16(x2: torch.Tensor, norm_w: torch.Tensor, eps: float
@@ -181,6 +243,15 @@ def _lib() -> ctypes.CDLL:
         qmm_w4a8=[P, P, P, I, P, I, I, I, I, I, P])
 
 
+@functools.cache
+def _lib_fused() -> ctypes.CDLL:
+    P, I, F = _build.P, _build.I, _build.F
+    return _build.typed(
+        "quant_matmul_fused",
+        qmm_group_ln=[P, P, P, P, P, I, P, I, I, P, I, I, I, I, I, F, P],
+        qmm_slab=[P, P, P, P, I, P, I, I, I, I, I, F, P])
+
+
 def _check_cuda(x2: torch.Tensor, q: QuantizedLinear) -> None:
     for name, t in (("x", x2), ("qweight", q.qweight), ("scales", q.scales)):
         if t.device != x2.device:
@@ -206,6 +277,44 @@ def _launch_group(x2, norm_w, q, eps: float, name: str) -> torch.Tensor:
         q.bits, q.group_size, norm_w is not None, eps, _build.stream())
     _build.raise_on(lib, err, name)
     launches[name] += 1
+    return out
+
+
+def _launch_slab(x2, norm_w, q, eps: float, name: str) -> torch.Tensor:
+    _check_cuda(x2, q)
+    rows, din = x2.shape
+    out = torch.empty(rows, q.out_physical, dtype=torch.bfloat16,
+                      device=x2.device)
+    lib = _lib_fused()
+    p = _build.ptr
+    err = lib.qmm_slab(
+        p(x2), p(norm_w), p(q.qweight), p(q.scales),
+        q.scales.dtype == torch.bfloat16, p(out), rows, din, q.out_physical,
+        q.group_size, norm_w is not None, eps, _build.stream())
+    _build.raise_on(lib, err, name)
+    launches[name] += 1
+    return out
+
+
+def _launch_group_ln(x2, gamma, beta, q, bias, eps: float) -> torch.Tensor:
+    _check_cuda(x2, q)
+    for name, t in (("gamma", gamma), ("beta", beta), ("bias", bias)):
+        if t is not None and (t.device != x2.device
+                              or not t.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous on {x2.device}")
+    rows, din = x2.shape
+    out = torch.empty(rows, q.out_physical, dtype=torch.bfloat16,
+                      device=x2.device)
+    lib = _lib_fused()
+    p = _build.ptr
+    err = lib.qmm_group_ln(
+        p(x2), p(gamma), p(beta), p(q.qweight), p(q.scales),
+        q.scales.dtype == torch.bfloat16, p(bias),
+        bias is not None and bias.dtype == torch.bfloat16,
+        0 if bias is None else bias.shape[-1], p(out), rows, din,
+        q.out_physical, q.bits, q.group_size, eps, _build.stream())
+    _build.raise_on(lib, err, "qmm_group_ln")
+    launches["qmm_group_ln"] += 1
     return out
 
 
@@ -237,16 +346,25 @@ def quant_matmul(x: torch.Tensor, q: QuantizedLinear,
                  variant: Optional[str] = None) -> torch.Tensor:
     """x [..., din] bf16 @ q -> [..., out_features] bf16.
 
-    variant: "group" or "w4a8"; None takes the table entry for the shape
-    (QMM_VARIANTS), else "group". Above KERNEL_MAX_ROWS rows every
-    variant takes dequant_matmul."""
+    variant: "group", "w4a8" or "slab"; None takes the table entry for
+    the shape (QMM_VARIANTS), else "group". A paired int4 weight takes
+    "slab" whatever was asked, and "slab" on an unpaired weight becomes
+    "group". Above KERNEL_MAX_ROWS rows every variant takes
+    dequant_matmul."""
     *lead, din = x.shape
     if _rows(x) > KERNEL_MAX_ROWS:
         return _dequant_route(x, q)
     _check(x, q)
     variant = variant or variant_for(din, q)
+    if q.paired:
+        variant = "slab"        # paired scales exist for the slab kernel
+    elif variant == "slab":
+        variant = "group"       # slab math needs the paired partition
     x2 = x.reshape(-1, din).contiguous()
-    if variant == "group":
+    if variant == "slab":
+        out = _dispatch(x2, lambda: qmm_slab_plain(x2, q),
+                        lambda: _launch_slab(x2, None, q, 0.0, "qmm_slab"))
+    elif variant == "group":
         out = _dispatch(x2, lambda: qmm_group_plain(x2, q),
                         lambda: _launch_group(x2, None, q, 0.0,
                                               "qmm_group"))
@@ -254,8 +372,8 @@ def quant_matmul(x: torch.Tensor, q: QuantizedLinear,
         out = _dispatch(x2, lambda: qmm_w4a8_plain(x2, q),
                         lambda: _launch_w4a8(x2, q))
     else:
-        raise ValueError(f"variant {variant!r}: 'group' or 'w4a8' (the "
-                         "chunk, slab and group2d kernels are not ported)")
+        raise ValueError(f"variant {variant!r}: 'group', 'w4a8' or 'slab' "
+                         "(the chunk and group2d kernels are not ported)")
     return out[:, :q.out_features].reshape(*lead, q.out_features)
 
 
@@ -267,13 +385,62 @@ def quant_matmul_norm(x: torch.Tensor, norm_w: torch.Tensor,
     if _rows(x) > KERNEL_MAX_ROWS:
         return _dequant_route(rmsnorm_bf16(x, norm_w, eps), q)
     _check(x, q)
+    x2 = x.reshape(-1, din).contiguous()
+    nw = norm_w.to(torch.bfloat16).contiguous()
+    if q.paired:
+        out = _dispatch(
+            x2, lambda: qmm_slab_plain(rmsnorm_bf16(x2, nw, eps), q),
+            lambda: _launch_slab(x2, nw, q, eps, "qmm_slab_norm"))
+        return out[:, :q.out_features].reshape(*lead, q.out_features)
     if variant_for(din, q) != "group":
         raise NotImplementedError(
             "fused norm + w4a8 (_kernel_group_norm_w4a8) is not ported "
             "(ROADMAP Queue 2)")
-    x2 = x.reshape(-1, din).contiguous()
-    nw = norm_w.to(torch.bfloat16).contiguous()
     out = _dispatch(
         x2, lambda: qmm_group_plain(rmsnorm_bf16(x2, nw, eps), q),
         lambda: _launch_group(x2, nw, q, eps, "qmm_group_norm"))
+    return out[:, :q.out_features].reshape(*lead, q.out_features)
+
+
+def _ln_kernel_takes(x, gamma, beta, q: QuantizedLinear, bias) -> bool:
+    """The shapes _kernel_group_ln takes (quant_matmul.py:359-365): what
+    the group kernel takes, at most KERNEL_MAX_ROWS rows, no paired int4;
+    and, the port's own limits, bf16 gamma and beta and a bf16 or f32
+    bias."""
+    if _rows(x) > KERNEL_MAX_ROWS or _refusal(x, q) or q.paired:
+        return False
+    if gamma.dtype != torch.bfloat16 or beta.dtype != torch.bfloat16:
+        return False
+    return bias is None or (
+        bias.dtype in (torch.bfloat16, torch.float32)
+        and bias.shape[-1] <= q.out_physical)
+
+
+def quant_matmul_ln(x: torch.Tensor, gamma: torch.Tensor,
+                    beta: torch.Tensor, q: QuantizedLinear,
+                    bias: Optional[torch.Tensor] = None,
+                    eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm(x; gamma, beta) @ q + bias in one kernel (GPT-2 decode's
+    pattern); x is the raw residual stream [..., din] bf16.
+
+    What the kernel does not take (_ln_kernel_takes) runs the exact
+    composition, as in the JAX package: layer_norm, then quant_matmul
+    (a kernel on the card, or the dequant route above KERNEL_MAX_ROWS
+    rows), then + bias. Where quant_matmul has no kernel either (a group
+    that is no multiple of 128, where the JAX package takes its chunk
+    kernel, or a non-bf16 x) the product takes the dequant route."""
+    *lead, din = x.shape
+    if not _ln_kernel_takes(x, gamma, beta, q, bias):
+        xn = layer_norm(x, gamma, beta, eps)
+        if _rows(x) > KERNEL_MAX_ROWS or _refusal(xn, q) is None:
+            out = quant_matmul(xn, q)
+        else:
+            out = _dequant_route(xn, q)
+        return out if bias is None else out + bias
+    x2 = x.reshape(-1, din).contiguous()
+    gamma, beta = gamma.contiguous(), beta.contiguous()
+    bias = None if bias is None else bias.contiguous()
+    out = _dispatch(
+        x2, lambda: qmm_group_ln_plain(x2, gamma, beta, q, bias, eps),
+        lambda: _launch_group_ln(x2, gamma, beta, q, bias, eps))
     return out[:, :q.out_features].reshape(*lead, q.out_features)

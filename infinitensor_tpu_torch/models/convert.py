@@ -1,5 +1,6 @@
 """Carry parameters (or a KV cache, dense or paged) from the JAX package
-into the port.
+into the port: the Llama tree, and the GPT-2 tree with its "lm_head_q"
+QuantizedLinear, "wte", "wpe", biases and LayerNorm vectors.
 
 The input is the JAX pytree after ``jax.tree.map(np.asarray, tree)``:
 dicts, lists, numpy arrays, and quantized leaves (any object with
@@ -42,6 +43,14 @@ def params_from_jax_numpy(tree, device=None):
     if isinstance(tree, (list, tuple)):
         return type(tree)(params_from_jax_numpy(v, device) for v in tree)
     return _tensor(tree, device)
+
+
+def cache_from_jax_numpy(cache, device=None) -> dict:
+    """A dense KV cache dict of the JAX package (llama.init_kv_cache or
+    gpt2.init_gpt2_cache) after ``jax.tree.map(np.asarray, cache)``: "k" and
+    "v" per layer, with kv_quant "k_scale" and "v_scale". Same keys,
+    bit-exact tensors, each a writable copy (the port appends in place)."""
+    return params_from_jax_numpy(dict(cache), device)
 
 
 def paged_cache_from_jax_numpy(cache, device=None) -> dict:

@@ -18,6 +18,8 @@ matmuls over a bf16 or an INT8 KV cache:
        decode_attention_gqa_q8 (INT8 cache: append + flash_decode_q8);
        wo: quant_matmul; _mlp: fused RMSNorm + w_gateup, w_down)
     -> rmsnorm -> lm_head (quant_matmul, W4A8 at the 7B shape) -> argmax.
+With quantize_llama_params(paired=True) weights every one of those matmuls
+takes the slab kernels instead (qmm_slab_norm, qmm_slab), the lm_head too.
 
 llama_verify_step (speculative verification) is plain torch, as the JAX
 package leaves it to XLA. The KV cache is updated IN PLACE (the JAX
@@ -75,6 +77,11 @@ class LlamaConfig:
         return LlamaConfig(**kw)
 
     @staticmethod
+    def llama2_70b(**kw) -> "LlamaConfig":
+        return LlamaConfig(dim=8192, n_layers=80, n_heads=64, n_kv_heads=8,
+                           intermediate=28672, **kw)
+
+    @staticmethod
     def tiny(**kw) -> "LlamaConfig":
         return LlamaConfig(vocab_size=256, dim=64, n_layers=2, n_heads=4,
                            n_kv_heads=2, intermediate=128, max_seq=64, **kw)
@@ -118,20 +125,30 @@ _QUANT_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 
 
 def quantize_llama_params(params: dict, bits: int = 8,
-                          group_size: Optional[int] = None) -> dict:
-    """Weight-only quantize every layer matmul and the lm_head, with Q/K/V
-    and gate/up concatenated into "wqkv" and "w_gateup"."""
+                          group_size: Optional[int] = None,
+                          fuse: bool = True, paired: bool = False) -> dict:
+    """Weight-only quantize every layer matmul and the lm_head.
+
+    fuse concatenates Q/K/V and gate/up into "wqkv" and "w_gateup" (fewer,
+    larger decode kernels); without it the layers keep wq/wk/wv and
+    w_gate/w_up. paired (int4 only, ignored for int8): one scale row per
+    pair of split-half groups, the layout the slab kernels read."""
+    kw = {"paired": True} if (paired and bits == 4) else {}
     out = {"embed": params["embed"], "final_norm": params["final_norm"],
-           "lm_head": quantize_weight(params["lm_head"], bits, group_size),
+           "lm_head": quantize_weight(params["lm_head"], bits, group_size,
+                                      **kw),
            "layers": []}
     for layer in params["layers"]:
         ql = {k: v for k, v in layer.items() if k not in _QUANT_KEYS}
-        qw = {k: quantize_weight(layer[k], bits, group_size)
+        qw = {k: quantize_weight(layer[k], bits, group_size, **kw)
               for k in _QUANT_KEYS}
-        ql["wqkv"] = concat_qlinear(qw["wq"], qw["wk"], qw["wv"])
-        ql["w_gateup"] = concat_qlinear(qw["w_gate"], qw["w_up"])
-        ql["wo"] = qw["wo"]
-        ql["w_down"] = qw["w_down"]
+        if fuse:
+            ql["wqkv"] = concat_qlinear(qw["wq"], qw["wk"], qw["wv"])
+            ql["w_gateup"] = concat_qlinear(qw["w_gate"], qw["w_up"])
+            ql["wo"] = qw["wo"]
+            ql["w_down"] = qw["w_down"]
+        else:
+            ql.update(qw)
         out["layers"].append(ql)
     return out
 

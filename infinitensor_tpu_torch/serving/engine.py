@@ -554,12 +554,16 @@ class ServingEngine:
         """Process any dispatched-but-unfetched lookahead group so host
         state (pos/last_token/slots) is current. Must run before
         admission, snapshot, or any host decision that reads slot
-        state."""
+        state. The device-side (token, pos) chain is dropped either way:
+        a drain's last group is fetched without a successor, and the chain
+        it leaves behind predates whatever admission writes next (the JAX
+        package keeps it, so there a second drain's first wave decodes
+        from the previous drain's last token and position)."""
         if self._inflight is not None:
             groups, span, active = self._inflight
             self._inflight = None
             self._process_groups(groups, span, active)
-            self._dev_state = None
+        self._dev_state = None
 
     def _dispatch_chunks(self, token, pos, depth: int):
         t0 = time.perf_counter()

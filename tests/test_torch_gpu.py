@@ -146,15 +146,19 @@ def test_flash_decode_kernel(dev, rep):
 
 
 def test_cuda_wrappers_raise_instead_of_falling_back(dev):
-    q = torch.zeros(1, 2, 1, 64, dtype=torch.bfloat16, device=dev)
-    kc = torch.zeros(1, 2, 16, 64, dtype=torch.int8, device=dev)
+    q = torch.zeros(1, 2, 1, 32, dtype=torch.bfloat16, device=dev)
+    kc = torch.zeros(1, 2, 16, 32, dtype=torch.int8, device=dev)
     s = torch.zeros(1, 2, 16, device=dev)
     pos = torch.zeros(1, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError):
-        att.flash_decode_q8(q, kc, kc, s, s, pos)       # D = 64
-    kb = torch.zeros(1, 2, 16, 64, dtype=torch.bfloat16, device=dev)
+        att.flash_decode_q8(q, kc, kc, s, s, pos)       # D = 32
+    kb = torch.zeros(1, 2, 16, 32, dtype=torch.bfloat16, device=dev)
     with pytest.raises(ValueError):
-        att.flash_decode(q, kb, kb, pos)                # D = 64
+        att.flash_decode(q, kb, kb, pos)                # D = 32
+    q64 = torch.zeros(1, 2, 1, 64, device=dev)
+    k64 = torch.zeros(1, 2, 16, 64, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError):
+        att.flash_decode(q64, k64, k64, pos)            # f32 query
     qq = _qlin(dev, 512, 256, 4, torch.bfloat16)
     with pytest.raises(ValueError):
         qm.quant_matmul(_x(dev, 1, 512).float(), qq)
@@ -166,6 +170,134 @@ def test_cuda_wrappers_raise_instead_of_falling_back(dev):
         fa.flash_attention(x32, x32, x32)               # f32
     with pytest.raises(ValueError):
         att.flash_decode(x32[:, :, :1], x32, x32, pos)  # f32 cache
+
+
+def _ragged_pos(dev, B, S, seed):
+    g = torch.Generator().manual_seed(seed)
+    pos = torch.randint(0, S, (B,), generator=g)
+    pos[0], pos[-1] = 0, S - 1
+    return pos.to(torch.int32).to(dev)
+
+
+@pytest.mark.parametrize("rep,B,S", [(1, 64, 384), (1, 3, 300), (4, 5, 520)])
+def test_flash_decode_kernels_at_head_dim_64(dev, rep, B, S):
+    """GPT-2's head dim: both cache types, ragged pos, rows past pos NaN
+    (bf16 cache) or NaN-scaled (INT8 cache)."""
+    g = torch.Generator(device=dev).manual_seed(B + S)
+    Hkv, D = 2 if rep > 1 else 16, 64
+    q = torch.randn(B, Hkv * rep, 1, D, generator=g, device=dev).to(
+        torch.bfloat16)
+    pos = _ragged_pos(dev, B, S, S)
+    dead = (torch.arange(S, device=dev)[None] > pos[:, None])[:, None] \
+        .expand(B, Hkv, S)
+    kc, vc = (torch.randn(B, Hkv, S, D, generator=g, device=dev).to(
+        torch.bfloat16) for _ in range(2))
+    want = att.flash_decode_plain(q, kc, vc, pos)
+    kc[dead] = float("nan")
+    vc[dead] = float("nan")
+    before = att.launches["flash_decode"]
+    got = att.flash_decode(q, kc, vc, pos)
+    assert att.launches["flash_decode"] == before + 1
+    assert torch.isfinite(got.float()).all()
+    _close(got, want)
+    kq, vq = (torch.randint(-127, 128, (B, Hkv, S, D), generator=g,
+                            device=dev, dtype=torch.int8) for _ in range(2))
+    ks, vs = (torch.rand(B, Hkv, S, generator=g, device=dev) * 0.015 + 0.005
+              for _ in range(2))
+    want = att.flash_decode_q8_plain(q, kq, vq, ks, vs, pos)
+    ks[dead] = float("nan")
+    vs[dead] = float("nan")
+    got = att.flash_decode_q8(q, kq, vq, ks, vs, pos)
+    assert torch.isfinite(got.float()).all()
+    _close(got, want)
+
+
+def _ln_inputs(dev, din, seed=3):
+    g = torch.Generator().manual_seed(seed)
+    gamma = (torch.rand(din, generator=g) + 0.5).to(torch.bfloat16).to(dev)
+    beta = (torch.randn(din, generator=g) * 0.1).to(torch.bfloat16).to(dev)
+    return gamma, beta
+
+
+@pytest.mark.parametrize("rows", [1, 3, 64, 256])
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("bias_dt", [None, torch.bfloat16, torch.float32])
+def test_group_ln_kernel(dev, rows, bits, bias_dt):
+    q = _qlin(dev, 1024, 300, bits, torch.float32, pad_out=128)
+    assert q.out_physical == 384 and q.out_features == 300
+    x = _x(dev, rows, 1024) * 3 + 0.5
+    gamma, beta = _ln_inputs(dev, 1024)
+    bias = None if bias_dt is None else \
+        _x(dev, 1, 300, seed=5)[0].to(bias_dt)
+    before = qm.launches["qmm_group_ln"]
+    got = qm.quant_matmul_ln(x, gamma, beta, q, bias=bias, eps=1e-5)
+    assert qm.launches["qmm_group_ln"] == before + 1
+    assert got.shape == (rows, 300)
+    _close(got, qm.qmm_group_ln_plain(x, gamma, beta, q, bias, 1e-5)[:, :300])
+
+
+def test_group_ln_composition_on_the_card(dev):
+    """What the fused kernel does not take runs LayerNorm + a matmul kernel
+    (or the dequant route) + bias on the card, never a plain version."""
+    gamma, beta = _ln_inputs(dev, 1024)
+    q = _qlin(dev, 1024, 256, 8, torch.float32)
+    bias = _x(dev, 1, 256, seed=5)[0]
+    x = _x(dev, 300, 1024)
+    before = dict(qm.launches)
+    got = qm.quant_matmul_ln(x, gamma, beta, q, bias=bias)
+    assert qm.launches["dequant_matmul"] == \
+        before.get("dequant_matmul", 0) + 1
+    xn = qm.layer_norm(x, gamma, beta, 1e-5)
+    want = (xn.float() @ dequantize_weight(q).float()).to(x.dtype) + bias
+    _close(got, want)
+    # f32 gamma: the kernel reads bf16 norm vectors, so LayerNorm runs in
+    # torch and the product in qmm_group
+    got = qm.quant_matmul_ln(x[:5], gamma.float(), beta.float(), q, bias=bias)
+    assert qm.launches["qmm_group"] == before.get("qmm_group", 0) + 1
+    assert qm.launches["qmm_group_ln"] == before.get("qmm_group_ln", 0)
+    _close(got, qm.qmm_group_plain(xn[:5], q) + bias)
+
+
+def _paired(dev, din, dout, sdt, pad_out=0, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    q = quantize_weight(torch.randn(din, dout, generator=g), bits=4,
+                        group_size=128, pad_out=pad_out, paired=True)
+    assert q.paired and q.scales.shape[0] == din // 256
+    return QuantizedLinear(q.qweight.to(dev), q.scales.to(sdt).to(dev), 4,
+                           q.group_size, q.out_logical)
+
+
+@pytest.mark.parametrize("rows", [1, 3, 64, 256])
+@pytest.mark.parametrize("sdt", [torch.bfloat16, torch.float32])
+def test_slab_kernels(dev, rows, sdt):
+    q = _paired(dev, 1024, 300, sdt, pad_out=128)
+    x = _x(dev, rows, 1024)
+    before = dict(qm.launches)
+    # paired overrides whatever variant was asked for
+    got = qm.quant_matmul(x, q, variant="w4a8")
+    assert qm.launches["qmm_slab"] == before.get("qmm_slab", 0) + 1
+    assert got.shape == (rows, 300)
+    _close(got, qm.qmm_slab_plain(x, q)[:, :300])
+    nw = (torch.rand(1024, generator=torch.Generator().manual_seed(2))
+          + 0.5).to(torch.bfloat16).to(dev)
+    got = qm.quant_matmul_norm(x * 4, nw, q)
+    assert qm.launches["qmm_slab_norm"] == \
+        before.get("qmm_slab_norm", 0) + 1
+    assert qm.launches["qmm_group"] == before.get("qmm_group", 0)
+    _close(got, qm.qmm_slab_plain(qm.rmsnorm_bf16(x * 4, nw, 1e-5), q)[
+        :, :300])
+    # an odd number of scale rows (din = 768: 3 packed groups)
+    q3 = _paired(dev, 768, 256, sdt, seed=4)
+    x3 = _x(dev, rows, 768)
+    _close(qm.quant_matmul(x3, q3), qm.qmm_slab_plain(x3, q3))
+
+
+def test_slab_on_unpaired_weight_is_group(dev):
+    q = _qlin(dev, 1024, 256, 4, torch.bfloat16)
+    x = _x(dev, 2, 1024)
+    before = qm.launches["qmm_group"]
+    _close(qm.quant_matmul(x, q, variant="slab"), qm.qmm_group_plain(x, q))
+    assert qm.launches["qmm_group"] == before + 1
 
 
 def _small_model(dev):

@@ -75,7 +75,31 @@ def test_entry_points_refuse_without_cuda_device(monkeypatch):
 def test_kernel_sources_shipped():
     csrc = PKG / "kernels" / "csrc"
     assert {p.name for p in csrc.glob("*.cu")} == {
-        "quant_matmul.cu", "flash_decode.cu", "paged_flash_decode.cu",
-        "flash_attention.cu"}
-    # the body the dense and the paged decode kernels share
+        "quant_matmul.cu", "quant_matmul_fused.cu", "flash_decode.cu",
+        "paged_flash_decode.cu", "flash_attention.cu"}
+    # the bodies the decode-attention and the group-dot kernels share
     assert (csrc / "flash_decode.cuh").exists()
+    assert (csrc / "quant_matmul.cuh").exists()
+
+
+def test_gpt2_entry_points_refuse_without_cuda_device(monkeypatch):
+    from infinitensor_tpu_torch import (GPT2Config, init_gpt2_cache,
+                                        init_gpt2_params, load_gpt2_params)
+    from infinitensor_tpu_torch.tools import serving_bench
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = GPT2Config.tiny()
+    with pytest.raises(RuntimeError):
+        init_gpt2_cache(cfg, 1)
+    with pytest.raises(RuntimeError):
+        init_gpt2_params(cfg, torch.Generator())
+    with pytest.raises(RuntimeError):
+        load_gpt2_params({}, cfg)
+    with pytest.raises(RuntimeError):
+        serving_bench.main()
+    cache = init_gpt2_cache(cfg, 2, device="cpu")
+    assert cache["k"][0].shape == (2, 4, 64, 16)
+    assert cache["k"][0].dtype == torch.bfloat16 and "k_scale" not in cache
+    q8 = init_gpt2_cache(cfg, 2, max_seq=8, kv_quant=True, device="cpu")
+    assert q8["k"][0].dtype == torch.int8
+    assert q8["k_scale"][0].shape == (2, 4, 8)

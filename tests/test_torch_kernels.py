@@ -235,3 +235,111 @@ def test_append_and_attention_vs_jax():
     assert got[1] is port_in[0] and got[3] is port_in[2]
     np.testing.assert_array_equal(got[1][:, :, :17].numpy(),
                                   np.asarray(kc)[:, :, :17])
+
+
+# -- paired int4 scales: the slab kernels ------------------------------------
+
+SLAB_CASES = {
+    "512x384": dict(din=512, dout=384, group=128),
+    # 768 rows at group 256: pairing snaps the group to 128 (3 packed groups)
+    "768x256_snapped": dict(din=768, dout=256, group=256),
+    "512x200_padded": dict(din=512, dout=200, group=128, pad=128),
+}
+
+
+def _paired(case, seed, sdt=jnp.float32):
+    c = dict(dict(pad=0), **SLAB_CASES[case])
+    rng = np.random.default_rng(seed)
+    w = rng.standard_normal((c["din"], c["dout"])).astype(np.float32)
+    q = quantize_weight(jnp.asarray(w), bits=4, group_size=c["group"],
+                        pad_out=c["pad"], paired=True)
+    assert q.paired and q.scales.shape[0] * 2 * q.group_size == c["din"]
+    q = JQ(q.qweight, q.scales.astype(sdt), q.bits, q.group_size,
+           q.out_logical)
+    return rng, c, q
+
+
+@pytest.mark.parametrize("rows", [1, 3])
+@pytest.mark.parametrize("case", list(SLAB_CASES))
+def test_slab_matmul_plain_vs_pallas(case, rows):
+    rng, c, q = _paired(case, 50)
+    x = jnp.asarray(rng.standard_normal((rows, c["din"])), jnp.bfloat16)
+    tq = _port_q(q)
+    assert tq.paired and tq.group_size == 128
+    want = qm.quant_matmul(x, q, interpret=True)
+    got = tqm.quant_matmul(_t(x), tq)
+    assert got.shape == (rows, c["dout"])
+    _close(got, want)
+    # a paired weight takes the slab math whatever variant is asked for
+    for variant in ("group", "w4a8", "slab"):
+        assert torch.equal(tqm.quant_matmul(_t(x), tq, variant=variant), got)
+    _close(got, tqm.qmm_slab_plain(_t(x), tq)[:, :c["dout"]], 0)
+
+
+@pytest.mark.parametrize("sdt", [jnp.bfloat16, jnp.float32])
+@pytest.mark.parametrize("case", list(SLAB_CASES))
+def test_slab_norm_matmul_plain_vs_pallas(case, sdt):
+    rng, c, q = _paired(case, 51, sdt)
+    x = jnp.asarray(rng.standard_normal((3, c["din"])) * 3.0, jnp.bfloat16)
+    nw = jnp.asarray(rng.uniform(0.5, 1.5, (c["din"],)), jnp.bfloat16)
+    want = qm.quant_matmul_norm(x, nw, q, eps=1e-5, interpret=True)
+    got = tqm.quant_matmul_norm(_t(x), _t(nw), _port_q(q), eps=1e-5)
+    assert got.shape == (3, c["dout"])
+    _close(got, want)
+
+
+def test_slab_asked_for_an_unpaired_weight_is_group():
+    _, q, x = _weights(52)
+    tq = _port_q(q)
+    assert not tq.paired
+    assert torch.equal(tqm.quant_matmul(_t(x), tq, variant="slab"),
+                       tqm.quant_matmul(_t(x), tq, variant="group"))
+    _close(tqm.quant_matmul(_t(x), tq, variant="slab"),
+           qm.quant_matmul(x, q, interpret=True, variant="slab"))
+
+
+def test_paired_over_256_rows_takes_dequant_route_vs_jax():
+    rng, c, q = _paired("512x200_padded", 53)
+    x = jnp.asarray(rng.standard_normal((300, 512)) * 2.0, jnp.bfloat16)
+    nw = jnp.asarray(rng.uniform(0.5, 1.5, (512,)), jnp.bfloat16)
+    before = tqm.launches["dequant_matmul"]
+    got = tqm.quant_matmul(_t(x), _port_q(q))
+    gotn = tqm.quant_matmul_norm(_t(x), _t(nw), _port_q(q), eps=1e-5)
+    assert tqm.launches["dequant_matmul"] == before + 2
+    _close(got, qm.quant_matmul(x, q, interpret=True))
+    _close(gotn, qm.quant_matmul_norm(x, nw, q, eps=1e-5, interpret=True))
+
+
+def test_paired_scale_rows_are_checked():
+    _, _, q = _paired("512x384", 54)
+    tq = _port_q(q)
+    bad = type(tq)(tq.qweight, tq.scales[:1], 4, 128)     # 1 row for 2 groups
+    assert not bad.paired
+    with pytest.raises(ValueError):
+        tqm.quant_matmul(torch.zeros(1, 512, dtype=torch.bfloat16), bad)
+
+
+# -- decode attention at GPT-2's head dim -------------------------------------
+
+@pytest.mark.parametrize("dtype", [jnp.bfloat16, jnp.float32])
+@pytest.mark.parametrize("rep", [1, 2])
+def test_flash_decode_head_dim_64_plain_vs_pallas(rep, dtype):
+    rng = np.random.default_rng(60 + rep)
+    B, Hkv, S, D = 3, 2, 256, 64
+    q = jnp.asarray(rng.standard_normal((B, Hkv * rep, 1, D)), dtype)
+    kc, vc = (jnp.asarray(rng.standard_normal((B, Hkv, S, D)), dtype)
+              for _ in range(2))
+    pos = jnp.asarray([0, 100, S - 1], jnp.int32)
+    want = att.flash_decode(q, kc, vc, pos, seq_block=128, interpret=True)
+    got = tatt.flash_decode(*(_t(a) for a in (q, kc, vc, pos)))
+    # the plain versions keep the query's dtype, as the JAX functions do
+    assert got.dtype == (torch.bfloat16 if dtype == jnp.bfloat16
+                         else torch.float32)
+    _close(got, want, OUT_TOL if dtype == jnp.bfloat16 else 1e-5)
+    kq, vq, ks, vs = _q8_cache(rng, B, Hkv, S, D)
+    want = att.flash_decode_q8(q, kq, vq, ks, vs, pos, seq_block=128,
+                               interpret=True)
+    got = tatt.flash_decode_q8(*(_t(a) for a in (q, kq, vq, ks, vs, pos)))
+    assert got.dtype == (torch.bfloat16 if dtype == jnp.bfloat16
+                         else torch.float32)
+    _close(got, want, OUT_TOL if dtype == jnp.bfloat16 else 1e-5)

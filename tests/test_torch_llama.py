@@ -321,3 +321,69 @@ def test_hf_transformers_parity():
                               cache)
     assert got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-3, atol=1e-3)
+
+
+# -- quantize_llama_params(fuse, paired) and the paired decode ---------------
+
+def _three_steps(params_j, params_t, cfg_j, cfg_t):
+    cache_j = jl.init_kv_cache(cfg_j, 2, kv_quant=True)
+    cache_t = tl.init_kv_cache(cfg_t, 2, kv_quant=True, device="cpu")
+    for step, tok in enumerate([[3, 100], [17, 200], [42, 300]]):
+        pos = [5 + step, 9 + step]
+        with config.override(pallas_interpret=True):
+            lj, cache_j = jl.llama_decode_step(
+                params_j, cfg_j, jnp.asarray(tok, jnp.int32),
+                jnp.asarray(pos, jnp.int32), cache_j)
+        lt, cache_t = tl.llama_decode_step(
+            params_t, cfg_t, torch.tensor(tok, dtype=torch.int32),
+            torch.tensor(pos, dtype=torch.int32), cache_t)
+        _close_logits(lt, lj, ties=True)
+    _close_caches(cache_t, cache_j)
+
+
+QUANT_CASES = {
+    "paired": dict(bits=4, paired=True),
+    "unfused": dict(bits=4, fuse=False),
+    "int8_paired_ignored": dict(bits=8, paired=True, steps=False),
+}
+
+
+@pytest.mark.parametrize("case", list(QUANT_CASES))
+def test_quantize_llama_params_variants_match_jax(case):
+    """Three INT8-cache decode steps with the weights of
+    quantize_llama_params(fuse=..., paired=...), quantized by the port
+    from the same dense parameters: bytes and scales bit-equal to the JAX
+    package's, then logits as in test_decode_steps_match_jax. Under
+    pallas_interpret=True the JAX side runs the interpreted slab kernels
+    (_kernel_group_norm_slab) for the paired wqkv and w_gateup; the port
+    runs qmm_slab_plain for every paired matmul."""
+    kw = dict(QUANT_CASES[case])
+    steps = kw.pop("steps", True)
+    cfg_j = jl.LlamaConfig(dtype=jnp.bfloat16, **SHAPE)
+    dense = jl.init_llama_params(cfg_j, jax.random.PRNGKey(3))
+    params_j = jl.quantize_llama_params(dense, group_size=128, **kw)
+    dense_t = params_from_jax_numpy(jax.tree.map(np.asarray, dense), "cpu")
+    params_t = tl.quantize_llama_params(dense_t, group_size=128, **kw)
+    layer_t, layer_j = params_t["layers"][0], params_j["layers"][0]
+    assert set(layer_t) == set(layer_j)
+    assert ("wqkv" in layer_t) == kw.get("fuse", True)
+    pairs = [(params_t["lm_head"], params_j["lm_head"])] + [
+        (layer_t[k], layer_j[k]) for k in layer_t if k.startswith("w")]
+    for qt, qj in pairs:
+        assert qt.paired == bool(qj.paired) == (case.startswith("paired"))
+        np.testing.assert_array_equal(qt.qweight.numpy(),
+                                      np.asarray(qj.qweight))
+        np.testing.assert_array_equal(qt.scales.numpy(),
+                                      np.asarray(qj.scales))
+    if steps:
+        before = dict(tqm.launches)
+        _three_steps(params_j, params_t, cfg_j, tl.LlamaConfig(**SHAPE))
+        assert dict(tqm.launches) == before     # no dequant route at 2 rows
+
+
+def test_llama2_70b_config_matches_jax():
+    got, want = tl.LlamaConfig.llama2_70b(), jl.LlamaConfig.llama2_70b()
+    for f in ("vocab_size", "dim", "n_layers", "n_heads", "n_kv_heads",
+              "intermediate", "head_dim", "max_seq"):
+        assert getattr(got, f) == getattr(want, f), f
+    assert tl.LlamaConfig.llama2_70b(max_seq=64).max_seq == 64
