@@ -58,7 +58,9 @@ Phases, each failing with a nonzero exit, each printing its seconds:
      cache and again with the INT8 cache. Every request ends with 64
      tokens; the tokens with INFINITPU_GPT2_FUSED_LN=1 equal those with
      =0, and one request's equal a batch-1 prefill + decode loop, each up
-     to a first near-tie whose logit gap is printed; a decode step
+     to a first near-tie whose logit gap is printed (limit G_TIE); every
+     token of every request is the pick, or within G_FORCED of the pick,
+     of gpt2_prefill forced along the same history; a decode step
      launches qmm_group_ln 48 times, qmm_group 49 and flash_decode (or
      flash_decode_q8) 24. Prints generated tok/s over the drain (every
      sample), ms per step at 64 live slots, the stats slices and a
@@ -109,6 +111,10 @@ G_CHUNK = 64
 G_PIPELINE = 2
 G_REPS = 2
 GPT2_BF16, GPT2_INT8 = "gpt2 serving bf16", "gpt2 serving int8"
+G_TIE = 2.5e-2               # phase 7's near-tie: this random model's mean
+#                              top-1/top-2 gap is 3.4e-2 of max|logit|, so
+#                              TIE would let a runner-up pass
+G_FORCED = {GPT2_BF16: 2.5e-2, GPT2_INT8: 3e-2}   # teacher-forced limits
 PAIRED = "paired decode"
 SRC = "infinitensor_tpu_torch/kernels/csrc/"
 TPU = "infinitensor_tpu/kernels/"
@@ -939,13 +945,17 @@ def stale_row_hazards(eng):
     return out
 
 
-def same_up_to_ties(what, got, want, prompts, tie_gap):
+def same_up_to_ties(what, got, want, prompts, tie_gap, limit=TIE):
     """Fail unless each got[i] equals want[i], or first differs at a
     near-tie (the rest of that request then follows another history):
     tie_gap(prefix, a, b), the gap between the logits of tokens a and b
-    after `prefix` relative to max|logit|, is at most TIE. Returns
-    [(index, token index, gap)] of the near-ties."""
+    after `prefix` relative to max|logit|, is at most `limit`. Returns
+    [(index, token index, gap)] of the near-ties. Tokens after a split
+    are not compared here: where that matters, teacher_forced is."""
     ties = []
+    compared = sum(
+        next((j for j, (x, y) in enumerate(zip(g, w)) if x != y),
+             min(len(g), len(w)) - 1) + 1 for g, w in zip(got, want))
     for i, (g, w) in enumerate(zip(got, want)):
         if g == w:
             continue
@@ -954,14 +964,44 @@ def same_up_to_ties(what, got, want, prompts, tie_gap):
             fail(f"{what}: request {i} has {len(g)} vs {len(w)} tokens")
         gap = tie_gap(prompts[i] + g[:j], g[j], w[j])
         ties.append((i, j, gap))
-        if gap > TIE:
+        if gap > limit:
             fail(f"{what}: request {i} differs at token {j} "
                  f"({g[j]} vs {w[j]}), logit gap {gap:.3g} of max|logit|")
     worst = max((t[2] for t in ties), default=0.0)
     print(f"# {what}: {len(got) - len(ties)} of {len(got)} equal, "
           f"{len(ties)} part at a near-tie (largest gap {worst:.3g} of "
-          "max|logit|)", flush=True)
+          f"max|logit|, limit {limit}); {compared} of "
+          f"{sum(len(g) for g in got)} tokens compared", flush=True)
     return ties
+
+
+def teacher_forced(torch, what, got, prompts, logits_along, limit):
+    """Hold EVERY token of every request to a reference that is forced
+    along the same history: logits_along(tokens) -> [len(tokens), vocab]
+    are the reference's logits after each prefix of prompt + got[:-1], so
+    got[j] is compared with the reference's pick after prompt + got[:j],
+    whatever happened before j. Fails unless each got[j] is that pick or
+    lies within `limit` of it (logit gap over the row's max|logit|).
+    Returns {"tokens", "not_top1", "largest_gap"}."""
+    n = differ = 0
+    worst = (0.0, None, None)
+    for i, (g, prompt) in enumerate(zip(got, prompts)):
+        rows = logits_along(prompt + g[:-1])[len(prompt) - 1:].float()
+        picked = rows.gather(1, torch.tensor(g, device=rows.device)[:, None])
+        gap = (rows.max(-1).values - picked[:, 0]) / rows.abs().max(-1).values
+        n += len(g)
+        differ += int((gap > 0).sum())
+        j = int(gap.argmax())
+        if worst[1] is None or float(gap[j]) > worst[0]:
+            worst = (float(gap[j]), i, j)
+    print(f"# {what}: {n} tokens of {len(got)} requests against the "
+          f"teacher-forced reference: {differ} are not its top-1, largest "
+          f"gap {worst[0]:.3g} of max|logit| (request {worst[1]}, token "
+          f"{worst[2]}; limit {limit})", flush=True)
+    if worst[0] > limit:
+        fail(f"{what}: request {worst[1]} token {worst[2]} lies "
+             f"{worst[0]:.3g} of max|logit| below the reference's pick")
+    return {"tokens": n, "not_top1": differ, "largest_gap": worst[0]}
 
 
 def serving_path(torch, llama, counters, params, cfg, dev, report,
@@ -1353,6 +1393,10 @@ def gpt2_path(torch, gpt2, sb, counters, gparams, gcfg, dev, report, steps):
         last = logits[0, -1]
         return abs(float(last[a] - last[b])) / float(last.abs().max())
 
+    def logits_along(tokens):
+        toks = torch.tensor([tokens], dtype=torch.int32, device=dev)
+        return gpt2.gpt2_prefill(gparams, gcfg, toks, ref_cache)[0][0]
+
     paths, res = {}, {}
     for label, kv_int8 in ((GPT2_BF16, False), (GPT2_INT8, True)):
         kname = "flash_decode_q8" if kv_int8 else "flash_decode"
@@ -1427,7 +1471,12 @@ def gpt2_path(torch, gpt2, sb, counters, gparams, gcfg, dev, report, steps):
             fail(f"{label}: with the gate off qmm_group_ln was launched "
                  f"{off_launches.get('qmm_group_ln', 0)} times")
         ties = same_up_to_ties(f"{label}: fused LayerNorm on vs off", got,
-                               off, prompts, tie_gap)
+                               off, prompts, tie_gap, G_TIE)
+        # every token of the drain against gpt2_prefill (bf16 K/V, no
+        # decode kernel) forced along the same history
+        forced = teacher_forced(
+            torch, f"{label}: the drain vs prefill", got, prompts,
+            logits_along, G_FORCED[label])
 
         # one request against a batch-1 prefill + decode loop
         i = min(range(len(prompts)), key=lambda i: len(prompts[i]))
@@ -1445,7 +1494,8 @@ def gpt2_path(torch, gpt2, sb, counters, gparams, gcfg, dev, report, steps):
             p1 = p1 + 1
         del cache
         solo_ties = same_up_to_ties(f"{label}: request {i} vs batch-1 loop",
-                                    [got[i]], [solo], [prompts[i]], tie_gap)
+                                    [got[i]], [solo], [prompts[i]], tie_gap,
+                                    G_TIE)
 
         stats = result["stats"]
         res[label] = dict(
@@ -1460,6 +1510,7 @@ def gpt2_path(torch, gpt2, sb, counters, gparams, gcfg, dev, report, steps):
             fused_ln_off={"tok_s": off_result["value"],
                           "launches": off_launches,
                           "equal": len(got) - len(ties), "near_ties": ties},
+            teacher_forced_vs_prefill=forced,
             batch1_request=i, near_ties_vs_batch1=solo_ties,
             first_tokens=got[0][:8])
         print(f"# {label}: " + json.dumps(res[label]), flush=True)

@@ -174,8 +174,8 @@ ITT_EXPORT int qmm_group(const void* x, const void* nw, const void* qw,
 #define ITT_QMM(B, RR, N)                                                     \
   if (bits == B && R == RR && (bool)has_norm == N)                            \
     return (int)launch_group<B, RR, (N ? kRmsNorm : kNoNorm), false>(         \
-        x, nw, nullptr, qw, sc, sc_bf16, nullptr, false, 0, out, rows, din,   \
-        dout_p, group, eps, s);
+        x, nw, nullptr, true, qw, sc, sc_bf16, nullptr, false, 0, out, rows,  \
+        din, dout_p, group, eps, s);
   ITT_QMM(4, 1, false) ITT_QMM(4, 2, false) ITT_QMM(4, 4, false)
   ITT_QMM(4, 1, true) ITT_QMM(4, 2, true) ITT_QMM(4, 4, true)
   ITT_QMM(8, 1, false) ITT_QMM(8, 2, false) ITT_QMM(8, 4, false)

@@ -76,16 +76,17 @@ __device__ void write_out(const float* red, const float* row_scale,
   }
 }
 
-// x bf16 [rows, din]; nw bf16 [din]: the RMSNorm weight or the LayerNorm
-// gamma; nb bf16 [din]: the LayerNorm beta; qw int8 [din/2 or din, dout_p];
+// x bf16 [rows, din]; nw [din]: the RMSNorm weight (bf16) or the LayerNorm
+// gamma; nb [din]: the LayerNorm beta; gamma and beta are both bf16 or, with
+// norm_bf16 false, both f32, and are used in f32 either way; qw int8 [din/2 or din, dout_p];
 // sc bf16/f32 [ng, dout_p] (PAIRED: ng = din / (2 * group)); bias bf16/f32
 // [nbias] (LayerNorm form only, may be null with nbias 0); out bf16
 // [rows, dout_p].
 template <int BITS, int R, int PRO, bool PAIRED>
 __global__ void __launch_bounds__(kLanes * kWarps)
 qmm_group_kernel(const __nv_bfloat16* __restrict__ x,
-                 const __nv_bfloat16* __restrict__ nw,
-                 const __nv_bfloat16* __restrict__ nb,
+                 const void* __restrict__ nw, const void* __restrict__ nb,
+                 bool norm_bf16,
                  const int8_t* __restrict__ qw, const void* __restrict__ sc,
                  bool sc_bf16, const void* __restrict__ bias, bool bias_bf16,
                  int nbias, __nv_bfloat16* __restrict__ out, int rows,
@@ -130,11 +131,12 @@ qmm_group_kernel(const __nv_bfloat16* __restrict__ x,
     for (int k = tid; k < din; k += nthr) {
       float v = bf16_to_f32(xr[k]);
       if (PRO == kRmsNorm)
-        v = round_bf16(round_bf16(v * rinv) * bf16_to_f32(nw[k]));
+        v = round_bf16(round_bf16(v * rinv) *
+                       bf16_to_f32(static_cast<const __nv_bfloat16*>(nw)[k]));
       if (PRO == kLayerNorm)
         v = round_bf16(__fadd_rn(
-            __fmul_rn(__fmul_rn(v - mu, rinv), bf16_to_f32(nw[k])),
-            bf16_to_f32(nb[k])));
+            __fmul_rn(__fmul_rn(v - mu, rinv), load_scale(nw, norm_bf16, k)),
+            load_scale(nb, norm_bf16, k)));
       xs[r * din + k] = v;
     }
   }
@@ -221,7 +223,7 @@ inline size_t group_smem(int R, int din) {
 
 template <int BITS, int R, int PRO, bool PAIRED>
 cudaError_t launch_group(const void* x, const void* nw, const void* nb,
-                         const void* qw, const void* sc, bool sc_bf16,
+                         bool norm_bf16, const void* qw, const void* sc, bool sc_bf16,
                          const void* bias, bool bias_bf16, int nbias,
                          void* out, int rows, int din, int dout_p, int group,
                          float eps, cudaStream_t stream) {
@@ -232,8 +234,8 @@ cudaError_t launch_group(const void* x, const void* nw, const void* nb,
   if (e != cudaSuccess) return e;
   dim3 grid((dout_p + kCols - 1) / kCols, (rows + R - 1) / R);
   kernel<<<grid, dim3(kLanes, kWarps), smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(nw),
-      static_cast<const __nv_bfloat16*>(nb), static_cast<const int8_t*>(qw), sc,
+      static_cast<const __nv_bfloat16*>(x), nw, nb, norm_bf16,
+      static_cast<const int8_t*>(qw), sc,
       sc_bf16, bias, bias_bf16, nbias, static_cast<__nv_bfloat16*>(out), rows,
       din, dout_p, group, eps);
   return cudaGetLastError();

@@ -30,12 +30,13 @@ using namespace qmm_detail;
 
 ITT_DEFINE_ERROR_STRING()
 
-// x bf16 [rows, din]; gamma, beta bf16 [din]; qw int8 [din/2 or din,
+// x bf16 [rows, din]; gamma, beta [din], both bf16 or (norm_bf16 = 0) both
+// f32; qw int8 [din/2 or din,
 // dout_p]; sc bf16/f32 [ng, dout_p] (int4: ng even, unpaired); bias bf16 or
 // f32 [nbias], nbias <= dout_p, or null with nbias 0; out bf16
 // [rows, dout_p] = bf16(bf16(LN(x) @ W) + bias).
 ITT_EXPORT int qmm_group_ln(const void* x, const void* gamma, const void* beta,
-                            const void* qw, const void* sc, int sc_bf16,
+                            int norm_bf16, const void* qw, const void* sc, int sc_bf16,
                             const void* bias, int bias_bf16, int nbias,
                             void* out, int rows, int din, int dout_p, int bits,
                             int group, float eps, void* stream) {
@@ -45,8 +46,8 @@ ITT_EXPORT int qmm_group_ln(const void* x, const void* gamma, const void* beta,
 #define ITT_QMM_LN(B, RR)                                                     \
   if (bits == B && R == RR)                                                   \
     return (int)launch_group<B, RR, kLayerNorm, false>(                       \
-        x, gamma, beta, qw, sc, sc_bf16, bias, bias_bf16, nbias, out, rows,   \
-        din, dout_p, group, eps, s);
+        x, gamma, beta, norm_bf16, qw, sc, sc_bf16, bias, bias_bf16, nbias,   \
+        out, rows, din, dout_p, group, eps, s);
   ITT_QMM_LN(4, 1) ITT_QMM_LN(4, 2) ITT_QMM_LN(4, 4)
   ITT_QMM_LN(8, 1) ITT_QMM_LN(8, 2) ITT_QMM_LN(8, 4)
 #undef ITT_QMM_LN
@@ -66,8 +67,8 @@ ITT_EXPORT int qmm_slab(const void* x, const void* nw, const void* qw,
 #define ITT_QMM_SLAB(RR, N)                                                   \
   if (R == RR && (bool)has_norm == N)                                         \
     return (int)launch_group<4, RR, (N ? kRmsNorm : kNoNorm), true>(          \
-        x, nw, nullptr, qw, sc, sc_bf16, nullptr, false, 0, out, rows, din,   \
-        dout_p, group, eps, s);
+        x, nw, nullptr, true, qw, sc, sc_bf16, nullptr, false, 0, out, rows,  \
+        din, dout_p, group, eps, s);
   ITT_QMM_SLAB(1, false) ITT_QMM_SLAB(2, false) ITT_QMM_SLAB(4, false)
   ITT_QMM_SLAB(1, true) ITT_QMM_SLAB(2, true) ITT_QMM_SLAB(4, true)
 #undef ITT_QMM_SLAB

@@ -248,7 +248,7 @@ def _lib_fused() -> ctypes.CDLL:
     P, I, F = _build.P, _build.I, _build.F
     return _build.typed(
         "quant_matmul_fused",
-        qmm_group_ln=[P, P, P, P, P, I, P, I, I, P, I, I, I, I, I, F, P],
+        qmm_group_ln=[P, P, P, I, P, P, I, P, I, I, P, I, I, I, I, I, F, P],
         qmm_slab=[P, P, P, P, I, P, I, I, I, I, I, F, P])
 
 
@@ -302,13 +302,19 @@ def _launch_group_ln(x2, gamma, beta, q, bias, eps: float) -> torch.Tensor:
         if t is not None and (t.device != x2.device
                               or not t.is_contiguous()):
             raise ValueError(f"{name} must be contiguous on {x2.device}")
+    if bias is not None and (
+            bias.dtype not in (torch.bfloat16, torch.float32)
+            or bias.shape[-1] > q.out_physical):
+        raise ValueError(f"bias {bias.dtype} {tuple(bias.shape)}: bf16 or "
+                         f"f32, at most {q.out_physical} columns")
     rows, din = x2.shape
     out = torch.empty(rows, q.out_physical, dtype=torch.bfloat16,
                       device=x2.device)
     lib = _lib_fused()
     p = _build.ptr
     err = lib.qmm_group_ln(
-        p(x2), p(gamma), p(beta), p(q.qweight), p(q.scales),
+        p(x2), p(gamma), p(beta), gamma.dtype == torch.bfloat16,
+        p(q.qweight), p(q.scales),
         q.scales.dtype == torch.bfloat16, p(bias),
         bias is not None and bias.dtype == torch.bfloat16,
         0 if bias is None else bias.shape[-1], p(out), rows, din,
@@ -402,42 +408,40 @@ def quant_matmul_norm(x: torch.Tensor, norm_w: torch.Tensor,
     return out[:, :q.out_features].reshape(*lead, q.out_features)
 
 
-def _ln_kernel_takes(x, gamma, beta, q: QuantizedLinear, bias) -> bool:
-    """The shapes _kernel_group_ln takes (quant_matmul.py:359-365): what
-    the group kernel takes, at most KERNEL_MAX_ROWS rows, no paired int4;
-    and, the port's own limits, bf16 gamma and beta and a bf16 or f32
-    bias."""
-    if _rows(x) > KERNEL_MAX_ROWS or _refusal(x, q) or q.paired:
-        return False
-    if gamma.dtype != torch.bfloat16 or beta.dtype != torch.bfloat16:
-        return False
-    return bias is None or (
-        bias.dtype in (torch.bfloat16, torch.float32)
-        and bias.shape[-1] <= q.out_physical)
-
-
 def quant_matmul_ln(x: torch.Tensor, gamma: torch.Tensor,
                     beta: torch.Tensor, q: QuantizedLinear,
                     bias: Optional[torch.Tensor] = None,
                     eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm(x; gamma, beta) @ q + bias in one kernel (GPT-2 decode's
-    pattern); x is the raw residual stream [..., din] bf16.
+    pattern); x is the raw residual stream [..., din] bf16. gamma and beta
+    are read as bf16 or f32 and used in f32, as the TPU kernel reads them.
 
-    What the kernel does not take (_ln_kernel_takes) runs the exact
-    composition, as in the JAX package: layer_norm, then quant_matmul
-    (a kernel on the card, or the dequant route above KERNEL_MAX_ROWS
-    rows), then + bias. Where quant_matmul has no kernel either (a group
-    that is no multiple of 128, where the JAX package takes its chunk
-    kernel, or a non-bf16 x) the product takes the dequant route."""
+    What _kernel_group_ln does not take (quant_matmul.py:359-365: more
+    than KERNEL_MAX_ROWS rows, a paired int4 weight, what the group kernel
+    refuses) runs the exact composition, as in the JAX package: layer_norm,
+    then quant_matmul (qmm_group or qmm_slab on the card, the dequant route
+    above KERNEL_MAX_ROWS rows), then + bias. Where quant_matmul refuses
+    too (a group that is no multiple of 128 or a non-bf16 x: the JAX
+    package's chunk kernel, ROADMAP Queue 2 item 12) a CPU tensor takes
+    dequant_matmul as that kernel's plain version and a CUDA tensor
+    raises."""
     *lead, din = x.shape
-    if not _ln_kernel_takes(x, gamma, beta, q, bias):
+    kernel_rows = _rows(x) <= KERNEL_MAX_ROWS
+    if not kernel_rows or q.paired or _refusal(x, q):
         xn = layer_norm(x, gamma, beta, eps)
-        if _rows(x) > KERNEL_MAX_ROWS or _refusal(xn, q) is None:
-            out = quant_matmul(xn, q)
-        else:
+        why = _refusal(xn, q) if kernel_rows else None
+        if why and x.device.type == "cpu":
             out = _dequant_route(xn, q)
+        elif why:
+            raise NotImplementedError(
+                f"{why}: LayerNorm + the chunk kernel is not ported "
+                "(ROADMAP Queue 2 item 12)")
+        else:
+            out = quant_matmul(xn, q)
         return out if bias is None else out + bias
     x2 = x.reshape(-1, din).contiguous()
+    if gamma.dtype != torch.bfloat16 or beta.dtype != torch.bfloat16:
+        gamma, beta = gamma.float(), beta.float()     # exact; read as f32
     gamma, beta = gamma.contiguous(), beta.contiguous()
     bias = None if bias is None else bias.contiguous()
     out = _dispatch(

@@ -40,10 +40,10 @@ def _close(got, want):
     assert err <= TOL * want.float().abs().max().item(), err
 
 
-def _qlin(dev, din, dout, bits, sdt, pad_out=0, seed=0):
+def _qlin(dev, din, dout, bits, sdt, pad_out=0, seed=0, group=128):
     g = torch.Generator().manual_seed(seed)
     w = torch.randn(din, dout, generator=g)
-    q = quantize_weight(w, bits=bits, group_size=128, pad_out=pad_out)
+    q = quantize_weight(w, bits=bits, group_size=group, pad_out=pad_out)
     return QuantizedLinear(q.qweight.to(dev), q.scales.to(sdt).to(dev),
                            q.bits, q.group_size, q.out_logical)
 
@@ -238,7 +238,8 @@ def test_group_ln_kernel(dev, rows, bits, bias_dt):
 
 def test_group_ln_composition_on_the_card(dev):
     """What the fused kernel does not take runs LayerNorm + a matmul kernel
-    (or the dequant route) + bias on the card, never a plain version."""
+    (or, above 256 rows, the dequant route) + bias on the card, and raises
+    where there is no kernel: never a plain version."""
     gamma, beta = _ln_inputs(dev, 1024)
     q = _qlin(dev, 1024, 256, 8, torch.float32)
     bias = _x(dev, 1, 256, seed=5)[0]
@@ -250,12 +251,27 @@ def test_group_ln_composition_on_the_card(dev):
     xn = qm.layer_norm(x, gamma, beta, 1e-5)
     want = (xn.float() @ dequantize_weight(q).float()).to(x.dtype) + bias
     _close(got, want)
-    # f32 gamma: the kernel reads bf16 norm vectors, so LayerNorm runs in
-    # torch and the product in qmm_group
-    got = qm.quant_matmul_ln(x[:5], gamma.float(), beta.float(), q, bias=bias)
-    assert qm.launches["qmm_group"] == before.get("qmm_group", 0) + 1
-    assert qm.launches["qmm_group_ln"] == before.get("qmm_group_ln", 0)
-    _close(got, qm.qmm_group_plain(xn[:5], q) + bias)
+    # f32 gamma and beta (one of them is enough) are read by the kernel
+    for gm, bt in ((gamma.float(), beta.float()), (gamma.float(), beta)):
+        n = qm.launches["qmm_group_ln"]
+        got = qm.quant_matmul_ln(x[:5], gm, bt, q, bias=bias)
+        assert qm.launches["qmm_group_ln"] == n + 1
+        _close(got, qm.qmm_group_ln_plain(x[:5], gamma, beta, q, bias, 1e-5))
+    # a paired weight: LayerNorm + qmm_slab + bias
+    qp = _paired(dev, 1024, 256, torch.float32)
+    n = qm.launches["qmm_slab"]
+    got = qm.quant_matmul_ln(x[:5], gamma, beta, qp, bias=bias)
+    assert qm.launches["qmm_slab"] == n + 1
+    _close(got, qm.qmm_slab_plain(xn[:5], qp) + bias)
+    # no kernel for a group of 64 or an f32 x (the chunk kernel is not
+    # ported): raise, on any number of rows the kernels would take
+    before = dict(qm.launches)
+    q64 = _qlin(dev, 1024, 256, 8, torch.float32, group=64)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        qm.quant_matmul_ln(x[:5], gamma, beta, q64, bias=bias)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        qm.quant_matmul_ln(x[:5].float(), gamma, beta, q, bias=bias)
+    assert dict(qm.launches) == before
 
 
 def _paired(dev, din, dout, sdt, pad_out=0, seed=0):
