@@ -71,14 +71,34 @@ Phases, each failing with a nonzero exit, each printing its seconds:
      with tokens equal to an eager loop, tok/s (min of 3) against the
      copy-rate roofline with the paired byte count; a token launches
      qmm_slab_norm 64 times, qmm_slab 65, flash_decode_q8 32 and no
-     qmm_group, qmm_group_norm or qmm_w4a8.
-Phase 3 also holds the kernels of phases 7 and 8 against their plain
-versions at those shapes (64 rows of 1024 features; B 64, 16 heads of 64,
-S 384, ragged pos in [16, 313]; the paired 7B matmuls at 1 row).
+     qmm_group, qmm_group_norm or qmm_w4a8;
+  9. the same decode with INT4 weights at group 64, the quantization of
+     __graft_entry__.entry() at 7B width: every linear takes qmm_chunk
+     (wqkv and w_gateup through rmsnorm + quant_matmul), 129 launches a
+     token and no qmm_group*, qmm_w4a8 or qmm_slab*; then the port's
+     entry() (infinitensor_tpu_torch/entry.py) once, its launches
+     counted and its logits held against the plain versions on the CPU;
+ 10. the group-128 decode under INFINITPU_QMM_VARIANT=w4a8 with an empty
+     tuning table (INFINITPU_QMM_TUNE): qmm_norm_w4a8 64 and qmm_w4a8 65
+     launches a token; with the default table the env var changes nothing
+     (its entries win), so one step then launches what phase 4's does;
+ 11. the group-128 decode with a copy of the port's tuning table whose wo
+     and w_down entries read {"variant": "group2d", "bn": 1024, "kb": kb},
+     kb chosen so that the split-K grid fills the card's SMs where the
+     packed rows allow it: qmm_group2d 64, qmm_group_norm 64, qmm_w4a8 1.
+Phases 8-11 each check one step against the plain versions on the CPU,
+128 graph-replayed steps equal to an eager loop, and print tok/s (min of
+3) against the copy-rate roofline and a torch.profiler window over one
+graph run (busy share, kernel ms a token). Phase 3 also holds the kernels of
+phases 7-11 against their plain versions at those shapes (64 rows of 1024
+features; B 64, 16 heads of 64, S 384, ragged pos in [16, 313]; the paired
+7B matmuls at 1 row; qmm_chunk at group 64 and qmm_norm_w4a8 at 1 and 8
+rows, qmm_group2d at 1 row).
 The last lines are the kernels JSON, nvidia-smi's name and power limit,
 and {"ok": true, "device": {...}}. A report goes to chiprun_out/.
 """
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -116,6 +136,7 @@ G_TIE = 2.5e-2               # phase 7's near-tie: this random model's mean
 #                              TIE would let a runner-up pass
 G_FORCED = {GPT2_BF16: 2.5e-2, GPT2_INT8: 3e-2}   # teacher-forced limits
 PAIRED = "paired decode"
+G64, W4A8, SPLIT = "group64 decode", "w4a8 decode", "split-K decode"
 SRC = "infinitensor_tpu_torch/kernels/csrc/"
 TPU = "infinitensor_tpu/kernels/"
 
@@ -123,6 +144,26 @@ TPU = "infinitensor_tpu/kernels/"
 def fail(msg):
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+@contextlib.contextmanager
+def knobs(env):
+    """Set the environment variables in `env` (None: unset) for the block;
+    the matmul wrappers read the variant knobs at every call."""
+    old = {k: os.environ.get(k) for k in env}
+    try:
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def smi_line():
@@ -210,6 +251,9 @@ def main():
           f"{torch.version.cuda}", flush=True)
     report = {"card": smi, "torch": torch.__version__}
     counters = Counters(qm, att, fa, pa)
+    # the matmul variant knobs take the defaults outside phases 10 and 11
+    for k in ("INFINITPU_QMM_VARIANT", "INFINITPU_QMM_TUNE"):
+        os.environ.pop(k, None)
     t_phase = phase(1, t_phase)
 
     # 2. build
@@ -233,9 +277,19 @@ def main():
     gen = torch.Generator(device=dev).manual_seed(SEED)
     cfg = llama.LlamaConfig(max_seq=MAX_SEQ)
     params = build_params(torch, cfg, gen, dev, QuantizedLinear)
+    g64params = build_params(
+        torch, cfg, torch.Generator(device=dev).manual_seed(SEED + 9), dev,
+        QuantizedLinear, group=64)
+    envs, kbs = variant_envs(qm, _build, cfg, params)
+    report["split_kb"] = kbs
+    print(f"# split-K: kb {kbs} (packed rows per block; grid = column "
+          "tiles of 128 x packed rows / kb)", flush=True)
     gcfg = gpt2.GPT2Config(max_seq=G_MAXSEQ)
     gparams = serving_bench.build_params(gcfg, dev, seed=SEED)
-    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    # 1 GB: its memset overwrites the 50 MB L2 and outlasts the host's
+    # enqueueing of a timed call (~0.3 ms), so the events time the card,
+    # not the wrapper's Python
+    flush = torch.empty(1 << 30, dtype=torch.uint8, device=dev)
     eps = cfg.norm_eps
     layer0 = params["layers"][0]
 
@@ -292,7 +346,7 @@ def main():
                 ops=2 * rows * din * q.out_physical, kind="bf16"))
     q = params["lm_head"]
     w = dequantize_weight(q)
-    if qm.variant_for(cfg.dim, q) != "w4a8":
+    if qm.route(randn(1, cfg.dim), q)[0] != "qmm_w4a8":
         fail("the variant table does not route the lm_head to w4a8")
     for rows, path in ((1, "decode"), (SLOTS, "serving paged bf16"),
                        (SHORT, f"prompt {SHORT}")):
@@ -369,37 +423,18 @@ def main():
     cases += paired_cases(torch, qm, cfg, build_params(
         torch, dataclasses.replace(cfg, n_layers=1), gen, dev,
         QuantizedLinear, paired=True), randn, dequantize_weight)
+    cases += variant_cases(torch, qm, cfg, g64params, params, envs, kbs,
+                           randn, dequantize_weight)
 
     for c in cases:
-        got, want = c["kernel"](), c["plain"]()
-        torch.cuda.synchronize()
-        if got.shape != want.shape:
-            fail(f"{c['name']} {c['shape']}: shape {tuple(got.shape)} vs "
-                 f"{tuple(want.shape)}")
-        err = (got.float() - want.float()).abs().max().item()
-        ref = want.float().abs().max().item()
-        c["max_abs_err"], c["max_abs_ref"] = err, ref
-        if not (math.isfinite(err) and err <= TOL * ref):
-            fail(f"{c['name']} {c['shape']}: max err {err} > {TOL} * {ref}")
-        c["ms"] = cuda_ms(torch, c["kernel"], 50, flush)
-        c["plain_ms"] = cuda_ms(torch, c["plain"], 5, flush)
-        c["library_ms"] = cuda_ms(torch, c["library"], 50, flush)
-        c["bound_ms"] = 1e3 * max(c["bytes"] / HBM_BYTES_S,
-                                  c["ops"] / PEAK_OPS[c["kind"]])
-        c["bound_by"] = ("bytes" if c["bytes"] / HBM_BYTES_S
-                         >= c["ops"] / PEAK_OPS[c["kind"]] else "operations")
-        c["copy_bound_ms"] = 1e3 * c["bytes"] / bw_copy
-        print(f"# {c['name']:16s} {c['shape']:22s} err {err:.3g} "
-              f"(max|ref| {ref:.3g})  kernel {c['ms']:.4f} ms  bound "
-              f"{c['bound_ms']:.4f} ms {c['bound_by']} (copy-rate "
-              f"{c['copy_bound_ms']:.4f})  plain {c['plain_ms']:.4f} ms  "
-              f"library {c['library_ms']:.4f} ms  {c['bytes'] / 1e6:.2f} MB",
-              flush=True)
+        with knobs(c.get("env", {})):
+            check_and_time(torch, c, counters, flush, bw_copy)
     del flush, qa, ka, va
     t_phase = phase(3, t_phase)
 
     # 4. the 7B decode path
     per_token = decode_path(torch, llama, counters, params, cfg, dev, report)
+    step4 = dict(per_token)         # phases 5 and 6 add their kernels
     paths = {"decode": report["launches_main_path"]}
     for kname in ("qmm_group_norm", "qmm_group", "qmm_w4a8",
                   "flash_decode_q8"):
@@ -432,7 +467,6 @@ def main():
             if paths[path].get(k, 0) <= 0:
                 fail(f"{k} was never launched on the path {path}")
     t_phase = phase(6, t_phase)
-    del params
 
     # 7. GPT-2 345M INT8 continuous batching
     steps = {}
@@ -449,12 +483,53 @@ def main():
     # 8. the 7B decode path with paired scales
     gen = torch.Generator(device=dev).manual_seed(SEED + 8)
     pparams = build_params(torch, cfg, gen, dev, QuantizedLinear, paired=True)
-    paths[PAIRED] = paired_path(torch, llama, counters, pparams, cfg, dev,
-                                report, steps)
-    for kname in ("qmm_slab_norm", "qmm_slab", "flash_decode_q8"):
-        if paths[PAIRED].get(kname, 0) <= 0:
-            fail(f"{kname} was never launched on the path {PAIRED}")
+    L = cfg.n_layers
+    paths[PAIRED] = variant_path(
+        torch, llama, counters, pparams, cfg, dev, report, steps, PAIRED,
+        {"qmm_slab_norm": 2 * L, "qmm_slab": 2 * L + 1,
+         "flash_decode_q8": L}, weight_bytes(cfg, paired=True))
+    del pparams
     t_phase = phase(8, t_phase)
+
+    # 9. the 7B decode at group 64 (entry()'s quantization), then entry()
+    paths[G64] = variant_path(
+        torch, llama, counters, g64params, cfg, dev, report, steps, G64,
+        {"qmm_chunk": 4 * L + 1, "flash_decode_q8": L},
+        weight_bytes(cfg, group=64))
+    del g64params
+    entry_check(torch, counters, report)
+    t_phase = phase(9, t_phase)
+
+    # 10. W4A8 under the env var and an empty table; with the default
+    # table the env var changes nothing
+    with knobs(envs[W4A8]):
+        paths[W4A8] = variant_path(
+            torch, llama, counters, params, cfg, dev, report, steps, W4A8,
+            {"qmm_norm_w4a8": 2 * L, "qmm_w4a8": 2 * L + 1,
+             "flash_decode_q8": L}, weight_bytes(cfg))
+    with knobs({"INFINITPU_QMM_VARIANT": "w4a8"}):
+        counters.reset()
+        llama.llama_decode_step(
+            params, cfg, torch.zeros(1, dtype=torch.int32, device=dev),
+            torch.full((1,), CTX, dtype=torch.int32, device=dev),
+            llama.init_kv_cache(cfg, 1, kv_quant=True, device=dev))
+        torch.cuda.synchronize()
+        default_table = counters.read()
+    print(f"# w4a8 env var with the default table: {default_table}",
+          flush=True)
+    report["w4a8_env_default_table_launches"] = default_table
+    if default_table != step4:
+        fail(f"the env var overrode the default table: {default_table}")
+    t_phase = phase(10, t_phase)
+
+    # 11. split-K wo and w_down from a tuning-table entry
+    with knobs(envs[SPLIT]):
+        paths[SPLIT] = variant_path(
+            torch, llama, counters, params, cfg, dev, report, steps, SPLIT,
+            {"qmm_group2d": 2 * L, "qmm_group_norm": 2 * L, "qmm_w4a8": 1,
+             "flash_decode_q8": L}, weight_bytes(cfg))
+    del params
+    t_phase = phase(11, t_phase)
 
     per_prompt = report["generate"][f"prompt {SHORT}"]["launches_per_prompt"]
     kernels = []
@@ -486,6 +561,39 @@ def main():
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+def check_and_time(torch, c, counters, flush, bw_copy):
+    """Phase 3 for one case: the wrapper launches its kernel once, the
+    result is within TOL of max|plain|; then the kernel, plain and library
+    times and the bound."""
+    before = counters.read().get(c["name"], 0)
+    got, want = c["kernel"](), c["plain"]()
+    torch.cuda.synchronize()
+    if counters.read().get(c["name"], 0) != before + 1:
+        fail(f"{c['name']} {c['shape']}: the wrapper did not launch it")
+    if got.shape != want.shape:
+        fail(f"{c['name']} {c['shape']}: shape {tuple(got.shape)} vs "
+             f"{tuple(want.shape)}")
+    err = (got.float() - want.float()).abs().max().item()
+    ref = want.float().abs().max().item()
+    c["max_abs_err"], c["max_abs_ref"] = err, ref
+    if not (math.isfinite(err) and err <= TOL * ref):
+        fail(f"{c['name']} {c['shape']}: max err {err} > {TOL} * {ref}")
+    c["ms"] = cuda_ms(torch, c["kernel"], 50, flush)
+    c["plain_ms"] = cuda_ms(torch, c["plain"], 5, flush)
+    c["library_ms"] = cuda_ms(torch, c["library"], 50, flush)
+    c["bound_ms"] = 1e3 * max(c["bytes"] / HBM_BYTES_S,
+                              c["ops"] / PEAK_OPS[c["kind"]])
+    c["bound_by"] = ("bytes" if c["bytes"] / HBM_BYTES_S
+                     >= c["ops"] / PEAK_OPS[c["kind"]] else "operations")
+    c["copy_bound_ms"] = 1e3 * c["bytes"] / bw_copy
+    print(f"# {c['name']:16s} {c['shape']:22s} err {err:.3g} "
+          f"(max|ref| {ref:.3g})  kernel {c['ms']:.4f} ms  bound "
+          f"{c['bound_ms']:.4f} ms {c['bound_by']} (copy-rate "
+          f"{c['copy_bound_ms']:.4f})  plain {c['plain_ms']:.4f} ms  "
+          f"library {c['library_ms']:.4f} ms  {c['bytes'] / 1e6:.2f} MB",
+          flush=True)
 
 
 def paged_cases(torch, pa, cfg, gen, dev, randn):
@@ -559,14 +667,15 @@ def paged_cases(torch, pa, cfg, gen, dev, randn):
     return out
 
 
-def build_params(torch, cfg, gen, dev, QuantizedLinear, paired=False):
+def build_params(torch, cfg, gen, dev, QuantizedLinear, paired=False,
+                 group=128):
     """Random INT4 weights on the card, as bench.py:24-97 builds them:
     codes uniform in [-127, 126], bf16 scales uniform in [0.001, 0.02],
-    group 128, w_gateup padded to a multiple of 2048 columns (22528),
-    a 0.02-scaled bf16 embedding, unit norms. paired: one scale row per
-    pair of split-half groups (din / 256 rows), the layout of
+    group 128 (or `group`), w_gateup padded to a multiple of 2048 columns
+    (22528), a 0.02-scaled bf16 embedding, unit norms. paired: one scale
+    row per pair of split-half groups (din / 256 rows), the layout of
     quantize_weight(paired=True)."""
-    def qlin(din, dout, pad_to=0, group=128):
+    def qlin(din, dout, pad_to=0):
         logical = 0
         if pad_to and dout % pad_to:
             logical, dout = dout, dout + pad_to - dout % pad_to
@@ -705,14 +814,14 @@ def decode_path(torch, llama, counters, params, cfg, dev, report):
     return per_token
 
 
-def weight_bytes(cfg, paired=False):
-    """INT4 weights + bf16 group-128 scales read by one decode step (a
-    paired weight has one scale per 256 weights of a column)."""
+def weight_bytes(cfg, paired=False, group=128):
+    """INT4 weights + bf16 scales (one per `group` weights of a column,
+    per 2 * group paired) read by one decode step."""
     kvd = cfg.n_kv_heads * cfg.head_dim
     per_layer = (cfg.dim * cfg.dim * 2 + cfg.dim * kvd * 2
                  + cfg.dim * cfg.intermediate * 3)
     total = per_layer * cfg.n_layers + cfg.dim * cfg.vocab_size
-    return total * 4 / 8 + total / (256 if paired else 128) * 2
+    return total * 4 / 8 + total / (group * (2 if paired else 1)) * 2
 
 
 def time_prefill(torch, llama, params, cfg, prompt, cache, reps=3):
@@ -881,6 +990,7 @@ def device_profile(torch, fn):
     from torch.profiler import ProfilerActivity, profile
     kinds = (("qmm_group_kernel", "qmm_group*"),
              ("qmm_w4a8_kernel", "qmm_w4a8"),
+             ("splitk_sum", "qmm_group2d sum"),
              ("flash_decode_kernel", "decode attention"),
              ("flash_attention_kernel", "flash_attention"))
     with profile(activities=[ProfilerActivity.CPU,
@@ -892,7 +1002,7 @@ def device_profile(torch, fn):
         if "CUDA" not in str(e.device_type):
             continue
         spans.append((e.time_range.start, e.time_range.end))
-        kind = group_kernel_kind(e.name) or next(
+        kind = group_kernel_kind(e.name) or w4a8_kernel_kind(e.name) or next(
             (k for sub, k in kinds if sub in e.name), "torch ops")
         by_kind[kind] = by_kind.get(kind, 0.0) \
             + (e.time_range.end - e.time_range.start) / 1e3
@@ -913,20 +1023,32 @@ def device_profile(torch, fn):
 
 
 def group_kernel_kind(name):
-    """Which wrapper a qmm_group_kernel<BITS, R, PRO, PAIRED> instantiation
-    serves, from its demangled name; None for any other kernel or a name
-    whose template arguments do not parse."""
+    """Which wrapper a qmm_group_kernel<BITS, R, PRO, PAIRED, MODE>
+    instantiation serves, from its demangled name; None for any other
+    kernel or a name whose template arguments do not parse."""
     import re
     m = re.search(r"qmm_group_kernel<\D*\d+, \D*\d+, \D*(\d+), "
-                  r"(?:\(bool\))?(true|false|0|1)>", name)
+                  r"(?:\(bool\))?(true|false|0|1)(?:, \D*(\d+))?>", name)
     if not m:
         return None
     pro, paired = int(m.group(1)), m.group(2) in ("true", "1")
+    mode = int(m.group(3) or 0)
+    if mode:
+        return "qmm_chunk" if mode == 1 else "qmm_group2d"
     if pro == 2:
         return "qmm_group_ln"
     if paired:
         return "qmm_slab_norm" if pro else "qmm_slab"
     return "qmm_group_norm" if pro else "qmm_group"
+
+
+def w4a8_kernel_kind(name):
+    """qmm_norm_w4a8 for a qmm_w4a8_kernel<BITS, R, NORM> instantiation
+    with NORM set, else None."""
+    import re
+    m = re.search(r"qmm_w4a8_kernel<\D*\d+, \D*\d+, (?:\(bool\))?(true|1)>",
+                  name)
+    return "qmm_norm_w4a8" if m else None
 
 
 def stale_row_hazards(eng):
@@ -1518,59 +1640,64 @@ def gpt2_path(torch, gpt2, sb, counters, gparams, gcfg, dev, report, steps):
     return paths
 
 
-def paired_path(torch, llama, counters, pparams, cfg, dev, report, steps):
-    """Phase 8: decode_path's checks on the paired-scale weights. Returns
-    the launch counts of llama_decode_multi; steps[PAIRED] gets one decode
-    step's."""
+def variant_path(torch, llama, counters, params, cfg, dev, report, steps,
+                 label, want_step, weight_b):
+    """Phases 8-11: decode_path's checks on other weights or knobs. One
+    step must launch exactly want_step; it is held against the plain
+    versions on the CPU (under the same knobs); 128 graph-replayed steps
+    must equal an eager loop; tok/s is the min of 3 graph runs against the
+    copy-rate roofline of weight_b + the INT8 cache's bytes per token.
+    Returns the launch counts of llama_decode_multi; steps[label] gets one
+    decode step's."""
     token = torch.zeros(1, dtype=torch.int32, device=dev)
     pos = torch.full((1,), CTX, dtype=torch.int32, device=dev)
     cache = llama.init_kv_cache(cfg, 1, kv_quant=True, device=dev)
 
     counters.reset()
-    logits, _ = llama.llama_decode_step(pparams, cfg, token, pos, cache)
+    logits, _ = llama.llama_decode_step(params, cfg, token, pos, cache)
     torch.cuda.synchronize()
-    steps[PAIRED] = counters.read()
-    want_step = {"qmm_slab_norm": 2 * cfg.n_layers,
-                 "qmm_slab": 2 * cfg.n_layers + 1,
-                 "flash_decode_q8": cfg.n_layers}
-    if steps[PAIRED] != want_step:
-        fail(f"{PAIRED}: a decode step launched {steps[PAIRED]}, expected "
+    steps[label] = counters.read()
+    if steps[label] != want_step:
+        fail(f"{label}: a decode step launched {steps[label]}, expected "
              f"{want_step}")
     t0 = time.perf_counter()
     ref, _ = llama.llama_decode_step(
-        to_cpu(pparams), cfg, token.cpu(), pos.cpu(),
+        to_cpu(params), cfg, token.cpu(), pos.cpu(),
         llama.init_kv_cache(cfg, 1, kv_quant=True, device="cpu"))
-    print(f"# paired 7B step on the plain versions (CPU): "
+    print(f"# {label}: 7B step on the plain versions (CPU): "
           f"{time.perf_counter() - t0:.1f}s")
-    compare_logits(torch, "paired 7B step, kernels vs plain", logits[0],
+    compare_logits(torch, f"{label}: 7B step, kernels vs plain", logits[0],
                    ref[0], report)
 
     # the path: llama_decode_multi under a CUDA graph
     fresh(cache)
     counters.reset()
     toks, last, next_pos, cache = llama.llama_decode_multi(
-        pparams, cfg, token, pos, cache, STEPS)
+        params, cfg, token, pos, cache, STEPS)
     torch.cuda.synchronize()
     launches = counters.read()
+    for kname in want_step:
+        if launches.get(kname, 0) <= 0:
+            fail(f"{kname} was never launched on the path {label}")
     if toks.shape != (1, STEPS) or int(next_pos) != CTX + STEPS:
-        fail(f"paired decode_multi returned {tuple(toks.shape)}, pos "
+        fail(f"{label}: decode_multi returned {tuple(toks.shape)}, pos "
              f"{next_pos}")
     fresh(cache)
     tok, p, eager = token.clone(), pos.clone(), []
     for _ in range(STEPS):
-        lg, cache = llama.llama_decode_step(pparams, cfg, tok, p, cache)
+        lg, cache = llama.llama_decode_step(params, cfg, tok, p, cache)
         tok = torch.argmax(lg, -1).to(torch.int32)
         eager.append(tok)
         p = p + 1
     eager = torch.stack(eager, 1)
     same = (toks == eager)[0].int().cumprod(0).sum().item()
-    print(f"# paired: graph vs eager greedy tokens: first {same} of {STEPS} "
+    print(f"# {label}: graph vs eager greedy tokens: first {same} of {STEPS} "
           f"equal; first tokens {toks[0, :8].tolist()}", flush=True)
-    if same < 32:
-        fail(f"paired: graph and eager tokens differ at step {same}")
+    if same < STEPS:
+        fail(f"{label}: graph and eager tokens differ at step {same}")
 
     fresh(cache)
-    g = llama.DecodeGraph(pparams, cfg, token, pos, cache, STEPS)
+    g = llama.DecodeGraph(params, cfg, token, pos, cache, STEPS)
     samples = []
     for _ in range(3):
         fresh(cache)
@@ -1581,21 +1708,151 @@ def paired_path(torch, llama, counters, pparams, cfg, dev, report, steps):
         torch.cuda.synchronize()
         samples.append(time.perf_counter() - t0)
         if not torch.equal(out, toks):
-            fail("paired: a timed graph run gave other tokens")
+            fail(f"{label}: a timed graph run gave other tokens")
     dt = min(samples)
+    # the card's side of one graph run: busy share, kernel ms a token
+    fresh(cache)
+    g.reset(token, pos)
+    prof = device_profile(torch, g.run)
+    if prof:
+        prof["kernel_ms_per_token"] = {
+            k: v / STEPS for k, v in prof.pop("kernel_ms").items()}
     kv_bytes = 2 * cfg.n_layers * cfg.n_kv_heads * CTX * (cfg.head_dim + 4)
-    bytes_tok = weight_bytes(cfg, paired=True) + kv_bytes
+    bytes_tok = weight_b + kv_bytes
     res = {
         "tok_s": STEPS / dt, "ms_per_token": 1e3 * dt / STEPS,
         "tok_s_samples": [STEPS / s for s in samples],
-        "unpaired_tok_s": report["tok_s"], "bytes_per_token": bytes_tok,
+        "unpaired_group128_tok_s": report["tok_s"],
+        "bytes_per_token": bytes_tok,
         "roofline_tok_s_copy": report["copy_gbps"] * 1e9 / bytes_tok,
         "roofline_tok_s_published": HBM_BYTES_S / bytes_tok,
         "graph_eager_equal_prefix": same, "launches": launches,
-        "launches_per_token": steps[PAIRED]}
-    report["paired_decode"] = res
-    print("# paired decode " + json.dumps(res), flush=True)
+        "launches_per_token": steps[label], "device_profile": prof}
+    report[label.replace(" ", "_")] = res
+    print(f"# {label} " + json.dumps(res), flush=True)
     return launches
+
+
+def entry_check(torch, counters, report):
+    """The port's entry() once on the card: a decode step of the JAX
+    package's entry configuration (dim 512, 4 layers, group 64): qmm_chunk
+    for every linear but w_down (group 32 dividing no multiple of its 688
+    packed rows: the dequant route), flash_decode_q8 per layer; logits
+    against the same step on the plain versions on the CPU."""
+    from infinitensor_tpu_torch.entry import entry
+    fn, (params, cfg, token, pos, cache) = entry()
+    cpu_args = (to_cpu(params), cfg, token.cpu(), pos.cpu(), to_cpu(cache))
+    counters.reset()
+    logits, _ = fn(params, cfg, token, pos, cache)
+    torch.cuda.synchronize()
+    got = counters.read()
+    L = cfg.n_layers
+    want = {"qmm_chunk": 3 * L + 1, "dequant_matmul": L,
+            "flash_decode_q8": L}
+    print(f"# entry(): one decode step launched {got}", flush=True)
+    report["entry_launches"] = got
+    if got != want:
+        fail(f"entry(): launched {got}, expected {want}")
+    ref, _ = fn(*cpu_args)
+    compare_logits_rows(torch, "entry() step, kernels vs plain", logits, ref,
+                        report)
+
+
+def split_kb(q, sms=132):
+    """The split of qmm_group2d for q: the largest kb (a multiple of the
+    group dividing the packed rows, below them) whose grid of 128-column
+    tiles x packed rows / kb blocks still covers `sms`; else the smallest."""
+    kr, g = q.qweight.shape[0], q.group_size
+    tiles = -(-q.out_physical // 128)
+    cands = [kb for kb in range(g, kr, g) if kr % kb == 0]
+    fill = [kb for kb in cands if tiles * (kr // kb) >= sms]
+    return max(fill) if fill else min(cands)
+
+
+def variant_envs(qm, build, cfg, params):
+    """The knobs of phases 10 and 11, written under build/: an empty tuning
+    table for W4A8 under INFINITPU_QMM_VARIANT, and a copy of the port's
+    table whose wo and w_down entries read group2d with split_kb's kb (in
+    the form tools/qmm_tune.py writes). Returns ({label: env}, kbs)."""
+    layer = params["layers"][0]
+    kbs = {"wo": split_kb(layer["wo"]), "w_down": split_kb(layer["w_down"])}
+    with open(qm.TUNE_DEFAULT) as f:
+        table = json.load(f)
+    table[f"{cfg.dim}:{cfg.dim}:4"] = {"variant": "group2d", "bn": 1024,
+                                       "kb": kbs["wo"]}
+    table[f"{cfg.intermediate}:{cfg.dim}:4"] = {
+        "variant": "group2d", "bn": 1024, "kb": kbs["w_down"]}
+    out = build.BUILD_ROOT / "chip_smoke"
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "qmm_tune_empty.json").write_text("{}")
+    (out / "qmm_tune_split.json").write_text(json.dumps(table, indent=1))
+    return {W4A8: {"INFINITPU_QMM_VARIANT": "w4a8",
+                   "INFINITPU_QMM_TUNE": str(out / "qmm_tune_empty.json")},
+            SPLIT: {"INFINITPU_QMM_VARIANT": None,
+                    "INFINITPU_QMM_TUNE": str(out / "qmm_tune_split.json")}
+            }, kbs
+
+
+def variant_cases(torch, qm, cfg, g64, params, envs, kbs, randn,
+                  dequantize_weight):
+    """Phase 3 rows of the kernels of phases 9-11 at the 7B shapes:
+    qmm_chunk (group 64) on wqkv, w_gateup, wo, w_down and the lm_head and
+    qmm_norm_w4a8 (under phase 10's knobs) on wqkv and w_gateup, at 1 and
+    SLOTS rows; qmm_group2d (under phase 11's) on wo and w_down at 1 row."""
+    eps = cfg.norm_eps
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    def row(name, label, rows, path, q, kernel, plain, library, extra=(),
+            env=None):
+        return dict(
+            name=name, shape=label if rows == 1 else f"{label} {rows} rows",
+            path=path, kernel=kernel, plain=plain, library=library,
+            env=env or {},
+            source=SRC + ("quant_matmul.cu" if name == "qmm_norm_w4a8"
+                          else "quant_matmul_chunk.cu"),
+            replaces=TPU + {"qmm_chunk": "quant_matmul.py:44",
+                            "qmm_norm_w4a8": "quant_matmul.py:288",
+                            "qmm_group2d": "quant_matmul.py:404"}[name],
+            bytes=nbytes(q.qweight, q.scales, *extra)
+            + 2 * rows * (q.in_features + q.out_physical),
+            ops=2 * rows * q.in_features * q.out_physical,
+            kind="int8" if name == "qmm_norm_w4a8" else "bf16")
+
+    out = []
+    lay64, layer = g64["layers"][0], params["layers"][0]
+    for rows in (1, SLOTS):
+        for label in ("wqkv", "w_gateup", "wo", "w_down", "lm_head"):
+            q = g64[label] if label == "lm_head" else lay64[label]
+            x, w = randn(rows, q.in_features), dequantize_weight(q)
+            out.append(row(
+                "qmm_chunk", f"g64 {label}", rows, G64, q,
+                lambda x=x, q=q: qm.quant_matmul(x, q),
+                lambda x=x, q=q: qm.qmm_chunk_plain(x, q)[:, :q.out_features],
+                lambda x=x, w=w: torch.matmul(x, w)))
+        for label in ("wqkv", "w_gateup"):
+            q = layer[label]
+            x = randn(rows, cfg.dim)
+            nw = (randn(cfg.dim).float() * 0.1 + 1.0).to(torch.bfloat16)
+            xn, w = qm.rmsnorm_bf16(x, nw, eps), dequantize_weight(q)
+            out.append(row(
+                "qmm_norm_w4a8", label, rows, W4A8, q,
+                lambda x=x, nw=nw, q=q: qm.quant_matmul_norm(x, nw, q, eps),
+                lambda x=x, nw=nw, q=q: qm.qmm_norm_w4a8_plain(
+                    x, nw, q, eps)[:, :q.out_features],
+                lambda xn=xn, w=w: torch.matmul(xn, w), extra=(nw,),
+                env=envs[W4A8]))
+    for label in ("wo", "w_down"):
+        q, kb = layer[label], kbs[label]
+        x, w = randn(1, q.in_features), dequantize_weight(q)
+        out.append(row(
+            "qmm_group2d", f"{label} kb {kb}", 1, SPLIT, q,
+            lambda x=x, q=q: qm.quant_matmul(x, q),
+            lambda x=x, q=q, kb=kb: qm.qmm_group2d_plain(x, q, kb)[
+                :, :q.out_features],
+            lambda x=x, w=w: torch.matmul(x, w), env=envs[SPLIT]))
+    return out
 
 
 if __name__ == "__main__":

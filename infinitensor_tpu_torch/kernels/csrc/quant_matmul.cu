@@ -1,13 +1,14 @@
 // Weight-only int4/int8 group-dot matmuls for decode, hand-written for
 // Hopper (sm_90a). Python wrappers: kernels/quant_matmul.py. The group-dot
 // body and its design notes are in quant_matmul.cuh (shared with
-// quant_matmul_fused.cu).
+// quant_matmul_fused.cu and quant_matmul_chunk.cu).
 //
 // Replaces the TPU kernels of infinitensor_tpu/kernels/quant_matmul.py:
 //   qmm_group (has_norm=0)  <- _kernel_group        (:100, _group_dots :115)
 //   qmm_group (has_norm=1)  <- _kernel_group_norm   (:85)
 //   qmm_w4a8                <- _kernel_group_w4a8   (:283,
 //                              _group_dots_w4a8 :229, _quantize_rows_i8 :217)
+//   qmm_norm_w4a8           <- _kernel_group_norm_w4a8 (:288)
 //
 // What bounds it on this card: at decode (rows = batch = 1) every weight
 // byte is used for 2 multiply-adds per row, far below the ~295 ops/byte
@@ -22,19 +23,25 @@
 // __dp4a against (b & 0x0F) = lo + 8 and (b & 0xF0) = 16 * hi as signed
 // bytes; the i32 partials are exact, then rescaled per group in f32
 // (s_lo and s_hi / 16, minus 8 * sum(xq) for the low half) and by sx
-// at the end, as the TPU kernel does.
+// at the end, as the TPU kernel does. qmm_norm_w4a8 runs the RMSNorm of
+// quant_matmul.cuh first: the row max needs the whole NORMALIZED row, so
+// a block takes the mean of squares over the raw row, then recomputes
+// each normalized value (the same bf16 value every time) for the
+// block-wide max and again for the quantize, instead of holding a second
+// f32 copy of the row in shared memory.
 #include "quant_matmul.cuh"
 
 namespace {
 
 using namespace qmm_detail;
 
-template <int BITS, int R>
+template <int BITS, int R, bool NORM>
 __global__ void __launch_bounds__(kLanes * kWarps)
 qmm_w4a8_kernel(const __nv_bfloat16* __restrict__ x,
+                const __nv_bfloat16* __restrict__ nw,
                 const int8_t* __restrict__ qw, const void* __restrict__ sc,
                 bool sc_bf16, __nv_bfloat16* __restrict__ out, int rows,
-                int din, int dout_p, int group) {
+                int din, int dout_p, int group, float eps) {
   extern __shared__ float smem[];
   float* red = smem;                                        // [kWarps][R][kCols]
   int8_t* xq = reinterpret_cast<int8_t*>(smem + kWarps * R * kCols);  // [R][din]
@@ -45,7 +52,7 @@ qmm_w4a8_kernel(const __nv_bfloat16* __restrict__ x,
   const int row0 = blockIdx.y * R;
   const int nrows = min(R, rows - row0);
 
-  // per-row int8 activations, as _quantize_rows_i8
+  // per-row int8 activations, as _quantize_rows_i8 (after the RMSNorm)
   for (int r = 0; r < R; ++r) {
     const __nv_bfloat16* xr = x + (size_t)(row0 + r) * din;
     if (r >= nrows) {
@@ -53,12 +60,25 @@ qmm_w4a8_kernel(const __nv_bfloat16* __restrict__ x,
       if (tid == 0) sx[r] = 0.f;
       continue;
     }
+    float rinv = 1.f;
+    if (NORM) {
+      float ss = 0.f;
+      for (int k = tid; k < din; k += nthr) {
+        const float v = bf16_to_f32(xr[k]);
+        ss += v * v;
+      }
+      rinv = 1.f / sqrtf(block_reduce<false>(ss, part) / (float)din + eps);
+    }
+    auto xn = [&](int k) {
+      const float v = bf16_to_f32(xr[k]);
+      return NORM ? round_bf16(round_bf16(v * rinv) * bf16_to_f32(nw[k])) : v;
+    };
     float amax = 0.f;
-    for (int k = tid; k < din; k += nthr) amax = fmaxf(amax, fabsf(bf16_to_f32(xr[k])));
+    for (int k = tid; k < din; k += nthr) amax = fmaxf(amax, fabsf(xn(k)));
     amax = block_reduce<true>(amax, part);
     const float s = fmaxf(amax, 1e-30f) * (1.0f / 127.0f);
     for (int k = tid; k < din; k += nthr) {
-      const float q = rintf(bf16_to_f32(xr[k]) / s);
+      const float q = rintf(xn(k) / s);
       xq[r * din + k] = (int8_t)fminf(fmaxf(q, -127.f), 127.f);
     }
     if (tid == 0) sx[r] = s;
@@ -139,23 +159,44 @@ qmm_w4a8_kernel(const __nv_bfloat16* __restrict__ x,
     for (int j = 0; j < 4; ++j)
       red[(warp * R + r) * kCols + lane * 4 + j] = acc[r][j];
   __syncthreads();
-  write_out<R, false>(red, sx, nullptr, false, 0, out, row0, nrows, dout_p);
+  write_out<R, false>(red, sx, nullptr, false, 0, out, nullptr, rows, row0,
+                      nrows, dout_p);
 }
 
-template <int BITS, int R>
-cudaError_t launch_w4a8(const void* x, const void* qw, const void* sc,
-                        bool sc_bf16, void* out, int rows, int din,
-                        int dout_p, int group, cudaStream_t stream) {
+template <int BITS, int R, bool NORM>
+cudaError_t launch_w4a8(const void* x, const void* nw, const void* qw,
+                        const void* sc, bool sc_bf16, void* out, int rows,
+                        int din, int dout_p, int group, float eps,
+                        cudaStream_t stream) {
   static size_t granted = 0;
-  auto kernel = qmm_w4a8_kernel<BITS, R>;
+  auto kernel = qmm_w4a8_kernel<BITS, R, NORM>;
   const size_t smem = sizeof(float) * (size_t)kWarps * R * kCols + (size_t)R * din;
   cudaError_t e = allow_smem(kernel, smem, &granted);
   if (e != cudaSuccess) return e;
   dim3 grid((dout_p + kCols - 1) / kCols, (rows + R - 1) / R);
   kernel<<<grid, dim3(kLanes, kWarps), smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(qw), sc,
-      sc_bf16, static_cast<__nv_bfloat16*>(out), rows, din, dout_p, group);
+      static_cast<const __nv_bfloat16*>(x),
+      static_cast<const __nv_bfloat16*>(nw), static_cast<const int8_t*>(qw),
+      sc, sc_bf16, static_cast<__nv_bfloat16*>(out), rows, din, dout_p, group,
+      eps);
   return cudaGetLastError();
+}
+
+int w4a8(const void* x, const void* nw, const void* qw, const void* sc,
+         int sc_bf16, void* out, int rows, int din, int dout_p, int bits,
+         int group, bool norm, float eps, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int R = rows_per_block(rows, din);
+#define ITT_W4A8(B, RR, N)                                                    \
+  if (bits == B && R == RR && norm == N)                                      \
+    return (int)launch_w4a8<B, RR, N>(x, nw, qw, sc, sc_bf16, out, rows, din, \
+                                      dout_p, group, eps, s);
+  ITT_W4A8(4, 1, false) ITT_W4A8(4, 2, false) ITT_W4A8(4, 4, false)
+  ITT_W4A8(8, 1, false) ITT_W4A8(8, 2, false) ITT_W4A8(8, 4, false)
+  ITT_W4A8(4, 1, true) ITT_W4A8(4, 2, true) ITT_W4A8(4, 4, true)
+  ITT_W4A8(8, 1, true) ITT_W4A8(8, 2, true) ITT_W4A8(8, 4, true)
+#undef ITT_W4A8
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -189,14 +230,15 @@ ITT_EXPORT int qmm_group(const void* x, const void* nw, const void* qw,
 ITT_EXPORT int qmm_w4a8(const void* x, const void* qw, const void* sc,
                         int sc_bf16, void* out, int rows, int din,
                         int dout_p, int bits, int group, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int R = rows_per_block(rows, din);
-#define ITT_W4A8(B, RR)                                                       \
-  if (bits == B && R == RR)                                                   \
-    return (int)launch_w4a8<B, RR>(x, qw, sc, sc_bf16, out, rows, din, dout_p, \
-                                   group, s);
-  ITT_W4A8(4, 1) ITT_W4A8(4, 2) ITT_W4A8(4, 4)
-  ITT_W4A8(8, 1) ITT_W4A8(8, 2) ITT_W4A8(8, 4)
-#undef ITT_W4A8
-  return (int)cudaErrorInvalidValue;
+  return w4a8(x, nullptr, qw, sc, sc_bf16, out, rows, din, dout_p, bits,
+              group, false, 0.f, stream);
+}
+
+// RMSNorm(x) * nw (nw bf16 [din]) ahead of qmm_w4a8's quantize and dots.
+ITT_EXPORT int qmm_norm_w4a8(const void* x, const void* nw, const void* qw,
+                             const void* sc, int sc_bf16, void* out, int rows,
+                             int din, int dout_p, int bits, int group,
+                             float eps, void* stream) {
+  return w4a8(x, nw, qw, sc, sc_bf16, out, rows, din, dout_p, bits, group,
+              true, eps, stream);
 }

@@ -1,13 +1,15 @@
 // The body shared by the port's weight-only group-dot matmul kernels
 // (sm_90a): quant_matmul.cu instantiates it as qmm_group / qmm_group_norm
-// (and holds qmm_w4a8), quant_matmul_fused.cu as qmm_group_ln, qmm_slab and
-// qmm_slab_norm.
+// (and holds qmm_w4a8 / qmm_norm_w4a8), quant_matmul_fused.cu as
+// qmm_group_ln, qmm_slab and qmm_slab_norm, quant_matmul_chunk.cu as
+// qmm_chunk and qmm_group2d.
 //
-// Design, kept simple (no wgmma, TMA or split-K yet):
+// Design, kept simple (no wgmma or TMA yet):
 //  * a block owns 128 output columns; its 32 lanes each read 4 adjacent
 //    columns as one 32-bit load, so a warp reads 128 contiguous bytes of a
-//    packed row, and the 16 warps of the block split the scale groups of
-//    the contraction between them; partials meet in shared memory in a
+//    packed row, and the 16 warps of the block split the work items of
+//    the contraction between them (an item is one scale group, or in the
+//    split-K form a slice of one); partials meet in shared memory in a
 //    fixed order (no atomics, so results repeat bit for bit);
 //  * the activation rows (<= 4 per block; more rows take more blocks) sit
 //    in shared memory as f32, normalized there first by the prologue, in
@@ -25,6 +27,18 @@
 //    packed group c take s[c];
 //  * the LayerNorm form ends as the TPU kernel does: the f32 sum rounded
 //    to bf16, plus the bias in f32, rounded again.
+//
+// MODE says where the scale enters and where the sum goes:
+//  * kGroupDots: as above (the TPU's _group_dots);
+//  * kDequant (the TPU's chunk kernel, _kernel): every weight is scaled
+//    in f32 (q * s[g]) and rounded to bf16 BEFORE its product with x, the
+//    sum of x * w taken in f32 and rounded to bf16 once at the end;
+//  * kSplitK (the TPU's _kernel_group2d): block z covers the packed rows
+//    [z * kb, (z + 1) * kb) only, holds only their x columns in shared
+//    memory, splits them into work items of `unit` rows (unit divides
+//    the group, so that all 16 warps work when kb holds few groups), and
+//    writes its f32 partial sums to part[z]; a second pass sums the
+//    partials in z order and rounds to bf16 once.
 #pragma once
 
 #include "common.cuh"
@@ -32,12 +46,14 @@
 namespace qmm_detail {
 
 constexpr int kLanes = 32;          // 4 columns each -> 128 columns/block
-constexpr int kWarps = 16;          // split the scale groups of K
+constexpr int kWarps = 16;          // split the work items of K
 constexpr int kCols = kLanes * 4;
 constexpr int kSmemMax = 232448;    // dynamic shared memory per block
 
 // The prologue run on the activation rows in shared memory.
 constexpr int kNoNorm = 0, kRmsNorm = 1, kLayerNorm = 2;
+// Where the scale enters and where the sum goes (see above).
+constexpr int kGroupDots = 0, kDequant = 1, kSplitK = 2;
 
 // Block-wide reduction of one value per thread (sum or max); every thread
 // gets the result. `part` holds kWarps floats.
@@ -54,12 +70,13 @@ __device__ float block_reduce(float v, float* part) {
 
 // Sum the kWarps partial tiles in `red` and write bf16 outputs. With BIAS
 // the sum is rounded to bf16 first, then bias[n] (bf16 or f32, zero past
-// nbias) is added in f32 and the result rounded again.
+// nbias) is added in f32 and the result rounded again. With `part` the
+// f32 sums go to part[blockIdx.z] ([rows, dout_p] each) instead.
 template <int R, bool BIAS>
 __device__ void write_out(const float* red, const float* row_scale,
                           const void* bias, bool bias_bf16, int nbias,
-                          __nv_bfloat16* out, int row0, int nrows,
-                          int dout_p) {
+                          __nv_bfloat16* out, float* part, int rows, int row0,
+                          int nrows, int dout_p) {
   const int tid = threadIdx.y * kLanes + threadIdx.x;
   for (int o = tid; o < R * kCols; o += kLanes * kWarps) {
     const int r = o / kCols, cc = o % kCols;
@@ -68,6 +85,10 @@ __device__ void write_out(const float* red, const float* row_scale,
     float s = 0.f;
     for (int w = 0; w < kWarps; ++w) s += red[(w * R + r) * kCols + cc];
     if (row_scale) s *= row_scale[r];
+    if (part) {
+      part[((size_t)blockIdx.z * rows + row0 + r) * dout_p + n] = s;
+      continue;
+    }
     if (BIAS) {
       const float b = n < nbias ? load_scale(bias, bias_bf16, n) : 0.f;
       s = __fadd_rn(round_bf16(s), b);
@@ -76,13 +97,20 @@ __device__ void write_out(const float* red, const float* row_scale,
   }
 }
 
+// bf16 of the f32 product of a weight value and its scale (kDequant).
+__device__ __forceinline__ float scaled_bf16(float v, float s) {
+  return round_bf16(__fmul_rn(v, s));
+}
+
 // x bf16 [rows, din]; nw [din]: the RMSNorm weight (bf16) or the LayerNorm
 // gamma; nb [din]: the LayerNorm beta; gamma and beta are both bf16 or, with
 // norm_bf16 false, both f32, and are used in f32 either way; qw int8 [din/2 or din, dout_p];
 // sc bf16/f32 [ng, dout_p] (PAIRED: ng = din / (2 * group)); bias bf16/f32
 // [nbias] (LayerNorm form only, may be null with nbias 0); out bf16
-// [rows, dout_p].
-template <int BITS, int R, int PRO, bool PAIRED>
+// [rows, dout_p]. kSplitK only: kb packed rows per block (a multiple of
+// group dividing the packed rows), unit rows per work item (dividing
+// group), part f32 [krows / kb, rows, dout_p].
+template <int BITS, int R, int PRO, bool PAIRED, int MODE = kGroupDots>
 __global__ void __launch_bounds__(kLanes * kWarps)
 qmm_group_kernel(const __nv_bfloat16* __restrict__ x,
                  const void* __restrict__ nw, const void* __restrict__ nb,
@@ -90,11 +118,19 @@ qmm_group_kernel(const __nv_bfloat16* __restrict__ x,
                  const int8_t* __restrict__ qw, const void* __restrict__ sc,
                  bool sc_bf16, const void* __restrict__ bias, bool bias_bf16,
                  int nbias, __nv_bfloat16* __restrict__ out, int rows,
-                 int din, int dout_p, int group, float eps) {
+                 int din, int dout_p, int group, float eps, int kb, int unit,
+                 float* __restrict__ part) {
+  static_assert(MODE != kSplitK || PRO == kNoNorm, "split-K has no prologue");
   extern __shared__ float smem[];
-  float* xs = smem;                       // [R][din]
-  float* red = smem + R * din;            // [kWarps][R][kCols]
-  __shared__ float part[kWarps];
+  const int krows = BITS == 4 ? din / 2 : din;   // stored (packed) rows
+  // this block's packed rows [k0, k0 + span), and the x columns it holds
+  // per row: all of them, or (split-K) lo then hi of its rows only
+  const int k0 = MODE == kSplitK ? blockIdx.z * kb : 0;
+  const int span = MODE == kSplitK ? kb : krows;
+  const int xw = MODE == kSplitK ? (BITS == 4 ? 2 * kb : kb) : din;
+  float* xs = smem;                       // [R][xw]
+  float* red = smem + R * xw;             // [kWarps][R][kCols]
+  __shared__ float rpart[kWarps];
   const int lane = threadIdx.x, warp = threadIdx.y;
   const int tid = warp * kLanes + lane, nthr = kLanes * kWarps;
   const int row0 = blockIdx.y * R;
@@ -103,7 +139,7 @@ qmm_group_kernel(const __nv_bfloat16* __restrict__ x,
   for (int r = 0; r < R; ++r) {
     const __nv_bfloat16* xr = x + (size_t)(row0 + r) * din;
     if (r >= nrows) {
-      for (int k = tid; k < din; k += nthr) xs[r * din + k] = 0.f;
+      for (int k = tid; k < xw; k += nthr) xs[r * xw + k] = 0.f;
       continue;
     }
     float rinv = 1.f, mu = 0.f;
@@ -113,23 +149,26 @@ qmm_group_kernel(const __nv_bfloat16* __restrict__ x,
         const float v = bf16_to_f32(xr[k]);
         ss += v * v;
       }
-      const float ms = block_reduce<false>(ss, part) / (float)din;
+      const float ms = block_reduce<false>(ss, rpart) / (float)din;
       rinv = 1.f / sqrtf(ms + eps);
     }
     if (PRO == kLayerNorm) {
       float sm = 0.f;
       for (int k = tid; k < din; k += nthr) sm += bf16_to_f32(xr[k]);
-      mu = block_reduce<false>(sm, part) / (float)din;
+      mu = block_reduce<false>(sm, rpart) / (float)din;
       float ss = 0.f;
       for (int k = tid; k < din; k += nthr) {
         const float d = bf16_to_f32(xr[k]) - mu;
         ss += d * d;
       }
-      const float var = block_reduce<false>(ss, part) / (float)din;
+      const float var = block_reduce<false>(ss, rpart) / (float)din;
       rinv = 1.f / sqrtf(var + eps);
     }
-    for (int k = tid; k < din; k += nthr) {
-      float v = bf16_to_f32(xr[k]);
+    for (int k = tid; k < xw; k += nthr) {
+      const int src = MODE != kSplitK ? k
+                      : k < span     ? k0 + k
+                                     : krows + k0 + (k - span);
+      float v = bf16_to_f32(xr[src]);
       if (PRO == kRmsNorm)
         v = round_bf16(round_bf16(v * rinv) *
                        bf16_to_f32(static_cast<const __nv_bfloat16*>(nw)[k]));
@@ -137,14 +176,15 @@ qmm_group_kernel(const __nv_bfloat16* __restrict__ x,
         v = round_bf16(__fadd_rn(
             __fmul_rn(__fmul_rn(v - mu, rinv), load_scale(nw, norm_bf16, k)),
             load_scale(nb, norm_bf16, k)));
-      xs[r * din + k] = v;
+      xs[r * xw + k] = v;
     }
   }
   __syncthreads();
 
   const int col = blockIdx.x * kCols + lane * 4;
-  const int krows = BITS == 4 ? din / 2 : din;   // stored (packed) rows
   const int ngs = krows / group;                 // stored groups
+  const int urows = MODE == kSplitK ? unit : group;
+  const int items = span / urows;
   float acc[R][4];
 #pragma unroll
   for (int r = 0; r < R; ++r)
@@ -152,47 +192,62 @@ qmm_group_kernel(const __nv_bfloat16* __restrict__ x,
     for (int j = 0; j < 4; ++j) acc[r][j] = 0.f;
 
   if (col < dout_p) {
-    for (int c = warp; c < ngs; c += kWarps) {
+    for (int it = warp; it < items; it += kWarps) {
+      const int p0 = k0 + it * urows;              // its first packed row
+      const int c = MODE == kSplitK ? p0 / group : it;   // its scale group
+      float s_lo[4], s_hi[4];
+      auto load_scales = [&]() {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s_lo[j] = load_scale(sc, sc_bf16, (size_t)c * dout_p + col + j);
+          s_hi[j] = BITS != 4 ? 0.f
+                    : PAIRED  ? s_lo[j]
+                              : load_scale(sc, sc_bf16,
+                                           (size_t)(ngs + c) * dout_p + col + j);
+        }
+      };
+      if (MODE == kDequant) load_scales();     // each weight needs its scale
       float pl[R][4], ph[R][4];
 #pragma unroll
       for (int r = 0; r < R; ++r)
 #pragma unroll
         for (int j = 0; j < 4; ++j) pl[r][j] = ph[r][j] = 0.f;
-      const int8_t* qp = qw + (size_t)c * group * dout_p + col;
+      const int8_t* qp = qw + (size_t)p0 * dout_p + col;
 #pragma unroll 16
-      for (int i = 0; i < group; ++i) {
+      for (int i = 0; i < urows; ++i) {
         const uint32_t w =
             __ldg(reinterpret_cast<const uint32_t*>(qp + (size_t)i * dout_p));
-        const int k = c * group + i;
+        const int k = p0 - k0 + i;                 // its x column in xs
+        float wl[4], wh[4];                        // this row's 4 columns
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          wl[j] = BITS == 4 ? nib_lo(w, 8 * j) : i8_val(w, 8 * j);
+          wh[j] = BITS == 4 ? nib_hi(w, 8 * j + 4) : 0.f;
+          if (MODE == kDequant) {
+            wl[j] = scaled_bf16(wl[j], s_lo[j]);
+            wh[j] = scaled_bf16(wh[j], s_hi[j]);
+          }
+        }
 #pragma unroll
         for (int r = 0; r < R; ++r) {
-          const float xl = xs[r * din + k];
+          const float xl = xs[r * xw + k];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) pl[r][j] = fmaf(xl, wl[j], pl[r][j]);
           if (BITS == 4) {
-            const float xh = xs[r * din + krows + k];
+            const float xh = xs[r * xw + span + k];
 #pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              pl[r][j] = fmaf(xl, nib_lo(w, 8 * j), pl[r][j]);
-              ph[r][j] = fmaf(xh, nib_hi(w, 8 * j + 4), ph[r][j]);
-            }
-          } else {
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-              pl[r][j] = fmaf(xl, i8_val(w, 8 * j), pl[r][j]);
+            for (int j = 0; j < 4; ++j) ph[r][j] = fmaf(xh, wh[j], ph[r][j]);
           }
         }
       }
+      if (MODE != kDequant) load_scales();     // one multiply per partial
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float s_lo = load_scale(sc, sc_bf16, (size_t)c * dout_p + col + j);
-        const float s_hi =
-            BITS != 4 ? 0.f
-            : PAIRED  ? s_lo
-                      : load_scale(sc, sc_bf16, (size_t)(ngs + c) * dout_p + col + j);
+      for (int j = 0; j < 4; ++j)
 #pragma unroll
         for (int r = 0; r < R; ++r)
-          acc[r][j] += BITS == 4 ? pl[r][j] * s_lo + ph[r][j] * s_hi
-                                 : pl[r][j] * s_lo;
-      }
+          acc[r][j] += MODE == kDequant ? pl[r][j] + ph[r][j]
+                       : BITS == 4      ? pl[r][j] * s_lo[j] + ph[r][j] * s_hi[j]
+                                        : pl[r][j] * s_lo[j];
     }
   }
 #pragma unroll
@@ -202,6 +257,7 @@ qmm_group_kernel(const __nv_bfloat16* __restrict__ x,
       red[(warp * R + r) * kCols + lane * 4 + j] = acc[r][j];
   __syncthreads();
   write_out<R, PRO == kLayerNorm>(red, nullptr, bias, bias_bf16, nbias, out,
+                                  MODE == kSplitK ? part : nullptr, rows,
                                   row0, nrows, dout_p);
 }
 
@@ -217,27 +273,32 @@ cudaError_t allow_smem(K kernel, size_t bytes, size_t* granted) {
   return e;
 }
 
-inline size_t group_smem(int R, int din) {
-  return sizeof(float) * ((size_t)R * din + (size_t)kWarps * R * kCols);
+// Shared memory of a block holding R activation rows of xw floats each.
+inline size_t group_smem(int R, int xw) {
+  return sizeof(float) * ((size_t)R * xw + (size_t)kWarps * R * kCols);
 }
 
-template <int BITS, int R, int PRO, bool PAIRED>
+template <int BITS, int R, int PRO, bool PAIRED, int MODE = kGroupDots>
 cudaError_t launch_group(const void* x, const void* nw, const void* nb,
                          bool norm_bf16, const void* qw, const void* sc, bool sc_bf16,
                          const void* bias, bool bias_bf16, int nbias,
                          void* out, int rows, int din, int dout_p, int group,
-                         float eps, cudaStream_t stream) {
+                         float eps, cudaStream_t stream, int kb = 0,
+                         int unit = 0, float* part = nullptr) {
   static size_t granted = 0;
-  auto kernel = qmm_group_kernel<BITS, R, PRO, PAIRED>;
-  const size_t smem = group_smem(R, din);
+  auto kernel = qmm_group_kernel<BITS, R, PRO, PAIRED, MODE>;
+  const int krows = BITS == 4 ? din / 2 : din;
+  const int xw = MODE == kSplitK ? (BITS == 4 ? 2 * kb : kb) : din;
+  const size_t smem = group_smem(R, xw);
   cudaError_t e = allow_smem(kernel, smem, &granted);
   if (e != cudaSuccess) return e;
-  dim3 grid((dout_p + kCols - 1) / kCols, (rows + R - 1) / R);
+  dim3 grid((dout_p + kCols - 1) / kCols, (rows + R - 1) / R,
+            MODE == kSplitK ? krows / kb : 1);
   kernel<<<grid, dim3(kLanes, kWarps), smem, stream>>>(
       static_cast<const __nv_bfloat16*>(x), nw, nb, norm_bf16,
       static_cast<const int8_t*>(qw), sc,
       sc_bf16, bias, bias_bf16, nbias, static_cast<__nv_bfloat16*>(out), rows,
-      din, dout_p, group, eps);
+      din, dout_p, group, eps, kb, unit, part);
   return cudaGetLastError();
 }
 

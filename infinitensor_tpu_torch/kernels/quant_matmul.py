@@ -1,15 +1,19 @@
 """Fused weight-only dequant + matmul for decode (counterpart of
 infinitensor_tpu/kernels/quant_matmul.py).
 
-Six kernels, CUDA C++ over one group-dot body (csrc/quant_matmul.cuh):
+Nine kernels, CUDA C++ over one group-dot body (csrc/quant_matmul.cuh):
   csrc/quant_matmul.cu
     qmm_group       <- _kernel_group       (group-partial dots, scale per group)
     qmm_group_norm  <- _kernel_group_norm  (RMSNorm fused ahead of the dots)
     qmm_w4a8        <- _kernel_group_w4a8  (int8 activations, int8 dots)
+    qmm_norm_w4a8   <- _kernel_group_norm_w4a8 (RMSNorm ahead of qmm_w4a8)
   csrc/quant_matmul_fused.cu
     qmm_group_ln    <- _kernel_group_ln    (LayerNorm ahead, bias behind)
     qmm_slab        <- _kernel_group_slab  (paired int4 scales)
     qmm_slab_norm   <- _kernel_group_norm_slab (RMSNorm ahead of qmm_slab)
+  csrc/quant_matmul_chunk.cu
+    qmm_chunk       <- _kernel             (scales into bf16 weights, then dot)
+    qmm_group2d     <- _kernel_group2d     (group dots split along K)
 
 Each has a plain PyTorch version here that computes the same function step
 by step (`*_plain`). A wrapper given a CPU tensor runs the plain version;
@@ -17,18 +21,37 @@ given a CUDA tensor it launches the kernel or raises. `launches` counts
 kernel launches per kernel; under CUDA-graph replay it counts the capture,
 not the replays.
 
-A paired int4 weight (quantize_weight(paired=True)) takes the slab kernels
-whatever the variant table or the caller says, and "slab" asked for an
-unpaired weight becomes "group", as in the JAX package
-(quant_matmul.py:697-701).
+The variant is chosen as the JAX package chooses it (quant_matmul.py:
+511-530, 606-607, 651-710): a tuning table keyed "din:dout:bits" (the
+file INFINITPU_QMM_TUNE names, else this package's own copy,
+qmm_tune.json beside this module; a missing or unreadable file is an
+empty table), read at every call. quant_matmul takes the caller's
+`variant`, then the table entry's, then INFINITPU_QMM_VARIANT, then
+"group"; quant_matmul_norm the table entry's, then the env var, then
+"group". A table entry wins over the env var. Then, as in the JAX package:
+a paired int4 weight takes the slab kernels whatever was asked, and
+"slab" asked for an unpaired weight becomes "group"; "group2d" takes
+qmm_group2d where the table entry has a `kb` (a multiple of the group
+dividing the packed rows) and a `bn` dividing the physical columns, and
+the group is a multiple of 128, else "group"; "group", "w4a8" and "slab"
+on a group that is no multiple of 128 (or does not divide the packed
+rows) become "chunk". quant_matmul_norm falls back to rmsnorm +
+quant_matmul where its fused kernels do not apply. The table's `bn` is a
+TPU tile: it is read only where the JAX package uses it to choose a route
+(group2d's), never as a CUDA tile. Not carried over are the JAX package's
+TPU-tile refusals (quant_matmul.py:708: `bn == 0`, no multiple of 128
+dividing dout; `chunk % 128`, the chunk that _pick_chunk finds for the
+VMEM budget): the CUDA kernels take any column count that is a multiple
+of 4 and any group dividing the packed rows. A variant name outside
+VARIANTS raises, where the JAX package would take its chunk kernel.
 
-Above 256 rows (a long prompt) the JAX package takes no kernel: it
-dequantizes the weight and runs one matmul (quant_matmul_ref,
-quant_matmul.py:39-41,599-604,708-710), with the "group" semantics even
-for a shape tuned to w4a8. The wrappers follow that rule on every device
-(weight_only.dequant_matmul, after rmsnorm_bf16 for the fused-norm
-wrapper) and count it in `launches` as "dequant_matmul", a route and not
-a kernel of this package.
+Above 256 rows (a long prompt), for a group that divides no packed row
+count, and for an odd number of unpaired int4 scale rows the JAX package
+takes no kernel: it dequantizes the weight and runs one matmul
+(quant_matmul_ref, quant_matmul.py:39-41,599-604,708-710), with the "group"
+semantics even for a shape tuned to w4a8. The wrappers follow that rule on
+every device (weight_only.dequant_matmul) and count it in `launches` as
+"dequant_matmul", a route and not a kernel of this package.
 """
 
 from __future__ import annotations
@@ -36,59 +59,79 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
+import json
+import os
+from pathlib import Path
 from typing import Optional
 
 import torch
 
 from infinitensor_tpu_torch.kernels import _build
 from infinitensor_tpu_torch.quant.weight_only import (
-    QuantizedLinear, dequant_matmul,
+    QuantizedLinear, _unpack_nibbles, dequant_matmul,
 )
 
-# The variant column of the JAX package's tuning table (docs/qmm_tune.json,
-# keyed "din:dout:bits"); its TPU output tiles do not apply here. Shapes
-# not listed take "group".
-QMM_VARIANTS = {
-    "4096:12288:4": "group",
-    "4096:4096:4": "group",
-    "4096:22016:4": "group",
-    "11008:4096:4": "group",
-    "4096:32000:4": "w4a8",
-}
+TUNE_DEFAULT = str(Path(__file__).with_name("qmm_tune.json"))
+VARIANTS = ("group", "w4a8", "slab", "chunk", "group2d")
+KERNEL_MAX_ROWS = 256
 
 launches = collections.Counter()
 
 
-def variant_for(din: int, q: QuantizedLinear) -> str:
-    return QMM_VARIANTS.get(f"{din}:{q.out_features}:{q.bits}", "group")
+@functools.lru_cache(maxsize=8)
+def _load_tune(path: str) -> dict:
+    """The tuning table at `path`; {} when it is missing or unreadable."""
+    try:
+        with open(path) as f:
+            table = json.load(f)
+    except (OSError, ValueError):
+        return {}
+    return table if isinstance(table, dict) else {}
 
 
-KERNEL_MAX_ROWS = 256
+def _tuned(din: int, dout: int, bits: int) -> Optional[dict]:
+    """The table entry for a weight shape (dout logical), or None."""
+    path = os.environ.get("INFINITPU_QMM_TUNE", TUNE_DEFAULT)
+    return _load_tune(path).get(f"{din}:{dout}:{bits}")
+
+
+def _env_variant() -> str:
+    return os.environ.get("INFINITPU_QMM_VARIANT", "group")
+
+
+def _known(variant: str) -> str:
+    if variant not in VARIANTS:
+        raise ValueError(f"variant {variant!r}: one of {VARIANTS}")
+    return variant
 
 
 def _rows(x: torch.Tensor) -> int:
     return x.numel() // max(x.shape[-1], 1)
 
 
+def _packed_rows(q: QuantizedLinear) -> int:
+    return q.qweight.shape[0]
+
+
+def _group_kernel_takes(q: QuantizedLinear) -> bool:
+    """The group-dot kernels' condition (quant_matmul.py:360-363, 597-600,
+    696): the group a multiple of 128 dividing the packed rows and, for
+    unpaired int4, an even number of scale rows."""
+    g = q.group_size
+    return (g % 128 == 0 and _packed_rows(q) % g == 0
+            and not (q.bits == 4 and not q.paired and q.scales.shape[0] % 2))
+
+
 def _refusal(x: torch.Tensor, q: QuantizedLinear) -> Optional[str]:
-    """Why the kernels do not take (x, q), or None: the shapes the TPU
-    kernels refuse (quant_matmul.py:596-604, :696-710). A paired int4
-    weight has din / (2 * group) scale rows and goes to the slab kernels;
-    an unpaired one needs an even number of scale rows."""
-    pack = 2 if q.bits == 4 else 1
+    """Why no route of this module takes (x, q), or None."""
     din = x.shape[-1]
     if q.bits not in (4, 8):
         return f"bits={q.bits}: only 4 and 8"
     if din != q.in_features:
         return f"x has {din} features, weight {q.in_features}"
-    if q.group_size % 128 or (din // pack) % q.group_size:
-        return (f"group_size={q.group_size} must be a multiple of 128 "
-                f"dividing {din // pack} stored rows")
     if q.scales.shape[0] * q.group_size * (2 if q.paired else 1) != din:
         return (f"{q.scales.shape[0]} scale rows do not cover {din} "
                 f"features in groups of {q.group_size}")
-    if q.bits == 4 and not q.paired and q.scales.shape[0] % 2:
-        return "unpaired int4 scales need an even number of groups"
     if x.dtype != torch.bfloat16:
         return f"x must be bf16, got {x.dtype}"
     if q.out_physical % 4:
@@ -97,11 +140,40 @@ def _refusal(x: torch.Tensor, q: QuantizedLinear) -> Optional[str]:
 
 
 def _check(x: torch.Tensor, q: QuantizedLinear) -> None:
-    """Raise on what the kernels refuse; callers send more than
+    """Raise on what no kernel takes; callers send more than
     KERNEL_MAX_ROWS rows to dequant_matmul instead."""
     why = _refusal(x, q)
     if why:
         raise ValueError(why)
+
+
+def route(x: torch.Tensor, q: QuantizedLinear,
+          variant: Optional[str] = None) -> tuple:
+    """(name, kb): what quant_matmul(x, q, variant) runs, a kernel name or
+    "dequant_matmul", and the split of qmm_group2d (else 0). Raises
+    ValueError on what no route takes."""
+    if _rows(x) > KERNEL_MAX_ROWS:
+        return "dequant_matmul", 0
+    _check(x, q)
+    tuned = _tuned(x.shape[-1], q.out_features, q.bits) or {}
+    variant = _known(variant or tuned.get("variant") or _env_variant())
+    g, kr = q.group_size, _packed_rows(q)
+    if q.paired:
+        variant = "slab"        # paired scales exist for the slab kernel
+    elif variant == "slab":
+        variant = "group"       # slab math needs the paired partition
+    if variant == "group2d":
+        kb, bn = int(tuned.get("kb", 0)), int(tuned.get("bn", 0))
+        if (kb and bn and q.out_physical % bn == 0 and kb % g == 0
+                and kr % kb == 0 and g % 128 == 0):
+            return "qmm_group2d", kb
+        variant = "group"
+    if variant != "chunk" and not (g % 128 == 0 and kr % g == 0):
+        variant = "chunk"
+    if (q.paired and variant != "slab") or kr % g or (
+            q.bits == 4 and not q.paired and q.scales.shape[0] % 2):
+        return "dequant_matmul", 0
+    return "qmm_" + variant, 0
 
 
 def _dequant_route(x: torch.Tensor, q: QuantizedLinear) -> torch.Tensor:
@@ -110,6 +182,20 @@ def _dequant_route(x: torch.Tensor, q: QuantizedLinear) -> torch.Tensor:
                          f"{q.in_features}")
     launches["dequant_matmul"] += 1
     return dequant_matmul(x, q)
+
+
+def _composed(xn: torch.Tensor, q: QuantizedLinear) -> torch.Tensor:
+    """quant_matmul(xn, q) for the fused wrappers' fallbacks, where xn may
+    be f32. The JAX package runs its group or chunk kernel on an f32 x;
+    here no kernel takes one: a CPU tensor takes dequant_matmul (the same
+    function, f32 throughout), a CUDA tensor raises."""
+    if xn.dtype != torch.bfloat16 and _rows(xn) <= KERNEL_MAX_ROWS:
+        if xn.device.type != "cpu":
+            raise NotImplementedError(
+                f"{xn.dtype} activations: the matmul kernels take bf16 only "
+                "(ROADMAP Queue 2)")
+        return _dequant_route(xn, q)
+    return quant_matmul(xn, q)
 
 
 def _per_group(x2: torch.Tensor, q: QuantizedLinear, w_lo, w_hi):
@@ -234,13 +320,66 @@ def qmm_w4a8_plain(x2: torch.Tensor, q: QuantizedLinear) -> torch.Tensor:
     return (acc.sum(1) * sx).to(torch.bfloat16)
 
 
+def qmm_norm_w4a8_plain(x2: torch.Tensor, norm_w: torch.Tensor,
+                        q: QuantizedLinear, eps: float) -> torch.Tensor:
+    """_kernel_group_norm_w4a8 step by step: the fused kernels' RMSNorm,
+    then qmm_w4a8_plain on the normalized rows."""
+    return qmm_w4a8_plain(rmsnorm_bf16(x2, norm_w, eps), q)
+
+
+def _weight_values(q: QuantizedLinear) -> torch.Tensor:
+    """The exact weight values [din, dout_p] as f32: int4 split halves
+    lo = (u & 15) - 8 over hi = (u << 24) >> 28, int8 the plain cast."""
+    if q.bits == 8:
+        return q.qweight.float()
+    lo, hi = _unpack_nibbles(q.qweight)
+    return torch.cat([lo, hi], dim=0).float()
+
+
+def qmm_chunk_plain(x2: torch.Tensor, q: QuantizedLinear) -> torch.Tensor:
+    """_kernel step by step: each weight value times its group's scale in
+    f32 (the scale as stored, bf16 or f32), rounded to bf16; then x . w in
+    f32, rounded once. It shares no code with dequant_matmul, whose
+    dequantize_weight rounds the scale to bf16 and multiplies in bf16:
+    the two differ by a bf16 rounding for f32 scales. x [rows, din] ->
+    [rows, dout_p] in x's dtype."""
+    w = _weight_values(q)
+    ng = q.scales.shape[0]
+    w = (w.reshape(ng, q.group_size, -1) * q.scales.float()[:, None]
+         ).reshape(w.shape).to(torch.bfloat16)
+    return (x2.float() @ w.float()).to(x2.dtype)
+
+
+def qmm_group2d_plain(x2: torch.Tensor, q: QuantizedLinear, kb: int
+                      ) -> torch.Tensor:
+    """_kernel_group2d step by step: per scale group, x . (exact weight
+    values) in f32 times the group's scale; the groups of each split of kb
+    packed rows summed into its partial, the partials summed in split
+    order, rounded to bf16 once. x [rows, din] bf16 -> [rows, dout_p]."""
+    g, kr = q.group_size, _packed_rows(q)
+    w = _weight_values(q)
+    ng = w.shape[0] // g
+    xf = x2.float()
+    pd = torch.einsum("rcg,cgo->rco", xf.reshape(xf.shape[0], ng, g),
+                      w.reshape(ng, g, -1)) * q.scales.float()[None]
+    if q.bits == 4:                  # packed group c holds groups c, c + ngh
+        ngh = ng // 2
+        pd = pd[:, :ngh] + pd[:, ngh:]
+    per_split = pd.reshape(pd.shape[0], kr // kb, kb // g, -1).sum(2)
+    out = per_split[:, 0]
+    for k in range(1, kr // kb):
+        out = out + per_split[:, k]
+    return out.to(torch.bfloat16)
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     P, I, F = _build.P, _build.I, _build.F
     return _build.typed(
         "quant_matmul",
         qmm_group=[P, P, P, P, I, P, I, I, I, I, I, I, F, P],
-        qmm_w4a8=[P, P, P, I, P, I, I, I, I, I, P])
+        qmm_w4a8=[P, P, P, I, P, I, I, I, I, I, P],
+        qmm_norm_w4a8=[P, P, P, P, I, P, I, I, I, I, I, F, P])
 
 
 @functools.cache
@@ -250,6 +389,15 @@ def _lib_fused() -> ctypes.CDLL:
         "quant_matmul_fused",
         qmm_group_ln=[P, P, P, I, P, P, I, P, I, I, P, I, I, I, I, I, F, P],
         qmm_slab=[P, P, P, P, I, P, I, I, I, I, I, F, P])
+
+
+@functools.cache
+def _lib_chunk() -> ctypes.CDLL:
+    P, I = _build.P, _build.I
+    return _build.typed(
+        "quant_matmul_chunk",
+        qmm_chunk=[P, P, P, I, P, I, I, I, I, I, P],
+        qmm_group2d=[P, P, P, I, P, P, I, I, I, I, I, I, P])
 
 
 def _check_cuda(x2: torch.Tensor, q: QuantizedLinear) -> None:
@@ -264,36 +412,38 @@ def _check_cuda(x2: torch.Tensor, q: QuantizedLinear) -> None:
         raise ValueError(f"scales must be bf16 or f32, got {q.scales.dtype}")
 
 
-def _launch_group(x2, norm_w, q, eps: float, name: str) -> torch.Tensor:
-    _check_cuda(x2, q)
-    rows, din = x2.shape
-    out = torch.empty(rows, q.out_physical, dtype=torch.bfloat16,
-                      device=x2.device)
-    lib = _lib()
-    p = _build.ptr
-    err = lib.qmm_group(
-        p(x2), p(norm_w), p(q.qweight), p(q.scales),
-        q.scales.dtype == torch.bfloat16, p(out), rows, din, q.out_physical,
-        q.bits, q.group_size, norm_w is not None, eps, _build.stream())
+def _out(x2: torch.Tensor, q: QuantizedLinear) -> torch.Tensor:
+    return torch.empty(x2.shape[0], q.out_physical, dtype=torch.bfloat16,
+                       device=x2.device)
+
+
+def _launched(lib: ctypes.CDLL, err: int, name: str, out: torch.Tensor
+              ) -> torch.Tensor:
     _build.raise_on(lib, err, name)
     launches[name] += 1
     return out
+
+
+def _launch_group(x2, norm_w, q, eps: float, name: str) -> torch.Tensor:
+    _check_cuda(x2, q)
+    out, lib, p = _out(x2, q), _lib(), _build.ptr
+    err = lib.qmm_group(
+        p(x2), p(norm_w), p(q.qweight), p(q.scales),
+        q.scales.dtype == torch.bfloat16, p(out), x2.shape[0], x2.shape[1],
+        q.out_physical, q.bits, q.group_size, norm_w is not None, eps,
+        _build.stream())
+    return _launched(lib, err, name, out)
 
 
 def _launch_slab(x2, norm_w, q, eps: float, name: str) -> torch.Tensor:
     _check_cuda(x2, q)
-    rows, din = x2.shape
-    out = torch.empty(rows, q.out_physical, dtype=torch.bfloat16,
-                      device=x2.device)
-    lib = _lib_fused()
-    p = _build.ptr
+    out, lib, p = _out(x2, q), _lib_fused(), _build.ptr
     err = lib.qmm_slab(
         p(x2), p(norm_w), p(q.qweight), p(q.scales),
-        q.scales.dtype == torch.bfloat16, p(out), rows, din, q.out_physical,
-        q.group_size, norm_w is not None, eps, _build.stream())
-    _build.raise_on(lib, err, name)
-    launches[name] += 1
-    return out
+        q.scales.dtype == torch.bfloat16, p(out), x2.shape[0], x2.shape[1],
+        q.out_physical, q.group_size, norm_w is not None, eps,
+        _build.stream())
+    return _launched(lib, err, name, out)
 
 
 def _launch_group_ln(x2, gamma, beta, q, bias, eps: float) -> torch.Tensor:
@@ -307,37 +457,53 @@ def _launch_group_ln(x2, gamma, beta, q, bias, eps: float) -> torch.Tensor:
             or bias.shape[-1] > q.out_physical):
         raise ValueError(f"bias {bias.dtype} {tuple(bias.shape)}: bf16 or "
                          f"f32, at most {q.out_physical} columns")
-    rows, din = x2.shape
-    out = torch.empty(rows, q.out_physical, dtype=torch.bfloat16,
-                      device=x2.device)
-    lib = _lib_fused()
-    p = _build.ptr
+    out, lib, p = _out(x2, q), _lib_fused(), _build.ptr
     err = lib.qmm_group_ln(
         p(x2), p(gamma), p(beta), gamma.dtype == torch.bfloat16,
         p(q.qweight), p(q.scales),
         q.scales.dtype == torch.bfloat16, p(bias),
         bias is not None and bias.dtype == torch.bfloat16,
-        0 if bias is None else bias.shape[-1], p(out), rows, din,
-        q.out_physical, q.bits, q.group_size, eps, _build.stream())
-    _build.raise_on(lib, err, "qmm_group_ln")
-    launches["qmm_group_ln"] += 1
-    return out
-
-
-def _launch_w4a8(x2, q) -> torch.Tensor:
-    _check_cuda(x2, q)
-    rows, din = x2.shape
-    out = torch.empty(rows, q.out_physical, dtype=torch.bfloat16,
-                      device=x2.device)
-    lib = _lib()
-    p = _build.ptr
-    err = lib.qmm_w4a8(
-        p(x2), p(q.qweight), p(q.scales), q.scales.dtype == torch.bfloat16,
-        p(out), rows, din, q.out_physical, q.bits, q.group_size,
+        0 if bias is None else bias.shape[-1], p(out), x2.shape[0],
+        x2.shape[1], q.out_physical, q.bits, q.group_size, eps,
         _build.stream())
-    _build.raise_on(lib, err, "qmm_w4a8")
-    launches["qmm_w4a8"] += 1
-    return out
+    return _launched(lib, err, "qmm_group_ln", out)
+
+
+def _launch_w4a8(x2, q, norm_w=None, eps: float = 0.0) -> torch.Tensor:
+    """qmm_w4a8, or with norm_w qmm_norm_w4a8."""
+    _check_cuda(x2, q)
+    out, lib, p = _out(x2, q), _lib(), _build.ptr
+    shape = (x2.shape[0], x2.shape[1], q.out_physical, q.bits, q.group_size)
+    sc_bf16 = q.scales.dtype == torch.bfloat16
+    if norm_w is None:
+        err = lib.qmm_w4a8(p(x2), p(q.qweight), p(q.scales), sc_bf16, p(out),
+                           *shape, _build.stream())
+        return _launched(lib, err, "qmm_w4a8", out)
+    err = lib.qmm_norm_w4a8(p(x2), p(norm_w), p(q.qweight), p(q.scales),
+                            sc_bf16, p(out), *shape, eps, _build.stream())
+    return _launched(lib, err, "qmm_norm_w4a8", out)
+
+
+def _launch_chunk(x2, q) -> torch.Tensor:
+    _check_cuda(x2, q)
+    out, lib, p = _out(x2, q), _lib_chunk(), _build.ptr
+    err = lib.qmm_chunk(p(x2), p(q.qweight), p(q.scales),
+                        q.scales.dtype == torch.bfloat16, p(out), x2.shape[0],
+                        x2.shape[1], q.out_physical, q.bits, q.group_size,
+                        _build.stream())
+    return _launched(lib, err, "qmm_chunk", out)
+
+
+def _launch_group2d(x2, q, kb: int) -> torch.Tensor:
+    _check_cuda(x2, q)
+    out, lib, p = _out(x2, q), _lib_chunk(), _build.ptr
+    part = torch.empty(_packed_rows(q) // kb, x2.shape[0], q.out_physical,
+                       dtype=torch.float32, device=x2.device)
+    err = lib.qmm_group2d(p(x2), p(q.qweight), p(q.scales),
+                          q.scales.dtype == torch.bfloat16, p(part), p(out),
+                          x2.shape[0], x2.shape[1], q.out_physical, q.bits,
+                          q.group_size, kb, _build.stream())
+    return _launched(lib, err, "qmm_group2d", out)
 
 
 def _dispatch(x2: torch.Tensor, plain, launch):
@@ -352,59 +518,79 @@ def quant_matmul(x: torch.Tensor, q: QuantizedLinear,
                  variant: Optional[str] = None) -> torch.Tensor:
     """x [..., din] bf16 @ q -> [..., out_features] bf16.
 
-    variant: "group", "w4a8" or "slab"; None takes the table entry for
-    the shape (QMM_VARIANTS), else "group". A paired int4 weight takes
-    "slab" whatever was asked, and "slab" on an unpaired weight becomes
-    "group". Above KERNEL_MAX_ROWS rows every variant takes
-    dequant_matmul."""
+    variant: one of VARIANTS or None (the table entry for the shape, then
+    INFINITPU_QMM_VARIANT, then "group"); `route` says what runs."""
     *lead, din = x.shape
-    if _rows(x) > KERNEL_MAX_ROWS:
+    name, kb = route(x, q, variant)
+    if name == "dequant_matmul":
         return _dequant_route(x, q)
-    _check(x, q)
-    variant = variant or variant_for(din, q)
-    if q.paired:
-        variant = "slab"        # paired scales exist for the slab kernel
-    elif variant == "slab":
-        variant = "group"       # slab math needs the paired partition
     x2 = x.reshape(-1, din).contiguous()
-    if variant == "slab":
+    if name == "qmm_slab":
         out = _dispatch(x2, lambda: qmm_slab_plain(x2, q),
-                        lambda: _launch_slab(x2, None, q, 0.0, "qmm_slab"))
-    elif variant == "group":
+                        lambda: _launch_slab(x2, None, q, 0.0, name))
+    elif name == "qmm_group":
         out = _dispatch(x2, lambda: qmm_group_plain(x2, q),
-                        lambda: _launch_group(x2, None, q, 0.0,
-                                              "qmm_group"))
-    elif variant == "w4a8":
+                        lambda: _launch_group(x2, None, q, 0.0, name))
+    elif name == "qmm_w4a8":
         out = _dispatch(x2, lambda: qmm_w4a8_plain(x2, q),
                         lambda: _launch_w4a8(x2, q))
+    elif name == "qmm_chunk":
+        out = _dispatch(x2, lambda: qmm_chunk_plain(x2, q),
+                        lambda: _launch_chunk(x2, q))
     else:
-        raise ValueError(f"variant {variant!r}: 'group', 'w4a8' or 'slab' "
-                         "(the chunk and group2d kernels are not ported)")
+        out = _dispatch(x2, lambda: qmm_group2d_plain(x2, q, kb),
+                        lambda: _launch_group2d(x2, q, kb))
     return out[:, :q.out_features].reshape(*lead, q.out_features)
+
+
+def _rmsnorm(x: torch.Tensor, norm_w: torch.Tensor, eps: float
+             ) -> torch.Tensor:
+    """The JAX fallback's norm (quant_matmul.py:568-570): f32 mean of
+    squares, x * rsqrt(ms + eps) rounded to x's dtype, times norm_w;
+    rmsnorm_bf16 for a bf16 x and a bf16 norm_w."""
+    x32 = x.float()
+    ms = x32.square().mean(-1, keepdim=True)
+    return (x32 * torch.rsqrt(ms + eps)).to(x.dtype) * norm_w
 
 
 def quant_matmul_norm(x: torch.Tensor, norm_w: torch.Tensor,
                       q: QuantizedLinear, eps: float = 1e-5) -> torch.Tensor:
     """rmsnorm(x) * norm_w @ q with the norm fused into the kernel; x is
-    the raw residual stream [..., din] bf16."""
+    the raw residual stream [..., din] bf16.
+
+    The variant is the table entry's, then INFINITPU_QMM_VARIANT's, then
+    "group": a paired weight takes qmm_slab_norm, "w4a8" qmm_norm_w4a8,
+    any other but "slab" qmm_group_norm. What the fused kernels do not
+    take (quant_matmul.py:599-604, 610-612: more than KERNEL_MAX_ROWS rows,
+    a group that is no multiple of 128 or does not divide the packed rows,
+    an odd number of unpaired int4 scale rows, a non-bf16 x, "slab" for an
+    unpaired weight) runs rmsnorm + quant_matmul, as in the JAX package."""
     *lead, din = x.shape
-    if _rows(x) > KERNEL_MAX_ROWS:
-        return _dequant_route(rmsnorm_bf16(x, norm_w, eps), q)
+
+    def fallback():
+        return _composed(_rmsnorm(x, norm_w, eps), q)
+
+    if (_rows(x) > KERNEL_MAX_ROWS or x.dtype != torch.bfloat16
+            or not _group_kernel_takes(q)):
+        return fallback()
     _check(x, q)
+    tuned = _tuned(din, q.out_features, q.bits) or {}
+    variant = _known(tuned.get("variant") or _env_variant())
+    if variant == "slab" and not q.paired:
+        return fallback()
     x2 = x.reshape(-1, din).contiguous()
     nw = norm_w.to(torch.bfloat16).contiguous()
     if q.paired:
         out = _dispatch(
             x2, lambda: qmm_slab_plain(rmsnorm_bf16(x2, nw, eps), q),
             lambda: _launch_slab(x2, nw, q, eps, "qmm_slab_norm"))
-        return out[:, :q.out_features].reshape(*lead, q.out_features)
-    if variant_for(din, q) != "group":
-        raise NotImplementedError(
-            "fused norm + w4a8 (_kernel_group_norm_w4a8) is not ported "
-            "(ROADMAP Queue 2)")
-    out = _dispatch(
-        x2, lambda: qmm_group_plain(rmsnorm_bf16(x2, nw, eps), q),
-        lambda: _launch_group(x2, nw, q, eps, "qmm_group_norm"))
+    elif variant == "w4a8":
+        out = _dispatch(x2, lambda: qmm_norm_w4a8_plain(x2, nw, q, eps),
+                        lambda: _launch_w4a8(x2, q, nw, eps))
+    else:
+        out = _dispatch(
+            x2, lambda: qmm_group_plain(rmsnorm_bf16(x2, nw, eps), q),
+            lambda: _launch_group(x2, nw, q, eps, "qmm_group_norm"))
     return out[:, :q.out_features].reshape(*lead, q.out_features)
 
 
@@ -417,28 +603,17 @@ def quant_matmul_ln(x: torch.Tensor, gamma: torch.Tensor,
     are read as bf16 or f32 and used in f32, as the TPU kernel reads them.
 
     What _kernel_group_ln does not take (quant_matmul.py:359-365: more
-    than KERNEL_MAX_ROWS rows, a paired int4 weight, what the group kernel
-    refuses) runs the exact composition, as in the JAX package: layer_norm,
-    then quant_matmul (qmm_group or qmm_slab on the card, the dequant route
-    above KERNEL_MAX_ROWS rows), then + bias. Where quant_matmul refuses
-    too (a group that is no multiple of 128 or a non-bf16 x: the JAX
-    package's chunk kernel, ROADMAP Queue 2 item 12) a CPU tensor takes
-    dequant_matmul as that kernel's plain version and a CUDA tensor
-    raises."""
+    than KERNEL_MAX_ROWS rows, a paired int4 weight, a group that is no
+    multiple of 128, a non-bf16 x) runs the exact composition, as in the
+    JAX package: layer_norm, then quant_matmul (qmm_group, qmm_slab or
+    qmm_chunk on the card, the dequant route above KERNEL_MAX_ROWS rows),
+    then + bias; an f32 x there raises on a CUDA tensor (_composed)."""
     *lead, din = x.shape
-    kernel_rows = _rows(x) <= KERNEL_MAX_ROWS
-    if not kernel_rows or q.paired or _refusal(x, q):
-        xn = layer_norm(x, gamma, beta, eps)
-        why = _refusal(xn, q) if kernel_rows else None
-        if why and x.device.type == "cpu":
-            out = _dequant_route(xn, q)
-        elif why:
-            raise NotImplementedError(
-                f"{why}: LayerNorm + the chunk kernel is not ported "
-                "(ROADMAP Queue 2 item 12)")
-        else:
-            out = quant_matmul(xn, q)
+    if (_rows(x) > KERNEL_MAX_ROWS or q.paired or x.dtype != torch.bfloat16
+            or not _group_kernel_takes(q)):
+        out = _composed(layer_norm(x, gamma, beta, eps), q)
         return out if bias is None else out + bias
+    _check(x, q)
     x2 = x.reshape(-1, din).contiguous()
     if gamma.dtype != torch.bfloat16 or beta.dtype != torch.bfloat16:
         gamma, beta = gamma.float(), beta.float()     # exact; read as f32

@@ -11,6 +11,7 @@ signed.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional
 
 import torch
@@ -205,9 +206,12 @@ def wo_matmul(x: torch.Tensor, q: QuantizedLinear) -> torch.Tensor:
     """x [..., in] @ quantized w -> [..., out].
 
     Same dispatch rule as the JAX package on its chip
-    (weight_only.py:273-287): quant_matmul when in >= 512, else
-    dequant_matmul (small shapes were left to XLA there)."""
-    if x.shape[-1] >= 512:
+    (weight_only.py:273-287): with INFINITPU_QMM_VARIANT=w4a8, quant_matmul
+    on every shape (W4A8 changes the math, not only the kernel); else
+    quant_matmul when in >= 512, and dequant_matmul below (small shapes
+    were left to XLA there)."""
+    if os.environ.get("INFINITPU_QMM_VARIANT") == "w4a8" \
+            or x.shape[-1] >= 512:
         from infinitensor_tpu_torch.kernels.quant_matmul import quant_matmul
         return quant_matmul(x, q)
     return dequant_matmul(x, q)

@@ -4,12 +4,9 @@ the loader against HuggingFace, and ServingEngine with the GPT-2 functions.
 
 quant_matmul_ln: the port's plain version (CPU tensors) against the JAX
 kernel _kernel_group_ln in interpret mode, within one bf16 ulp of max|out|
-(4e-3 of it). A group of 64 is refused by both fused kernels; the JAX
-package then takes LayerNorm + its chunk kernel + bias, the port (which
-has no chunk kernel yet and raises on a CUDA tensor) on these CPU tensors
-LayerNorm + the dequant route + bias: one ulp from the JAX package's non-kernel
-composition, two from the interpreted chunk kernel (which multiplies the
-scales in f32, the dequant route in bf16).
+(4e-3 of it). A group of 64 is refused by both fused kernels; both
+packages then take LayerNorm + the chunk kernel + bias (the port's
+qmm_chunk_plain on these CPU tensors), within the same bound.
 
 Model, f32 parameters: no kernel on either side; logits within 1e-4 of
 max|logit|. Model, bf16 + int8 weights (dim 128, 2 heads of 64, 2 layers,
@@ -105,18 +102,16 @@ def test_quant_matmul_ln_plain_vs_pallas(case):
                               bias=None if bias is None else _t(bias),
                               eps=eps)
     assert got.shape == (c["rows"], c["dout"]) and got.dtype == torch.bfloat16
-    if c["group"] == 64:
-        # the port has no chunk kernel: its product is the JAX package's
-        # own non-kernel composition (quant_matmul_ref), one ulp; the chunk
-        # kernel scales in f32 where that one scales in bf16, two ulps
-        _close(got, qm.quant_matmul_ln(x, g, b, q, bias=bias, eps=eps))
-        _close(got, want, 2 * OUT_TOL)
-    else:
-        _close(got, want)
-    # what the fused kernel refuses is counted as the dequant route
+    _close(got, want)
+    # above 256 rows the composition takes the dequant route
     routed = tqm.launches["dequant_matmul"] - before.get("dequant_matmul", 0)
-    assert routed == (1 if c["group"] == 64 or c["rows"] > 256 else 0)
-    if not routed:
+    assert routed == (1 if c["rows"] > 256 else 0)
+    if c["group"] == 64:
+        # LayerNorm + the chunk kernel + bias
+        xn = tqm.layer_norm(_t(x), _t(g), _t(b), eps)
+        assert tqm.route(xn, tq) == ("qmm_chunk", 0)
+        _close(got, tqm.qmm_chunk_plain(xn, tq) + _t(bias), 0)
+    elif not routed:
         # the fused form equals the composition within the same bound
         xn = tqm.layer_norm(_t(x), _t(g), _t(b), eps)
         comp = tqm.quant_matmul(xn, tq, variant="group")

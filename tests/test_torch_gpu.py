@@ -10,6 +10,8 @@ terms for its tensor-core product); graph and eager decode give equal
 tokens, and so do the paged and the dense serving engine.
 """
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -238,8 +240,9 @@ def test_group_ln_kernel(dev, rows, bits, bias_dt):
 
 def test_group_ln_composition_on_the_card(dev):
     """What the fused kernel does not take runs LayerNorm + a matmul kernel
-    (or, above 256 rows, the dequant route) + bias on the card, and raises
-    where there is no kernel: never a plain version."""
+    (qmm_group, qmm_slab, qmm_chunk; above 256 rows the dequant route) +
+    bias on the card, and raises where there is no kernel (an f32 x):
+    never a plain version."""
     gamma, beta = _ln_inputs(dev, 1024)
     q = _qlin(dev, 1024, 256, 8, torch.float32)
     bias = _x(dev, 1, 256, seed=5)[0]
@@ -263,13 +266,15 @@ def test_group_ln_composition_on_the_card(dev):
     got = qm.quant_matmul_ln(x[:5], gamma, beta, qp, bias=bias)
     assert qm.launches["qmm_slab"] == n + 1
     _close(got, qm.qmm_slab_plain(xn[:5], qp) + bias)
-    # no kernel for a group of 64 or an f32 x (the chunk kernel is not
-    # ported): raise, on any number of rows the kernels would take
-    before = dict(qm.launches)
+    # a group of 64: LayerNorm + qmm_chunk + bias; an f32 x: no kernel
+    # takes it, so it raises, on any number of rows the kernels would take
     q64 = _qlin(dev, 1024, 256, 8, torch.float32, group=64)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        qm.quant_matmul_ln(x[:5], gamma, beta, q64, bias=bias)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    n = qm.launches["qmm_chunk"]
+    got = qm.quant_matmul_ln(x[:5], gamma, beta, q64, bias=bias)
+    assert qm.launches["qmm_chunk"] == n + 1
+    _close(got, qm.qmm_chunk_plain(xn[:5], q64) + bias)
+    before = dict(qm.launches)
+    with pytest.raises(NotImplementedError, match="bf16 only"):
         qm.quant_matmul_ln(x[:5].float(), gamma, beta, q, bias=bias)
     assert dict(qm.launches) == before
 
@@ -477,3 +482,117 @@ def test_paged_engine_under_graph_equals_dense_and_eager(dev, kv_quant):
     assert eng.free_pages == 12
     assert got == drain(PagedServingEngine(params, cfg, **paged_kw), True)
     assert got == drain(ServingEngine(params, cfg, **kw))
+
+
+# -- qmm_chunk, qmm_group2d, qmm_norm_w4a8 and the routes to them ----------
+
+@pytest.fixture
+def knobs(monkeypatch, tmp_path):
+    """set(variant=None, table=None): INFINITPU_QMM_VARIANT and a tuning
+    table written to a fresh file (an empty one by default)."""
+    def set_(variant=None, table=None):
+        if variant is None:
+            monkeypatch.delenv("INFINITPU_QMM_VARIANT", raising=False)
+        else:
+            monkeypatch.setenv("INFINITPU_QMM_VARIANT", variant)
+        path = tmp_path / f"tune{len(list(tmp_path.iterdir()))}.json"
+        path.write_text(json.dumps(table or {}))
+        monkeypatch.setenv("INFINITPU_QMM_TUNE", str(path))
+    return set_
+
+
+@pytest.mark.parametrize("rows", [1, 3, 8, 256])
+@pytest.mark.parametrize("group", [32, 64, 128])
+@pytest.mark.parametrize("bits", [4, 8])
+def test_chunk_kernel(dev, bits, group, rows):
+    q = _qlin(dev, 1024, 260, bits, torch.float32, group=group)
+    x = _x(dev, rows, 1024)
+    before = qm.launches["qmm_chunk"]
+    got = qm.quant_matmul(x, q, variant="chunk")
+    assert qm.launches["qmm_chunk"] == before + 1
+    _close(got, qm.qmm_chunk_plain(x, q))
+
+
+def test_chunk_kernel_at_an_odd_group_count_per_warp(dev):
+    """w_down's split at group 64 (86 groups on 16 warps), bf16 scales."""
+    q = _qlin(dev, 11008, 256, 4, torch.bfloat16, group=64)
+    assert q.scales.shape[0] == 172
+    for rows in (1, 8):
+        x = _x(dev, rows, 11008)
+        _close(qm.quant_matmul(x, q), qm.qmm_chunk_plain(x, q))
+
+
+@pytest.mark.parametrize("rows", [1, 3, 8])
+@pytest.mark.parametrize("kb", [128, 256, 512])
+@pytest.mark.parametrize("bits", [4, 8])
+def test_group2d_kernel(dev, bits, kb, rows, knobs):
+    q = _qlin(dev, 2048, 384, bits, torch.bfloat16)
+    knobs(table={f"2048:384:{bits}": {"variant": "group2d", "bn": 128,
+                                      "kb": kb}})
+    x = _x(dev, rows, 2048)
+    assert qm.route(x, q) == ("qmm_group2d", kb)
+    before = qm.launches["qmm_group2d"]
+    got = qm.quant_matmul(x, q)
+    assert qm.launches["qmm_group2d"] == before + 1
+    _close(got, qm.qmm_group2d_plain(x, q, kb))
+    assert torch.equal(qm.quant_matmul(x, q), got)     # no atomics
+    _close(got, qm.qmm_group_plain(x, q))
+
+
+@pytest.mark.parametrize("rows", [1, 3, 8])
+@pytest.mark.parametrize("bits", [4, 8])
+def test_norm_w4a8_kernel(dev, bits, rows, knobs):
+    q = _qlin(dev, 4096, 384, bits, torch.bfloat16)
+    x = _x(dev, rows, 4096) * 4
+    nw = (torch.rand(4096, generator=torch.Generator().manual_seed(2))
+          + 0.5).to(torch.bfloat16).to(dev)
+    knobs(variant="w4a8")
+    before = dict(qm.launches)
+    got = qm.quant_matmul_norm(x, nw, q)
+    assert qm.launches["qmm_norm_w4a8"] == \
+        before.get("qmm_norm_w4a8", 0) + 1
+    assert qm.launches["qmm_group_norm"] == before.get("qmm_group_norm", 0)
+    _close(got, qm.qmm_norm_w4a8_plain(x, nw, q, 1e-5))
+
+
+def _decode_launches(params, cfg, dev):
+    counters = (qm.launches, att.launches)
+    for c in counters:
+        c.clear()
+    tok = torch.tensor([3, 7], dtype=torch.int32, device=dev)
+    pos = torch.tensor([5, 9], dtype=torch.int32, device=dev)
+    logits, _ = llama.llama_decode_step(
+        params, cfg, tok, pos,
+        llama.init_kv_cache(cfg, 2, kv_quant=True, device=dev))
+    torch.cuda.synchronize()
+    assert torch.isfinite(logits.float()).all()
+    out = {}
+    for c in counters:
+        out.update(c)
+    return out
+
+
+def test_decode_routes_launch_counts(dev, knobs):
+    """One decode step of a small model through each route: group 64
+    (entry()), W4A8 under the env var with an empty table, split-K from
+    a table entry for wo and w_down (the lm_head, 512 -> 512 here, shares
+    wo's key)."""
+    from infinitensor_tpu_torch.entry import entry
+    fn, (params, cfg, token, pos, cache) = entry()
+    L = cfg.n_layers
+    qm.launches.clear()
+    att.launches.clear()
+    fn(params, cfg, token, pos, cache)
+    torch.cuda.synchronize()
+    assert {**qm.launches, **att.launches} == {
+        "qmm_chunk": 3 * L + 1, "dequant_matmul": L, "flash_decode_q8": L}
+    cfg, params = _small_model(dev)
+    L = cfg.n_layers
+    knobs(variant="w4a8")
+    assert _decode_launches(params, cfg, dev) == {
+        "qmm_norm_w4a8": 2 * L, "qmm_w4a8": 2 * L + 1, "flash_decode_q8": L}
+    knobs(table={"512:512:4": {"variant": "group2d", "bn": 128, "kb": 128},
+                 "1024:512:4": {"variant": "group2d", "bn": 128, "kb": 256}})
+    assert _decode_launches(params, cfg, dev) == {
+        "qmm_group_norm": 2 * L, "qmm_group2d": 2 * L + 1,
+        "flash_decode_q8": L}

@@ -1,6 +1,7 @@
 """The port stands alone: importing it (and chip_smoke.py) loads neither
 jax nor infinitensor_tpu, and no module of it names either."""
 
+import json
 import pathlib
 import re
 import subprocess
@@ -64,6 +65,12 @@ def test_entry_points_refuse_without_cuda_device(monkeypatch):
     for engine in (ServingEngine, PagedServingEngine):
         with pytest.raises(RuntimeError):
             engine({}, LlamaConfig.tiny())
+    from infinitensor_tpu_torch.entry import entry
+    with pytest.raises(RuntimeError):
+        entry()
+    from infinitensor_tpu_torch.tools import qmm_bench
+    with pytest.raises(SystemExit, match="CUDA"):
+        qmm_bench.main([])
     assert resolve_device("cpu").type == "cpu"
     # the JAX package's defaults: a bf16 cache unless kv_quant is asked for
     cache = init_kv_cache(LlamaConfig.tiny(), 1, device="cpu")
@@ -75,11 +82,16 @@ def test_entry_points_refuse_without_cuda_device(monkeypatch):
 def test_kernel_sources_shipped():
     csrc = PKG / "kernels" / "csrc"
     assert {p.name for p in csrc.glob("*.cu")} == {
-        "quant_matmul.cu", "quant_matmul_fused.cu", "flash_decode.cu",
-        "paged_flash_decode.cu", "flash_attention.cu"}
+        "quant_matmul.cu", "quant_matmul_fused.cu", "quant_matmul_chunk.cu",
+        "flash_decode.cu", "paged_flash_decode.cu", "flash_attention.cu"}
     # the bodies the decode-attention and the group-dot kernels share
     assert (csrc / "flash_decode.cuh").exists()
     assert (csrc / "quant_matmul.cuh").exists()
+    # the port's own copy of the tuning table: the keys and columns of the
+    # JAX package's (docs/qmm_tune.json), read without that package
+    table = json.loads((PKG / "kernels" / "qmm_tune.json").read_text())
+    assert table == json.loads((ROOT / "docs" / "qmm_tune.json").read_text())
+    assert "qmm_tune.json" in (ROOT / "pyproject.toml").read_text()
 
 
 def test_gpt2_entry_points_refuse_without_cuda_device(monkeypatch):

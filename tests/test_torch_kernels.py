@@ -12,6 +12,9 @@ dequantized weight, f32 product), and the port's dequant route computes
 the same, so those outputs are held to the same one-ulp bound.
 """
 
+import json
+import pathlib
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -30,6 +33,7 @@ from infinitensor_tpu_torch.kernels import quant_matmul as tqm
 from infinitensor_tpu_torch.models.convert import params_from_jax_numpy
 
 OUT_TOL = 4e-3
+ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
 def _t(a):
@@ -97,9 +101,11 @@ def test_quant_matmul_refuses_what_the_kernel_refuses():
     tq = _port_q(q)
     with pytest.raises(ValueError):
         tqm.quant_matmul(_t(x).float(), tq)
+    # a group of 64 computes: the chunk kernel, as in the JAX package
     q64 = quantize_weight(jnp.ones((512, 256)), bits=4, group_size=64)
-    with pytest.raises(ValueError):
-        tqm.quant_matmul(_t(x), _port_q(q64))
+    assert tqm.route(_t(x), _port_q(q64)) == ("qmm_chunk", 0)
+    _close(tqm.quant_matmul(_t(x), _port_q(q64)),
+           qm.quant_matmul(x, q64, interpret=True))
     # 257 rows take the dequant route, as the JAX package does: no kernel,
     # nothing refused for want of one
     before = tqm.launches["dequant_matmul"]
@@ -108,6 +114,8 @@ def test_quant_matmul_refuses_what_the_kernel_refuses():
     assert tqm.launches["dequant_matmul"] == before + 1
     with pytest.raises(ValueError):
         tqm.quant_matmul(torch.zeros(257, 256, dtype=torch.bfloat16), tq)
+    with pytest.raises(ValueError, match="variant"):
+        tqm.quant_matmul(_t(x), tq, variant="tiles")
 
 
 def _rows300(seed, bits=4):
@@ -343,3 +351,212 @@ def test_flash_decode_head_dim_64_plain_vs_pallas(rep, dtype):
     assert got.dtype == (torch.bfloat16 if dtype == jnp.bfloat16
                          else torch.float32)
     _close(got, want, OUT_TOL if dtype == jnp.bfloat16 else 1e-5)
+
+
+# -- the chunk, split-K and fused-norm W4A8 kernels; the variant knobs ------
+
+def _qweights(seed, din, dout, bits, group, rows, pad=0):
+    rng = np.random.default_rng(seed)
+    w = rng.standard_normal((din, dout)).astype(np.float32)
+    q = quantize_weight(jnp.asarray(w), bits=bits, group_size=group,
+                        pad_out=pad)
+    x = jnp.asarray(rng.standard_normal((rows, din)) * 2.0, jnp.bfloat16)
+    return rng, q, x
+
+
+@pytest.fixture
+def knobs(monkeypatch, tmp_path):
+    """set(variant=None, table=None): INFINITPU_QMM_VARIANT and a tuning
+    table written to a fresh file (an empty one by default)."""
+    def set_(variant=None, table=None):
+        if variant is None:
+            monkeypatch.delenv("INFINITPU_QMM_VARIANT", raising=False)
+        else:
+            monkeypatch.setenv("INFINITPU_QMM_VARIANT", variant)
+        path = tmp_path / f"tune{len(list(tmp_path.iterdir()))}.json"
+        path.write_text(json.dumps(table or {}))
+        monkeypatch.setenv("INFINITPU_QMM_TUNE", str(path))
+    return set_
+
+
+CHUNK_CASES = [(bits, group, rows) for bits in (4, 8) for group in (32, 64, 128)
+               for rows in (1, 8, 256)]
+
+
+@pytest.mark.parametrize("bits,group,rows", CHUNK_CASES)
+def test_chunk_matmul_plain_vs_pallas(bits, group, rows):
+    _, q, x = _qweights(70 + group + rows, 512, 384, bits, group, rows)
+    tq = _port_q(q)
+    assert tqm.route(_t(x), tq, "chunk") == ("qmm_chunk", 0)
+    want = qm.quant_matmul(x, q, interpret=True, variant="chunk")
+    got = tqm.quant_matmul(_t(x), tq, variant="chunk")
+    _close(got, want)
+    _close(got, tqm.qmm_chunk_plain(_t(x), tq), 0)
+
+
+def test_chunk_matmul_padded_dout_plain_vs_pallas():
+    _, q, x = _qweights(71, 512, 200, 4, 64, 3, pad=128)
+    tq = _port_q(q)
+    assert tq.out_physical == 256
+    got = tqm.quant_matmul(_t(x), tq)            # group 64 -> chunk
+    assert got.shape == (3, 200)
+    _close(got, qm.quant_matmul(x, q, interpret=True))
+
+
+@pytest.mark.parametrize("kb", [128, 256])
+@pytest.mark.parametrize("bits", [4, 8])
+def test_group2d_matmul_plain_vs_pallas(bits, kb, knobs):
+    _, q, x = _qweights(80 + kb, 1024, 384, bits, 128, 3)
+    tq = _port_q(q)
+    want = qm.quant_matmul_2d(x, q, 128, kb, interpret=True)
+    got = tqm.qmm_group2d_plain(_t(x), tq, kb)[:, :384]
+    _close(got, want)
+    # a table entry in the form tools/qmm_tune.py writes routes to it
+    knobs(table={f"1024:384:{bits}": {"variant": "group2d", "bn": 128,
+                                      "kb": kb}})
+    assert tqm.route(_t(x), tq) == ("qmm_group2d", kb)
+    assert torch.equal(tqm.quant_matmul(_t(x), tq), got)
+    _close(got, qm.quant_matmul(x, q, interpret=True))
+
+
+W4A8_FUSED_TOL = 2e-2
+
+
+@pytest.mark.parametrize("rows", [1, 3])
+@pytest.mark.parametrize("bits", [4, 8])
+def test_norm_w4a8_matmul_plain_vs_pallas(bits, rows, knobs):
+    """Within one bf16 ulp of the JAX package's composition (its RMSNorm
+    rounded as _kernel_group_norm_w4a8 writes it, then its interpreted
+    W4A8 kernel), and within W4A8_FUSED_TOL of max|out| of the interpreted
+    fused kernel: on the CPU XLA keeps that kernel's normalized row in f32
+    (xla_allow_excess_precision, on by default), which moves a few percent
+    of the int8 activation codes by one (measured: 0.75 at max|out| 85;
+    with the flag off the two are equal bit for bit). The JAX package holds
+    its fused kernel to its composition within 3e-2
+    (tests/test_pallas_interpret.py)."""
+    import jax
+    rng, q, x = _qweights(90 + rows, 512, 256, bits, 128, rows)
+    x = x * 3.0
+    nw = jnp.asarray(rng.uniform(0.5, 1.5, (512,)), jnp.bfloat16)
+    knobs(variant="w4a8")                 # empty table: the env var decides
+    tq = _port_q(q)
+    got = tqm.quant_matmul_norm(_t(x), _t(nw), tq, eps=1e-5)
+    assert torch.equal(got, tqm.qmm_norm_w4a8_plain(_t(x), _t(nw), tq, 1e-5))
+    x32 = x.astype(jnp.float32)
+    ms = jnp.mean(jnp.square(x32), axis=-1, keepdims=True)
+    xn = (x32 * jax.lax.rsqrt(ms + 1e-5)).astype(jnp.bfloat16) * nw
+    _close(got, qm.quant_matmul(xn, q, interpret=True, variant="w4a8"))
+    _close(got, qm.quant_matmul_norm(x, nw, q, eps=1e-5, interpret=True),
+           W4A8_FUSED_TOL)
+
+
+def _fake(din, dout, bits=4, group=128):
+    """A weight of the right shapes for route(); its values do not matter."""
+    rows = din // 2 if bits == 4 else din
+    return tqm.QuantizedLinear(torch.zeros(rows, dout, dtype=torch.int8),
+                               torch.ones(din // group, dout), bits, group)
+
+
+def test_variant_precedence_quant_matmul(knobs, monkeypatch):
+    """caller > table entry > INFINITPU_QMM_VARIANT > "group"."""
+    q, x = _fake(512, 384), torch.zeros(1, 512, dtype=torch.bfloat16)
+    knobs()
+    assert tqm.route(x, q)[0] == "qmm_group"
+    knobs(variant="w4a8")
+    assert tqm.route(x, q)[0] == "qmm_w4a8"
+    knobs(variant="w4a8", table={"512:384:4": {"variant": "chunk"}})
+    assert tqm.route(x, q)[0] == "qmm_chunk"
+    assert tqm.route(x, q, "group")[0] == "qmm_group"
+    # group2d: only with a kb that fits and a bn dividing the columns
+    for entry, want in (({"variant": "group2d", "bn": 128, "kb": 128},
+                         ("qmm_group2d", 128)),
+                        ({"variant": "group2d", "bn": 128}, ("qmm_group", 0)),
+                        ({"variant": "group2d", "bn": 256, "kb": 128},
+                         ("qmm_group", 0)),
+                        ({"variant": "group2d", "bn": 128, "kb": 192},
+                         ("qmm_group", 0))):
+        knobs(table={"512:384:4": entry})
+        assert tqm.route(x, q) == want, entry
+    # no multiple of 128 as the group: chunk, whatever was asked
+    knobs(variant="w4a8")
+    assert tqm.route(x, _fake(512, 384, group=64))[0] == "qmm_chunk"
+    assert tqm.route(x, _fake(512, 384, group=64), "group")[0] == "qmm_chunk"
+    # a missing or unreadable table is an empty one
+    for bad in ("/nonexistent/tune.json", __file__):
+        monkeypatch.setenv("INFINITPU_QMM_TUNE", bad)
+        assert tqm.route(x, q)[0] == "qmm_w4a8"
+
+
+def test_default_table_wins_over_the_env_var(monkeypatch):
+    """The port's own table lists "group" for the four 7B layer shapes and
+    "w4a8" for the lm_head; the env var does not override an entry."""
+    monkeypatch.delenv("INFINITPU_QMM_TUNE", raising=False)
+    monkeypatch.setenv("INFINITPU_QMM_VARIANT", "w4a8")
+    with open(ROOT / "docs" / "qmm_tune.json") as f:
+        assert tqm._load_tune(tqm.TUNE_DEFAULT) == json.load(f)
+    x, x11 = (torch.zeros(1, d, dtype=torch.bfloat16) for d in (4096, 11008))
+    assert tqm.route(x, _fake(4096, 12288))[0] == "qmm_group"
+    assert tqm.route(x, _fake(4096, 4096))[0] == "qmm_group"
+    assert tqm.route(x11, _fake(11008, 4096))[0] == "qmm_group"
+    assert tqm.route(x, _fake(4096, 4000))[0] == "qmm_w4a8"   # not listed
+    monkeypatch.delenv("INFINITPU_QMM_VARIANT")
+    assert tqm.route(x, _fake(4096, 32000))[0] == "qmm_w4a8"
+
+
+def test_variant_precedence_quant_matmul_norm(knobs):
+    """table entry > INFINITPU_QMM_VARIANT > "group", no caller argument;
+    each setting against the JAX package on the same knobs."""
+    rng, q, x = _qweights(95, 512, 256, 4, 128, 2)
+    nw = jnp.asarray(rng.uniform(0.5, 1.5, (512,)), jnp.bfloat16)
+    tq, tx, tnw = _port_q(q), _t(x), _t(nw)
+    w4a8 = tqm.qmm_norm_w4a8_plain(tx, tnw, tq, 1e-5)
+    group = tqm.qmm_group_plain(tqm.rmsnorm_bf16(tx, tnw, 1e-5), tq)
+    for variant, table, want in (
+            (None, None, group), ("w4a8", None, w4a8),
+            (None, {"512:256:4": {"variant": "w4a8"}}, w4a8),
+            ("w4a8", {"512:256:4": {"variant": "group"}}, group)):
+        knobs(variant=variant, table=table)
+        got = tqm.quant_matmul_norm(tx, tnw, tq, eps=1e-5)
+        assert torch.equal(got, want), (variant, table)
+        _close(got, qm.quant_matmul_norm(x, nw, q, eps=1e-5, interpret=True),
+               W4A8_FUSED_TOL if want is w4a8 else OUT_TOL)
+
+
+@pytest.mark.parametrize("case", ["group64", "odd_scale_rows", "f32_x"])
+def test_quant_matmul_norm_falls_back_as_jax(case):
+    """rmsnorm + quant_matmul where the fused kernels do not apply: a group
+    of 64 (chunk), a group dividing no packed row count (dequant route,
+    din 1376 snaps to 32), an f32 x (the CPU's dequant route)."""
+    din, group, dt = {"group64": (512, 64, jnp.bfloat16),
+                      "odd_scale_rows": (1376, 64, jnp.bfloat16),
+                      "f32_x": (512, 128, jnp.float32)}[case]
+    rng, q, x = _qweights(96, din, 256, 4, group, 3)
+    x = x.astype(dt)
+    nw = jnp.asarray(rng.uniform(0.5, 1.5, (din,)), jnp.bfloat16)
+    want = qm.quant_matmul_norm(x, nw, q, eps=1e-5, interpret=True)
+    got = tqm.quant_matmul_norm(_t(x), _t(nw), _port_q(q), eps=1e-5)
+    assert got.dtype == (torch.float32 if case == "f32_x" else torch.bfloat16)
+    _close(got, want)
+
+
+def test_wo_matmul_takes_w4a8_below_512_under_the_env_var(knobs):
+    """weight_only.py:276-282: the W4A8 math on every shape; at din 256
+    the JAX package runs its W4A8 kernel, where without the env var both
+    take dequantize + matmul."""
+    from infinitensor_tpu.quant.weight_only import wo_matmul as jwo
+    from infinitensor_tpu_torch.quant.weight_only import wo_matmul
+    _, q, x = _qweights(97, 256, 256, 4, 128, 3)
+    tq = _port_q(q)
+    knobs(variant="w4a8")
+    with config.override(pallas_interpret=True):
+        want = jwo(x, q)
+    got = wo_matmul(_t(x), tq)
+    _close(got, want)
+    _close(got, qm.quant_matmul_w4a8_ref(x, q))
+    assert torch.equal(got, tqm.qmm_w4a8_plain(_t(x), tq))
+    assert not torch.equal(got, tqm.qmm_group_plain(_t(x), tq))
+    # quant_matmul itself, same knob: W4A8 where the parent gave group math
+    assert torch.equal(tqm.quant_matmul(_t(x), tq), got)
+    knobs()
+    assert torch.equal(wo_matmul(_t(x), tq),
+                       tqm.dequant_matmul(_t(x), tq))

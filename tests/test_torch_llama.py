@@ -387,3 +387,78 @@ def test_llama2_70b_config_matches_jax():
               "intermediate", "head_dim", "max_seq"):
         assert getattr(got, f) == getattr(want, f), f
     assert tl.LlamaConfig.llama2_70b(max_seq=64).max_seq == 64
+
+
+# -- entry(): the JAX package's own entry configuration (group 64) ----------
+
+def test_entry_config_decode_step_matches_jax():
+    """The decode step of __graft_entry__.entry() (dim 512, 4 layers, INT4
+    at group 64, INT8 KV, batch 2, pos 5) with its parameters carried
+    across by models/convert.py. Variant map: JAX under
+    pallas_interpret=True runs rmsnorm + its interpreted chunk kernel for
+    wqkv and w_gateup (quant_matmul_norm's fallback: the group is no
+    multiple of 128) and dequantize + matmul for wo, w_down and the lm_head
+    (wo_matmul dispatches on is_tpu()); the port runs qmm_chunk_plain for
+    wqkv, w_gateup, wo and the lm_head and the dequant route for w_down
+    (its group snaps to 32, which does not divide its 688 packed rows, as
+    in the JAX package). Logits within 3e-2 of max|logit| (one
+    bf16 rounding of the scaled weight apart: f32 scale products on one
+    side, bf16 ones on the other), argmax equal."""
+    import __graft_entry__ as graft
+    from infinitensor_tpu_torch import entry as tentry
+
+    fn, (params_j, token, pos, cache_j) = graft.entry()
+    with config.override(pallas_interpret=True):
+        lj, _ = fn(params_j, token, pos, cache_j)
+    cfg_j, cfg_t = graft._small_cfg(), tentry.small_config()
+    for f in ("vocab_size", "dim", "n_layers", "n_heads", "n_kv_heads",
+              "intermediate", "max_seq", "head_dim"):
+        assert getattr(cfg_t, f) == getattr(cfg_j, f), f
+    params_t = params_from_jax_numpy(jax.tree.map(np.asarray, params_j),
+                                     "cpu")
+    layer = params_t["layers"][0]
+    x = torch.zeros(1, cfg_t.dim, dtype=torch.bfloat16)
+    for q in (layer["wqkv"], layer["wo"], layer["w_gateup"],
+              params_t["lm_head"]):
+        assert q.group_size == 64 and tqm.route(x, q)[0] == "qmm_chunk"
+    xd = torch.zeros(1, cfg_t.intermediate, dtype=torch.bfloat16)
+    assert tqm.route(xd, layer["w_down"])[0] == "dequant_matmul"
+    cache_t = tl.init_kv_cache(cfg_t, 2, kv_quant=True, device="cpu")
+    lt, _ = tl.llama_decode_step(params_t, cfg_t, torch.tensor(
+        np.asarray(token)), torch.tensor(np.asarray(pos)), cache_t)
+    assert lt.shape == (2, 2048)
+    _close_logits(lt, lj)
+
+    # the port's own entry(): same configuration, its own seeded weights
+    fn_t, args = tentry.entry("cpu")
+    assert fn_t is tl.llama_decode_step
+    params, cfg, token_t, pos_t, cache = args
+    assert cfg == cfg_t and token_t.tolist() == [0, 0]
+    assert pos_t.tolist() == [5, 5] and cache["k"][0].dtype == torch.int8
+    for key in ("wqkv", "wo", "w_gateup", "w_down"):
+        got, want = params["layers"][0][key], layer[key]
+        assert got.qweight.shape == want.qweight.shape
+        assert (got.group_size, got.scales.shape) == (want.group_size,
+                                                      want.scales.shape)
+    logits, _ = fn_t(*args)
+    assert logits.shape == (2, 2048) and torch.isfinite(logits.float()).all()
+
+
+def test_w4a8_model_matches_jax_under_the_env_var(model, monkeypatch,
+                                                  tmp_path):
+    """INFINITPU_QMM_VARIANT=w4a8 with an empty tuning table, three
+    INT8-cache decode steps. Variant map: JAX under pallas_interpret=True
+    runs its interpreted _kernel_group_norm_w4a8 for wqkv and w_gateup and
+    its interpreted W4A8 kernel for wo, w_down and the lm_head (wo_matmul
+    takes quant_matmul on every shape under the env var); the port runs
+    qmm_norm_w4a8_plain and qmm_w4a8_plain. Logits within 3e-2 of
+    max|logit|, argmax equal up to a near-tie within the measured error."""
+    cfg_j, params_j, _, cfg_t, params_t = model
+    empty = tmp_path / "empty.json"
+    empty.write_text("{}")
+    monkeypatch.setenv("INFINITPU_QMM_TUNE", str(empty))
+    monkeypatch.setenv("INFINITPU_QMM_VARIANT", "w4a8")
+    x = torch.zeros(1, SHAPE["dim"], dtype=torch.bfloat16)
+    for key in ("wo", "wqkv"):
+        assert tqm.route(x, params_t["layers"][0][key])[0] == "qmm_w4a8"
+    _three_steps(params_j, params_t, cfg_j, cfg_t)
