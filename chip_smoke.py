@@ -86,6 +86,27 @@ Phases, each failing with a nonzero exit, each printing its seconds:
      and w_down entries read {"variant": "group2d", "bn": 1024, "kb": kb},
      kb chosen so that the split-K grid fills the card's SMs where the
      packed rows allow it: qmm_group2d 64, qmm_group_norm 64, qmm_w4a8 1.
+ 12. the 7B decode of phase 4 built through the graph IR
+     (models/graph_llama.py build_llama_decoder, weights bound without a
+     copy, GraphExecutor): one eager step launches qmm_group_norm 64,
+     qmm_group 64, qmm_w4a8 1, flash_decode_q8 32 and rmsnorm 1, its
+     logits held against llama_decode_step's; 128 steps of
+     make_fused_greedy_decode (one CUDA graph of 128 steps) equal 128
+     eager graph steps and phase 4's tokens up to a printed near-tie;
+     tok/s (min of 3) beside phase 4's, the eager ms per step; then
+     GraphLlamaServingAdapter under ServingEngine at 7B width, 2 layers, 8
+     slots, INT8 cache, 6 seeded requests of 8-32 prompt tokens and 16 new
+     tokens (the final norm is rmsnorm at 8 rows), tokens equal to the
+     hand-written dense engine's up to a printed near-tie;
+ 13. the Longformer block of tools/rewrite_speedup.py (batch 1, 8 heads,
+     S 2048, head dim 128, one-sided window 64) in the JAX package's band
+     form through GraphHandler (G2BMM, scale, edge mask, Softmax, GBMM), in
+     f32 and bf16, against the dense masked S x S attention in plain torch
+     (relative error against f64 within 1e-4 in f32, 4e-2 in bf16; the
+     same check must fail with one row of v moved), launching g2bmm and
+     gbmm once each.
+Phase 9 also runs greedy_generate on entry()'s model (head dim 64), whose
+prefill launches flash_attention at D 64.
 Phases 8-11 each check one step against the plain versions on the CPU,
 128 graph-replayed steps equal to an eager loop, and print tok/s (min of
 3) against the copy-rate roofline and a torch.profiler window over one
@@ -93,8 +114,13 @@ graph run (busy share, kernel ms a token). Phase 3 also holds the kernels of
 phases 7-11 against their plain versions at those shapes (64 rows of 1024
 features; B 64, 16 heads of 64, S 384, ragged pos in [16, 313]; the paired
 7B matmuls at 1 row; qmm_chunk at group 64 and qmm_norm_w4a8 at 1 and 8
-rows, qmm_group2d at 1 row).
-The last lines are the kernels JSON, nvidia-smi's name and power limit,
+rows, qmm_group2d at 1 row), and the graph slice's kernels: rmsnorm at 1,
+8 and 1024 rows of 4096, g2bmm and gbmm at the phase 13 shape (f32, bf16)
+and at Longformer-base's attention (12 heads of 64, window 256, S 4096,
+bf16), flash_attention at head dim 64 at entry()'s prompt (q, k, v [2, 8,
+64, 64]).
+The last lines are the kernels JSON (17 kernels), nvidia-smi's name and
+power limit,
 and {"ok": true, "device": {...}}. A report goes to chiprun_out/.
 """
 
@@ -109,7 +135,8 @@ import sys
 import time
 
 HBM_BYTES_S = 3.35e12        # H100 SXM published device-memory rate
-PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}    # dense tensor-core peaks
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12,    # dense tensor-core peaks
+            "f32": 67e12}                          # f32 outside them
 SEED = 0
 CTX = 1024                   # decode position (bench.py BENCH_CTX)
 MAX_SEQ = 1664               # bench.py cache capacity at ctx 1024
@@ -233,12 +260,15 @@ def main():
     # 1. the card
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
-    from infinitensor_tpu_torch.kernels import _build
+    from infinitensor_tpu_torch.core import GraphHandler
+    from infinitensor_tpu_torch.core.dtype import DataType
+    from infinitensor_tpu_torch.kernels import _build, band, norms
     from infinitensor_tpu_torch.kernels import attention as att
     from infinitensor_tpu_torch.kernels import flash_attention as fa
     from infinitensor_tpu_torch.kernels import paged_attention as pa
     from infinitensor_tpu_torch.kernels import quant_matmul as qm
-    from infinitensor_tpu_torch.models import gpt2, llama
+    from infinitensor_tpu_torch.models import gpt2, graph_llama, llama
+    from infinitensor_tpu_torch.runtime.executor import GraphExecutor
     from infinitensor_tpu_torch.tools import serving_bench
     from infinitensor_tpu_torch.quant.weight_only import (
         QuantizedLinear, dequant_matmul, dequantize_weight)
@@ -250,7 +280,7 @@ def main():
     print(f"# card: {smi}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}", flush=True)
     report = {"card": smi, "torch": torch.__version__}
-    counters = Counters(qm, att, fa, pa)
+    counters = Counters(qm, att, fa, pa, norms, band)
     # the matmul variant knobs take the defaults outside phases 10 and 11
     for k in ("INFINITPU_QMM_VARIANT", "INFINITPU_QMM_TUNE"):
         os.environ.pop(k, None)
@@ -425,6 +455,7 @@ def main():
         QuantizedLinear, paired=True), randn, dequantize_weight)
     cases += variant_cases(torch, qm, cfg, g64params, params, envs, kbs,
                            randn, dequantize_weight)
+    cases += graph_cases(torch, norms, band, fa, cfg, gen, dev, randn)
 
     for c in cases:
         with knobs(c.get("env", {})):
@@ -498,6 +529,7 @@ def main():
         weight_bytes(cfg, group=64))
     del g64params
     entry_check(torch, counters, report)
+    paths[ENTRY_PROMPT] = entry_prompt_check(torch, llama, counters, report)
     t_phase = phase(9, t_phase)
 
     # 10. W4A8 under the env var and an empty table; with the default
@@ -528,10 +560,21 @@ def main():
             torch, llama, counters, params, cfg, dev, report, steps, SPLIT,
             {"qmm_group2d": 2 * L, "qmm_group_norm": 2 * L, "qmm_w4a8": 1,
              "flash_decode_q8": L}, weight_bytes(cfg))
-    del params
     t_phase = phase(11, t_phase)
 
+    # 12. the 7B decode built through the graph IR, and its serving adapter
+    paths.update(graph_path(torch, llama, graph_llama, GraphExecutor,
+                            counters, params, cfg, dev, report, steps))
+    del params
+    t_phase = phase(12, t_phase)
+
+    # 13. Longformer band attention through the graph IR
+    paths.update(longformer_path(torch, GraphHandler, DataType,
+                                 GraphExecutor, counters, dev, report, steps))
+    t_phase = phase(13, t_phase)
+
     per_prompt = report["generate"][f"prompt {SHORT}"]["launches_per_prompt"]
+    prompts_of = {ENTRY_PROMPT: paths[ENTRY_PROMPT]}
     kernels = []
     for c in cases:
         prefill = c["name"] == "flash_attention" or c["path"] == \
@@ -539,14 +582,15 @@ def main():
         step = report["serving"][c["path"]]["launches_per_step"] \
             if c["path"].startswith("serving") \
             else steps.get(c["path"], per_token)
+        per_prompt_c = prompts_of.get(c["path"], per_prompt)
         kernels.append({
             "name": c["name"], "shape": c["shape"], "route": "cuda",
             "source": c["source"], "replaces": c["replaces"],
             "path": c["path"], "launches": paths[c["path"]].get(c["name"], 0),
             "launches_per_token": None if prefill
             else step.get(c["name"], 0),
-            "launches_per_prompt": per_prompt.get(c["name"], 0) if prefill
-            else None,
+            "launches_per_prompt": per_prompt_c.get(c["name"], 0)
+            if prefill else None,
             "max_abs_err": c["max_abs_err"], "ms": c["ms"],
             "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"], "copy_bound_ms": c["copy_bound_ms"],
@@ -582,7 +626,8 @@ def check_and_time(torch, c, counters, flush, bw_copy):
         fail(f"{c['name']} {c['shape']}: max err {err} > {TOL} * {ref}")
     c["ms"] = cuda_ms(torch, c["kernel"], 50, flush)
     c["plain_ms"] = cuda_ms(torch, c["plain"], 5, flush)
-    c["library_ms"] = cuda_ms(torch, c["library"], 50, flush)
+    c["library_ms"] = cuda_ms(torch, c["library"], 50, flush) \
+        if c["library"] else None
     c["bound_ms"] = 1e3 * max(c["bytes"] / HBM_BYTES_S,
                               c["ops"] / PEAK_OPS[c["kind"]])
     c["bound_by"] = ("bytes" if c["bytes"] / HBM_BYTES_S
@@ -592,7 +637,8 @@ def check_and_time(torch, c, counters, flush, bw_copy):
           f"(max|ref| {ref:.3g})  kernel {c['ms']:.4f} ms  bound "
           f"{c['bound_ms']:.4f} ms {c['bound_by']} (copy-rate "
           f"{c['copy_bound_ms']:.4f})  plain {c['plain_ms']:.4f} ms  "
-          f"library {c['library_ms']:.4f} ms  {c['bytes'] / 1e6:.2f} MB",
+          f"library {c['library_ms'] or float('nan'):.4f} ms  "
+          f"{c['bytes'] / 1e6:.2f} MB",
           flush=True)
 
 
@@ -779,6 +825,7 @@ def decode_path(torch, llama, counters, params, cfg, dev, report):
     print(f"# graph vs eager greedy tokens: first {same} of {STEPS} equal; "
           f"first tokens {toks[0, :8].tolist()}", flush=True)
     report["graph_eager_equal_prefix"] = same
+    report["decode_tokens"] = toks[0].tolist()
     if same < 32:
         fail(f"graph and eager tokens differ at step {same}")
 
@@ -972,10 +1019,10 @@ def generate_path(torch, llama, counters, params, cfg, dev, report,
 def serving_requests(np, cfg):
     """REQUESTS seeded (prompt, max_new_tokens): 64-900 prompt tokens,
     32-128 new tokens. With eos unset the engine's schedule follows from
-    the lengths alone; this seed's stream makes admission wait for pages
-    and never leaves an idle slot's stale block-table row aimed at a live
-    request's page (stale_row_hazards; ROADMAP.md Queue 3 has the
-    finding), which would make paged and dense tokens differ."""
+    the lengths alone; this seed's stream makes admission wait for pages.
+    No idle slot's block-table row may point at a live request's page
+    (stale_row_hazards): the engine points a retired slot's row at the
+    trash page (ROADMAP.md Queue 3 item 4, repaired)."""
     rng = np.random.default_rng(SEED + 4)
     return [(rng.integers(0, cfg.vocab_size, int(n)).tolist(), int(m))
             for n, m in zip(rng.integers(64, 901, REQUESTS),
@@ -992,7 +1039,9 @@ def device_profile(torch, fn):
              ("qmm_w4a8_kernel", "qmm_w4a8"),
              ("splitk_sum", "qmm_group2d sum"),
              ("flash_decode_kernel", "decode attention"),
-             ("flash_attention_kernel", "flash_attention"))
+             ("flash_attention_kernel", "flash_attention"),
+             ("rmsnorm_kernel", "rmsnorm"), ("g2bmm_kernel", "g2bmm"),
+             ("gbmm_kernel", "gbmm"))
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
@@ -1023,12 +1072,13 @@ def device_profile(torch, fn):
 
 
 def group_kernel_kind(name):
-    """Which wrapper a qmm_group_kernel<BITS, R, PRO, PAIRED, MODE>
+    """Which wrapper a qmm_group_kernel<BITS, R, PRO, PAIRED, MODE, XF32>
     instantiation serves, from its demangled name; None for any other
     kernel or a name whose template arguments do not parse."""
     import re
     m = re.search(r"qmm_group_kernel<\D*\d+, \D*\d+, \D*(\d+), "
-                  r"(?:\(bool\))?(true|false|0|1)(?:, \D*(\d+))?>", name)
+                  r"(?:\(bool\))?(true|false|0|1)(?:, \D*(\d+))?"
+                  r"(?:, (?:\(bool\))?(?:true|false|0|1))?>", name)
     if not m:
         return None
     pro, paired = int(m.group(1)), m.group(2) in ("true", "1")
@@ -1043,11 +1093,11 @@ def group_kernel_kind(name):
 
 
 def w4a8_kernel_kind(name):
-    """qmm_norm_w4a8 for a qmm_w4a8_kernel<BITS, R, NORM> instantiation
-    with NORM set, else None."""
+    """qmm_norm_w4a8 for a qmm_w4a8_kernel<BITS, R, NORM, XF32>
+    instantiation with NORM set, else None."""
     import re
-    m = re.search(r"qmm_w4a8_kernel<\D*\d+, \D*\d+, (?:\(bool\))?(true|1)>",
-                  name)
+    m = re.search(r"qmm_w4a8_kernel<\D*\d+, \D*\d+, (?:\(bool\))?(true|1)"
+                  r"(?:, (?:\(bool\))?(?:true|false|0|1))?>", name)
     return "qmm_norm_w4a8" if m else None
 
 
@@ -1853,6 +1903,426 @@ def variant_cases(torch, qm, cfg, g64, params, envs, kbs, randn,
                 :, :q.out_features],
             lambda x=x, w=w: torch.matmul(x, w), env=envs[SPLIT]))
     return out
+
+
+
+
+# -- the graph slice: phase 3 rows, phase 12 (graph-built 7B decode and ----
+# -- its serving adapter), phase 13 (Longformer band attention) -------------
+
+GRAPH = "graph decode"
+GRAPH_SERVE = "graph serving"
+LONG_F32, LONG_BF16 = "longformer f32", "longformer bf16"
+ENTRY_PROMPT = "entry prompt"
+ENTRY_PROMPT_SHAPE = (2, 8, 64, 64)    # entry()'s batch, heads, prompt, D
+LF = dict(batch=1, heads=8, seq=2048, head_dim=128, w=64)  # rewrite_speedup
+LF_BASE = dict(batch=1, heads=12, seq=4096, head_dim=64, w=256)
+LF_TOL = {LONG_F32: 1e-4, LONG_BF16: 4e-2}     # of max|f64 dense|
+G_REQUESTS = 6              # phase 12's serving adapter: requests
+G_PROMPT = 32               # ... of up to 32 prompt tokens (one bucket)
+G_NEW = 16                  # ... and 16 new tokens
+
+
+def band_inputs(torch, shape, dtype, gen, dev):
+    """q, k, v [batch * heads, seq, head_dim] (normal * 0.5) and softmax
+    band weights [batch * heads, seq, 2w + 1], seeded, in `dtype`."""
+    bz, S, D, w = (shape["batch"] * shape["heads"], shape["seq"],
+                   shape["head_dim"], shape["w"])
+    q, k, v = (torch.randn(bz, S, D, generator=gen, device=dev) * 0.5
+               for _ in range(3))
+    wts = torch.softmax(torch.randn(bz, S, 2 * w + 1, generator=gen,
+                                    device=dev), -1)
+    return [t.to(dtype) for t in (q, k, v, wts)]
+
+
+def band_pairs(S, w):
+    """(i, j) pairs of a band of one-sided width w inside [0, S)."""
+    return S * (2 * w + 1) - w * (w + 1)
+
+
+def graph_cases(torch, norms, band, fa, cfg, gen, dev, randn):
+    """Phase 3 rows of the graph slice's kernels: rmsnorm at 1, 8 and 1024
+    rows of 4096 (bf16; library: torch's rms_norm); g2bmm and gbmm at the
+    phase 13 shape (f32 and bf16) and at Longformer-base's attention
+    (allenai/longformer-base-4096: 12 heads of 64, one-sided window 256, S
+    4096; bf16), library the gather + einsum form; flash_attention at
+    D 64 at the shape the entry-prompt path gives it (q, k, v [2, 8, 64,
+    64])."""
+    cases = []
+    rms = getattr(torch.nn.functional, "rms_norm", None)
+    w_norm = (torch.rand(cfg.dim, generator=gen, device=dev) + 0.5).to(
+        torch.bfloat16)
+    for rows in (1, SLOTS, 1024):
+        x = randn(rows, cfg.dim) * 3
+        cases.append(dict(
+            name="rmsnorm", shape=f"{rows}x{cfg.dim} bf16", path=GRAPH,
+            replaces=TPU + "norms.py:27", source=SRC + "rmsnorm.cu",
+            kernel=lambda x=x: norms.rmsnorm(x, w_norm, cfg.norm_eps),
+            plain=lambda x=x: norms.rmsnorm_plain(x, w_norm, cfg.norm_eps),
+            library=None if rms is None else lambda x=x: rms(
+                x, (cfg.dim,), w_norm, cfg.norm_eps),
+            bytes=2 * 2 * rows * cfg.dim + 2 * cfg.dim,
+            ops=4 * rows * cfg.dim, kind="f32"))
+    for label, shape, dtype, path in (
+            ("phase 13", LF, torch.float32, LONG_F32),
+            ("phase 13", LF, torch.bfloat16, LONG_BF16),
+            ("longformer-base", LF_BASE, torch.bfloat16, LONG_BF16)):
+        q, k, v, wts = band_inputs(torch, shape, dtype, gen, dev)
+        bz, S, D = q.shape
+        w = shape["w"]
+        el = q.element_size()
+        idx = (torch.arange(S, device=dev)[:, None]
+               + torch.arange(-w, w + 1, device=dev)[None, :])
+        valid = (idx >= 0) & (idx < S)
+        idx = idx.clamp(0, S - 1)
+        kind = "bf16" if dtype == torch.bfloat16 else "f32"
+        tag = f"{label} {bz}x{S}x{D} w{w} {kind}"
+        pairs = bz * band_pairs(S, w)
+        cases.append(dict(
+            name="g2bmm", shape=tag, path=path,
+            replaces=TPU + "band.py:44", source=SRC + "band.cu",
+            kernel=lambda q=q, k=k, w=w: band.g2bmm_band(q, k, w),
+            plain=lambda q=q, k=k, w=w: band.g2bmm_plain(q, k, w),
+            library=lambda q=q, k=k, idx=idx, valid=valid: torch.where(
+                valid, torch.einsum("bmk,bmnk->bmn", q, k[:, idx]), 0),
+            bytes=el * (2 * bz * S * D + bz * S * (2 * w + 1)),
+            ops=2 * pairs * D, kind=kind))
+        cases.append(dict(
+            name="gbmm", shape=tag, path=path,
+            replaces=TPU + "band.py:68", source=SRC + "band.cu",
+            kernel=lambda wts=wts, v=v, w=w: band.gbmm_band(wts, v, w),
+            plain=lambda wts=wts, v=v, w=w: band.gbmm_plain(wts, v, w),
+            library=lambda wts=wts, v=v, idx=idx, valid=valid: torch.einsum(
+                "bmn,bmnk->bmk", torch.where(valid, wts, 0), v[:, idx]),
+            bytes=el * (2 * bz * S * D + bz * S * (2 * w + 1)),
+            ops=2 * pairs * D, kind=kind))
+    B, H, S, D = ENTRY_PROMPT_SHAPE
+    qa, ka, va = (randn(B, H, S, D) for _ in range(3))
+    cases.append(dict(
+        name="flash_attention", shape=f"causal {B}x{H}x{S}x{D}",
+        path=ENTRY_PROMPT, replaces=TPU + "flash_attention.py:37",
+        source=SRC + "flash_attention.cu",
+        kernel=lambda: fa.flash_attention(qa, ka, va, causal=True),
+        plain=lambda: fa.mha_plain(qa, ka, va, causal=True),
+        library=lambda: torch.nn.functional.scaled_dot_product_attention(
+            qa, ka, va, is_causal=True),
+        bytes=4 * 2 * qa.numel(), ops=4 * B * H * (S * (S + 1) // 2) * D,
+        kind="bf16"))
+    return cases
+
+
+def entry_prompt_check(torch, llama, counters, report):
+    """flash_attention at head dim 64 on a path: greedy_generate on
+    entry()'s model (dim 512, 8 heads of 64, INT4 at group 64) from a
+    seeded 64-token prompt with the bf16 cache; its prefill logits held
+    against the plain versions on the CPU. Returns the path's launches."""
+    from infinitensor_tpu_torch.entry import entry
+    _, (params, cfg, _, _, _) = entry()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    B, H, S, D = ENTRY_PROMPT_SHAPE
+    if (B, H, D) != (2, cfg.n_heads, cfg.dim // cfg.n_heads):
+        fail(f"{ENTRY_PROMPT}: entry()'s model no longer gives "
+             f"flash_attention {ENTRY_PROMPT_SHAPE}")
+    prompt = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    counters.reset()
+    toks, _ = llama.greedy_generate(params, cfg, prompt, 8)
+    torch.cuda.synchronize()
+    launches = counters.read()
+    print(f"# {ENTRY_PROMPT}: greedy_generate launched {launches}; first "
+          f"tokens {toks[0].tolist()}", flush=True)
+    if launches.get("flash_attention", 0) != cfg.n_layers:
+        fail(f"{ENTRY_PROMPT}: flash_attention launched "
+             f"{launches.get('flash_attention', 0)} times")
+    got, _ = llama.llama_prefill(params, cfg, prompt,
+                                 llama.init_kv_cache(cfg, 2, device="cuda"))
+    want, _ = llama.llama_prefill(to_cpu(params), cfg, prompt.cpu(),
+                                  llama.init_kv_cache(cfg, 2, device="cpu"))
+    compare_logits_rows(torch, f"{ENTRY_PROMPT}: prefill, kernels vs plain",
+                        got[:, -1], want[:, -1], report)
+    report["entry_prompt_launches"] = launches
+    return launches
+
+
+def graph_requests(np, cfg):
+    """G_REQUESTS seeded prompts of 8-32 tokens for phase 12's serving."""
+    rng = np.random.default_rng(SEED + 12)
+    return [rng.integers(0, cfg.vocab_size, int(n)).tolist()
+            for n in rng.integers(8, G_PROMPT + 1, G_REQUESTS)]
+
+
+def graph_path(torch, llama, graph_llama, GraphExecutor, counters, params,
+               cfg, dev, report, steps):
+    """Phase 12: the 7B INT4 + INT8-KV decode built through the graph IR
+    (build_llama_decoder over the phase 4 weights, bound without a copy).
+    One eager step's launches and its logits against llama_decode_step;
+    128 eager graph steps; 128 steps of make_fused_greedy_decode (one
+    CUDA graph) equal to them and to phase 4's tokens up to a printed
+    near-tie; tok/s beside phase 4's; then GraphLlamaServingAdapter under
+    ServingEngine at 7B width, 2 layers, against the dense engine.
+    Returns {path: launches}."""
+    import numpy as np
+    from infinitensor_tpu_torch.serving import ServingEngine
+
+    L = cfg.n_layers
+    t0 = time.perf_counter()
+    dec = graph_llama.build_llama_decoder(params, cfg, batch=1,
+                                          max_seq=MAX_SEQ, kv_quant=True,
+                                          external_weights=True)
+    build_s = time.perf_counter() - t0
+    eager = GraphExecutor(dec.graph, device=dev, use_cuda_graph=False)
+    graph_llama.bind_llama_weights(dec, eager, params)
+    if eager.bound_weights()["l0.wqkv.qweight"].data_ptr() != \
+            params["layers"][0]["wqkv"].qweight.data_ptr():
+        fail(f"{GRAPH}: bind_llama_weights copied the weights")
+    token = torch.zeros(1, dtype=torch.int32, device=dev)
+    pos = torch.full((1,), CTX, dtype=torch.int32, device=dev)
+    feed = lambda tok, p: {dec.token_name: tok, dec.pos_name: p}  # noqa
+
+    # one step: launches, and the logits against the hand-written step
+    step = eager.stepper(dec.state_map())
+    counters.reset()
+    out = step(feed(token, pos))
+    torch.cuda.synchronize()
+    per_step = counters.read()
+    steps[GRAPH] = per_step
+    want = {"qmm_group_norm": 2 * L, "qmm_group": 2 * L, "qmm_w4a8": 1,
+            "flash_decode_q8": L, "rmsnorm": 1}
+    print(f"# {GRAPH}: {len(dec.graph.operators)} ops built in "
+          f"{build_s:.2f}s; one step launched {per_step}", flush=True)
+    if per_step != want:
+        fail(f"{GRAPH}: one step launched {per_step}, expected {want}")
+    ref, _ = llama.llama_decode_step(
+        params, cfg, token, pos,
+        llama.init_kv_cache(cfg, 1, kv_quant=True, device=dev))
+    compare_logits(torch, f"{GRAPH}: step vs hand-written llama_decode_step",
+                   out[dec.logits_name][0], ref[0], report)
+
+    # 128 eager steps (the stepper, uncaptured), logits kept
+    step = eager.stepper(dec.state_map())
+    tok, eager_toks, eager_logits = token, [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for j in range(STEPS):
+        lg = step(feed(tok, pos + j))[dec.logits_name]
+        tok = torch.argmax(lg, -1).to(torch.int32)
+        eager_toks.append(tok)
+        eager_logits.append(lg[0])
+    torch.cuda.synchronize()
+    eager_ms = 1e3 * (time.perf_counter() - t0) / STEPS
+    eager_toks = torch.stack(eager_toks, 1)
+
+    # the main path: 128 steps in one captured graph
+    ex = GraphExecutor(dec.graph, device=dev)
+    graph_llama.bind_llama_weights(dec, ex, params)
+    fn, weights, state = graph_llama.make_fused_greedy_decode(dec, ex,
+                                                              multi=STEPS)
+    counters.reset()
+    t0 = time.perf_counter()
+    toks, state = fn(weights, token, pos, state)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    launches = counters.read()
+    for kname in want:
+        if launches.get(kname, 0) <= 0:
+            fail(f"{kname} was never launched on the path {GRAPH}")
+    if not torch.equal(toks, eager_toks):
+        same = (toks == eager_toks)[0].int().cumprod(0).sum().item()
+        fail(f"{GRAPH}: captured and eager graph tokens differ at {same}")
+    # against phase 4's hand-written tokens, up to a near-tie
+    hand = report["decode_tokens"]
+    got = toks[0].tolist()
+    j = next((i for i, (a, b) in enumerate(zip(got, hand)) if a != b), None)
+    tie = None
+    if j is not None:
+        lg = eager_logits[j].float()
+        tie = float(lg[got[j]] - lg[hand[j]]) / float(lg.abs().max())
+        print(f"# {GRAPH}: graph tokens part from the hand-written ones at "
+              f"step {j} ({got[j]} vs {hand[j]}), a near-tie: logit gap "
+              f"{tie:.3g} of max|logit| (limit {TIE})", flush=True)
+        if tie > TIE:
+            fail(f"{GRAPH}: token {j} differs by {tie} of max|logit|")
+    samples = []
+    for _ in range(3):
+        for t in state.values():
+            t.zero_()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again, state = fn(weights, token, pos, state)
+        torch.cuda.synchronize()
+        samples.append(time.perf_counter() - t0)
+        if not torch.equal(again, toks):
+            fail(f"{GRAPH}: a timed run gave other tokens")
+    for t in state.values():
+        t.zero_()
+    prof = device_profile(torch, lambda: fn(weights, token, pos, state))
+    if prof:
+        prof["kernel_ms_per_token"] = {
+            k: v / STEPS for k, v in prof.pop("kernel_ms").items()}
+    dt = min(samples)
+    res = {"ops": len(dec.graph.operators), "build_s": build_s,
+           "tok_s": STEPS / dt, "ms_per_token": 1e3 * dt / STEPS,
+           "tok_s_samples": [STEPS / s for s in samples],
+           "hand_written_tok_s": report["tok_s"],
+           "eager_ms_per_step": eager_ms, "capture_s": capture_s,
+           "equal_to_hand_written_prefix": len(got) if j is None else j,
+           "near_tie_gap": tie, "launches": launches,
+           "launches_per_step": per_step, "device_profile": prof,
+           "first_tokens": got[:8]}
+    report["graph_decode"] = res
+    print(f"# {GRAPH} " + json.dumps(res), flush=True)
+    del fn, state, ex, step, eager
+
+    # the serving adapter at 7B width, 2 layers, against the dense engine
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    params2 = dict(params, layers=params["layers"][:2])
+    prompts = graph_requests(np, cfg)
+    ref_cache = llama.init_kv_cache(cfg2, 1, kv_quant=True, device=dev)
+
+    def tie_gap(prefix, a, b):
+        toks = torch.tensor([prefix], dtype=torch.int32, device=dev)
+        logits, _ = llama.llama_prefill(params2, cfg2, toks, ref_cache)
+        last = logits[0, -1].float()
+        return abs(float(last[a] - last[b])) / float(last.abs().max())
+
+    def drain(eng):
+        hs = [eng.submit(p, max_new_tokens=G_NEW, uid=i)
+              for i, p in enumerate(prompts)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.run_to_completion()
+        torch.cuda.synchronize()
+        for h in hs:
+            if not h.done or len(h.generated) != G_NEW:
+                fail(f"{GRAPH_SERVE}: request {h.uid} unfinished")
+        return [list(h.generated) for h in hs], time.perf_counter() - t0
+
+    ad = graph_llama.GraphLlamaServingAdapter(params2, cfg2, kv_quant=True)
+    eng = ServingEngine(params2, cfg2, max_slots=SLOTS,
+                        prefill_buckets=(G_PROMPT,),
+                        prefill_fn=ad.prefill_fn, decode_fn=ad.decode_fn,
+                        init_cache_fn=ad.init_cache_fn)
+    counters.reset()
+    got, took = drain(eng)
+    serve_launches = counters.read()
+    if eng._program.graph is None:
+        fail(f"{GRAPH_SERVE}: the decode step was not captured")
+    for kname in ("rmsnorm", "qmm_group_norm", "flash_decode_q8"):
+        if serve_launches.get(kname, 0) <= 0:
+            fail(f"{kname} was never launched on the path {GRAPH_SERVE}")
+    del eng
+    dense = ServingEngine(params2, cfg2, max_slots=SLOTS,
+                          prefill_buckets=(G_PROMPT,), kv_quant=True)
+    want_toks, dense_s = drain(dense)
+    del dense
+    ties = same_up_to_ties(f"{GRAPH_SERVE} vs the dense engine", got,
+                           want_toks, prompts, tie_gap)
+    report["graph_serving"] = {
+        "requests": G_REQUESTS, "new_tokens": G_NEW, "drain_s": took,
+        "dense_drain_s": dense_s, "launches": serve_launches,
+        "equal_to_dense": G_REQUESTS - len(ties), "near_ties": ties}
+    print(f"# {GRAPH_SERVE}: " + json.dumps(report["graph_serving"]),
+          flush=True)
+    return {GRAPH: launches, GRAPH_SERVE: serve_launches}
+
+
+def longformer_path(torch, GraphHandler, DataType, GraphExecutor, counters,
+                    dev, report, steps):
+    """Phase 13: the Longformer block of tools/rewrite_speedup.py:164-170
+    (batch 1, 8 heads, S 2048, head dim 128, w 64) in the band form the
+    JAX package's band mutator makes (optimizer/mutator.py:177-260), built
+    directly through GraphHandler: G2BMM -> Mul(1/sqrt(D)) -> Add(the
+    edge mask: -1e9 on the band columns outside [0, S)) -> Softmax -> GBMM,
+    in f32 and in bf16, against the dense masked S x S attention in plain
+    torch in f64 on the same rounded inputs (and in f32, printed, with the
+    share of elements that equal it bit for bit); the check must fail on
+    an input with one row of v moved. Returns {path: launches}."""
+    B, H, S, D, W = (LF["batch"], LF["heads"], LF["seq"], LF["head_dim"],
+                     LF["w"])
+    bz = B * H
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    q, k, v = (torch.randn(bz, S, D, generator=gen, device=dev) * 0.5
+               for _ in range(3))
+    i = torch.arange(S, device=dev)
+    jj = i[:, None] + torch.arange(-W, W + 1, device=dev)[None, :]
+    edge = torch.where((jj < 0) | (jj >= S), -1e9, 0.0)
+    dense_mask = (i[:, None] - i[None, :]).abs() <= W
+
+    def dense(q, k, v):
+        sc = torch.einsum("bid,bjd->bij", q, k) / math.sqrt(D)
+        return torch.softmax(torch.where(dense_mask, sc, -math.inf), -1) @ v
+
+    paths, res = {}, {}
+    for label, dt in ((LONG_F32, torch.float32), (LONG_BF16, torch.bfloat16)):
+        act = DataType.from_torch(dt)
+        h = GraphHandler(name="longformer_band")
+        qi, ki, vi = (h.input((bz, S, D), dtype=act, name=n)
+                      for n in ("q", "k", "v"))
+        scale = h.weight_placeholder((1,), act, name="scale")
+        mask = h.weight_placeholder((S, 2 * W + 1), act, name="edge_mask")
+        band = h.g2bmm(qi, ki, width=W)
+        probs = h.softmax(h.add(h.mul(band, scale), mask), axis=-1)
+        h.gbmm(probs, vi)
+        h.graph.infer_output_roles()
+        feeds = {"q": q.to(dt), "k": k.to(dt), "v": v.to(dt)}
+        weights = {"scale": torch.full((1,), 1 / math.sqrt(D), dtype=dt,
+                                       device=dev),
+                   "edge_mask": edge.to(dt)}
+        eager = GraphExecutor(h.graph, device=dev, use_cuda_graph=False)
+        for n, t in weights.items():
+            eager.set_weight(n, t)
+        counters.reset()
+        (out,) = eager.run(feeds).values()
+        torch.cuda.synchronize()
+        paths[label] = counters.read()
+        steps[label] = paths[label]
+        if paths[label] != {"g2bmm": 1, "gbmm": 1}:
+            fail(f"{label}: launched {paths[label]}, expected g2bmm 1, "
+                 "gbmm 1")
+        qf, kf, vf = (t.float() for t in feeds.values())
+        ref = dense(qf, kf, vf)
+        ref64 = dense(*(t.double() for t in feeds.values()))
+        top = ref64.abs().max().item()
+        err = (out.double() - ref64).abs().max().item() / top
+        err32 = (out.float() - ref).abs().max().item() / top
+        equal = (out.float() == ref).double().mean().item()
+        # the same check on a perturbed input must fail: one row of v
+        # moved by 8 moves the 2w + 1 output rows that attend to it by
+        # ~8 / (2w + 1), against max|out| ~0.2
+        v_p = feeds["v"].clone()
+        v_p[0, S // 2] += 8
+        (out_p,) = eager.run({**feeds, "v": v_p}).values()
+        err_p = (out_p.double() - ref64).abs().max().item() / top
+        at = [(0, 0, 0), (0, S // 2, 1), (bz - 1, S - 1, D - 1)]
+        pairs = [[out[a].item(), ref[a].item(), ref64[a].item()] for a in at]
+        print(f"# {label}: band graph vs dense masked attention: rel err "
+              f"{err:.3g} against f64 (limit {LF_TOL[label]}), {err32:.3g} "
+              f"against f32; {equal:.4f} of the elements equal the f32 "
+              f"dense ones bit for bit; (band, f32 dense, f64 dense) at "
+              f"{at}: {pairs}; with v perturbed: {err_p:.3g}", flush=True)
+        if out.dtype != dt or out.shape != (bz, S, D) or \
+                not math.isfinite(err) or err > LF_TOL[label]:
+            fail(f"{label}: {out.dtype} {tuple(out.shape)}, rel err {err}")
+        if not err_p > LF_TOL[label]:
+            fail(f"{label}: a perturbed v gives rel err {err_p}, within "
+                 f"the limit {LF_TOL[label]}: the check sees nothing")
+        del ref64, out_p, v_p
+        ex = GraphExecutor(h.graph, device=dev)
+        for n, t in weights.items():
+            ex.set_weight(n, t)
+        res[label] = {"rel_err_vs_dense_f64": err,
+                      "rel_err_vs_dense_f32": err32,
+                      "bit_equal_share_vs_dense_f32": equal,
+                      "rel_err_perturbed_v": err_p, "pairs": pairs,
+                      "launches": paths[label],
+                      "captured_ms": ex.time_ms(feeds, iters=20),
+                      "eager_ms": eager.time_ms(feeds, iters=5),
+                      "dense_ms": cuda_ms(torch, lambda qf=qf, kf=kf, vf=vf:
+                                          dense(qf, kf, vf), 5)}
+        print(f"# {label}: " + json.dumps(res[label]), flush=True)
+        del ex, eager, ref
+    report["longformer"] = res
+    return paths
 
 
 if __name__ == "__main__":

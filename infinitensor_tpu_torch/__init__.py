@@ -12,7 +12,11 @@ and continuous-batching serving over the dense or the paged KV cache
 (serving/: ServingEngine, PagedServingEngine, speculative_generate);
 the same decode with paired-scale int4 weights (the slab kernels); and
 GPT-2 INT8 weight-only serving (models/gpt2.py, models/loader.py,
-tools/serving_bench.py).
+tools/serving_bench.py); the graph IR (core/: GraphHandler, Graph;
+ops/: shape rules and the torch lowering of every op) and its executor
+(runtime/executor.py GraphExecutor: eager on the CPU, one captured CUDA
+graph per input signature on the card), with the graph-built Llama
+(models/graph_llama.py) and the band ops of Longformer attention.
 """
 
 from infinitensor_tpu_torch.utils.platform import resolve_device
@@ -36,6 +40,11 @@ from infinitensor_tpu_torch.serving import (
     ModelDraft, PagedServingEngine, PromptLookupDraft, Request, ServingEngine,
     speculative_generate,
 )
+from infinitensor_tpu_torch.core import DataType, Graph, GraphHandler
+from infinitensor_tpu_torch.runtime.executor import GraphExecutor
+from infinitensor_tpu_torch.runtime.runtime import (
+    Runtime, cpu_runtime, cuda_runtime,
+)
 
 __all__ = [
     "resolve_device", "INT4_PACK_VERSION", "QuantizedLinear",
@@ -47,4 +56,6 @@ __all__ = [
     "ModelDraft", "PromptLookupDraft", "GPT2Config", "gpt2_decode_step",
     "gpt2_prefill", "init_gpt2_cache", "init_gpt2_params",
     "quantize_gpt2_params", "load_gpt2_params", "load_llama_params",
+    "DataType", "Graph", "GraphHandler", "GraphExecutor", "Runtime",
+    "cpu_runtime", "cuda_runtime",
 ]

@@ -1,0 +1,134 @@
+"""Band matmuls of Longformer local attention: G2BMM / GBMM (counterpart
+of infinitensor_tpu/kernels/band.py).
+
+g2bmm: out[b, i, j] = sum_k A[b, i, k] * B[b, i + (j - w) d, k]  (scores)
+gbmm:  out[b, i, k] = sum_j W[b, i, j] * B[b, i + (j - w) d, k]  (weights @ V)
+with j in [0, 2w], terms whose row i + (j - w) d falls outside [0, m)
+left out (g2bmm writes 0 there), f32 sums rounded to A's (g2bmm) or B's
+(gbmm) dtype.
+
+g2bmm_band and gbmm_band launch the kernels of csrc/band.cu, replacing
+_g2bmm_kernel and _gbmm_kernel; g2bmm_plain and gbmm_plain are their plain
+versions (one f32 multiply-reduce per diagonal). A CPU tensor takes the
+plain version; a CUDA tensor launches the kernel (bf16 or f32 inputs) or
+raises. `launches` counts kernel launches.
+
+band_kernels_usable keeps only the semantic part of the JAX gate
+(band.py:157-163): dilation 1 (a dilated band stays on the lowering's
+gather or shift-scan path, as in the JAX package). Dropped are the TPU's
+predicates: k % 128 == 0 (lanes), w <= 128 (the kernel's static unroll of
+the diagonals) and a row block that is a multiple of 8 dividing m (VMEM
+blocks). The CUDA kernels take any k, w and m whose staged window of B
+fits a block's shared memory (csrc/band.cu), and raise beyond that.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import functools
+
+import torch
+
+from infinitensor_tpu_torch.kernels import _build
+
+launches = collections.Counter()
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    P, I = _build.P, _build.I
+    sig = [P, I, P, I, P, I, I, I, I, P]
+    return _build.typed("band", g2bmm=sig, gbmm=sig)
+
+
+def shifted_rows(b: torch.Tensor, off: int) -> torch.Tensor:
+    """[bz, m, k]: row i holds b[i + off] (zeros where that is outside
+    [0, m)), in f32."""
+    m = b.shape[1]
+    out = torch.zeros(b.shape, dtype=torch.float32, device=b.device)
+    lo, hi = max(0, -off), min(m, m - off)
+    if lo < hi:
+        out[:, lo:hi] = b[:, lo + off:hi + off].float()
+    return out
+
+
+def g2bmm_plain(a: torch.Tensor, b: torch.Tensor, w: int, d: int = 1
+                ) -> torch.Tensor:
+    """A [bz, m, k], B [bz, m, k] -> [bz, m, 2w + 1] in A's dtype: per
+    diagonal j, the f32 row dots of A and B shifted by (j - w) d."""
+    af = a.float()
+    cols = [(af * shifted_rows(b, (j - w) * d)).sum(-1)
+            for j in range(2 * w + 1)]
+    return torch.stack(cols, dim=-1).to(a.dtype)
+
+
+def gbmm_plain(wts: torch.Tensor, b: torch.Tensor, w: int, d: int = 1
+               ) -> torch.Tensor:
+    """W [bz, m, 2w + 1], B [bz, m, k] -> [bz, m, k] in B's dtype: the f32
+    sum over diagonals j of W[..., j] times B shifted by (j - w) d."""
+    wf = wts.float()
+    acc = torch.zeros(b.shape, dtype=torch.float32, device=b.device)
+    for j in range(2 * w + 1):
+        acc += wf[..., j:j + 1] * shifted_rows(b, (j - w) * d)
+    return acc.to(b.dtype)
+
+
+def band_kernels_usable(m: int, k: int, w: int, d: int) -> bool:
+    """The lowerings' gate: dilation 1 (see the module docstring)."""
+    return d == 1
+
+
+def _launch(name: str, first: torch.Tensor, b: torch.Tensor, w: int,
+            out: torch.Tensor) -> torch.Tensor:
+    for what, t in (("first operand", first), ("b", b)):
+        if t.device != b.device or t.dtype not in KERNEL_DTYPES:
+            raise ValueError(f"{name} kernel takes {what} in "
+                             f"{KERNEL_DTYPES} on {b.device}, got "
+                             f"{t.dtype} on {t.device}")
+    first, b = first.contiguous(), b.contiguous()
+    bz, m, k = b.shape
+    lib, p = _lib(), _build.ptr
+    err = getattr(lib, name)(
+        p(first), first.dtype == torch.float32, p(b),
+        b.dtype == torch.float32, p(out), bz, m, k, w, _build.stream())
+    _build.raise_on(lib, err, name)
+    launches[name] += 1
+    return out
+
+
+def _check(name, a, b, d):
+    if a.dim() != 3 or b.dim() != 3 or a.shape[:2] != b.shape[:2]:
+        raise ValueError(f"{name}: operands [bz, m, .] of one bz and m, got "
+                         f"{tuple(a.shape)} and {tuple(b.shape)}")
+    if a.device.type == "cuda" and d != 1:
+        raise ValueError(f"{name} kernel takes dilation 1, got {d}")
+    if a.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {a.device}")
+
+
+def g2bmm_band(a: torch.Tensor, b: torch.Tensor, w: int, d: int = 1
+               ) -> torch.Tensor:
+    """A [bz, m, k] x B [bz, m, k] -> band scores [bz, m, 2w + 1]."""
+    _check("g2bmm", a, b, d)
+    if a.shape != b.shape:
+        raise ValueError(f"g2bmm: A {tuple(a.shape)} and B "
+                         f"{tuple(b.shape)} differ")
+    if a.device.type == "cpu":
+        return g2bmm_plain(a, b, w, d)
+    out = torch.empty(a.shape[0], a.shape[1], 2 * w + 1, dtype=a.dtype,
+                      device=a.device)
+    return _launch("g2bmm", a, b, w, out)
+
+
+def gbmm_band(wts: torch.Tensor, b: torch.Tensor, w: int, d: int = 1
+              ) -> torch.Tensor:
+    """Band weights [bz, m, 2w + 1] x B [bz, m, k] -> [bz, m, k]."""
+    _check("gbmm", wts, b, d)
+    if wts.shape[2] != 2 * w + 1:
+        raise ValueError(f"gbmm: {wts.shape[2]} band columns for w = {w}")
+    if wts.device.type == "cpu":
+        return gbmm_plain(wts, b, w, d)
+    out = torch.empty(b.shape, dtype=b.dtype, device=b.device)
+    return _launch("gbmm", wts, b, w, out)

@@ -12,6 +12,10 @@
 // takes m = 0 for its exponentials and alpha = 0, masked scores give
 // p = 0, and the output is acc / max(l, 1e-30).
 //
+// The head dim D is a template parameter, 128 (Llama-2-7B) or 64 (GPT-2,
+// and the dim-512 Llama of entry()); the shared row stride, the q
+// fragments and the output accumulators scale with it.
+//
 // What bounds it on this card: at the Llama-2-7B prompt (S = 1024,
 // 32 heads, D = 128) the causal work is about 8.6 GFLOP over 33.6 MB of
 // q, k, v and o, 256 operations per byte, so both bounds are near: about
@@ -38,12 +42,10 @@
 
 namespace {
 
-constexpr int kD = 128;             // head dim
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kBq = 16 * kWarps;    // query rows per block
 constexpr int kBk = 64;             // key rows per tile
-constexpr int kLd = kD + 8;         // shared row stride (bf16): no bank conflicts
 
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
@@ -83,12 +85,13 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-template <bool CAUSAL>
+template <bool CAUSAL, int kD>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
                        const __nv_bfloat16* __restrict__ k,
                        const __nv_bfloat16* __restrict__ v,
                        __nv_bfloat16* __restrict__ o, int S, float scale) {
+  constexpr int kLd = kD + 8;       // shared row stride (bf16): no bank conflicts
   __shared__ __align__(16) __nv_bfloat16 ks[kBk * kLd];
   __shared__ __align__(16) __nv_bfloat16 vs[kBk * kLd];
   const int qt = gridDim.x - 1 - blockIdx.x;
@@ -228,20 +231,28 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
 
 ITT_DEFINE_ERROR_STRING()
 
-// q/k/v/o bf16 [BH, S, D] contiguous (BH = batch * heads); D must be 128.
-ITT_EXPORT int flash_attention(const void* q, const void* k, const void* v,
-                               void* o, int BH, int S, int D, int causal,
-                               float scale, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D != kD || BH <= 0 || BH > 65535 || S <= 0) return (int)cudaErrorInvalidValue;
+template <int kD>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                   int BH, int S, bool causal, float scale, cudaStream_t s) {
   const dim3 grid((S + kBq - 1) / kBq, BH);
   const auto* qp = static_cast<const __nv_bfloat16*>(q);
   const auto* kp = static_cast<const __nv_bfloat16*>(k);
   const auto* vp = static_cast<const __nv_bfloat16*>(v);
   auto* op = static_cast<__nv_bfloat16*>(o);
   if (causal)
-    flash_attention_kernel<true><<<grid, kThreads, 0, s>>>(qp, kp, vp, op, S, scale);
+    flash_attention_kernel<true, kD><<<grid, kThreads, 0, s>>>(qp, kp, vp, op, S, scale);
   else
-    flash_attention_kernel<false><<<grid, kThreads, 0, s>>>(qp, kp, vp, op, S, scale);
-  return (int)cudaGetLastError();
+    flash_attention_kernel<false, kD><<<grid, kThreads, 0, s>>>(qp, kp, vp, op, S, scale);
+  return cudaGetLastError();
+}
+
+// q/k/v/o bf16 [BH, S, D] contiguous (BH = batch * heads); D is 64 or 128.
+ITT_EXPORT int flash_attention(const void* q, const void* k, const void* v,
+                               void* o, int BH, int S, int D, int causal,
+                               float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (BH <= 0 || BH > 65535 || S <= 0) return (int)cudaErrorInvalidValue;
+  if (D == 128) return (int)launch<128>(q, k, v, o, BH, S, causal, scale, s);
+  if (D == 64) return (int)launch<64>(q, k, v, o, BH, S, causal, scale, s);
+  return (int)cudaErrorInvalidValue;
 }

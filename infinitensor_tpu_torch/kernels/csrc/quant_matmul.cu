@@ -29,19 +29,23 @@
 // each normalized value (the same bf16 value every time) for the
 // block-wide max and again for the quantize, instead of holding a second
 // f32 copy of the row in shared memory.
+//
+// qmm_group and qmm_w4a8 without the norm also take an f32 x (x_f32) and
+// then write f32, as the TPU kernels take an f32 x and write x's type.
 #include "quant_matmul.cuh"
 
 namespace {
 
 using namespace qmm_detail;
 
-template <int BITS, int R, bool NORM>
+template <int BITS, int R, bool NORM, bool XF32 = false>
 __global__ void __launch_bounds__(kLanes * kWarps)
-qmm_w4a8_kernel(const __nv_bfloat16* __restrict__ x,
+qmm_w4a8_kernel(const void* __restrict__ x,
                 const __nv_bfloat16* __restrict__ nw,
                 const int8_t* __restrict__ qw, const void* __restrict__ sc,
-                bool sc_bf16, __nv_bfloat16* __restrict__ out, int rows,
+                bool sc_bf16, void* __restrict__ out, int rows,
                 int din, int dout_p, int group, float eps) {
+  static_assert(!XF32 || !NORM, "an f32 x takes no norm");
   extern __shared__ float smem[];
   float* red = smem;                                        // [kWarps][R][kCols]
   int8_t* xq = reinterpret_cast<int8_t*>(smem + kWarps * R * kCols);  // [R][din]
@@ -54,7 +58,7 @@ qmm_w4a8_kernel(const __nv_bfloat16* __restrict__ x,
 
   // per-row int8 activations, as _quantize_rows_i8 (after the RMSNorm)
   for (int r = 0; r < R; ++r) {
-    const __nv_bfloat16* xr = x + (size_t)(row0 + r) * din;
+    const size_t xr = (size_t)(row0 + r) * din;    // the row's first x
     if (r >= nrows) {
       for (int k = tid; k < din; k += nthr) xq[r * din + k] = 0;
       if (tid == 0) sx[r] = 0.f;
@@ -64,13 +68,13 @@ qmm_w4a8_kernel(const __nv_bfloat16* __restrict__ x,
     if (NORM) {
       float ss = 0.f;
       for (int k = tid; k < din; k += nthr) {
-        const float v = bf16_to_f32(xr[k]);
+        const float v = load_x<XF32>(x, xr + k);
         ss += v * v;
       }
       rinv = 1.f / sqrtf(block_reduce<false>(ss, part) / (float)din + eps);
     }
     auto xn = [&](int k) {
-      const float v = bf16_to_f32(xr[k]);
+      const float v = load_x<XF32>(x, xr + k);
       return NORM ? round_bf16(round_bf16(v * rinv) * bf16_to_f32(nw[k])) : v;
     };
     float amax = 0.f;
@@ -159,42 +163,46 @@ qmm_w4a8_kernel(const __nv_bfloat16* __restrict__ x,
     for (int j = 0; j < 4; ++j)
       red[(warp * R + r) * kCols + lane * 4 + j] = acc[r][j];
   __syncthreads();
-  write_out<R, false>(red, sx, nullptr, false, 0, out, nullptr, rows, row0,
-                      nrows, dout_p);
+  write_out<R, false, XF32>(red, sx, nullptr, false, 0, out, nullptr, rows,
+                            row0, nrows, dout_p);
 }
 
-template <int BITS, int R, bool NORM>
+template <int BITS, int R, bool NORM, bool XF32 = false>
 cudaError_t launch_w4a8(const void* x, const void* nw, const void* qw,
                         const void* sc, bool sc_bf16, void* out, int rows,
                         int din, int dout_p, int group, float eps,
                         cudaStream_t stream) {
   static size_t granted = 0;
-  auto kernel = qmm_w4a8_kernel<BITS, R, NORM>;
+  auto kernel = qmm_w4a8_kernel<BITS, R, NORM, XF32>;
   const size_t smem = sizeof(float) * (size_t)kWarps * R * kCols + (size_t)R * din;
   cudaError_t e = allow_smem(kernel, smem, &granted);
   if (e != cudaSuccess) return e;
   dim3 grid((dout_p + kCols - 1) / kCols, (rows + R - 1) / R);
   kernel<<<grid, dim3(kLanes, kWarps), smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(x),
-      static_cast<const __nv_bfloat16*>(nw), static_cast<const int8_t*>(qw),
-      sc, sc_bf16, static_cast<__nv_bfloat16*>(out), rows, din, dout_p, group,
-      eps);
+      x, static_cast<const __nv_bfloat16*>(nw), static_cast<const int8_t*>(qw),
+      sc, sc_bf16, out, rows, din, dout_p, group, eps);
   return cudaGetLastError();
 }
 
-int w4a8(const void* x, const void* nw, const void* qw, const void* sc,
-         int sc_bf16, void* out, int rows, int din, int dout_p, int bits,
-         int group, bool norm, float eps, void* stream) {
+int w4a8(const void* x, bool x_f32, const void* nw, const void* qw,
+         const void* sc, int sc_bf16, void* out, int rows, int din,
+         int dout_p, int bits, int group, bool norm, float eps,
+         void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int R = rows_per_block(rows, din);
-#define ITT_W4A8(B, RR, N)                                                    \
-  if (bits == B && R == RR && norm == N)                                      \
-    return (int)launch_w4a8<B, RR, N>(x, nw, qw, sc, sc_bf16, out, rows, din, \
-                                      dout_p, group, eps, s);
-  ITT_W4A8(4, 1, false) ITT_W4A8(4, 2, false) ITT_W4A8(4, 4, false)
-  ITT_W4A8(8, 1, false) ITT_W4A8(8, 2, false) ITT_W4A8(8, 4, false)
-  ITT_W4A8(4, 1, true) ITT_W4A8(4, 2, true) ITT_W4A8(4, 4, true)
-  ITT_W4A8(8, 1, true) ITT_W4A8(8, 2, true) ITT_W4A8(8, 4, true)
+#define ITT_W4A8(B, RR, N, XF)                                                \
+  if (bits == B && R == RR && norm == N && x_f32 == XF)                       \
+    return (int)launch_w4a8<B, RR, N, XF>(x, nw, qw, sc, sc_bf16, out, rows,  \
+                                          din, dout_p, group, eps, s);
+  ITT_W4A8(4, 1, false, false) ITT_W4A8(4, 2, false, false)
+  ITT_W4A8(4, 4, false, false) ITT_W4A8(8, 1, false, false)
+  ITT_W4A8(8, 2, false, false) ITT_W4A8(8, 4, false, false)
+  ITT_W4A8(4, 1, true, false) ITT_W4A8(4, 2, true, false)
+  ITT_W4A8(4, 4, true, false) ITT_W4A8(8, 1, true, false)
+  ITT_W4A8(8, 2, true, false) ITT_W4A8(8, 4, true, false)
+  ITT_W4A8(4, 1, false, true) ITT_W4A8(4, 2, false, true)
+  ITT_W4A8(4, 4, false, true) ITT_W4A8(8, 1, false, true)
+  ITT_W4A8(8, 2, false, true) ITT_W4A8(8, 4, false, true)
 #undef ITT_W4A8
   return (int)cudaErrorInvalidValue;
 }
@@ -203,35 +211,43 @@ int w4a8(const void* x, const void* nw, const void* qw, const void* sc,
 
 ITT_DEFINE_ERROR_STRING()
 
-// x bf16 [rows, din]; nw bf16 [din] (read when has_norm); qw int8
-// [din/2 or din, dout_p]; sc bf16/f32 [ng, dout_p]; out bf16 [rows, dout_p].
-ITT_EXPORT int qmm_group(const void* x, const void* nw, const void* qw,
-                         const void* sc, int sc_bf16, void* out, int rows,
-                         int din, int dout_p, int bits, int group,
-                         int has_norm, float eps, void* stream) {
+// x bf16 [rows, din] (x_f32: f32, without the norm); nw bf16 [din] (read
+// when has_norm); qw int8 [din/2 or din, dout_p]; sc bf16/f32 [ng, dout_p];
+// out [rows, dout_p] in x's type.
+ITT_EXPORT int qmm_group(const void* x, int x_f32, const void* nw,
+                         const void* qw, const void* sc, int sc_bf16,
+                         void* out, int rows, int din, int dout_p, int bits,
+                         int group, int has_norm, float eps, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int R = rows_per_block(rows, sizeof(float) * din);
   if (group_smem(R, din) > kSmemMax) return (int)cudaErrorInvalidValue;
-#define ITT_QMM(B, RR, N)                                                     \
-  if (bits == B && R == RR && (bool)has_norm == N)                            \
-    return (int)launch_group<B, RR, (N ? kRmsNorm : kNoNorm), false>(         \
+#define ITT_QMM(B, RR, N, XF)                                                 \
+  if (bits == B && R == RR && (bool)has_norm == N && (bool)x_f32 == XF)       \
+    return (int)launch_group<B, RR, (N ? kRmsNorm : kNoNorm), false,          \
+                             kGroupDots, XF>(                                 \
         x, nw, nullptr, true, qw, sc, sc_bf16, nullptr, false, 0, out, rows,  \
         din, dout_p, group, eps, s);
-  ITT_QMM(4, 1, false) ITT_QMM(4, 2, false) ITT_QMM(4, 4, false)
-  ITT_QMM(4, 1, true) ITT_QMM(4, 2, true) ITT_QMM(4, 4, true)
-  ITT_QMM(8, 1, false) ITT_QMM(8, 2, false) ITT_QMM(8, 4, false)
-  ITT_QMM(8, 1, true) ITT_QMM(8, 2, true) ITT_QMM(8, 4, true)
+  ITT_QMM(4, 1, false, false) ITT_QMM(4, 2, false, false)
+  ITT_QMM(4, 4, false, false) ITT_QMM(4, 1, true, false)
+  ITT_QMM(4, 2, true, false) ITT_QMM(4, 4, true, false)
+  ITT_QMM(8, 1, false, false) ITT_QMM(8, 2, false, false)
+  ITT_QMM(8, 4, false, false) ITT_QMM(8, 1, true, false)
+  ITT_QMM(8, 2, true, false) ITT_QMM(8, 4, true, false)
+  ITT_QMM(4, 1, false, true) ITT_QMM(4, 2, false, true)
+  ITT_QMM(4, 4, false, true) ITT_QMM(8, 1, false, true)
+  ITT_QMM(8, 2, false, true) ITT_QMM(8, 4, false, true)
 #undef ITT_QMM
   return (int)cudaErrorInvalidValue;
 }
 
 // As qmm_group without the norm, through int8 activations (W4A8; bits=8
-// gives W8A8).
-ITT_EXPORT int qmm_w4a8(const void* x, const void* qw, const void* sc,
-                        int sc_bf16, void* out, int rows, int din,
-                        int dout_p, int bits, int group, void* stream) {
-  return w4a8(x, nullptr, qw, sc, sc_bf16, out, rows, din, dout_p, bits,
-              group, false, 0.f, stream);
+// gives W8A8); x bf16 or (x_f32) f32, out in x's type.
+ITT_EXPORT int qmm_w4a8(const void* x, int x_f32, const void* qw,
+                        const void* sc, int sc_bf16, void* out, int rows,
+                        int din, int dout_p, int bits, int group,
+                        void* stream) {
+  return w4a8(x, (bool)x_f32, nullptr, qw, sc, sc_bf16, out, rows, din,
+              dout_p, bits, group, false, 0.f, stream);
 }
 
 // RMSNorm(x) * nw (nw bf16 [din]) ahead of qmm_w4a8's quantize and dots.
@@ -239,6 +255,6 @@ ITT_EXPORT int qmm_norm_w4a8(const void* x, const void* nw, const void* qw,
                              const void* sc, int sc_bf16, void* out, int rows,
                              int din, int dout_p, int bits, int group,
                              float eps, void* stream) {
-  return w4a8(x, nw, qw, sc, sc_bf16, out, rows, din, dout_p, bits, group,
-              true, eps, stream);
+  return w4a8(x, false, nw, qw, sc, sc_bf16, out, rows, din, dout_p, bits,
+              group, true, eps, stream);
 }

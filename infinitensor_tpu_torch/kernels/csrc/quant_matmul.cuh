@@ -26,7 +26,10 @@
 //    per packed group (din / (2 * group) rows): both nibble partials of
 //    packed group c take s[c];
 //  * the LayerNorm form ends as the TPU kernel does: the f32 sum rounded
-//    to bf16, plus the bias in f32, rounded again.
+//    to bf16, plus the bias in f32, rounded again;
+//  * XF32 (the forms without a prologue): x is f32 and so is out, as the
+//    TPU kernels take an f32 x and write x's type; the arithmetic is the
+//    same f32 (x is only not rounded to bf16 first).
 //
 // MODE says where the scale enters and where the sum goes:
 //  * kGroupDots: as above (the TPU's _group_dots);
@@ -68,14 +71,21 @@ __device__ float block_reduce(float v, float* part) {
   return r;
 }
 
-// Sum the kWarps partial tiles in `red` and write bf16 outputs. With BIAS
+// x [., din] as f32: bf16 or (XF32) f32 elements.
+template <bool XF32>
+__device__ __forceinline__ float load_x(const void* x, size_t i) {
+  return XF32 ? static_cast<const float*>(x)[i]
+              : bf16_to_f32(static_cast<const __nv_bfloat16*>(x)[i]);
+}
+
+// Sum the kWarps partial tiles in `red` and write bf16 (OF32: f32) outputs. With BIAS
 // the sum is rounded to bf16 first, then bias[n] (bf16 or f32, zero past
 // nbias) is added in f32 and the result rounded again. With `part` the
 // f32 sums go to part[blockIdx.z] ([rows, dout_p] each) instead.
-template <int R, bool BIAS>
+template <int R, bool BIAS, bool OF32 = false>
 __device__ void write_out(const float* red, const float* row_scale,
                           const void* bias, bool bias_bf16, int nbias,
-                          __nv_bfloat16* out, float* part, int rows, int row0,
+                          void* out, float* part, int rows, int row0,
                           int nrows, int dout_p) {
   const int tid = threadIdx.y * kLanes + threadIdx.x;
   for (int o = tid; o < R * kCols; o += kLanes * kWarps) {
@@ -93,7 +103,11 @@ __device__ void write_out(const float* red, const float* row_scale,
       const float b = n < nbias ? load_scale(bias, bias_bf16, n) : 0.f;
       s = __fadd_rn(round_bf16(s), b);
     }
-    out[(size_t)(row0 + r) * dout_p + n] = __float2bfloat16_rn(s);
+    const size_t at = (size_t)(row0 + r) * dout_p + n;
+    if (OF32)
+      static_cast<float*>(out)[at] = s;
+    else
+      static_cast<__nv_bfloat16*>(out)[at] = __float2bfloat16_rn(s);
   }
 }
 
@@ -110,17 +124,19 @@ __device__ __forceinline__ float scaled_bf16(float v, float s) {
 // [rows, dout_p]. kSplitK only: kb packed rows per block (a multiple of
 // group dividing the packed rows), unit rows per work item (dividing
 // group), part f32 [krows / kb, rows, dout_p].
-template <int BITS, int R, int PRO, bool PAIRED, int MODE = kGroupDots>
+template <int BITS, int R, int PRO, bool PAIRED, int MODE = kGroupDots,
+          bool XF32 = false>
 __global__ void __launch_bounds__(kLanes * kWarps)
-qmm_group_kernel(const __nv_bfloat16* __restrict__ x,
+qmm_group_kernel(const void* __restrict__ x,
                  const void* __restrict__ nw, const void* __restrict__ nb,
                  bool norm_bf16,
                  const int8_t* __restrict__ qw, const void* __restrict__ sc,
                  bool sc_bf16, const void* __restrict__ bias, bool bias_bf16,
-                 int nbias, __nv_bfloat16* __restrict__ out, int rows,
+                 int nbias, void* __restrict__ out, int rows,
                  int din, int dout_p, int group, float eps, int kb, int unit,
                  float* __restrict__ part) {
   static_assert(MODE != kSplitK || PRO == kNoNorm, "split-K has no prologue");
+  static_assert(!XF32 || PRO == kNoNorm, "an f32 x takes no prologue");
   extern __shared__ float smem[];
   const int krows = BITS == 4 ? din / 2 : din;   // stored (packed) rows
   // this block's packed rows [k0, k0 + span), and the x columns it holds
@@ -137,7 +153,7 @@ qmm_group_kernel(const __nv_bfloat16* __restrict__ x,
   const int nrows = min(R, rows - row0);
 
   for (int r = 0; r < R; ++r) {
-    const __nv_bfloat16* xr = x + (size_t)(row0 + r) * din;
+    const size_t xr = (size_t)(row0 + r) * din;    // the row's first x
     if (r >= nrows) {
       for (int k = tid; k < xw; k += nthr) xs[r * xw + k] = 0.f;
       continue;
@@ -146,7 +162,7 @@ qmm_group_kernel(const __nv_bfloat16* __restrict__ x,
     if (PRO == kRmsNorm) {
       float ss = 0.f;
       for (int k = tid; k < din; k += nthr) {
-        const float v = bf16_to_f32(xr[k]);
+        const float v = load_x<XF32>(x, xr + k);
         ss += v * v;
       }
       const float ms = block_reduce<false>(ss, rpart) / (float)din;
@@ -154,11 +170,11 @@ qmm_group_kernel(const __nv_bfloat16* __restrict__ x,
     }
     if (PRO == kLayerNorm) {
       float sm = 0.f;
-      for (int k = tid; k < din; k += nthr) sm += bf16_to_f32(xr[k]);
+      for (int k = tid; k < din; k += nthr) sm += load_x<XF32>(x, xr + k);
       mu = block_reduce<false>(sm, rpart) / (float)din;
       float ss = 0.f;
       for (int k = tid; k < din; k += nthr) {
-        const float d = bf16_to_f32(xr[k]) - mu;
+        const float d = load_x<XF32>(x, xr + k) - mu;
         ss += d * d;
       }
       const float var = block_reduce<false>(ss, rpart) / (float)din;
@@ -168,7 +184,7 @@ qmm_group_kernel(const __nv_bfloat16* __restrict__ x,
       const int src = MODE != kSplitK ? k
                       : k < span     ? k0 + k
                                      : krows + k0 + (k - span);
-      float v = bf16_to_f32(xr[src]);
+      float v = load_x<XF32>(x, xr + src);
       if (PRO == kRmsNorm)
         v = round_bf16(round_bf16(v * rinv) *
                        bf16_to_f32(static_cast<const __nv_bfloat16*>(nw)[k]));
@@ -256,7 +272,7 @@ qmm_group_kernel(const __nv_bfloat16* __restrict__ x,
     for (int j = 0; j < 4; ++j)
       red[(warp * R + r) * kCols + lane * 4 + j] = acc[r][j];
   __syncthreads();
-  write_out<R, PRO == kLayerNorm>(red, nullptr, bias, bias_bf16, nbias, out,
+  write_out<R, PRO == kLayerNorm, XF32>(red, nullptr, bias, bias_bf16, nbias, out,
                                   MODE == kSplitK ? part : nullptr, rows,
                                   row0, nrows, dout_p);
 }
@@ -278,7 +294,8 @@ inline size_t group_smem(int R, int xw) {
   return sizeof(float) * ((size_t)R * xw + (size_t)kWarps * R * kCols);
 }
 
-template <int BITS, int R, int PRO, bool PAIRED, int MODE = kGroupDots>
+template <int BITS, int R, int PRO, bool PAIRED, int MODE = kGroupDots,
+          bool XF32 = false>
 cudaError_t launch_group(const void* x, const void* nw, const void* nb,
                          bool norm_bf16, const void* qw, const void* sc, bool sc_bf16,
                          const void* bias, bool bias_bf16, int nbias,
@@ -286,7 +303,7 @@ cudaError_t launch_group(const void* x, const void* nw, const void* nb,
                          float eps, cudaStream_t stream, int kb = 0,
                          int unit = 0, float* part = nullptr) {
   static size_t granted = 0;
-  auto kernel = qmm_group_kernel<BITS, R, PRO, PAIRED, MODE>;
+  auto kernel = qmm_group_kernel<BITS, R, PRO, PAIRED, MODE, XF32>;
   const int krows = BITS == 4 ? din / 2 : din;
   const int xw = MODE == kSplitK ? (BITS == 4 ? 2 * kb : kb) : din;
   const size_t smem = group_smem(R, xw);
@@ -295,9 +312,8 @@ cudaError_t launch_group(const void* x, const void* nw, const void* nb,
   dim3 grid((dout_p + kCols - 1) / kCols, (rows + R - 1) / R,
             MODE == kSplitK ? krows / kb : 1);
   kernel<<<grid, dim3(kLanes, kWarps), smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), nw, nb, norm_bf16,
-      static_cast<const int8_t*>(qw), sc,
-      sc_bf16, bias, bias_bf16, nbias, static_cast<__nv_bfloat16*>(out), rows,
+      x, nw, nb, norm_bf16, static_cast<const int8_t*>(qw), sc,
+      sc_bf16, bias, bias_bf16, nbias, out, rows,
       din, dout_p, group, eps, kb, unit, part);
   return cudaGetLastError();
 }

@@ -35,14 +35,18 @@ using namespace qmm_detail;
 
 namespace {
 
-// out[i] = bf16(sum over z of part[z][i]), z in order.
+// out[i] = bf16 (OF32: f32) of the sum over z of part[z][i], z in order.
+template <bool OF32>
 __global__ void splitk_sum(const float* __restrict__ part, int nsplit,
-                           size_t n, __nv_bfloat16* __restrict__ out) {
+                           size_t n, void* __restrict__ out) {
   for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
        i += (size_t)gridDim.x * blockDim.x) {
     float s = 0.f;
     for (int z = 0; z < nsplit; ++z) s += part[z * n + i];
-    out[i] = __float2bfloat16_rn(s);
+    if (OF32)
+      static_cast<float*>(out)[i] = s;
+    else
+      static_cast<__nv_bfloat16*>(out)[i] = __float2bfloat16_rn(s);
   }
 }
 
@@ -50,24 +54,27 @@ __global__ void splitk_sum(const float* __restrict__ part, int nsplit,
 
 ITT_DEFINE_ERROR_STRING()
 
-// x bf16 [rows, din]; qw int8 [din/2 or din, dout_p] (unpaired); sc
-// bf16/f32 [ng, dout_p]; out bf16 [rows, dout_p]; any group dividing the
-// packed rows.
-ITT_EXPORT int qmm_chunk(const void* x, const void* qw, const void* sc,
-                         int sc_bf16, void* out, int rows, int din,
-                         int dout_p, int bits, int group, void* stream) {
+// x bf16 (x_f32: f32) [rows, din]; qw int8 [din/2 or din, dout_p]
+// (unpaired); sc bf16/f32 [ng, dout_p]; out [rows, dout_p] in x's type;
+// any group dividing the packed rows.
+ITT_EXPORT int qmm_chunk(const void* x, int x_f32, const void* qw,
+                         const void* sc, int sc_bf16, void* out, int rows,
+                         int din, int dout_p, int bits, int group,
+                         void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int krows = bits == 4 ? din / 2 : din;
   if (group <= 0 || krows % group) return (int)cudaErrorInvalidValue;
   const int R = rows_per_block(rows, sizeof(float) * din);
   if (group_smem(R, din) > kSmemMax) return (int)cudaErrorInvalidValue;
-#define ITT_CHUNK(B, RR)                                                      \
-  if (bits == B && R == RR)                                                   \
-    return (int)launch_group<B, RR, kNoNorm, false, kDequant>(                \
+#define ITT_CHUNK(B, RR, XF)                                                  \
+  if (bits == B && R == RR && (bool)x_f32 == XF)                              \
+    return (int)launch_group<B, RR, kNoNorm, false, kDequant, XF>(            \
         x, nullptr, nullptr, true, qw, sc, sc_bf16, nullptr, false, 0, out,   \
         rows, din, dout_p, group, 0.f, s);
-  ITT_CHUNK(4, 1) ITT_CHUNK(4, 2) ITT_CHUNK(4, 4)
-  ITT_CHUNK(8, 1) ITT_CHUNK(8, 2) ITT_CHUNK(8, 4)
+  ITT_CHUNK(4, 1, false) ITT_CHUNK(4, 2, false) ITT_CHUNK(4, 4, false)
+  ITT_CHUNK(8, 1, false) ITT_CHUNK(8, 2, false) ITT_CHUNK(8, 4, false)
+  ITT_CHUNK(4, 1, true) ITT_CHUNK(4, 2, true) ITT_CHUNK(4, 4, true)
+  ITT_CHUNK(8, 1, true) ITT_CHUNK(8, 2, true) ITT_CHUNK(8, 4, true)
 #undef ITT_CHUNK
   return (int)cudaErrorInvalidValue;
 }
@@ -75,10 +82,10 @@ ITT_EXPORT int qmm_chunk(const void* x, const void* qw, const void* sc,
 // As qmm_group without the norm, split along K into krows / kb blocks of
 // kb packed rows (kb a multiple of group dividing the packed rows). part
 // f32 [krows / kb, rows, dout_p] is scratch.
-ITT_EXPORT int qmm_group2d(const void* x, const void* qw, const void* sc,
-                           int sc_bf16, void* part, void* out, int rows,
-                           int din, int dout_p, int bits, int group, int kb,
-                           void* stream) {
+ITT_EXPORT int qmm_group2d(const void* x, int x_f32, const void* qw,
+                           const void* sc, int sc_bf16, void* part, void* out,
+                           int rows, int din, int dout_p, int bits, int group,
+                           int kb, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int krows = bits == 4 ? din / 2 : din;
   if (group <= 0 || kb <= 0 || kb % group || krows % kb)
@@ -91,20 +98,24 @@ ITT_EXPORT int qmm_group2d(const void* x, const void* qw, const void* sc,
   if (group_smem(R, xw) > kSmemMax) return (int)cudaErrorInvalidValue;
   float* p = static_cast<float*>(part);
   cudaError_t e = cudaErrorInvalidValue;
-#define ITT_2D(B, RR)                                                         \
-  if (bits == B && R == RR)                                                   \
-    e = launch_group<B, RR, kNoNorm, false, kSplitK>(                         \
+#define ITT_2D(B, RR, XF)                                                     \
+  if (bits == B && R == RR && (bool)x_f32 == XF)                              \
+    e = launch_group<B, RR, kNoNorm, false, kSplitK, XF>(                     \
         x, nullptr, nullptr, true, qw, sc, sc_bf16, nullptr, false, 0,        \
         nullptr, rows, din, dout_p, group, 0.f, s, kb, unit, p);
-  ITT_2D(4, 1) ITT_2D(4, 2) ITT_2D(4, 4)
-  ITT_2D(8, 1) ITT_2D(8, 2) ITT_2D(8, 4)
+  ITT_2D(4, 1, false) ITT_2D(4, 2, false) ITT_2D(4, 4, false)
+  ITT_2D(8, 1, false) ITT_2D(8, 2, false) ITT_2D(8, 4, false)
+  ITT_2D(4, 1, true) ITT_2D(4, 2, true) ITT_2D(4, 4, true)
+  ITT_2D(8, 1, true) ITT_2D(8, 2, true) ITT_2D(8, 4, true)
 #undef ITT_2D
   if (e != cudaSuccess) return (int)e;
   const size_t n = (size_t)rows * dout_p;
   const int threads = 256;
   const int blocks = (int)((n + threads - 1) / threads < 1024
                                ? (n + threads - 1) / threads : 1024);
-  splitk_sum<<<blocks, threads, 0, s>>>(p, krows / kb, n,
-                                        static_cast<__nv_bfloat16*>(out));
+  if (x_f32)
+    splitk_sum<true><<<blocks, threads, 0, s>>>(p, krows / kb, n, out);
+  else
+    splitk_sum<false><<<blocks, threads, 0, s>>>(p, krows / kb, n, out);
   return (int)cudaGetLastError();
 }

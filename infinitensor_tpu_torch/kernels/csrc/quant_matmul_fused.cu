@@ -54,23 +54,28 @@ ITT_EXPORT int qmm_group_ln(const void* x, const void* gamma, const void* beta,
   return (int)cudaErrorInvalidValue;
 }
 
-// x bf16 [rows, din]; nw bf16 [din] (the RMSNorm weight, read when
-// has_norm); qw int8 [din/2, dout_p] split-half int4; sc bf16/f32
-// [din / (2 * group), dout_p]; out bf16 [rows, dout_p].
-ITT_EXPORT int qmm_slab(const void* x, const void* nw, const void* qw,
-                        const void* sc, int sc_bf16, void* out, int rows,
-                        int din, int dout_p, int group, int has_norm,
-                        float eps, void* stream) {
+// x bf16 [rows, din] (x_f32: f32, without the norm); nw bf16 [din] (the
+// RMSNorm weight, read when has_norm); qw int8 [din/2, dout_p] split-half
+// int4; sc bf16/f32 [din / (2 * group), dout_p]; out [rows, dout_p] in x's
+// type.
+ITT_EXPORT int qmm_slab(const void* x, int x_f32, const void* nw,
+                        const void* qw, const void* sc, int sc_bf16,
+                        void* out, int rows, int din, int dout_p, int group,
+                        int has_norm, float eps, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int R = rows_per_block(rows, sizeof(float) * din);
   if (group_smem(R, din) > kSmemMax) return (int)cudaErrorInvalidValue;
-#define ITT_QMM_SLAB(RR, N)                                                   \
-  if (R == RR && (bool)has_norm == N)                                         \
-    return (int)launch_group<4, RR, (N ? kRmsNorm : kNoNorm), true>(          \
+#define ITT_QMM_SLAB(RR, N, XF)                                               \
+  if (R == RR && (bool)has_norm == N && (bool)x_f32 == XF)                    \
+    return (int)launch_group<4, RR, (N ? kRmsNorm : kNoNorm), true,           \
+                             kGroupDots, XF>(                                 \
         x, nw, nullptr, true, qw, sc, sc_bf16, nullptr, false, 0, out, rows,  \
         din, dout_p, group, eps, s);
-  ITT_QMM_SLAB(1, false) ITT_QMM_SLAB(2, false) ITT_QMM_SLAB(4, false)
-  ITT_QMM_SLAB(1, true) ITT_QMM_SLAB(2, true) ITT_QMM_SLAB(4, true)
+  ITT_QMM_SLAB(1, false, false) ITT_QMM_SLAB(2, false, false)
+  ITT_QMM_SLAB(4, false, false) ITT_QMM_SLAB(1, true, false)
+  ITT_QMM_SLAB(2, true, false) ITT_QMM_SLAB(4, true, false)
+  ITT_QMM_SLAB(1, false, true) ITT_QMM_SLAB(2, false, true)
+  ITT_QMM_SLAB(4, false, true)
 #undef ITT_QMM_SLAB
   return (int)cudaErrorInvalidValue;
 }

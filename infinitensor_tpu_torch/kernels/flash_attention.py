@@ -20,6 +20,7 @@ import torch
 from infinitensor_tpu_torch.kernels import _build
 
 launches = collections.Counter()
+KERNEL_HEAD_DIMS = (64, 128)     # instantiated in csrc/flash_attention.cu
 
 
 @functools.cache
@@ -44,8 +45,8 @@ def mha_plain(q, k, v, causal: bool = True) -> torch.Tensor:
 
 def flash_attention(q, k, v, causal: bool = True) -> torch.Tensor:
     """q/k/v [B, H, S, D] -> [B, H, S, D]. CPU tensors take the plain
-    version; CUDA tensors launch the kernel (contiguous bf16, D = 128) or
-    raise."""
+    version; CUDA tensors launch the kernel (contiguous bf16, D in
+    KERNEL_HEAD_DIMS) or raise."""
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError("flash_attention: q, k and v must be [B, H, S, D] "
                          "of one shape")
@@ -54,8 +55,9 @@ def flash_attention(q, k, v, causal: bool = True) -> torch.Tensor:
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     B, H, S, D = q.shape
-    if D != 128:
-        raise ValueError("flash_attention kernel takes D=128")
+    if D not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"flash_attention kernel takes D in "
+                         f"{KERNEL_HEAD_DIMS}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device or t.dtype != torch.bfloat16 \
                 or not t.is_contiguous() or t.data_ptr() % 16:

@@ -51,7 +51,19 @@ takes no kernel: it dequantizes the weight and runs one matmul
 (quant_matmul_ref, quant_matmul.py:39-41,599-604,708-710), with the "group"
 semantics even for a shape tuned to w4a8. The wrappers follow that rule on
 every device (weight_only.dequant_matmul) and count it in `launches` as
-"dequant_matmul", a route and not a kernel of this package.
+"dequant_matmul", a route and not a kernel of this package. So does a
+weight whose physical columns are no multiple of 4 (the kernels read 4
+adjacent columns at once; the JAX kernels refuse a dout with no 128-column
+tile and take quant_matmul_ref, :693-710).
+
+Activations: bf16 or f32. On the card the kernels without a fused norm
+take an f32 x and write f32 (one template parameter of their x load), as
+the TPU kernels take an f32 x and write x's type; the fused-norm wrappers
+run norm + quant_matmul for a non-bf16 x, as the JAX package does. On the
+CPU a non-bf16 x takes the JAX package's off-chip math
+(quant_matmul.py:656-662): quant_matmul_w4a8_ref under the "w4a8" variant
+(route "w4a8_ref"), else the dequant route, in x's dtype. Another dtype
+(f16) on the card raises NotImplementedError (ROADMAP.md Queue 3 item 1).
 """
 
 from __future__ import annotations
@@ -68,7 +80,7 @@ import torch
 
 from infinitensor_tpu_torch.kernels import _build
 from infinitensor_tpu_torch.quant.weight_only import (
-    QuantizedLinear, _unpack_nibbles, dequant_matmul,
+    QuantizedLinear, _unpack_nibbles, dequant_matmul, dequantize_weight,
 )
 
 TUNE_DEFAULT = str(Path(__file__).with_name("qmm_tune.json"))
@@ -132,10 +144,8 @@ def _refusal(x: torch.Tensor, q: QuantizedLinear) -> Optional[str]:
     if q.scales.shape[0] * q.group_size * (2 if q.paired else 1) != din:
         return (f"{q.scales.shape[0]} scale rows do not cover {din} "
                 f"features in groups of {q.group_size}")
-    if x.dtype != torch.bfloat16:
-        return f"x must be bf16, got {x.dtype}"
-    if q.out_physical % 4:
-        return "physical output columns must be a multiple of 4"
+    if not x.dtype.is_floating_point:
+        return f"x must be floating point, got {x.dtype}"
     return None
 
 
@@ -149,14 +159,22 @@ def _check(x: torch.Tensor, q: QuantizedLinear) -> None:
 
 def route(x: torch.Tensor, q: QuantizedLinear,
           variant: Optional[str] = None) -> tuple:
-    """(name, kb): what quant_matmul(x, q, variant) runs, a kernel name or
-    "dequant_matmul", and the split of qmm_group2d (else 0). Raises
-    ValueError on what no route takes."""
+    """(name, kb): what quant_matmul(x, q, variant) runs, a kernel name,
+    "dequant_matmul" or "w4a8_ref", and the split of qmm_group2d (else 0).
+    Raises ValueError on what no route takes."""
     if _rows(x) > KERNEL_MAX_ROWS:
         return "dequant_matmul", 0
     _check(x, q)
     tuned = _tuned(x.shape[-1], q.out_features, q.bits) or {}
     variant = _known(variant or tuned.get("variant") or _env_variant())
+    if x.dtype != torch.bfloat16 and x.device.type == "cpu":
+        return ("w4a8_ref" if variant == "w4a8" else "dequant_matmul"), 0
+    if q.out_physical % 4:
+        return "dequant_matmul", 0
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise NotImplementedError(
+            f"{x.dtype} activations: the matmul kernels take bf16 and f32 "
+            "(ROADMAP.md Queue 3 item 1)")
     g, kr = q.group_size, _packed_rows(q)
     if q.paired:
         variant = "slab"        # paired scales exist for the slab kernel
@@ -184,18 +202,16 @@ def _dequant_route(x: torch.Tensor, q: QuantizedLinear) -> torch.Tensor:
     return dequant_matmul(x, q)
 
 
-def _composed(xn: torch.Tensor, q: QuantizedLinear) -> torch.Tensor:
-    """quant_matmul(xn, q) for the fused wrappers' fallbacks, where xn may
-    be f32. The JAX package runs its group or chunk kernel on an f32 x;
-    here no kernel takes one: a CPU tensor takes dequant_matmul (the same
-    function, f32 throughout), a CUDA tensor raises."""
-    if xn.dtype != torch.bfloat16 and _rows(xn) <= KERNEL_MAX_ROWS:
-        if xn.device.type != "cpu":
-            raise NotImplementedError(
-                f"{xn.dtype} activations: the matmul kernels take bf16 only "
-                "(ROADMAP Queue 2)")
-        return _dequant_route(xn, q)
-    return quant_matmul(xn, q)
+def quant_matmul_w4a8_ref(x: torch.Tensor, q: QuantizedLinear
+                          ) -> torch.Tensor:
+    """quant_matmul_w4a8_ref (quant_matmul.py:391-401): the per-row int8
+    activations of quantize_rows_i8 times the weight dequantized in f32,
+    in f32, times sx, rounded to x's dtype. x [..., din] -> [..., out]."""
+    *lead, din = x.shape
+    xq, sx = quantize_rows_i8(x.reshape(-1, din))
+    w = dequantize_weight(q, dtype=torch.float32)
+    out = (xq.float() @ w) * sx
+    return out.to(x.dtype).reshape(*lead, q.out_features)
 
 
 def _per_group(x2: torch.Tensor, q: QuantizedLinear, w_lo, w_hi):
@@ -214,7 +230,8 @@ def _per_group(x2: torch.Tensor, q: QuantizedLinear, w_lo, w_hi):
 
 
 def qmm_group_plain(x2: torch.Tensor, q: QuantizedLinear) -> torch.Tensor:
-    """_group_dots step by step: x [rows, din] bf16 -> [rows, dout_p] bf16.
+    """_group_dots step by step: x [rows, din] bf16 or f32 -> [rows,
+    dout_p] in x's dtype.
     int4: per group c, (x_lo . (u & 15) - 8 * sum(x_lo)) * s[c] +
     x_hi . (u & 0xF0) * s[ng/2 + c] / 16, f32 accumulation; int8:
     (x . w) * s[c]."""
@@ -225,7 +242,7 @@ def qmm_group_plain(x2: torch.Tensor, q: QuantizedLinear) -> torch.Tensor:
         ng = q.qweight.shape[0] // g
         pd = torch.einsum("rcg,cgo->rco", xf.reshape(-1, ng, g),
                           q.qweight.float().reshape(ng, g, -1))
-        return (pd * sc[None]).sum(1).to(torch.bfloat16)
+        return (pd * sc[None]).sum(1).to(x2.dtype)
     u = q.qweight
     lo8 = (u & 15).float()                 # lo + 8 (offset-binary)
     hi16 = (u & -16).float()               # 16 * hi
@@ -233,14 +250,15 @@ def qmm_group_plain(x2: torch.Tensor, q: QuantizedLinear) -> torch.Tensor:
     ngh = pd_lo.shape[1]
     acc = (pd_lo - sxl * 8.0) * sc[None, :ngh] \
         + pd_hi * (sc[None, ngh:] * 0.0625)
-    return acc.sum(1).to(torch.bfloat16)
+    return acc.sum(1).to(x2.dtype)
 
 
 def qmm_slab_plain(x2: torch.Tensor, q: QuantizedLinear) -> torch.Tensor:
     """_group_dots_slab step by step, for a paired int4 weight: per packed
     group c one dot of [x_lo, x_hi / 16] (the /16 in bf16, exact) against
     [u & 15; u & 0xF0], minus 8 * sum(x_lo), times the one scale s[c]; f32
-    accumulation. x [rows, din] bf16 -> [rows, dout_p] bf16."""
+    accumulation. x [rows, din] bf16 or f32 -> [rows, dout_p] in x's
+    dtype."""
     sc = q.scales.float()
     u = q.qweight
     x_hi = (x2[:, q.qweight.shape[0]:] * 0.0625).float()
@@ -248,7 +266,7 @@ def qmm_slab_plain(x2: torch.Tensor, q: QuantizedLinear) -> torch.Tensor:
     pd_lo, pd_hi, sxl = _per_group(xf, q, (u & 15).float(),
                                    (u & -16).float())
     acc = (pd_lo + pd_hi - sxl * 8.0) * sc[None]
-    return acc.sum(1).to(torch.bfloat16)
+    return acc.sum(1).to(x2.dtype)
 
 
 def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
@@ -310,14 +328,14 @@ def qmm_w4a8_plain(x2: torch.Tensor, q: QuantizedLinear) -> torch.Tensor:
         pd = torch.einsum("rcg,cgo->rco", xd.reshape(-1, ng, g),
                           q.qweight.double().reshape(ng, g, -1))
         acc = (pd.float() * sc[None]).sum(1)
-        return (acc * sx).to(torch.bfloat16)
+        return (acc * sx).to(x2.dtype)
     u = q.qweight
     pd_lo, pd_hi, sxl = _per_group(xd, q, (u & 15).double(),
                                    (u & -16).double())
     ngh = pd_lo.shape[1]
     acc = (pd_lo - sxl * 8).float() * sc[None, :ngh] \
         + pd_hi.float() * (sc[None, ngh:] * 0.0625)
-    return (acc.sum(1) * sx).to(torch.bfloat16)
+    return (acc.sum(1) * sx).to(x2.dtype)
 
 
 def qmm_norm_w4a8_plain(x2: torch.Tensor, norm_w: torch.Tensor,
@@ -355,7 +373,8 @@ def qmm_group2d_plain(x2: torch.Tensor, q: QuantizedLinear, kb: int
     """_kernel_group2d step by step: per scale group, x . (exact weight
     values) in f32 times the group's scale; the groups of each split of kb
     packed rows summed into its partial, the partials summed in split
-    order, rounded to bf16 once. x [rows, din] bf16 -> [rows, dout_p]."""
+    order, rounded once to x's dtype. x [rows, din] bf16 or f32 ->
+    [rows, dout_p]."""
     g, kr = q.group_size, _packed_rows(q)
     w = _weight_values(q)
     ng = w.shape[0] // g
@@ -369,7 +388,7 @@ def qmm_group2d_plain(x2: torch.Tensor, q: QuantizedLinear, kb: int
     out = per_split[:, 0]
     for k in range(1, kr // kb):
         out = out + per_split[:, k]
-    return out.to(torch.bfloat16)
+    return out.to(x2.dtype)
 
 
 @functools.cache
@@ -377,8 +396,8 @@ def _lib() -> ctypes.CDLL:
     P, I, F = _build.P, _build.I, _build.F
     return _build.typed(
         "quant_matmul",
-        qmm_group=[P, P, P, P, I, P, I, I, I, I, I, I, F, P],
-        qmm_w4a8=[P, P, P, I, P, I, I, I, I, I, P],
+        qmm_group=[P, I, P, P, P, I, P, I, I, I, I, I, I, F, P],
+        qmm_w4a8=[P, I, P, P, I, P, I, I, I, I, I, P],
         qmm_norm_w4a8=[P, P, P, P, I, P, I, I, I, I, I, F, P])
 
 
@@ -388,7 +407,7 @@ def _lib_fused() -> ctypes.CDLL:
     return _build.typed(
         "quant_matmul_fused",
         qmm_group_ln=[P, P, P, I, P, P, I, P, I, I, P, I, I, I, I, I, F, P],
-        qmm_slab=[P, P, P, P, I, P, I, I, I, I, I, F, P])
+        qmm_slab=[P, I, P, P, P, I, P, I, I, I, I, I, F, P])
 
 
 @functools.cache
@@ -396,8 +415,8 @@ def _lib_chunk() -> ctypes.CDLL:
     P, I = _build.P, _build.I
     return _build.typed(
         "quant_matmul_chunk",
-        qmm_chunk=[P, P, P, I, P, I, I, I, I, I, P],
-        qmm_group2d=[P, P, P, I, P, P, I, I, I, I, I, I, P])
+        qmm_chunk=[P, I, P, P, I, P, I, I, I, I, I, P],
+        qmm_group2d=[P, I, P, P, I, P, P, I, I, I, I, I, I, P])
 
 
 def _check_cuda(x2: torch.Tensor, q: QuantizedLinear) -> None:
@@ -413,8 +432,13 @@ def _check_cuda(x2: torch.Tensor, q: QuantizedLinear) -> None:
 
 
 def _out(x2: torch.Tensor, q: QuantizedLinear) -> torch.Tensor:
-    return torch.empty(x2.shape[0], q.out_physical, dtype=torch.bfloat16,
+    return torch.empty(x2.shape[0], q.out_physical, dtype=x2.dtype,
                        device=x2.device)
+
+
+def _f32(x2: torch.Tensor) -> bool:
+    """The x_f32 flag of a launch (the fused-norm launches take bf16)."""
+    return x2.dtype == torch.float32
 
 
 def _launched(lib: ctypes.CDLL, err: int, name: str, out: torch.Tensor
@@ -428,7 +452,7 @@ def _launch_group(x2, norm_w, q, eps: float, name: str) -> torch.Tensor:
     _check_cuda(x2, q)
     out, lib, p = _out(x2, q), _lib(), _build.ptr
     err = lib.qmm_group(
-        p(x2), p(norm_w), p(q.qweight), p(q.scales),
+        p(x2), _f32(x2), p(norm_w), p(q.qweight), p(q.scales),
         q.scales.dtype == torch.bfloat16, p(out), x2.shape[0], x2.shape[1],
         q.out_physical, q.bits, q.group_size, norm_w is not None, eps,
         _build.stream())
@@ -439,7 +463,7 @@ def _launch_slab(x2, norm_w, q, eps: float, name: str) -> torch.Tensor:
     _check_cuda(x2, q)
     out, lib, p = _out(x2, q), _lib_fused(), _build.ptr
     err = lib.qmm_slab(
-        p(x2), p(norm_w), p(q.qweight), p(q.scales),
+        p(x2), _f32(x2), p(norm_w), p(q.qweight), p(q.scales),
         q.scales.dtype == torch.bfloat16, p(out), x2.shape[0], x2.shape[1],
         q.out_physical, q.group_size, norm_w is not None, eps,
         _build.stream())
@@ -476,8 +500,8 @@ def _launch_w4a8(x2, q, norm_w=None, eps: float = 0.0) -> torch.Tensor:
     shape = (x2.shape[0], x2.shape[1], q.out_physical, q.bits, q.group_size)
     sc_bf16 = q.scales.dtype == torch.bfloat16
     if norm_w is None:
-        err = lib.qmm_w4a8(p(x2), p(q.qweight), p(q.scales), sc_bf16, p(out),
-                           *shape, _build.stream())
+        err = lib.qmm_w4a8(p(x2), _f32(x2), p(q.qweight), p(q.scales),
+                           sc_bf16, p(out), *shape, _build.stream())
         return _launched(lib, err, "qmm_w4a8", out)
     err = lib.qmm_norm_w4a8(p(x2), p(norm_w), p(q.qweight), p(q.scales),
                             sc_bf16, p(out), *shape, eps, _build.stream())
@@ -487,7 +511,7 @@ def _launch_w4a8(x2, q, norm_w=None, eps: float = 0.0) -> torch.Tensor:
 def _launch_chunk(x2, q) -> torch.Tensor:
     _check_cuda(x2, q)
     out, lib, p = _out(x2, q), _lib_chunk(), _build.ptr
-    err = lib.qmm_chunk(p(x2), p(q.qweight), p(q.scales),
+    err = lib.qmm_chunk(p(x2), _f32(x2), p(q.qweight), p(q.scales),
                         q.scales.dtype == torch.bfloat16, p(out), x2.shape[0],
                         x2.shape[1], q.out_physical, q.bits, q.group_size,
                         _build.stream())
@@ -499,7 +523,7 @@ def _launch_group2d(x2, q, kb: int) -> torch.Tensor:
     out, lib, p = _out(x2, q), _lib_chunk(), _build.ptr
     part = torch.empty(_packed_rows(q) // kb, x2.shape[0], q.out_physical,
                        dtype=torch.float32, device=x2.device)
-    err = lib.qmm_group2d(p(x2), p(q.qweight), p(q.scales),
+    err = lib.qmm_group2d(p(x2), _f32(x2), p(q.qweight), p(q.scales),
                           q.scales.dtype == torch.bfloat16, p(part), p(out),
                           x2.shape[0], x2.shape[1], q.out_physical, q.bits,
                           q.group_size, kb, _build.stream())
@@ -516,7 +540,7 @@ def _dispatch(x2: torch.Tensor, plain, launch):
 
 def quant_matmul(x: torch.Tensor, q: QuantizedLinear,
                  variant: Optional[str] = None) -> torch.Tensor:
-    """x [..., din] bf16 @ q -> [..., out_features] bf16.
+    """x [..., din] (bf16 or f32) @ q -> [..., out_features] in x's dtype.
 
     variant: one of VARIANTS or None (the table entry for the shape, then
     INFINITPU_QMM_VARIANT, then "group"); `route` says what runs."""
@@ -524,6 +548,9 @@ def quant_matmul(x: torch.Tensor, q: QuantizedLinear,
     name, kb = route(x, q, variant)
     if name == "dequant_matmul":
         return _dequant_route(x, q)
+    if name == "w4a8_ref":
+        launches["w4a8_ref"] += 1
+        return quant_matmul_w4a8_ref(x, q)
     x2 = x.reshape(-1, din).contiguous()
     if name == "qmm_slab":
         out = _dispatch(x2, lambda: qmm_slab_plain(x2, q),
@@ -568,7 +595,7 @@ def quant_matmul_norm(x: torch.Tensor, norm_w: torch.Tensor,
     *lead, din = x.shape
 
     def fallback():
-        return _composed(_rmsnorm(x, norm_w, eps), q)
+        return quant_matmul(_rmsnorm(x, norm_w, eps), q)
 
     if (_rows(x) > KERNEL_MAX_ROWS or x.dtype != torch.bfloat16
             or not _group_kernel_takes(q)):
@@ -607,11 +634,11 @@ def quant_matmul_ln(x: torch.Tensor, gamma: torch.Tensor,
     multiple of 128, a non-bf16 x) runs the exact composition, as in the
     JAX package: layer_norm, then quant_matmul (qmm_group, qmm_slab or
     qmm_chunk on the card, the dequant route above KERNEL_MAX_ROWS rows),
-    then + bias; an f32 x there raises on a CUDA tensor (_composed)."""
+    then + bias."""
     *lead, din = x.shape
     if (_rows(x) > KERNEL_MAX_ROWS or q.paired or x.dtype != torch.bfloat16
             or not _group_kernel_takes(q)):
-        out = _composed(layer_norm(x, gamma, beta, eps), q)
+        out = quant_matmul(layer_norm(x, gamma, beta, eps), q)
         return out if bias is None else out + bias
     _check(x, q)
     x2 = x.reshape(-1, din).contiguous()

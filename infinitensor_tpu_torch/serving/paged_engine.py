@@ -198,6 +198,11 @@ class PagedServingEngine(ServingEngine):
     def _retire(self, slot: int) -> None:
         super()._retire(slot)
         self.allocator.release(slot)      # page reclaim
+        # The idle slot goes on decoding (at pos 0 and on): point its row
+        # at the trash page 0, or its appends would land in the pages just
+        # released, which the allocator hands to the next admitted request
+        # (a fault the JAX engine keeps; ROADMAP.md Queue 3 item 4).
+        self.cache["block_table"][slot].zero_()
 
     @property
     def free_pages(self) -> int:

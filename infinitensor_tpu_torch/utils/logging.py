@@ -1,7 +1,8 @@
 """Structured logging (counterpart of infinitensor_tpu/utils/logging.py).
 
-Stdlib loggers with a key=value formatter and one environment knob,
-INFINITPU_LOG (a level name, default WARNING), so serving deployments get
+Stdlib loggers with a key=value formatter and one knob, log_level of
+utils/config.py (env INFINITPU_LOG: a level name, default WARNING), so
+serving deployments get
 machine-parseable events without a logging dependency.
 
     log = get_logger("serving")
@@ -11,7 +12,6 @@ machine-parseable events without a logging dependency.
 from __future__ import annotations
 
 import logging
-import os
 import sys
 import time
 from typing import Any
@@ -57,7 +57,8 @@ def _configure() -> None:
     root.addHandler(handler)
     root.propagate = False
     try:
-        root.setLevel(os.environ.get("INFINITPU_LOG", "WARNING").upper())
+        from infinitensor_tpu_torch.utils.config import config
+        root.setLevel(config.log_level.upper())
     except ValueError:
         root.setLevel(logging.WARNING)
     _CONFIGURED = True

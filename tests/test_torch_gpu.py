@@ -162,11 +162,11 @@ def test_cuda_wrappers_raise_instead_of_falling_back(dev):
     with pytest.raises(ValueError):
         att.flash_decode(q64, k64, k64, pos)            # f32 query
     qq = _qlin(dev, 512, 256, 4, torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="Queue 3 item 1"):
+        qm.quant_matmul(_x(dev, 1, 512).half(), qq)     # f16 x
+    x48 = torch.zeros(1, 2, 8, 48, dtype=torch.bfloat16, device=dev)
     with pytest.raises(ValueError):
-        qm.quant_matmul(_x(dev, 1, 512).float(), qq)
-    x64 = torch.zeros(1, 2, 8, 64, dtype=torch.bfloat16, device=dev)
-    with pytest.raises(ValueError):
-        fa.flash_attention(x64, x64, x64)               # D = 64
+        fa.flash_attention(x48, x48, x48)               # D = 48
     x32 = torch.zeros(1, 2, 8, 128, device=dev)
     with pytest.raises(ValueError):
         fa.flash_attention(x32, x32, x32)               # f32
@@ -241,8 +241,8 @@ def test_group_ln_kernel(dev, rows, bits, bias_dt):
 def test_group_ln_composition_on_the_card(dev):
     """What the fused kernel does not take runs LayerNorm + a matmul kernel
     (qmm_group, qmm_slab, qmm_chunk; above 256 rows the dequant route) +
-    bias on the card, and raises where there is no kernel (an f32 x):
-    never a plain version."""
+    bias on the card, an f32 x included (the kernels' f32 x load): never a
+    plain version."""
     gamma, beta = _ln_inputs(dev, 1024)
     q = _qlin(dev, 1024, 256, 8, torch.float32)
     bias = _x(dev, 1, 256, seed=5)[0]
@@ -266,17 +266,19 @@ def test_group_ln_composition_on_the_card(dev):
     got = qm.quant_matmul_ln(x[:5], gamma, beta, qp, bias=bias)
     assert qm.launches["qmm_slab"] == n + 1
     _close(got, qm.qmm_slab_plain(xn[:5], qp) + bias)
-    # a group of 64: LayerNorm + qmm_chunk + bias; an f32 x: no kernel
-    # takes it, so it raises, on any number of rows the kernels would take
+    # a group of 64: LayerNorm + qmm_chunk + bias; an f32 x: LayerNorm in
+    # f32 + qmm_group on the f32 x + bias, in f32
     q64 = _qlin(dev, 1024, 256, 8, torch.float32, group=64)
     n = qm.launches["qmm_chunk"]
     got = qm.quant_matmul_ln(x[:5], gamma, beta, q64, bias=bias)
     assert qm.launches["qmm_chunk"] == n + 1
     _close(got, qm.qmm_chunk_plain(xn[:5], q64) + bias)
-    before = dict(qm.launches)
-    with pytest.raises(NotImplementedError, match="bf16 only"):
-        qm.quant_matmul_ln(x[:5].float(), gamma, beta, q, bias=bias)
-    assert dict(qm.launches) == before
+    n = qm.launches["qmm_group"]
+    x32 = x[:5].float()
+    got = qm.quant_matmul_ln(x32, gamma, beta, q, bias=bias)
+    assert qm.launches["qmm_group"] == n + 1 and got.dtype == torch.float32
+    _close(got, qm.qmm_group_plain(qm.layer_norm(x32, gamma, beta, 1e-5),
+                                   q)[:, :256] + bias)
 
 
 def _paired(dev, din, dout, sdt, pad_out=0, seed=0):
@@ -596,3 +598,255 @@ def test_decode_routes_launch_counts(dev, knobs):
     assert _decode_launches(params, cfg, dev) == {
         "qmm_group_norm": 2 * L, "qmm_group2d": 2 * L + 1,
         "flash_decode_q8": L}
+
+
+# -- the graph slice: rmsnorm, the band kernels, flash_attention at D 64, --
+# -- f32 activations, and the executor's capture LRU -----------------------
+
+@pytest.mark.parametrize("rows", [1, 8, 13, 1024])
+@pytest.mark.parametrize("xdt,wdt", [(torch.bfloat16, torch.bfloat16),
+                                     (torch.bfloat16, torch.float32),
+                                     (torch.float32, torch.float32)])
+def test_rmsnorm_kernel(dev, rows, xdt, wdt):
+    from infinitensor_tpu_torch.kernels import norms
+    g = torch.Generator().manual_seed(rows)
+    x = (torch.randn(rows, 4096, generator=g) * 3).to(xdt).to(dev)
+    w = (torch.rand(4096, generator=g) + 0.5).to(wdt).to(dev)
+    before = norms.launches["rmsnorm"]
+    got = norms.rmsnorm(x, w, 1e-5)
+    assert norms.launches["rmsnorm"] == before + 1
+    _close(got, norms.rmsnorm_plain(x, w, 1e-5))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bz,m,k,w", [(2, 64, 128, 6), (3, 100, 64, 20),
+                                      (1, 300, 32, 130), (8, 2048, 128, 64)])
+def test_band_kernels(dev, dtype, bz, m, k, w):
+    from infinitensor_tpu_torch.kernels import band
+    g = torch.Generator().manual_seed(m)
+    a = torch.randn(bz, m, k, generator=g).to(dtype).to(dev)
+    b = torch.randn(bz, m, k, generator=g).to(dtype).to(dev)
+    wts = torch.softmax(torch.randn(bz, m, 2 * w + 1, generator=g),
+                        -1).to(dtype).to(dev)
+    before = dict(band.launches)
+    _close(band.g2bmm_band(a, b, w), band.g2bmm_plain(a, b, w))
+    _close(band.gbmm_band(wts, b, w), band.gbmm_plain(wts, b, w))
+    assert band.launches["g2bmm"] == before.get("g2bmm", 0) + 1
+    assert band.launches["gbmm"] == before.get("gbmm", 0) + 1
+    with pytest.raises(ValueError, match="dilation"):
+        band.g2bmm_band(a, b, w, d=2)
+
+
+@pytest.mark.parametrize("S", [1, 77, 1024])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_head_dim_64(dev, S, causal):
+    """ROADMAP Queue 3 item 2: the head dim of the prefill kernel is a
+    template parameter, 64 or 128."""
+    g = torch.Generator().manual_seed(S)
+    q, k, v = (torch.randn(2, 8, S, 64, generator=g).to(torch.bfloat16)
+               .to(dev) for _ in range(3))
+    before = fa.launches["flash_attention"]
+    got = fa.flash_attention(q, k, v, causal=causal)
+    assert fa.launches["flash_attention"] == before + 1
+    _close(got, fa.mha_plain(q, k, v, causal=causal))
+
+
+@pytest.mark.parametrize("variant,group", [("group", 128), ("w4a8", 128),
+                                           ("chunk", 64)])
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("rows", [1, 5])
+def test_f32_activations_on_the_card(dev, variant, group, bits, rows):
+    """ROADMAP Queue 3 item 1: an f32 x launches the kernel through its
+    f32 x load and gets f32 out, held to the plain version on f32."""
+    q = _qlin(dev, 1024, 260, bits, torch.float32, group=group)
+    x = _x(dev, rows, 1024).float() * 1.7
+    name, _ = qm.route(x, q, variant)
+    assert name == "qmm_" + variant
+    before = qm.launches[name]
+    got = qm.quant_matmul(x, q, variant=variant)
+    assert qm.launches[name] == before + 1 and got.dtype == torch.float32
+    plain = {"group": qm.qmm_group_plain, "w4a8": qm.qmm_w4a8_plain,
+             "chunk": qm.qmm_chunk_plain}[variant]
+    _close(got, plain(x, q)[:, :260])
+
+
+def test_f32_activations_split_k_slab_and_norm(dev, knobs):
+    q = _qlin(dev, 2048, 384, 4, torch.bfloat16)
+    x = _x(dev, 3, 2048).float()
+    knobs(table={"2048:384:4": {"variant": "group2d", "bn": 128, "kb": 256}})
+    assert qm.route(x, q) == ("qmm_group2d", 256)
+    got = qm.quant_matmul(x, q)
+    assert got.dtype == torch.float32
+    _close(got, qm.qmm_group2d_plain(x, q, 256))
+    knobs()
+    g = torch.Generator().manual_seed(5)
+    qp = quantize_weight(torch.randn(1024, 256, generator=g), bits=4,
+                         group_size=128, paired=True)
+    qp = QuantizedLinear(qp.qweight.to(dev), qp.scales.to(dev), 4, 128)
+    xs = _x(dev, 2, 1024).float()
+    assert qm.route(xs, qp)[0] == "qmm_slab"
+    _close(qm.quant_matmul(xs, qp), qm.qmm_slab_plain(xs, qp))
+    # the fused-norm wrapper runs norm + quant_matmul on an f32 x
+    nw = torch.ones(2048, device=dev)
+    before = dict(qm.launches)
+    out = qm.quant_matmul_norm(x, nw, q)
+    assert out.dtype == torch.float32
+    assert qm.launches["qmm_group"] == before.get("qmm_group", 0) + 1
+    assert qm.launches.get("qmm_group_norm", 0) == \
+        before.get("qmm_group_norm", 0)
+
+
+def test_odd_physical_columns_take_the_dequant_route(dev):
+    """ROADMAP Queue 3 item 3: 1002 columns compute on the card."""
+    g = torch.Generator().manual_seed(9)
+    q = quantize_weight(torch.randn(512, 1002, generator=g), 4, 128)
+    q = QuantizedLinear(q.qweight.to(dev), q.scales.to(dev), 4, 128)
+    x = _x(dev, 1, 512)
+    assert qm.route(x, q) == ("dequant_matmul", 0)
+    got = qm.quant_matmul(x, q)
+    assert got.shape == (1, 1002)
+    _close(got, (x.float() @ dequantize_weight(q).float()).to(x.dtype))
+
+
+def test_executor_capture_lru(dev):
+    """The executor's LRU of captured CUDA graphs: a hit replays the same
+    capture, a new signature past the capacity evicts the least recent,
+    and a graph mutation clears it."""
+    from infinitensor_tpu_torch.core import GraphHandler
+    from infinitensor_tpu_torch.runtime.executor import GraphExecutor
+    h = GraphHandler()
+    x = h.input((2, 4), name="x")
+    h.relu(h.mul(x, h.weight(np.full((4,), 2.0, np.float32))))
+    h.graph.infer_output_roles()
+    ex = GraphExecutor(h.graph, device=dev, cache_capacity=2)
+    a = torch.randn(2, 4, device=dev)
+    (out,) = ex.run({"x": a}).values()
+    cap = ex._cache[ex._signature({"x": a})]
+    assert cap.captured
+    torch.testing.assert_close(out, torch.relu(2 * a))
+    (out,) = ex.run({"x": -a}).values()                 # a hit: replayed
+    assert len(ex._cache) == 1 and next(iter(ex._cache.values())) is cap
+    torch.testing.assert_close(out, torch.relu(-2 * a))
+    b = torch.randn(2, 4, device=dev, dtype=torch.float64)  # -> f32 as JAX
+    ex.run({"x": b})
+    assert len(ex._cache) == 1                          # same signature
+    h.change_shape(x, (3, 4))
+    h.shape_infer()
+    (out,) = ex.run({"x": torch.ones(3, 4, device=dev)}).values()
+    assert len(ex._cache) == 1 and out.shape == (3, 4)  # cleared
+    assert cap not in ex._cache.values()
+    h.change_shape(x, (2, 4))
+    h.shape_infer()
+    sigs = []
+    for rows in (2, 3, 4):
+        h.change_shape(x, (rows, 4))
+        h.shape_infer()
+        ex.run({"x": torch.ones(rows, 4, device=dev)})
+        sigs.append(ex._signature({"x": torch.ones(rows, 4, device=dev)}))
+    assert list(ex._cache) == [sigs[-1]]    # every change_shape clears
+
+
+def test_executor_lru_eviction_on_the_card(dev, monkeypatch):
+    """Eviction among real captures. One graph version has one valid
+    input signature (the IR fixes every input's shape and dtype), so the
+    test keys the LRU on an input's value instead, to hold three
+    captures of one graph: capacity 2 evicts the least recently used, and
+    a hit refreshes an entry."""
+    from infinitensor_tpu_torch.core import GraphHandler
+    from infinitensor_tpu_torch.runtime.executor import GraphExecutor
+    h = GraphHandler()
+    x = h.input((2, 4), name="x")
+    h.neg(x)
+    h.graph.infer_output_roles()
+    ex = GraphExecutor(h.graph, device=dev, cache_capacity=2)
+    monkeypatch.setattr(ex, "_signature",
+                        lambda vals: float(vals["x"][0, 0]))
+    feeds = [ex._materialize({"x": torch.full((2, 4), float(v),
+                                              device=dev)})
+             for v in (1, 2, 3)]
+    progs = [ex._compiled(f) for f in feeds]
+    assert all(p.captured for p in progs)
+    assert list(ex._cache) == [2.0, 3.0]
+    assert ex._compiled(feeds[1]) is progs[1]            # a hit
+    ex._compiled(ex._materialize({"x": torch.full((2, 4), 9.0,
+                                                  device=dev)}))
+    assert list(ex._cache) == [2.0, 9.0]                 # 3.0 evicted
+    out = progs[1].replay(feeds[0])
+    torch.testing.assert_close(out[next(iter(out))], -feeds[0]["x"])
+
+
+def test_executor_capture_warmup_and_keep(dev):
+    """GraphExecutor.capture, the one capture path of the executor, its
+    stepper and the fused decode: the warm-up runs once before the
+    capture, the tensors in `keep` get their values back after it, and a
+    replay copies new inputs into the static buffers."""
+    from infinitensor_tpu_torch.core import GraphHandler
+    from infinitensor_tpu_torch.runtime.executor import GraphExecutor
+    h = GraphHandler()
+    h.neg(h.input((2, 4), name="x"))
+    h.graph.infer_output_roles()
+    ex = GraphExecutor(h.graph, device=dev)
+    state = torch.zeros(2, 4, device=dev)
+    calls = []
+
+    def warm(vals):
+        calls.append("warmup")
+        state.add_(5)
+
+    def fn(vals):
+        state.add_(vals["x"])
+        return ex.forward(vals)
+
+    a = torch.randn(2, 4, device=dev)
+    cap = ex.capture(fn, {"x": a}, warmup=warm, keep=[state])
+    torch.cuda.synchronize()
+    assert calls == ["warmup"]
+    torch.testing.assert_close(state, torch.zeros(2, 4, device=dev))
+    out = cap.replay({"x": 2 * a})
+    torch.testing.assert_close(out[next(iter(out))], -2 * a)
+    torch.testing.assert_close(state, 2 * a)
+
+
+def test_graph_llama_on_the_card(dev):
+    """A small INT4 + INT8-KV Llama through the graph IR on the card: the
+    launches of one step, the stepper's first logits against the
+    hand-written step, and the fused (captured) steps equal the stepper's
+    and an eager executor's tokens."""
+    from infinitensor_tpu_torch.kernels import norms
+    from infinitensor_tpu_torch.models import graph_llama as tg
+    from infinitensor_tpu_torch.runtime.executor import GraphExecutor
+    cfg, params = _small_model(dev)
+    L = cfg.n_layers
+    dec = tg.build_llama_decoder(params, cfg, kv_quant=True,
+                                 external_weights=True)
+    eager = GraphExecutor(dec.graph, device=dev, use_cuda_graph=False)
+    tg.bind_llama_weights(dec, eager, params)
+    for c in (qm.launches, att.launches, norms.launches):
+        c.clear()
+    step = eager.stepper(dec.state_map())
+    out = step({dec.token_name: torch.tensor([3], dtype=torch.int32,
+                                             device=dev),
+                dec.pos_name: torch.tensor([0], dtype=torch.int32,
+                                           device=dev)})
+    torch.cuda.synchronize()
+    counts = {**qm.launches, **att.launches, **norms.launches}
+    assert counts["qmm_group_norm"] == 2 * L
+    assert counts["flash_decode_q8"] == L and counts["rmsnorm"] == 1
+    assert counts.get("qmm_group", 0) + counts.get("qmm_w4a8", 0) == 2 * L + 1
+    want, _ = llama.llama_decode_step(
+        params, cfg, torch.tensor([3], dtype=torch.int32, device=dev),
+        torch.tensor([0], dtype=torch.int32, device=dev),
+        llama.init_kv_cache(cfg, 1, kv_quant=True, device=dev))
+    lg = out[dec.logits_name].float()
+    assert (lg - want.float()).abs().max() <= \
+        5e-2 * want.float().abs().max()
+    ref = tg.graph_greedy_decode(dec, 3, 8, 0, executor=eager)
+    ex = GraphExecutor(dec.graph, device=dev)
+    tg.bind_llama_weights(dec, ex, params)
+    captured = tg.graph_greedy_decode(dec, 3, 8, 0, executor=ex)
+    np.testing.assert_array_equal(captured, ref)
+    fn, weights, state = tg.make_fused_greedy_decode(dec, ex, multi=4)
+    t1, state = fn(weights, torch.tensor([3], device=dev),
+                   torch.tensor([0], device=dev), state)
+    t2, state = fn(weights, t1[:, -1], torch.tensor([4], device=dev), state)
+    np.testing.assert_array_equal(torch.cat([t1, t2], 1).cpu().numpy(), ref)

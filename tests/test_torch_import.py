@@ -83,7 +83,8 @@ def test_kernel_sources_shipped():
     csrc = PKG / "kernels" / "csrc"
     assert {p.name for p in csrc.glob("*.cu")} == {
         "quant_matmul.cu", "quant_matmul_fused.cu", "quant_matmul_chunk.cu",
-        "flash_decode.cu", "paged_flash_decode.cu", "flash_attention.cu"}
+        "flash_decode.cu", "paged_flash_decode.cu", "flash_attention.cu",
+        "rmsnorm.cu", "band.cu"}
     # the bodies the decode-attention and the group-dot kernels share
     assert (csrc / "flash_decode.cuh").exists()
     assert (csrc / "quant_matmul.cuh").exists()
@@ -115,3 +116,21 @@ def test_gpt2_entry_points_refuse_without_cuda_device(monkeypatch):
     q8 = init_gpt2_cache(cfg, 2, max_seq=8, kv_quant=True, device="cpu")
     assert q8["k"][0].dtype == torch.int8
     assert q8["k_scale"][0].shape == (2, 4, 8)
+
+
+def test_graph_modules_are_the_ports_own():
+    """The graph slice's modules exist in the port and name only the
+    port (the JAX package's jax-free modules are copied, not imported)."""
+    for rel in ("core/dtype.py", "core/tensor.py", "core/operator.py",
+                "core/graph.py", "core/handler.py", "native/graph_core.py",
+                "ops/shape_rules.py", "ops/lowering.py", "utils/config.py",
+                "kernels/norms.py", "kernels/band.py",
+                "runtime/executor.py", "runtime/runtime.py",
+                "models/graph_llama.py"):
+        src = (PKG / rel).read_text()
+        assert "infinitensor_tpu." not in src.replace(
+            "infinitensor_tpu_torch.", ""), rel
+    from infinitensor_tpu_torch.core import GraphHandler
+    from infinitensor_tpu_torch.runtime.runtime import default_runtime
+    assert GraphHandler.__module__ == "infinitensor_tpu_torch.core.handler"
+    assert default_runtime().platform == "cuda"

@@ -99,8 +99,8 @@ def test_w4a8_matmul_plain_vs_pallas(bits):
 def test_quant_matmul_refuses_what_the_kernel_refuses():
     _, q, x = _weights(4)
     tq = _port_q(q)
-    with pytest.raises(ValueError):
-        tqm.quant_matmul(_t(x).float(), tq)
+    with pytest.raises(ValueError):             # integer activations
+        tqm.quant_matmul(torch.zeros(1, 512, dtype=torch.int32), tq)
     # a group of 64 computes: the chunk kernel, as in the JAX package
     q64 = quantize_weight(jnp.ones((512, 256)), bits=4, group_size=64)
     assert tqm.route(_t(x), _port_q(q64)) == ("qmm_chunk", 0)
@@ -560,3 +560,56 @@ def test_wo_matmul_takes_w4a8_below_512_under_the_env_var(knobs):
     knobs()
     assert torch.equal(wo_matmul(_t(x), tq),
                        tqm.dequant_matmul(_t(x), tq))
+
+
+# -- f32 activations and odd physical columns (ROADMAP Queue 3 items 1, 3) --
+
+F32_TOL = 1e-5      # f32 on both sides; only the summation order differs
+
+
+@pytest.mark.parametrize("variant", ["group", "w4a8"])
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("sdt", [jnp.bfloat16, jnp.float32])
+def test_f32_quant_matmul_vs_jax(variant, bits, sdt):
+    """An f32 x computes in f32, as the JAX package's off-chip path does:
+    the dequant route, or quant_matmul_w4a8_ref under "w4a8"; and it
+    agrees with the interpreted TPU kernel, which takes an f32 x."""
+    rng, q, _ = _weights(21, sdt=sdt, bits=bits)
+    x = jnp.asarray(rng.standard_normal((3, 512)), jnp.float32)
+    tq = _port_q(q)
+    assert tqm.route(_t(x), tq, variant)[0] == (
+        "w4a8_ref" if variant == "w4a8" else "dequant_matmul")
+    got = tqm.quant_matmul(_t(x), tq, variant=variant)
+    assert got.dtype == torch.float32 and got.shape == (3, 384)
+    _close(got, qm.quant_matmul(x, q, variant=variant), F32_TOL)
+    _close(got, qm.quant_matmul(x, q, interpret=True, variant=variant),
+           F32_TOL if variant == "group" else OUT_TOL)
+
+
+def test_f32_quant_matmul_norm_vs_jax():
+    """quant_matmul_norm on an f32 x: norm + quant_matmul in f32, as the
+    JAX package's fallback computes it."""
+    rng, q, _ = _weights(22, sdt=jnp.bfloat16)
+    x = jnp.asarray(rng.standard_normal((2, 512)) * 3.0, jnp.float32)
+    nw = jnp.asarray(rng.uniform(0.5, 1.5, (512,)), jnp.float32)
+    want = qm.quant_matmul_norm(x, nw, q, eps=1e-5)
+    got = tqm.quant_matmul_norm(_t(x), _t(nw), _port_q(q), eps=1e-5)
+    assert got.dtype == torch.float32
+    _close(got, want, F32_TOL)
+
+
+def test_odd_physical_columns_vs_jax():
+    """A weight of 1002 physical columns (no multiple of 4) takes the
+    dequant route with a bf16 x, as the JAX kernels refuse it for want of
+    a 128-column tile and take quant_matmul_ref."""
+    rng = np.random.default_rng(23)
+    q = quantize_weight(jnp.asarray(rng.standard_normal((512, 1002)),
+                                    jnp.float32), 4, 128)
+    x = jnp.asarray(rng.standard_normal((1, 512)), jnp.bfloat16)
+    tq = _port_q(q)
+    assert tq.out_physical == 1002
+    assert tqm.route(_t(x), tq) == ("dequant_matmul", 0)
+    got = tqm.quant_matmul(_t(x), tq)
+    assert got.shape == (1, 1002) and got.dtype == torch.bfloat16
+    _close(got, qm.quant_matmul(x, q))
+    _close(got, qm.quant_matmul(x, q, interpret=True))

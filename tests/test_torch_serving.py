@@ -20,6 +20,7 @@ values (steps, stats counters, allocator state, block table) is equal.
 """
 
 import math
+import types
 
 
 import numpy as np
@@ -90,6 +91,16 @@ def _same_tokens(model, reqs, got, want, min_equal=None):
     assert equal >= (len(reqs) - 2 if min_equal is None else min_equal)
 
 
+def _jax_reference(model, **kw):
+    """The JAX package's DENSE engine on a paged engine's arguments: the
+    fault-free reference of the port's paged engine. The JAX paged engine
+    lets a retired slot's stale block-table row write into a live page
+    (ROADMAP.md Queue 3 item 4), which the port repairs."""
+    cfg_j, params_j, _, _ = model
+    kw = {k: v for k, v in kw.items() if k not in ("n_pages", "page_size")}
+    return jeng.ServingEngine(params_j, cfg_j, **kw)
+
+
 def _pair(model, paged, **kw):
     """The JAX engine and the port's with the same arguments."""
     cfg_j, params_j, cfg_t, params_t = model
@@ -134,16 +145,20 @@ PAGED_CASES = {
 
 @pytest.mark.parametrize("case", list(PAGED_CASES))
 def test_paged_engine_tokens_match_jax(model, case):
+    """The port's paged engine: tokens of the JAX dense engine (the JAX
+    paged engine's stale rows hit live pages on this stream), and the JAX
+    paged engine's page allocation; every retired row at the trash page."""
     reqs = _requests(2)
-    je, te = _pair(model, True, max_slots=4, prefill_buckets=(24,),
-                   **PAGED_CASES[case])
-    want, got = _run(je, reqs), _run(te, reqs)
+    kw = dict(max_slots=4, prefill_buckets=(24,), **PAGED_CASES[case])
+    je, te = _pair(model, True, **kw)
+    want = _run(_jax_reference(model, **kw), reqs)
+    _run(je, reqs)
+    got = _run(te, reqs)
     _same_tokens(model, reqs, got, want)
     assert te.allocator.free == je.allocator.free
     assert te.allocator.owned == je.allocator.owned
     assert te.free_pages == 32
-    np.testing.assert_array_equal(te.cache["block_table"].numpy(),
-                                  np.asarray(je.cache["block_table"]))
+    assert not te.cache["block_table"].any()
 
 
 @pytest.mark.parametrize("kv_quant", [False, True])
@@ -220,36 +235,46 @@ def test_paged_submit_rejects_never_admittable(model):
     assert odd.prefill_buckets == (16, 24) and odd._bucket(30) == 128
 
 
+def _jax_stale_rows(eng):
+    """chip_smoke.stale_row_hazards of the JAX engine (its table is a jax
+    array)."""
+    table = torch.from_numpy(np.array(eng.cache["block_table"]))
+    return chip_smoke.stale_row_hazards(types.SimpleNamespace(
+        cache={"block_table": table}, B=eng.B, slots=eng.slots,
+        allocator=eng.allocator))
+
+
 def test_stale_block_table_row_matches_jax(model):
-    """A retired slot keeps its block-table row on the device, and its
-    garbage decode (pos 0) writes row 0 of the row's first page, which the
-    allocator may since have handed to a live request. The JAX package
-    does that and the port does the same: on a stream where it happens,
-    tokens, allocator and table are equal on both sides, and the request
-    whose first prompt row was overwritten is the one whose tokens differ
-    from the dense engine's."""
+    """A retired slot of the JAX engine keeps its block-table row on the
+    device, and its garbage decode (pos 0) writes row 0 of the row's first
+    page, which the allocator may since have handed to a live request. The
+    port repairs that (its _retire points the row at the trash page 0). On
+    a stream where it happens in the JAX engine (request 9), no idle row of
+    the port's table points at a live page, the port's paged tokens equal
+    the dense engine's, and the other requests' tokens, the allocator and
+    the live rows of the table equal the JAX engine's."""
     _, _, cfg_t, params_t = model
     reqs = _requests(20, n=10)
     kw = dict(max_slots=4, n_pages=17, prefill_buckets=(24,))
     je, te = _pair(model, True, **kw)
-    hazards, out = set(), []
-    for eng in (je, te):
+    hazards, out = [set(), set()], []
+    for k, eng in enumerate((je, te)):
         rs = [eng.submit(p, max_new_tokens=m, uid=i)
               for i, (p, m) in enumerate(reqs)]
         while eng.pending or any(r is not None for r in eng.slots):
             eng.step()
-            if eng is te:
-                hazards |= chip_smoke.stale_row_hazards(eng)
+            hazards[k] |= (_jax_stale_rows(eng) if eng is je
+                           else chip_smoke.stale_row_hazards(eng))
         out.append([list(r.generated) for r in rs])
-    assert hazards == {(9, 0)}      # request 9, row 0 of its first page
-    assert out[0][9] == out[1][9]
-    _same_tokens(model, reqs[:9], out[1][:9], out[0][:9])
+    assert hazards[0] == {(9, 0)}   # JAX: request 9, row 0 of its 1st page
+    assert not hazards[1]
     dense = _run(ServingEngine(params_t, cfg_t, max_slots=4,
                                prefill_buckets=(24,), device="cpu"), reqs)
-    assert [i for i in range(10) if out[1][i] != dense[i]] == [9]
+    assert out[1] == dense
+    _same_tokens(model, reqs[:9], out[1][:9], out[0][:9])
     assert te.allocator.free == je.allocator.free
-    np.testing.assert_array_equal(te.cache["block_table"].numpy(),
-                                  np.asarray(je.cache["block_table"]))
+    assert not te.cache["block_table"].any()    # every slot retired
+    assert np.asarray(je.cache["block_table"]).any()
 
 
 def test_chip_smoke_stream_blocks_admission_without_stale_rows():
@@ -334,10 +359,13 @@ RECOVERY_CASES = {
 def test_fault_recovery_matches_fault_free(model64, case):
     """A decode step that raises once: the engine restores its last
     checkpoint, drops its programs and regenerates the fault-free tokens,
-    which are the JAX engine's."""
+    which are the JAX engine's (its dense engine for a paged case: see
+    _jax_reference)."""
     paged, kw, fail_on = RECOVERY_CASES[case]
     plain = {k: v for k, v in kw.items() if k != "checkpoint_interval"}
     je, te = _pair(model64, paged, max_slots=2, **plain)
+    if paged:
+        je = _jax_reference(model64, max_slots=2, **plain)
     want = _drain(je)
     assert _drain(te) == want
     _, eng = _pair(model64, paged, max_slots=2, **kw)
@@ -363,9 +391,12 @@ RESUME_CASES = {
 def test_checkpoint_resume_fresh_engine(model64, case):
     """snapshot() mid-flight restores onto a freshly built engine and
     completes with the uninterrupted run's tokens, which are the JAX
-    engine's; the snapshot is host data (CPU tensors, numpy, lists)."""
+    engine's (its dense engine for a paged case: see _jax_reference); the
+    snapshot is host data (CPU tensors, numpy, lists)."""
     paged, kw, steps = RESUME_CASES[case]
     je, te = _pair(model64, paged, max_slots=2, **kw)
+    if paged:
+        je = _jax_reference(model64, max_slots=2, **kw)
     want = _drain(je)
     assert _drain(te) == want
     _, a = _pair(model64, paged, max_slots=2, **kw)
