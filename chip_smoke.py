@@ -16,19 +16,24 @@ Phases, each failing with a nonzero exit, each printing its seconds:
      3.35 TB/s or operations over the published tensor-core peak,
      whichever is larger, and bytes over the device-to-device copy rate
      measured here), the plain version's time and one PyTorch library
-     call's time;
+     call's time; qmm_group's tensor-core form (qmm_group_mma) at the 7B
+     shapes at SLOTS, 64 and SHORT rows, GPT-2's int8 w_o, w_down and
+     lm_head at 64 rows and wo at SHORT rows of f16, each beside the
+     CUDA-core form's time in the same call;
   4. the 7B INT4 + INT8-KV decode path with random weights built on the
      card as bench.py builds them: one step with the kernels against the
      same step on the plain versions (CPU), then llama_decode_multi for
      128 greedy steps under a CUDA graph (tokens equal to an eager loop),
      tok/s (min of 3 fresh runs) against the copy-rate roofline, and each
-     kernel's launch count on that path;
+     kernel's launch count on that path (no qmm_group_mma at 1 row);
   5. the prompt -> generate path (greedy_generate) with the same weights
      and a seeded 1024-token prompt, for 128 tokens with the default bf16
      cache and again with an INT8 cache: prefill ms, prompt tok/s, the
      decode tok/s of the generate loop (min of 3 runs) against its
      roofline, the launches of every kernel and of the dequant route;
-     a 256-token prompt, whose matmuls take the kernels; prefill of S-1
+     a 256-token prompt, whose matmuls take the kernels (qmm_group_mma
+     4 x 32 launches a prefill), its prefill ms beside the 1024-token
+     one's; prefill of S-1
      tokens plus one bf16 decode step against the S-token prefill; a
      2-layer model of 7B width, kernels on the card against the plain
      versions on the CPU;
@@ -44,7 +49,9 @@ Phases, each failing with a nonzero exit, each printing its seconds:
      up to a first near-tie whose logit gap is printed; a snapshot taken
      mid-stream and restored into a fresh engine ends in the same tokens;
      the paged kernel is launched 32 times per decode step and
-     flash_attention 32 times per prefill pass. Prints generated tok/s
+     flash_attention 32 times per prefill pass; a decode step at 8 rows
+     launches qmm_group_mma 4 x 32 times where MMA_MIN_ROWS <= 8. Prints
+     generated tok/s
      over the drain, decode ms per step at 8 live slots and the engine's
      stats slices;
   7. GPT-2 345M INT8 continuous batching at full width and depth (dim
@@ -61,7 +68,8 @@ Phases, each failing with a nonzero exit, each printing its seconds:
      to a first near-tie whose logit gap is printed (limit G_TIE); every
      token of every request is the pick, or within G_FORCED of the pick,
      of gpt2_prefill forced along the same history; a decode step
-     launches qmm_group_ln 48 times, qmm_group 49 and flash_decode (or
+     launches qmm_group_ln 48 times, qmm_group 49 (all of them
+     qmm_group_mma where MMA_MIN_ROWS <= 64) and flash_decode (or
      flash_decode_q8) 24. Prints generated tok/s over the drain (every
      sample), ms per step at 64 live slots, the stats slices and a
      torch.profiler window over one chunk;
@@ -119,7 +127,7 @@ rows, qmm_group2d at 1 row), and the graph slice's kernels: rmsnorm at 1,
 and at Longformer-base's attention (12 heads of 64, window 256, S 4096,
 bf16), flash_attention at head dim 64 at entry()'s prompt (q, k, v [2, 8,
 64, 64]).
-The last lines are the kernels JSON (17 kernels), nvidia-smi's name and
+The last lines are the kernels JSON (18 kernels), nvidia-smi's name and
 power limit,
 and {"ok": true, "device": {...}}. A report goes to chiprun_out/.
 """
@@ -456,10 +464,13 @@ def main():
     cases += variant_cases(torch, qm, cfg, g64params, params, envs, kbs,
                            randn, dequantize_weight)
     cases += graph_cases(torch, norms, band, fa, cfg, gen, dev, randn)
+    cases += mma_cases(torch, qm, cfg, params, gparams, randn,
+                       dequantize_weight)
 
     for c in cases:
         with knobs(c.get("env", {})):
             check_and_time(torch, c, counters, flush, bw_copy)
+    report["mma_crossover"] = mma_crossover(torch, qm, layer0, randn, flush)
     del flush, qa, ka, va
     t_phase = phase(3, t_phase)
 
@@ -471,6 +482,9 @@ def main():
                   "flash_decode_q8"):
         if paths["decode"].get(kname, 0) <= 0:
             fail(f"{kname} was never launched on the main path")
+    if paths["decode"].get("qmm_group_mma", 0) or \
+            step4.get("qmm_group_mma", 0):
+        fail("the 1-row decode launched qmm_group's tensor-core form")
     t_phase = phase(4, t_phase)
 
     # 5. the 7B prompt -> generate path
@@ -595,7 +609,9 @@ def main():
             "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"], "copy_bound_ms": c["copy_bound_ms"],
             "bytes": c["bytes"], "ops": c["ops"],
-            "library_ms": c["library_ms"]})
+            "library_ms": c["library_ms"],
+            **({"cuda_core_ms": c["cuda_core_ms"]}
+               if "cuda_core_ms" in c else {})})
     report["kernels"] = kernels
     os.makedirs("chiprun_out", exist_ok=True)
     with open("chiprun_out/chip_smoke_report.json", "w") as f:
@@ -628,6 +644,8 @@ def check_and_time(torch, c, counters, flush, bw_copy):
     c["plain_ms"] = cuda_ms(torch, c["plain"], 5, flush)
     c["library_ms"] = cuda_ms(torch, c["library"], 50, flush) \
         if c["library"] else None
+    if "cuda_core" in c:            # qmm_group_mma: the other form, now
+        c["cuda_core_ms"] = cuda_ms(torch, c["cuda_core"], 50, flush)
     c["bound_ms"] = 1e3 * max(c["bytes"] / HBM_BYTES_S,
                               c["ops"] / PEAK_OPS[c["kind"]])
     c["bound_by"] = ("bytes" if c["bytes"] / HBM_BYTES_S
@@ -638,8 +656,9 @@ def check_and_time(torch, c, counters, flush, bw_copy):
           f"{c['bound_ms']:.4f} ms {c['bound_by']} (copy-rate "
           f"{c['copy_bound_ms']:.4f})  plain {c['plain_ms']:.4f} ms  "
           f"library {c['library_ms'] or float('nan'):.4f} ms  "
-          f"{c['bytes'] / 1e6:.2f} MB",
-          flush=True)
+          + (f"cuda-core form {c['cuda_core_ms']:.4f} ms  "
+             if "cuda_core" in c else "")
+          + f"{c['bytes'] / 1e6:.2f} MB", flush=True)
 
 
 def paged_cases(torch, pa, cfg, gen, dev, randn):
@@ -888,6 +907,7 @@ def generate_path(torch, llama, counters, params, cfg, dev, report,
                   per_token, dequantize_weight, dequant_matmul):
     """Phase 5. Returns each path's launch counts; adds one bf16 decode
     step's launches to per_token."""
+    from infinitensor_tpu_torch.kernels import quant_matmul as qm
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     prompt = torch.randint(0, cfg.vocab_size, (1, PROMPT), generator=gen,
                            device=dev, dtype=torch.int32)
@@ -956,7 +976,14 @@ def generate_path(torch, llama, counters, params, cfg, dev, report,
     counters.reset()
     prefill_s, _ = time_prefill(torch, llama, params, cfg, short, cache, 1)
     per_prompt = counters.read()
+    want_mma = 4 * cfg.n_layers if SHORT >= qm.MMA_MIN_ROWS else 0
+    if per_prompt.get("qmm_group_mma", 0) != want_mma:
+        fail(f"{label}: a prefill launched qmm_group_mma "
+             f"{per_prompt.get('qmm_group_mma', 0)} times, expected "
+             f"{want_mma}")
     prefill_s, _ = time_prefill(torch, llama, params, cfg, short, cache)
+    print(f"# prefill ms: {SHORT} tokens {1e3 * prefill_s:.2f}, {PROMPT} "
+          f"tokens {res[f'prompt {PROMPT}']['prefill_ms']:.2f}", flush=True)
     res[label] = {"prefill_ms": 1e3 * prefill_s,
                   "prompt_tok_s": SHORT / prefill_s,
                   "launches": paths[label], "launches_per_prompt": per_prompt,
@@ -1037,6 +1064,8 @@ def device_profile(torch, fn):
     from torch.profiler import ProfilerActivity, profile
     kinds = (("qmm_group_kernel", "qmm_group*"),
              ("qmm_w4a8_kernel", "qmm_w4a8"),
+             ("qmm_group_mma_kernel", "qmm_group_mma"),
+             ("mma_splitk_sum", "qmm_group_mma sum"),
              ("splitk_sum", "qmm_group2d sum"),
              ("flash_decode_kernel", "decode attention"),
              ("flash_attention_kernel", "flash_attention"),
@@ -1072,13 +1101,14 @@ def device_profile(torch, fn):
 
 
 def group_kernel_kind(name):
-    """Which wrapper a qmm_group_kernel<BITS, R, PRO, PAIRED, MODE, XF32>
-    instantiation serves, from its demangled name; None for any other
-    kernel or a name whose template arguments do not parse."""
+    """Which wrapper a qmm_group_kernel<BITS, R, PRO, PAIRED, MODE, XK>
+    instantiation serves, from its demangled name (XK, the x type, is an
+    int: bf16, f16 or f32); None for any other kernel or a name whose
+    template arguments do not parse."""
     import re
     m = re.search(r"qmm_group_kernel<\D*\d+, \D*\d+, \D*(\d+), "
                   r"(?:\(bool\))?(true|false|0|1)(?:, \D*(\d+))?"
-                  r"(?:, (?:\(bool\))?(?:true|false|0|1))?>", name)
+                  r"(?:, \D*\d+)?>", name)
     if not m:
         return None
     pro, paired = int(m.group(1)), m.group(2) in ("true", "1")
@@ -1093,11 +1123,11 @@ def group_kernel_kind(name):
 
 
 def w4a8_kernel_kind(name):
-    """qmm_norm_w4a8 for a qmm_w4a8_kernel<BITS, R, NORM, XF32>
+    """qmm_norm_w4a8 for a qmm_w4a8_kernel<BITS, R, NORM, XK>
     instantiation with NORM set, else None."""
     import re
     m = re.search(r"qmm_w4a8_kernel<\D*\d+, \D*\d+, (?:\(bool\))?(true|1)"
-                  r"(?:, (?:\(bool\))?(?:true|false|0|1))?>", name)
+                  r"(?:, \D*\d+)?>", name)
     return "qmm_norm_w4a8" if m else None
 
 
@@ -1181,6 +1211,7 @@ def serving_path(torch, llama, counters, params, cfg, dev, report,
     """Phase 6. Returns the launch counts of the paged engine's drain per
     pool type; adds one paged decode step's launches to per_token."""
     import numpy as np
+    from infinitensor_tpu_torch.kernels import quant_matmul as qm
     from infinitensor_tpu_torch.serving import (PagedServingEngine,
                                                 ServingEngine)
 
@@ -1303,6 +1334,12 @@ def serving_path(torch, llama, counters, params, cfg, dev, report,
         if per_token[kname] != n_layers:
             fail(f"{label}: {per_token[kname]} launches of {kname} in one "
                  f"decode step, expected {n_layers}")
+        # the step's four matmuls a layer at SLOTS rows: tensor-core form
+        want_mma = 4 * n_layers if SLOTS >= qm.MMA_MIN_ROWS else 0
+        if step_launches.get("qmm_group_mma", 0) != want_mma:
+            fail(f"{label}: a decode step launched qmm_group_mma "
+                 f"{step_launches.get('qmm_group_mma', 0)} times, "
+                 f"expected {want_mma}")
         del eng
 
         # a fresh engine resumes the mid-stream snapshot to the same tokens
@@ -1521,6 +1558,72 @@ def paired_cases(torch, qm, cfg, pparams, randn, dequantize_weight):
     return out
 
 
+def mma_cases(torch, qm, cfg, params, gparams, randn, dequantize_weight):
+    """Phase 3 rows of qmm_group's tensor-core form (forced), each with the
+    CUDA-core form's time in the same call: the 7B layer's four matmuls at
+    SLOTS, 64 and SHORT rows (int4, bf16 x), GPT-2's int8 w_o, w_down and
+    lm_head at G_SLOTS rows, and wo at SHORT rows of an f16 x. Rows of
+    the 7B shapes count the launches of the 256-token prompt's path."""
+    layer0, glayer0 = params["layers"][0], gparams["layers"][0]
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    def launch(x, q, form):
+        return qm._launch_group(x, None, q, 0.0, "qmm_group", form=form)[
+            :, :q.out_features]
+
+    shapes = [(label, q, rows, path, torch.bfloat16)
+              for rows, path in ((SLOTS, "serving paged bf16"),
+                                 (64, f"prompt {SHORT}"),
+                                 (SHORT, f"prompt {SHORT}"))
+              for label, q in (("wqkv", layer0["wqkv"]), ("wo", layer0["wo"]),
+                               ("w_gateup", layer0["w_gateup"]),
+                               ("w_down", layer0["w_down"]))]
+    shapes += [(f"gpt2 {label} int8", q, G_SLOTS, GPT2_BF16, torch.bfloat16)
+               for label, q in (("w_o", glayer0["w_o"]),
+                                ("w_down", glayer0["w_down"]),
+                                ("lm_head", gparams["lm_head_q"]))]
+    shapes.append(("wo f16", layer0["wo"], SHORT, f"prompt {SHORT}",
+                   torch.float16))
+    out = []
+    for label, q, rows, path, dtype in shapes:
+        x = randn(rows, q.in_features).to(dtype)
+        w = dequantize_weight(q).to(dtype)
+        out.append(dict(
+            name="qmm_group_mma", shape=f"{label} {rows} rows", path=path,
+            replaces=TPU + "quant_matmul.py:100",
+            source=SRC + "quant_matmul_mma.cu",
+            kernel=lambda x=x, q=q: launch(x, q, "mma"),
+            cuda_core=lambda x=x, q=q: launch(x, q, "cuda_core"),
+            plain=lambda x=x, q=q: qm.qmm_group_plain(x, q)[
+                :, :q.out_features],
+            library=lambda x=x, w=w: torch.matmul(x, w),
+            bytes=nbytes(x, q.qweight, q.scales) + 2 * rows * q.out_physical,
+            ops=2 * rows * q.in_features * q.out_physical, kind="bf16"))
+    return out
+
+
+def mma_crossover(torch, qm, layer0, randn, flush):
+    """Both forms of qmm_group, forced, at 1, 2, 4 and 8 rows of the 7B
+    layer's four matmuls, in one call: the times that set
+    qm.MMA_MIN_ROWS (the fewest rows at which the tensor-core form's sum
+    over the four is the smaller). Returns {rows: {form: ms}}."""
+    out = {}
+    for rows in (1, 2, 4, 8):
+        out[rows] = {"mma": 0.0, "cuda_core": 0.0}
+        for label in ("wqkv", "wo", "w_gateup", "w_down"):
+            q = layer0[label]
+            x = randn(rows, q.in_features)
+            for form in ("mma", "cuda_core"):
+                out[rows][form] += cuda_ms(
+                    torch, lambda x=x, q=q, form=form: qm._launch_group(
+                        x, None, q, 0.0, "qmm_group", form=form), 50, flush)
+    print(f"# qmm_group forms, ms summed over wqkv, wo, w_gateup, w_down: "
+          f"{json.dumps(out)}; MMA_MIN_ROWS = {qm.MMA_MIN_ROWS}", flush=True)
+    return out
+
+
 def compare_logits_rows(torch, what, got, want, report):
     """compare_logits for a batch [B, vocab]: the worst row's relative
     error <= 5e-2, and every row's top-1 equal or a near-tie within twice
@@ -1546,6 +1649,7 @@ def compare_logits_rows(torch, what, got, want, report):
 def gpt2_path(torch, gpt2, sb, counters, gparams, gcfg, dev, report, steps):
     """Phase 7. Returns the launch counts of the serving bench's drain per
     cache type; steps[path] gets one decode step's launches."""
+    from infinitensor_tpu_torch.kernels import quant_matmul as qm
     B = G_SLOTS
     gen = torch.Generator(device=dev).manual_seed(SEED + 7)
     prompt = torch.randint(1, 50000, (B, 256), generator=gen, device=dev,
@@ -1584,6 +1688,8 @@ def gpt2_path(torch, gpt2, sb, counters, gparams, gcfg, dev, report, steps):
         want_step = {"qmm_group_ln": 2 * gcfg.n_layers,
                      "qmm_group": 2 * gcfg.n_layers + 1,
                      kname: gcfg.n_layers}
+        if B >= qm.MMA_MIN_ROWS:        # w_o, w_down, lm_head at B rows
+            want_step["qmm_group_mma"] = 2 * gcfg.n_layers + 1
         if steps[label] != want_step:
             fail(f"{label}: a decode step launched {steps[label]}, expected "
                  f"{want_step}")

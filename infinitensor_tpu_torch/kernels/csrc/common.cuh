@@ -3,6 +3,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -14,6 +15,10 @@
   ITT_EXPORT const char* itt_error_string(int err) {                     \
     return cudaGetErrorString(static_cast<cudaError_t>(err));            \
   }
+
+// The activation type of a matmul launch (its x_kind): x is read as f32
+// and the output written in x's type.
+constexpr int kXBf16 = 0, kXF16 = 1, kXF32 = 2;
 
 __device__ __forceinline__ float neg_inf() { return __uint_as_float(0xff800000u); }
 

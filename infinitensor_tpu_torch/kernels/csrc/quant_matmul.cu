@@ -30,22 +30,24 @@
 // block-wide max and again for the quantize, instead of holding a second
 // f32 copy of the row in shared memory.
 //
-// qmm_group and qmm_w4a8 without the norm also take an f32 x (x_f32) and
-// then write f32, as the TPU kernels take an f32 x and write x's type.
+// qmm_group without the norm also takes an f16 or f32 x (x_kind, common.cuh)
+// and writes x's type, as the TPU kernels take any float x and write x's
+// type; qmm_w4a8 takes bf16 and f32 (an f16 x under "w4a8" takes qmm_group
+// on the card, as the JAX package sends it to its group kernel).
 #include "quant_matmul.cuh"
 
 namespace {
 
 using namespace qmm_detail;
 
-template <int BITS, int R, bool NORM, bool XF32 = false>
+template <int BITS, int R, bool NORM, int XK = kXBf16>
 __global__ void __launch_bounds__(kLanes * kWarps)
 qmm_w4a8_kernel(const void* __restrict__ x,
                 const __nv_bfloat16* __restrict__ nw,
                 const int8_t* __restrict__ qw, const void* __restrict__ sc,
                 bool sc_bf16, void* __restrict__ out, int rows,
                 int din, int dout_p, int group, float eps) {
-  static_assert(!XF32 || !NORM, "an f32 x takes no norm");
+  static_assert(XK == kXBf16 || !NORM, "only a bf16 x takes the norm");
   extern __shared__ float smem[];
   float* red = smem;                                        // [kWarps][R][kCols]
   int8_t* xq = reinterpret_cast<int8_t*>(smem + kWarps * R * kCols);  // [R][din]
@@ -68,13 +70,13 @@ qmm_w4a8_kernel(const void* __restrict__ x,
     if (NORM) {
       float ss = 0.f;
       for (int k = tid; k < din; k += nthr) {
-        const float v = load_x<XF32>(x, xr + k);
+        const float v = load_x<XK>(x, xr + k);
         ss += v * v;
       }
       rinv = 1.f / sqrtf(block_reduce<false>(ss, part) / (float)din + eps);
     }
     auto xn = [&](int k) {
-      const float v = load_x<XF32>(x, xr + k);
+      const float v = load_x<XK>(x, xr + k);
       return NORM ? round_bf16(round_bf16(v * rinv) * bf16_to_f32(nw[k])) : v;
     };
     float amax = 0.f;
@@ -163,17 +165,17 @@ qmm_w4a8_kernel(const void* __restrict__ x,
     for (int j = 0; j < 4; ++j)
       red[(warp * R + r) * kCols + lane * 4 + j] = acc[r][j];
   __syncthreads();
-  write_out<R, false, XF32>(red, sx, nullptr, false, 0, out, nullptr, rows,
-                            row0, nrows, dout_p);
+  write_out<R, false, XK>(red, sx, nullptr, false, 0, out, nullptr, rows,
+                          row0, nrows, dout_p);
 }
 
-template <int BITS, int R, bool NORM, bool XF32 = false>
+template <int BITS, int R, bool NORM, int XK = kXBf16>
 cudaError_t launch_w4a8(const void* x, const void* nw, const void* qw,
                         const void* sc, bool sc_bf16, void* out, int rows,
                         int din, int dout_p, int group, float eps,
                         cudaStream_t stream) {
   static size_t granted = 0;
-  auto kernel = qmm_w4a8_kernel<BITS, R, NORM, XF32>;
+  auto kernel = qmm_w4a8_kernel<BITS, R, NORM, XK>;
   const size_t smem = sizeof(float) * (size_t)kWarps * R * kCols + (size_t)R * din;
   cudaError_t e = allow_smem(kernel, smem, &granted);
   if (e != cudaSuccess) return e;
@@ -184,25 +186,25 @@ cudaError_t launch_w4a8(const void* x, const void* nw, const void* qw,
   return cudaGetLastError();
 }
 
-int w4a8(const void* x, bool x_f32, const void* nw, const void* qw,
+int w4a8(const void* x, int x_kind, const void* nw, const void* qw,
          const void* sc, int sc_bf16, void* out, int rows, int din,
          int dout_p, int bits, int group, bool norm, float eps,
          void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int R = rows_per_block(rows, din);
 #define ITT_W4A8(B, RR, N, XF)                                                \
-  if (bits == B && R == RR && norm == N && x_f32 == XF)                       \
+  if (bits == B && R == RR && norm == N && x_kind == XF)                       \
     return (int)launch_w4a8<B, RR, N, XF>(x, nw, qw, sc, sc_bf16, out, rows,  \
                                           din, dout_p, group, eps, s);
-  ITT_W4A8(4, 1, false, false) ITT_W4A8(4, 2, false, false)
-  ITT_W4A8(4, 4, false, false) ITT_W4A8(8, 1, false, false)
-  ITT_W4A8(8, 2, false, false) ITT_W4A8(8, 4, false, false)
-  ITT_W4A8(4, 1, true, false) ITT_W4A8(4, 2, true, false)
-  ITT_W4A8(4, 4, true, false) ITT_W4A8(8, 1, true, false)
-  ITT_W4A8(8, 2, true, false) ITT_W4A8(8, 4, true, false)
-  ITT_W4A8(4, 1, false, true) ITT_W4A8(4, 2, false, true)
-  ITT_W4A8(4, 4, false, true) ITT_W4A8(8, 1, false, true)
-  ITT_W4A8(8, 2, false, true) ITT_W4A8(8, 4, false, true)
+  ITT_W4A8(4, 1, false, kXBf16) ITT_W4A8(4, 2, false, kXBf16)
+  ITT_W4A8(4, 4, false, kXBf16) ITT_W4A8(8, 1, false, kXBf16)
+  ITT_W4A8(8, 2, false, kXBf16) ITT_W4A8(8, 4, false, kXBf16)
+  ITT_W4A8(4, 1, true, kXBf16) ITT_W4A8(4, 2, true, kXBf16)
+  ITT_W4A8(4, 4, true, kXBf16) ITT_W4A8(8, 1, true, kXBf16)
+  ITT_W4A8(8, 2, true, kXBf16) ITT_W4A8(8, 4, true, kXBf16)
+  ITT_W4A8(4, 1, false, kXF32) ITT_W4A8(4, 2, false, kXF32)
+  ITT_W4A8(4, 4, false, kXF32) ITT_W4A8(8, 1, false, kXF32)
+  ITT_W4A8(8, 2, false, kXF32) ITT_W4A8(8, 4, false, kXF32)
 #undef ITT_W4A8
   return (int)cudaErrorInvalidValue;
 }
@@ -211,10 +213,10 @@ int w4a8(const void* x, bool x_f32, const void* nw, const void* qw,
 
 ITT_DEFINE_ERROR_STRING()
 
-// x bf16 [rows, din] (x_f32: f32, without the norm); nw bf16 [din] (read
-// when has_norm); qw int8 [din/2 or din, dout_p]; sc bf16/f32 [ng, dout_p];
-// out [rows, dout_p] in x's type.
-ITT_EXPORT int qmm_group(const void* x, int x_f32, const void* nw,
+// x [rows, din] bf16, or without the norm f16 or f32 (x_kind: kXBf16,
+// kXF16, kXF32); nw bf16 [din] (read when has_norm); qw int8 [din/2 or din,
+// dout_p]; sc bf16/f32 [ng, dout_p]; out [rows, dout_p] in x's type.
+ITT_EXPORT int qmm_group(const void* x, int x_kind, const void* nw,
                          const void* qw, const void* sc, int sc_bf16,
                          void* out, int rows, int din, int dout_p, int bits,
                          int group, int has_norm, float eps, void* stream) {
@@ -222,31 +224,30 @@ ITT_EXPORT int qmm_group(const void* x, int x_f32, const void* nw,
   const int R = rows_per_block(rows, sizeof(float) * din);
   if (group_smem(R, din) > kSmemMax) return (int)cudaErrorInvalidValue;
 #define ITT_QMM(B, RR, N, XF)                                                 \
-  if (bits == B && R == RR && (bool)has_norm == N && (bool)x_f32 == XF)       \
+  if (bits == B && R == RR && (bool)has_norm == N && x_kind == XF)           \
     return (int)launch_group<B, RR, (N ? kRmsNorm : kNoNorm), false,          \
                              kGroupDots, XF>(                                 \
         x, nw, nullptr, true, qw, sc, sc_bf16, nullptr, false, 0, out, rows,  \
         din, dout_p, group, eps, s);
-  ITT_QMM(4, 1, false, false) ITT_QMM(4, 2, false, false)
-  ITT_QMM(4, 4, false, false) ITT_QMM(4, 1, true, false)
-  ITT_QMM(4, 2, true, false) ITT_QMM(4, 4, true, false)
-  ITT_QMM(8, 1, false, false) ITT_QMM(8, 2, false, false)
-  ITT_QMM(8, 4, false, false) ITT_QMM(8, 1, true, false)
-  ITT_QMM(8, 2, true, false) ITT_QMM(8, 4, true, false)
-  ITT_QMM(4, 1, false, true) ITT_QMM(4, 2, false, true)
-  ITT_QMM(4, 4, false, true) ITT_QMM(8, 1, false, true)
-  ITT_QMM(8, 2, false, true) ITT_QMM(8, 4, false, true)
+  ITT_QMM(4, 1, true, kXBf16) ITT_QMM(4, 2, true, kXBf16)
+  ITT_QMM(4, 4, true, kXBf16) ITT_QMM(8, 1, true, kXBf16)
+  ITT_QMM(8, 2, true, kXBf16) ITT_QMM(8, 4, true, kXBf16)
+#define ITT_QMM_X(XF)                                                         \
+  ITT_QMM(4, 1, false, XF) ITT_QMM(4, 2, false, XF) ITT_QMM(4, 4, false, XF)  \
+  ITT_QMM(8, 1, false, XF) ITT_QMM(8, 2, false, XF) ITT_QMM(8, 4, false, XF)
+  ITT_QMM_X(kXBf16) ITT_QMM_X(kXF16) ITT_QMM_X(kXF32)
+#undef ITT_QMM_X
 #undef ITT_QMM
   return (int)cudaErrorInvalidValue;
 }
 
 // As qmm_group without the norm, through int8 activations (W4A8; bits=8
-// gives W8A8); x bf16 or (x_f32) f32, out in x's type.
-ITT_EXPORT int qmm_w4a8(const void* x, int x_f32, const void* qw,
+// gives W8A8); x bf16 or f32 (x_kind kXBf16 or kXF32), out in x's type.
+ITT_EXPORT int qmm_w4a8(const void* x, int x_kind, const void* qw,
                         const void* sc, int sc_bf16, void* out, int rows,
                         int din, int dout_p, int bits, int group,
                         void* stream) {
-  return w4a8(x, (bool)x_f32, nullptr, qw, sc, sc_bf16, out, rows, din,
+  return w4a8(x, x_kind, nullptr, qw, sc, sc_bf16, out, rows, din,
               dout_p, bits, group, false, 0.f, stream);
 }
 
@@ -255,6 +256,6 @@ ITT_EXPORT int qmm_norm_w4a8(const void* x, const void* nw, const void* qw,
                              const void* sc, int sc_bf16, void* out, int rows,
                              int din, int dout_p, int bits, int group,
                              float eps, void* stream) {
-  return w4a8(x, false, nw, qw, sc, sc_bf16, out, rows, din, dout_p, bits,
+  return w4a8(x, kXBf16, nw, qw, sc, sc_bf16, out, rows, din, dout_p, bits,
               group, true, eps, stream);
 }

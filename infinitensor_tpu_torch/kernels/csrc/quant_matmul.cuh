@@ -27,9 +27,10 @@
 //    packed group c take s[c];
 //  * the LayerNorm form ends as the TPU kernel does: the f32 sum rounded
 //    to bf16, plus the bias in f32, rounded again;
-//  * XF32 (the forms without a prologue): x is f32 and so is out, as the
-//    TPU kernels take an f32 x and write x's type; the arithmetic is the
-//    same f32 (x is only not rounded to bf16 first).
+//  * XK, the x type (kXBf16, kXF16 or kXF32; common.cuh): the forms
+//    without a prologue also take an f16 or f32 x and write x's type, as
+//    the TPU kernels take any float x and write x's type; the arithmetic
+//    is the same f32 (x is read into f32 as it is).
 //
 // MODE says where the scale enters and where the sum goes:
 //  * kGroupDots: as above (the TPU's _group_dots);
@@ -71,18 +72,31 @@ __device__ float block_reduce(float v, float* part) {
   return r;
 }
 
-// x [., din] as f32: bf16 or (XF32) f32 elements.
-template <bool XF32>
+// x [., din] as f32: bf16, f16 or f32 elements (XK).
+template <int XK>
 __device__ __forceinline__ float load_x(const void* x, size_t i) {
-  return XF32 ? static_cast<const float*>(x)[i]
-              : bf16_to_f32(static_cast<const __nv_bfloat16*>(x)[i]);
+  if (XK == kXF32) return static_cast<const float*>(x)[i];
+  if (XK == kXF16) return __half2float(static_cast<const __half*>(x)[i]);
+  return bf16_to_f32(static_cast<const __nv_bfloat16*>(x)[i]);
 }
 
-// Sum the kWarps partial tiles in `red` and write bf16 (OF32: f32) outputs. With BIAS
-// the sum is rounded to bf16 first, then bias[n] (bf16 or f32, zero past
-// nbias) is added in f32 and the result rounded again. With `part` the
-// f32 sums go to part[blockIdx.z] ([rows, dout_p] each) instead.
-template <int R, bool BIAS, bool OF32 = false>
+// Store f32 v as an element of an output of the type XK.
+template <int XK>
+__device__ __forceinline__ void store_out(void* out, size_t i, float v) {
+  if (XK == kXF32)
+    static_cast<float*>(out)[i] = v;
+  else if (XK == kXF16)
+    static_cast<__half*>(out)[i] = __float2half_rn(v);
+  else
+    static_cast<__nv_bfloat16*>(out)[i] = __float2bfloat16_rn(v);
+}
+
+// Sum the kWarps partial tiles in `red` and write outputs of the type OK
+// (kXBf16, kXF16 or kXF32). With BIAS the sum is rounded to bf16 first,
+// then bias[n] (bf16 or f32, zero past nbias) is added in f32 and the
+// result rounded again. With `part` the f32 sums go to part[blockIdx.z]
+// ([rows, dout_p] each) instead.
+template <int R, bool BIAS, int OK = kXBf16>
 __device__ void write_out(const float* red, const float* row_scale,
                           const void* bias, bool bias_bf16, int nbias,
                           void* out, float* part, int rows, int row0,
@@ -103,11 +117,7 @@ __device__ void write_out(const float* red, const float* row_scale,
       const float b = n < nbias ? load_scale(bias, bias_bf16, n) : 0.f;
       s = __fadd_rn(round_bf16(s), b);
     }
-    const size_t at = (size_t)(row0 + r) * dout_p + n;
-    if (OF32)
-      static_cast<float*>(out)[at] = s;
-    else
-      static_cast<__nv_bfloat16*>(out)[at] = __float2bfloat16_rn(s);
+    store_out<OK>(out, (size_t)(row0 + r) * dout_p + n, s);
   }
 }
 
@@ -125,7 +135,7 @@ __device__ __forceinline__ float scaled_bf16(float v, float s) {
 // group dividing the packed rows), unit rows per work item (dividing
 // group), part f32 [krows / kb, rows, dout_p].
 template <int BITS, int R, int PRO, bool PAIRED, int MODE = kGroupDots,
-          bool XF32 = false>
+          int XK = kXBf16>
 __global__ void __launch_bounds__(kLanes * kWarps)
 qmm_group_kernel(const void* __restrict__ x,
                  const void* __restrict__ nw, const void* __restrict__ nb,
@@ -136,7 +146,8 @@ qmm_group_kernel(const void* __restrict__ x,
                  int din, int dout_p, int group, float eps, int kb, int unit,
                  float* __restrict__ part) {
   static_assert(MODE != kSplitK || PRO == kNoNorm, "split-K has no prologue");
-  static_assert(!XF32 || PRO == kNoNorm, "an f32 x takes no prologue");
+  static_assert(XK == kXBf16 || PRO == kNoNorm,
+                "only a bf16 x takes a prologue");
   extern __shared__ float smem[];
   const int krows = BITS == 4 ? din / 2 : din;   // stored (packed) rows
   // this block's packed rows [k0, k0 + span), and the x columns it holds
@@ -162,7 +173,7 @@ qmm_group_kernel(const void* __restrict__ x,
     if (PRO == kRmsNorm) {
       float ss = 0.f;
       for (int k = tid; k < din; k += nthr) {
-        const float v = load_x<XF32>(x, xr + k);
+        const float v = load_x<XK>(x, xr + k);
         ss += v * v;
       }
       const float ms = block_reduce<false>(ss, rpart) / (float)din;
@@ -170,11 +181,11 @@ qmm_group_kernel(const void* __restrict__ x,
     }
     if (PRO == kLayerNorm) {
       float sm = 0.f;
-      for (int k = tid; k < din; k += nthr) sm += load_x<XF32>(x, xr + k);
+      for (int k = tid; k < din; k += nthr) sm += load_x<XK>(x, xr + k);
       mu = block_reduce<false>(sm, rpart) / (float)din;
       float ss = 0.f;
       for (int k = tid; k < din; k += nthr) {
-        const float d = load_x<XF32>(x, xr + k) - mu;
+        const float d = load_x<XK>(x, xr + k) - mu;
         ss += d * d;
       }
       const float var = block_reduce<false>(ss, rpart) / (float)din;
@@ -184,7 +195,7 @@ qmm_group_kernel(const void* __restrict__ x,
       const int src = MODE != kSplitK ? k
                       : k < span     ? k0 + k
                                      : krows + k0 + (k - span);
-      float v = load_x<XF32>(x, xr + src);
+      float v = load_x<XK>(x, xr + src);
       if (PRO == kRmsNorm)
         v = round_bf16(round_bf16(v * rinv) *
                        bf16_to_f32(static_cast<const __nv_bfloat16*>(nw)[k]));
@@ -272,9 +283,9 @@ qmm_group_kernel(const void* __restrict__ x,
     for (int j = 0; j < 4; ++j)
       red[(warp * R + r) * kCols + lane * 4 + j] = acc[r][j];
   __syncthreads();
-  write_out<R, PRO == kLayerNorm, XF32>(red, nullptr, bias, bias_bf16, nbias, out,
-                                  MODE == kSplitK ? part : nullptr, rows,
-                                  row0, nrows, dout_p);
+  write_out<R, PRO == kLayerNorm, XK>(red, nullptr, bias, bias_bf16, nbias,
+                                      out, MODE == kSplitK ? part : nullptr,
+                                      rows, row0, nrows, dout_p);
 }
 
 // Raise the dynamic shared-memory cap of `kernel` to what it needs, once
@@ -295,7 +306,7 @@ inline size_t group_smem(int R, int xw) {
 }
 
 template <int BITS, int R, int PRO, bool PAIRED, int MODE = kGroupDots,
-          bool XF32 = false>
+          int XK = kXBf16>
 cudaError_t launch_group(const void* x, const void* nw, const void* nb,
                          bool norm_bf16, const void* qw, const void* sc, bool sc_bf16,
                          const void* bias, bool bias_bf16, int nbias,
@@ -303,7 +314,7 @@ cudaError_t launch_group(const void* x, const void* nw, const void* nb,
                          float eps, cudaStream_t stream, int kb = 0,
                          int unit = 0, float* part = nullptr) {
   static size_t granted = 0;
-  auto kernel = qmm_group_kernel<BITS, R, PRO, PAIRED, MODE, XF32>;
+  auto kernel = qmm_group_kernel<BITS, R, PRO, PAIRED, MODE, XK>;
   const int krows = BITS == 4 ? din / 2 : din;
   const int xw = MODE == kSplitK ? (BITS == 4 ? 2 * kb : kb) : din;
   const size_t smem = group_smem(R, xw);

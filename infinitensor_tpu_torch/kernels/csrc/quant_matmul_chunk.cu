@@ -35,18 +35,15 @@ using namespace qmm_detail;
 
 namespace {
 
-// out[i] = bf16 (OF32: f32) of the sum over z of part[z][i], z in order.
-template <bool OF32>
+// out[i] = the sum over z of part[z][i], z in order, as the type OK.
+template <int OK>
 __global__ void splitk_sum(const float* __restrict__ part, int nsplit,
                            size_t n, void* __restrict__ out) {
   for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
        i += (size_t)gridDim.x * blockDim.x) {
     float s = 0.f;
     for (int z = 0; z < nsplit; ++z) s += part[z * n + i];
-    if (OF32)
-      static_cast<float*>(out)[i] = s;
-    else
-      static_cast<__nv_bfloat16*>(out)[i] = __float2bfloat16_rn(s);
+    store_out<OK>(out, i, s);
   }
 }
 
@@ -54,10 +51,10 @@ __global__ void splitk_sum(const float* __restrict__ part, int nsplit,
 
 ITT_DEFINE_ERROR_STRING()
 
-// x bf16 (x_f32: f32) [rows, din]; qw int8 [din/2 or din, dout_p]
-// (unpaired); sc bf16/f32 [ng, dout_p]; out [rows, dout_p] in x's type;
-// any group dividing the packed rows.
-ITT_EXPORT int qmm_chunk(const void* x, int x_f32, const void* qw,
+// x [rows, din] bf16, f16 or f32 (x_kind, common.cuh); qw int8 [din/2 or
+// din, dout_p] (unpaired); sc bf16/f32 [ng, dout_p]; out [rows, dout_p] in
+// x's type; any group dividing the packed rows.
+ITT_EXPORT int qmm_chunk(const void* x, int x_kind, const void* qw,
                          const void* sc, int sc_bf16, void* out, int rows,
                          int din, int dout_p, int bits, int group,
                          void* stream) {
@@ -67,14 +64,15 @@ ITT_EXPORT int qmm_chunk(const void* x, int x_f32, const void* qw,
   const int R = rows_per_block(rows, sizeof(float) * din);
   if (group_smem(R, din) > kSmemMax) return (int)cudaErrorInvalidValue;
 #define ITT_CHUNK(B, RR, XF)                                                  \
-  if (bits == B && R == RR && (bool)x_f32 == XF)                              \
+  if (bits == B && R == RR && x_kind == XF)                                  \
     return (int)launch_group<B, RR, kNoNorm, false, kDequant, XF>(            \
         x, nullptr, nullptr, true, qw, sc, sc_bf16, nullptr, false, 0, out,   \
         rows, din, dout_p, group, 0.f, s);
-  ITT_CHUNK(4, 1, false) ITT_CHUNK(4, 2, false) ITT_CHUNK(4, 4, false)
-  ITT_CHUNK(8, 1, false) ITT_CHUNK(8, 2, false) ITT_CHUNK(8, 4, false)
-  ITT_CHUNK(4, 1, true) ITT_CHUNK(4, 2, true) ITT_CHUNK(4, 4, true)
-  ITT_CHUNK(8, 1, true) ITT_CHUNK(8, 2, true) ITT_CHUNK(8, 4, true)
+#define ITT_CHUNK_X(XF)                                                       \
+  ITT_CHUNK(4, 1, XF) ITT_CHUNK(4, 2, XF) ITT_CHUNK(4, 4, XF)                 \
+  ITT_CHUNK(8, 1, XF) ITT_CHUNK(8, 2, XF) ITT_CHUNK(8, 4, XF)
+  ITT_CHUNK_X(kXBf16) ITT_CHUNK_X(kXF16) ITT_CHUNK_X(kXF32)
+#undef ITT_CHUNK_X
 #undef ITT_CHUNK
   return (int)cudaErrorInvalidValue;
 }
@@ -82,7 +80,7 @@ ITT_EXPORT int qmm_chunk(const void* x, int x_f32, const void* qw,
 // As qmm_group without the norm, split along K into krows / kb blocks of
 // kb packed rows (kb a multiple of group dividing the packed rows). part
 // f32 [krows / kb, rows, dout_p] is scratch.
-ITT_EXPORT int qmm_group2d(const void* x, int x_f32, const void* qw,
+ITT_EXPORT int qmm_group2d(const void* x, int x_kind, const void* qw,
                            const void* sc, int sc_bf16, void* part, void* out,
                            int rows, int din, int dout_p, int bits, int group,
                            int kb, void* stream) {
@@ -99,23 +97,26 @@ ITT_EXPORT int qmm_group2d(const void* x, int x_f32, const void* qw,
   float* p = static_cast<float*>(part);
   cudaError_t e = cudaErrorInvalidValue;
 #define ITT_2D(B, RR, XF)                                                     \
-  if (bits == B && R == RR && (bool)x_f32 == XF)                              \
+  if (bits == B && R == RR && x_kind == XF)                                  \
     e = launch_group<B, RR, kNoNorm, false, kSplitK, XF>(                     \
         x, nullptr, nullptr, true, qw, sc, sc_bf16, nullptr, false, 0,        \
         nullptr, rows, din, dout_p, group, 0.f, s, kb, unit, p);
-  ITT_2D(4, 1, false) ITT_2D(4, 2, false) ITT_2D(4, 4, false)
-  ITT_2D(8, 1, false) ITT_2D(8, 2, false) ITT_2D(8, 4, false)
-  ITT_2D(4, 1, true) ITT_2D(4, 2, true) ITT_2D(4, 4, true)
-  ITT_2D(8, 1, true) ITT_2D(8, 2, true) ITT_2D(8, 4, true)
+#define ITT_2D_X(XF)                                                          \
+  ITT_2D(4, 1, XF) ITT_2D(4, 2, XF) ITT_2D(4, 4, XF)                          \
+  ITT_2D(8, 1, XF) ITT_2D(8, 2, XF) ITT_2D(8, 4, XF)
+  ITT_2D_X(kXBf16) ITT_2D_X(kXF16) ITT_2D_X(kXF32)
+#undef ITT_2D_X
 #undef ITT_2D
   if (e != cudaSuccess) return (int)e;
   const size_t n = (size_t)rows * dout_p;
   const int threads = 256;
   const int blocks = (int)((n + threads - 1) / threads < 1024
                                ? (n + threads - 1) / threads : 1024);
-  if (x_f32)
-    splitk_sum<true><<<blocks, threads, 0, s>>>(p, krows / kb, n, out);
+  if (x_kind == kXF32)
+    splitk_sum<kXF32><<<blocks, threads, 0, s>>>(p, krows / kb, n, out);
+  else if (x_kind == kXF16)
+    splitk_sum<kXF16><<<blocks, threads, 0, s>>>(p, krows / kb, n, out);
   else
-    splitk_sum<false><<<blocks, threads, 0, s>>>(p, krows / kb, n, out);
+    splitk_sum<kXBf16><<<blocks, threads, 0, s>>>(p, krows / kb, n, out);
   return (int)cudaGetLastError();
 }

@@ -54,11 +54,11 @@ ITT_EXPORT int qmm_group_ln(const void* x, const void* gamma, const void* beta,
   return (int)cudaErrorInvalidValue;
 }
 
-// x bf16 [rows, din] (x_f32: f32, without the norm); nw bf16 [din] (the
-// RMSNorm weight, read when has_norm); qw int8 [din/2, dout_p] split-half
-// int4; sc bf16/f32 [din / (2 * group), dout_p]; out [rows, dout_p] in x's
-// type.
-ITT_EXPORT int qmm_slab(const void* x, int x_f32, const void* nw,
+// x [rows, din] bf16, or without the norm f16 or f32 (x_kind, common.cuh);
+// nw bf16 [din] (the RMSNorm weight, read when has_norm); qw int8 [din/2,
+// dout_p] split-half int4; sc bf16/f32 [din / (2 * group), dout_p]; out
+// [rows, dout_p] in x's type.
+ITT_EXPORT int qmm_slab(const void* x, int x_kind, const void* nw,
                         const void* qw, const void* sc, int sc_bf16,
                         void* out, int rows, int din, int dout_p, int group,
                         int has_norm, float eps, void* stream) {
@@ -66,16 +66,18 @@ ITT_EXPORT int qmm_slab(const void* x, int x_f32, const void* nw,
   const int R = rows_per_block(rows, sizeof(float) * din);
   if (group_smem(R, din) > kSmemMax) return (int)cudaErrorInvalidValue;
 #define ITT_QMM_SLAB(RR, N, XF)                                               \
-  if (R == RR && (bool)has_norm == N && (bool)x_f32 == XF)                    \
+  if (R == RR && (bool)has_norm == N && x_kind == XF)                        \
     return (int)launch_group<4, RR, (N ? kRmsNorm : kNoNorm), true,           \
                              kGroupDots, XF>(                                 \
         x, nw, nullptr, true, qw, sc, sc_bf16, nullptr, false, 0, out, rows,  \
         din, dout_p, group, eps, s);
-  ITT_QMM_SLAB(1, false, false) ITT_QMM_SLAB(2, false, false)
-  ITT_QMM_SLAB(4, false, false) ITT_QMM_SLAB(1, true, false)
-  ITT_QMM_SLAB(2, true, false) ITT_QMM_SLAB(4, true, false)
-  ITT_QMM_SLAB(1, false, true) ITT_QMM_SLAB(2, false, true)
-  ITT_QMM_SLAB(4, false, true)
+  ITT_QMM_SLAB(1, true, kXBf16) ITT_QMM_SLAB(2, true, kXBf16)
+  ITT_QMM_SLAB(4, true, kXBf16)
+  ITT_QMM_SLAB(1, false, kXBf16) ITT_QMM_SLAB(2, false, kXBf16)
+  ITT_QMM_SLAB(4, false, kXBf16) ITT_QMM_SLAB(1, false, kXF16)
+  ITT_QMM_SLAB(2, false, kXF16) ITT_QMM_SLAB(4, false, kXF16)
+  ITT_QMM_SLAB(1, false, kXF32) ITT_QMM_SLAB(2, false, kXF32)
+  ITT_QMM_SLAB(4, false, kXF32)
 #undef ITT_QMM_SLAB
   return (int)cudaErrorInvalidValue;
 }

@@ -1,7 +1,8 @@
 """Fused weight-only dequant + matmul for decode (counterpart of
 infinitensor_tpu/kernels/quant_matmul.py).
 
-Nine kernels, CUDA C++ over one group-dot body (csrc/quant_matmul.cuh):
+Ten kernels, CUDA C++; nine over one group-dot body on the CUDA cores
+(csrc/quant_matmul.cuh), one on the tensor cores:
   csrc/quant_matmul.cu
     qmm_group       <- _kernel_group       (group-partial dots, scale per group)
     qmm_group_norm  <- _kernel_group_norm  (RMSNorm fused ahead of the dots)
@@ -14,6 +15,16 @@ Nine kernels, CUDA C++ over one group-dot body (csrc/quant_matmul.cuh):
   csrc/quant_matmul_chunk.cu
     qmm_chunk       <- _kernel             (scales into bf16 weights, then dot)
     qmm_group2d     <- _kernel_group2d     (group dots split along K)
+  csrc/quant_matmul_mma.cu
+    qmm_group_mma   <- _kernel_group       (the same group dots on the
+                                            tensor cores, mma.sync + cp.async)
+
+qmm_group has two forms on the card, one function: a bf16 or f16 x
+without a norm at MMA_MIN_ROWS rows or more takes the tensor-core form
+(qmm_group_mma), any other launch the CUDA-core form (group_form says
+which; MMA_MIN_ROWS is where the two forms' times cross on the card,
+PERF.md). launches["qmm_group"] counts both forms and
+launches["qmm_group_mma"] the tensor-core one again.
 
 Each has a plain PyTorch version here that computes the same function step
 by step (`*_plain`). A wrapper given a CPU tensor runs the plain version;
@@ -56,14 +67,16 @@ weight whose physical columns are no multiple of 4 (the kernels read 4
 adjacent columns at once; the JAX kernels refuse a dout with no 128-column
 tile and take quant_matmul_ref, :693-710).
 
-Activations: bf16 or f32. On the card the kernels without a fused norm
-take an f32 x and write f32 (one template parameter of their x load), as
-the TPU kernels take an f32 x and write x's type; the fused-norm wrappers
-run norm + quant_matmul for a non-bf16 x, as the JAX package does. On the
-CPU a non-bf16 x takes the JAX package's off-chip math
-(quant_matmul.py:656-662): quant_matmul_w4a8_ref under the "w4a8" variant
-(route "w4a8_ref"), else the dequant route, in x's dtype. Another dtype
-(f16) on the card raises NotImplementedError (ROADMAP.md Queue 3 item 1).
+Activations: bf16, f16 or f32. On the card the kernels without a fused
+norm take an f16 or f32 x and write x's type (one template parameter of
+their x load, the x_kind of a launch), as the TPU kernels take any float x
+and write x's type; an f16 x under "w4a8" takes qmm_group, as the JAX
+package sends it to its group kernel (quant_matmul.py:704-705); the
+fused-norm wrappers run norm + quant_matmul for a non-bf16 x, as the JAX
+package does. On the CPU a non-bf16 x takes the JAX package's off-chip
+math (quant_matmul.py:656-662): quant_matmul_w4a8_ref under the "w4a8"
+variant (route "w4a8_ref"), else the dequant route, in x's dtype. Another
+dtype (f64) on the card raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -86,6 +99,10 @@ from infinitensor_tpu_torch.quant.weight_only import (
 TUNE_DEFAULT = str(Path(__file__).with_name("qmm_tune.json"))
 VARIANTS = ("group", "w4a8", "slab", "chunk", "group2d")
 KERNEL_MAX_ROWS = 256
+# The fewest rows whose bf16 / f16 qmm_group launch takes the tensor-core
+# form: chip_smoke.py phase 3 times both forms in one call (PERF.md).
+MMA_MIN_ROWS = 2
+X_KINDS = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 
 launches = collections.Counter()
 
@@ -171,10 +188,10 @@ def route(x: torch.Tensor, q: QuantizedLinear,
         return ("w4a8_ref" if variant == "w4a8" else "dequant_matmul"), 0
     if q.out_physical % 4:
         return "dequant_matmul", 0
-    if x.dtype not in (torch.bfloat16, torch.float32):
+    if x.dtype not in X_KINDS:
         raise NotImplementedError(
-            f"{x.dtype} activations: the matmul kernels take bf16 and f32 "
-            "(ROADMAP.md Queue 3 item 1)")
+            f"{x.dtype} activations: the matmul kernels take bf16, f16 "
+            "and f32")
     g, kr = q.group_size, _packed_rows(q)
     if q.paired:
         variant = "slab"        # paired scales exist for the slab kernel
@@ -188,6 +205,8 @@ def route(x: torch.Tensor, q: QuantizedLinear,
         variant = "group"
     if variant != "chunk" and not (g % 128 == 0 and kr % g == 0):
         variant = "chunk"
+    if variant == "w4a8" and x.dtype == torch.float16:
+        variant = "group"       # quant_matmul.py:704-705
     if (q.paired and variant != "slab") or kr % g or (
             q.bits == 4 and not q.paired and q.scales.shape[0] % 2):
         return "dequant_matmul", 0
@@ -230,7 +249,7 @@ def _per_group(x2: torch.Tensor, q: QuantizedLinear, w_lo, w_hi):
 
 
 def qmm_group_plain(x2: torch.Tensor, q: QuantizedLinear) -> torch.Tensor:
-    """_group_dots step by step: x [rows, din] bf16 or f32 -> [rows,
+    """_group_dots step by step: x [rows, din] bf16, f16 or f32 -> [rows,
     dout_p] in x's dtype.
     int4: per group c, (x_lo . (u & 15) - 8 * sum(x_lo)) * s[c] +
     x_hi . (u & 0xF0) * s[ng/2 + c] / 16, f32 accumulation; int8:
@@ -411,6 +430,14 @@ def _lib_fused() -> ctypes.CDLL:
 
 
 @functools.cache
+def _lib_mma() -> ctypes.CDLL:
+    P, I = _build.P, _build.I
+    return _build.typed(
+        "quant_matmul_mma",
+        qmm_group_mma=[P, I, P, P, I, P, P, I, I, I, I, I, I, I, P])
+
+
+@functools.cache
 def _lib_chunk() -> ctypes.CDLL:
     P, I = _build.P, _build.I
     return _build.typed(
@@ -436,9 +463,48 @@ def _out(x2: torch.Tensor, q: QuantizedLinear) -> torch.Tensor:
                        device=x2.device)
 
 
-def _f32(x2: torch.Tensor) -> bool:
-    """The x_f32 flag of a launch (the fused-norm launches take bf16)."""
-    return x2.dtype == torch.float32
+def _x_kind(x2: torch.Tensor) -> int:
+    """The x_kind of a launch (common.cuh: kXBf16, kXF16, kXF32); the
+    fused-norm launches take bf16."""
+    return X_KINDS[x2.dtype]
+
+
+def group_form(rows: int, dtype: torch.dtype, norm: bool) -> str:
+    """Which form a qmm_group launch on the card takes: "mma" (the
+    tensor cores, csrc/quant_matmul_mma.cu) for a bf16 or f16 x without a
+    norm at MMA_MIN_ROWS rows or more, else "cuda_core"
+    (csrc/quant_matmul.cuh; an f32 x stays there, as rounding it to 16
+    bits would change its numbers)."""
+    if (dtype in (torch.bfloat16, torch.float16) and not norm
+            and rows >= MMA_MIN_ROWS):
+        return "mma"
+    return "cuda_core"
+
+
+MMA_COLS = 128                  # output columns of a block (kBN)
+MMA_ROW_TILES = (8, 16, 32, 64)  # rows of a block the C entry takes
+
+
+def mma_plan(rows: int, dout_p: int, krows: int, group: int, sms: int
+             ) -> tuple:
+    """(row_tile, splits) of a qmm_group_mma launch, the fastest of the
+    variants timed on the card: rows per block 8 or 16 up to that many
+    rows, 32 up to 64 rows, 64 above; and the number of blocks K is split
+    across, by whole scale groups (at most one split a group), so that
+    column tiles x row tiles x splits reach 2 blocks per SM (1 for the
+    64-row tile, whose partials cost more than its extra blocks gain)."""
+    tile = 8 if rows <= 8 else 16 if rows <= 16 else 32 if rows <= 64 \
+        else 64
+    target = sms if tile == 64 else 2 * sms
+    blocks = -(-dout_p // MMA_COLS) * -(-rows // tile)
+    splits = 1 if blocks >= target else min(krows // group,
+                                            -(-target // blocks))
+    return tile, splits
+
+
+@functools.cache
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _launched(lib: ctypes.CDLL, err: int, name: str, out: torch.Tensor
@@ -448,22 +514,53 @@ def _launched(lib: ctypes.CDLL, err: int, name: str, out: torch.Tensor
     return out
 
 
-def _launch_group(x2, norm_w, q, eps: float, name: str) -> torch.Tensor:
+def _launch_group(x2, norm_w, q, eps: float, name: str,
+                  form: Optional[str] = None) -> torch.Tensor:
+    """qmm_group (qmm_group_norm with norm_w) in the form group_form
+    chooses; `form` forces "mma" or "cuda_core" (tests and chip_smoke.py's
+    side-by-side timing only)."""
     _check_cuda(x2, q)
+    form = form or group_form(x2.shape[0], x2.dtype, norm_w is not None)
+    if form == "mma":
+        if norm_w is not None:
+            raise ValueError("qmm_group_mma fuses no norm")
+        return _launch_group_mma(x2, q, name)
     out, lib, p = _out(x2, q), _lib(), _build.ptr
     err = lib.qmm_group(
-        p(x2), _f32(x2), p(norm_w), p(q.qweight), p(q.scales),
+        p(x2), _x_kind(x2), p(norm_w), p(q.qweight), p(q.scales),
         q.scales.dtype == torch.bfloat16, p(out), x2.shape[0], x2.shape[1],
         q.out_physical, q.bits, q.group_size, norm_w is not None, eps,
         _build.stream())
     return _launched(lib, err, name, out)
 
 
+def _launch_group_mma(x2, q, name: str) -> torch.Tensor:
+    if x2.dtype not in (torch.bfloat16, torch.float16):
+        raise ValueError(f"qmm_group_mma takes a bf16 or f16 x, not "
+                         f"{x2.dtype}")
+    if x2.data_ptr() % 16:
+        x2 = x2.clone()                 # cp.async reads 16-byte chunks
+    rows, dout_p = x2.shape[0], q.out_physical
+    tile, splits = mma_plan(rows, dout_p, _packed_rows(q), q.group_size,
+                            _sms(x2.device.index or 0))
+    part = None if splits == 1 else torch.empty(
+        splits, rows, dout_p, dtype=torch.float32, device=x2.device)
+    out, lib, p = _out(x2, q), _lib_mma(), _build.ptr
+    err = lib.qmm_group_mma(
+        p(x2), _x_kind(x2), p(q.qweight), p(q.scales),
+        q.scales.dtype == torch.bfloat16, p(part), p(out), rows,
+        x2.shape[1], dout_p, q.bits, q.group_size, tile, splits,
+        _build.stream())
+    _launched(lib, err, name, out)
+    launches["qmm_group_mma"] += 1
+    return out
+
+
 def _launch_slab(x2, norm_w, q, eps: float, name: str) -> torch.Tensor:
     _check_cuda(x2, q)
     out, lib, p = _out(x2, q), _lib_fused(), _build.ptr
     err = lib.qmm_slab(
-        p(x2), _f32(x2), p(norm_w), p(q.qweight), p(q.scales),
+        p(x2), _x_kind(x2), p(norm_w), p(q.qweight), p(q.scales),
         q.scales.dtype == torch.bfloat16, p(out), x2.shape[0], x2.shape[1],
         q.out_physical, q.group_size, norm_w is not None, eps,
         _build.stream())
@@ -500,7 +597,7 @@ def _launch_w4a8(x2, q, norm_w=None, eps: float = 0.0) -> torch.Tensor:
     shape = (x2.shape[0], x2.shape[1], q.out_physical, q.bits, q.group_size)
     sc_bf16 = q.scales.dtype == torch.bfloat16
     if norm_w is None:
-        err = lib.qmm_w4a8(p(x2), _f32(x2), p(q.qweight), p(q.scales),
+        err = lib.qmm_w4a8(p(x2), _x_kind(x2), p(q.qweight), p(q.scales),
                            sc_bf16, p(out), *shape, _build.stream())
         return _launched(lib, err, "qmm_w4a8", out)
     err = lib.qmm_norm_w4a8(p(x2), p(norm_w), p(q.qweight), p(q.scales),
@@ -511,7 +608,7 @@ def _launch_w4a8(x2, q, norm_w=None, eps: float = 0.0) -> torch.Tensor:
 def _launch_chunk(x2, q) -> torch.Tensor:
     _check_cuda(x2, q)
     out, lib, p = _out(x2, q), _lib_chunk(), _build.ptr
-    err = lib.qmm_chunk(p(x2), _f32(x2), p(q.qweight), p(q.scales),
+    err = lib.qmm_chunk(p(x2), _x_kind(x2), p(q.qweight), p(q.scales),
                         q.scales.dtype == torch.bfloat16, p(out), x2.shape[0],
                         x2.shape[1], q.out_physical, q.bits, q.group_size,
                         _build.stream())
@@ -523,7 +620,7 @@ def _launch_group2d(x2, q, kb: int) -> torch.Tensor:
     out, lib, p = _out(x2, q), _lib_chunk(), _build.ptr
     part = torch.empty(_packed_rows(q) // kb, x2.shape[0], q.out_physical,
                        dtype=torch.float32, device=x2.device)
-    err = lib.qmm_group2d(p(x2), _f32(x2), p(q.qweight), p(q.scales),
+    err = lib.qmm_group2d(p(x2), _x_kind(x2), p(q.qweight), p(q.scales),
                           q.scales.dtype == torch.bfloat16, p(part), p(out),
                           x2.shape[0], x2.shape[1], q.out_physical, q.bits,
                           q.group_size, kb, _build.stream())
@@ -540,7 +637,8 @@ def _dispatch(x2: torch.Tensor, plain, launch):
 
 def quant_matmul(x: torch.Tensor, q: QuantizedLinear,
                  variant: Optional[str] = None) -> torch.Tensor:
-    """x [..., din] (bf16 or f32) @ q -> [..., out_features] in x's dtype.
+    """x [..., din] (bf16, f16 or f32) @ q -> [..., out_features] in x's
+    dtype.
 
     variant: one of VARIANTS or None (the table entry for the shape, then
     INFINITPU_QMM_VARIANT, then "group"); `route` says what runs."""

@@ -162,8 +162,11 @@ def test_cuda_wrappers_raise_instead_of_falling_back(dev):
     with pytest.raises(ValueError):
         att.flash_decode(q64, k64, k64, pos)            # f32 query
     qq = _qlin(dev, 512, 256, 4, torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="Queue 3 item 1"):
-        qm.quant_matmul(_x(dev, 1, 512).half(), qq)     # f16 x
+    with pytest.raises(ValueError, match="floating point"):
+        qm.quant_matmul(torch.ones(1, 512, dtype=torch.int32, device=dev),
+                        qq)                             # int32 x
+    with pytest.raises(NotImplementedError, match="bf16, f16 and f32"):
+        qm.quant_matmul(_x(dev, 1, 512).double(), qq)   # f64 x
     x48 = torch.zeros(1, 2, 8, 48, dtype=torch.bfloat16, device=dev)
     with pytest.raises(ValueError):
         fa.flash_attention(x48, x48, x48)               # D = 48
@@ -850,3 +853,64 @@ def test_graph_llama_on_the_card(dev):
                    torch.tensor([0], device=dev), state)
     t2, state = fn(weights, t1[:, -1], torch.tensor([4], device=dev), state)
     np.testing.assert_array_equal(torch.cat([t1, t2], 1).cpu().numpy(), ref)
+
+
+# -- qmm_group's tensor-core form (csrc/quant_matmul_mma.cu) and f16 x -------
+
+@pytest.mark.parametrize("rows", [8, 9, 16, 63, 64, 100, 256])
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("xdt", [torch.bfloat16, torch.float16])
+def test_group_mma_kernel(dev, rows, bits, xdt):
+    """The tensor-core form against qmm_group_plain and against the
+    CUDA-core form, both forced, for bf16 and f32 scales, groups 128 and
+    256, a dout with no multiple of 16 columns (its 4-byte copies) and a
+    padded dout."""
+    for sdt in (torch.bfloat16, torch.float32):
+        for group in (128, 256):
+            for din, dout, pad in ((1024, 384, 0), (1024, 260, 0),
+                                   (512, 300, 128)):
+                q = _qlin(dev, din, dout, bits, sdt, pad_out=pad,
+                          group=group)
+                x = _x(dev, rows, din, seed=rows).to(xdt)
+                got = qm._launch_group(x, None, q, 0.0, "qmm_group",
+                                       form="mma")
+                _close(got, qm.qmm_group_plain(x, q))
+                _close(got, qm._launch_group(x, None, q, 0.0, "qmm_group",
+                                             form="cuda_core"))
+
+
+def test_group_mma_launch_counts(dev):
+    """A 256-row bf16 call launches the tensor-core form, counted under
+    qmm_group and qmm_group_mma; a 1-row call the CUDA-core form only."""
+    q = _qlin(dev, 2048, 512, 4, torch.bfloat16)
+    for rows, mma in ((256, 1), (qm.MMA_MIN_ROWS, 1), (1, 0)):
+        before = dict(qm.launches)
+        x = _x(dev, rows, 2048)
+        _close(qm.quant_matmul(x, q), qm.qmm_group_plain(x, q))
+        assert qm.launches["qmm_group"] == before.get("qmm_group", 0) + 1
+        assert qm.launches["qmm_group_mma"] == \
+            before.get("qmm_group_mma", 0) + mma
+
+
+@pytest.mark.parametrize("rows", [1, 5, 64])
+def test_f16_activations_on_the_card(dev, rows):
+    """An f16 x runs on the card and writes f16: qmm_group (either form),
+    qmm_chunk, qmm_group2d, qmm_slab; under "w4a8" it launches qmm_group,
+    as the JAX package sends it to its group kernel."""
+    q = _qlin(dev, 2048, 384, 4, torch.bfloat16)
+    x = _x(dev, rows, 2048).half()
+    before = dict(qm.launches)
+    _close(qm.quant_matmul(x, q, variant="group"), qm.qmm_group_plain(x, q))
+    _close(qm.quant_matmul(x, q, variant="w4a8"), qm.qmm_group_plain(x, q))
+    assert qm.launches["qmm_group"] == before.get("qmm_group", 0) + 2
+    assert qm.launches["qmm_w4a8"] == before.get("qmm_w4a8", 0)
+    _close(qm.quant_matmul(x, q, variant="chunk"), qm.qmm_chunk_plain(x, q))
+    _close(qm._launch_group2d(x, q, 256), qm.qmm_group2d_plain(x, q, 256))
+    qp = quantize_weight(torch.randn(2048, 384, generator=torch.Generator()
+                                     .manual_seed(3)), bits=4,
+                         group_size=128, paired=True)
+    qp = QuantizedLinear(qp.qweight.to(dev), qp.scales.to(dev), 4, 128)
+    _close(qm.quant_matmul(x, qp), qm.qmm_slab_plain(x, qp))
+    assert qm.launches["qmm_chunk"] == before.get("qmm_chunk", 0) + 1
+    assert qm.launches["qmm_group2d"] == before.get("qmm_group2d", 0) + 1
+    assert qm.launches["qmm_slab"] == before.get("qmm_slab", 0) + 1

@@ -613,3 +613,77 @@ def test_odd_physical_columns_vs_jax():
     assert got.shape == (1, 1002) and got.dtype == torch.bfloat16
     _close(got, qm.quant_matmul(x, q))
     _close(got, qm.quant_matmul(x, q, interpret=True))
+
+
+# -- f16 activations and the two forms of qmm_group --------------------------
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("rows", [1, 8, 64])
+def test_f16_group_plain_vs_pallas(bits, rows):
+    """qmm_group_plain, the function both CUDA forms of qmm_group compute,
+    with an f16 x against the interpreted TPU kernel, which takes an f16 x
+    (its dot of f16 and the bf16-cast weight sums in f32) and writes f16.
+    OUT_TOL: both sides round f32 sums, taken in another order, to f16."""
+    rng, q, _ = _weights(24, sdt=jnp.bfloat16, bits=bits)
+    x = jnp.asarray(rng.standard_normal((rows, 512)), jnp.float16)
+    want = qm.quant_matmul(x, q, interpret=True, variant="group")
+    got = tqm.qmm_group_plain(_t(x), _port_q(q))[:, :384]
+    assert got.dtype == torch.float16 and want.dtype == jnp.float16
+    _close(got, want)
+
+
+@pytest.mark.parametrize("variant", ["group", "w4a8"])
+@pytest.mark.parametrize("bits", [4, 8])
+def test_f16_quant_matmul_on_the_cpu_vs_jax(variant, bits):
+    """On the CPU an f16 x takes the JAX package's off-chip math, as an
+    f32 x does: the dequant route, or quant_matmul_w4a8_ref under "w4a8",
+    in f16."""
+    rng, q, _ = _weights(25, sdt=jnp.bfloat16, bits=bits)
+    x = jnp.asarray(rng.standard_normal((3, 512)), jnp.float16)
+    tq = _port_q(q)
+    assert tqm.route(_t(x), tq, variant)[0] == (
+        "w4a8_ref" if variant == "w4a8" else "dequant_matmul")
+    got = tqm.quant_matmul(_t(x), tq, variant=variant)
+    assert got.dtype == torch.float16 and got.shape == (3, 384)
+    _close(got, qm.quant_matmul(x, q, variant=variant))
+
+
+@pytest.mark.parametrize("rows,dtype,norm,form", [
+    (1, torch.bfloat16, False, "cuda_core"),
+    (tqm.MMA_MIN_ROWS - 1, torch.bfloat16, False, "cuda_core"),
+    (tqm.MMA_MIN_ROWS, torch.bfloat16, False, "mma"),
+    (tqm.MMA_MIN_ROWS, torch.float16, False, "mma"),
+    (256, torch.float16, False, "mma"),
+    (256, torch.float32, False, "cuda_core"),
+    (64, torch.float32, False, "cuda_core"),
+    (64, torch.bfloat16, True, "cuda_core"),
+    (256, torch.bfloat16, True, "cuda_core"),
+])
+def test_group_form(rows, dtype, norm, form):
+    """The form a qmm_group launch on the card takes: the tensor cores for
+    a bf16 or f16 x without a norm from MMA_MIN_ROWS rows, the CUDA cores
+    for an f32 x (its numbers stay f32), a fused norm or fewer rows."""
+    assert 1 <= tqm.MMA_MIN_ROWS <= tqm.KERNEL_MAX_ROWS
+    assert tqm.group_form(rows, dtype, norm) == form
+
+
+@pytest.mark.parametrize("rows", [1, 8, 9, 33, 64, 100, 256])
+@pytest.mark.parametrize("dout_p,krows", [(4096, 2048), (12288, 2048),
+                                          (1024, 1024), (51200, 1024),
+                                          (260, 512)])
+def test_mma_plan(rows, dout_p, krows):
+    """qmm_group_mma's launch plan: a row tile that the C entry takes and
+    that holds the rows up to 64, at most one split per scale group of
+    128, a split only where the column and row tiles leave blocks short
+    of the target, and then enough splits to reach it where the groups
+    allow."""
+    sms = 132
+    tile, splits = tqm.mma_plan(rows, dout_p, krows, 128, sms)
+    assert tile in tqm.MMA_ROW_TILES
+    assert tile >= min(rows, 32) and (rows > 64) == (tile == 64)
+    blocks = -(-dout_p // tqm.MMA_COLS) * -(-rows // tile)
+    target = sms if tile == 64 else 2 * sms
+    assert 1 <= splits <= krows // 128
+    assert splits == 1 or blocks < target
+    assert blocks >= target or splits == krows // 128 \
+        or blocks * splits >= target
