@@ -19,21 +19,29 @@ Phases, each failing with a nonzero exit, each printing its seconds:
      call's time; qmm_group's tensor-core form (qmm_group_mma) at the 7B
      shapes at SLOTS, 64 and SHORT rows, GPT-2's int8 w_o, w_down and
      lm_head at 64 rows and wo at SHORT rows of f16, each beside the
-     CUDA-core form's time in the same call;
+     CUDA-core form's time in the same call; qmm_w4a8's tensor-core form
+     (qmm_w4a8_mma) at the lm_head's SLOTS and SHORT rows, and
+     qmm_group_ln's (qmm_group_ln_mma) at GPT-2's w_qkv and w_up at 64
+     rows (its library row also from the raw rows: F.layer_norm +
+     addmm), each beside the CUDA-core form in the same call; and the
+     crossover tables of both forms, forced: qmm_group at 1-8 rows,
+     qmm_w4a8 at 1-5, 8, 64 and 256 rows, qmm_group_ln at 1, 8 and
+     64 rows (with its tile alone on rows normalized beforehand), which
+     set MMA_MIN_ROWS and W4A8_MMA_MIN_ROWS;
   4. the 7B INT4 + INT8-KV decode path with random weights built on the
      card as bench.py builds them: one step with the kernels against the
      same step on the plain versions (CPU), then llama_decode_multi for
      128 greedy steps under a CUDA graph (tokens equal to an eager loop),
      tok/s (min of 3 fresh runs) against the copy-rate roofline, and each
-     kernel's launch count on that path (no qmm_group_mma at 1 row);
+     kernel's launch count on that path (no tensor-core form at 1 row);
   5. the prompt -> generate path (greedy_generate) with the same weights
      and a seeded 1024-token prompt, for 128 tokens with the default bf16
      cache and again with an INT8 cache: prefill ms, prompt tok/s, the
      decode tok/s of the generate loop (min of 3 runs) against its
      roofline, the launches of every kernel and of the dequant route;
      a 256-token prompt, whose matmuls take the kernels (qmm_group_mma
-     4 x 32 launches a prefill), its prefill ms beside the 1024-token
-     one's; prefill of S-1
+     4 x 32 launches a prefill, qmm_w4a8_mma 1), its prefill ms beside
+     the 1024-token one's; prefill of S-1
      tokens plus one bf16 decode step against the S-token prefill; a
      2-layer model of 7B width, kernels on the card against the plain
      versions on the CPU;
@@ -50,7 +58,8 @@ Phases, each failing with a nonzero exit, each printing its seconds:
      mid-stream and restored into a fresh engine ends in the same tokens;
      the paged kernel is launched 32 times per decode step and
      flash_attention 32 times per prefill pass; a decode step at 8 rows
-     launches qmm_group_mma 4 x 32 times where MMA_MIN_ROWS <= 8. Prints
+     launches qmm_group_mma 4 x 32 times where MMA_MIN_ROWS <= 8 and
+     qmm_w4a8_mma once where W4A8_MMA_MIN_ROWS <= 8. Prints
      generated tok/s
      over the drain, decode ms per step at 8 live slots and the engine's
      stats slices;
@@ -69,7 +78,8 @@ Phases, each failing with a nonzero exit, each printing its seconds:
      token of every request is the pick, or within G_FORCED of the pick,
      of gpt2_prefill forced along the same history; a decode step
      launches qmm_group_ln 48 times, qmm_group 49 (all of them
-     qmm_group_mma where MMA_MIN_ROWS <= 64) and flash_decode (or
+     qmm_group_mma, and all 48 qmm_group_ln_mma, where MMA_MIN_ROWS <=
+     64) and flash_decode (or
      flash_decode_q8) 24. Prints generated tok/s over the drain (every
      sample), ms per step at 64 live slots, the stats slices and a
      torch.profiler window over one chunk;
@@ -127,7 +137,7 @@ rows, qmm_group2d at 1 row), and the graph slice's kernels: rmsnorm at 1,
 and at Longformer-base's attention (12 heads of 64, window 256, S 4096,
 bf16), flash_attention at head dim 64 at entry()'s prompt (q, k, v [2, 8,
 64, 64]).
-The last lines are the kernels JSON (18 kernels), nvidia-smi's name and
+The last lines are the kernels JSON (20 kernels), nvidia-smi's name and
 power limit,
 and {"ok": true, "device": {...}}. A report goes to chiprun_out/.
 """
@@ -386,20 +396,27 @@ def main():
     w = dequantize_weight(q)
     if qm.route(randn(1, cfg.dim), q)[0] != "qmm_w4a8":
         fail("the variant table does not route the lm_head to w4a8")
+    # 1 row: the CUDA-core form; SLOTS and SHORT rows: the tensor-core
+    # form (the path's own call), beside the CUDA-core form, forced
     for rows, path in ((1, "decode"), (SLOTS, "serving paged bf16"),
                        (SHORT, f"prompt {SHORT}")):
         x = randn(rows, cfg.dim)
+        mma = qm.w4a8_form(rows, x.dtype) == "mma"
         cases.append(dict(
-            name="qmm_w4a8",
+            name="qmm_w4a8_mma" if mma else "qmm_w4a8",
             shape="lm_head" if rows == 1 else f"lm_head {rows} rows",
             path=path, replaces=TPU + "quant_matmul.py:283",
-            source=SRC + "quant_matmul.cu",
+            source=SRC + ("quant_matmul_w4a8_mma.cu" if mma
+                          else "quant_matmul.cu"),
             kernel=lambda x=x, q=q: qm.quant_matmul(x, q),
             plain=lambda x=x, q=q: qm.qmm_w4a8_plain(x, q)[
                 :, :q.out_features],
             library=lambda x=x, w=w: torch.matmul(x, w),
             bytes=nbytes(x, q.qweight, q.scales) + 2 * rows * q.out_physical,
-            ops=2 * rows * cfg.dim * q.out_physical, kind="int8"))
+            ops=2 * rows * cfg.dim * q.out_physical, kind="int8",
+            **({"cuda_core": lambda x=x, q=q: qm._launch_w4a8(
+                x, q, form="cuda_core")[:, :q.out_features]} if mma
+               else {})))
     for label, H, Hkv in (("mha 32/32", 32, 32), ("gqa 32/8", 32, 8)):
         D, S = cfg.head_dim, MAX_SEQ
         qh = randn(1, H, 1, D)
@@ -471,6 +488,10 @@ def main():
         with knobs(c.get("env", {})):
             check_and_time(torch, c, counters, flush, bw_copy)
     report["mma_crossover"] = mma_crossover(torch, qm, layer0, randn, flush)
+    report["w4a8_crossover"] = w4a8_crossover(torch, qm, params["lm_head"],
+                                              randn, flush)
+    report["ln_crossover"] = ln_crossover(torch, qm, gparams["layers"][0],
+                                          gcfg, gen, randn, flush)
     del flush, qa, ka, va
     t_phase = phase(3, t_phase)
 
@@ -482,9 +503,9 @@ def main():
                   "flash_decode_q8"):
         if paths["decode"].get(kname, 0) <= 0:
             fail(f"{kname} was never launched on the main path")
-    if paths["decode"].get("qmm_group_mma", 0) or \
-            step4.get("qmm_group_mma", 0):
-        fail("the 1-row decode launched qmm_group's tensor-core form")
+    for kname in ("qmm_group_mma", "qmm_w4a8_mma", "qmm_group_ln_mma"):
+        if paths["decode"].get(kname, 0) or step4.get(kname, 0):
+            fail(f"the 1-row decode launched {kname}, a tensor-core form")
     t_phase = phase(4, t_phase)
 
     # 5. the 7B prompt -> generate path
@@ -611,7 +632,9 @@ def main():
             "bytes": c["bytes"], "ops": c["ops"],
             "library_ms": c["library_ms"],
             **({"cuda_core_ms": c["cuda_core_ms"]}
-               if "cuda_core_ms" in c else {})})
+               if "cuda_core" in c else {}),
+            **({"library_ln_ms": c["library_ln_ms"]}
+               if "library_ln" in c else {})})
     report["kernels"] = kernels
     os.makedirs("chiprun_out", exist_ok=True)
     with open("chiprun_out/chip_smoke_report.json", "w") as f:
@@ -644,8 +667,10 @@ def check_and_time(torch, c, counters, flush, bw_copy):
     c["plain_ms"] = cuda_ms(torch, c["plain"], 5, flush)
     c["library_ms"] = cuda_ms(torch, c["library"], 50, flush) \
         if c["library"] else None
-    if "cuda_core" in c:            # qmm_group_mma: the other form, now
+    if "cuda_core" in c:            # a tensor-core form: the other form, now
         c["cuda_core_ms"] = cuda_ms(torch, c["cuda_core"], 50, flush)
+    if "library_ln" in c:           # LayerNorm + addmm from the raw rows
+        c["library_ln_ms"] = cuda_ms(torch, c["library_ln"], 50, flush)
     c["bound_ms"] = 1e3 * max(c["bytes"] / HBM_BYTES_S,
                               c["ops"] / PEAK_OPS[c["kind"]])
     c["bound_by"] = ("bytes" if c["bytes"] / HBM_BYTES_S
@@ -658,6 +683,8 @@ def check_and_time(torch, c, counters, flush, bw_copy):
           f"library {c['library_ms'] or float('nan'):.4f} ms  "
           + (f"cuda-core form {c['cuda_core_ms']:.4f} ms  "
              if "cuda_core" in c else "")
+          + (f"layer_norm + addmm {c['library_ln_ms']:.4f} ms  "
+             if "library_ln" in c else "")
           + f"{c['bytes'] / 1e6:.2f} MB", flush=True)
 
 
@@ -976,11 +1003,13 @@ def generate_path(torch, llama, counters, params, cfg, dev, report,
     counters.reset()
     prefill_s, _ = time_prefill(torch, llama, params, cfg, short, cache, 1)
     per_prompt = counters.read()
-    want_mma = 4 * cfg.n_layers if SHORT >= qm.MMA_MIN_ROWS else 0
-    if per_prompt.get("qmm_group_mma", 0) != want_mma:
-        fail(f"{label}: a prefill launched qmm_group_mma "
-             f"{per_prompt.get('qmm_group_mma', 0)} times, expected "
-             f"{want_mma}")
+    want_mma = {"qmm_group_mma": 4 * cfg.n_layers
+                if SHORT >= qm.MMA_MIN_ROWS else 0,
+                "qmm_w4a8_mma": int(SHORT >= qm.W4A8_MMA_MIN_ROWS)}
+    for kname, n in want_mma.items():
+        if per_prompt.get(kname, 0) != n:
+            fail(f"{label}: a prefill launched {kname} "
+                 f"{per_prompt.get(kname, 0)} times, expected {n}")
     prefill_s, _ = time_prefill(torch, llama, params, cfg, short, cache)
     print(f"# prefill ms: {SHORT} tokens {1e3 * prefill_s:.2f}, {PROMPT} "
           f"tokens {res[f'prompt {PROMPT}']['prefill_ms']:.2f}", flush=True)
@@ -1062,7 +1091,13 @@ def device_profile(torch, fn):
     it in which some kernel ran, and kernel milliseconds by kind. None
     where the profiler recorded no device event (then: not measured)."""
     from torch.profiler import ProfilerActivity, profile
-    kinds = (("qmm_group_kernel", "qmm_group*"),
+    kinds = (("w4a8_quantize_rows", "qmm_w4a8"),
+             ("qmm_w4a8_mma_kernel", "qmm_w4a8"),
+             ("w4a8_splitk_sum", "qmm_w4a8 sum"),
+             ("group_ln_norm_rows", "qmm_group_ln"),
+             ("qmm_group_ln_mma_kernel", "qmm_group_ln"),
+             ("group_ln_splitk_sum", "qmm_group_ln sum"),
+             ("qmm_group_kernel", "qmm_group*"),
              ("qmm_w4a8_kernel", "qmm_w4a8"),
              ("qmm_group_mma_kernel", "qmm_group_mma"),
              ("mma_splitk_sum", "qmm_group_mma sum"),
@@ -1335,11 +1370,14 @@ def serving_path(torch, llama, counters, params, cfg, dev, report,
             fail(f"{label}: {per_token[kname]} launches of {kname} in one "
                  f"decode step, expected {n_layers}")
         # the step's four matmuls a layer at SLOTS rows: tensor-core form
-        want_mma = 4 * n_layers if SLOTS >= qm.MMA_MIN_ROWS else 0
-        if step_launches.get("qmm_group_mma", 0) != want_mma:
-            fail(f"{label}: a decode step launched qmm_group_mma "
-                 f"{step_launches.get('qmm_group_mma', 0)} times, "
-                 f"expected {want_mma}")
+        # and its lm_head the int8 tensor cores
+        want_mma = {"qmm_group_mma": 4 * n_layers
+                    if SLOTS >= qm.MMA_MIN_ROWS else 0,
+                    "qmm_w4a8_mma": int(SLOTS >= qm.W4A8_MMA_MIN_ROWS)}
+        for kname, n in want_mma.items():
+            if step_launches.get(kname, 0) != n:
+                fail(f"{label}: a decode step launched {kname} "
+                     f"{step_launches.get(kname, 0)} times, expected {n}")
         del eng
 
         # a fresh engine resumes the mid-stream snapshot to the same tokens
@@ -1436,19 +1474,30 @@ def gpt2_cases(torch, qm, att, gcfg, gparams, gen, dev, randn,
         bias = (torch.randn(q.out_features, generator=gen, device=dev)
                 * 0.1).to(torch.bfloat16)
         xn, w = qm.layer_norm(x, g, b, eps), dequantize_weight(q)
+        mma = qm.ln_form(rows, x.dtype) == "mma"
         out.append(dict(
-            name="qmm_group_ln", shape=f"{label} {rows} rows",
+            name="qmm_group_ln_mma" if mma else "qmm_group_ln",
+            shape=f"{label} {rows} rows",
             path=GPT2_BF16, replaces=TPU + "quant_matmul.py:300",
-            source=SRC + "quant_matmul_fused.cu",
+            source=SRC + ("quant_matmul_mma.cu" if mma
+                          else "quant_matmul_fused.cu"),
             kernel=lambda x=x, g=g, b=b, q=q, bias=bias:
                 qm.quant_matmul_ln(x, g, b, q, bias=bias, eps=eps),
             plain=lambda x=x, g=g, b=b, q=q, bias=bias:
                 qm.qmm_group_ln_plain(x, g, b, q, bias, eps)[
                     :, :q.out_features],
+            # addmm on rows normalized before the timing; and from the raw
+            # rows, F.layer_norm then addmm
             library=lambda xn=xn, w=w, bias=bias: torch.addmm(bias, xn, w),
+            library_ln=lambda x=x, g=g, b=b, w=w, bias=bias: torch.addmm(
+                bias, torch.nn.functional.layer_norm(x, (dim,), g, b, eps),
+                w),
             bytes=nbytes(x, g, b, q.qweight, q.scales, bias)
             + 2 * rows * q.out_physical,
-            ops=2 * rows * dim * q.out_physical, kind="bf16"))
+            ops=2 * rows * dim * q.out_physical, kind="bf16",
+            **({"cuda_core": lambda x=x, g=g, b=b, q=q, bias=bias:
+                qm._launch_group_ln(x, g, b, q, bias, eps, form="cuda_core")[
+                    :, :q.out_features]} if mma else {})))
     for label, q in (("w_o", layer0["w_o"]), ("w_down", layer0["w_down"]),
                      ("lm_head", gparams["lm_head_q"])):
         x = randn(G_SLOTS, q.in_features)
@@ -1624,6 +1673,53 @@ def mma_crossover(torch, qm, layer0, randn, flush):
     return out
 
 
+def w4a8_crossover(torch, qm, q, randn, flush):
+    """Both forms of qmm_w4a8, forced, at 1-5, 8, 64 and 256 rows of the
+    7B lm_head, in one call: the times that set qm.W4A8_MMA_MIN_ROWS (the
+    fewest rows from which the tensor-core form is the faster). Returns
+    {rows: {form: ms}}."""
+    out = {}
+    for rows in (1, 2, 3, 4, 5, 8, 64, 256):
+        x = randn(rows, q.in_features)
+        out[rows] = {form: cuda_ms(
+            torch, lambda x=x, form=form: qm._launch_w4a8(x, q, form=form),
+            50, flush) for form in ("mma", "cuda_core")}
+    print(f"# qmm_w4a8 forms, lm_head ms: {json.dumps(out)}; "
+          f"W4A8_MMA_MIN_ROWS = {qm.W4A8_MMA_MIN_ROWS}", flush=True)
+    return out
+
+
+def ln_crossover(torch, qm, glayer0, gcfg, gen, randn, flush):
+    """Both forms of qmm_group_ln, forced, at 1, 8 and 64 rows of GPT-2's
+    w_qkv and w_up (ms summed over the two), in one call, and the
+    tensor-core form's tile alone (qmm_group_mma on rows normalized
+    beforehand, no bias): the form minus the tile is what the LayerNorm
+    pre-pass and the bias cost. Returns {rows: {form: ms}}."""
+    dim, eps = gcfg.dim, gcfg.layer_norm_eps
+    g = (torch.rand(dim, generator=gen, device=flush.device) + 0.5).to(
+        torch.bfloat16)
+    b = (torch.randn(dim, generator=gen, device=flush.device) * 0.1).to(
+        torch.bfloat16)
+    out = {}
+    for rows in (1, 8, 64):
+        out[rows] = {"mma": 0.0, "cuda_core": 0.0, "tile_alone": 0.0}
+        for wkey, bkey in (("w_qkv", "b_qkv"), ("w_up", "b_up")):
+            q, bias = glayer0[wkey], glayer0[bkey]
+            x = randn(rows, dim)
+            xn = qm.layer_norm(x, g, b, eps)
+            for form in ("mma", "cuda_core"):
+                out[rows][form] += cuda_ms(
+                    torch, lambda x=x, q=q, bias=bias, form=form:
+                    qm._launch_group_ln(x, g, b, q, bias, eps, form=form),
+                    50, flush)
+            out[rows]["tile_alone"] += cuda_ms(
+                torch, lambda xn=xn, q=q: qm._launch_group(
+                    xn, None, q, 0.0, "qmm_group", form="mma"), 50, flush)
+    print(f"# qmm_group_ln forms, ms summed over w_qkv, w_up: "
+          f"{json.dumps(out)}; MMA_MIN_ROWS = {qm.MMA_MIN_ROWS}", flush=True)
+    return out
+
+
 def compare_logits_rows(torch, what, got, want, report):
     """compare_logits for a batch [B, vocab]: the worst row's relative
     error <= 5e-2, and every row's top-1 equal or a near-tie within twice
@@ -1690,6 +1786,7 @@ def gpt2_path(torch, gpt2, sb, counters, gparams, gcfg, dev, report, steps):
                      kname: gcfg.n_layers}
         if B >= qm.MMA_MIN_ROWS:        # w_o, w_down, lm_head at B rows
             want_step["qmm_group_mma"] = 2 * gcfg.n_layers + 1
+            want_step["qmm_group_ln_mma"] = 2 * gcfg.n_layers
         if steps[label] != want_step:
             fail(f"{label}: a decode step launched {steps[label]}, expected "
                  f"{want_step}")

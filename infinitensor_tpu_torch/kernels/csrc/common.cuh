@@ -52,6 +52,22 @@ __device__ __forceinline__ float i8_val(uint32_t w, int shift) {
   return __uint_as_float(((w >> shift) & 0xFFu) ^ 0x4B000080u) - 8388736.f;
 }
 
+// A 4 x 4 byte transpose: w[i] holds 4 adjacent columns (bytes j) of
+// packed row i; cw[j] gets column j of rows 0..3 (byte i = row i), the
+// layout of 4 consecutive K values that __dp4a and an int8 mma fragment
+// take. Eight byte permutes.
+__device__ __forceinline__ void transpose_bytes(const uint32_t (&w)[4],
+                                                uint32_t (&cw)[4]) {
+  const uint32_t a_lo = __byte_perm(w[0], w[1], 0x5140);
+  const uint32_t a_hi = __byte_perm(w[0], w[1], 0x7362);
+  const uint32_t b_lo = __byte_perm(w[2], w[3], 0x5140);
+  const uint32_t b_hi = __byte_perm(w[2], w[3], 0x7362);
+  cw[0] = __byte_perm(a_lo, b_lo, 0x5410);
+  cw[1] = __byte_perm(a_lo, b_lo, 0x7632);
+  cw[2] = __byte_perm(a_hi, b_hi, 0x5410);
+  cw[3] = __byte_perm(a_hi, b_hi, 0x7632);
+}
+
 template <typename T>
 __device__ __forceinline__ T warp_sum(T v) {
 #pragma unroll

@@ -117,15 +117,8 @@ qmm_w4a8_kernel(const void* __restrict__ x,
         for (int t = 0; t < 4; ++t)
           w[t] = __ldg(reinterpret_cast<const uint32_t*>(qp + (size_t)(i + t) * dout_p));
         // rows i..i+3 x columns j -> one word per column, rows in bytes
-        const uint32_t a_lo = __byte_perm(w[0], w[1], 0x5140);
-        const uint32_t a_hi = __byte_perm(w[0], w[1], 0x7362);
-        const uint32_t b_lo = __byte_perm(w[2], w[3], 0x5140);
-        const uint32_t b_hi = __byte_perm(w[2], w[3], 0x7362);
         uint32_t cw[4];
-        cw[0] = __byte_perm(a_lo, b_lo, 0x5410);
-        cw[1] = __byte_perm(a_lo, b_lo, 0x7632);
-        cw[2] = __byte_perm(a_hi, b_hi, 0x5410);
-        cw[3] = __byte_perm(a_hi, b_hi, 0x7632);
+        transpose_bytes(w, cw);
         const int k = c * group + i;
 #pragma unroll
         for (int r = 0; r < R; ++r) {

@@ -121,6 +121,40 @@ __device__ void write_out(const float* red, const float* row_scale,
   }
 }
 
+// The LayerNorm statistics of the bf16 row starting at x[xr]: the f32
+// mean, then 1/sqrt(var + eps) of the f32 variance of x - mean, reduced
+// in the order of a kLanes x kWarps block. Every form that normalizes
+// a row with it and layer_norm_value gets the same bits (qmm_group_ln's
+// prologue and the pre-pass of its tensor-core form).
+__device__ __forceinline__ void layer_norm_stats(const void* x, size_t xr,
+                                                 int din, float eps,
+                                                 float* rpart, float& mu,
+                                                 float& rinv) {
+  const int tid = threadIdx.y * kLanes + threadIdx.x;
+  const int nthr = kLanes * kWarps;
+  float sm = 0.f;
+  for (int k = tid; k < din; k += nthr) sm += load_x<kXBf16>(x, xr + k);
+  mu = block_reduce<false>(sm, rpart) / (float)din;
+  float ss = 0.f;
+  for (int k = tid; k < din; k += nthr) {
+    const float d = load_x<kXBf16>(x, xr + k) - mu;
+    ss += d * d;
+  }
+  const float var = block_reduce<false>(ss, rpart) / (float)din;
+  rinv = 1.f / sqrtf(var + eps);
+}
+
+// ((v - mu) * rinv) * gamma[k] + beta[k] in f32, rounded to bf16 once;
+// gamma and beta are both bf16 or (norm_bf16 false) both f32.
+__device__ __forceinline__ float layer_norm_value(float v, float mu,
+                                                  float rinv, const void* nw,
+                                                  const void* nb,
+                                                  bool norm_bf16, int k) {
+  return round_bf16(__fadd_rn(
+      __fmul_rn(__fmul_rn(v - mu, rinv), load_scale(nw, norm_bf16, k)),
+      load_scale(nb, norm_bf16, k)));
+}
+
 // bf16 of the f32 product of a weight value and its scale (kDequant).
 __device__ __forceinline__ float scaled_bf16(float v, float s) {
   return round_bf16(__fmul_rn(v, s));
@@ -179,18 +213,7 @@ qmm_group_kernel(const void* __restrict__ x,
       const float ms = block_reduce<false>(ss, rpart) / (float)din;
       rinv = 1.f / sqrtf(ms + eps);
     }
-    if (PRO == kLayerNorm) {
-      float sm = 0.f;
-      for (int k = tid; k < din; k += nthr) sm += load_x<XK>(x, xr + k);
-      mu = block_reduce<false>(sm, rpart) / (float)din;
-      float ss = 0.f;
-      for (int k = tid; k < din; k += nthr) {
-        const float d = load_x<XK>(x, xr + k) - mu;
-        ss += d * d;
-      }
-      const float var = block_reduce<false>(ss, rpart) / (float)din;
-      rinv = 1.f / sqrtf(var + eps);
-    }
+    if (PRO == kLayerNorm) layer_norm_stats(x, xr, din, eps, rpart, mu, rinv);
     for (int k = tid; k < xw; k += nthr) {
       const int src = MODE != kSplitK ? k
                       : k < span     ? k0 + k
@@ -200,9 +223,7 @@ qmm_group_kernel(const void* __restrict__ x,
         v = round_bf16(round_bf16(v * rinv) *
                        bf16_to_f32(static_cast<const __nv_bfloat16*>(nw)[k]));
       if (PRO == kLayerNorm)
-        v = round_bf16(__fadd_rn(
-            __fmul_rn(__fmul_rn(v - mu, rinv), load_scale(nw, norm_bf16, k)),
-            load_scale(nb, norm_bf16, k)));
+        v = layer_norm_value(v, mu, rinv, nw, nb, norm_bf16, k);
       xs[r * xw + k] = v;
     }
   }

@@ -2,11 +2,25 @@
 // group-dot matmul for 1 to 256 activation rows of bf16 or f16, with
 // mma.sync m16n8k16 (16-bit operands, f32 sums) fed by a ring of cp.async
 // stages. Python wrapper: kernels/quant_matmul.py (_launch_group, form
-// "mma"; group_form says when a launch takes it).
+// "mma"; group_form says when a launch takes it; _launch_group_ln for the
+// LayerNorm form, ln_form).
 //
-// Replaces the TPU kernel of infinitensor_tpu/kernels/quant_matmul.py:
-//   qmm_group_mma  <- _kernel_group (:100, body _group_dots :115-166)
-// for a bf16 or f16 x without a norm. It computes _group_dots' function:
+// Replaces the TPU kernels of infinitensor_tpu/kernels/quant_matmul.py:
+//   qmm_group_mma     <- _kernel_group (:100, body _group_dots :115-166)
+//   qmm_group_ln_mma  <- _kernel_group_ln (:300, via quant_matmul_ln :321)
+// the first for a bf16 or f16 x without a norm, the second for a bf16 x
+// (GPT-2's pre-matmul LayerNorm, then the output bias). The LayerNorm
+// form is a pre-pass and this tile: group_ln_norm_rows writes the rows
+// normalized to bf16 [rows, din] (64 x 1024 at GPT-2's step: 128 KB)
+// with the arithmetic and reduction order of qmm_group_ln's CUDA-core
+// prologue (quant_matmul.cuh layer_norm_stats / layer_norm_value), so
+// both forms agree to the bit on the normalized x; a prologue in the
+// tile would have each of the 24-32 column blocks of GPT-2's matrices
+// normalize the same rows again. The tile then ends as the TPU kernel
+// does: the f32 sum rounded to bf16, the bias added in f32, rounded again
+// (in its direct store and in its split sum alike). Both launches come
+// from one C entry; the step that runs it is a captured CUDA graph.
+// qmm_group_mma computes _group_dots' function:
 // per scale group, x times the weight's exact integer values, summed in
 // f32 to a per-group partial; the partial times that group's scale in f32,
 // added to the f32 accumulator; rounded once to x's type at the end. The
@@ -61,55 +75,15 @@
 // decode -> mma chain; the mma.sync rate itself is not reached. Later:
 // wgmma with TMA (A from registers, a producer warp), and decoding with
 // byte permutes straight from global memory.
+#include "mma_tile.cuh"
 #include "quant_matmul.cuh"
 
 namespace {
 
+using namespace mma_tile;
 using qmm_detail::allow_smem;
 
-constexpr int kWarps = 4;                  // each owns 32 columns
-constexpr int kBN = 32 * kWarps;           // output columns per block
-constexpr int kBK = 64;                    // packed rows per stage
-constexpr int kStages = 3;
-constexpr int kWStride = kBN + 16;         // bytes per staged weight row
 constexpr int kXStride = 2 * kBK + 16;     // bytes per staged x row
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Copy 16 (4) bytes to shared memory, zero-filled past `valid` bytes.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(valid));
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          int valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(valid));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(addr));
-}
 
 // d += a * b on the tensor cores, 16-bit operands of the type XK.
 template <int XK>
@@ -156,18 +130,6 @@ __device__ __forceinline__ uint32_t nibble_pair(uint32_t p) {
   return d;
 }
 
-// Two f32 values as a pair of 16-bit values of the type XK (a in the
-// low half), rounded to nearest.
-template <int XK>
-__device__ __forceinline__ uint32_t pack_out(float a, float b) {
-  if (XK == kXF16) {
-    const __half2 h = __floats2half2_rn(a, b);
-    return *reinterpret_cast<const uint32_t*>(&h);
-  }
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
 // The two signed bytes of a pair_bytes word as two exact 16-bit values.
 template <int XK>
 __device__ __forceinline__ uint32_t int8_pair(uint32_t p) {
@@ -181,20 +143,21 @@ __device__ __forceinline__ uint32_t int8_pair(uint32_t p) {
 // [splits, rows, dout_p]. Block (bx, by, bz): columns [bx * kBN, +kBN),
 // rows [by * BR, +BR), scale groups [bz * ngs / splits, (bz + 1) * ngs /
 // splits) of the packed rows. Warp w: columns w * 32 .. + 32 and all
-// BR = 8 * NT rows of the block's tile.
-template <int BITS, int XK, int NT>
-__global__ void __launch_bounds__(32 * kWarps)
-qmm_group_mma_kernel(const uint16_t* __restrict__ x,
-                     const int8_t* __restrict__ qw,
-                     const void* __restrict__ sc, bool sc_bf16,
-                     void* __restrict__ out, float* __restrict__ part,
-                     int rows, int din, int dout_p, int group, int splits) {
+// BR = 8 * NT rows of the block's tile. LN (bf16 only): out = bf16(
+// bf16(sum) + bias[n]), bias bf16/f32 [nbias] (0 past nbias, or none).
+template <int BITS, int XK, int NT, bool LN>
+__device__ __forceinline__ void group_mma_tile(
+    const uint16_t* __restrict__ x, const int8_t* __restrict__ qw,
+    const void* __restrict__ sc, bool sc_bf16, const void* __restrict__ bias,
+    bool bias_bf16, int nbias, void* __restrict__ out,
+    float* __restrict__ part, int rows, int din, int dout_p, int group,
+    int splits) {
+  static_assert(!LN || XK == kXBf16, "the LayerNorm form is bf16");
   constexpr int BR = 8 * NT;                      // rows per block
   constexpr int kHalves = BITS == 4 ? 2 : 1;      // x tiles: lo (and hi)
   constexpr int kWBytes = kBK * kWStride;
   constexpr int kXBytes = BR * kXStride;
   constexpr int kStage = kWBytes + kHalves * kXBytes;
-  constexpr int kThreads = 32 * kWarps;
   extern __shared__ __align__(16) uint8_t mma_smem[];
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -206,29 +169,12 @@ qmm_group_mma_kernel(const uint16_t* __restrict__ x,
   const int c1 = (int)((long long)(blockIdx.z + 1) * ngs / splits);
   const int p0 = c0 * group;
   const int nst = (c1 - c0) * group / kBK;
-  const bool vec16 = (dout_p & 15) == 0;
 
   // Stage st of this block (packed rows p0 + st * kBK ...) into ring slot.
   auto load_stage = [&](int slot, int st) {
     uint8_t* base = mma_smem + slot * kStage;
     const int p = p0 + st * kBK;
-    if (vec16) {
-      for (int i = threadIdx.x; i < kBK * (kBN / 16); i += kThreads) {
-        const int r = i / (kBN / 16), c = (i % (kBN / 16)) * 16;
-        const bool ok = col0 + c < dout_p;
-        cp_async16(base + r * kWStride + c,
-                   ok ? qw + (size_t)(p + r) * dout_p + col0 + c : qw,
-                   ok ? 16 : 0);
-      }
-    } else {
-      for (int i = threadIdx.x; i < kBK * (kBN / 4); i += kThreads) {
-        const int r = i / (kBN / 4), c = (i % (kBN / 4)) * 4;
-        const bool ok = col0 + c < dout_p;
-        cp_async4(base + r * kWStride + c,
-                  ok ? qw + (size_t)(p + r) * dout_p + col0 + c : qw,
-                  ok ? 4 : 0);
-      }
-    }
+    load_weight_tile<false>(base, qw, p, col0, dout_p);
 #pragma unroll
     for (int h = 0; h < kHalves; ++h) {
       uint8_t* xs = base + kWBytes + h * kXBytes;
@@ -350,6 +296,11 @@ qmm_group_mma_kernel(const uint16_t* __restrict__ x,
   }
 
   if (ncol >= dout_p) return;
+  float b[4] = {0.f, 0.f, 0.f, 0.f};
+  if (LN && bias && splits == 1)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (ncol + j < nbias) b[j] = load_scale(bias, bias_bf16, ncol + j);
 #pragma unroll
   for (int j = 0; j < NT; ++j)
 #pragma unroll
@@ -357,30 +308,104 @@ qmm_group_mma_kernel(const uint16_t* __restrict__ x,
       const int r = row0 + j * 8 + 2 * t + e;
       if (r >= rows) continue;
       // columns ncol .. ncol + 3: (f 0, m g), (f 0, m g+8), (f 1, m g), ...
-      const float v0 = acc[0][j][e], v1 = acc[0][j][2 + e];
-      const float v2 = acc[1][j][e], v3 = acc[1][j][2 + e];
+      float v[4] = {acc[0][j][e], acc[0][j][2 + e], acc[1][j][e],
+                    acc[1][j][2 + e]};
       if (splits > 1) {
         *reinterpret_cast<float4*>(
             part + ((size_t)blockIdx.z * rows + r) * dout_p + ncol) =
-            make_float4(v0, v1, v2, v3);
-      } else {
-        *reinterpret_cast<uint2*>(static_cast<uint16_t*>(out) +
-                                  (size_t)r * dout_p + ncol) =
-            make_uint2(pack_out<XK>(v0, v1), pack_out<XK>(v2, v3));
+            make_float4(v[0], v[1], v[2], v[3]);
+        continue;
       }
+      if (LN && bias)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) v[c] = __fadd_rn(round_bf16(v[c]), b[c]);
+      store4<XK>(out, (size_t)r * dout_p + ncol, v[0], v[1], v[2], v[3]);
     }
 }
 
-// out[i] = the sum over z of part[z][i], z in order, rounded to XK.
-template <int XK>
-__global__ void mma_splitk_sum(const float* __restrict__ part, int splits,
-                               size_t n, void* __restrict__ out) {
+template <int BITS, int XK, int NT>
+__global__ void __launch_bounds__(kThreads)
+qmm_group_mma_kernel(const uint16_t* __restrict__ x,
+                     const int8_t* __restrict__ qw,
+                     const void* __restrict__ sc, bool sc_bf16,
+                     void* __restrict__ out, float* __restrict__ part,
+                     int rows, int din, int dout_p, int group, int splits) {
+  group_mma_tile<BITS, XK, NT, false>(x, qw, sc, sc_bf16, nullptr, false, 0,
+                                      out, part, rows, din, dout_p, group,
+                                      splits);
+}
+
+// The tile of the LayerNorm form (a kernel of its own name, so that a
+// profile gives its time to qmm_group_ln): x holds the normalized rows.
+template <int BITS, int NT>
+__global__ void __launch_bounds__(kThreads)
+qmm_group_ln_mma_kernel(const uint16_t* __restrict__ x,
+                        const int8_t* __restrict__ qw,
+                        const void* __restrict__ sc, bool sc_bf16,
+                        const void* __restrict__ bias, bool bias_bf16,
+                        int nbias, void* __restrict__ out,
+                        float* __restrict__ part, int rows, int din,
+                        int dout_p, int group, int splits) {
+  group_mma_tile<BITS, kXBf16, NT, true>(x, qw, sc, sc_bf16, bias, bias_bf16,
+                                         nbias, out, part, rows, din, dout_p,
+                                         group, splits);
+}
+
+// out[i] = the sum over z of part[z][i], z in order, rounded to XK; with
+// LN and a bias as the tile's direct store ends: rounded to bf16, plus
+// bias[i % dout_p] in f32, rounded again.
+template <int XK, bool LN>
+__device__ __forceinline__ void splitk_sum_body(
+    const float* __restrict__ part, int splits, size_t n, int dout_p,
+    const void* __restrict__ bias, bool bias_bf16, int nbias,
+    void* __restrict__ out) {
   for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
        i += (size_t)gridDim.x * blockDim.x) {
     float s = 0.f;
     for (int z = 0; z < splits; ++z) s += part[z * n + i];
+    if (LN && bias) {
+      const int col = (int)(i % dout_p);
+      s = __fadd_rn(round_bf16(s),
+                    col < nbias ? load_scale(bias, bias_bf16, col) : 0.f);
+    }
     qmm_detail::store_out<XK>(out, i, s);
   }
+}
+
+template <int XK>
+__global__ void mma_splitk_sum(const float* __restrict__ part, int splits,
+                               size_t n, void* __restrict__ out) {
+  splitk_sum_body<XK, false>(part, splits, n, 1, nullptr, false, 0, out);
+}
+
+__global__ void group_ln_splitk_sum(const float* __restrict__ part,
+                                    int splits, size_t n, int dout_p,
+                                    const void* __restrict__ bias,
+                                    bool bias_bf16, int nbias,
+                                    void* __restrict__ out) {
+  splitk_sum_body<kXBf16, true>(part, splits, n, dout_p, bias, bias_bf16,
+                                nbias, out);
+}
+
+// One thread per output of the split sum, at most 1024 blocks.
+inline dim3 sum_grid(size_t n) {
+  return dim3((unsigned)((n + 255) / 256 < 1024 ? (n + 255) / 256 : 1024));
+}
+
+// Launch the tile `kernel` (qmm_group_mma_kernel or
+// qmm_group_ln_mma_kernel, BR rows per block) on its grid with the
+// shared memory it needs; `args` are its arguments.
+template <int BITS, int NT, typename K, typename... A>
+cudaError_t launch_tile(K kernel, size_t* granted, int rows, int dout_p,
+                        int splits, cudaStream_t stream, A... args) {
+  constexpr int BR = 8 * NT;
+  const size_t smem =
+      (size_t)kStages * (kBK * kWStride + (BITS == 4 ? 2 : 1) * BR * kXStride);
+  cudaError_t e = allow_smem(kernel, smem, granted);
+  if (e != cudaSuccess) return e;
+  dim3 grid((dout_p + kBN - 1) / kBN, (rows + BR - 1) / BR, splits);
+  kernel<<<grid, kThreads, smem, stream>>>(args...);
+  return cudaGetLastError();
 }
 
 template <int BITS, int XK, int NT>
@@ -389,24 +414,69 @@ cudaError_t launch_mma(const void* x, const void* qw, const void* sc,
                        int din, int dout_p, int group, int splits,
                        cudaStream_t stream) {
   static size_t granted = 0;
-  constexpr int BR = 8 * NT;
-  auto kernel = qmm_group_mma_kernel<BITS, XK, NT>;
-  const size_t smem =
-      (size_t)kStages * (kBK * kWStride + (BITS == 4 ? 2 : 1) * BR * kXStride);
-  cudaError_t e = allow_smem(kernel, smem, &granted);
-  if (e != cudaSuccess) return e;
-  dim3 grid((dout_p + kBN - 1) / kBN, (rows + BR - 1) / BR, splits);
-  kernel<<<grid, 32 * kWarps, smem, stream>>>(
-      static_cast<const uint16_t*>(x), static_cast<const int8_t*>(qw), sc,
-      sc_bf16, out, part, rows, din, dout_p, group, splits);
-  e = cudaGetLastError();
+  cudaError_t e = launch_tile<BITS, NT>(
+      qmm_group_mma_kernel<BITS, XK, NT>, &granted, rows, dout_p, splits,
+      stream, static_cast<const uint16_t*>(x),
+      static_cast<const int8_t*>(qw), sc, sc_bf16, out, part, rows, din,
+      dout_p, group, splits);
   if (e != cudaSuccess || splits == 1) return e;
   const size_t n = (size_t)rows * dout_p;
-  const int threads = 256;
-  const int blocks = (int)((n + threads - 1) / threads < 1024
-                               ? (n + threads - 1) / threads : 1024);
-  mma_splitk_sum<XK><<<blocks, threads, 0, stream>>>(part, splits, n, out);
+  mma_splitk_sum<XK><<<sum_grid(n), 256, 0, stream>>>(part, splits, n, out);
   return cudaGetLastError();
+}
+
+// The LayerNorm pre-pass: row blockIdx.x of x bf16 [rows, din] normalized
+// to xn bf16 [rows, din] (block: qmm_detail's kLanes x kWarps threads,
+// the CUDA-core prologue's reduction order).
+__global__ void __launch_bounds__(qmm_detail::kLanes * qmm_detail::kWarps)
+group_ln_norm_rows(const void* __restrict__ x, const void* __restrict__ gamma,
+                   const void* __restrict__ beta, bool norm_bf16, float eps,
+                   int din, __nv_bfloat16* __restrict__ xn) {
+  __shared__ float rpart[qmm_detail::kWarps];
+  const size_t xr = (size_t)blockIdx.x * din;
+  float mu, rinv;
+  qmm_detail::layer_norm_stats(x, xr, din, eps, rpart, mu, rinv);
+  const int nthr = qmm_detail::kLanes * qmm_detail::kWarps;
+  for (int k = threadIdx.y * qmm_detail::kLanes + threadIdx.x; k < din;
+       k += nthr)
+    xn[xr + k] = __float2bfloat16_rn(qmm_detail::layer_norm_value(
+        qmm_detail::load_x<kXBf16>(x, xr + k), mu, rinv, gamma, beta,
+        norm_bf16, k));
+}
+
+template <int BITS, int NT>
+cudaError_t launch_ln_mma(const void* x, const void* gamma, const void* beta,
+                          bool norm_bf16, void* xn, const void* qw,
+                          const void* sc, bool sc_bf16, const void* bias,
+                          bool bias_bf16, int nbias, void* out, float* part,
+                          int rows, int din, int dout_p, int group,
+                          float eps, int splits, cudaStream_t stream) {
+  static size_t granted = 0;
+  group_ln_norm_rows<<<rows, dim3(qmm_detail::kLanes, qmm_detail::kWarps), 0,
+                       stream>>>(x, gamma, beta, norm_bf16, eps, din,
+                                 static_cast<__nv_bfloat16*>(xn));
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  e = launch_tile<BITS, NT>(
+      qmm_group_ln_mma_kernel<BITS, NT>, &granted, rows, dout_p, splits,
+      stream, static_cast<const uint16_t*>(xn),
+      static_cast<const int8_t*>(qw), sc, sc_bf16, bias, bias_bf16, nbias,
+      out, part, rows, din, dout_p, group, splits);
+  if (e != cudaSuccess || splits == 1) return e;
+  const size_t n = (size_t)rows * dout_p;
+  group_ln_splitk_sum<<<sum_grid(n), 256, 0, stream>>>(
+      part, splits, n, dout_p, bias, bias_bf16, nbias, out);
+  return cudaGetLastError();
+}
+
+// The checks both C entries make on a launch of the tile.
+bool tile_refuses(const void* x, const void* qw, const void* part, int rows,
+                  int din, int dout_p, int bits, int group, int splits) {
+  const int krows = bits == 4 ? din / 2 : din;
+  return rows < 1 || group <= 0 || group % kBK || krows % group ||
+         dout_p % 4 || splits < 1 || splits > krows / group ||
+         (splits > 1 && !part) || reinterpret_cast<uintptr_t>(x) % 16 ||
+         reinterpret_cast<uintptr_t>(qw) % 16;
 }
 
 }  // namespace
@@ -425,11 +495,7 @@ ITT_EXPORT int qmm_group_mma(const void* x, int x_kind, const void* qw,
                              int bits, int group, int row_tile, int splits,
                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int krows = bits == 4 ? din / 2 : din;
-  if (rows < 1 || group <= 0 || group % kBK || krows % group || dout_p % 4 ||
-      splits < 1 || splits > krows / group || (splits > 1 && !part) ||
-      reinterpret_cast<uintptr_t>(x) % 16 ||
-      reinterpret_cast<uintptr_t>(qw) % 16)
+  if (tile_refuses(x, qw, part, rows, din, dout_p, bits, group, splits))
     return (int)cudaErrorInvalidValue;
   float* p = static_cast<float*>(part);
 #define ITT_MMA(B, XF, NT)                                                    \
@@ -442,5 +508,33 @@ ITT_EXPORT int qmm_group_mma(const void* x, int x_kind, const void* qw,
   ITT_MMA_TILES(8, kXBf16) ITT_MMA_TILES(8, kXF16)
 #undef ITT_MMA_TILES
 #undef ITT_MMA
+  return (int)cudaErrorInvalidValue;
+}
+
+// x bf16 [rows, din]; gamma, beta [din], both bf16 or (norm_bf16 = 0)
+// both f32; xn bf16 [rows, din] (16-byte aligned) buffer for the
+// normalized rows; qw, sc, part, row_tile, splits as qmm_group_mma; bias
+// bf16 or f32 [nbias], nbias <= dout_p, or null with nbias 0; out bf16
+// [rows, dout_p] = bf16(bf16(LN(x) @ W) + bias).
+ITT_EXPORT int qmm_group_ln_mma(const void* x, const void* gamma,
+                                const void* beta, int norm_bf16, void* xn,
+                                const void* qw, const void* sc, int sc_bf16,
+                                const void* bias, int bias_bf16, int nbias,
+                                void* part, void* out, int rows, int din,
+                                int dout_p, int bits, int group, float eps,
+                                int row_tile, int splits, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tile_refuses(xn, qw, part, rows, din, dout_p, bits, group, splits) ||
+      nbias < 0 || nbias > dout_p || (nbias > 0 && !bias))
+    return (int)cudaErrorInvalidValue;
+  float* p = static_cast<float*>(part);
+#define ITT_LN_MMA(B, NT)                                                     \
+  if (bits == B && row_tile == 8 * NT)                                        \
+    return (int)launch_ln_mma<B, NT>(x, gamma, beta, norm_bf16, xn, qw, sc,   \
+                                     sc_bf16, bias, bias_bf16, nbias, out, p, \
+                                     rows, din, dout_p, group, eps, splits, s);
+  ITT_LN_MMA(4, 1) ITT_LN_MMA(4, 2) ITT_LN_MMA(4, 4) ITT_LN_MMA(4, 8)
+  ITT_LN_MMA(8, 1) ITT_LN_MMA(8, 2) ITT_LN_MMA(8, 4) ITT_LN_MMA(8, 8)
+#undef ITT_LN_MMA
   return (int)cudaErrorInvalidValue;
 }

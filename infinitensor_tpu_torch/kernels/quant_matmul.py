@@ -1,8 +1,8 @@
 """Fused weight-only dequant + matmul for decode (counterpart of
 infinitensor_tpu/kernels/quant_matmul.py).
 
-Ten kernels, CUDA C++; nine over one group-dot body on the CUDA cores
-(csrc/quant_matmul.cuh), one on the tensor cores:
+Twelve kernels, CUDA C++; nine over one group-dot body on the CUDA cores
+(csrc/quant_matmul.cuh), three on the tensor cores:
   csrc/quant_matmul.cu
     qmm_group       <- _kernel_group       (group-partial dots, scale per group)
     qmm_group_norm  <- _kernel_group_norm  (RMSNorm fused ahead of the dots)
@@ -18,13 +18,23 @@ Ten kernels, CUDA C++; nine over one group-dot body on the CUDA cores
   csrc/quant_matmul_mma.cu
     qmm_group_mma   <- _kernel_group       (the same group dots on the
                                             tensor cores, mma.sync + cp.async)
+    qmm_group_ln_mma <- _kernel_group_ln   (a LayerNorm pre-pass, then
+                                            that tile with the bias behind)
+  csrc/quant_matmul_w4a8_mma.cu
+    qmm_w4a8_mma    <- _kernel_group_w4a8  (a quantize pre-pass, then the
+                                            int8 tensor cores, m16n8k32)
 
-qmm_group has two forms on the card, one function: a bf16 or f16 x
-without a norm at MMA_MIN_ROWS rows or more takes the tensor-core form
-(qmm_group_mma), any other launch the CUDA-core form (group_form says
-which; MMA_MIN_ROWS is where the two forms' times cross on the card,
-PERF.md). launches["qmm_group"] counts both forms and
-launches["qmm_group_mma"] the tensor-core one again.
+Three kernels have two forms on the card, one function each:
+  qmm_group     a bf16 or f16 x without a norm at MMA_MIN_ROWS rows or
+                more takes qmm_group_mma (group_form);
+  qmm_group_ln  a bf16 x at MMA_MIN_ROWS rows or more takes
+                qmm_group_ln_mma (ln_form);
+  qmm_w4a8      a bf16 or f32 x at W4A8_MMA_MIN_ROWS rows or more takes
+                qmm_w4a8_mma (w4a8_form);
+any other launch takes the CUDA-core form. The thresholds are where the
+two forms' times cross on the card (chip_smoke.py phase 3, PERF.md).
+launches[name] counts both forms of a kernel and launches[name + "_mma"]
+the tensor-core one again (qmm_group_ln_mma for qmm_group_ln).
 
 Each has a plain PyTorch version here that computes the same function step
 by step (`*_plain`). A wrapper given a CPU tensor runs the plain version;
@@ -99,9 +109,12 @@ from infinitensor_tpu_torch.quant.weight_only import (
 TUNE_DEFAULT = str(Path(__file__).with_name("qmm_tune.json"))
 VARIANTS = ("group", "w4a8", "slab", "chunk", "group2d")
 KERNEL_MAX_ROWS = 256
-# The fewest rows whose bf16 / f16 qmm_group launch takes the tensor-core
-# form: chip_smoke.py phase 3 times both forms in one call (PERF.md).
+# The fewest rows whose bf16 / f16 qmm_group launch (bf16 qmm_group_ln
+# launch) takes the tensor-core form, and the same for a bf16 / f32
+# qmm_w4a8 launch: chip_smoke.py phase 3 times both forms in one call
+# (PERF.md).
 MMA_MIN_ROWS = 2
+W4A8_MMA_MIN_ROWS = 3
 X_KINDS = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 
 launches = collections.Counter()
@@ -431,10 +444,20 @@ def _lib_fused() -> ctypes.CDLL:
 
 @functools.cache
 def _lib_mma() -> ctypes.CDLL:
-    P, I = _build.P, _build.I
+    P, I, F = _build.P, _build.I, _build.F
     return _build.typed(
         "quant_matmul_mma",
-        qmm_group_mma=[P, I, P, P, I, P, P, I, I, I, I, I, I, I, P])
+        qmm_group_mma=[P, I, P, P, I, P, P, I, I, I, I, I, I, I, P],
+        qmm_group_ln_mma=[P, P, P, I, P, P, P, I, P, I, I, P, P, I, I, I, I,
+                          I, F, I, I, P])
+
+
+@functools.cache
+def _lib_w4a8_mma() -> ctypes.CDLL:
+    P, I = _build.P, _build.I
+    return _build.typed(
+        "quant_matmul_w4a8_mma",
+        qmm_w4a8_mma=[P, I, P, P, P, P, I, P, P, I, I, I, I, I, I, I, P])
 
 
 @functools.cache
@@ -481,13 +504,32 @@ def group_form(rows: int, dtype: torch.dtype, norm: bool) -> str:
     return "cuda_core"
 
 
+def ln_form(rows: int, dtype: torch.dtype) -> str:
+    """Which form a qmm_group_ln launch on the card takes: "mma" (a
+    LayerNorm pre-pass and qmm_group_mma's tile, csrc/quant_matmul_mma.cu)
+    for a bf16 x at MMA_MIN_ROWS rows or more, else "cuda_core"
+    (csrc/quant_matmul_fused.cu)."""
+    return "mma" if dtype == torch.bfloat16 and rows >= MMA_MIN_ROWS \
+        else "cuda_core"
+
+
+def w4a8_form(rows: int, dtype: torch.dtype) -> str:
+    """Which form a qmm_w4a8 launch on the card takes: "mma" (the int8
+    tensor cores, csrc/quant_matmul_w4a8_mma.cu) for a bf16 or f32 x at
+    W4A8_MMA_MIN_ROWS rows or more, else "cuda_core" (csrc/quant_matmul.cu;
+    an f16 x takes qmm_group, route)."""
+    return "mma" if dtype in (torch.bfloat16, torch.float32) \
+        and rows >= W4A8_MMA_MIN_ROWS else "cuda_core"
+
+
 MMA_COLS = 128                  # output columns of a block (kBN)
-MMA_ROW_TILES = (8, 16, 32, 64)  # rows of a block the C entry takes
+MMA_ROW_TILES = (8, 16, 32, 64)  # rows of a block the C entries take
 
 
 def mma_plan(rows: int, dout_p: int, krows: int, group: int, sms: int
              ) -> tuple:
-    """(row_tile, splits) of a qmm_group_mma launch, the fastest of the
+    """(row_tile, splits) of a launch of the tensor-core tile
+    (qmm_group_mma, qmm_group_ln_mma, qmm_w4a8_mma), the fastest of the
     variants timed on the card: rows per block 8 or 16 up to that many
     rows, 32 up to 64 rows, 64 above; and the number of blocks K is split
     across, by whole scale groups (at most one split a group), so that
@@ -505,6 +547,18 @@ def mma_plan(rows: int, dout_p: int, krows: int, group: int, sms: int
 @functools.cache
 def _sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _tile_plan(x2: torch.Tensor, q: QuantizedLinear) -> tuple:
+    """(row_tile, splits, part) of a launch of the tensor-core tile:
+    mma_plan on this card, and the f32 partials [splits, rows, dout_p]
+    where K is split (else None)."""
+    rows, dout_p = x2.shape[0], q.out_physical
+    tile, splits = mma_plan(rows, dout_p, _packed_rows(q), q.group_size,
+                            _sms(x2.device.index or 0))
+    part = None if splits == 1 else torch.empty(
+        splits, rows, dout_p, dtype=torch.float32, device=x2.device)
+    return tile, splits, part
 
 
 def _launched(lib: ctypes.CDLL, err: int, name: str, out: torch.Tensor
@@ -540,16 +594,12 @@ def _launch_group_mma(x2, q, name: str) -> torch.Tensor:
                          f"{x2.dtype}")
     if x2.data_ptr() % 16:
         x2 = x2.clone()                 # cp.async reads 16-byte chunks
-    rows, dout_p = x2.shape[0], q.out_physical
-    tile, splits = mma_plan(rows, dout_p, _packed_rows(q), q.group_size,
-                            _sms(x2.device.index or 0))
-    part = None if splits == 1 else torch.empty(
-        splits, rows, dout_p, dtype=torch.float32, device=x2.device)
+    tile, splits, part = _tile_plan(x2, q)
     out, lib, p = _out(x2, q), _lib_mma(), _build.ptr
     err = lib.qmm_group_mma(
         p(x2), _x_kind(x2), p(q.qweight), p(q.scales),
-        q.scales.dtype == torch.bfloat16, p(part), p(out), rows,
-        x2.shape[1], dout_p, q.bits, q.group_size, tile, splits,
+        q.scales.dtype == torch.bfloat16, p(part), p(out), x2.shape[0],
+        x2.shape[1], q.out_physical, q.bits, q.group_size, tile, splits,
         _build.stream())
     _launched(lib, err, name, out)
     launches["qmm_group_mma"] += 1
@@ -567,7 +617,10 @@ def _launch_slab(x2, norm_w, q, eps: float, name: str) -> torch.Tensor:
     return _launched(lib, err, name, out)
 
 
-def _launch_group_ln(x2, gamma, beta, q, bias, eps: float) -> torch.Tensor:
+def _launch_group_ln(x2, gamma, beta, q, bias, eps: float,
+                     form: Optional[str] = None) -> torch.Tensor:
+    """qmm_group_ln in the form ln_form chooses; `form` forces "mma" or
+    "cuda_core" (tests and chip_smoke.py's side-by-side timing only)."""
     _check_cuda(x2, q)
     for name, t in (("gamma", gamma), ("beta", beta), ("bias", bias)):
         if t is not None and (t.device != x2.device
@@ -578,6 +631,8 @@ def _launch_group_ln(x2, gamma, beta, q, bias, eps: float) -> torch.Tensor:
             or bias.shape[-1] > q.out_physical):
         raise ValueError(f"bias {bias.dtype} {tuple(bias.shape)}: bf16 or "
                          f"f32, at most {q.out_physical} columns")
+    if (form or ln_form(x2.shape[0], x2.dtype)) == "mma":
+        return _launch_group_ln_mma(x2, gamma, beta, q, bias, eps)
     out, lib, p = _out(x2, q), _lib_fused(), _build.ptr
     err = lib.qmm_group_ln(
         p(x2), p(gamma), p(beta), gamma.dtype == torch.bfloat16,
@@ -590,9 +645,34 @@ def _launch_group_ln(x2, gamma, beta, q, bias, eps: float) -> torch.Tensor:
     return _launched(lib, err, "qmm_group_ln", out)
 
 
-def _launch_w4a8(x2, q, norm_w=None, eps: float = 0.0) -> torch.Tensor:
-    """qmm_w4a8, or with norm_w qmm_norm_w4a8."""
+def _launch_group_ln_mma(x2, gamma, beta, q, bias, eps: float
+                         ) -> torch.Tensor:
+    if x2.dtype != torch.bfloat16:
+        raise ValueError(f"qmm_group_ln_mma takes a bf16 x, not {x2.dtype}")
+    tile, splits, part = _tile_plan(x2, q)
+    xn = torch.empty_like(x2)           # the normalized rows (pre-pass)
+    out, lib, p = _out(x2, q), _lib_mma(), _build.ptr
+    err = lib.qmm_group_ln_mma(
+        p(x2), p(gamma), p(beta), gamma.dtype == torch.bfloat16, p(xn),
+        p(q.qweight), p(q.scales), q.scales.dtype == torch.bfloat16,
+        p(bias), bias is not None and bias.dtype == torch.bfloat16,
+        0 if bias is None else bias.shape[-1], p(part), p(out), x2.shape[0],
+        x2.shape[1], q.out_physical, q.bits, q.group_size, eps, tile,
+        splits, _build.stream())
+    _launched(lib, err, "qmm_group_ln", out)
+    launches["qmm_group_ln_mma"] += 1
+    return out
+
+
+def _launch_w4a8(x2, q, norm_w=None, eps: float = 0.0,
+                 form: Optional[str] = None) -> torch.Tensor:
+    """qmm_w4a8 in the form w4a8_form chooses (`form` forces "mma" or
+    "cuda_core": tests and chip_smoke.py's side-by-side timing only), or
+    with norm_w qmm_norm_w4a8 (CUDA cores)."""
     _check_cuda(x2, q)
+    if norm_w is None and (form or w4a8_form(x2.shape[0], x2.dtype)) \
+            == "mma":
+        return _launch_w4a8_mma(x2, q)
     out, lib, p = _out(x2, q), _lib(), _build.ptr
     shape = (x2.shape[0], x2.shape[1], q.out_physical, q.bits, q.group_size)
     sc_bf16 = q.scales.dtype == torch.bfloat16
@@ -603,6 +683,25 @@ def _launch_w4a8(x2, q, norm_w=None, eps: float = 0.0) -> torch.Tensor:
     err = lib.qmm_norm_w4a8(p(x2), p(norm_w), p(q.qweight), p(q.scales),
                             sc_bf16, p(out), *shape, eps, _build.stream())
     return _launched(lib, err, "qmm_norm_w4a8", out)
+
+
+def _launch_w4a8_mma(x2, q) -> torch.Tensor:
+    if x2.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"qmm_w4a8_mma takes a bf16 or f32 x, not "
+                         f"{x2.dtype}")
+    tile, splits, part = _tile_plan(x2, q)
+    # the quantized rows and their scales (pre-pass)
+    xq = torch.empty(x2.shape, dtype=torch.int8, device=x2.device)
+    sx = torch.empty(x2.shape[0], dtype=torch.float32, device=x2.device)
+    out, lib, p = _out(x2, q), _lib_w4a8_mma(), _build.ptr
+    err = lib.qmm_w4a8_mma(
+        p(x2), _x_kind(x2), p(xq), p(sx), p(q.qweight), p(q.scales),
+        q.scales.dtype == torch.bfloat16, p(part), p(out), x2.shape[0],
+        x2.shape[1], q.out_physical, q.bits, q.group_size, tile, splits,
+        _build.stream())
+    _launched(lib, err, "qmm_w4a8", out)
+    launches["qmm_w4a8_mma"] += 1
+    return out
 
 
 def _launch_chunk(x2, q) -> torch.Tensor:

@@ -75,6 +75,13 @@ LN_CASES = {
     "5rows_int8_group64": dict(rows=5, bits=8, bias=True, group=64),
     "300rows_int8_bias": dict(rows=300, bits=8, bias=True),
     "5rows_int8_f32_gamma": dict(rows=5, bits=8, bias=True, ndt="float32"),
+    # 64 rows: GPT-2's 64-slot step, the tensor-core form's shape
+    "64rows_int8_bias": dict(rows=64, bits=8, bias=True),
+    "64rows_int4_bias": dict(rows=64, bits=4, bias=True),
+    "64rows_int4_nobias": dict(rows=64, bits=4, bias=False),
+    "64rows_int8_f32_gamma": dict(rows=64, bits=8, bias=True, ndt="float32"),
+    "64rows_int4_f32_gamma_nobias": dict(rows=64, bits=4, bias=False,
+                                         ndt="float32"),
 }
 
 

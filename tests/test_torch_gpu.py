@@ -594,8 +594,12 @@ def test_decode_routes_launch_counts(dev, knobs):
     cfg, params = _small_model(dev)
     L = cfg.n_layers
     knobs(variant="w4a8")
+    # two tokens: wo, w_down and the lm_head take qmm_w4a8's tensor-core
+    # form from W4A8_MMA_MIN_ROWS rows, the fused-norm launches stay
+    mma = {"qmm_w4a8_mma": 2 * L + 1} if 2 >= qm.W4A8_MMA_MIN_ROWS else {}
     assert _decode_launches(params, cfg, dev) == {
-        "qmm_norm_w4a8": 2 * L, "qmm_w4a8": 2 * L + 1, "flash_decode_q8": L}
+        "qmm_norm_w4a8": 2 * L, "qmm_w4a8": 2 * L + 1, "flash_decode_q8": L,
+        **mma}
     knobs(table={"512:512:4": {"variant": "group2d", "bn": 128, "kb": 128},
                  "1024:512:4": {"variant": "group2d", "bn": 128, "kb": 256}})
     assert _decode_launches(params, cfg, dev) == {
@@ -914,3 +918,95 @@ def test_f16_activations_on_the_card(dev, rows):
     assert qm.launches["qmm_chunk"] == before.get("qmm_chunk", 0) + 1
     assert qm.launches["qmm_group2d"] == before.get("qmm_group2d", 0) + 1
     assert qm.launches["qmm_slab"] == before.get("qmm_slab", 0) + 1
+
+
+# -- the tensor-core forms of qmm_w4a8 (csrc/quant_matmul_w4a8_mma.cu) and --
+# -- qmm_group_ln (csrc/quant_matmul_mma.cu) --------------------------------
+
+@pytest.mark.parametrize("rows", [2, 8, 64, 256])
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("xdt", [torch.bfloat16, torch.float32])
+def test_w4a8_mma_kernel(dev, rows, bits, xdt, monkeypatch):
+    """qmm_w4a8's tensor-core form against qmm_w4a8_plain and against the
+    CUDA-core form, both forced: bf16 and f32 scales, groups 128 and 256,
+    a dout with no multiple of 16 columns (its 4-byte copies), a padded
+    dout, K split (the card's SM count) and not (one SM); and an x view
+    that is not 16-byte aligned."""
+    sms = qm._sms(0)
+    for n_sm in (sms, 1):
+        monkeypatch.setattr(qm, "_sms", lambda i, n=n_sm: n)
+        for sdt in (torch.bfloat16, torch.float32):
+            for group in (128, 256):
+                for din, dout, pad in ((1024, 384, 0), (1024, 260, 0),
+                                       (512, 300, 128)):
+                    q = _qlin(dev, din, dout, bits, sdt, pad_out=pad,
+                              group=group)
+                    x = _x(dev, rows, din, seed=rows).to(xdt)
+                    got = qm._launch_w4a8(x, q, form="mma")
+                    _close(got, qm.qmm_w4a8_plain(x, q))
+                    _close(got, qm._launch_w4a8(x, q, form="cuda_core"))
+    q = _qlin(dev, 1024, 384, bits, torch.bfloat16)
+    buf = torch.empty(rows * 1024 + 8, dtype=xdt, device=dev)
+    x = buf[1:1 + rows * 1024].view(rows, 1024)
+    x.copy_(_x(dev, rows, 1024, seed=7))
+    assert x.data_ptr() % 16
+    _close(qm._launch_w4a8(x, q, form="mma"), qm.qmm_w4a8_plain(x, q))
+
+
+@pytest.mark.parametrize("rows", [2, 8, 64])
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("bias_dt", [None, torch.bfloat16, torch.float32])
+def test_group_ln_mma_kernel(dev, rows, bits, bias_dt, monkeypatch):
+    """qmm_group_ln's tensor-core form against qmm_group_ln_plain and
+    against the CUDA-core form, both forced, with K split (the card's SM
+    count) and not split (one SM), gamma / beta in bf16 and f32, a padded
+    dout whose bias covers the logical columns."""
+    q = _qlin(dev, 1024, 300, bits, torch.float32, pad_out=128)
+    x = _x(dev, rows, 1024) * 3 + 0.5
+    gamma, beta = _ln_inputs(dev, 1024)
+    bias = None if bias_dt is None else \
+        _x(dev, 1, 300, seed=5)[0].to(bias_dt)
+    sms = qm._sms(0)
+    for n_sm, split in ((sms, True), (1, False)):
+        monkeypatch.setattr(qm, "_sms", lambda i, n=n_sm: n)
+        plan = qm.mma_plan(rows, q.out_physical, q.qweight.shape[0],
+                           q.group_size, n_sm)
+        assert (plan[1] > 1) == split
+        want = qm.qmm_group_ln_plain(x, gamma, beta, q, bias, 1e-5)
+        for g, b in ((gamma, beta), (gamma.float(), beta.float())):
+            got = qm._launch_group_ln(x, g, b, q, bias, 1e-5, form="mma")
+            _close(got, want)
+            _close(got, qm._launch_group_ln(x, g, b, q, bias, 1e-5,
+                                            form="cuda_core"))
+
+
+def test_w4a8_and_ln_mma_launch_counts(dev):
+    """quant_matmul under "w4a8" and quant_matmul_ln launch the
+    tensor-core forms from their thresholds, counted under the kernel's
+    name and again under name + "_mma"; one row the CUDA-core forms only.
+    The fused-norm W4A8 kernel keeps its CUDA-core form at any rows."""
+    q = _qlin(dev, 2048, 512, 4, torch.bfloat16)
+    q8 = _qlin(dev, 1024, 384, 8, torch.float32)
+    gamma, beta = _ln_inputs(dev, 1024)
+    bias = _x(dev, 1, 384, seed=5)[0]
+    for rows in (256, 64, 8, qm.W4A8_MMA_MIN_ROWS, qm.MMA_MIN_ROWS, 1):
+        before = dict(qm.launches)
+        x = _x(dev, rows, 2048)
+        _close(qm.quant_matmul(x, q, variant="w4a8"),
+               qm.qmm_w4a8_plain(x, q))
+        assert qm.launches["qmm_w4a8"] == before.get("qmm_w4a8", 0) + 1
+        assert qm.launches["qmm_w4a8_mma"] == before.get(
+            "qmm_w4a8_mma", 0) + (rows >= qm.W4A8_MMA_MIN_ROWS)
+        x = _x(dev, rows, 1024)
+        _close(qm.quant_matmul_ln(x, gamma, beta, q8, bias=bias),
+               qm.qmm_group_ln_plain(x, gamma, beta, q8, bias, 1e-5))
+        assert qm.launches["qmm_group_ln"] == \
+            before.get("qmm_group_ln", 0) + 1
+        assert qm.launches["qmm_group_ln_mma"] == before.get(
+            "qmm_group_ln_mma", 0) + (rows >= qm.MMA_MIN_ROWS)
+    before = dict(qm.launches)
+    nw = torch.ones(2048, dtype=torch.bfloat16, device=dev)
+    qm._launch_w4a8(_x(dev, 8, 2048), q, nw, 1e-5)
+    assert qm.launches["qmm_norm_w4a8"] == \
+        before.get("qmm_norm_w4a8", 0) + 1
+    assert qm.launches["qmm_w4a8_mma"] == before.get("qmm_w4a8_mma", 0)

@@ -88,11 +88,21 @@ def test_group_norm_matmul_plain_vs_pallas(rows):
     _close(got, want)
 
 
-@pytest.mark.parametrize("bits", [4, 8])
-def test_w4a8_matmul_plain_vs_pallas(bits):
-    _, q, x = _weights(3, sdt=jnp.bfloat16, bits=bits)
+@pytest.mark.parametrize("bits,rows", [
+    pytest.param(4, 3, id="4"), pytest.param(8, 3, id="8"),
+    pytest.param(4, 64, id="4-64rows"), pytest.param(8, 64, id="8-64rows"),
+    pytest.param(4, 256, id="4-256rows"),
+    pytest.param(8, 256, id="8-256rows")])
+def test_w4a8_matmul_plain_vs_pallas(bits, rows):
+    """qmm_w4a8_plain, the function both CUDA forms of qmm_w4a8 compute,
+    against the interpreted TPU kernel; 64 and 256 rows are the shapes the
+    tensor-core form serves (a prompt's lm_head up to 256 rows)."""
+    rng, q, x = _weights(3, sdt=jnp.bfloat16, bits=bits)
+    if rows != 3:
+        x = jnp.asarray(rng.standard_normal((rows, 512)), jnp.bfloat16)
     want = qm.quant_matmul(x, q, interpret=True, variant="w4a8")
     got = tqm.quant_matmul(_t(x), _port_q(q), variant="w4a8")
+    assert tqm.route(_t(x), _port_q(q), "w4a8") == ("qmm_w4a8", 0)
     _close(got, want)
 
 
@@ -687,3 +697,65 @@ def test_mma_plan(rows, dout_p, krows):
     assert splits == 1 or blocks < target
     assert blocks >= target or splits == krows // 128 \
         or blocks * splits >= target
+
+
+@pytest.mark.parametrize("rows,dtype,form", [
+    (1, torch.bfloat16, "cuda_core"),
+    (tqm.W4A8_MMA_MIN_ROWS - 1, torch.bfloat16, "cuda_core"),
+    (tqm.W4A8_MMA_MIN_ROWS, torch.bfloat16, "mma"),
+    (tqm.W4A8_MMA_MIN_ROWS, torch.float32, "mma"),
+    (8, torch.bfloat16, "mma"),
+    (256, torch.float32, "mma"),
+    (256, torch.float16, "cuda_core"),
+    (1, torch.float32, "cuda_core"),
+])
+@pytest.mark.parametrize("bits", [4, 8])
+def test_w4a8_form(rows, dtype, form, bits):
+    """The form a qmm_w4a8 launch on the card takes: the int8 tensor
+    cores for a bf16 or f32 x from W4A8_MMA_MIN_ROWS rows (at least 2, so
+    the batch-1 decode and the W4A8 knob's 1-row launches keep the
+    CUDA-core form), for int4 and int8 weights alike; an f16 x never
+    reaches qmm_w4a8 (route sends it to qmm_group)."""
+    assert 2 <= tqm.W4A8_MMA_MIN_ROWS <= tqm.KERNEL_MAX_ROWS
+    assert tqm.w4a8_form(rows, dtype) == form
+    q = _fake(4096, 32000, bits=bits)
+    x = torch.zeros(rows, 4096, dtype=dtype, device="meta")
+    assert tqm.route(x, q, "w4a8")[0] == (
+        "qmm_group" if dtype == torch.float16 else "qmm_w4a8")
+
+
+@pytest.mark.parametrize("rows,dtype,form", [
+    (1, torch.bfloat16, "cuda_core"),
+    (tqm.MMA_MIN_ROWS - 1, torch.bfloat16, "cuda_core"),
+    (tqm.MMA_MIN_ROWS, torch.bfloat16, "mma"),
+    (8, torch.bfloat16, "mma"),
+    (64, torch.bfloat16, "mma"),
+    (256, torch.bfloat16, "mma"),
+    (64, torch.float32, "cuda_core"),
+])
+def test_ln_form(rows, dtype, form):
+    """The form a qmm_group_ln launch on the card takes: qmm_group_mma's
+    tile behind a LayerNorm pre-pass for a bf16 x from MMA_MIN_ROWS rows,
+    the CUDA-core form at one row (quant_matmul_ln sends no other dtype
+    to qmm_group_ln)."""
+    assert tqm.ln_form(rows, dtype) == form
+
+
+@pytest.mark.parametrize("rows,dout_p,krows,tile,splits", [
+    (256, 32000, 2048, 64, 1),      # Llama-2-7B lm_head, a 256-token prompt
+    (64, 32000, 2048, 32, 1),
+    (8, 32000, 2048, 8, 2),         # the paged step's lm_head (8 slots)
+    (5, 32000, 2048, 8, 2),
+    (8, 4096, 2048, 8, 9),          # wo under the W4A8 knob, 8 rows
+    (8, 4096, 5504, 8, 9),          # w_down
+    (64, 3072, 1024, 32, 6),        # GPT-2 345M w_qkv, 64 rows
+    (64, 4096, 1024, 32, 5),        # GPT-2 345M w_up
+    (64, 51200, 1024, 32, 1),       # GPT-2 345M lm_head
+    (256, 260, 512, 64, 4),         # a narrow dout: split by every group
+])
+def test_w4a8_and_ln_plan(rows, dout_p, krows, tile, splits):
+    """The launch plan of qmm_w4a8_mma (Llama's lm_head at a prompt's 64
+    and 256 rows and the paged step's 8, the W4A8 knob's wo and w_down)
+    and of qmm_group_ln_mma (GPT-2's w_qkv and w_up at 64 slots):
+    mma_plan, as for qmm_group_mma, on the card's 132 SMs."""
+    assert tqm.mma_plan(rows, dout_p, krows, 128, 132) == (tile, splits)
