@@ -27,13 +27,22 @@ Phases, each failing with a nonzero exit, each printing its seconds:
      crossover tables of both forms, forced: qmm_group at 1-8 rows,
      qmm_w4a8 at 1-5, 8, 64 and 256 rows, qmm_group_ln at 1, 8 and
      64 rows (with its tile alone on rows normalized beforehand), which
-     set MMA_MIN_ROWS and W4A8_MMA_MIN_ROWS;
+     set MMA_MIN_ROWS and W4A8_MMA_MIN_ROWS; the dense decode attention
+     (flash_decode, flash_decode_q8) in the split form its wrappers take
+     at batch 1 beside the forced unsplit form, the split form's merge
+     (flash_decode_merge) on partials of the 7B shape, and the crossover
+     of the forms at 8-1024 (batch, kv head) blocks, 96-192 among them,
+     where the rule flips; flash_attention at the 7B prompt and at
+     entry()'s;
   4. the 7B INT4 + INT8-KV decode path with random weights built on the
      card as bench.py builds them: one step with the kernels against the
      same step on the plain versions (CPU), then llama_decode_multi for
      128 greedy steps under a CUDA graph (tokens equal to an eager loop),
-     tok/s (min of 3 fresh runs) against the copy-rate roofline, and each
-     kernel's launch count on that path (no tensor-core form at 1 row);
+     tok/s (min of 3 fresh runs) against the copy-rate roofline, a
+     torch.profiler window over one graph run (busy share, kernel ms a
+     token), the same with the decode attention forced unsplit, and each
+     kernel's launch count on that path (no tensor-core form at 1 row;
+     flash_decode_q8 and flash_decode_merge 32 a token);
   5. the prompt -> generate path (greedy_generate) with the same weights
      and a seeded 1024-token prompt, for 128 tokens with the default bf16
      cache and again with an INT8 cache: prefill ms, prompt tok/s, the
@@ -137,7 +146,7 @@ rows, qmm_group2d at 1 row), and the graph slice's kernels: rmsnorm at 1,
 and at Longformer-base's attention (12 heads of 64, window 256, S 4096,
 bf16), flash_attention at head dim 64 at entry()'s prompt (q, k, v [2, 8,
 64, 64]).
-The last lines are the kernels JSON (20 kernels), nvidia-smi's name and
+The last lines are the kernels JSON (21 kernels), nvidia-smi's name and
 power limit,
 and {"ok": true, "device": {...}}. A report goes to chiprun_out/.
 """
@@ -217,6 +226,21 @@ def smi_line():
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_summary(text):
+    """One line per kernel of an nvcc -Xptxas -v log: the end of its
+    mangled name (the template arguments), its registers and shared
+    memory, its spills."""
+    out, name, spill = [], "?", ""
+    for line in text.splitlines():
+        if "Function properties for" in line:
+            name = line.split("for ", 1)[1].strip().split("EEv")[0][-56:]
+        elif "spill stores" in line:
+            spill = line.strip()
+        elif "registers" in line:
+            out.append(f"{name}: {line.split(':', 1)[-1].strip()}; {spill}")
+    return out
 
 
 def cuda_ms(torch, fn, reps, flush=None):
@@ -312,9 +336,8 @@ def main():
     print(f"# kernels built in {build_s:.1f}s (per source: {per_src})",
           flush=True)
     for log in sorted(_build.build_dir().glob("*.log")):
-        for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"# {log.stem}: {line.strip()}")
+        for line in ptxas_summary(log.read_text()):
+            print(f"# {log.stem}: {line}")
     report["build_s"] = build_s
     t_phase = phase(2, t_phase)
 
@@ -434,12 +457,16 @@ def main():
         vf = (vc[:, :, :live].float() * vs[:, :, :live, None]).to(
             torch.bfloat16).repeat_interleave(rep, 1)
         args = (qh, kc, vc, ks, vs, pos)
+        if label.startswith("mha"):
+            q8_mha = args
         cases.append(dict(
             name="flash_decode_q8", shape=f"{label} pos {CTX}",
             path="decode", replaces=TPU + "attention.py:345",
             source=SRC + "flash_decode.cu",
             kernel=lambda a=args: att.flash_decode_q8(*a),
             plain=lambda a=args: att.flash_decode_q8_plain(*a),
+            forms={"unsplit": lambda a=args: att.flash_decode_q8(
+                *a, _splits=1)},
             library=lambda qh=qh, kf=kf, vf=vf:
                 torch.nn.functional.scaled_dot_product_attention(qh, kf, vf),
             bytes=2 * Hkv * live * (D + 4) + 2 * nbytes(qh),
@@ -454,11 +481,25 @@ def main():
             source=SRC + "flash_decode.cu",
             kernel=lambda a=args: att.flash_decode(*a),
             plain=lambda a=args: att.flash_decode_plain(*a),
+            forms={"unsplit": lambda a=args: att.flash_decode(
+                *a, _splits=1)},
             library=lambda qh=qh, kr=kr, vr=vr:
                 torch.nn.functional.scaled_dot_product_attention(qh, kr, vr),
             bytes=2 * Hkv * live * D * 2 + 2 * nbytes(qh),
             ops=4 * H * live * D, kind="bf16"))
+    # the split form's merge, on the partials of the INT8-cache MHA case
+    # (the plain split version on the card) at the split count it takes
     H, D = cfg.n_heads, cfg.head_dim
+    splits = att.launch_splits(1, H, MAX_SEQ)
+    part = att.flash_decode_q8_split_plain(*q8_mha, splits).contiguous()
+    cases.append(dict(
+        name="flash_decode_merge", shape=f"mha 32/32 {splits} splits",
+        path="decode", replaces=TPU + "attention.py:345",
+        source=SRC + "flash_decode.cu",
+        kernel=lambda: att.flash_decode_merge(part),
+        plain=lambda: att.flash_decode_merge_plain(part), library=None,
+        bytes=nbytes(part) + 2 * H * D, ops=3 * H * splits * D,
+        kind="f32"))
     qa, ka, va = (randn(1, H, PROMPT, D) for _ in range(3))
     cases.append(dict(
         name="flash_attention", shape=f"causal 1x{H}x{PROMPT}x{D}",
@@ -492,7 +533,8 @@ def main():
                                               randn, flush)
     report["ln_crossover"] = ln_crossover(torch, qm, gparams["layers"][0],
                                           gcfg, gen, randn, flush)
-    del flush, qa, ka, va
+    report["decode_crossover"] = decode_crossover(torch, att, gen, dev, flush)
+    del flush, qa, ka, va, part, q8_mha
     t_phase = phase(3, t_phase)
 
     # 4. the 7B decode path
@@ -500,7 +542,7 @@ def main():
     step4 = dict(per_token)         # phases 5 and 6 add their kernels
     paths = {"decode": report["launches_main_path"]}
     for kname in ("qmm_group_norm", "qmm_group", "qmm_w4a8",
-                  "flash_decode_q8"):
+                  "flash_decode_q8", "flash_decode_merge"):
         if paths["decode"].get(kname, 0) <= 0:
             fail(f"{kname} was never launched on the main path")
     for kname in ("qmm_group_mma", "qmm_w4a8_mma", "qmm_group_ln_mma"):
@@ -553,14 +595,16 @@ def main():
     paths[PAIRED] = variant_path(
         torch, llama, counters, pparams, cfg, dev, report, steps, PAIRED,
         {"qmm_slab_norm": 2 * L, "qmm_slab": 2 * L + 1,
-         "flash_decode_q8": L}, weight_bytes(cfg, paired=True))
+         "flash_decode_q8": L, **merges(cfg, L)},
+        weight_bytes(cfg, paired=True))
     del pparams
     t_phase = phase(8, t_phase)
 
     # 9. the 7B decode at group 64 (entry()'s quantization), then entry()
     paths[G64] = variant_path(
         torch, llama, counters, g64params, cfg, dev, report, steps, G64,
-        {"qmm_chunk": 4 * L + 1, "flash_decode_q8": L},
+        {"qmm_chunk": 4 * L + 1, "flash_decode_q8": L,
+         **merges(cfg, L)},
         weight_bytes(cfg, group=64))
     del g64params
     entry_check(torch, counters, report)
@@ -573,7 +617,8 @@ def main():
         paths[W4A8] = variant_path(
             torch, llama, counters, params, cfg, dev, report, steps, W4A8,
             {"qmm_norm_w4a8": 2 * L, "qmm_w4a8": 2 * L + 1,
-             "flash_decode_q8": L}, weight_bytes(cfg))
+             "flash_decode_q8": L, **merges(cfg, L)},
+            weight_bytes(cfg))
     with knobs({"INFINITPU_QMM_VARIANT": "w4a8"}):
         counters.reset()
         llama.llama_decode_step(
@@ -594,7 +639,8 @@ def main():
         paths[SPLIT] = variant_path(
             torch, llama, counters, params, cfg, dev, report, steps, SPLIT,
             {"qmm_group2d": 2 * L, "qmm_group_norm": 2 * L, "qmm_w4a8": 1,
-             "flash_decode_q8": L}, weight_bytes(cfg))
+             "flash_decode_q8": L, **merges(cfg, L)},
+            weight_bytes(cfg))
     t_phase = phase(11, t_phase)
 
     # 12. the 7B decode built through the graph IR, and its serving adapter
@@ -634,7 +680,10 @@ def main():
             **({"cuda_core_ms": c["cuda_core_ms"]}
                if "cuda_core" in c else {}),
             **({"library_ln_ms": c["library_ln_ms"]}
-               if "library_ln" in c else {})})
+               if "library_ln" in c else {}),
+            **({"forms": {f: {"ms": ms, "max_abs_err": c["form_err"][f]}
+                          for f, ms in c["form_ms"].items()}}
+               if c["form_ms"] else {})})
     report["kernels"] = kernels
     os.makedirs("chiprun_out", exist_ok=True)
     with open("chiprun_out/chip_smoke_report.json", "w") as f:
@@ -671,6 +720,14 @@ def check_and_time(torch, c, counters, flush, bw_copy):
         c["cuda_core_ms"] = cuda_ms(torch, c["cuda_core"], 50, flush)
     if "library_ln" in c:           # LayerNorm + addmm from the raw rows
         c["library_ln_ms"] = cuda_ms(torch, c["library_ln"], 50, flush)
+    c["form_ms"], c["form_err"] = {}, {}
+    for form, fn in c.get("forms", {}).items():   # the other forms, forced
+        e = (fn().float() - want.float()).abs().max().item()
+        if not (math.isfinite(e) and e <= TOL * ref):
+            fail(f"{c['name']} {c['shape']} form {form}: max err {e} > "
+                 f"{TOL} * {ref}")
+        c["form_err"][form] = e
+        c["form_ms"][form] = cuda_ms(torch, fn, 50, flush)
     c["bound_ms"] = 1e3 * max(c["bytes"] / HBM_BYTES_S,
                               c["ops"] / PEAK_OPS[c["kind"]])
     c["bound_by"] = ("bytes" if c["bytes"] / HBM_BYTES_S
@@ -685,6 +742,8 @@ def check_and_time(torch, c, counters, flush, bw_copy):
              if "cuda_core" in c else "")
           + (f"layer_norm + addmm {c['library_ln_ms']:.4f} ms  "
              if "library_ln" in c else "")
+          + "".join(f"{f} form {ms:.4f} ms (err {c['form_err'][f]:.3g})  "
+                    for f, ms in c["form_ms"].items())
           + f"{c['bytes'] / 1e6:.2f} MB", flush=True)
 
 
@@ -890,6 +949,28 @@ def decode_path(torch, llama, counters, params, cfg, dev, report):
         if not torch.equal(out, toks):
             fail("a timed graph run gave other tokens")
     dt = min(samples)
+    prof = graph_profile(torch, g, cache, token, pos)
+    # the same region with the decode attention forced unsplit (its form
+    # before the sequence split), in this call: the split's end-to-end
+    # effect on tok/s and on the kernel ms a token
+    from infinitensor_tpu_torch.kernels import attention as att
+    att._SPLITS = 1
+    try:
+        fresh(cache)
+        g1 = llama.DecodeGraph(params, cfg, token, pos, cache, STEPS)
+        unsplit = []
+        for _ in range(3):
+            fresh(cache)
+            g1.reset(token, pos)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            g1.run()
+            torch.cuda.synchronize()
+            unsplit.append(STEPS / (time.perf_counter() - t0))
+        unsplit_prof = graph_profile(torch, g1, cache, token, pos)
+        del g1
+    finally:
+        att._SPLITS = None
     kv_bytes = 2 * cfg.n_layers * cfg.n_kv_heads * CTX * (cfg.head_dim + 4)
     bytes_tok = weight_bytes(cfg) + kv_bytes
     tok_s = STEPS / dt
@@ -901,10 +982,24 @@ def decode_path(torch, llama, counters, params, cfg, dev, report):
         "roofline_tok_s_published": HBM_BYTES_S / bytes_tok,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "launches_main_path": report["launches_main_path"],
-        "launches_per_token": per_token}
+        "launches_per_token": per_token, "device_profile": prof,
+        "unsplit_attention": {"tok_s": max(unsplit), "tok_s_samples": unsplit,
+                              "device_profile": unsplit_prof}}
     report.update(res)
     print("# decode " + json.dumps(res), flush=True)
     return per_token
+
+
+def graph_profile(torch, g, cache, token, pos):
+    """device_profile of one run of the DecodeGraph g from fresh state,
+    with its kernel ms per token."""
+    fresh(cache)
+    g.reset(token, pos)
+    prof = device_profile(torch, g.run)
+    if prof:
+        prof["kernel_ms_per_token"] = {
+            k: v / STEPS for k, v in prof.pop("kernel_ms").items()}
+    return prof
 
 
 def weight_bytes(cfg, paired=False, group=128):
@@ -1103,6 +1198,7 @@ def device_profile(torch, fn):
              ("mma_splitk_sum", "qmm_group_mma sum"),
              ("splitk_sum", "qmm_group2d sum"),
              ("flash_decode_kernel", "decode attention"),
+             ("flash_decode_merge", "decode attention"),
              ("flash_attention_kernel", "flash_attention"),
              ("rmsnorm_kernel", "rmsnorm"), ("g2bmm_kernel", "g2bmm"),
              ("gbmm_kernel", "gbmm"))
@@ -1673,6 +1769,45 @@ def mma_crossover(torch, qm, layer0, randn, flush):
     return out
 
 
+def decode_crossover(torch, att, gen, dev, flush):
+    """The dense INT8-cache decode attention (D 128, pos CTX of MAX_SEQ)
+    at B * Hkv = 8, 32, 64, 96, 128, 132, 192, 256 and 1024 heads (GQA
+    32/8 at B 1, MHA 32/32 at B 1, 2, 3, 4, 6, 8, 32, and MHA 132/132 at
+    B 1, one head an SM of the H100), forced: unsplit, and split in 2, 4, 8, 16 and
+    launch_splits's count, the merge included: the times behind
+    att.SPLIT_BLOCKS_PER_SM and att.SPLIT_MAX. Returns [{B, H, Hkv,
+    chosen, ms: {splits: ms}}]."""
+    out = []
+    for B, H, Hkv in ((1, 32, 8), (1, 32, 32), (2, 32, 32), (3, 32, 32),
+                      (4, 32, 32), (1, 132, 132), (6, 32, 32), (8, 32, 32),
+                      (32, 32, 32)):
+        S, D = MAX_SEQ, 128
+        q = torch.randn(B, H, 1, D, generator=gen, device=dev).to(
+            torch.bfloat16)
+        kv = [torch.randint(-127, 128, (B, Hkv, S, D), generator=gen,
+                            device=dev, dtype=torch.int8) for _ in range(2)]
+        sc = [torch.rand(B, Hkv, S, generator=gen, device=dev) * 0.015
+              + 0.005 for _ in range(2)]
+        pos = torch.full((B,), CTX, dtype=torch.int32, device=dev)
+        chosen = att.launch_splits(B, Hkv, S)
+        row = {"B": B, "H": H, "Hkv": Hkv, "chosen": chosen, "ms": {
+            n: cuda_ms(torch, lambda n=n: att.flash_decode_q8(
+                q, *kv, *sc, pos, _splits=n), 50, flush)
+            for n in sorted({1, 2, 4, 8, 16, chosen})}}
+        out.append(row)
+        del q, kv, sc
+    print(f"# decode attention, int8 cache, pos {CTX}: ms by splits "
+          f"(1 = unsplit): {json.dumps(out)}", flush=True)
+    return out
+
+
+def merges(cfg, n):
+    """The merge launches of n dense decode-attention calls of cfg at
+    batch 1."""
+    from infinitensor_tpu_torch.kernels import attention as att
+    return att.merge_launches(n, 1, cfg.n_kv_heads, cfg.max_seq)
+
+
 def w4a8_crossover(torch, qm, q, randn, flush):
     """Both forms of qmm_w4a8, forced, at 1-5, 8, 64 and 256 rows of the
     7B lm_head, in one call: the times that set qm.W4A8_MMA_MIN_ROWS (the
@@ -1964,12 +2099,7 @@ def variant_path(torch, llama, counters, params, cfg, dev, report, steps,
             fail(f"{label}: a timed graph run gave other tokens")
     dt = min(samples)
     # the card's side of one graph run: busy share, kernel ms a token
-    fresh(cache)
-    g.reset(token, pos)
-    prof = device_profile(torch, g.run)
-    if prof:
-        prof["kernel_ms_per_token"] = {
-            k: v / STEPS for k, v in prof.pop("kernel_ms").items()}
+    prof = graph_profile(torch, g, cache, token, pos)
     kv_bytes = 2 * cfg.n_layers * cfg.n_kv_heads * CTX * (cfg.head_dim + 4)
     bytes_tok = weight_b + kv_bytes
     res = {
@@ -2001,7 +2131,7 @@ def entry_check(torch, counters, report):
     got = counters.read()
     L = cfg.n_layers
     want = {"qmm_chunk": 3 * L + 1, "dequant_matmul": L,
-            "flash_decode_q8": L}
+            "flash_decode_q8": L, **merges(cfg, L)}
     print(f"# entry(): one decode step launched {got}", flush=True)
     report["entry_launches"] = got
     if got != want:
@@ -2290,7 +2420,7 @@ def graph_path(torch, llama, graph_llama, GraphExecutor, counters, params,
     per_step = counters.read()
     steps[GRAPH] = per_step
     want = {"qmm_group_norm": 2 * L, "qmm_group": 2 * L, "qmm_w4a8": 1,
-            "flash_decode_q8": L, "rmsnorm": 1}
+            "flash_decode_q8": L, "rmsnorm": 1, **merges(cfg, L)}
     print(f"# {GRAPH}: {len(dec.graph.operators)} ops built in "
           f"{build_s:.2f}s; one step launched {per_step}", flush=True)
     if per_step != want:

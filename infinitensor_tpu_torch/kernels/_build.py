@@ -103,6 +103,12 @@ def typed(stem: str, **signatures) -> ctypes.CDLL:
     return lib
 
 
+@functools.cache
+def sms(index: int) -> int:
+    """The SM count of card `index`."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr() if t is not None else 0)
 

@@ -8,7 +8,11 @@ int8) is plain PyTorch and writes the new row IN PLACE with scatter_ at
 tensor throughout, so a decode step can be captured in a CUDA graph. The
 read side is a kernel in csrc/flash_decode.cu: flash_decode (bf16 cache)
 replacing _flash_decode_hb_kernel, flash_decode_q8 (int8 cache) replacing
-_flash_decode_q8_hb_kernel; *_plain are their plain versions.
+_flash_decode_q8_hb_kernel; *_plain are their plain versions. At few
+(batch, kv head) blocks both take their split form: the rows of a head are
+split across decode_splits(...) blocks, which write partial (acc, m, l),
+and flash_decode_merge (a second kernel) combines them; *_split_plain and
+flash_decode_merge_plain are the plain versions of the two steps.
 `launches` counts kernel launches (captures, not CUDA-graph replays).
 """
 
@@ -25,14 +29,50 @@ from infinitensor_tpu_torch.kernels import _build
 
 launches = collections.Counter()
 KERNEL_HEAD_DIMS = (64, 128)     # instantiated in csrc/flash_decode.cu
+# The split form: a head's rows are split so that the launch has about
+# SPLIT_BLOCKS_PER_SM blocks an SM (so at most SPLIT_BLOCKS_PER_SM * sms
+# / 2 heads, B * Hkv, are split; more fill the card unsplit), each split
+# at least SPLIT_MIN_ROWS rows of the cache's S, at most SPLIT_MAX splits
+# (past 16 the 8-head GQA launch is no faster). The crossover behind all
+# three: chip_smoke.py phase 3.
+SPLIT_BLOCKS_PER_SM = 2
+SPLIT_MIN_ROWS = 64
+SPLIT_MAX = 16
+MAX_SPLITS = 64                  # the merge kernel takes at most D splits
+_SPLITS = None                   # when set, the split count of every launch
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     P, I, F = _build.P, _build.I, _build.F
     return _build.typed("flash_decode",
-                        flash_decode_q8=[P] * 7 + [I] * 5 + [F, P],
-                        flash_decode=[P] * 5 + [I] * 5 + [F, P])
+                        flash_decode_q8=[P] * 8 + [I] * 6 + [F, P],
+                        flash_decode=[P] * 6 + [I] * 6 + [F, P],
+                        flash_decode_merge=[P, P] + [I] * 3 + [P])
+
+
+def decode_splits(B: int, Hkv: int, S: int, sms: int) -> int:
+    """Splits of a dense decode-attention launch of B * Hkv heads over a
+    cache of S rows on a card of `sms` SMs: 1 is the unsplit form. From
+    shapes only, never from pos: the launch may sit in a captured CUDA
+    graph while pos moves."""
+    return max(1, min(SPLIT_BLOCKS_PER_SM * sms // (B * Hkv),
+                      S // SPLIT_MIN_ROWS, SPLIT_MAX))
+
+
+def launch_splits(B: int, Hkv: int, S: int, index: int = 0) -> int:
+    """The split count a dense decode-attention launch of this shape takes
+    on card `index`: _SPLITS where set, else decode_splits."""
+    return _SPLITS or decode_splits(B, Hkv, S, _build.sms(index))
+
+
+def merge_launches(calls: int, B: int, Hkv: int, S: int,
+                   index: int = 0) -> dict:
+    """What `calls` dense decode-attention launches of this shape add to
+    `launches` beside their own counts: one flash_decode_merge each in the
+    split form."""
+    split = launch_splits(B, Hkv, S, index) > 1
+    return {"flash_decode_merge": calls} if split else {}
 
 
 def _normalize_pos(pos, batch: int) -> torch.Tensor:
@@ -143,6 +183,84 @@ def flash_decode_q8_plain(q, k_cache, v_cache, k_scale, v_scale, pos):
     return out.reshape(B, H, 1, D).to(q.dtype)
 
 
+def _split_partials(s, vals, pos, splits):
+    """s [B, Hkv, rep, S] f32 scores (scaled), vals [B, Hkv, S, D] f32 ->
+    part [B, H, splits, D + 2]: split j of row b takes rows [j n / splits,
+    (j + 1) n / splits) of n = pos[b] + 1; its unnormalized acc = p . vals,
+    m = the split's max score (-inf if empty), l = sum p (0 if empty)."""
+    B, G, R, S = s.shape
+    n = pos.to(s.device, torch.int64).clamp(0, S - 1) + 1
+    edges = torch.arange(splits + 1, device=s.device)[None] * n[:, None] \
+        // splits                                           # [B, splits+1]
+    rows = torch.arange(S, device=s.device)
+    inside = (rows >= edges[:, :-1, None]) & (rows < edges[:, 1:, None])
+    sj = torch.where(inside[:, None, None], s[:, :, :, None, :],
+                     float("-inf"))                      # [B, G, R, ns, S]
+    m = sj.amax(-1)
+    p = torch.exp(sj - torch.where(torch.isfinite(m), m, 0.0)[..., None])
+    acc = torch.einsum("bgrjs,bgsd->bgrjd", p, vals)
+    part = torch.cat([acc, m[..., None], p.sum(-1)[..., None]], -1)
+    return part.reshape(B, G * R, splits, -1)
+
+
+def flash_decode_split_plain(q, k_cache, v_cache, pos, splits):
+    """The split form's first step, plain: flash_decode_plain's scores,
+    each split's partial [B, H, splits, D + 2] f32 (acc, m, l)."""
+    B, H, _, D = q.shape
+    Hkv = k_cache.shape[1]
+    qf = q.float().reshape(B, Hkv, H // Hkv, D)
+    s = torch.einsum("bgrd,bgsd->bgrs", qf, k_cache.float()) \
+        * (1.0 / math.sqrt(D))
+    return _split_partials(s, v_cache.float(), pos, splits)
+
+
+def flash_decode_q8_split_plain(q, k_cache, v_cache, k_scale, v_scale, pos,
+                                splits):
+    """As flash_decode_split_plain over the INT8 cache: scores q . K_int8 *
+    (ks / sqrt(D)), acc = (p * vs) . V_int8."""
+    B, H, _, D = q.shape
+    Hkv = k_cache.shape[1]
+    qf = q.float().reshape(B, Hkv, H // Hkv, D)
+    s = torch.einsum("bgrd,bgsd->bgrs", qf, k_cache.float())
+    s = s * (k_scale.float() * (1.0 / math.sqrt(D)))[:, :, None, :]
+    return _split_partials(s, v_cache.float() * v_scale.float()[..., None],
+                           pos, splits)
+
+
+def flash_decode_merge_plain(part):
+    """part [B, H, splits, D + 2] -> [B, H, 1, D] f32: the splits with l > 0
+    combined, sum_j acc_j e^(m_j - M) / sum_j l_j e^(m_j - M)."""
+    D = part.shape[-1] - 2
+    acc, m, l = part[..., :D], part[..., D], part[..., D + 1]
+    live = l > 0
+    mx = torch.where(live, m, float("-inf")).amax(-1, keepdim=True)
+    w = torch.where(live, torch.exp(m - mx), 0.0)
+    out = (acc * w[..., None]).sum(-2) / (l * w).sum(-1, keepdim=True)
+    return out[:, :, None]
+
+
+def flash_decode_merge(part):
+    """The split form's second step: part f32 [B, H, splits, D + 2] ->
+    [B, H, 1, D] bf16. CPU tensors take flash_decode_merge_plain; CUDA
+    tensors launch the kernel (D = 64 or 128) or raise."""
+    B, H, splits, D2 = part.shape
+    if part.device.type == "cpu":
+        return flash_decode_merge_plain(part).to(torch.bfloat16)
+    if D2 - 2 not in KERNEL_HEAD_DIMS or part.dtype != torch.float32 \
+            or not part.is_contiguous() or splits > MAX_SPLITS:
+        raise ValueError("flash_decode_merge takes contiguous f32 partials "
+                         f"of D in {KERNEL_HEAD_DIMS}, at most {MAX_SPLITS} "
+                         "splits")
+    out = torch.empty(B, H, 1, D2 - 2, dtype=torch.bfloat16,
+                      device=part.device)
+    lib = _lib()
+    err = lib.flash_decode_merge(_build.ptr(part), _build.ptr(out), B * H,
+                                 splits, D2 - 2, _build.stream())
+    _build.raise_on(lib, err, "flash_decode_merge")
+    launches["flash_decode_merge"] += 1
+    return out
+
+
 def _check_launch(name, q, pos, tensors) -> None:
     """Refuse on the card what the kernel does not take: D = 64 or 128,
     H / Hkv <= 16, contiguous tensors of the expected types on q's device
@@ -172,11 +290,27 @@ def _check_shapes(name, q, k_cache, v_cache) -> None:
         raise ValueError(f"unsupported device {q.device}")
 
 
-def flash_decode(q, k_cache, v_cache, pos):
+def _outputs(q, k_cache, splits):
+    """(splits, out, part) of a launch: the split count (launch_splits on
+    this card unless forced), then bf16 out for the unsplit form or the f32
+    partials for the split form (the other None)."""
+    B, H, _, D = q.shape
+    _, Hkv, S, _ = k_cache.shape
+    if splits is None:
+        splits = launch_splits(B, Hkv, S, q.device.index or 0)
+    if splits == 1:
+        return 1, torch.empty_like(q), None
+    return splits, None, torch.empty(B, H, splits, D + 2,
+                                     dtype=torch.float32, device=q.device)
+
+
+def flash_decode(q, k_cache, v_cache, pos, *, _splits=None):
     """bf16-cache flash decode over caches already appended at pos [B]
     int32. q [B, H, 1, D] -> [B, H, 1, D] in q's dtype. CPU tensors take
     the plain version (any float dtype); CUDA tensors launch the kernel
-    (bf16, D = 64 or 128, H / Hkv <= 16) or raise."""
+    (bf16, D = 64 or 128, H / Hkv <= 16) or raise: the split form and
+    flash_decode_merge where decode_splits (or the private _splits) is
+    above 1."""
     _check_shapes("flash_decode", q, k_cache, v_cache)
     if q.device.type == "cpu":
         return flash_decode_plain(q, k_cache, v_cache, pos)
@@ -185,21 +319,25 @@ def flash_decode(q, k_cache, v_cache, pos):
                    "v_cache": (v_cache, torch.bfloat16)})
     B, H, _, D = q.shape
     _, Hkv, S, _ = k_cache.shape
-    out = torch.empty_like(q)
+    splits, out, part = _outputs(q, k_cache, _splits)
     lib = _lib()
     p = _build.ptr
-    err = lib.flash_decode(p(q), p(k_cache), p(v_cache), p(pos), p(out), B,
-                           H, Hkv, S, D, 1.0 / math.sqrt(D), _build.stream())
+    err = lib.flash_decode(p(q), p(k_cache), p(v_cache), p(pos), p(out),
+                           p(part), B, H, Hkv, S, D, splits,
+                           1.0 / math.sqrt(D), _build.stream())
     _build.raise_on(lib, err, "flash_decode")
     launches["flash_decode"] += 1
-    return out
+    return out if part is None else flash_decode_merge(part)
 
 
-def flash_decode_q8(q, k_cache, v_cache, k_scale, v_scale, pos):
+def flash_decode_q8(q, k_cache, v_cache, k_scale, v_scale, pos, *,
+                    _splits=None):
     """INT8-KV flash decode over caches already appended at pos [B] int32.
     q [B, H, 1, D] -> [B, H, 1, D] in q's dtype. CPU tensors take the
     plain version (any float dtype); CUDA tensors launch the kernel (bf16
-    q, D = 64 or 128, H / Hkv <= 16) or raise."""
+    q, D = 64 or 128, H / Hkv <= 16) or raise: the split form and
+    flash_decode_merge where decode_splits (or the private _splits) is
+    above 1."""
     _check_shapes("flash_decode_q8", q, k_cache, v_cache)
     B, H, _, D = q.shape
     _, Hkv, S, _ = k_cache.shape
@@ -213,12 +351,13 @@ def flash_decode_q8(q, k_cache, v_cache, k_scale, v_scale, pos):
                    "v_cache": (v_cache, torch.int8),
                    "k_scale": (k_scale, torch.float32),
                    "v_scale": (v_scale, torch.float32)})
-    out = torch.empty_like(q)
+    splits, out, part = _outputs(q, k_cache, _splits)
     lib = _lib()
     p = _build.ptr
     err = lib.flash_decode_q8(
         p(q), p(k_cache), p(v_cache), p(k_scale), p(v_scale), p(pos), p(out),
-        B, H, Hkv, S, D, 1.0 / math.sqrt(D), _build.stream())
+        p(part), B, H, Hkv, S, D, splits, 1.0 / math.sqrt(D),
+        _build.stream())
     _build.raise_on(lib, err, "flash_decode_q8")
     launches["flash_decode_q8"] += 1
-    return out
+    return out if part is None else flash_decode_merge(part)

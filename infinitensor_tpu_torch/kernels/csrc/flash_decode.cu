@@ -1,6 +1,7 @@
 // Grouped-query flash decode over a dense bf16 or INT8 KV cache,
 // hand-written for Hopper (sm_90a); the kernel body is flash_decode.cuh.
-// Python wrappers: kernels/attention.py flash_decode and flash_decode_q8.
+// Python wrappers: kernels/attention.py flash_decode, flash_decode_q8 and
+// flash_decode_merge.
 //
 // Replaces the TPU kernels (infinitensor_tpu/kernels/attention.py)
 //   flash_decode     <- _flash_decode_hb_kernel     (:294, via flash_decode :219)
@@ -11,10 +12,20 @@
 // for bf16 (16.8 MB per layer for Llama-2-7B at pos 1024), or
 // 2 * Hkv * (pos + 1) * (D + 4) bytes for int8 rows with their f32 scales
 // (8.66 MB), against ~4 * H * (pos + 1) * D flops, so device-memory
-// bandwidth is the floor. At batch 1 a 7B layer is 32 blocks on 132 SMs:
-// a sequence split across blocks is a later change. GPT-2 345M serving
-// (64 slots, 16 heads of 64 columns, at most 384 rows) is 1024 blocks of
-// one or two tiles each.
+// bandwidth is the floor. Unsplit, a 7B layer at batch 1 was 32 blocks on
+// 132 SMs (8 for GQA 32/8), each walking its 1025 rows in 4 tiles of
+// dependent loads: the kernel was held by one block's latency, 8-15x
+// its byte bound. So at few (batch, kv head) blocks the rows of a head are
+// split across blocks (flash_decode.cuh, "Split"): the wrapper's
+// decode_splits picks the split count from (B, Hkv, S) and the SM count
+// only, never from pos; a second small kernel, flash_decode_merge, combines
+// the partials. What bounds the 1-slot kernel then is the latency of one
+// split's single short tile plus the merge's launch (PERF.md §6 rows 4-5).
+// From about as many heads as SMs (B * Hkv; SPLIT_BLOCKS_PER_SM in
+// kernels/attention.py) the unsplit form already fills the card and runs
+// as before: GPT-2 345M serving (64 slots, 16 heads of 64 columns, at most
+// 384 rows) is 1024 blocks of one or two tiles each. The crossover
+// between the forms is measured in chip_smoke.py phase 3 (PERF.md §6).
 #include "flash_decode.cuh"
 
 using flash_decode_detail::dispatch;
@@ -23,28 +34,50 @@ ITT_DEFINE_ERROR_STRING()
 
 // q bf16 [B, H, 1, D]; k/v int8 [B, Hkv, S, D]; ks/vs f32 [B, Hkv, S];
 // pos int32 [B] (inclusive: the row just appended); out bf16 [B, H, 1, D].
-// D must be 64 or 128 and rep = H / Hkv at most 16.
+// D must be 64 or 128 and rep = H / Hkv at most 16. splits > 1: the split
+// form, writing part f32 [B, H, splits, D + 2] (not out) for
+// flash_decode_merge.
 ITT_EXPORT int flash_decode_q8(const void* q, const void* k, const void* v,
                                const void* ks, const void* vs,
-                               const void* pos, void* out, int B, int H,
-                               int Hkv, int S, int D, float scale,
-                               void* stream) {
+                               const void* pos, void* out, void* part, int B,
+                               int H, int Hkv, int S, int D, int splits,
+                               float scale, void* stream) {
   if (D == 64)
-    return dispatch<int8_t, false, 64>(q, k, v, ks, vs, pos, out, nullptr, 0, B, H,
-                                       Hkv, S, scale, stream);
+    return dispatch<int8_t, false, 64>(q, k, v, ks, vs, pos, out, part, splits,
+                                       nullptr, 0, B, H, Hkv, S, scale, stream);
   if (D != 128) return (int)cudaErrorInvalidValue;
-  return dispatch<int8_t, false, 128>(q, k, v, ks, vs, pos, out, nullptr, 0, B, H,
-                                      Hkv, S, scale, stream);
+  return dispatch<int8_t, false, 128>(q, k, v, ks, vs, pos, out, part, splits,
+                                      nullptr, 0, B, H, Hkv, S, scale, stream);
 }
 
 // As flash_decode_q8 over bf16 k/v [B, Hkv, S, D], with no scales.
 ITT_EXPORT int flash_decode(const void* q, const void* k, const void* v,
-                            const void* pos, void* out, int B, int H, int Hkv,
-                            int S, int D, float scale, void* stream) {
+                            const void* pos, void* out, void* part, int B,
+                            int H, int Hkv, int S, int D, int splits,
+                            float scale, void* stream) {
   if (D == 64)
     return dispatch<__nv_bfloat16, false, 64>(q, k, v, nullptr, nullptr, pos, out,
-                                              nullptr, 0, B, H, Hkv, S, scale, stream);
+                                              part, splits, nullptr, 0, B, H, Hkv, S,
+                                              scale, stream);
   if (D != 128) return (int)cudaErrorInvalidValue;
   return dispatch<__nv_bfloat16, false, 128>(q, k, v, nullptr, nullptr, pos, out,
-                                             nullptr, 0, B, H, Hkv, S, scale, stream);
+                                             part, splits, nullptr, 0, B, H, Hkv, S,
+                                             scale, stream);
+}
+
+// part f32 [rows, splits, D + 2] (a split's acc, m, l) -> out bf16
+// [rows, D]; D is 64 or 128, splits at most D.
+ITT_EXPORT int flash_decode_merge(const void* part, void* out, int rows,
+                                  int splits, int D, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (rows <= 0 || splits <= 0 || splits > D) return (int)cudaErrorInvalidValue;
+  const auto* pp = static_cast<const float*>(part);
+  auto* op = static_cast<__nv_bfloat16*>(out);
+  if (D == 128)
+    flash_decode_detail::flash_decode_merge<128><<<rows, 128, 0, s>>>(pp, op, splits);
+  else if (D == 64)
+    flash_decode_detail::flash_decode_merge<64><<<rows, 64, 0, s>>>(pp, op, splits);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
 }

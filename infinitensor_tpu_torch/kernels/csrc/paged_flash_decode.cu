@@ -33,7 +33,7 @@ ITT_EXPORT int paged_flash_decode_q8(const void* q, const void* k,
                                      int Hkv, int P, int MP, int D,
                                      float scale, void* stream) {
   if (D != 128) return (int)cudaErrorInvalidValue;
-  return dispatch<int8_t, true, 128>(q, k, v, ks, vs, pos, out, table, P, B, H, Hkv,
+  return dispatch<int8_t, true, 128>(q, k, v, ks, vs, pos, out, nullptr, 1, table, P, B, H, Hkv,
                                      MP * P, scale, stream);
 }
 
@@ -43,6 +43,6 @@ ITT_EXPORT int paged_flash_decode(const void* q, const void* k, const void* v,
                                   void* out, int B, int H, int Hkv, int P,
                                   int MP, int D, float scale, void* stream) {
   if (D != 128) return (int)cudaErrorInvalidValue;
-  return dispatch<__nv_bfloat16, true, 128>(q, k, v, nullptr, nullptr, pos, out, table,
+  return dispatch<__nv_bfloat16, true, 128>(q, k, v, nullptr, nullptr, pos, out, nullptr, 1, table,
                                             P, B, H, Hkv, MP * P, scale, stream);
 }

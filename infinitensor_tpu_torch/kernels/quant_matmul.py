@@ -544,18 +544,13 @@ def mma_plan(rows: int, dout_p: int, krows: int, group: int, sms: int
     return tile, splits
 
 
-@functools.cache
-def _sms(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _tile_plan(x2: torch.Tensor, q: QuantizedLinear) -> tuple:
     """(row_tile, splits, part) of a launch of the tensor-core tile:
     mma_plan on this card, and the f32 partials [splits, rows, dout_p]
     where K is split (else None)."""
     rows, dout_p = x2.shape[0], q.out_physical
     tile, splits = mma_plan(rows, dout_p, _packed_rows(q), q.group_size,
-                            _sms(x2.device.index or 0))
+                            _build.sms(x2.device.index or 0))
     part = None if splits == 1 else torch.empty(
         splits, rows, dout_p, dtype=torch.float32, device=x2.device)
     return tile, splits, part

@@ -5,9 +5,9 @@ jax, run without the repository's conftest (which imports jax):
     python -m pytest --noconftest tests/test_torch_gpu.py -q
 
 Tolerance: within 1e-2 of max|plain| (both sides round f32 sums, taken
-in another order, to bf16; flash_attention also splits P into two bf16
-terms for its tensor-core product); graph and eager decode give equal
-tokens, and so do the paged and the dense serving engine.
+in another order, to bf16; flash_attention also rounds P to bf16 for its
+tensor-core product); graph and eager decode give equal tokens, and so do
+the paged and the dense serving engine.
 """
 
 import json
@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from infinitensor_tpu_torch.kernels import _build
 from infinitensor_tpu_torch.kernels import attention as att
 from infinitensor_tpu_torch.kernels import flash_attention as fa
 from infinitensor_tpu_torch.kernels import paged_attention as pa
@@ -590,21 +591,23 @@ def test_decode_routes_launch_counts(dev, knobs):
     fn(params, cfg, token, pos, cache)
     torch.cuda.synchronize()
     assert {**qm.launches, **att.launches} == {
-        "qmm_chunk": 3 * L + 1, "dequant_matmul": L, "flash_decode_q8": L}
+        "qmm_chunk": 3 * L + 1, "dequant_matmul": L, "flash_decode_q8": L,
+        **att.merge_launches(L, 1, cfg.n_kv_heads, cfg.max_seq)}
     cfg, params = _small_model(dev)
     L = cfg.n_layers
+    merges = att.merge_launches(L, 2, cfg.n_kv_heads, cfg.max_seq)
     knobs(variant="w4a8")
     # two tokens: wo, w_down and the lm_head take qmm_w4a8's tensor-core
     # form from W4A8_MMA_MIN_ROWS rows, the fused-norm launches stay
     mma = {"qmm_w4a8_mma": 2 * L + 1} if 2 >= qm.W4A8_MMA_MIN_ROWS else {}
     assert _decode_launches(params, cfg, dev) == {
         "qmm_norm_w4a8": 2 * L, "qmm_w4a8": 2 * L + 1, "flash_decode_q8": L,
-        **mma}
+        **mma, **merges}
     knobs(table={"512:512:4": {"variant": "group2d", "bn": 128, "kb": 128},
                  "1024:512:4": {"variant": "group2d", "bn": 128, "kb": 256}})
     assert _decode_launches(params, cfg, dev) == {
         "qmm_group_norm": 2 * L, "qmm_group2d": 2 * L + 1,
-        "flash_decode_q8": L}
+        "flash_decode_q8": L, **merges}
 
 
 # -- the graph slice: rmsnorm, the band kernels, flash_attention at D 64, --
@@ -932,9 +935,9 @@ def test_w4a8_mma_kernel(dev, rows, bits, xdt, monkeypatch):
     a dout with no multiple of 16 columns (its 4-byte copies), a padded
     dout, K split (the card's SM count) and not (one SM); and an x view
     that is not 16-byte aligned."""
-    sms = qm._sms(0)
+    sms = _build.sms(0)
     for n_sm in (sms, 1):
-        monkeypatch.setattr(qm, "_sms", lambda i, n=n_sm: n)
+        monkeypatch.setattr(_build, "sms", lambda i, n=n_sm: n)
         for sdt in (torch.bfloat16, torch.float32):
             for group in (128, 256):
                 for din, dout, pad in ((1024, 384, 0), (1024, 260, 0),
@@ -966,9 +969,9 @@ def test_group_ln_mma_kernel(dev, rows, bits, bias_dt, monkeypatch):
     gamma, beta = _ln_inputs(dev, 1024)
     bias = None if bias_dt is None else \
         _x(dev, 1, 300, seed=5)[0].to(bias_dt)
-    sms = qm._sms(0)
+    sms = _build.sms(0)
     for n_sm, split in ((sms, True), (1, False)):
-        monkeypatch.setattr(qm, "_sms", lambda i, n=n_sm: n)
+        monkeypatch.setattr(_build, "sms", lambda i, n=n_sm: n)
         plan = qm.mma_plan(rows, q.out_physical, q.qweight.shape[0],
                            q.group_size, n_sm)
         assert (plan[1] > 1) == split
@@ -1010,3 +1013,103 @@ def test_w4a8_and_ln_mma_launch_counts(dev):
     assert qm.launches["qmm_norm_w4a8"] == \
         before.get("qmm_norm_w4a8", 0) + 1
     assert qm.launches["qmm_w4a8_mma"] == before.get("qmm_w4a8_mma", 0)
+
+
+# -- the split form of the dense decode attention, and flash_attention's --
+# -- cp.async ring at the shapes that hit its first and last stages --
+
+def _decode_inputs(dev, cache, H, Hkv, S, D, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(1, H, 1, D, generator=g, device=dev).to(torch.bfloat16)
+    if cache == "bf16":
+        return q, tuple(torch.randn(1, Hkv, S, D, generator=g, device=dev)
+                        .to(torch.bfloat16) for _ in range(2))
+    kv = tuple(torch.randint(-127, 128, (1, Hkv, S, D), generator=g,
+                             device=dev, dtype=torch.int8) for _ in range(2))
+    sc = tuple(torch.rand(1, Hkv, S, generator=g, device=dev) * 0.015
+               + 0.005 for _ in range(2))
+    return q, kv + sc
+
+
+def _decode(cache, q, kv, pos, **kw):
+    if cache == "bf16":
+        return att.flash_decode(q, *kv, pos, **kw)
+    return att.flash_decode_q8(q, *kv, pos, **kw)
+
+
+def _decode_plain(cache, q, kv, pos):
+    if cache == "bf16":
+        return att.flash_decode_plain(q, *kv, pos)
+    return att.flash_decode_q8_plain(q, *kv, pos)
+
+
+@pytest.mark.parametrize("cache", ["bf16", "int8"])
+@pytest.mark.parametrize("H,Hkv", [(32, 32), (32, 8)])
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_decode_split_form(dev, cache, H, Hkv, D):
+    """B 1 takes the split form: each pos against the plain version and
+    against the forced unsplit form; one launch of the kernel and one of
+    the merge a call."""
+    S = 1100
+    q, kv = _decode_inputs(dev, cache, H, Hkv, S, D, H + Hkv + D)
+    assert att.decode_splits(1, Hkv, S, _build.sms(0)) > 1
+    kname = "flash_decode" if cache == "bf16" else "flash_decode_q8"
+    for p in (0, 1, 255, 256, 1024, S - 1):
+        pos = torch.tensor([p], dtype=torch.int32, device=dev)
+        before = dict(att.launches)
+        got = _decode(cache, q, kv, pos)
+        assert att.launches[kname] == before.get(kname, 0) + 1
+        assert att.launches["flash_decode_merge"] == \
+            before.get("flash_decode_merge", 0) + 1
+        assert torch.isfinite(got.float()).all()
+        _close(got, _decode_plain(cache, q, kv, pos))
+        _close(got, _decode(cache, q, kv, pos, _splits=1))
+
+
+def test_flash_decode_merge_kernel(dev):
+    """The merge alone on partials with empty splits (l = 0, m = -inf)."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    for D in (64, 128):
+        part = torch.randn(3, 4, 5, D + 2, generator=g, device=dev)
+        part[..., D + 1] = part[..., D + 1].abs() + 0.5
+        part[:, :, 1, D:] = torch.tensor([float("-inf"), 0.0], device=dev)
+        part[0, :, :4, D:] = torch.tensor([float("-inf"), 0.0], device=dev)
+        before = att.launches["flash_decode_merge"]
+        got = att.flash_decode_merge(part)
+        assert att.launches["flash_decode_merge"] == before + 1
+        _close(got, att.flash_decode_merge_plain(part).to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("cache", ["bf16", "int8"])
+def test_flash_decode_split_form_in_a_cuda_graph(dev, cache):
+    """One captured split launch stays right as pos moves between
+    replays: the split count comes from shapes, the bounds from pos on the
+    device."""
+    S, H, Hkv, D = 1100, 32, 8, 128
+    q, kv = _decode_inputs(dev, cache, H, Hkv, S, D, 3)
+    pos = torch.tensor([5], dtype=torch.int32, device=dev)
+    _decode(cache, q, kv, pos)            # build and load outside capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = _decode(cache, q, kv, pos)
+    for p in (0, 700, 63, 1099, 1024, 5):
+        pos.fill_(p)
+        graph.replay()
+        torch.cuda.synchronize()
+        _close(out, _decode_plain(cache, q, kv, pos))
+
+
+@pytest.mark.parametrize("S", [1, 65, 129, 1023, 1024, 1025])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_ring(dev, S, D, causal):
+    """The cp.async ring's first and last stages and the ragged tail."""
+    g = torch.Generator().manual_seed(S + D)
+    q, k, v = (torch.randn(1, 4, S, D, generator=g).mul(2).to(torch.bfloat16)
+               .to(dev) for _ in range(3))
+    want = fa.mha_plain(q, k, v, causal)
+    before = fa.launches["flash_attention"]
+    got = fa.flash_attention(q, k, v, causal)
+    assert fa.launches["flash_attention"] == before + 1
+    _close(got, want)

@@ -226,6 +226,71 @@ def test_flash_decode_q8_plain_vs_pallas(rep):
     _close(got, want)
 
 
+# The split form of the dense decode attention (flash-decoding): each
+# split's partial (acc, m, l), then the fixed-order merge, against the JAX
+# kernels in interpret mode. pos 0 leaves one split live; 100 and 130
+# spread 101 and 131 rows unevenly over 3 and 8 splits; 255 fills S.
+# Tolerance: OUT_TOL, the merge's f32 result rounded to bf16 as the kernel
+# writes it.
+@pytest.mark.parametrize("splits,pos", [(1, (100, 255)), (3, (0, 100)),
+                                        (8, (0, 255)), (8, (130, 7))])
+@pytest.mark.parametrize("rep", [1, 4])
+@pytest.mark.parametrize("cache", ["bf16", "int8"])
+def test_flash_decode_split_plain_vs_pallas(cache, rep, splits, pos):
+    rng = np.random.default_rng(50 + rep + splits)
+    B, Hkv, S, D = 2, 2, 256, 128
+    q = jnp.asarray(rng.standard_normal((B, Hkv * rep, 1, D)), jnp.bfloat16)
+    jpos = jnp.asarray(pos, jnp.int32)
+    if cache == "bf16":
+        kc, vc = (jnp.asarray(rng.standard_normal((B, Hkv, S, D)),
+                              jnp.bfloat16) for _ in range(2))
+        want = att.flash_decode(q, kc, vc, jpos, seq_block=128,
+                                interpret=True)
+        part = tatt.flash_decode_split_plain(
+            *(_t(a) for a in (q, kc, vc, jpos)), splits)
+    else:
+        kc, vc, ks, vs = _q8_cache(rng, B, Hkv, S, D)
+        want = att.flash_decode_q8(q, kc, vc, ks, vs, jpos, seq_block=128,
+                                   interpret=True)
+        part = tatt.flash_decode_q8_split_plain(
+            *(_t(a) for a in (q, kc, vc, ks, vs, jpos)), splits)
+    assert part.shape == (B, Hkv * rep, splits, D + 2)
+    n = np.minimum(np.asarray(pos), S - 1) + 1
+    empty = (np.arange(splits + 1)[None, 1:] * n[:, None] // splits
+             == np.arange(splits)[None] * n[:, None] // splits)
+    np.testing.assert_array_equal(part[..., D + 1].numpy() == 0,
+                                  np.repeat(empty[:, None], Hkv * rep, 1))
+    _close(tatt.flash_decode_merge(part), want)
+
+
+def test_decode_splits_read_shapes_only():
+    """The split count comes from (B, Hkv, S) and the SM count, never pos:
+    one captured graph replays one split count while pos moves; at every
+    pos the split form equals the unsplit plain version."""
+    import inspect
+    assert list(inspect.signature(tatt.decode_splits).parameters) == [
+        "B", "Hkv", "S", "sms"]
+    assert list(inspect.signature(tatt._outputs).parameters) == [
+        "q", "k_cache", "splits"]
+    assert tatt.decode_splits(1, 32, 1664, 132) > 1       # 7B MHA, bs 1
+    assert tatt.decode_splits(1, 8, 1664, 132) > 1        # GQA 32/8
+    assert tatt.decode_splits(64, 16, 384, 132) == 1      # GPT-2, 64 slots
+    for B, Hkv, S in ((1, 32, 1664), (1, 8, 64), (2, 1, 63), (4, 8, 4096)):
+        ns = tatt.decode_splits(B, Hkv, S, 132)
+        assert 1 <= ns <= max(1, min(S // tatt.SPLIT_MIN_ROWS,
+                                     tatt.SPLIT_MAX))
+    rng = np.random.default_rng(60)
+    B, Hkv, rep, S, D = 1, 2, 2, 64, 64
+    q = torch.from_numpy(rng.standard_normal((B, Hkv * rep, 1, D))).to(
+        torch.bfloat16)
+    kc, vc = (torch.from_numpy(rng.standard_normal((B, Hkv, S, D))).to(
+        torch.bfloat16) for _ in range(2))
+    for p in range(S):
+        pos = torch.tensor([p], dtype=torch.int32)
+        _close(tatt.flash_decode_merge(tatt.flash_decode_split_plain(
+            q, kc, vc, pos, 5)), tatt.flash_decode_plain(q, kc, vc, pos))
+
+
 def _close_cache(got_q, got_s, want_q, want_s):
     dq = np.abs(got_q.numpy().astype(np.int32)
                 - np.asarray(want_q).astype(np.int32))
