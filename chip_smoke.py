@@ -33,7 +33,16 @@ Phases, each failing with a nonzero exit, each printing its seconds:
      (flash_decode_merge) on partials of the 7B shape, and the crossover
      of the forms at 8-1024 (batch, kv head) blocks, 96-192 among them,
      where the rule flips; flash_attention at the 7B prompt and at
-     entry()'s;
+     entry()'s; the any-type attention form (csrc/attention_any.cuh) at
+     the f16 shapes of phase 14 (flash_attention_any on its prompt,
+     flash_decode_any and flash_decode_q8_any at pos CTX split and
+     unsplit, flash_decode_merge_any, both paged kernels' any-type form
+     at the serving shape), and each of the five attention wrappers at
+     every q dtype (bf16, f16, f32) and head dim 8, 16, 64, 96, 128, 256
+     against its plain version (the any-type grid, untimed); the 1-row
+     matmuls that take the K split (qmm_group, qmm_slab and
+     qmm_chunk on a short grid) each beside the form before it, forced
+     (qm._SPLITS = 1);
   4. the 7B INT4 + INT8-KV decode path with random weights built on the
      card as bench.py builds them: one step with the kernels against the
      same step on the plain versions (CPU), then llama_decode_multi for
@@ -42,7 +51,9 @@ Phases, each failing with a nonzero exit, each printing its seconds:
      torch.profiler window over one graph run (busy share, kernel ms a
      token), the same with the decode attention forced unsplit, and each
      kernel's launch count on that path (no tensor-core form at 1 row;
-     flash_decode_q8 and flash_decode_merge 32 a token);
+     flash_decode_q8 and flash_decode_merge 32 a token; qmm_group_split
+     64: wo and w_down take the K split), and the same region with
+     the matmuls' K split forced off;
   5. the prompt -> generate path (greedy_generate) with the same weights
      and a seeded 1024-token prompt, for 128 tokens with the default bf16
      cache and again with an INT8 cache: prefill ms, prompt tok/s, the
@@ -102,9 +113,11 @@ Phases, each failing with a nonzero exit, each printing its seconds:
   9. the same decode with INT4 weights at group 64, the quantization of
      __graft_entry__.entry() at 7B width: every linear takes qmm_chunk
      (wqkv and w_gateup through rmsnorm + quant_matmul), 129 launches a
-     token and no qmm_group*, qmm_w4a8 or qmm_slab*; then the port's
-     entry() (infinitensor_tpu_torch/entry.py) once, its launches
-     counted and its logits held against the plain versions on the CPU;
+     token (wqkv, wo and w_down in the K split) and no qmm_group*,
+     qmm_w4a8 or qmm_slab*, and the same region with the split forced
+     off; then the port's entry() (infinitensor_tpu_torch/entry.py)
+     once, its launches counted and its logits held against the plain
+     versions on the CPU;
  10. the group-128 decode under INFINITPU_QMM_VARIANT=w4a8 with an empty
      tuning table (INFINITPU_QMM_TUNE): qmm_norm_w4a8 64 and qmm_w4a8 65
      launches a token; with the default table the env var changes nothing
@@ -131,7 +144,17 @@ Phases, each failing with a nonzero exit, each printing its seconds:
      f32 and bf16, against the dense masked S x S attention in plain torch
      (relative error against f64 within 1e-4 in f32, 4e-2 in bf16; the
      same check must fail with one row of v moved), launching g2bmm and
-     gbmm once each.
+     gbmm once each;
+ 14. the 7B model of phase 4 as an f16 model (the same INT4 codes, scales
+     rescaled to weights of rms 1/sqrt(din) so that the residual fits f16;
+     f16 embedding, norms, activations and cache): greedy_generate on a
+     seeded 256-token prompt with the f16 cache and with an INT8 cache
+     (flash_attention_any 32 a prefill, flash_decode_any or
+     flash_decode_q8_any and flash_decode_merge_any in the decode),
+     prefill ms; a 2-layer f16 prefill against the plain versions on the
+     CPU; one decode step of 8 slots over f16 pages and over INT8 pages
+     (the any-type paged kernels, 32 launches each) against the same
+     step over a dense cache.
 Phase 9 also runs greedy_generate on entry()'s model (head dim 64), whose
 prefill launches flash_attention at D 64.
 Phases 8-11 each check one step against the plain versions on the CPU,
@@ -146,8 +169,9 @@ rows, qmm_group2d at 1 row), and the graph slice's kernels: rmsnorm at 1,
 and at Longformer-base's attention (12 heads of 64, window 256, S 4096,
 bf16), flash_attention at head dim 64 at entry()'s prompt (q, k, v [2, 8,
 64, 64]).
-The last lines are the kernels JSON (21 kernels), nvidia-smi's name and
-power limit,
+The last lines are the kernels JSON (every kernel, the any-type forms
+and the K split's forms among them), nvidia-smi's name and power
+limit,
 and {"ok": true, "device": {...}}. A report goes to chiprun_out/.
 """
 
@@ -162,7 +186,8 @@ import sys
 import time
 
 HBM_BYTES_S = 3.35e12        # H100 SXM published device-memory rate
-PEAK_OPS = {"bf16": 989e12, "int8": 1979e12,    # dense tensor-core peaks
+PEAK_OPS = {"bf16": 989e12, "f16": 989e12,     # dense tensor-core peaks
+            "int8": 1979e12,
             "f32": 67e12}                          # f32 outside them
 SEED = 0
 CTX = 1024                   # decode position (bench.py BENCH_CTX)
@@ -191,6 +216,9 @@ G_TIE = 2.5e-2               # phase 7's near-tie: this random model's mean
 G_FORCED = {GPT2_BF16: 2.5e-2, GPT2_INT8: 3e-2}   # teacher-forced limits
 PAIRED = "paired decode"
 G64, W4A8, SPLIT = "group64 decode", "w4a8 decode", "split-K decode"
+F16_PROMPT = f"f16 prompt {SHORT}"       # phase 14
+F16_PROMPT_Q8 = f"f16 prompt {SHORT} int8"
+F16_PAGED = "f16 paged step"
 SRC = "infinitensor_tpu_torch/kernels/csrc/"
 TPU = "infinitensor_tpu/kernels/"
 
@@ -408,6 +436,10 @@ def main():
                 shape=label if rows == 1 else f"{label} {rows} rows",
                 path=path, replaces=TPU + "quant_matmul.py:100",
                 source=SRC + "quant_matmul.cu",
+                # 1 row: the K split, beside the form before it
+                **({"forms": {"unsplit": unsplit(qm, lambda x=x, q=q:
+                                                  qm.quant_matmul(x, q))}}
+                   if rows == 1 else {}),
                 kernel=lambda x=x, q=q: qm.quant_matmul(x, q),
                 plain=lambda x=x, q=q: qm.qmm_group_plain(x, q)[
                     :, :q.out_features],
@@ -524,6 +556,7 @@ def main():
     cases += graph_cases(torch, norms, band, fa, cfg, gen, dev, randn)
     cases += mma_cases(torch, qm, cfg, params, gparams, randn,
                        dequantize_weight)
+    cases += any_cases(torch, att, fa, pa, cfg, gen, dev)
 
     for c in cases:
         with knobs(c.get("env", {})):
@@ -534,6 +567,9 @@ def main():
     report["ln_crossover"] = ln_crossover(torch, qm, gparams["layers"][0],
                                           gcfg, gen, randn, flush)
     report["decode_crossover"] = decode_crossover(torch, att, gen, dev, flush)
+    report["any_grid"] = any_grid(torch, att, fa, pa, gen, dev)
+    report["split_crossover"] = split_crossover(
+        torch, qm, layer0, g64params["layers"][0], randn, flush)
     del flush, qa, ka, va, part, q8_mha
     t_phase = phase(3, t_phase)
 
@@ -541,8 +577,8 @@ def main():
     per_token = decode_path(torch, llama, counters, params, cfg, dev, report)
     step4 = dict(per_token)         # phases 5 and 6 add their kernels
     paths = {"decode": report["launches_main_path"]}
-    for kname in ("qmm_group_norm", "qmm_group", "qmm_w4a8",
-                  "flash_decode_q8", "flash_decode_merge"):
+    for kname in ("qmm_group_norm", "qmm_group", "qmm_group_split",
+                  "qmm_w4a8", "flash_decode_q8", "flash_decode_merge"):
         if paths["decode"].get(kname, 0) <= 0:
             fail(f"{kname} was never launched on the main path")
     for kname in ("qmm_group_mma", "qmm_w4a8_mma", "qmm_group_ln_mma"):
@@ -595,17 +631,24 @@ def main():
     paths[PAIRED] = variant_path(
         torch, llama, counters, pparams, cfg, dev, report, steps, PAIRED,
         {"qmm_slab_norm": 2 * L, "qmm_slab": 2 * L + 1,
+         "qmm_slab_split": L * split_launches(
+             qm, (pparams["layers"][0]["wo"], pparams["layers"][0]["w_down"]))
+         + split_launches(qm, (pparams["lm_head"],)),
          "flash_decode_q8": L, **merges(cfg, L)},
         weight_bytes(cfg, paired=True))
     del pparams
     t_phase = phase(8, t_phase)
 
     # 9. the 7B decode at group 64 (entry()'s quantization), then entry()
+    lay64 = g64params["layers"][0]
     paths[G64] = variant_path(
         torch, llama, counters, g64params, cfg, dev, report, steps, G64,
-        {"qmm_chunk": 4 * L + 1, "flash_decode_q8": L,
-         **merges(cfg, L)},
-        weight_bytes(cfg, group=64))
+        {"qmm_chunk": 4 * L + 1,
+         "qmm_chunk_split": L * split_launches(
+             qm, [lay64[k] for k in ("wqkv", "wo", "w_gateup", "w_down")])
+         + split_launches(qm, (g64params["lm_head"],)),
+         "flash_decode_q8": L, **merges(cfg, L)},
+        weight_bytes(cfg, group=64), qm=qm)
     del g64params
     entry_check(torch, counters, report)
     paths[ENTRY_PROMPT] = entry_prompt_check(torch, llama, counters, report)
@@ -646,7 +689,6 @@ def main():
     # 12. the 7B decode built through the graph IR, and its serving adapter
     paths.update(graph_path(torch, llama, graph_llama, GraphExecutor,
                             counters, params, cfg, dev, report, steps))
-    del params
     t_phase = phase(12, t_phase)
 
     # 13. Longformer band attention through the graph IR
@@ -654,11 +696,17 @@ def main():
                                  GraphExecutor, counters, dev, report, steps))
     t_phase = phase(13, t_phase)
 
-    per_prompt = report["generate"][f"prompt {SHORT}"]["launches_per_prompt"]
+    # 14. the 7B model in f16: the any-type attention on its paths
     prompts_of = {ENTRY_PROMPT: paths[ENTRY_PROMPT]}
+    paths.update(f16_path(torch, llama, counters, params, cfg, dev, report,
+                          steps, prompts_of))
+    del params
+    t_phase = phase(14, t_phase)
+
+    per_prompt = report["generate"][f"prompt {SHORT}"]["launches_per_prompt"]
     kernels = []
     for c in cases:
-        prefill = c["name"] == "flash_attention" or c["path"] == \
+        prefill = c["name"].startswith("flash_attention") or c["path"] == \
             f"prompt {SHORT}"
         step = report["serving"][c["path"]]["launches_per_step"] \
             if c["path"].startswith("serving") \
@@ -971,10 +1019,17 @@ def decode_path(torch, llama, counters, params, cfg, dev, report):
         del g1
     finally:
         att._SPLITS = None
+    from infinitensor_tpu_torch.kernels import quant_matmul as qm
+    unsplit_mm = unsplit_region(torch, llama, qm, params, cfg, token, pos,
+                                cache)
+    # the main region again, after the forced forms: the same call read in
+    # turns (split, unsplit attention, unsplit matmuls, split)
+    unsplit_mm["split_again_tok_s_samples"] = time_graph(torch, g, cache,
+                                                         token, pos)
     kv_bytes = 2 * cfg.n_layers * cfg.n_kv_heads * CTX * (cfg.head_dim + 4)
     bytes_tok = weight_bytes(cfg) + kv_bytes
     tok_s = STEPS / dt
-    res = {
+    res = {"unsplit_matmuls": unsplit_mm,
         "tok_s": tok_s, "ms_per_token": 1e3 * dt / STEPS,
         "tok_s_samples": [STEPS / s for s in samples],
         "decode_multi_call_s": multi_s, "bytes_per_token": bytes_tok,
@@ -988,6 +1043,38 @@ def decode_path(torch, llama, counters, params, cfg, dev, report):
     report.update(res)
     print("# decode " + json.dumps(res), flush=True)
     return per_token
+
+
+def time_graph(torch, g, cache, token, pos):
+    """tok/s of 3 runs of the DecodeGraph g, each from fresh state."""
+    samples = []
+    for _ in range(3):
+        fresh(cache)
+        g.reset(token, pos)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g.run()
+        torch.cuda.synchronize()
+        samples.append(STEPS / (time.perf_counter() - t0))
+    return samples
+
+
+def unsplit_region(torch, llama, qm, params, cfg, token, pos, cache):
+    """The 128-step graph region of phases 4 and 9 with the matmuls'
+    K split forced off (qm._SPLITS = 1, the form before it): tok/s
+    (max of 3 runs) and a profiler window, in the same call as the split
+    form's."""
+    qm._SPLITS = 1
+    try:
+        fresh(cache)
+        g1 = llama.DecodeGraph(params, cfg, token, pos, cache, STEPS)
+        samples = time_graph(torch, g1, cache, token, pos)
+        prof = graph_profile(torch, g1, cache, token, pos)
+        del g1
+    finally:
+        qm._SPLITS = None
+    return {"tok_s": max(samples), "tok_s_samples": samples,
+            "device_profile": prof}
 
 
 def graph_profile(torch, g, cache, token, pos):
@@ -1694,6 +1781,9 @@ def paired_cases(torch, qm, cfg, pparams, randn, dequantize_weight):
             name="qmm_slab", shape=f"paired {label}", path=PAIRED,
             replaces=TPU + "quant_matmul.py:203",
             source=SRC + "quant_matmul_fused.cu",
+            **({"forms": {"unsplit": unsplit(qm, lambda x=x, q=q:
+                                              qm.quant_matmul(x, q))}}
+               if split_launches(qm, (q,)) else {}),
             kernel=lambda x=x, q=q: qm.quant_matmul(x, q),
             plain=lambda x=x, q=q: qm.qmm_slab_plain(x, q)[
                 :, :q.out_features],
@@ -2029,14 +2119,15 @@ def gpt2_path(torch, gpt2, sb, counters, gparams, gcfg, dev, report, steps):
 
 
 def variant_path(torch, llama, counters, params, cfg, dev, report, steps,
-                 label, want_step, weight_b):
+                 label, want_step, weight_b, qm=None):
     """Phases 8-11: decode_path's checks on other weights or knobs. One
     step must launch exactly want_step; it is held against the plain
     versions on the CPU (under the same knobs); 128 graph-replayed steps
     must equal an eager loop; tok/s is the min of 3 graph runs against the
     copy-rate roofline of weight_b + the INT8 cache's bytes per token.
-    Returns the launch counts of llama_decode_multi; steps[label] gets one
-    decode step's."""
+    With qm, the same region again with the matmuls' K split forced
+    off (qm._SPLITS = 1), in this call. Returns the launch counts of
+    llama_decode_multi; steps[label] gets one decode step's."""
     token = torch.zeros(1, dtype=torch.int32, device=dev)
     pos = torch.full((1,), CTX, dtype=torch.int32, device=dev)
     cache = llama.init_kv_cache(cfg, 1, kv_quant=True, device=dev)
@@ -2100,9 +2191,15 @@ def variant_path(torch, llama, counters, params, cfg, dev, report, steps,
     dt = min(samples)
     # the card's side of one graph run: busy share, kernel ms a token
     prof = graph_profile(torch, g, cache, token, pos)
+    extra = {}
+    if qm is not None:
+        extra["unsplit_matmuls"] = unsplit_region(torch, llama, qm, params,
+                                                  cfg, token, pos, cache)
+        extra["unsplit_matmuls"]["split_again_tok_s_samples"] = time_graph(
+            torch, g, cache, token, pos)
     kv_bytes = 2 * cfg.n_layers * cfg.n_kv_heads * CTX * (cfg.head_dim + 4)
     bytes_tok = weight_b + kv_bytes
-    res = {
+    res = {**extra,
         "tok_s": STEPS / dt, "ms_per_token": 1e3 * dt / STEPS,
         "tok_s_samples": [STEPS / s for s in samples],
         "unpaired_group128_tok_s": report["tok_s"],
@@ -2129,9 +2226,14 @@ def entry_check(torch, counters, report):
     logits, _ = fn(params, cfg, token, pos, cache)
     torch.cuda.synchronize()
     got = counters.read()
-    L = cfg.n_layers
-    want = {"qmm_chunk": 3 * L + 1, "dequant_matmul": L,
-            "flash_decode_q8": L, **merges(cfg, L)}
+    L, B = cfg.n_layers, token.shape[0]
+    from infinitensor_tpu_torch.kernels import quant_matmul as qm
+    lay = params["layers"][0]
+    want = {"qmm_chunk": 3 * L + 1,
+            "qmm_chunk_split": L * split_launches(
+                qm, (lay["wqkv"], lay["wo"], lay["w_gateup"]), B)
+            + split_launches(qm, (params["lm_head"],), B),
+            "dequant_matmul": L, "flash_decode_q8": L, **merges(cfg, L)}
     print(f"# entry(): one decode step launched {got}", flush=True)
     report["entry_launches"] = got
     if got != want:
@@ -2209,11 +2311,15 @@ def variant_cases(torch, qm, cfg, g64, params, envs, kbs, randn,
         for label in ("wqkv", "w_gateup", "wo", "w_down", "lm_head"):
             q = g64[label] if label == "lm_head" else lay64[label]
             x, w = randn(rows, q.in_features), dequantize_weight(q)
-            out.append(row(
+            c = row(
                 "qmm_chunk", f"g64 {label}", rows, G64, q,
                 lambda x=x, q=q: qm.quant_matmul(x, q),
                 lambda x=x, q=q: qm.qmm_chunk_plain(x, q)[:, :q.out_features],
-                lambda x=x, w=w: torch.matmul(x, w)))
+                lambda x=x, w=w: torch.matmul(x, w))
+            if split_launches(qm, (q,), rows):      # beside the old form
+                c["forms"] = {"unsplit": unsplit(
+                    qm, lambda x=x, q=q: qm.quant_matmul(x, q))}
+            out.append(c)
         for label in ("wqkv", "w_gateup"):
             q = layer[label]
             x = randn(rows, cfg.dim)
@@ -2395,6 +2501,7 @@ def graph_path(torch, llama, graph_llama, GraphExecutor, counters, params,
     ServingEngine at 7B width, 2 layers, against the dense engine.
     Returns {path: launches}."""
     import numpy as np
+    from infinitensor_tpu_torch.kernels import quant_matmul as qm
     from infinitensor_tpu_torch.serving import ServingEngine
 
     L = cfg.n_layers
@@ -2419,7 +2526,10 @@ def graph_path(torch, llama, graph_llama, GraphExecutor, counters, params,
     torch.cuda.synchronize()
     per_step = counters.read()
     steps[GRAPH] = per_step
+    layer0 = params["layers"][0]
     want = {"qmm_group_norm": 2 * L, "qmm_group": 2 * L, "qmm_w4a8": 1,
+            "qmm_group_split": L * split_launches(
+                qm, (layer0["wo"], layer0["w_down"])),
             "flash_decode_q8": L, "rmsnorm": 1, **merges(cfg, L)}
     print(f"# {GRAPH}: {len(dec.graph.operators)} ops built in "
           f"{build_s:.2f}s; one step launched {per_step}", flush=True)
@@ -2655,6 +2765,411 @@ def longformer_path(torch, GraphHandler, DataType, GraphExecutor, counters,
         print(f"# {label}: " + json.dumps(res[label]), flush=True)
         del ex, eager, ref
     report["longformer"] = res
+    return paths
+
+
+# -- the any-type attention form and the K split of the matmuls: ----------
+# -- phase 3 rows, the any-type grid, phase 14 (the f16 Llama) --------------
+
+ANY_DTYPES = ("bf16", "f16", "f32")
+ANY_HEAD_DIMS = (8, 16, 64, 96, 128, 256)
+ANY_SRC = SRC + "attention_any.cuh"
+
+
+def unsplit(qm, fn):
+    """fn with the matmuls' K split forced off (qm._SPLITS = 1):
+    the form before it, timed beside it in one call."""
+    def run():
+        qm._SPLITS = 1
+        try:
+            return fn()
+        finally:
+            qm._SPLITS = None
+    return run
+
+
+def split_launches(qm, weights, rows=1):
+    """How many of the CUDA-core launches of `weights` at `rows` rows take
+    the K split on this card (qm.group_splits above 1)."""
+    return sum(qm.group_splits(rows, q.out_physical, q.qweight.shape[0],
+                               q.group_size, qm._build.sms(0)) > 1
+               for q in weights)
+
+
+CODE_RMS = math.sqrt(21.5)   # rms of int4 codes uniform in [-8, 7]
+
+
+def f16_params(torch, params):
+    """params (bf16 embedding and norms, INT4 weights) as an f16 model:
+    the same INT4 codes, each matrix's scales multiplied so that its
+    weights' rms is 1 / sqrt(din) (bench.py's random scales let the bf16
+    model's residual reach 9e5 by layer 32, past f16's 65504 from layer
+    3), the embedding and norms in f16."""
+    def rescale(q):
+        rms = CODE_RMS * q.scales.float().square().mean().sqrt()
+        f = 1.0 / (math.sqrt(q.in_features) * float(rms))
+        return dataclasses.replace(q, scales=(q.scales.float() * f).to(
+            q.scales.dtype))
+
+    keys = ("wqkv", "wo", "w_gateup", "w_down")
+    return dict(params, embed=params["embed"].half(),
+                final_norm=params["final_norm"].half(),
+                lm_head=rescale(params["lm_head"]),
+                layers=[dict(lay, attn_norm=lay["attn_norm"].half(),
+                             mlp_norm=lay["mlp_norm"].half(),
+                             **{k: rescale(lay[k]) for k in keys})
+                        for lay in params["layers"]])
+
+
+def split_crossover(torch, qm, layer0, lay64, randn, flush):
+    """The K split forced at 1 (the form before it), 2, 4, 8 and 16
+    blocks a tile, beside the count group_splits
+    picks: qmm_group on wo and w_down at 1 row, qmm_chunk (group 64) on
+    wo and w_down at 1 and SLOTS rows and on wo at 4. The times behind
+    qm.SPLIT_MAX and group_splits' unsplit 4-row blocks.
+    Returns [{weight, rows, chosen, ms: {splits: ms}}]."""
+    out = []
+    for label, q, rows in (("wo", layer0["wo"], 1),
+                           ("w_down", layer0["w_down"], 1),
+                           ("g64 wo", lay64["wo"], 1),
+                           ("g64 w_down", lay64["w_down"], 1),
+                           ("g64 wo", lay64["wo"], 4),
+                           ("g64 wo", lay64["wo"], SLOTS),
+                           ("g64 w_down", lay64["w_down"], SLOTS)):
+        x = randn(rows, q.in_features)
+        chosen = qm.group_splits(rows, q.out_physical, q.qweight.shape[0],
+                                 q.group_size, qm._build.sms(0))
+        ms = {}
+        for n in (1, 2, 4, 8, 16):
+            qm._SPLITS = n
+            try:
+                ms[n] = cuda_ms(torch, lambda x=x, q=q: qm.quant_matmul(
+                    x, q), 50, flush)
+            finally:
+                qm._SPLITS = None
+        out.append({"weight": label, "rows": rows, "chosen": chosen,
+                    "ms": ms})
+    print(f"# K split, ms by blocks a tile (1 = unsplit): "
+          f"{json.dumps(out)}", flush=True)
+    return out
+
+
+def any_cases(torch, att, fa, pa, cfg, gen, dev):
+    """Phase 3 rows of the any-type attention form at the shapes of phase
+    14's f16 model: flash_attention_any on its 256-token prompt (causal
+    1 x 32 x 256 x 128, f16), flash_decode_any (f16 cache) and
+    flash_decode_q8_any (INT8 cache) with an f16 q at pos CTX in the
+    split form batch 1 takes, beside the unsplit form, the f16 merge
+    (flash_decode_merge_any) on their partials, and both paged kernels'
+    any-type form at the serving shape (SLOTS slots, f16 q and f16 or
+    INT8 pages)."""
+    H, D, S = cfg.n_heads, cfg.head_dim, MAX_SEQ
+    f16 = torch.float16
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(f16)
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    cases = []
+    qa, ka, va = (rnd(1, H, SHORT, D) for _ in range(3))
+    cases.append(dict(
+        name="flash_attention_any", shape=f"f16 causal 1x{H}x{SHORT}x{D}",
+        path=F16_PROMPT, replaces=TPU + "flash_attention.py:37",
+        source=ANY_SRC,
+        kernel=lambda: fa.flash_attention(qa, ka, va, causal=True),
+        plain=lambda: fa.mha_plain(qa, ka, va, causal=True),
+        library=lambda: torch.nn.functional.scaled_dot_product_attention(
+            qa, ka, va, is_causal=True),
+        bytes=4 * nbytes(qa), ops=4 * H * (SHORT * (SHORT + 1) // 2) * D,
+        kind="f16"))
+    qh = rnd(1, H, 1, D)
+    pos = torch.full((1,), CTX, dtype=torch.int32, device=dev)
+    live = CTX + 1
+    kc, vc = rnd(1, H, S, D), rnd(1, H, S, D)
+    args = (qh, kc, vc, pos)
+    cases.append(dict(
+        name="flash_decode_any", shape=f"f16 mha 32/32 pos {CTX}",
+        path=F16_PROMPT, replaces=TPU + "attention.py:294", source=ANY_SRC,
+        kernel=lambda: att.flash_decode(*args),
+        plain=lambda: att.flash_decode_plain(*args),
+        forms={"unsplit": lambda: att.flash_decode(*args, _splits=1)},
+        library=lambda: torch.nn.functional.scaled_dot_product_attention(
+            qh, kc[:, :, :live], vc[:, :, :live]),
+        bytes=2 * H * live * D * 2 + 2 * nbytes(qh),
+        ops=4 * H * live * D, kind="f16"))
+    kq, vq = (torch.randint(-127, 128, (1, H, S, D), generator=gen,
+                            device=dev, dtype=torch.int8) for _ in range(2))
+    ks, vs = (torch.rand(1, H, S, generator=gen, device=dev) * 0.015 + 0.005
+              for _ in range(2))
+    args8 = (qh, kq, vq, ks, vs, pos)
+    kf = (kq[:, :, :live].float() * ks[:, :, :live, None]).to(f16)
+    vf = (vq[:, :, :live].float() * vs[:, :, :live, None]).to(f16)
+    cases.append(dict(
+        name="flash_decode_q8_any", shape=f"f16 q mha 32/32 pos {CTX}",
+        path=F16_PROMPT_Q8, replaces=TPU + "attention.py:345",
+        source=ANY_SRC,
+        kernel=lambda: att.flash_decode_q8(*args8),
+        plain=lambda: att.flash_decode_q8_plain(*args8),
+        forms={"unsplit": lambda: att.flash_decode_q8(*args8, _splits=1)},
+        library=lambda: torch.nn.functional.scaled_dot_product_attention(
+            qh, kf, vf),
+        bytes=2 * H * live * (D + 4) + 2 * nbytes(qh),
+        ops=4 * H * live * D, kind="f16"))
+    splits = att.launch_splits(1, H, S)
+    part = att.flash_decode_split_plain(*args, splits).contiguous()
+    cases.append(dict(
+        name="flash_decode_merge_any", shape=f"f16 mha 32/32 {splits} "
+        "splits", path=F16_PROMPT, replaces=TPU + "attention.py:294",
+        source=ANY_SRC,
+        kernel=lambda: att.flash_decode_merge(part, f16),
+        plain=lambda: att.flash_decode_merge_plain(part).to(f16),
+        library=None, bytes=nbytes(part) + 2 * H * D,
+        ops=3 * H * splits * D, kind="f32"))
+    # the paged kernels' any-type form: f16 q over f16 and INT8 pages
+    B, P = SLOTS, PAGE
+    MP = MAX_SEQ // P
+    N = B * MP + 1
+    ppos = torch.tensor([CTX - 331, CTX - 64, CTX - 1, CTX, CTX + 1,
+                         CTX + 63, CTX + 200, CTX + 477][:B],
+                        dtype=torch.int32, device=dev)
+    table = (torch.randperm(N - 1, generator=gen, device=dev)[:B * MP] + 1) \
+        .reshape(B, MP).to(torch.int32)
+    Hkv = cfg.n_kv_heads
+    qp = rnd(B, H, 1, D)
+    kp, vp = rnd(N, Hkv, P, D), rnd(N, Hkv, P, D)
+    kpq, vpq = (torch.randint(-127, 128, (N, Hkv, P, D), generator=gen,
+                              device=dev, dtype=torch.int8)
+                for _ in range(2))
+    ksp, vsp = (torch.rand(N, Hkv, P, generator=gen, device=dev) * 0.015
+                + 0.005 for _ in range(2))
+    rows = int((ppos + 1).sum())
+    # the library call: SDPA over the pages gathered (and dequantized)
+    # into f16 K/V with the KV heads repeated, masked past each slot's pos
+    rep = H // Hkv
+    mask = (torch.arange(MP * P, device=dev)[None] <= ppos[:, None])[
+        :, None, None]                                      # [B, 1, 1, S]
+    gathered = [tuple(pa.gather_pages(x, table).repeat_interleave(rep, 1)
+                      for x in (kp, vp)),
+                tuple((pa.gather_pages(x, table).float()
+                       * pa.gather_scale_pages(sc, table)[..., None])
+                      .to(f16).repeat_interleave(rep, 1)
+                      for x, sc in ((kpq, ksp), (vpq, vsp)))]
+    for (name, pargs, plain, row_b, replaces), (kg, vg) in zip((
+            ("paged_flash_decode_any", (qp, kp, vp, table, ppos),
+             pa.paged_decode_plain, 2 * D * 2, "paged_attention.py:146"),
+            ("paged_flash_decode_q8_any",
+             (qp, kpq, vpq, ksp, vsp, table, ppos),
+             pa.paged_decode_q8_plain, 2 * (D + 4),
+             "paged_attention.py:187")), gathered):
+        kernel = pa.paged_flash_decode if "q8" not in name \
+            else pa.paged_flash_decode_q8
+        cases.append(dict(
+            name=name, shape=f"f16 q, {B} slots P {P} pos {CTX - 331}-"
+            f"{CTX + 477}", path=F16_PAGED, replaces=TPU + replaces,
+            source=ANY_SRC,
+            kernel=lambda k=kernel, a=pargs: k(*a),
+            plain=lambda f=plain, a=pargs: f(*a),
+            library=lambda kg=kg, vg=vg: torch.nn.functional
+            .scaled_dot_product_attention(qp, kg, vg, attn_mask=mask),
+            bytes=Hkv * rows * row_b + 2 * nbytes(qp),
+            ops=4 * H * rows * D, kind="f16"))
+    return cases
+
+
+def any_grid(torch, att, fa, pa, gen, dev):
+    """Each of the five attention wrappers (and the merge, through the
+    split form) once at every q dtype (bf16, f16, f32) and head dim
+    (ANY_HEAD_DIMS) against its plain version: at most 1e-2 of max|plain|
+    (TOL). Small shapes, untimed. Returns {wrapper: {dtype: {D: [form,
+    err / max|plain|]}}}: form "any" or "fast" (the bf16 kernels)."""
+    dts = {"bf16": torch.bfloat16, "f16": torch.float16,
+           "f32": torch.float32}
+    out = {}
+
+    def check(what, dt, D, got, want, form):
+        err = (got.float() - want.float()).abs().max().item()
+        ref = want.float().abs().max().item()
+        if got.dtype != want.dtype or not (math.isfinite(err)
+                                           and err <= TOL * ref):
+            fail(f"any-type grid {what} {dt} D {D}: {got.dtype}, max err "
+                 f"{err} > {TOL} * {ref}")
+        out.setdefault(what, {}).setdefault(dt, {})[D] = [form, err / ref]
+
+    for dname, dt in dts.items():
+        for D in ANY_HEAD_DIMS:
+            B, H, Hkv, S = 2, 8, 2, 200
+            q = torch.randn(B, H, 1, D, generator=gen, device=dev).to(dt)
+            kc, vc = (torch.randn(B, Hkv, S, D, generator=gen, device=dev)
+                      .to(dt) for _ in range(2))
+            kq, vq = (torch.randint(-127, 128, (B, Hkv, S, D), generator=gen,
+                                    device=dev, dtype=torch.int8)
+                      for _ in range(2))
+            ks, vs = (torch.rand(B, Hkv, S, generator=gen, device=dev) * 0.015
+                      + 0.005 for _ in range(2))
+            pos = torch.tensor([57, S - 1], dtype=torch.int32, device=dev)
+
+            def form(cdt, dt=dt, D=D):
+                return "fast" if att.fast_form(dt, cdt, D) else "any"
+
+            for splits in (1, 3):
+                tag = "" if splits == 1 else " split"
+                check("flash_decode" + tag, dname, D,
+                      att.flash_decode(q, kc, vc, pos, _splits=splits),
+                      att.flash_decode_plain(q, kc, vc, pos), form(dt))
+                check("flash_decode_q8" + tag, dname, D,
+                      att.flash_decode_q8(q, kq, vq, ks, vs, pos,
+                                          _splits=splits),
+                      att.flash_decode_q8_plain(q, kq, vq, ks, vs, pos),
+                      form(torch.int8))
+            qa, ka, va = (torch.randn(1, 4, 77, D, generator=gen,
+                                      device=dev).to(dt) for _ in range(3))
+            check("flash_attention", dname, D,
+                  fa.flash_attention(qa, ka, va, True),
+                  fa.mha_plain(qa, ka, va, True),
+                  "fast" if dt == torch.bfloat16 and D in att.FAST_HEAD_DIMS
+                  else "any")
+            P, MP = 16, 4
+            N = B * MP + 1
+            table = (torch.arange(B * MP, device=dev) + 1).reshape(
+                B, MP).to(torch.int32)
+            ppos = torch.tensor([5, P * MP - 1], dtype=torch.int32,
+                                device=dev)
+            kp, vp = (torch.randn(N, Hkv, P, D, generator=gen, device=dev)
+                      .to(dt) for _ in range(2))
+            kpq, vpq = (torch.randint(-127, 128, (N, Hkv, P, D),
+                                      generator=gen, device=dev,
+                                      dtype=torch.int8) for _ in range(2))
+            ksp, vsp = (torch.rand(N, Hkv, P, generator=gen, device=dev)
+                        * 0.015 + 0.005 for _ in range(2))
+            check("paged_flash_decode", dname, D,
+                  pa.paged_flash_decode(q, kp, vp, table, ppos),
+                  pa.paged_decode_plain(q, kp, vp, table, ppos), form(dt))
+            check("paged_flash_decode_q8", dname, D,
+                  pa.paged_flash_decode_q8(q, kpq, vpq, ksp, vsp, table,
+                                           ppos),
+                  pa.paged_decode_q8_plain(q, kpq, vpq, ksp, vsp, table,
+                                           ppos), form(torch.int8))
+    torch.cuda.synchronize()
+    worst = {w: round(max(e for d in v.values() for _, e in d.values()),
+                      6) for w, v in out.items()}
+    print(f"# any-type grid: {ANY_DTYPES} x D {ANY_HEAD_DIMS}, worst err / "
+          f"max|plain| per wrapper: {json.dumps(worst)}", flush=True)
+    return out
+
+
+def f16_path(torch, llama, counters, params, cfg, dev, report, steps,
+             prompts_of):
+    """Phase 14: the 7B model of phase 4 as an f16 model (f16 embedding,
+    norms, activations and cache; the same INT4 codes, scales rescaled
+    by f16_params). greedy_generate
+    on a seeded 256-token prompt with the f16 cache and with an INT8
+    cache: the prefill launches the any-type flash_attention 32 times,
+    the decode the any-type flash_decode(_q8) and its merge; prefill ms;
+    a 2-layer f16 prefill on the card against the plain versions on the
+    CPU; one decode step of SLOTS slots over f16 pages and over INT8
+    pages (the any-type paged kernels) against the same step over a dense
+    cache. Returns each path's launch counts."""
+    cfg16 = dataclasses.replace(cfg, dtype=torch.float16)
+    p16 = f16_params(torch, params)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    prompt = torch.randint(0, cfg.vocab_size, (1, SHORT), generator=gen,
+                           device=dev, dtype=torch.int32)
+    paths, res = {}, {}
+    for label, kv_quant, want in (
+            (F16_PROMPT, False, ("flash_attention_any", "flash_decode_any",
+                                 "flash_decode_merge_any")),
+            (F16_PROMPT_Q8, True, ("flash_attention_any",
+                                   "flash_decode_q8_any",
+                                   "flash_decode_merge_any"))):
+        cache = llama.init_kv_cache(cfg16, 1, kv_quant=kv_quant, device=dev)
+        counters.reset()
+        toks, cache = llama.greedy_generate(p16, cfg16, prompt, 8,
+                                            cache=cache)
+        torch.cuda.synchronize()
+        paths[label] = counters.read()
+        for kname in want:
+            if paths[label].get(kname, 0) <= 0:
+                fail(f"{kname} was never launched on the path {label}")
+        if toks.shape != (1, 8) or not bool(
+                ((toks >= 0) & (toks < cfg.vocab_size)).all()):
+            fail(f"{label}: greedy_generate gave {toks.tolist()}")
+        counters.reset()
+        prefill_s, logits = time_prefill(torch, llama, p16, cfg16, prompt,
+                                         cache, 1)
+        prompts_of[label] = counters.read()
+        if prompts_of[label].get("flash_attention_any", 0) != \
+                cfg.n_layers:
+            fail(f"{label}: a prefill launched {prompts_of[label]}")
+        prefill_s, logits = time_prefill(torch, llama, p16, cfg16, prompt,
+                                         cache)
+        if logits.dtype != torch.float16 and logits.dtype != torch.float32:
+            fail(f"{label}: logits {logits.dtype}")
+        first = torch.argmax(logits[:, -1], -1).to(torch.int32)
+        if not torch.equal(first, toks[:, 0]):
+            fail(f"{label}: prefill argmax {first.tolist()} is not the "
+                 f"first generated token {toks[:, 0].tolist()}")
+        counters.reset()
+        llama.llama_decode_step(
+            p16, cfg16, toks[:, -1],
+            torch.full((1,), SHORT + 7, dtype=torch.int32, device=dev),
+            cache)
+        torch.cuda.synchronize()
+        steps[label] = counters.read()
+        res[label] = {"prefill_ms": 1e3 * prefill_s,
+                      "prompt_tok_s": SHORT / prefill_s,
+                      "launches": paths[label],
+                      "launches_per_prompt": prompts_of[label],
+                      "launches_per_token": steps[label],
+                      "first_tokens": toks[0].tolist()}
+        print(f"# {label}: " + json.dumps(res[label]), flush=True)
+        del cache
+    # 2 layers at 7B width in f16: kernels on the card against the plain
+    # versions on the CPU
+    cfg2 = dataclasses.replace(cfg16, n_layers=2)
+    p2 = dict(p16, layers=p16["layers"][:2])
+    got, _ = llama.llama_prefill(p2, cfg2, prompt,
+                                 llama.init_kv_cache(cfg2, 1, device=dev))
+    t0 = time.perf_counter()
+    want, _ = llama.llama_prefill(to_cpu(p2), cfg2, prompt.cpu(),
+                                  llama.init_kv_cache(cfg2, 1, device="cpu"))
+    print(f"# f16 2-layer prefill on the plain versions (CPU): "
+          f"{time.perf_counter() - t0:.1f}s")
+    compare_logits(torch, f"f16 2-layer prefill {SHORT}, kernels vs plain",
+                   got[0, -1].float(), want[0, -1].float(), report)
+    # one decode step of SLOTS slots over pages, against a dense cache
+    B, P = SLOTS, PAGE
+    MP = MAX_SEQ // P
+    pos = torch.tensor([CTX - 331, CTX - 64, CTX - 1, CTX, CTX + 1,
+                        CTX + 63, CTX + 200, CTX + 477][:B],
+                       dtype=torch.int32, device=dev)
+    token = torch.randint(0, cfg.vocab_size, (B,), generator=gen,
+                          device=dev, dtype=torch.int32)
+    paths[F16_PAGED] = {}
+    for kv_quant, kname in ((False, "paged_flash_decode_any"),
+                            (True, "paged_flash_decode_q8_any")):
+        paged = llama.init_paged_kv_cache(cfg16, B * MP + 1, P, B,
+                                          kv_quant=kv_quant, device=dev)
+        paged["block_table"].copy_((torch.arange(B * MP, device=dev) + 1)
+                                   .reshape(B, MP))
+        counters.reset()
+        lg_p, _ = llama.llama_decode_step(p16, cfg16, token, pos, paged)
+        torch.cuda.synchronize()
+        got = counters.read()
+        if got.get(kname, 0) != cfg.n_layers:
+            fail(f"{F16_PAGED}: a step launched {got}")
+        for k, n in got.items():
+            paths[F16_PAGED][k] = paths[F16_PAGED].get(k, 0) + n
+        del paged
+        dense = llama.init_kv_cache(cfg16, B, kv_quant=kv_quant, device=dev)
+        lg_d, _ = llama.llama_decode_step(p16, cfg16, token, pos, dense)
+        del dense
+        compare_logits_rows(torch, f"{F16_PAGED} ({'int8' if kv_quant else 'f16'}"
+                            " pages) vs dense", lg_p.float(), lg_d.float(),
+                            report)
+    steps[F16_PAGED] = paths[F16_PAGED]
+    report["f16"] = res
     return paths
 
 

@@ -13,7 +13,15 @@ _flash_decode_q8_hb_kernel; *_plain are their plain versions. At few
 split across decode_splits(...) blocks, which write partial (acc, m, l),
 and flash_decode_merge (a second kernel) combines them; *_split_plain and
 flash_decode_merge_plain are the plain versions of the two steps.
-`launches` counts kernel launches (captures, not CUDA-graph replays).
+
+Two forms on the card. A bf16 q over a bf16 or int8 cache at head dim 64
+or 128 takes the fast kernels above; any other q (bf16, f16, f32), float
+cache (bf16, f16, f32) or head dim D (a multiple of 8 from 8 to 256) takes
+the any-type form, csrc/attention_any.cuh (flash_decode_any,
+flash_decode_merge_any), as the TPU kernels take any float type and head
+dim and write q's dtype. launches[name] counts both forms and
+launches[name + "_any"] the any-type one again. `launches` counts kernel
+launches (captures, not CUDA-graph replays).
 """
 
 from __future__ import annotations
@@ -28,7 +36,13 @@ import torch
 from infinitensor_tpu_torch.kernels import _build
 
 launches = collections.Counter()
-KERNEL_HEAD_DIMS = (64, 128)     # instantiated in csrc/flash_decode.cu
+FAST_HEAD_DIMS = (64, 128)       # the bf16 kernels of csrc/flash_decode.cu
+MAX_HEAD_DIM = 256               # the any-type form: D % 8 == 0, 8 <= D <= 256
+MAX_REP = 16                     # query heads a kv head, both forms
+# The kind codes of the C entries (csrc/common.cuh): q and out in bf16,
+# f16 or f32; a cache in those or int8 (with f32 row scales).
+KINDS = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2,
+         torch.int8: 3}
 # The split form: a head's rows are split so that the launch has about
 # SPLIT_BLOCKS_PER_SM blocks an SM (so at most SPLIT_BLOCKS_PER_SM * sms
 # / 2 heads, B * Hkv, are split; more fill the card unsplit), each split
@@ -38,7 +52,7 @@ KERNEL_HEAD_DIMS = (64, 128)     # instantiated in csrc/flash_decode.cu
 SPLIT_BLOCKS_PER_SM = 2
 SPLIT_MIN_ROWS = 64
 SPLIT_MAX = 16
-MAX_SPLITS = 64                  # the merge kernel takes at most D splits
+MAX_SPLITS = 64                  # the fast merge takes at most D splits
 _SPLITS = None                   # when set, the split count of every launch
 
 
@@ -48,7 +62,26 @@ def _lib() -> ctypes.CDLL:
     return _build.typed("flash_decode",
                         flash_decode_q8=[P] * 8 + [I] * 6 + [F, P],
                         flash_decode=[P] * 6 + [I] * 6 + [F, P],
-                        flash_decode_merge=[P, P] + [I] * 3 + [P])
+                        flash_decode_merge=[P, P] + [I] * 3 + [P],
+                        flash_decode_any=[P, I] + [P] * 4 + [I] + [P] * 3
+                        + [I] * 6 + [F, P],
+                        flash_decode_merge_any=[P, P] + [I] * 4 + [P])
+
+
+def fast_form(q_dtype, cache_dtype, D: int) -> bool:
+    """Whether a decode-attention launch takes the fast bf16 kernels (a
+    bf16 q over a bf16 or int8 cache at D 64 or 128), else the any-type
+    form."""
+    return (q_dtype == torch.bfloat16 and D in FAST_HEAD_DIMS
+            and cache_dtype in (torch.bfloat16, torch.int8))
+
+
+def check_head_dim(name: str, D: int) -> None:
+    """Refuse a head dim no form takes: D a multiple of 8 from 8 to
+    MAX_HEAD_DIM."""
+    if D % 8 or not 8 <= D <= MAX_HEAD_DIM:
+        raise ValueError(f"{name} kernel takes a head dim D that is a "
+                         f"multiple of 8 from 8 to {MAX_HEAD_DIM}, not {D}")
 
 
 def decode_splits(B: int, Hkv: int, S: int, sms: int) -> int:
@@ -239,41 +272,54 @@ def flash_decode_merge_plain(part):
     return out[:, :, None]
 
 
-def flash_decode_merge(part):
+def flash_decode_merge(part, dtype=torch.bfloat16):
     """The split form's second step: part f32 [B, H, splits, D + 2] ->
-    [B, H, 1, D] bf16. CPU tensors take flash_decode_merge_plain; CUDA
-    tensors launch the kernel (D = 64 or 128) or raise."""
+    [B, H, 1, D] in `dtype` (q's). CPU tensors take
+    flash_decode_merge_plain; CUDA tensors launch the kernel or raise: the
+    fast merge for a bf16 out at D 64 or 128 and at most MAX_SPLITS splits,
+    else flash_decode_merge_any (any D from 8 to 256, a multiple of 8)."""
     B, H, splits, D2 = part.shape
+    D = D2 - 2
     if part.device.type == "cpu":
-        return flash_decode_merge_plain(part).to(torch.bfloat16)
-    if D2 - 2 not in KERNEL_HEAD_DIMS or part.dtype != torch.float32 \
-            or not part.is_contiguous() or splits > MAX_SPLITS:
+        return flash_decode_merge_plain(part).to(dtype)
+    check_head_dim("flash_decode_merge", D)
+    if part.dtype != torch.float32 or not part.is_contiguous() \
+            or dtype not in (torch.bfloat16, torch.float16, torch.float32):
         raise ValueError("flash_decode_merge takes contiguous f32 partials "
-                         f"of D in {KERNEL_HEAD_DIMS}, at most {MAX_SPLITS} "
-                         "splits")
-    out = torch.empty(B, H, 1, D2 - 2, dtype=torch.bfloat16,
-                      device=part.device)
+                         "and a bf16, f16 or f32 out")
+    out = torch.empty(B, H, 1, D, dtype=dtype, device=part.device)
     lib = _lib()
-    err = lib.flash_decode_merge(_build.ptr(part), _build.ptr(out), B * H,
-                                 splits, D2 - 2, _build.stream())
+    fast = dtype == torch.bfloat16 and D in FAST_HEAD_DIMS \
+        and splits <= MAX_SPLITS
+    if fast:
+        err = lib.flash_decode_merge(_build.ptr(part), _build.ptr(out),
+                                     B * H, splits, D, _build.stream())
+    else:
+        err = lib.flash_decode_merge_any(_build.ptr(part), _build.ptr(out),
+                                         KINDS[dtype], B * H, splits, D,
+                                         _build.stream())
     _build.raise_on(lib, err, "flash_decode_merge")
     launches["flash_decode_merge"] += 1
+    if not fast:
+        launches["flash_decode_merge_any"] += 1
     return out
 
 
 def _check_launch(name, q, pos, tensors) -> None:
-    """Refuse on the card what the kernel does not take: D = 64 or 128,
-    H / Hkv <= 16, contiguous tensors of the expected types on q's device
-    (a bf16 q), pos [B], 16-byte aligned caches."""
+    """Refuse on the card what no form takes: D a multiple of 8 from 8 to
+    MAX_HEAD_DIM, H / Hkv <= MAX_REP, contiguous tensors of the expected
+    types on q's device (a bf16, f16 or f32 q; a tuple of types allows
+    any of them), pos [B], 16-byte aligned caches."""
     B, H, _, D = q.shape
     Hkv = tensors["k_cache"][0].shape[1]
-    if D not in KERNEL_HEAD_DIMS or H // Hkv > 16:
-        raise ValueError(f"{name} kernel takes D in {KERNEL_HEAD_DIMS}, "
-                         "H/Hkv<=16")
-    tensors = {"q": (q, torch.bfloat16), "pos": (pos, torch.int32),
-               **tensors}
+    check_head_dim(name, D)
+    if H // Hkv > MAX_REP:
+        raise ValueError(f"{name} kernel takes H/Hkv <= {MAX_REP}")
+    floats = (torch.bfloat16, torch.float16, torch.float32)
+    tensors = {"q": (q, floats), "pos": (pos, torch.int32), **tensors}
     for what, (t, dt) in tensors.items():
-        if t.device != q.device or t.dtype != dt or not t.is_contiguous():
+        ok = t.dtype in dt if isinstance(dt, tuple) else t.dtype == dt
+        if t.device != q.device or not ok or not t.is_contiguous():
             raise ValueError(f"{what} must be contiguous {dt} on {q.device}")
     if pos.shape != (B,):
         raise ValueError(f"pos must be [{B}]")
@@ -292,8 +338,8 @@ def _check_shapes(name, q, k_cache, v_cache) -> None:
 
 def _outputs(q, k_cache, splits):
     """(splits, out, part) of a launch: the split count (launch_splits on
-    this card unless forced), then bf16 out for the unsplit form or the f32
-    partials for the split form (the other None)."""
+    this card unless forced), then out in q's dtype for the unsplit form
+    or the f32 partials for the split form (the other None)."""
     B, H, _, D = q.shape
     _, Hkv, S, _ = k_cache.shape
     if splits is None:
@@ -304,40 +350,63 @@ def _outputs(q, k_cache, splits):
                                      dtype=torch.float32, device=q.device)
 
 
+def _launch(name, q, k_cache, v_cache, k_scale, v_scale, pos, splits):
+    """One launch of the dense decode attention on the card, in the form
+    fast_form picks, then the merge where it was split."""
+    B, H, _, D = q.shape
+    _, Hkv, S, _ = k_cache.shape
+    splits, out, part = _outputs(q, k_cache, splits)
+    lib = _lib()
+    p = _build.ptr
+    fast = fast_form(q.dtype, k_cache.dtype, D)
+    if not fast:
+        err = lib.flash_decode_any(
+            p(q), KINDS[q.dtype], p(k_cache), p(v_cache), p(k_scale),
+            p(v_scale), KINDS[k_cache.dtype], p(pos), p(out), p(part), B, H,
+            Hkv, S, D, splits, 1.0 / math.sqrt(D), _build.stream())
+    elif k_scale is None:
+        err = lib.flash_decode(p(q), p(k_cache), p(v_cache), p(pos), p(out),
+                               p(part), B, H, Hkv, S, D, splits,
+                               1.0 / math.sqrt(D), _build.stream())
+    else:
+        err = lib.flash_decode_q8(
+            p(q), p(k_cache), p(v_cache), p(k_scale), p(v_scale), p(pos),
+            p(out), p(part), B, H, Hkv, S, D, splits, 1.0 / math.sqrt(D),
+            _build.stream())
+    _build.raise_on(lib, err, name)
+    launches[name] += 1
+    if not fast:
+        launches[name + "_any"] += 1
+    return out if part is None else flash_decode_merge(part, q.dtype)
+
+
 def flash_decode(q, k_cache, v_cache, pos, *, _splits=None):
-    """bf16-cache flash decode over caches already appended at pos [B]
+    """Float-cache flash decode over caches already appended at pos [B]
     int32. q [B, H, 1, D] -> [B, H, 1, D] in q's dtype. CPU tensors take
-    the plain version (any float dtype); CUDA tensors launch the kernel
-    (bf16, D = 64 or 128, H / Hkv <= 16) or raise: the split form and
-    flash_decode_merge where decode_splits (or the private _splits) is
-    above 1."""
+    the plain version; CUDA tensors launch a kernel or raise: q in bf16,
+    f16 or f32, the cache in bf16, f16 or f32, D a multiple of 8 from 8 to
+    256, H / Hkv <= 16 (the fast bf16 kernel at D 64 or 128, else the
+    any-type form), in the split form with its merge where decode_splits
+    (or the private _splits) is above 1."""
     _check_shapes("flash_decode", q, k_cache, v_cache)
     if q.device.type == "cpu":
         return flash_decode_plain(q, k_cache, v_cache, pos)
-    _check_launch("flash_decode", q, pos,
-                  {"k_cache": (k_cache, torch.bfloat16),
-                   "v_cache": (v_cache, torch.bfloat16)})
-    B, H, _, D = q.shape
-    _, Hkv, S, _ = k_cache.shape
-    splits, out, part = _outputs(q, k_cache, _splits)
-    lib = _lib()
-    p = _build.ptr
-    err = lib.flash_decode(p(q), p(k_cache), p(v_cache), p(pos), p(out),
-                           p(part), B, H, Hkv, S, D, splits,
-                           1.0 / math.sqrt(D), _build.stream())
-    _build.raise_on(lib, err, "flash_decode")
-    launches["flash_decode"] += 1
-    return out if part is None else flash_decode_merge(part)
+    floats = (torch.bfloat16, torch.float16, torch.float32)
+    _check_launch("flash_decode", q, pos, {"k_cache": (k_cache, floats),
+                                           "v_cache": (v_cache, floats)})
+    return _launch("flash_decode", q, k_cache, v_cache, None, None, pos,
+                   _splits)
 
 
 def flash_decode_q8(q, k_cache, v_cache, k_scale, v_scale, pos, *,
                     _splits=None):
     """INT8-KV flash decode over caches already appended at pos [B] int32.
     q [B, H, 1, D] -> [B, H, 1, D] in q's dtype. CPU tensors take the
-    plain version (any float dtype); CUDA tensors launch the kernel (bf16
-    q, D = 64 or 128, H / Hkv <= 16) or raise: the split form and
-    flash_decode_merge where decode_splits (or the private _splits) is
-    above 1."""
+    plain version; CUDA tensors launch a kernel or raise: q in bf16, f16
+    or f32, D a multiple of 8 from 8 to 256, H / Hkv <= 16 (the fast
+    kernel for a bf16 q at D 64 or 128, else the any-type form), in the
+    split form with its merge where decode_splits (or the private
+    _splits) is above 1."""
     _check_shapes("flash_decode_q8", q, k_cache, v_cache)
     B, H, _, D = q.shape
     _, Hkv, S, _ = k_cache.shape
@@ -351,13 +420,5 @@ def flash_decode_q8(q, k_cache, v_cache, k_scale, v_scale, pos, *,
                    "v_cache": (v_cache, torch.int8),
                    "k_scale": (k_scale, torch.float32),
                    "v_scale": (v_scale, torch.float32)})
-    splits, out, part = _outputs(q, k_cache, _splits)
-    lib = _lib()
-    p = _build.ptr
-    err = lib.flash_decode_q8(
-        p(q), p(k_cache), p(v_cache), p(k_scale), p(v_scale), p(pos), p(out),
-        p(part), B, H, Hkv, S, D, splits, 1.0 / math.sqrt(D),
-        _build.stream())
-    _build.raise_on(lib, err, "flash_decode_q8")
-    launches["flash_decode_q8"] += 1
-    return out if part is None else flash_decode_merge(part)
+    return _launch("flash_decode_q8", q, k_cache, v_cache, k_scale, v_scale,
+                   pos, _splits)

@@ -158,17 +158,6 @@ inline int pick_rows(int m, int w, size_t bytes_row, size_t bytes_win_row) {
           (size_t)kSmemMax) ? 0 : R;
 }
 
-// Raise the dynamic shared-memory cap of `kernel` once per new maximum
-// (the first launch of a shape, outside any graph capture that replays it).
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t bytes, size_t* granted) {
-  if (bytes <= *granted) return cudaSuccess;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (e == cudaSuccess) *granted = bytes;
-  return e;
-}
-
 template <typename TA, typename TB>
 cudaError_t launch_g2bmm(const void* a, const void* b, void* out, int bz,
                          int m, int k, int w, cudaStream_t s) {
@@ -176,7 +165,7 @@ cudaError_t launch_g2bmm(const void* a, const void* b, void* out, int bz,
   const int R = pick_rows(m, w, row_a, row_b);
   if (R == 0) return cudaErrorInvalidValue;
   const size_t smem = (((size_t)R * row_a + 15) & ~(size_t)15) + (R + 2 * w) * row_b;
-  static size_t granted = 0;
+  static SmemGrant granted;
   auto kernel = g2bmm_kernel<TA, TB>;
   cudaError_t e = allow_smem(kernel, smem, &granted);
   if (e != cudaSuccess) return e;
@@ -193,7 +182,7 @@ cudaError_t launch_gbmm(const void* wt, const void* b, void* out, int bz,
   const int R = pick_rows(m, w, row_w, row_b);
   if (R == 0) return cudaErrorInvalidValue;
   const size_t smem = (((size_t)R * row_w + 15) & ~(size_t)15) + (R + 2 * w) * row_b;
-  static size_t granted = 0;
+  static SmemGrant granted;
   auto kernel = gbmm_kernel<TW, TB>;
   cudaError_t e = allow_smem(kernel, smem, &granted);
   if (e != cudaSuccess) return e;

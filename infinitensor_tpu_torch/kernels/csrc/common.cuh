@@ -20,7 +20,48 @@
 // and the output written in x's type.
 constexpr int kXBf16 = 0, kXF16 = 1, kXF32 = 2;
 
+// Each card's dynamic shared-memory cap granted to one kernel (a static
+// in its launcher). cudaFuncSetAttribute sets the cap for the current
+// device only, so a grant on one card says nothing of another.
+constexpr int kMaxDevices = 64;
+struct SmemGrant {
+  size_t bytes[kMaxDevices] = {};
+};
+
+// Raise `kernel`'s dynamic shared-memory cap on the current device to
+// `bytes`, once per new maximum there (the first launch of a shape on a
+// card, before any graph capture that replays it).
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes, SmemGrant* granted) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (bytes <= granted->bytes[dev]) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)bytes);
+  if (e == cudaSuccess) granted->bytes[dev] = bytes;
+  return e;
+}
+
 __device__ __forceinline__ float neg_inf() { return __uint_as_float(0xff800000u); }
+
+// Element i of a bf16, f16 or f32 array (kind kXBf16, kXF16, kXF32) as
+// f32, and f32 v stored as one; the kind is a run-time argument.
+__device__ __forceinline__ float load_kind(const void* p, int kind, size_t i) {
+  if (kind == kXF32) return static_cast<const float*>(p)[i];
+  if (kind == kXF16) return __half2float(static_cast<const __half*>(p)[i]);
+  return __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i]);
+}
+
+__device__ __forceinline__ void store_kind(void* p, int kind, size_t i, float v) {
+  if (kind == kXF32)
+    static_cast<float*>(p)[i] = v;
+  else if (kind == kXF16)
+    static_cast<__half*>(p)[i] = __float2half_rn(v);
+  else
+    static_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16_rn(v);
+}
 
 __device__ __forceinline__ float bf16_to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);

@@ -58,6 +58,12 @@
 // query tiles a warp (FlashAttention-2's shape: 255 registers and
 // spills). nvcc -Xptxas -v prints the registers and spills in the build
 // log (chip_smoke.py phase 2).
+//
+// flash_attention_any is the any-type form (attention_any.cuh): q, k and v
+// all bf16, f16 or f32, any head dim from 8 to 256 that is a multiple of
+// 8, the output in their type. The wrapper takes it for whatever the bf16
+// kernel above does not take.
+#include "attention_any.cuh"
 #include "mma_tile.cuh"
 
 namespace {
@@ -330,5 +336,23 @@ ITT_EXPORT int flash_attention(const void* q, const void* k, const void* v,
   const float sl2 = scale * kLog2e;
   if (D == 128) return (int)launch_d<128>(q, k, v, o, BH, S, causal, sl2, s);
   if (D == 64) return (int)launch_d<64>(q, k, v, o, BH, S, causal, sl2, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// q/k/v/o [BH, S, D] contiguous, all of `kind` (kXBf16, kXF16, kXF32); D
+// a multiple of 8 from 8 to 256.
+ITT_EXPORT int flash_attention_any(const void* q, const void* k, const void* v,
+                                   void* o, int kind, int BH, int S, int D,
+                                   int causal, float scale, void* stream) {
+  using attention_any::launch_prefill;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (BH <= 0 || S <= 0 || D < 8 || D > attention_any::kMaxD || D % 8)
+    return (int)cudaErrorInvalidValue;
+#define ITT_FA_ANY(KIND, TYPE)                                                      \
+  if (kind == KIND)                                                                 \
+    return (int)(causal ? launch_prefill<TYPE, true>(q, k, v, o, BH, S, D, scale, s) \
+                        : launch_prefill<TYPE, false>(q, k, v, o, BH, S, D, scale, s));
+  ITT_FA_ANY(kXBf16, __nv_bfloat16) ITT_FA_ANY(kXF16, __half) ITT_FA_ANY(kXF32, float)
+#undef ITT_FA_ANY
   return (int)cudaErrorInvalidValue;
 }

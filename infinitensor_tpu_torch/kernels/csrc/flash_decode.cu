@@ -26,6 +26,12 @@
 // as before: GPT-2 345M serving (64 slots, 16 heads of 64 columns, at most
 // 384 rows) is 1024 blocks of one or two tiles each. The crossover
 // between the forms is measured in chip_smoke.py phase 3 (PERF.md §6).
+//
+// flash_decode_any and flash_decode_merge_any are the any-type form
+// (attention_any.cuh): a bf16, f16 or f32 q, a bf16, f16, f32 or int8
+// cache, any head dim from 8 to 256 that is a multiple of 8, the output in
+// q's type. The wrappers take it for whatever the bf16 kernels above do
+// not take.
 #include "flash_decode.cuh"
 
 using flash_decode_detail::dispatch;
@@ -79,5 +85,35 @@ ITT_EXPORT int flash_decode_merge(const void* part, void* out, int rows,
     flash_decode_detail::flash_decode_merge<64><<<rows, 64, 0, s>>>(pp, op, splits);
   else
     return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+// q [B, H, 1, D] of q_kind (kXBf16, kXF16, kXF32); k/v [B, Hkv, S, D] of
+// cache_kind (those three, or 3: int8 with ks/vs f32 [B, Hkv, S]); pos
+// int32 [B]; out [B, H, 1, D] of q_kind, or (splits > 1) part f32
+// [B, H, splits, D + 2] for flash_decode_merge_any. D a multiple of 8 from
+// 8 to 256, rep = H / Hkv at most 16.
+ITT_EXPORT int flash_decode_any(const void* q, int q_kind, const void* k,
+                                const void* v, const void* ks, const void* vs,
+                                int cache_kind, const void* pos, void* out,
+                                void* part, int B, int H, int Hkv, int S, int D,
+                                int splits, float scale, void* stream) {
+  return attention_any::dispatch_decode_kind<false>(
+      q, q_kind, k, v, ks, vs, cache_kind, pos, out, part, splits, nullptr, 0,
+      B, H, Hkv, S, D, scale, stream);
+}
+
+// part f32 [rows, splits, D + 2] -> out [rows, D] of out_kind; any D from
+// 8 to 256, any number of splits.
+ITT_EXPORT int flash_decode_merge_any(const void* part, void* out, int out_kind,
+                                      int rows, int splits, int D,
+                                      void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (rows <= 0 || splits <= 0 || D < 8 || D > attention_any::kMaxD || D % 8 ||
+      out_kind < kXBf16 || out_kind > kXF32)
+    return (int)cudaErrorInvalidValue;
+  const int blocks = (rows + attention_any::kWarps - 1) / attention_any::kWarps;
+  attention_any::merge_kernel<<<blocks, attention_any::kThreads, 0, s>>>(
+      static_cast<const float*>(part), out, out_kind, rows, splits, D);
   return (int)cudaGetLastError();
 }

@@ -46,8 +46,13 @@
 // row's V scale; the tile walk is otherwise the dense one, so a tile of
 // 256 rows spans 256 / P pages and a page whose first row is past pos is
 // never looked up or read.
+//
+// Everything else (an f16 or f32 q or cache, a head dim other than 64 or
+// 128) takes the any-type body of attention_any.cuh, included here so
+// that the dense and paged kernels share it too.
 #pragma once
 
+#include "attention_any.cuh"
 #include "common.cuh"
 
 #include <type_traits>

@@ -17,6 +17,10 @@
 // nothing and may hold anything. The block table and pos are read on the
 // device, so the launch sits in a CUDA graph; the page size is a runtime
 // argument. With 8 slots a 7B layer is 256 blocks on 132 SMs.
+//
+// The bf16 kernels take D 64 or 128; paged_flash_decode_any is the
+// any-type form of attention_any.cuh (a bf16, f16 or f32 q, bf16, f16,
+// f32 or int8 pages, D a multiple of 8 from 8 to 256, out in q's type).
 #include "flash_decode.cuh"
 
 using flash_decode_detail::dispatch;
@@ -25,13 +29,17 @@ ITT_DEFINE_ERROR_STRING()
 
 // q bf16 [B, H, 1, D]; k/v pages int8 [N, Hkv, P, D]; ks/vs pages f32
 // [N, Hkv, P]; table int32 [B, MP] (page ids); pos int32 [B] (inclusive);
-// out bf16 [B, H, 1, D]. D must be 128 and rep = H / Hkv at most 16.
+// out bf16 [B, H, 1, D]. D must be 64 or 128 and rep = H / Hkv at most
+// 16.
 ITT_EXPORT int paged_flash_decode_q8(const void* q, const void* k,
                                      const void* v, const void* ks,
                                      const void* vs, const void* table,
                                      const void* pos, void* out, int B, int H,
                                      int Hkv, int P, int MP, int D,
                                      float scale, void* stream) {
+  if (D == 64)
+    return dispatch<int8_t, true, 64>(q, k, v, ks, vs, pos, out, nullptr, 1, table, P, B, H,
+                                      Hkv, MP * P, scale, stream);
   if (D != 128) return (int)cudaErrorInvalidValue;
   return dispatch<int8_t, true, 128>(q, k, v, ks, vs, pos, out, nullptr, 1, table, P, B, H, Hkv,
                                      MP * P, scale, stream);
@@ -42,7 +50,25 @@ ITT_EXPORT int paged_flash_decode(const void* q, const void* k, const void* v,
                                   const void* table, const void* pos,
                                   void* out, int B, int H, int Hkv, int P,
                                   int MP, int D, float scale, void* stream) {
+  if (D == 64)
+    return dispatch<__nv_bfloat16, true, 64>(q, k, v, nullptr, nullptr, pos, out, nullptr, 1,
+                                             table, P, B, H, Hkv, MP * P, scale, stream);
   if (D != 128) return (int)cudaErrorInvalidValue;
   return dispatch<__nv_bfloat16, true, 128>(q, k, v, nullptr, nullptr, pos, out, nullptr, 1, table,
                                             P, B, H, Hkv, MP * P, scale, stream);
+}
+
+// q [B, H, 1, D] of q_kind; pages [N, Hkv, P, D] of cache_kind (kXBf16,
+// kXF16, kXF32, or 3: int8 with ks/vs pages f32 [N, Hkv, P]); table int32
+// [B, MP]; pos int32 [B]; out [B, H, 1, D] of q_kind. D a multiple of 8
+// from 8 to 256, rep at most 16.
+ITT_EXPORT int paged_flash_decode_any(const void* q, int q_kind, const void* k,
+                                      const void* v, const void* ks,
+                                      const void* vs, int cache_kind,
+                                      const void* table, const void* pos,
+                                      void* out, int B, int H, int Hkv, int P,
+                                      int MP, int D, float scale, void* stream) {
+  return attention_any::dispatch_decode_kind<true>(
+      q, q_kind, k, v, ks, vs, cache_kind, pos, out, nullptr, 1, table, P, B, H,
+      Hkv, MP * P, D, scale, stream);
 }

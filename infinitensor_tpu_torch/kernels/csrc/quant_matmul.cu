@@ -167,7 +167,7 @@ cudaError_t launch_w4a8(const void* x, const void* nw, const void* qw,
                         const void* sc, bool sc_bf16, void* out, int rows,
                         int din, int dout_p, int group, float eps,
                         cudaStream_t stream) {
-  static size_t granted = 0;
+  static SmemGrant granted;
   auto kernel = qmm_w4a8_kernel<BITS, R, NORM, XK>;
   const size_t smem = sizeof(float) * (size_t)kWarps * R * kCols + (size_t)R * din;
   cudaError_t e = allow_smem(kernel, smem, &granted);
@@ -209,11 +209,32 @@ ITT_DEFINE_ERROR_STRING()
 // x [rows, din] bf16, or without the norm f16 or f32 (x_kind: kXBf16,
 // kXF16, kXF32); nw bf16 [din] (read when has_norm); qw int8 [din/2 or din,
 // dout_p]; sc bf16/f32 [ng, dout_p]; out [rows, dout_p] in x's type.
+// splits > 1 (without the norm): the split form of quant_matmul.cuh
+// (KSPLIT), splits blocks along K for each tile of 128 columns, with part
+// f32 [splits, rows, dout_p] scratch and counters int32 [tiles * row
+// blocks], zero (and zero again after the launch).
 ITT_EXPORT int qmm_group(const void* x, int x_kind, const void* nw,
                          const void* qw, const void* sc, int sc_bf16,
                          void* out, int rows, int din, int dout_p, int bits,
-                         int group, int has_norm, float eps, void* stream) {
+                         int group, int has_norm, float eps, int splits,
+                         void* part, void* counters, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (splits > 1) {
+    if (has_norm) return (int)cudaErrorInvalidValue;
+    const int R = ksplit_rows(rows);
+#define ITT_QMM_KS(B, RR, XF)                                                 \
+  if (bits == B && R == RR && x_kind == XF)                                  \
+    return (int)launch_ksplit<B, RR, false, kGroupDots, XF>(                 \
+        x, qw, sc, sc_bf16, out, rows, din, dout_p, group, splits,           \
+        static_cast<float*>(part), static_cast<int*>(counters), s);
+#define ITT_QMM_KS_X(XF)                                                      \
+  ITT_QMM_KS(4, 1, XF) ITT_QMM_KS(4, 2, XF) ITT_QMM_KS(4, 4, XF)              \
+  ITT_QMM_KS(8, 1, XF) ITT_QMM_KS(8, 2, XF) ITT_QMM_KS(8, 4, XF)
+    ITT_QMM_KS_X(kXBf16) ITT_QMM_KS_X(kXF16) ITT_QMM_KS_X(kXF32)
+#undef ITT_QMM_KS_X
+#undef ITT_QMM_KS
+    return (int)cudaErrorInvalidValue;
+  }
   const int R = rows_per_block(rows, sizeof(float) * din);
   if (group_smem(R, din) > kSmemMax) return (int)cudaErrorInvalidValue;
 #define ITT_QMM(B, RR, N, XF)                                                 \
@@ -251,4 +272,16 @@ ITT_EXPORT int qmm_norm_w4a8(const void* x, const void* nw, const void* qw,
                              float eps, void* stream) {
   return w4a8(x, kXBf16, nw, qw, sc, sc_bf16, out, rows, din, dout_p, bits,
               group, true, eps, stream);
+}
+
+// The id of the graph capture under way on `stream`, or 0 where none is:
+// the wrapper gives each capture its own split-form counters.
+ITT_EXPORT unsigned long long itt_capture_id(void* stream) {
+  cudaStreamCaptureStatus status = cudaStreamCaptureStatusNone;
+  unsigned long long id = 0;
+  if (cudaStreamGetCaptureInfo(static_cast<cudaStream_t>(stream), &status,
+                               &id) != cudaSuccess ||
+      status != cudaStreamCaptureStatusActive)
+    return 0;
+  return id;
 }

@@ -43,6 +43,30 @@
 //    the group, so that all 16 warps work when kb holds few groups), and
 //    writes its f32 partial sums to part[z]; a second pass sums the
 //    partials in z order and rounds to bf16 once.
+//
+// KSPLIT, the split form of a short grid (the forms without a prologue:
+// kGroupDots for qmm_group / qmm_slab, kDequant for qmm_chunk). At one row
+// wo and w_down (dout 4096) are 32 column tiles: 32 blocks on 132 SMs,
+// each walking all of K, so the launch was held by 32 SMs' load rate.
+// Here ns = gridDim.z blocks share one tile of 128 columns and one row
+// block and split K between them: block z takes the work items
+// [z nu / ns, (z + 1) nu / ns) of nu = packed rows / unit, a work item
+// being `unit` packed rows of one scale group (unit divides the group and
+// is halved until each block holds about kWarps items, so all 16 warps
+// work), and holds only those rows' x columns (lo, then hi for int4) in
+// shared memory. The scale enters where MODE says, per work item
+// (kGroupDots: the item's f32 partial times its group's scale; kDequant:
+// every weight, rounded to bf16 first, as before). A block sums its
+// warps' partials in warp order and writes them to part[z]; the last
+// block of the tile to arrive (a counter per tile, counters[], which that
+// block sets back to 0, so the counters stay zero between launches and
+// one buffer serves every launch on a stream) sums part[0 .. ns - 1] in z
+// order and writes the tile. No atomics on the values: results repeat
+// bit for bit, in one launch. The split count comes from the shapes only
+// (the wrapper's group_splits), so one captured graph serves every step.
+// A thread-block cluster meeting in distributed shared memory was tried
+// first and was slower on the H100: most of the gap was the cluster
+// launch itself (PERF.md §6).
 #pragma once
 
 #include "common.cuh"
@@ -160,16 +184,20 @@ __device__ __forceinline__ float scaled_bf16(float v, float s) {
   return round_bf16(__fmul_rn(v, s));
 }
 
-// x bf16 [rows, din]; nw [din]: the RMSNorm weight (bf16) or the LayerNorm
+// x bf16 [rows, din] (f16 or f32 by XK without a prologue); nw [din]: the
+// RMSNorm weight (bf16) or the LayerNorm
 // gamma; nb [din]: the LayerNorm beta; gamma and beta are both bf16 or, with
 // norm_bf16 false, both f32, and are used in f32 either way; qw int8 [din/2 or din, dout_p];
 // sc bf16/f32 [ng, dout_p] (PAIRED: ng = din / (2 * group)); bias bf16/f32
 // [nbias] (LayerNorm form only, may be null with nbias 0); out bf16
 // [rows, dout_p]. kSplitK only: kb packed rows per block (a multiple of
 // group dividing the packed rows), unit rows per work item (dividing
-// group), part f32 [krows / kb, rows, dout_p].
+// group), part f32 [krows / kb, rows, dout_p]. KSPLIT only: kb the most
+// packed rows a block holds (the row stride of its x slice is kb, 2 kb for
+// int4), unit rows per work item (dividing group), part f32 [gridDim.z,
+// rows, dout_p], counters int32 [gridDim.x * gridDim.y], zero.
 template <int BITS, int R, int PRO, bool PAIRED, int MODE = kGroupDots,
-          int XK = kXBf16>
+          int XK = kXBf16, bool KSPLIT = false>
 __global__ void __launch_bounds__(kLanes * kWarps)
 qmm_group_kernel(const void* __restrict__ x,
                  const void* __restrict__ nw, const void* __restrict__ nb,
@@ -178,17 +206,31 @@ qmm_group_kernel(const void* __restrict__ x,
                  bool sc_bf16, const void* __restrict__ bias, bool bias_bf16,
                  int nbias, void* __restrict__ out, int rows,
                  int din, int dout_p, int group, float eps, int kb, int unit,
-                 float* __restrict__ part) {
+                 float* __restrict__ part, int* __restrict__ counters) {
   static_assert(MODE != kSplitK || PRO == kNoNorm, "split-K has no prologue");
   static_assert(XK == kXBf16 || PRO == kNoNorm,
                 "only a bf16 x takes a prologue");
+  static_assert(!KSPLIT || (PRO == kNoNorm && MODE != kSplitK),
+                "the split form is for the forms without a prologue");
+  constexpr bool SLICE = MODE == kSplitK || KSPLIT;    // a slice of K
   extern __shared__ float smem[];
   const int krows = BITS == 4 ? din / 2 : din;   // stored (packed) rows
   // this block's packed rows [k0, k0 + span), and the x columns it holds
-  // per row: all of them, or (split-K) lo then hi of its rows only
-  const int k0 = MODE == kSplitK ? blockIdx.z * kb : 0;
-  const int span = MODE == kSplitK ? kb : krows;
-  const int xw = MODE == kSplitK ? (BITS == 4 ? 2 * kb : kb) : din;
+  // per row: all of them, or (a slice) lo then hi of its rows only, in a
+  // row of xw floats
+  int k0 = 0, span = krows;
+  if (MODE == kSplitK) {
+    k0 = blockIdx.z * kb;
+    span = kb;
+  }
+  if (KSPLIT) {
+    const int nu = krows / unit, ns = gridDim.z;
+    const int u0 = (int)((long long)blockIdx.z * nu / ns);
+    k0 = u0 * unit;
+    span = (int)((long long)(blockIdx.z + 1) * nu / ns) * unit - k0;
+  }
+  const int xw = SLICE ? (BITS == 4 ? 2 * kb : kb) : din;
+  const int xload = SLICE ? (BITS == 4 ? 2 * span : span) : din;
   float* xs = smem;                       // [R][xw]
   float* red = smem + R * xw;             // [kWarps][R][kCols]
   __shared__ float rpart[kWarps];
@@ -214,10 +256,10 @@ qmm_group_kernel(const void* __restrict__ x,
       rinv = 1.f / sqrtf(ms + eps);
     }
     if (PRO == kLayerNorm) layer_norm_stats(x, xr, din, eps, rpart, mu, rinv);
-    for (int k = tid; k < xw; k += nthr) {
-      const int src = MODE != kSplitK ? k
-                      : k < span     ? k0 + k
-                                     : krows + k0 + (k - span);
+    for (int k = tid; k < xload; k += nthr) {
+      const int src = !SLICE    ? k
+                      : k < span ? k0 + k
+                                 : krows + k0 + (k - span);
       float v = load_x<XK>(x, xr + src);
       if (PRO == kRmsNorm)
         v = round_bf16(round_bf16(v * rinv) *
@@ -231,7 +273,7 @@ qmm_group_kernel(const void* __restrict__ x,
 
   const int col = blockIdx.x * kCols + lane * 4;
   const int ngs = krows / group;                 // stored groups
-  const int urows = MODE == kSplitK ? unit : group;
+  const int urows = SLICE ? unit : group;
   const int items = span / urows;
   float acc[R][4];
 #pragma unroll
@@ -242,7 +284,7 @@ qmm_group_kernel(const void* __restrict__ x,
   if (col < dout_p) {
     for (int it = warp; it < items; it += kWarps) {
       const int p0 = k0 + it * urows;              // its first packed row
-      const int c = MODE == kSplitK ? p0 / group : it;   // its scale group
+      const int c = SLICE ? p0 / group : it;   // its scale group
       float s_lo[4], s_hi[4];
       auto load_scales = [&]() {
 #pragma unroll
@@ -254,7 +296,9 @@ qmm_group_kernel(const void* __restrict__ x,
                                            (size_t)(ngs + c) * dout_p + col + j);
         }
       };
-      if (MODE == kDequant) load_scales();     // each weight needs its scale
+      // kDequant: each weight needs its scale; the split form (few items
+      // a warp) issues the scale loads with the weight loads
+      if (MODE == kDequant || KSPLIT) load_scales();
       float pl[R][4], ph[R][4];
 #pragma unroll
       for (int r = 0; r < R; ++r)
@@ -288,7 +332,7 @@ qmm_group_kernel(const void* __restrict__ x,
           }
         }
       }
-      if (MODE != kDequant) load_scales();     // one multiply per partial
+      if (MODE != kDequant && !KSPLIT) load_scales();   // one multiply per partial
 #pragma unroll
       for (int j = 0; j < 4; ++j)
 #pragma unroll
@@ -304,21 +348,39 @@ qmm_group_kernel(const void* __restrict__ x,
     for (int j = 0; j < 4; ++j)
       red[(warp * R + r) * kCols + lane * 4 + j] = acc[r][j];
   __syncthreads();
-  write_out<R, PRO == kLayerNorm, XK>(red, nullptr, bias, bias_bf16, nbias,
-                                      out, MODE == kSplitK ? part : nullptr,
-                                      rows, row0, nrows, dout_p);
-}
-
-// Raise the dynamic shared-memory cap of `kernel` to what it needs, once
-// per new maximum (the first launch of a shape, before any graph capture).
-// Always set, since static shared memory counts against the default 48 KB.
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t bytes, size_t* granted) {
-  if (bytes <= *granted) return cudaSuccess;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (e == cudaSuccess) *granted = bytes;
-  return e;
+  if constexpr (KSPLIT) {
+    // this block's sum over its warps to part[z]; the tile's last block
+    // to arrive sums the blocks' partials in z order
+    const int ns = gridDim.z;
+    for (int o = tid; o < R * kCols; o += nthr) {
+      const int r = o / kCols, cc = o % kCols, n = blockIdx.x * kCols + cc;
+      float s = 0.f;
+      for (int w = 0; w < kWarps; ++w) s += red[(w * R + r) * kCols + cc];
+      if (r < nrows && n < dout_p)
+        part[((size_t)blockIdx.z * rows + row0 + r) * dout_p + n] = s;
+    }
+    __threadfence();
+    __syncthreads();
+    __shared__ bool last;
+    int* count = counters + blockIdx.y * gridDim.x + blockIdx.x;
+    if (tid == 0) last = atomicAdd(count, 1) == ns - 1;
+    __syncthreads();
+    if (!last) return;
+    __threadfence();
+    for (int o = tid; o < R * kCols; o += nthr) {
+      const int r = o / kCols, n = blockIdx.x * kCols + o % kCols;
+      if (r >= nrows || n >= dout_p) continue;
+      float s = 0.f;
+      for (int z = 0; z < ns; ++z)
+        s += __ldcg(part + ((size_t)z * rows + row0 + r) * dout_p + n);
+      store_out<XK>(out, (size_t)(row0 + r) * dout_p + n, s);
+    }
+    if (tid == 0) *count = 0;
+  } else {
+    write_out<R, PRO == kLayerNorm, XK>(red, nullptr, bias, bias_bf16, nbias,
+                                        out, MODE == kSplitK ? part : nullptr,
+                                        rows, row0, nrows, dout_p);
+  }
 }
 
 // Shared memory of a block holding R activation rows of xw floats each.
@@ -334,7 +396,7 @@ cudaError_t launch_group(const void* x, const void* nw, const void* nb,
                          void* out, int rows, int din, int dout_p, int group,
                          float eps, cudaStream_t stream, int kb = 0,
                          int unit = 0, float* part = nullptr) {
-  static size_t granted = 0;
+  static SmemGrant granted;
   auto kernel = qmm_group_kernel<BITS, R, PRO, PAIRED, MODE, XK>;
   const int krows = BITS == 4 ? din / 2 : din;
   const int xw = MODE == kSplitK ? (BITS == 4 ? 2 * kb : kb) : din;
@@ -346,9 +408,45 @@ cudaError_t launch_group(const void* x, const void* nw, const void* nb,
   kernel<<<grid, dim3(kLanes, kWarps), smem, stream>>>(
       x, nw, nb, norm_bf16, static_cast<const int8_t*>(qw), sc,
       sc_bf16, bias, bias_bf16, nbias, out, rows,
-      din, dout_p, group, eps, kb, unit, part);
+      din, dout_p, group, eps, kb, unit, part, nullptr);
   return cudaGetLastError();
 }
+
+// The split form of a launch of the forms without a prologue: ns blocks
+// (2 to 64) split the packed rows of each 128-column tile and row block;
+// see KSPLIT above. R rows per block (1, 2 or 4); unit rows per work item,
+// halved from the group (while a multiple of 16) until a block holds
+// kWarps items. part f32 [ns, rows, dout_p] is scratch; counters int32
+// [tiles * row blocks] must be zero, and are zero again after the launch.
+template <int BITS, int R, bool PAIRED, int MODE, int XK>
+cudaError_t launch_ksplit(const void* x, const void* qw, const void* sc,
+                          bool sc_bf16, void* out, int rows, int din,
+                          int dout_p, int group, int ns, float* part,
+                          int* counters, cudaStream_t stream) {
+  static SmemGrant granted;
+  auto kernel = qmm_group_kernel<BITS, R, kNoNorm, PAIRED, MODE, XK, true>;
+  const int krows = BITS == 4 ? din / 2 : din;
+  if (ns < 2 || ns > 64 || group <= 0 || krows % group || krows / group < ns ||
+      !part || !counters)
+    return cudaErrorInvalidValue;
+  int unit = group;
+  while (unit % 16 == 0 && krows / unit / ns < kWarps) unit /= 2;
+  const int kb = (krows / unit + ns - 1) / ns * unit;   // most rows a block holds
+  const int xw = BITS == 4 ? 2 * kb : kb;
+  const size_t smem = group_smem(R, xw);
+  if (smem > kSmemMax) return cudaErrorInvalidValue;
+  cudaError_t e = allow_smem(kernel, smem, &granted);
+  if (e != cudaSuccess) return e;
+  dim3 grid((dout_p + kCols - 1) / kCols, (rows + R - 1) / R, ns);
+  kernel<<<grid, dim3(kLanes, kWarps), smem, stream>>>(
+      x, nullptr, nullptr, true, static_cast<const int8_t*>(qw), sc, sc_bf16,
+      nullptr, false, 0, out, rows, din, dout_p, group, 0.f, kb, unit, part,
+      counters);
+  return cudaGetLastError();
+}
+
+// Rows per block of the split form: up to 4.
+inline int ksplit_rows(int rows) { return rows >= 4 ? 4 : rows >= 2 ? 2 : 1; }
 
 // Rows per block: up to 4, fewer when the activation tile would not fit.
 inline int rows_per_block(int rows, size_t bytes_per_row) {

@@ -15,7 +15,9 @@
 // bandwidth (group 64 doubles the scale rows: +104 MB over a 7B decode
 // step's 3.68 GB at group 128), but the scale multiply and the bf16
 // rounding of every weight cost ~3 more instructions per weight than the
-// group-dot form, so at a few rows it is closer to instruction-bound.
+// group-dot form, so at a few rows it is closer to instruction-bound. On a
+// short grid (wo and w_down at 1-8 rows: 32 column tiles) it takes the K
+// split of quant_matmul.cuh (KSPLIT), one launch, as qmm_group does.
 //
 // qmm_group2d is the group dots of qmm_group split along K: grid (column
 // tiles of 128, row blocks, krows / kb), block z covering the packed rows
@@ -53,14 +55,31 @@ ITT_DEFINE_ERROR_STRING()
 
 // x [rows, din] bf16, f16 or f32 (x_kind, common.cuh); qw int8 [din/2 or
 // din, dout_p] (unpaired); sc bf16/f32 [ng, dout_p]; out [rows, dout_p] in
-// x's type; any group dividing the packed rows.
+// x's type; any group dividing the packed rows. splits > 1: the split
+// form of quant_matmul.cuh (the rounding point stays per weight), with
+// part and counters as for qmm_group.
 ITT_EXPORT int qmm_chunk(const void* x, int x_kind, const void* qw,
                          const void* sc, int sc_bf16, void* out, int rows,
-                         int din, int dout_p, int bits, int group,
-                         void* stream) {
+                         int din, int dout_p, int bits, int group, int splits,
+                         void* part, void* counters, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int krows = bits == 4 ? din / 2 : din;
   if (group <= 0 || krows % group) return (int)cudaErrorInvalidValue;
+  if (splits > 1) {
+    const int R = ksplit_rows(rows);
+#define ITT_CHUNK_KS(B, RR, XF)                                               \
+  if (bits == B && R == RR && x_kind == XF)                                  \
+    return (int)launch_ksplit<B, RR, false, kDequant, XF>(                   \
+        x, qw, sc, sc_bf16, out, rows, din, dout_p, group, splits,           \
+        static_cast<float*>(part), static_cast<int*>(counters), s);
+#define ITT_CHUNK_KS_X(XF)                                                    \
+  ITT_CHUNK_KS(4, 1, XF) ITT_CHUNK_KS(4, 2, XF) ITT_CHUNK_KS(4, 4, XF)        \
+  ITT_CHUNK_KS(8, 1, XF) ITT_CHUNK_KS(8, 2, XF) ITT_CHUNK_KS(8, 4, XF)
+    ITT_CHUNK_KS_X(kXBf16) ITT_CHUNK_KS_X(kXF16) ITT_CHUNK_KS_X(kXF32)
+#undef ITT_CHUNK_KS_X
+#undef ITT_CHUNK_KS
+    return (int)cudaErrorInvalidValue;
+  }
   const int R = rows_per_block(rows, sizeof(float) * din);
   if (group_smem(R, din) > kSmemMax) return (int)cudaErrorInvalidValue;
 #define ITT_CHUNK(B, RR, XF)                                                  \

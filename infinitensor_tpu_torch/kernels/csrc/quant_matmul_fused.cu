@@ -57,12 +57,28 @@ ITT_EXPORT int qmm_group_ln(const void* x, const void* gamma, const void* beta,
 // x [rows, din] bf16, or without the norm f16 or f32 (x_kind, common.cuh);
 // nw bf16 [din] (the RMSNorm weight, read when has_norm); qw int8 [din/2,
 // dout_p] split-half int4; sc bf16/f32 [din / (2 * group), dout_p]; out
-// [rows, dout_p] in x's type.
+// [rows, dout_p] in x's type. splits > 1 (without the norm): the split
+// form of quant_matmul.cuh, with part and counters as for qmm_group.
 ITT_EXPORT int qmm_slab(const void* x, int x_kind, const void* nw,
                         const void* qw, const void* sc, int sc_bf16,
                         void* out, int rows, int din, int dout_p, int group,
-                        int has_norm, float eps, void* stream) {
+                        int has_norm, float eps, int splits, void* part,
+                        void* counters, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (splits > 1) {
+    if (has_norm) return (int)cudaErrorInvalidValue;
+    const int R = ksplit_rows(rows);
+#define ITT_SLAB_KS(RR, XF)                                                   \
+  if (R == RR && x_kind == XF)                                               \
+    return (int)launch_ksplit<4, RR, true, kGroupDots, XF>(                  \
+        x, qw, sc, sc_bf16, out, rows, din, dout_p, group, splits,           \
+        static_cast<float*>(part), static_cast<int*>(counters), s);
+    ITT_SLAB_KS(1, kXBf16) ITT_SLAB_KS(2, kXBf16) ITT_SLAB_KS(4, kXBf16)
+    ITT_SLAB_KS(1, kXF16) ITT_SLAB_KS(2, kXF16) ITT_SLAB_KS(4, kXF16)
+    ITT_SLAB_KS(1, kXF32) ITT_SLAB_KS(2, kXF32) ITT_SLAB_KS(4, kXF32)
+#undef ITT_SLAB_KS
+    return (int)cudaErrorInvalidValue;
+  }
   const int R = rows_per_block(rows, sizeof(float) * din);
   if (group_smem(R, din) > kSmemMax) return (int)cudaErrorInvalidValue;
 #define ITT_QMM_SLAB(RR, N, XF)                                               \

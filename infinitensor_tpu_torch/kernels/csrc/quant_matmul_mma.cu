@@ -81,7 +81,6 @@
 namespace {
 
 using namespace mma_tile;
-using qmm_detail::allow_smem;
 
 constexpr int kXStride = 2 * kBK + 16;     // bytes per staged x row
 
@@ -396,7 +395,7 @@ inline dim3 sum_grid(size_t n) {
 // qmm_group_ln_mma_kernel, BR rows per block) on its grid with the
 // shared memory it needs; `args` are its arguments.
 template <int BITS, int NT, typename K, typename... A>
-cudaError_t launch_tile(K kernel, size_t* granted, int rows, int dout_p,
+cudaError_t launch_tile(K kernel, SmemGrant* granted, int rows, int dout_p,
                         int splits, cudaStream_t stream, A... args) {
   constexpr int BR = 8 * NT;
   const size_t smem =
@@ -413,7 +412,7 @@ cudaError_t launch_mma(const void* x, const void* qw, const void* sc,
                        bool sc_bf16, void* out, float* part, int rows,
                        int din, int dout_p, int group, int splits,
                        cudaStream_t stream) {
-  static size_t granted = 0;
+  static SmemGrant granted;
   cudaError_t e = launch_tile<BITS, NT>(
       qmm_group_mma_kernel<BITS, XK, NT>, &granted, rows, dout_p, splits,
       stream, static_cast<const uint16_t*>(x),
@@ -451,7 +450,7 @@ cudaError_t launch_ln_mma(const void* x, const void* gamma, const void* beta,
                           bool bias_bf16, int nbias, void* out, float* part,
                           int rows, int din, int dout_p, int group,
                           float eps, int splits, cudaStream_t stream) {
-  static size_t granted = 0;
+  static SmemGrant granted;
   group_ln_norm_rows<<<rows, dim3(qmm_detail::kLanes, qmm_detail::kWarps), 0,
                        stream>>>(x, gamma, beta, norm_bf16, eps, din,
                                  static_cast<__nv_bfloat16*>(xn));

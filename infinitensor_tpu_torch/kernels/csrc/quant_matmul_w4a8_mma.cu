@@ -69,7 +69,6 @@
 namespace {
 
 using namespace mma_tile;
-using qmm_detail::allow_smem;
 
 constexpr int kXStride = kBK + 16;   // bytes per staged xq row (80)
 constexpr int kQThreads = 256;       // threads of the quantize pre-pass
@@ -319,7 +318,7 @@ cudaError_t launch_w4a8_mma(const void* x, int8_t* xq, float* sx,
                             void* out, float* part, int rows, int din,
                             int dout_p, int group, int splits,
                             cudaStream_t stream) {
-  static size_t granted = 0;
+  static SmemGrant granted;
   constexpr int BR = 8 * NT;
   w4a8_quantize_rows<XK><<<rows, kQThreads, 0, stream>>>(x, din, xq, sx);
   cudaError_t e = cudaGetLastError();

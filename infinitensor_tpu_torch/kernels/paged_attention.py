@@ -13,8 +13,15 @@ paged_flash_decode (bf16 pages) replacing _paged_kernel,
 paged_flash_decode_q8 (int8 pages) replacing _paged_q8_kernel;
 paged_decode_plain and paged_decode_q8_plain are their plain versions
 (gather to dense, masked GQA attention), which the CPU takes and nothing on
-the card calls. `launches` counts kernel launches (captures, not
-CUDA-graph replays).
+the card calls.
+
+Two forms on the card, as for the dense decode attention: a bf16 q over
+bf16 or int8 pages at head dim 64 or 128 takes the fast kernels; any other
+q (bf16, f16, f32), float pages (bf16, f16, f32) or head dim (a multiple of
+8 from 8 to 256) takes the any-type form, csrc/attention_any.cuh
+(paged_flash_decode_any). launches[name] counts both forms and
+launches[name + "_any"] the any-type one again (captures, not CUDA-graph
+replays).
 """
 
 from __future__ import annotations
@@ -27,7 +34,8 @@ import math
 import torch
 
 from infinitensor_tpu_torch.kernels import _build
-from infinitensor_tpu_torch.kernels.attention import quantize_kv_row
+from infinitensor_tpu_torch.kernels.attention import (
+    KINDS, MAX_REP, check_head_dim, fast_form, quantize_kv_row)
 
 launches = collections.Counter()
 
@@ -37,7 +45,9 @@ def _lib() -> ctypes.CDLL:
     P, I, F = _build.P, _build.I, _build.F
     return _build.typed("paged_flash_decode",
                         paged_flash_decode_q8=[P] * 8 + [I] * 6 + [F, P],
-                        paged_flash_decode=[P] * 6 + [I] * 6 + [F, P])
+                        paged_flash_decode=[P] * 6 + [I] * 6 + [F, P],
+                        paged_flash_decode_any=[P, I] + [P] * 4 + [I]
+                        + [P] * 3 + [I] * 6 + [F, P])
 
 
 def gather_pages(pages, block_table):
@@ -131,9 +141,10 @@ def paged_decode_q8_plain(q, k_pages, v_pages, ks_pages, vs_pages,
 
 
 def _check(name, q, k_pages, v_pages, block_table, pos, scales=()):
-    """Shapes for every device; on the card also what the kernel takes:
-    D = 128, H / Hkv <= 16, contiguous tensors of the expected types on
-    q's device, 16-byte aligned pools, pool rows indexable in int32."""
+    """Shapes for every device; on the card also what a kernel takes: D a
+    multiple of 8 from 8 to 256, H / Hkv <= 16, contiguous tensors of the
+    expected types on q's device (q bf16, f16 or f32; float pages bf16,
+    f16 or f32), 16-byte aligned pools, pool rows indexable in int32."""
     B, H, one, D = q.shape
     N, Hkv, P, Dk = k_pages.shape
     if one != 1 or Dk != D or H % Hkv or v_pages.shape != k_pages.shape \
@@ -145,65 +156,82 @@ def _check(name, q, k_pages, v_pages, block_table, pos, scales=()):
         return
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    if D != 128 or H // Hkv > 16:
-        raise ValueError(f"{name} kernel takes D=128, H/Hkv<=16")
+    check_head_dim(name, D)
+    if H // Hkv > MAX_REP:
+        raise ValueError(f"{name} kernel takes H/Hkv <= {MAX_REP}")
     if N * Hkv * P >= 2 ** 31:
         raise ValueError(f"{name}: the pool has too many rows")
-    page_dt = torch.int8 if scales else torch.bfloat16
-    want = [("q", q, torch.bfloat16), ("k_pages", k_pages, page_dt),
+    floats = (torch.bfloat16, torch.float16, torch.float32)
+    page_dt = (torch.int8,) if scales else floats
+    want = [("q", q, floats), ("k_pages", k_pages, page_dt),
             ("v_pages", v_pages, page_dt),
-            ("block_table", block_table, torch.int32),
-            ("pos", pos, torch.int32)]
-    want += [("scale pages", s, torch.float32) for s in scales]
+            ("block_table", block_table, (torch.int32,)),
+            ("pos", pos, (torch.int32,))]
+    want += [("scale pages", s, (torch.float32,)) for s in scales]
     for what, t, dt in want:
-        if t.device != q.device or t.dtype != dt or not t.is_contiguous():
+        if t.device != q.device or t.dtype not in dt \
+                or not t.is_contiguous():
             raise ValueError(f"{what} must be contiguous {dt} on {q.device}")
     if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
         raise ValueError("k_pages and v_pages must be 16-byte aligned")
 
 
-def paged_flash_decode(q, k_pages, v_pages, block_table, pos):
-    """Paged flash decode over bf16 pages already appended at pos. q
-    [B, H, 1, D] bf16; pages [N, Hkv, P, D]; block_table [B, MP] int32
-    page ids; pos [B] int32. Returns [B, H, 1, D]. CPU tensors take the
-    plain version; CUDA tensors launch the kernel (D = 128, H / Hkv <= 16,
-    any page size) or raise."""
-    _check("paged_flash_decode", q, k_pages, v_pages, block_table, pos)
-    if q.device.type == "cpu":
-        return paged_decode_plain(q, k_pages, v_pages, block_table, pos)
+def _launch(name, q, k_pages, v_pages, ks_pages, vs_pages, block_table,
+            pos):
+    """One launch on the card, in the form attention.fast_form picks."""
     B, H, _, D = q.shape
     _, Hkv, P, _ = k_pages.shape
+    MP = block_table.shape[1]
     out = torch.empty_like(q)
     lib = _lib()
     p = _build.ptr
-    err = lib.paged_flash_decode(
-        p(q), p(k_pages), p(v_pages), p(block_table), p(pos), p(out), B, H,
-        Hkv, P, block_table.shape[1], D, 1.0 / math.sqrt(D), _build.stream())
-    _build.raise_on(lib, err, "paged_flash_decode")
-    launches["paged_flash_decode"] += 1
+    fast = fast_form(q.dtype, k_pages.dtype, D)
+    if not fast:
+        err = lib.paged_flash_decode_any(
+            p(q), KINDS[q.dtype], p(k_pages), p(v_pages), p(ks_pages),
+            p(vs_pages), KINDS[k_pages.dtype], p(block_table), p(pos),
+            p(out), B, H, Hkv, P, MP, D, 1.0 / math.sqrt(D), _build.stream())
+    elif ks_pages is None:
+        err = lib.paged_flash_decode(
+            p(q), p(k_pages), p(v_pages), p(block_table), p(pos), p(out), B,
+            H, Hkv, P, MP, D, 1.0 / math.sqrt(D), _build.stream())
+    else:
+        err = lib.paged_flash_decode_q8(
+            p(q), p(k_pages), p(v_pages), p(ks_pages), p(vs_pages),
+            p(block_table), p(pos), p(out), B, H, Hkv, P, MP, D,
+            1.0 / math.sqrt(D), _build.stream())
+    _build.raise_on(lib, err, name)
+    launches[name] += 1
+    if not fast:
+        launches[name + "_any"] += 1
     return out
+
+
+def paged_flash_decode(q, k_pages, v_pages, block_table, pos):
+    """Paged flash decode over float pages already appended at pos. q
+    [B, H, 1, D]; pages [N, Hkv, P, D]; block_table [B, MP] int32 page
+    ids; pos [B] int32. Returns [B, H, 1, D] in q's dtype. CPU tensors take
+    the plain version; CUDA tensors launch a kernel or raise: q bf16, f16
+    or f32, pages bf16, f16 or f32, D a multiple of 8 from 8 to 256,
+    H / Hkv <= 16, any page size."""
+    _check("paged_flash_decode", q, k_pages, v_pages, block_table, pos)
+    if q.device.type == "cpu":
+        return paged_decode_plain(q, k_pages, v_pages, block_table, pos)
+    return _launch("paged_flash_decode", q, k_pages, v_pages, None, None,
+                   block_table, pos)
 
 
 def paged_flash_decode_q8(q, k_pages, v_pages, ks_pages, vs_pages,
                           block_table, pos):
-    """INT8 paged flash decode. q [B, H, 1, D] bf16; pages int8 [N, Hkv, P,
-    D]; scale pages f32 [N, Hkv, P]; block_table [B, MP] int32; pos [B]
-    int32. Returns [B, H, 1, D]. CPU tensors take the plain version; CUDA
-    tensors launch the kernel or raise."""
+    """INT8 paged flash decode. q [B, H, 1, D] bf16, f16 or f32; pages
+    int8 [N, Hkv, P, D]; scale pages f32 [N, Hkv, P]; block_table [B, MP]
+    int32; pos [B] int32. Returns [B, H, 1, D] in q's dtype. CPU tensors
+    take the plain version; CUDA tensors launch a kernel (D a multiple of
+    8 from 8 to 256, H / Hkv <= 16) or raise."""
     _check("paged_flash_decode_q8", q, k_pages, v_pages, block_table, pos,
            (ks_pages, vs_pages))
     if q.device.type == "cpu":
         return paged_decode_q8_plain(q, k_pages, v_pages, ks_pages,
                                      vs_pages, block_table, pos)
-    B, H, _, D = q.shape
-    _, Hkv, P, _ = k_pages.shape
-    out = torch.empty_like(q)
-    lib = _lib()
-    p = _build.ptr
-    err = lib.paged_flash_decode_q8(
-        p(q), p(k_pages), p(v_pages), p(ks_pages), p(vs_pages),
-        p(block_table), p(pos), p(out), B, H, Hkv, P, block_table.shape[1],
-        D, 1.0 / math.sqrt(D), _build.stream())
-    _build.raise_on(lib, err, "paged_flash_decode_q8")
-    launches["paged_flash_decode_q8"] += 1
-    return out
+    return _launch("paged_flash_decode_q8", q, k_pages, v_pages, ks_pages,
+                   vs_pages, block_table, pos)

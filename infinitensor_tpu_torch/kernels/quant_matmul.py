@@ -36,6 +36,14 @@ two forms' times cross on the card (chip_smoke.py phase 3, PERF.md).
 launches[name] counts both forms of a kernel and launches[name + "_mma"]
 the tensor-core one again (qmm_group_ln_mma for qmm_group_ln).
 
+A CUDA-core launch of qmm_group, qmm_slab or qmm_chunk without a fused
+norm whose grid is short (wo and w_down at one row are 32 blocks on 132
+SMs) takes the split form (csrc/quant_matmul.cuh, KSPLIT): group_splits
+blocks share each tile and split K, and the tile's last block to finish
+sums their partials in a fixed order, in one launch;
+launches[name + "_split"] counts it again. The split count comes from the
+shapes and the SM count only.
+
 Each has a plain PyTorch version here that computes the same function step
 by step (`*_plain`). A wrapper given a CPU tensor runs the plain version;
 given a CUDA tensor it launches the kernel or raises. `launches` counts
@@ -115,6 +123,10 @@ KERNEL_MAX_ROWS = 256
 # (PERF.md).
 MMA_MIN_ROWS = 2
 W4A8_MMA_MIN_ROWS = 3
+SPLIT_MAX = 8                   # blocks a tile of the split form
+_SPLITS = None                  # when set, the split count of every launch
+#                                 of the three kernels (1: the unsplit form)
+_COUNTERS = {}                  # (device, stream) -> (capture id, counters)
 X_KINDS = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 
 launches = collections.Counter()
@@ -426,11 +438,14 @@ def qmm_group2d_plain(x2: torch.Tensor, q: QuantizedLinear, kb: int
 @functools.cache
 def _lib() -> ctypes.CDLL:
     P, I, F = _build.P, _build.I, _build.F
-    return _build.typed(
+    lib = _build.typed(
         "quant_matmul",
-        qmm_group=[P, I, P, P, P, I, P, I, I, I, I, I, I, F, P],
+        qmm_group=[P, I, P, P, P, I, P, I, I, I, I, I, I, F, I, P, P, P],
         qmm_w4a8=[P, I, P, P, I, P, I, I, I, I, I, P],
         qmm_norm_w4a8=[P, P, P, P, I, P, I, I, I, I, I, F, P])
+    lib.itt_capture_id.argtypes = [P]
+    lib.itt_capture_id.restype = ctypes.c_ulonglong
+    return lib
 
 
 @functools.cache
@@ -439,7 +454,7 @@ def _lib_fused() -> ctypes.CDLL:
     return _build.typed(
         "quant_matmul_fused",
         qmm_group_ln=[P, P, P, I, P, P, I, P, I, I, P, I, I, I, I, I, F, P],
-        qmm_slab=[P, I, P, P, P, I, P, I, I, I, I, I, F, P])
+        qmm_slab=[P, I, P, P, P, I, P, I, I, I, I, I, F, I, P, P, P])
 
 
 @functools.cache
@@ -465,7 +480,7 @@ def _lib_chunk() -> ctypes.CDLL:
     P, I = _build.P, _build.I
     return _build.typed(
         "quant_matmul_chunk",
-        qmm_chunk=[P, I, P, P, I, P, I, I, I, I, I, P],
+        qmm_chunk=[P, I, P, P, I, P, I, I, I, I, I, I, P, P, P],
         qmm_group2d=[P, I, P, P, I, P, P, I, I, I, I, I, I, P])
 
 
@@ -544,6 +559,78 @@ def mma_plan(rows: int, dout_p: int, krows: int, group: int, sms: int
     return tile, splits
 
 
+def _split_rows(rows: int) -> int:
+    """Rows a block of the split form holds (csrc ksplit_rows)."""
+    return 4 if rows >= 4 else 2 if rows >= 2 else 1
+
+
+def group_splits(rows: int, dout_p: int, krows: int, group: int, sms: int
+                 ) -> int:
+    """The split count of a CUDA-core launch of qmm_group, qmm_slab or
+    qmm_chunk without a norm (1: the unsplit form): the largest power of
+    two that keeps column tiles x row blocks x splits within twice the
+    SMs (a 1- or 2-row block fits twice an SM), at most SPLIT_MAX and at
+    most the scale groups (packed rows // group). Past that a second wave
+    costs more than the split gains. A 4-row block (4 rows and more) is
+    not split: at 8 rows the split lost to the unsplit form on wo and
+    w_down (chip_smoke.py phase 3's split crossover), its partials being
+    4x a 1-row block's. From shapes only, so one captured graph serves
+    every step."""
+    r = _split_rows(rows)
+    if r == 4:
+        return 1
+    blocks = -(-dout_p // MMA_COLS) * -(-rows // r)
+    splits = 1
+    while blocks * 2 * splits <= 2 * sms and 2 * splits <= min(
+            SPLIT_MAX, krows // group):
+        splits *= 2
+    return splits
+
+
+def _split_plan(x2: torch.Tensor, q: QuantizedLinear) -> tuple:
+    """(splits, part, counters) of a launch of the three kernels on this
+    card: _SPLITS where set, else group_splits; for the split form its
+    f32 partials [splits, rows, dout_p] and _counters, else None, None."""
+    rows, dout_p = x2.shape[0], q.out_physical
+    splits = _SPLITS or group_splits(rows, dout_p, _packed_rows(q),
+                                     q.group_size,
+                                     _build.sms(x2.device.index or 0))
+    if splits == 1:
+        return 1, None, None
+    part = torch.empty(splits, rows, dout_p, dtype=torch.float32,
+                       device=x2.device)
+    need = -(-dout_p // MMA_COLS) * -(-rows // _split_rows(rows))
+    return splits, part, _counters(x2.device, need)
+
+
+def _counters(device: torch.device, need: int) -> torch.Tensor:
+    """The split form's tile counters (int32, one per tile and row block)
+    for a launch on the current stream: zero between launches, as the
+    kernel's last block sets its counter back. Two launches that share
+    counters must not overlap, so each stream has its own, made once and
+    kept; inside a graph capture each capture has its own, made (its
+    zeroing a node of the graph) at its first split launch on that
+    stream and held until the next capture there."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    capture = _lib().itt_capture_id(ctypes.c_void_p(stream)) \
+        if torch.cuda.is_current_stream_capturing() else 0
+    key = (device.index or 0, stream)
+    have = _COUNTERS.get(key)
+    if have is None or have[0] != capture or have[1].numel() < need:
+        have = capture, torch.zeros(max(need, 4096), dtype=torch.int32,
+                                    device=device)
+        _COUNTERS[key] = have
+    return have[1]
+
+
+def _launched_split(lib, err: int, name: str, out: torch.Tensor,
+                    splits: int) -> torch.Tensor:
+    _launched(lib, err, name, out)
+    if splits > 1:
+        launches[name + "_split"] += 1
+    return out
+
+
 def _tile_plan(x2: torch.Tensor, q: QuantizedLinear) -> tuple:
     """(row_tile, splits, part) of a launch of the tensor-core tile:
     mma_plan on this card, and the f32 partials [splits, rows, dout_p]
@@ -574,13 +661,15 @@ def _launch_group(x2, norm_w, q, eps: float, name: str,
         if norm_w is not None:
             raise ValueError("qmm_group_mma fuses no norm")
         return _launch_group_mma(x2, q, name)
+    splits, part, counters = (1, None, None) if norm_w is not None \
+        else _split_plan(x2, q)
     out, lib, p = _out(x2, q), _lib(), _build.ptr
     err = lib.qmm_group(
         p(x2), _x_kind(x2), p(norm_w), p(q.qweight), p(q.scales),
         q.scales.dtype == torch.bfloat16, p(out), x2.shape[0], x2.shape[1],
         q.out_physical, q.bits, q.group_size, norm_w is not None, eps,
-        _build.stream())
-    return _launched(lib, err, name, out)
+        splits, p(part), p(counters), _build.stream())
+    return _launched_split(lib, err, name, out, splits)
 
 
 def _launch_group_mma(x2, q, name: str) -> torch.Tensor:
@@ -603,13 +692,15 @@ def _launch_group_mma(x2, q, name: str) -> torch.Tensor:
 
 def _launch_slab(x2, norm_w, q, eps: float, name: str) -> torch.Tensor:
     _check_cuda(x2, q)
+    splits, part, counters = (1, None, None) if norm_w is not None \
+        else _split_plan(x2, q)
     out, lib, p = _out(x2, q), _lib_fused(), _build.ptr
     err = lib.qmm_slab(
         p(x2), _x_kind(x2), p(norm_w), p(q.qweight), p(q.scales),
         q.scales.dtype == torch.bfloat16, p(out), x2.shape[0], x2.shape[1],
-        q.out_physical, q.group_size, norm_w is not None, eps,
-        _build.stream())
-    return _launched(lib, err, name, out)
+        q.out_physical, q.group_size, norm_w is not None, eps, splits,
+        p(part), p(counters), _build.stream())
+    return _launched_split(lib, err, name, out, splits)
 
 
 def _launch_group_ln(x2, gamma, beta, q, bias, eps: float,
@@ -701,12 +792,13 @@ def _launch_w4a8_mma(x2, q) -> torch.Tensor:
 
 def _launch_chunk(x2, q) -> torch.Tensor:
     _check_cuda(x2, q)
+    splits, part, counters = _split_plan(x2, q)
     out, lib, p = _out(x2, q), _lib_chunk(), _build.ptr
     err = lib.qmm_chunk(p(x2), _x_kind(x2), p(q.qweight), p(q.scales),
                         q.scales.dtype == torch.bfloat16, p(out), x2.shape[0],
                         x2.shape[1], q.out_physical, q.bits, q.group_size,
-                        _build.stream())
-    return _launched(lib, err, "qmm_chunk", out)
+                        splits, p(part), p(counters), _build.stream())
+    return _launched_split(lib, err, "qmm_chunk", out, splits)
 
 
 def _launch_group2d(x2, q, kb: int) -> torch.Tensor:

@@ -1343,19 +1343,30 @@ def _scatter_nd_l(op, ins, ctx):
     reduction = op.attrs.get("reduction", "none")
     coords = _coords(idx)
     updates = updates.to(data.dtype)
-    if reduction in ("none", "add"):
-        return data.index_put(coords, updates,
-                              accumulate=reduction == "add")
-    # mul / max / min: flatten the indexed leading dims
+    if reduction == "add":
+        return data.index_put(coords, updates, accumulate=True)
+    # flatten the indexed leading dims
     n = len(coords)
     lead = data.shape[:n]
     lin = torch.zeros_like(coords[0])
     for c, size in zip(coords, lead):
         lin = lin * size + c
+    lin = lin.reshape(-1)
+    upd = updates.reshape(-1, *data.shape[n:])
+    if reduction == "none":
+        # duplicate indices: the last update wins on every device, the
+        # JAX executor's order (CUDA's index_put leaves it unspecified):
+        # each duplicate writes the last one's value (no host sync, so
+        # the op can sit in a captured graph)
+        at = torch.arange(lin.numel(), device=lin.device)
+        last = torch.full((math.prod(lead),), -1, dtype=torch.long,
+                          device=lin.device).scatter_reduce(0, lin, at,
+                                                            "amax")
+        return data.index_put(tuple(c.reshape(-1) for c in coords),
+                              upd[last[lin]])
     flat = data.reshape(math.prod(lead), *data.shape[n:]).clone()
     red = {"mul": "prod", "max": "amax", "min": "amin"}[reduction]
-    flat.index_reduce_(0, lin.reshape(-1),
-                       updates.reshape(-1, *data.shape[n:]), red)
+    flat.index_reduce_(0, lin, upd, red)
     return flat.reshape(data.shape)
 
 

@@ -149,33 +149,43 @@ def test_flash_decode_kernel(dev, rep):
 
 
 def test_cuda_wrappers_raise_instead_of_falling_back(dev):
-    q = torch.zeros(1, 2, 1, 32, dtype=torch.bfloat16, device=dev)
-    kc = torch.zeros(1, 2, 16, 32, dtype=torch.int8, device=dev)
-    s = torch.zeros(1, 2, 16, device=dev)
+    """What no kernel takes raises (a head dim that is no multiple of 8,
+    or above 256; an int or f64 x); what the bf16 kernels do not take
+    (D 32 or 48, an f32 q or cache) launches the any-type form, never the
+    plain version."""
     pos = torch.zeros(1, dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError):
-        att.flash_decode_q8(q, kc, kc, s, s, pos)       # D = 32
-    kb = torch.zeros(1, 2, 16, 32, dtype=torch.bfloat16, device=dev)
-    with pytest.raises(ValueError):
-        att.flash_decode(q, kb, kb, pos)                # D = 32
-    q64 = torch.zeros(1, 2, 1, 64, device=dev)
-    k64 = torch.zeros(1, 2, 16, 64, dtype=torch.bfloat16, device=dev)
-    with pytest.raises(ValueError):
-        att.flash_decode(q64, k64, k64, pos)            # f32 query
+    for D in (12, 272):
+        q = torch.zeros(1, 2, 1, D, dtype=torch.bfloat16, device=dev)
+        kc = torch.zeros(1, 2, 16, D, dtype=torch.int8, device=dev)
+        s = torch.zeros(1, 2, 16, device=dev)
+        with pytest.raises(ValueError, match="multiple of 8"):
+            att.flash_decode_q8(q, kc, kc, s, s, pos)
+        with pytest.raises(ValueError, match="multiple of 8"):
+            att.flash_decode(q, kc.bfloat16(), kc.bfloat16(), pos)
+        with pytest.raises(ValueError, match="multiple of 8"):
+            fa.flash_attention(kc.bfloat16(), kc.bfloat16(), kc.bfloat16())
     qq = _qlin(dev, 512, 256, 4, torch.bfloat16)
     with pytest.raises(ValueError, match="floating point"):
         qm.quant_matmul(torch.ones(1, 512, dtype=torch.int32, device=dev),
                         qq)                             # int32 x
     with pytest.raises(NotImplementedError, match="bf16, f16 and f32"):
         qm.quant_matmul(_x(dev, 1, 512).double(), qq)   # f64 x
-    x48 = torch.zeros(1, 2, 8, 48, dtype=torch.bfloat16, device=dev)
-    with pytest.raises(ValueError):
-        fa.flash_attention(x48, x48, x48)               # D = 48
-    x32 = torch.zeros(1, 2, 8, 128, device=dev)
-    with pytest.raises(ValueError):
-        fa.flash_attention(x32, x32, x32)               # f32
-    with pytest.raises(ValueError):
-        att.flash_decode(x32[:, :, :1], x32, x32, pos)  # f32 cache
+    g = torch.Generator(device=dev).manual_seed(4)
+    q = torch.randn(1, 2, 1, 32, generator=g, device=dev).bfloat16()
+    kb = torch.randn(1, 2, 16, 32, generator=g, device=dev).bfloat16()
+    before = dict(att.launches)
+    _close(att.flash_decode(q, kb, kb, pos),
+           att.flash_decode_plain(q, kb, kb, pos))        # D = 32
+    x48 = torch.randn(1, 2, 8, 48, generator=g, device=dev).bfloat16()
+    _close(fa.flash_attention(x48, x48, x48),
+           fa.mha_plain(x48, x48, x48))                   # D = 48
+    x32 = torch.randn(1, 2, 8, 128, generator=g, device=dev)
+    _close(fa.flash_attention(x32, x32, x32),
+           fa.mha_plain(x32, x32, x32))                   # f32
+    _close(att.flash_decode(x32[:, :, :1].contiguous(), x32, x32, pos),
+           att.flash_decode_plain(x32[:, :, :1], x32, x32, pos))  # f32
+    assert att.launches["flash_decode_any"] == \
+        before.get("flash_decode_any", 0) + 2
 
 
 def _ragged_pos(dev, B, S, seed):
@@ -441,21 +451,29 @@ def test_paged_flash_decode_q8_kernel(dev, rep, P):
 
 
 def test_paged_wrappers_raise_instead_of_falling_back(dev):
-    q = torch.zeros(1, 2, 1, 64, dtype=torch.bfloat16, device=dev)
-    kp = torch.zeros(4, 2, 16, 64, dtype=torch.bfloat16, device=dev)
+    """What no paged kernel takes raises (an int64 table, bf16 pages for
+    the INT8 kernel, a head dim that is no multiple of 8 or above 256);
+    head dim 64 and f32 pages, refused before the any-type form, launch."""
     table = torch.zeros(1, 2, dtype=torch.int32, device=dev)
     pos = torch.zeros(1, dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError):
-        pa.paged_flash_decode(q, kp, kp, table, pos)            # D = 64
     q = torch.zeros(1, 2, 1, 128, dtype=torch.bfloat16, device=dev)
     kp = torch.zeros(4, 2, 16, 128, dtype=torch.bfloat16, device=dev)
     with pytest.raises(ValueError):
         pa.paged_flash_decode(q, kp, kp, table.long(), pos)     # int64 table
-    with pytest.raises(ValueError):
-        pa.paged_flash_decode(q, kp.float(), kp.float(), table, pos)
     s = torch.zeros(4, 2, 16, device=dev)
     with pytest.raises(ValueError):
         pa.paged_flash_decode_q8(q, kp, kp, s, s, table, pos)   # bf16 pages
+    for D in (12, 272):
+        qd = torch.zeros(1, 2, 1, D, dtype=torch.bfloat16, device=dev)
+        kd = torch.zeros(4, 2, 16, D, dtype=torch.bfloat16, device=dev)
+        with pytest.raises(ValueError, match="multiple of 8"):
+            pa.paged_flash_decode(qd, kd, kd, table, pos)
+    g = torch.Generator(device=dev).manual_seed(5)
+    for D, pdt in ((64, torch.bfloat16), (128, torch.float32)):
+        qd = torch.randn(1, 2, 1, D, generator=g, device=dev).bfloat16()
+        kd = torch.randn(4, 2, 16, D, generator=g, device=dev).to(pdt)
+        _close(pa.paged_flash_decode(qd, kd, kd, table, pos),
+               pa.paged_decode_plain(qd, kd, kd, table, pos))
 
 
 @pytest.mark.parametrize("kv_quant", [False, True])
@@ -590,8 +608,19 @@ def test_decode_routes_launch_counts(dev, knobs):
     att.launches.clear()
     fn(params, cfg, token, pos, cache)
     torch.cuda.synchronize()
+    lay = params["layers"][0]
+    split = sum(qm.group_splits(token.shape[0], q.out_physical,
+                                q.qweight.shape[0], q.group_size,
+                                _build.sms(0)) > 1
+                for q in (lay["wqkv"], lay["wo"], lay["w_gateup"]))
+    split = L * split + (qm.group_splits(
+        token.shape[0], params["lm_head"].out_physical,
+        params["lm_head"].qweight.shape[0], params["lm_head"].group_size,
+        _build.sms(0)) > 1)
+    assert split > 0
     assert {**qm.launches, **att.launches} == {
-        "qmm_chunk": 3 * L + 1, "dequant_matmul": L, "flash_decode_q8": L,
+        "qmm_chunk": 3 * L + 1, "qmm_chunk_split": split,
+        "dequant_matmul": L, "flash_decode_q8": L,
         **att.merge_launches(L, 1, cfg.n_kv_heads, cfg.max_seq)}
     cfg, params = _small_model(dev)
     L = cfg.n_layers
@@ -1113,3 +1142,326 @@ def test_flash_attention_ring(dev, S, D, causal):
     got = fa.flash_attention(q, k, v, causal)
     assert fa.launches["flash_attention"] == before + 1
     _close(got, want)
+
+
+# -- the any-type attention form (csrc/attention_any.cuh): every float ----
+# -- type and head dim the TPU kernels take ---------------------------------
+
+ANY_DECODE = [(torch.float32, 16, torch.float32), (torch.float16, 64,
+                                                   torch.float16),
+              (torch.bfloat16, 8, torch.bfloat16),
+              (torch.bfloat16, 256, torch.bfloat16),
+              (torch.float32, 96, torch.bfloat16),
+              (torch.float16, 128, torch.float32)]
+
+
+def _any_decode_inputs(dev, qdt, D, cdt, B, H, Hkv, S, seed):
+    """q, a float cache (cdt) and an INT8 cache with its scales; rows past
+    pos NaN (float cache) or NaN-scaled (INT8 cache)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(B, H, 1, D, generator=g, device=dev).to(qdt)
+    kc, vc = (torch.randn(B, Hkv, S, D, generator=g, device=dev).to(cdt)
+              for _ in range(2))
+    kq, vq = (torch.randint(-127, 128, (B, Hkv, S, D), generator=g,
+                            device=dev, dtype=torch.int8) for _ in range(2))
+    ks, vs = (torch.rand(B, Hkv, S, generator=g, device=dev) * 0.015 + 0.005
+              for _ in range(2))
+    pos = _ragged_pos(dev, B, S, seed)
+    return q, (kc, vc), (kq, vq, ks, vs), pos
+
+
+@pytest.mark.parametrize("splits", [1, 5])
+@pytest.mark.parametrize("qdt,D,cdt", ANY_DECODE)
+def test_flash_decode_any_form(dev, qdt, D, cdt, splits):
+    """flash_decode and flash_decode_q8 outside the bf16 kernels' types
+    and head dims, unsplit and split (with the any-type merge where the
+    fast merge does not take it), against the plain versions; rows past
+    pos hold NaN and are never read; the result is in q's dtype."""
+    B, H, Hkv, S = 3, 8, 2, 300
+    q, (kc, vc), (kq, vq, ks, vs), pos = _any_decode_inputs(
+        dev, qdt, D, cdt, B, H, Hkv, S, D + splits)
+    want = att.flash_decode_plain(q, kc, vc, pos)
+    want8 = att.flash_decode_q8_plain(q, kq, vq, ks, vs, pos)
+    dead = (torch.arange(S, device=dev)[None] > pos[:, None])[:, None] \
+        .expand(B, Hkv, S)
+    kc[dead] = float("nan")
+    vc[dead] = float("nan")
+    ks[dead] = float("nan")
+    vs[dead] = float("nan")
+    fast = att.fast_form(qdt, cdt, D)
+    before = dict(att.launches)
+    got = att.flash_decode(q, kc, vc, pos, _splits=splits)
+    got8 = att.flash_decode_q8(q, kq, vq, ks, vs, pos, _splits=splits)
+    assert got.dtype == got8.dtype == qdt
+    assert torch.isfinite(got.float()).all()
+    assert torch.isfinite(got8.float()).all()
+    _close(got, want)
+    _close(got8, want8)
+    assert att.launches["flash_decode_any"] == \
+        before.get("flash_decode_any", 0) + (not fast)
+    assert att.launches["flash_decode_q8_any"] == \
+        before.get("flash_decode_q8_any", 0) + (not att.fast_form(
+            qdt, torch.int8, D))
+    assert att.launches["flash_decode_merge"] == \
+        before.get("flash_decode_merge", 0) + 2 * (splits > 1)
+
+
+@pytest.mark.parametrize("D", [8, 16, 96, 256])
+@pytest.mark.parametrize("odt", [torch.bfloat16, torch.float16,
+                                 torch.float32])
+def test_flash_decode_merge_any(dev, D, odt):
+    """The any-type merge on partials with empty splits, more splits than
+    D, out in each float type."""
+    g = torch.Generator(device=dev).manual_seed(D)
+    part = torch.randn(2, 3, 24, D + 2, generator=g, device=dev)
+    part[..., D + 1] = part[..., D + 1].abs() + 0.5
+    part[:, :, 1, D:] = torch.tensor([float("-inf"), 0.0], device=dev)
+    before = att.launches["flash_decode_merge_any"]
+    got = att.flash_decode_merge(part, odt)
+    assert att.launches["flash_decode_merge_any"] == before + 1
+    _close(got, att.flash_decode_merge_plain(part).to(odt))
+
+
+@pytest.mark.parametrize("S", [1, 77, 200])
+@pytest.mark.parametrize("dtype,D", [(torch.float32, 16), (torch.float16, 64),
+                                     (torch.bfloat16, 96),
+                                     (torch.float16, 96),
+                                     (torch.bfloat16, 8),
+                                     (torch.float32, 256)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_any_form(dev, dtype, D, causal, S):
+    g = torch.Generator().manual_seed(S + D)
+    q, k, v = (torch.randn(2, 3, S, D, generator=g).mul(2).to(dtype).to(dev)
+               for _ in range(3))
+    before = dict(fa.launches)
+    got = fa.flash_attention(q, k, v, causal)
+    assert got.dtype == dtype
+    _close(got, fa.mha_plain(q, k, v, causal))
+    assert fa.launches["flash_attention_any"] == \
+        before.get("flash_attention_any", 0) + 1
+
+
+def _paged_any_case(dev, rep, P, D, qdt, pdt, seed):
+    """_paged_case's table and positions at head dim D, q in qdt and
+    float pages in pdt (INT8 pages when pdt is int8)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    B, Hkv, MP = 5, 2, 6
+    N = B * MP + 3
+    pos = torch.tensor([0, P - 1, P, 3 * P + 5, MP * P - 1],
+                       dtype=torch.int32, device=dev)
+    table = torch.randperm(N - 1, generator=g, device=dev)[:B * MP].add(1) \
+        .reshape(B, MP).to(torch.int32)
+    q = torch.randn(B, Hkv * rep, 1, D, generator=g, device=dev).to(qdt)
+    if pdt == torch.int8:
+        kp, vp = (torch.randint(-127, 128, (N, Hkv, P, D), generator=g,
+                                device=dev, dtype=torch.int8)
+                  for _ in range(2))
+        ks, vs = (torch.rand(N, Hkv, P, generator=g, device=dev) * 0.015
+                  + 0.005 for _ in range(2))
+        return (q, kp, vp, ks, vs, table, pos)
+    kp, vp = (torch.randn(N, Hkv, P, D, generator=g, device=dev).to(pdt)
+              for _ in range(2))
+    return (q, kp, vp, table, pos)
+
+
+@pytest.mark.parametrize("qdt,pdt", [(torch.float16, torch.float16),
+                                     (torch.float16, torch.bfloat16),
+                                     (torch.bfloat16, torch.bfloat16),
+                                     (torch.float32, torch.float32)])
+@pytest.mark.parametrize("rep", [1, 4])
+def test_paged_kernels_at_head_dim_64(dev, qdt, pdt, rep):
+    """Both paged kernels at head dim 64 (a bf16 q over bf16 or INT8 pages
+    takes the fast kernels, anything else the any-type form) against
+    their plain versions, in q's dtype."""
+    for kname, dt, fn, plain in (
+            ("paged_flash_decode", pdt, pa.paged_flash_decode,
+             pa.paged_decode_plain),
+            ("paged_flash_decode_q8", torch.int8, pa.paged_flash_decode_q8,
+             pa.paged_decode_q8_plain)):
+        args = _paged_any_case(dev, rep, 16, 64, qdt, dt, rep + 3)
+        before = dict(pa.launches)
+        got = fn(*args)
+        assert got.dtype == qdt
+        assert pa.launches[kname] == before.get(kname, 0) + 1
+        assert pa.launches[kname + "_any"] == before.get(
+            kname + "_any", 0) + (not att.fast_form(qdt, dt, 64))
+        _close(got, plain(*args))
+
+
+def _split_weight(dev, kind, bits, group, sdt):
+    """A 4096 x 4096 weight (wo's shape: 32 column tiles) for qmm_group,
+    qmm_chunk or qmm_slab (paired int4)."""
+    w = torch.randn(4096, 4096, generator=torch.Generator().manual_seed(
+        bits + group))
+    q = quantize_weight(w, bits=bits, group_size=group,
+                        paired=kind == "qmm_slab")
+    return QuantizedLinear(q.qweight.to(dev), q.scales.to(sdt).to(dev), bits,
+                           q.group_size)
+
+
+SPLIT_CASES = [("qmm_group", 4, 128), ("qmm_group", 8, 128),
+                 ("qmm_chunk", 4, 64), ("qmm_chunk", 8, 64),
+                 ("qmm_chunk", 4, 128), ("qmm_chunk", 8, 128),
+                 ("qmm_slab", 4, 128)]
+
+
+@pytest.mark.parametrize("xdt", [torch.bfloat16, torch.float16,
+                                 torch.float32])
+@pytest.mark.parametrize("kind,bits,group", SPLIT_CASES)
+def test_k_split_at_one_row(dev, kind, bits, group, xdt):
+    """At 1 row (and at 2 where the call stays on the CUDA cores) a short
+    grid takes the split form, once a call: against the plain version,
+    bit for bit across two launches, and within the tolerance of the
+    unsplit form, forced. At 8 rows (4-row blocks) the call stays
+    unsplit, and the split form, forced at 2, holds to the same checks."""
+    q = _split_weight(dev, kind, bits, group, torch.bfloat16)
+    variant = "chunk" if kind == "qmm_chunk" else None
+    plain = {"qmm_group": qm.qmm_group_plain, "qmm_chunk": qm.qmm_chunk_plain,
+             "qmm_slab": qm.qmm_slab_plain}[kind]
+    for rows in (1, 2, 8):
+        x = _x(dev, rows, 4096, seed=rows).to(xdt)
+        if kind == "qmm_group" and \
+                qm.group_form(rows, xdt, False) == "mma":
+            continue
+        splits = qm.group_splits(rows, 4096, q.qweight.shape[0],
+                                 q.group_size, _build.sms(0))
+        assert (splits == 1) if rows == 8 else (splits > 1)
+        assert qm.route(x, q, variant)[0] == kind
+        if rows == 8:
+            before = dict(qm.launches)
+            qm.quant_matmul(x, q, variant)
+            assert qm.launches[kind + "_split"] == \
+                before.get(kind + "_split", 0)
+            qm._SPLITS = 2
+        before = dict(qm.launches)
+        try:
+            got = qm.quant_matmul(x, q, variant)
+            again = qm.quant_matmul(x, q, variant)
+        finally:
+            qm._SPLITS = None
+        assert qm.launches[kind] == before.get(kind, 0) + 2
+        assert qm.launches[kind + "_split"] == \
+            before.get(kind + "_split", 0) + 2
+        assert torch.equal(got, again)
+        _close(got, plain(x, q))
+        qm._SPLITS = 1
+        try:
+            unsplit = qm.quant_matmul(x, q, variant)
+        finally:
+            qm._SPLITS = None
+        assert qm.launches[kind + "_split"] == \
+            before.get(kind + "_split", 0) + 2
+        _close(got, unsplit)
+
+
+def test_k_split_in_a_cuda_graph(dev):
+    """A captured split launch replays right with new x each time: the
+    tile counters the last block sets back stay zero between launches."""
+    q = _split_weight(dev, "qmm_group", 4, 128, torch.bfloat16)
+    x = _x(dev, 1, 4096)
+    qm.quant_matmul(x, q)                 # build, load, counters outside
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = qm.quant_matmul(x, q)
+    for seed in (3, 4, 5):
+        x.copy_(_x(dev, 1, 4096, seed=seed))
+        graph.replay()
+        torch.cuda.synchronize()
+        _close(out, qm.qmm_group_plain(x, q))
+        assert torch.equal(out, qm.quant_matmul(x, q))
+    assert not any(c.any() for _, c in qm._COUNTERS.values())
+
+
+def _on_two_streams(q, xs, rounds=5):
+    """quant_matmul(x, q) for every x of xs on each of two streams, both
+    held behind a sleep while the launches queue, so that the two
+    streams' launches run at the same time. Returns each stream's
+    outputs."""
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    got = [[], []]
+    for _ in range(rounds):
+        for s in streams:
+            with torch.cuda.stream(s):
+                torch.cuda._sleep(5_000_000)
+        for i, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                got[i].extend(qm.quant_matmul(x, q) for x in xs)
+    torch.cuda.synchronize()
+    return streams, got
+
+
+def test_k_split_on_two_streams(dev):
+    """Split launches on two streams at once each have their own tile
+    counters: every output equals the same call made alone, bit for bit,
+    and the counters are zero after."""
+    q = _split_weight(dev, "qmm_group", 4, 128, torch.bfloat16)
+    xs = [_x(dev, 1, 4096, seed=s) for s in range(8)]
+    want = [qm.quant_matmul(x, q) for x in xs]
+    streams, got = _on_two_streams(q, xs)
+    keys = [(0, s.cuda_stream) for s in streams]
+    assert qm._COUNTERS[keys[0]][1].data_ptr() != \
+        qm._COUNTERS[keys[1]][1].data_ptr()
+    for outs in got:
+        for j, out in enumerate(outs):
+            assert torch.equal(out, want[j % len(xs)])
+    assert not any(c.any() for _, c in qm._COUNTERS.values())
+
+
+def test_k_split_f32_scales_and_padding(dev):
+    """f32 scales, a padded dout (3 column tiles) and a weight with only
+    two scale groups, whose split is capped at 2."""
+    q = _qlin(dev, 512, 300, 4, torch.float32, pad_out=128)
+    x = _x(dev, 1, 512)
+    assert qm.group_splits(1, q.out_physical, q.qweight.shape[0],
+                           q.group_size, _build.sms(0)) == 2
+    before = qm.launches["qmm_group_split"]
+    _close(qm.quant_matmul(x, q), qm.qmm_group_plain(x, q)[:, :300])
+    assert qm.launches["qmm_group_split"] == before + 1
+
+
+# -- the graph corpus on the card --------------------------------------------
+# Every case of tests/test_torch_graph.py's test_graph_matches_jax, built
+# once through the port's GraphHandler and run by GraphExecutor on the card
+# (eager, and captured in a CUDA graph as it runs by default) against the
+# same graph on the CPU. Tolerance per case (GRAPH_TOL, relative to
+# max|CPU| plus 1e-6): 1e-4 for f32 (TF32 off for matmuls and
+# convolutions, as on the CPU; sums in another order, the card's exp / log
+# a few ulps apart), 2e-3 for the cases whose sums are longer
+# (LOOSE_CASES, as against JAX); integer, bool and shape outputs exact.
+
+from torch_graph_cases import CASES, LOOSE_CASES  # noqa: E402
+
+GRAPH_TOL = {n: 2e-3 if n in LOOSE_CASES else 1e-4 for n in CASES}
+
+
+@pytest.mark.parametrize("captured", [False, True])
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_graph_corpus_on_the_card(dev, name, captured, monkeypatch):
+    from infinitensor_tpu_torch.core.handler import GraphHandler
+    from infinitensor_tpu_torch.runtime.executor import GraphExecutor
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    h = GraphHandler()
+    feeds = CASES[name](h, np.random.default_rng(0))
+    h.graph.infer_output_roles()
+    want = GraphExecutor(h.graph, device="cpu").run(feeds, return_numpy=True)
+    got = GraphExecutor(h.graph, device=dev, use_cuda_graph=captured).run(
+        feeds, return_numpy=True)
+    outs = [t.name for t in h.graph.outputs()]
+    assert outs
+    tol = GRAPH_TOL[name]
+    for n in outs:
+        w, g = np.asarray(want[n]), np.asarray(got[n])
+        assert g.shape == w.shape and g.dtype == w.dtype, n
+        if w.dtype.kind in "fc" or w.dtype.name == "bfloat16":
+            w, g = w.astype(np.float64), g.astype(np.float64)
+            fin = np.isfinite(w)
+            assert (np.isfinite(g) == fin).all(), n
+            scale = np.abs(w[fin]).max() if fin.any() else 0.0
+            assert np.abs(g[fin] - w[fin]).max(initial=0.0) <= \
+                tol * scale + 1e-6, n
+        else:
+            np.testing.assert_array_equal(g, w, err_msg=n)

@@ -89,6 +89,7 @@ def test_kernel_sources_shipped():
     # the bodies the decode-attention and the group-dot kernels share, and
     # the tensor-core tile's pieces
     assert (csrc / "flash_decode.cuh").exists()
+    assert (csrc / "attention_any.cuh").exists()
     assert (csrc / "quant_matmul.cuh").exists()
     assert (csrc / "mma_tile.cuh").exists()
     # the port's own copy of the tuning table: the keys and columns of the

@@ -22,6 +22,7 @@ import torch
 
 from infinitensor_tpu.kernels import attention as att
 from infinitensor_tpu.kernels import flash_attention as fa
+from infinitensor_tpu.kernels import paged_attention as pa
 from infinitensor_tpu.kernels import quant_matmul as qm
 from infinitensor_tpu.quant.weight_only import QuantizedLinear as JQ
 from infinitensor_tpu.quant.weight_only import quantize_weight
@@ -29,6 +30,7 @@ from infinitensor_tpu.utils.config import config
 
 from infinitensor_tpu_torch.kernels import attention as tatt
 from infinitensor_tpu_torch.kernels import flash_attention as tfa
+from infinitensor_tpu_torch.kernels import paged_attention as tpa
 from infinitensor_tpu_torch.kernels import quant_matmul as tqm
 from infinitensor_tpu_torch.models.convert import params_from_jax_numpy
 
@@ -824,3 +826,113 @@ def test_w4a8_and_ln_plan(rows, dout_p, krows, tile, splits):
     and of qmm_group_ln_mma (GPT-2's w_qkv and w_up at 64 slots):
     mma_plan, as for qmm_group_mma, on the card's 132 SMs."""
     assert tqm.mma_plan(rows, dout_p, krows, 128, 132) == (tile, splits)
+
+
+# -- the attention kernels at every float type and head dim: the plain ------
+# -- versions the CPU takes (and the card's any-type form is held to) ------
+# -- against the JAX kernels in interpret mode, in q's dtype ----------------
+# Tolerance: 1e-5 of max|ref| in f32 (both sides f32, sums in another
+# order); one bf16 ulp (OUT_TOL) in bf16 and f16, the f32 result rounded
+# to q's dtype on both sides.
+
+ANY_TYPES = {"f32": (jnp.float32, torch.float32, 1e-5),
+             "f16": (jnp.float16, torch.float16, OUT_TOL),
+             "bf16": (jnp.bfloat16, torch.bfloat16, OUT_TOL)}
+
+
+@pytest.mark.parametrize("dtype,D", [("f32", 16), ("f16", 64), ("bf16", 8),
+                                     ("bf16", 256), ("f32", 96),
+                                     ("f16", 128)])
+def test_flash_decode_any_type_plain_vs_pallas(dtype, D):
+    jdt, tdt, tol = ANY_TYPES[dtype]
+    rng = np.random.default_rng(80 + D)
+    B, Hkv, rep, S = 2, 2, 2, 128
+    q = jnp.asarray(rng.standard_normal((B, Hkv * rep, 1, D)), jdt)
+    kc, vc = (jnp.asarray(rng.standard_normal((B, Hkv, S, D)), jdt)
+              for _ in range(2))
+    pos = jnp.asarray([37, S - 1], jnp.int32)
+    want = att.flash_decode(q, kc, vc, pos, seq_block=64, interpret=True)
+    got = tatt.flash_decode(*(_t(a) for a in (q, kc, vc, pos)))
+    assert got.dtype == tdt
+    _close(got, want, tol)
+    # the split form's partials and merge, in q's dtype
+    part = tatt.flash_decode_split_plain(*(_t(a) for a in (q, kc, vc, pos)),
+                                         3)
+    _close(tatt.flash_decode_merge(part, tdt), want, tol)
+    kq, vq, ks, vs = _q8_cache(rng, B, Hkv, S, D)
+    want = att.flash_decode_q8(q, kq, vq, ks, vs, pos, seq_block=64,
+                               interpret=True)
+    got = tatt.flash_decode_q8(*(_t(a) for a in (q, kq, vq, ks, vs, pos)))
+    assert got.dtype == tdt
+    _close(got, want, tol)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype,D", [("f32", 16), ("f16", 64), ("bf16", 96),
+                                     ("bf16", 8), ("f32", 256)])
+def test_flash_attention_any_type_plain_vs_pallas(dtype, D, causal):
+    jdt, tdt, tol = ANY_TYPES[dtype]
+    rng = np.random.default_rng(90 + D)
+    q, k, v = (jnp.asarray(rng.standard_normal((1, 2, 128, D)) * 2.0, jdt)
+               for _ in range(3))
+    got = tfa.flash_attention(_t(q), _t(k), _t(v), causal=causal)
+    assert got.dtype == tdt
+    _close(got, fa.flash_attention(q, k, v, causal=causal, block_q=64,
+                                   block_k=64, interpret=True), tol)
+
+
+@pytest.mark.parametrize("qdt,pdt", [("f16", "f16"), ("f16", "bf16"),
+                                     ("f32", "f32")])
+def test_paged_decode_head_dim_64_any_type_plain_vs_pallas(qdt, pdt):
+    """Both paged kernels at head dim 64 (the paged engine of a model with
+    64-wide heads) with an f16 or f32 q."""
+    jq, tq, tol = ANY_TYPES[qdt]
+    jp = ANY_TYPES[pdt][0]
+    rng = np.random.default_rng(95)
+    B, H, Hkv, D, P, N = 2, 4, 2, 64, 16, 9
+    q = jnp.asarray(rng.standard_normal((B, H, 1, D)), jq)
+    kp, vp = (jnp.asarray(rng.standard_normal((N, Hkv, P, D)), jp)
+              for _ in range(2))
+    table = jnp.asarray([[3, 0, 5, 8], [7, 2, 1, 4]], jnp.int32)
+    pos = jnp.asarray([20, 4 * P - 1], jnp.int32)
+    want = pa.paged_flash_decode(q, kp, vp, table, pos, interpret=True)
+    got = tpa.paged_flash_decode(*(_t(a) for a in (q, kp, vp, table, pos)))
+    assert got.dtype == tq
+    _close(got, want, tol)
+    kq = jnp.asarray(rng.integers(-127, 128, (N, Hkv, P, D)), jnp.int8)
+    vq = jnp.asarray(rng.integers(-127, 128, (N, Hkv, P, D)), jnp.int8)
+    ks, vs = (jnp.asarray(rng.uniform(0.005, 0.02, (N, Hkv, P)),
+                          jnp.float32) for _ in range(2))
+    want = pa.paged_flash_decode_q8(q, kq, vq, ks, vs, table, pos,
+                                    interpret=True)
+    got = tpa.paged_flash_decode_q8(*(_t(a) for a in (q, kq, vq, ks, vs,
+                                                      table, pos)))
+    assert got.dtype == tq
+    _close(got, want, tol)
+
+
+@pytest.mark.parametrize("rows,dout_p,krows,group,splits", [
+    (1, 4096, 2048, 128, 8),      # wo, int4: 32 tiles
+    (1, 4096, 5504, 128, 8),      # w_down
+    (1, 4096, 2048, 64, 8),       # wo at group 64 (qmm_chunk)
+    (1, 12288, 2048, 64, 2),      # wqkv at group 64: 96 tiles
+    (1, 22528, 2048, 64, 1),      # w_gateup: 176 tiles fill the card
+    (1, 32000, 2048, 128, 1),     # lm_head
+    (8, 4096, 2048, 64, 1),       # wo at 8 rows: 4-row blocks stay whole
+    (4, 4096, 2048, 64, 1),
+    (3, 4096, 2048, 128, 4),      # 3 rows: two row blocks of 2
+    (8, 12288, 2048, 64, 1),
+    (2, 4096, 2048, 128, 8),      # 2 rows: one row block
+    (1, 512, 256, 128, 2),        # two scale groups cap the split
+    (1, 768, 256, 64, 4),         # entry()'s wqkv: four groups
+    (256, 4096, 2048, 128, 1),
+])
+def test_group_splits(rows, dout_p, krows, group, splits):
+    """The split form of a short grid comes from shapes only: a power
+    of two, at most SPLIT_MAX and the scale groups, the most that keeps
+    column tiles x row blocks x splits within two CTAs an SM, 1 (the
+    unsplit form) from 4 rows on, where a block holds 4 rows."""
+    got = tqm.group_splits(rows, dout_p, krows, group, 132)
+    assert got == splits
+    assert got & (got - 1) == 0 and got <= tqm.SPLIT_MAX
+    assert got <= max(1, krows // group)
