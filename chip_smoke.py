@@ -33,13 +33,17 @@ Phases, each failing with a nonzero exit, each printing its seconds:
      (flash_decode_merge) on partials of the 7B shape, and the crossover
      of the forms at 8-1024 (batch, kv head) blocks, 96-192 among them,
      where the rule flips; flash_attention at the 7B prompt and at
-     entry()'s; the any-type attention form (csrc/attention_any.cuh) at
-     the f16 shapes of phase 14 (flash_attention_any on its prompt,
-     flash_decode_any and flash_decode_q8_any at pos CTX split and
-     unsplit, flash_decode_merge_any, both paged kernels' any-type form
-     at the serving shape), and each of the five attention wrappers at
-     every q dtype (bf16, f16, f32) and head dim 8, 16, 64, 96, 128, 256
-     against its plain version (the any-type grid, untimed); the 1-row
+     entry()'s; the attention wrappers at the f16 shapes of phase 14
+     (flash_attention on its prompt, also in bf16 and in f16 at head dim
+     96, flash_decode and flash_decode_q8 at pos CTX split and unsplit,
+     the merge, both paged kernels at the serving shape), each in its
+     fast 16-bit form beside the any-type body it replaced
+     (csrc/attention_any.cuh, forced through the old route), and the
+     any-type body at the same shapes in f32 (the `_any` names; library
+     calls with torch.backends.cuda.matmul.allow_tf32 False); each of the
+     five attention wrappers at every q dtype (bf16, f16, f32) and head
+     dim 8, 16, 64, 72, 96, 128, 136, 256 against its plain version (the
+     any-type grid, untimed, each reporting its form); the 1-row
      matmuls that take the K split (qmm_group, qmm_slab and
      qmm_chunk on a short grid) each beside the form before it, forced
      (qm._SPLITS = 1);
@@ -149,12 +153,15 @@ Phases, each failing with a nonzero exit, each printing its seconds:
      rescaled to weights of rms 1/sqrt(din) so that the residual fits f16;
      f16 embedding, norms, activations and cache): greedy_generate on a
      seeded 256-token prompt with the f16 cache and with an INT8 cache
-     (flash_attention_any 32 a prefill, flash_decode_any or
-     flash_decode_q8_any and flash_decode_merge_any in the decode),
-     prefill ms; a 2-layer f16 prefill against the plain versions on the
-     CPU; one decode step of 8 slots over f16 pages and over INT8 pages
-     (the any-type paged kernels, 32 launches each) against the same
-     step over a dense cache.
+     (flash_attention 32 a prefill, flash_decode or flash_decode_q8 and
+     flash_decode_merge in the decode, no any-type form), prefill ms (host
+     clock, and one CUDA graph's replay) and a decode step's ms (one CUDA
+     graph); a 2-layer f16 prefill against
+     the plain versions on the CPU; one decode step of 8 slots over f16
+     pages and over INT8 pages (the fast paged kernels, 32 launches each,
+     no any-type form) against the same step over a dense cache, its ms
+     (one CUDA graph); each time beside the any-type body's, forced
+     through the old route, read in turns in this call.
 Phase 9 also runs greedy_generate on entry()'s model (head dim 64), whose
 prefill launches flash_attention at D 64.
 Phases 8-11 each check one step against the plain versions on the CPU,
@@ -556,7 +563,9 @@ def main():
     cases += graph_cases(torch, norms, band, fa, cfg, gen, dev, randn)
     cases += mma_cases(torch, qm, cfg, params, gparams, randn,
                        dequantize_weight)
-    cases += any_cases(torch, att, fa, pa, cfg, gen, dev)
+    cases += any_cases(torch, att, fa, pa, cfg, gen, dev, torch.float16)
+    cases += prefill_rows(torch, att, fa, pa, cfg, gen, dev)
+    cases += any_cases(torch, att, fa, pa, cfg, gen, dev, torch.float32)
 
     for c in cases:
         with knobs(c.get("env", {})):
@@ -696,10 +705,11 @@ def main():
                                  GraphExecutor, counters, dev, report, steps))
     t_phase = phase(13, t_phase)
 
-    # 14. the 7B model in f16: the any-type attention on its paths
-    prompts_of = {ENTRY_PROMPT: paths[ENTRY_PROMPT]}
-    paths.update(f16_path(torch, llama, counters, params, cfg, dev, report,
-                          steps, prompts_of))
+    # 14. the 7B model in f16: the fast 16-bit attention on its paths
+    prompts_of = {ENTRY_PROMPT: paths[ENTRY_PROMPT], NO_PATH: {}}
+    paths.update(f16_path(torch, llama, counters, (att, fa, pa), params,
+                          cfg, dev, report, steps, prompts_of))
+    paths[NO_PATH] = steps[NO_PATH] = {}
     del params
     t_phase = phase(14, t_phase)
 
@@ -2772,8 +2782,9 @@ def longformer_path(torch, GraphHandler, DataType, GraphExecutor, counters,
 # -- phase 3 rows, the any-type grid, phase 14 (the f16 Llama) --------------
 
 ANY_DTYPES = ("bf16", "f16", "f32")
-ANY_HEAD_DIMS = (8, 16, 64, 96, 128, 256)
+ANY_HEAD_DIMS = (8, 16, 64, 72, 96, 128, 136, 256)
 ANY_SRC = SRC + "attention_any.cuh"
+NO_PATH = "no main path"     # rows of forms no phase's path runs
 
 
 def unsplit(qm, fn):
@@ -2854,80 +2865,139 @@ def split_crossover(torch, qm, layer0, lay64, randn, flush):
     return out
 
 
-def any_cases(torch, att, fa, pa, cfg, gen, dev):
-    """Phase 3 rows of the any-type attention form at the shapes of phase
-    14's f16 model: flash_attention_any on its 256-token prompt (causal
-    1 x 32 x 256 x 128, f16), flash_decode_any (f16 cache) and
-    flash_decode_q8_any (INT8 cache) with an f16 q at pos CTX in the
-    split form batch 1 takes, beside the unsplit form, the f16 merge
-    (flash_decode_merge_any) on their partials, and both paged kernels'
-    any-type form at the serving shape (SLOTS slots, f16 q and f16 or
-    INT8 pages)."""
+@contextlib.contextmanager
+def old_route(torch, att, fa, pa):
+    """The attention route before the f16 forms, for the block: the fast
+    kernels take a bf16 q (over a bf16 or INT8 cache) at D 64 or 128 only,
+    so an f16 launch takes the any-type body's C entries
+    (flash_attention_any, flash_decode_any, flash_decode_merge_any,
+    paged_flash_decode(_q8)_any). The old form, forced, timed beside the
+    new one in the same call."""
+    bf16, dims = torch.bfloat16, att.FAST_HEAD_DIMS
+    saved = att.fast_form, pa.fast_form, fa.fast_prefill
+    att.fast_form = pa.fast_form = lambda q, c, D: (
+        q == bf16 and D in dims and c in (bf16, torch.int8))
+    fa.fast_prefill = lambda dt, D: dt == bf16 and D in dims
+    try:
+        yield
+    finally:
+        att.fast_form, pa.fast_form, fa.fast_prefill = saved
+
+
+def old_body(torch, att, fa, pa, fn):
+    """fn under old_route: the any-type body where the new route takes
+    the fast kernels."""
+    def run():
+        with old_route(torch, att, fa, pa):
+            return fn()
+    return run
+
+
+def no_tf32(torch, fn):
+    """fn with torch.backends.cuda.matmul.allow_tf32 False: the f32
+    library call in f32, not TF32."""
+    def run():
+        old = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            return fn()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = old
+    return run
+
+
+def any_cases(torch, att, fa, pa, cfg, gen, dev, dt):
+    """Phase 3 rows of the five attention wrappers at the shapes of phase
+    14's model in dtype dt: flash_attention on its 256-token prompt
+    (causal 1 x 32 x 256 x 128), flash_decode (dt cache) and
+    flash_decode_q8 (INT8 cache) with a dt q at pos CTX in the split form
+    batch 1 takes, beside the unsplit form, the merge on their partials
+    in dt, and both paged kernels at the serving shape (SLOTS slots, a dt
+    q over dt or INT8 pages). In f16 the fast kernels, each beside the
+    any-type body it replaced (old_route, form "any"), on phase 14's
+    paths; in f32 the any-type body (the `_any` names), which no main
+    path runs, its library call in f32 (no_tf32)."""
     H, D, S = cfg.n_heads, cfg.head_dim, MAX_SEQ
-    f16 = torch.float16
+    f32 = dt == torch.float32
+    kind = "f32" if f32 else "f16"
 
     def rnd(*shape):
-        return torch.randn(*shape, generator=gen, device=dev).to(f16)
+        return torch.randn(*shape, generator=gen, device=dev).to(dt)
 
     def nbytes(*ts):
         return sum(t.numel() * t.element_size() for t in ts)
 
+    def row(base, fast, src, path, **c):
+        """A case: the base name and source for the fast kernel, the
+        `_any` name and attention_any.cuh for the any-type body; in f16 the
+        old body beside it; in f32 the library call without TF32."""
+        forms = c.pop("forms", {})
+        if not f32:
+            forms["any"] = old_body(torch, att, fa, pa, c["kernel"])
+        else:
+            c["library"] = c["library"] and no_tf32(torch, c["library"])
+        return dict(name=base if fast else base + "_any",
+                    source=SRC + src if fast else ANY_SRC,
+                    path=NO_PATH if f32 else path, kind=kind, forms=forms,
+                    **c)
+
     cases = []
     qa, ka, va = (rnd(1, H, SHORT, D) for _ in range(3))
-    cases.append(dict(
-        name="flash_attention_any", shape=f"f16 causal 1x{H}x{SHORT}x{D}",
-        path=F16_PROMPT, replaces=TPU + "flash_attention.py:37",
-        source=ANY_SRC,
+    cases.append(row(
+        "flash_attention", att.fast_prefill(dt, D), "flash_attention.cu",
+        F16_PROMPT, shape=f"{kind} causal 1x{H}x{SHORT}x{D}",
+        replaces=TPU + "flash_attention.py:37",
         kernel=lambda: fa.flash_attention(qa, ka, va, causal=True),
         plain=lambda: fa.mha_plain(qa, ka, va, causal=True),
         library=lambda: torch.nn.functional.scaled_dot_product_attention(
             qa, ka, va, is_causal=True),
-        bytes=4 * nbytes(qa), ops=4 * H * (SHORT * (SHORT + 1) // 2) * D,
-        kind="f16"))
+        bytes=4 * nbytes(qa), ops=4 * H * (SHORT * (SHORT + 1) // 2) * D))
     qh = rnd(1, H, 1, D)
     pos = torch.full((1,), CTX, dtype=torch.int32, device=dev)
     live = CTX + 1
     kc, vc = rnd(1, H, S, D), rnd(1, H, S, D)
     args = (qh, kc, vc, pos)
-    cases.append(dict(
-        name="flash_decode_any", shape=f"f16 mha 32/32 pos {CTX}",
-        path=F16_PROMPT, replaces=TPU + "attention.py:294", source=ANY_SRC,
+    cases.append(row(
+        "flash_decode", att.fast_form(dt, dt, D), "flash_decode.cu",
+        F16_PROMPT, shape=f"{kind} mha 32/32 pos {CTX}",
+        replaces=TPU + "attention.py:294",
         kernel=lambda: att.flash_decode(*args),
         plain=lambda: att.flash_decode_plain(*args),
         forms={"unsplit": lambda: att.flash_decode(*args, _splits=1)},
         library=lambda: torch.nn.functional.scaled_dot_product_attention(
             qh, kc[:, :, :live], vc[:, :, :live]),
-        bytes=2 * H * live * D * 2 + 2 * nbytes(qh),
-        ops=4 * H * live * D, kind="f16"))
+        bytes=2 * H * live * D * kc.element_size() + 2 * nbytes(qh),
+        ops=4 * H * live * D))
     kq, vq = (torch.randint(-127, 128, (1, H, S, D), generator=gen,
                             device=dev, dtype=torch.int8) for _ in range(2))
     ks, vs = (torch.rand(1, H, S, generator=gen, device=dev) * 0.015 + 0.005
               for _ in range(2))
     args8 = (qh, kq, vq, ks, vs, pos)
-    kf = (kq[:, :, :live].float() * ks[:, :, :live, None]).to(f16)
-    vf = (vq[:, :, :live].float() * vs[:, :, :live, None]).to(f16)
-    cases.append(dict(
-        name="flash_decode_q8_any", shape=f"f16 q mha 32/32 pos {CTX}",
-        path=F16_PROMPT_Q8, replaces=TPU + "attention.py:345",
-        source=ANY_SRC,
+    kf = (kq[:, :, :live].float() * ks[:, :, :live, None]).to(dt)
+    vf = (vq[:, :, :live].float() * vs[:, :, :live, None]).to(dt)
+    cases.append(row(
+        "flash_decode_q8", att.fast_form(dt, torch.int8, D),
+        "flash_decode.cu", F16_PROMPT_Q8,
+        shape=f"{kind} q mha 32/32 pos {CTX}",
+        replaces=TPU + "attention.py:345",
         kernel=lambda: att.flash_decode_q8(*args8),
         plain=lambda: att.flash_decode_q8_plain(*args8),
         forms={"unsplit": lambda: att.flash_decode_q8(*args8, _splits=1)},
         library=lambda: torch.nn.functional.scaled_dot_product_attention(
             qh, kf, vf),
         bytes=2 * H * live * (D + 4) + 2 * nbytes(qh),
-        ops=4 * H * live * D, kind="f16"))
+        ops=4 * H * live * D))
     splits = att.launch_splits(1, H, S)
     part = att.flash_decode_split_plain(*args, splits).contiguous()
-    cases.append(dict(
-        name="flash_decode_merge_any", shape=f"f16 mha 32/32 {splits} "
-        "splits", path=F16_PROMPT, replaces=TPU + "attention.py:294",
-        source=ANY_SRC,
-        kernel=lambda: att.flash_decode_merge(part, f16),
-        plain=lambda: att.flash_decode_merge_plain(part).to(f16),
-        library=None, bytes=nbytes(part) + 2 * H * D,
-        ops=3 * H * splits * D, kind="f32"))
-    # the paged kernels' any-type form: f16 q over f16 and INT8 pages
+    cases.append(row(
+        "flash_decode_merge", att.fast_form(dt, dt, D), "flash_decode.cu",
+        F16_PROMPT, shape=f"{kind} mha 32/32 {splits} splits",
+        replaces=TPU + "attention.py:294",
+        kernel=lambda: att.flash_decode_merge(part, dt),
+        plain=lambda: att.flash_decode_merge_plain(part).to(dt),
+        library=None, bytes=nbytes(part) + H * D * qh.element_size(),
+        ops=3 * H * splits * D))
+    # the paged kernels: a dt q over dt and INT8 pages
     B, P = SLOTS, PAGE
     MP = MAX_SEQ // P
     N = B * MP + 1
@@ -2946,7 +3016,7 @@ def any_cases(torch, att, fa, pa, cfg, gen, dev):
                 + 0.005 for _ in range(2))
     rows = int((ppos + 1).sum())
     # the library call: SDPA over the pages gathered (and dequantized)
-    # into f16 K/V with the KV heads repeated, masked past each slot's pos
+    # into dt K/V with the KV heads repeated, masked past each slot's pos
     rep = H // Hkv
     mask = (torch.arange(MP * P, device=dev)[None] <= ppos[:, None])[
         :, None, None]                                      # [B, 1, 1, S]
@@ -2954,27 +3024,58 @@ def any_cases(torch, att, fa, pa, cfg, gen, dev):
                       for x in (kp, vp)),
                 tuple((pa.gather_pages(x, table).float()
                        * pa.gather_scale_pages(sc, table)[..., None])
-                      .to(f16).repeat_interleave(rep, 1)
+                      .to(dt).repeat_interleave(rep, 1)
                       for x, sc in ((kpq, ksp), (vpq, vsp)))]
-    for (name, pargs, plain, row_b, replaces), (kg, vg) in zip((
-            ("paged_flash_decode_any", (qp, kp, vp, table, ppos),
-             pa.paged_decode_plain, 2 * D * 2, "paged_attention.py:146"),
-            ("paged_flash_decode_q8_any",
+    for (name, pargs, plain, row_b, cdt, replaces), (kg, vg) in zip((
+            ("paged_flash_decode", (qp, kp, vp, table, ppos),
+             pa.paged_decode_plain, 2 * D * kp.element_size(), dt,
+             "paged_attention.py:146"),
+            ("paged_flash_decode_q8",
              (qp, kpq, vpq, ksp, vsp, table, ppos),
-             pa.paged_decode_q8_plain, 2 * (D + 4),
+             pa.paged_decode_q8_plain, 2 * (D + 4), torch.int8,
              "paged_attention.py:187")), gathered):
         kernel = pa.paged_flash_decode if "q8" not in name \
             else pa.paged_flash_decode_q8
-        cases.append(dict(
-            name=name, shape=f"f16 q, {B} slots P {P} pos {CTX - 331}-"
-            f"{CTX + 477}", path=F16_PAGED, replaces=TPU + replaces,
-            source=ANY_SRC,
+        cases.append(row(
+            name, att.fast_form(dt, cdt, D), "paged_flash_decode.cu",
+            F16_PAGED, shape=f"{kind} q, {B} slots P {P} pos "
+            f"{CTX - 331}-{CTX + 477}", replaces=TPU + replaces,
             kernel=lambda k=kernel, a=pargs: k(*a),
             plain=lambda f=plain, a=pargs: f(*a),
             library=lambda kg=kg, vg=vg: torch.nn.functional
             .scaled_dot_product_attention(qp, kg, vg, attn_mask=mask),
             bytes=Hkv * rows * row_b + 2 * nbytes(qp),
-            ops=4 * H * rows * D, kind="f16"))
+            ops=4 * H * rows * D))
+    return cases
+
+
+def prefill_rows(torch, att, fa, pa, cfg, gen, dev):
+    """Phase 3 rows of the tensor-core prefill beside the f16 one at
+    phase 14's prompt: bf16 at the same shape (phase 5's 256-token
+    prompt), and f16 at head dim 96 (zero-padded to the 128 instantiation,
+    no main path), beside the any-type body (old_route)."""
+    H, D = cfg.n_heads, cfg.head_dim
+    cases = []
+    for dt, d, path in ((torch.bfloat16, D, f"prompt {SHORT}"),
+                        (torch.float16, 96, NO_PATH)):
+        qa, ka, va = (torch.randn(1, H, SHORT, d, generator=gen, device=dev)
+                      .to(dt) for _ in range(3))
+        kernel = lambda qa=qa, ka=ka, va=va: fa.flash_attention(
+            qa, ka, va, causal=True)
+        cases.append(dict(
+            name="flash_attention", path=path,
+            shape=f"{'f16 ' if d != D else ''}causal 1x{H}x{SHORT}x{d}",
+            replaces=TPU + "flash_attention.py:37",
+            source=SRC + "flash_attention.cu", kernel=kernel,
+            plain=lambda qa=qa, ka=ka, va=va: fa.mha_plain(qa, ka, va,
+                                                           causal=True),
+            library=lambda qa=qa, ka=ka, va=va: torch.nn.functional
+            .scaled_dot_product_attention(qa, ka, va, is_causal=True),
+            forms={} if dt == torch.bfloat16 else {
+                "any": old_body(torch, att, fa, pa, kernel)},
+            bytes=4 * qa.numel() * qa.element_size(),
+            ops=4 * H * (SHORT * (SHORT + 1) // 2) * d,
+            kind="bf16" if dt == torch.bfloat16 else "f16"))
     return cases
 
 
@@ -2983,7 +3084,7 @@ def any_grid(torch, att, fa, pa, gen, dev):
     split form) once at every q dtype (bf16, f16, f32) and head dim
     (ANY_HEAD_DIMS) against its plain version: at most 1e-2 of max|plain|
     (TOL). Small shapes, untimed. Returns {wrapper: {dtype: {D: [form,
-    err / max|plain|]}}}: form "any" or "fast" (the bf16 kernels)."""
+    err / max|plain|]}}}: form "any" or "fast" (the 16-bit kernels)."""
     dts = {"bf16": torch.bfloat16, "f16": torch.float16,
            "f32": torch.float32}
     out = {}
@@ -3028,8 +3129,7 @@ def any_grid(torch, att, fa, pa, gen, dev):
             check("flash_attention", dname, D,
                   fa.flash_attention(qa, ka, va, True),
                   fa.mha_plain(qa, ka, va, True),
-                  "fast" if dt == torch.bfloat16 and D in att.FAST_HEAD_DIMS
-                  else "any")
+                  "fast" if att.fast_prefill(dt, D) else "any")
             P, MP = 16, 4
             N = B * MP + 1
             table = (torch.arange(B * MP, device=dev) + 1).reshape(
@@ -3059,30 +3159,66 @@ def any_grid(torch, att, fa, pa, gen, dev):
     return out
 
 
-def f16_path(torch, llama, counters, params, cfg, dev, report, steps,
+def in_turns(torch, kmods, read):
+    """read() with the route as it is and with old_route, in turns (new,
+    old, new, old): (min of the new readings, min of the old, all four)."""
+    got = []
+    for _ in range(2):
+        got.append(read())
+        with old_route(torch, *kmods):
+            got.append(read())
+    return min(got[0::2]), min(got[1::2]), got
+
+
+def step_ms(torch, fn):
+    """Milliseconds of one replay of fn captured in a CUDA graph (after a
+    warm-up run on a side stream, as the serving engine captures its
+    step; median of 20 CUDA-event timings)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    ms = cuda_ms(torch, graph.replay, 20)
+    del graph
+    return ms
+
+
+def f16_path(torch, llama, counters, kmods, params, cfg, dev, report, steps,
              prompts_of):
     """Phase 14: the 7B model of phase 4 as an f16 model (f16 embedding,
     norms, activations and cache; the same INT4 codes, scales rescaled
     by f16_params). greedy_generate
     on a seeded 256-token prompt with the f16 cache and with an INT8
-    cache: the prefill launches the any-type flash_attention 32 times,
-    the decode the any-type flash_decode(_q8) and its merge; prefill ms;
+    cache: the prefill launches the tensor-core flash_attention 32 times,
+    the decode the fast flash_decode(_q8) and its merge, and no path
+    launches an any-type form; prefill ms (host clock, min of 3; and one
+    CUDA graph's replay) and a decode step's ms (one CUDA graph), each
+    beside the any-type body's (old_route) in turns;
     a 2-layer f16 prefill on the card against the plain versions on the
     CPU; one decode step of SLOTS slots over f16 pages and over INT8
-    pages (the any-type paged kernels) against the same step over a dense
-    cache. Returns each path's launch counts."""
+    pages (the fast paged kernels, 32 launches each) against the same step
+    over a dense cache, its ms (one CUDA graph) beside the any-type
+    body's. Returns each path's launch counts."""
     cfg16 = dataclasses.replace(cfg, dtype=torch.float16)
     p16 = f16_params(torch, params)
     gen = torch.Generator(device=dev).manual_seed(SEED + 14)
     prompt = torch.randint(0, cfg.vocab_size, (1, SHORT), generator=gen,
                            device=dev, dtype=torch.int32)
     paths, res = {}, {}
+
+    def no_any(label, counts):
+        if any(k.endswith("_any") for k in counts):
+            fail(f"{label}: an any-type form was launched: {counts}")
+
     for label, kv_quant, want in (
-            (F16_PROMPT, False, ("flash_attention_any", "flash_decode_any",
-                                 "flash_decode_merge_any")),
-            (F16_PROMPT_Q8, True, ("flash_attention_any",
-                                   "flash_decode_q8_any",
-                                   "flash_decode_merge_any"))):
+            (F16_PROMPT, False, ("flash_attention", "flash_decode",
+                                 "flash_decode_merge")),
+            (F16_PROMPT_Q8, True, ("flash_attention", "flash_decode_q8",
+                                   "flash_decode_merge"))):
         cache = llama.init_kv_cache(cfg16, 1, kv_quant=kv_quant, device=dev)
         counters.reset()
         toks, cache = llama.greedy_generate(p16, cfg16, prompt, 8,
@@ -3092,6 +3228,7 @@ def f16_path(torch, llama, counters, params, cfg, dev, report, steps,
         for kname in want:
             if paths[label].get(kname, 0) <= 0:
                 fail(f"{kname} was never launched on the path {label}")
+        no_any(label, paths[label])
         if toks.shape != (1, 8) or not bool(
                 ((toks >= 0) & (toks < cfg.vocab_size)).all()):
             fail(f"{label}: greedy_generate gave {toks.tolist()}")
@@ -3099,9 +3236,9 @@ def f16_path(torch, llama, counters, params, cfg, dev, report, steps,
         prefill_s, logits = time_prefill(torch, llama, p16, cfg16, prompt,
                                          cache, 1)
         prompts_of[label] = counters.read()
-        if prompts_of[label].get("flash_attention_any", 0) != \
-                cfg.n_layers:
+        if prompts_of[label].get("flash_attention", 0) != cfg.n_layers:
             fail(f"{label}: a prefill launched {prompts_of[label]}")
+        no_any(label, prompts_of[label])
         prefill_s, logits = time_prefill(torch, llama, p16, cfg16, prompt,
                                          cache)
         if logits.dtype != torch.float16 and logits.dtype != torch.float32:
@@ -3111,14 +3248,30 @@ def f16_path(torch, llama, counters, params, cfg, dev, report, steps,
             fail(f"{label}: prefill argmax {first.tolist()} is not the "
                  f"first generated token {toks[:, 0].tolist()}")
         counters.reset()
-        llama.llama_decode_step(
-            p16, cfg16, toks[:, -1],
-            torch.full((1,), SHORT + 7, dtype=torch.int32, device=dev),
-            cache)
+        last = toks[:, -1]
+        at = torch.full((1,), SHORT + 7, dtype=torch.int32, device=dev)
+        llama.llama_decode_step(p16, cfg16, last, at, cache)
         torch.cuda.synchronize()
         steps[label] = counters.read()
-        res[label] = {"prefill_ms": 1e3 * prefill_s,
-                      "prompt_tok_s": SHORT / prefill_s,
+        no_any(label, steps[label])
+        pre_new, pre_old, pre_all = in_turns(
+            torch, kmods, lambda: 1e3 * time_prefill(
+                torch, llama, p16, cfg16, prompt, cache)[0])
+        pg_new, pg_old, pg_all = in_turns(torch, kmods, lambda: step_ms(
+            torch, lambda: llama.llama_prefill(p16, cfg16, prompt, cache)))
+        dec_new, dec_old, dec_all = in_turns(torch, kmods, lambda: step_ms(
+            torch, lambda: llama.llama_decode_step(p16, cfg16, last, at,
+                                                   cache)))
+        res[label] = {"prefill_ms": pre_new,
+                      "prefill_ms_any_body": pre_old,
+                      "prefill_ms_in_turns": pre_all,
+                      "prefill_graph_ms": pg_new,
+                      "prefill_graph_ms_any_body": pg_old,
+                      "prefill_graph_ms_in_turns": pg_all,
+                      "prompt_tok_s": 1e3 * SHORT / pre_new,
+                      "decode_step_ms": dec_new,
+                      "decode_step_ms_any_body": dec_old,
+                      "decode_step_ms_in_turns": dec_all,
                       "launches": paths[label],
                       "launches_per_prompt": prompts_of[label],
                       "launches_per_token": steps[label],
@@ -3147,8 +3300,9 @@ def f16_path(torch, llama, counters, params, cfg, dev, report, steps,
     token = torch.randint(0, cfg.vocab_size, (B,), generator=gen,
                           device=dev, dtype=torch.int32)
     paths[F16_PAGED] = {}
-    for kv_quant, kname in ((False, "paged_flash_decode_any"),
-                            (True, "paged_flash_decode_q8_any")):
+    res[F16_PAGED] = {}
+    for kv_quant, kname in ((False, "paged_flash_decode"),
+                            (True, "paged_flash_decode_q8")):
         paged = llama.init_paged_kv_cache(cfg16, B * MP + 1, P, B,
                                           kv_quant=kv_quant, device=dev)
         paged["block_table"].copy_((torch.arange(B * MP, device=dev) + 1)
@@ -3159,15 +3313,23 @@ def f16_path(torch, llama, counters, params, cfg, dev, report, steps,
         got = counters.read()
         if got.get(kname, 0) != cfg.n_layers:
             fail(f"{F16_PAGED}: a step launched {got}")
+        no_any(F16_PAGED, got)
         for k, n in got.items():
             paths[F16_PAGED][k] = paths[F16_PAGED].get(k, 0) + n
+        new, old, turns = in_turns(torch, kmods, lambda: step_ms(
+            torch, lambda: llama.llama_decode_step(p16, cfg16, token, pos,
+                                                   paged)))
+        pages = "int8" if kv_quant else "f16"
+        res[F16_PAGED][pages] = {"step_ms": new, "step_ms_any_body": old,
+                                 "step_ms_in_turns": turns}
+        print(f"# {F16_PAGED} ({pages} pages): step {new:.3f} ms, the "
+              f"any-type body {old:.3f} ms (in turns {turns})", flush=True)
         del paged
         dense = llama.init_kv_cache(cfg16, B, kv_quant=kv_quant, device=dev)
         lg_d, _ = llama.llama_decode_step(p16, cfg16, token, pos, dense)
         del dense
-        compare_logits_rows(torch, f"{F16_PAGED} ({'int8' if kv_quant else 'f16'}"
-                            " pages) vs dense", lg_p.float(), lg_d.float(),
-                            report)
+        compare_logits_rows(torch, f"{F16_PAGED} ({pages} pages) vs dense",
+                            lg_p.float(), lg_d.float(), report)
     steps[F16_PAGED] = paths[F16_PAGED]
     report["f16"] = res
     return paths

@@ -1,4 +1,4 @@
-"""Decode attention with cache append, over a bf16 or an INT8 KV cache
+"""Decode attention with cache append, over a float or an INT8 KV cache
 (counterpart of infinitensor_tpu/kernels/attention.py:37-160,395-476).
 
 The cache is a static [B, Hkv, S_max, D] buffer: bf16, or int8 with
@@ -6,7 +6,7 @@ per-(b, h, s) f32 scales. The append (_append_kv, and quantize_kv_row for
 int8) is plain PyTorch and writes the new row IN PLACE with scatter_ at
 `pos` (the JAX package donates the buffer instead); `pos` stays a device
 tensor throughout, so a decode step can be captured in a CUDA graph. The
-read side is a kernel in csrc/flash_decode.cu: flash_decode (bf16 cache)
+read side is a kernel in csrc/flash_decode.cu: flash_decode (float cache)
 replacing _flash_decode_hb_kernel, flash_decode_q8 (int8 cache) replacing
 _flash_decode_q8_hb_kernel; *_plain are their plain versions. At few
 (batch, kv head) blocks both take their split form: the rows of a head are
@@ -14,14 +14,15 @@ split across decode_splits(...) blocks, which write partial (acc, m, l),
 and flash_decode_merge (a second kernel) combines them; *_split_plain and
 flash_decode_merge_plain are the plain versions of the two steps.
 
-Two forms on the card. A bf16 q over a bf16 or int8 cache at head dim 64
-or 128 takes the fast kernels above; any other q (bf16, f16, f32), float
-cache (bf16, f16, f32) or head dim D (a multiple of 8 from 8 to 256) takes
-the any-type form, csrc/attention_any.cuh (flash_decode_any,
-flash_decode_merge_any), as the TPU kernels take any float type and head
-dim and write q's dtype. launches[name] counts both forms and
-launches[name + "_any"] the any-type one again. `launches` counts kernel
-launches (captures, not CUDA-graph replays).
+Two forms on the card (fast_form chooses). A bf16 or f16 q over a cache
+of its own dtype or int8 at head dim 64 or 128 takes the fast kernels
+above; an f32 q or cache, a q dtype other than a 16-bit cache's, or
+another head dim D (a multiple of 8 from 8 to 256) takes the any-type
+form, csrc/attention_any.cuh (flash_decode_any, flash_decode_merge_any),
+as the TPU kernels take any float type and head dim and write q's dtype.
+launches[name] counts both forms and launches[name + "_any"] the any-type
+one again. `launches` counts kernel launches (captures, not CUDA-graph
+replays).
 """
 
 from __future__ import annotations
@@ -36,7 +37,9 @@ import torch
 from infinitensor_tpu_torch.kernels import _build
 
 launches = collections.Counter()
-FAST_HEAD_DIMS = (64, 128)       # the bf16 kernels of csrc/flash_decode.cu
+FAST_HEAD_DIMS = (64, 128)       # the fast kernels of csrc/flash_decode.cu
+FAST_DTYPES = (torch.bfloat16, torch.float16)   # ... and of flash_attention
+MAX_FAST_PREFILL_D = 128         # flash_attention's: D a multiple of 8 up to it
 MAX_HEAD_DIM = 256               # the any-type form: D % 8 == 0, 8 <= D <= 256
 MAX_REP = 16                     # query heads a kv head, both forms
 # The kind codes of the C entries (csrc/common.cuh): q and out in bf16,
@@ -60,20 +63,27 @@ _SPLITS = None                   # when set, the split count of every launch
 def _lib() -> ctypes.CDLL:
     P, I, F = _build.P, _build.I, _build.F
     return _build.typed("flash_decode",
-                        flash_decode_q8=[P] * 8 + [I] * 6 + [F, P],
-                        flash_decode=[P] * 6 + [I] * 6 + [F, P],
-                        flash_decode_merge=[P, P] + [I] * 3 + [P],
+                        flash_decode_q8=[P, I] + [P] * 7 + [I] * 6 + [F, P],
+                        flash_decode=[P, I] + [P] * 5 + [I] * 6 + [F, P],
+                        flash_decode_merge=[P, P] + [I] * 4 + [P],
                         flash_decode_any=[P, I] + [P] * 4 + [I] + [P] * 3
                         + [I] * 6 + [F, P],
                         flash_decode_merge_any=[P, P] + [I] * 4 + [P])
 
 
 def fast_form(q_dtype, cache_dtype, D: int) -> bool:
-    """Whether a decode-attention launch takes the fast bf16 kernels (a
-    bf16 q over a bf16 or int8 cache at D 64 or 128), else the any-type
-    form."""
-    return (q_dtype == torch.bfloat16 and D in FAST_HEAD_DIMS
-            and cache_dtype in (torch.bfloat16, torch.int8))
+    """Whether a decode-attention launch takes the fast kernels (a bf16 or
+    f16 q over a cache of its own dtype or int8, at D 64 or 128), else the
+    any-type form."""
+    return (q_dtype in FAST_DTYPES and D in FAST_HEAD_DIMS
+            and cache_dtype in (q_dtype, torch.int8))
+
+
+def fast_prefill(dtype, D: int) -> bool:
+    """Whether a flash_attention launch (q, k and v of one dtype, D a
+    multiple of 8) takes the tensor-core kernel (bf16 or f16, D up to
+    MAX_FAST_PREFILL_D), else the any-type form."""
+    return dtype in FAST_DTYPES and D <= MAX_FAST_PREFILL_D
 
 
 def check_head_dim(name: str, D: int) -> None:
@@ -276,8 +286,9 @@ def flash_decode_merge(part, dtype=torch.bfloat16):
     """The split form's second step: part f32 [B, H, splits, D + 2] ->
     [B, H, 1, D] in `dtype` (q's). CPU tensors take
     flash_decode_merge_plain; CUDA tensors launch the kernel or raise: the
-    fast merge for a bf16 out at D 64 or 128 and at most MAX_SPLITS splits,
-    else flash_decode_merge_any (any D from 8 to 256, a multiple of 8)."""
+    fast merge for a bf16 or f16 out at D 64 or 128 and at most MAX_SPLITS
+    splits, else flash_decode_merge_any (any D from 8 to 256, a multiple
+    of 8)."""
     B, H, splits, D2 = part.shape
     D = D2 - 2
     if part.device.type == "cpu":
@@ -289,11 +300,11 @@ def flash_decode_merge(part, dtype=torch.bfloat16):
                          "and a bf16, f16 or f32 out")
     out = torch.empty(B, H, 1, D, dtype=dtype, device=part.device)
     lib = _lib()
-    fast = dtype == torch.bfloat16 and D in FAST_HEAD_DIMS \
-        and splits <= MAX_SPLITS
+    fast = fast_form(dtype, dtype, D) and splits <= MAX_SPLITS
     if fast:
         err = lib.flash_decode_merge(_build.ptr(part), _build.ptr(out),
-                                     B * H, splits, D, _build.stream())
+                                     KINDS[dtype], B * H, splits, D,
+                                     _build.stream())
     else:
         err = lib.flash_decode_merge_any(_build.ptr(part), _build.ptr(out),
                                          KINDS[dtype], B * H, splits, D,
@@ -365,14 +376,14 @@ def _launch(name, q, k_cache, v_cache, k_scale, v_scale, pos, splits):
             p(v_scale), KINDS[k_cache.dtype], p(pos), p(out), p(part), B, H,
             Hkv, S, D, splits, 1.0 / math.sqrt(D), _build.stream())
     elif k_scale is None:
-        err = lib.flash_decode(p(q), p(k_cache), p(v_cache), p(pos), p(out),
-                               p(part), B, H, Hkv, S, D, splits,
-                               1.0 / math.sqrt(D), _build.stream())
+        err = lib.flash_decode(p(q), KINDS[q.dtype], p(k_cache), p(v_cache),
+                               p(pos), p(out), p(part), B, H, Hkv, S, D,
+                               splits, 1.0 / math.sqrt(D), _build.stream())
     else:
         err = lib.flash_decode_q8(
-            p(q), p(k_cache), p(v_cache), p(k_scale), p(v_scale), p(pos),
-            p(out), p(part), B, H, Hkv, S, D, splits, 1.0 / math.sqrt(D),
-            _build.stream())
+            p(q), KINDS[q.dtype], p(k_cache), p(v_cache), p(k_scale),
+            p(v_scale), p(pos), p(out), p(part), B, H, Hkv, S, D, splits,
+            1.0 / math.sqrt(D), _build.stream())
     _build.raise_on(lib, err, name)
     launches[name] += 1
     if not fast:
@@ -385,9 +396,10 @@ def flash_decode(q, k_cache, v_cache, pos, *, _splits=None):
     int32. q [B, H, 1, D] -> [B, H, 1, D] in q's dtype. CPU tensors take
     the plain version; CUDA tensors launch a kernel or raise: q in bf16,
     f16 or f32, the cache in bf16, f16 or f32, D a multiple of 8 from 8 to
-    256, H / Hkv <= 16 (the fast bf16 kernel at D 64 or 128, else the
-    any-type form), in the split form with its merge where decode_splits
-    (or the private _splits) is above 1."""
+    256, H / Hkv <= 16 (the fast kernel for a bf16 or f16 q over a cache of
+    its dtype at D 64 or 128, else the any-type form), in the split form
+    with its merge where decode_splits (or the private _splits) is above
+    1."""
     _check_shapes("flash_decode", q, k_cache, v_cache)
     if q.device.type == "cpu":
         return flash_decode_plain(q, k_cache, v_cache, pos)
@@ -404,8 +416,8 @@ def flash_decode_q8(q, k_cache, v_cache, k_scale, v_scale, pos, *,
     q [B, H, 1, D] -> [B, H, 1, D] in q's dtype. CPU tensors take the
     plain version; CUDA tensors launch a kernel or raise: q in bf16, f16
     or f32, D a multiple of 8 from 8 to 256, H / Hkv <= 16 (the fast
-    kernel for a bf16 q at D 64 or 128, else the any-type form), in the
-    split form with its merge where decode_splits (or the private
+    kernel for a bf16 or f16 q at D 64 or 128, else the any-type form), in
+    the split form with its merge where decode_splits (or the private
     _splits) is above 1."""
     _check_shapes("flash_decode_q8", q, k_cache, v_cache)
     B, H, _, D = q.shape

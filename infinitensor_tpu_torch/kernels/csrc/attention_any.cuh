@@ -1,7 +1,9 @@
 // The any-type attention body (sm_90a): the form the attention wrappers
-// launch for what the fast bf16 kernels do not take. flash_decode.cuh
-// includes it for the dense and paged decode kernels (flash_decode.cu,
-// paged_flash_decode.cu), flash_attention.cu for the prefill kernel.
+// launch for what the fast 16-bit kernels do not take. In decode
+// (flash_decode.cuh includes it for the dense and paged kernels,
+// flash_decode.cu, paged_flash_decode.cu) that is an f32 q or cache, a q
+// type other than a 16-bit cache's, and a head dim other than 64 or 128;
+// in prefill (flash_attention.cu) f32 q, k, v and head dims 136 to 256.
 //
 // What it takes, as the TPU kernels do (infinitensor_tpu/kernels/
 // attention.py:294-345, flash_attention.py:37-86, paged_attention.py:

@@ -1,4 +1,4 @@
-// Grouped-query flash decode over a dense bf16 or INT8 KV cache,
+// Grouped-query flash decode over a dense 16-bit or INT8 KV cache,
 // hand-written for Hopper (sm_90a); the kernel body is flash_decode.cuh.
 // Python wrappers: kernels/attention.py flash_decode, flash_decode_q8 and
 // flash_decode_merge.
@@ -9,7 +9,7 @@
 //
 // What bounds it on this card: one query token reads every live cache row
 // once. At batch 1 the K and V rows are 2 * Hkv * (pos + 1) * D * 2 bytes
-// for bf16 (16.8 MB per layer for Llama-2-7B at pos 1024), or
+// for a 16-bit cache (16.8 MB per layer for Llama-2-7B at pos 1024), or
 // 2 * Hkv * (pos + 1) * (D + 4) bytes for int8 rows with their f32 scales
 // (8.66 MB), against ~4 * H * (pos + 1) * D flops, so device-memory
 // bandwidth is the floor. Unsplit, a 7B layer at batch 1 was 32 blocks on
@@ -27,62 +27,57 @@
 // 384 rows) is 1024 blocks of one or two tiles each. The crossover
 // between the forms is measured in chip_smoke.py phase 3 (PERF.md §6).
 //
+// The fast kernels take a bf16 or f16 q (kind kXBf16, kXF16) over a cache
+// of q's type or int8, at D 64 or 128, and write q's type.
 // flash_decode_any and flash_decode_merge_any are the any-type form
 // (attention_any.cuh): a bf16, f16 or f32 q, a bf16, f16, f32 or int8
 // cache, any head dim from 8 to 256 that is a multiple of 8, the output in
-// q's type. The wrappers take it for whatever the bf16 kernels above do
-// not take.
+// q's type. The wrappers take it for what the fast kernels do not take:
+// an f32 q or cache, a q type other than a 16-bit cache's, a head dim
+// other than 64 or 128.
 #include "flash_decode.cuh"
 
-using flash_decode_detail::dispatch;
+using flash_decode_detail::dispatch_kind;
 
 ITT_DEFINE_ERROR_STRING()
 
-// q bf16 [B, H, 1, D]; k/v int8 [B, Hkv, S, D]; ks/vs f32 [B, Hkv, S];
-// pos int32 [B] (inclusive: the row just appended); out bf16 [B, H, 1, D].
-// D must be 64 or 128 and rep = H / Hkv at most 16. splits > 1: the split
-// form, writing part f32 [B, H, splits, D + 2] (not out) for
-// flash_decode_merge.
-ITT_EXPORT int flash_decode_q8(const void* q, const void* k, const void* v,
-                               const void* ks, const void* vs,
+// q [B, H, 1, D] of kind (kXBf16, kXF16); k/v int8 [B, Hkv, S, D]; ks/vs
+// f32 [B, Hkv, S]; pos int32 [B] (inclusive: the row just appended); out
+// [B, H, 1, D] of kind. D must be 64 or 128 and rep = H / Hkv at most 16.
+// splits > 1: the split form, writing part f32 [B, H, splits, D + 2] (not
+// out) for flash_decode_merge.
+ITT_EXPORT int flash_decode_q8(const void* q, int kind, const void* k,
+                               const void* v, const void* ks, const void* vs,
                                const void* pos, void* out, void* part, int B,
                                int H, int Hkv, int S, int D, int splits,
                                float scale, void* stream) {
-  if (D == 64)
-    return dispatch<int8_t, false, 64>(q, k, v, ks, vs, pos, out, part, splits,
-                                       nullptr, 0, B, H, Hkv, S, scale, stream);
-  if (D != 128) return (int)cudaErrorInvalidValue;
-  return dispatch<int8_t, false, 128>(q, k, v, ks, vs, pos, out, part, splits,
-                                      nullptr, 0, B, H, Hkv, S, scale, stream);
+  return dispatch_kind<true, false>(q, kind, k, v, ks, vs, pos, out, part,
+                                    splits, nullptr, 0, B, H, Hkv, S, D, scale,
+                                    stream);
 }
 
-// As flash_decode_q8 over bf16 k/v [B, Hkv, S, D], with no scales.
-ITT_EXPORT int flash_decode(const void* q, const void* k, const void* v,
-                            const void* pos, void* out, void* part, int B,
-                            int H, int Hkv, int S, int D, int splits,
-                            float scale, void* stream) {
-  if (D == 64)
-    return dispatch<__nv_bfloat16, false, 64>(q, k, v, nullptr, nullptr, pos, out,
-                                              part, splits, nullptr, 0, B, H, Hkv, S,
-                                              scale, stream);
-  if (D != 128) return (int)cudaErrorInvalidValue;
-  return dispatch<__nv_bfloat16, false, 128>(q, k, v, nullptr, nullptr, pos, out,
-                                             part, splits, nullptr, 0, B, H, Hkv, S,
-                                             scale, stream);
+// As flash_decode_q8 over k/v [B, Hkv, S, D] of q's kind, with no scales.
+ITT_EXPORT int flash_decode(const void* q, int kind, const void* k,
+                            const void* v, const void* pos, void* out,
+                            void* part, int B, int H, int Hkv, int S, int D,
+                            int splits, float scale, void* stream) {
+  return dispatch_kind<false, false>(q, kind, k, v, nullptr, nullptr, pos, out,
+                                     part, splits, nullptr, 0, B, H, Hkv, S, D,
+                                     scale, stream);
 }
 
-// part f32 [rows, splits, D + 2] (a split's acc, m, l) -> out bf16
-// [rows, D]; D is 64 or 128, splits at most D.
-ITT_EXPORT int flash_decode_merge(const void* part, void* out, int rows,
-                                  int splits, int D, void* stream) {
+// part f32 [rows, splits, D + 2] (a split's acc, m, l) -> out [rows, D] of
+// kind (kXBf16, kXF16); D is 64 or 128, splits at most D.
+ITT_EXPORT int flash_decode_merge(const void* part, void* out, int kind,
+                                  int rows, int splits, int D, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (rows <= 0 || splits <= 0 || splits > D) return (int)cudaErrorInvalidValue;
+  if (rows <= 0 || splits <= 0 || splits > D || (kind != kXBf16 && kind != kXF16))
+    return (int)cudaErrorInvalidValue;
   const auto* pp = static_cast<const float*>(part);
-  auto* op = static_cast<__nv_bfloat16*>(out);
   if (D == 128)
-    flash_decode_detail::flash_decode_merge<128><<<rows, 128, 0, s>>>(pp, op, splits);
+    flash_decode_detail::flash_decode_merge<128><<<rows, 128, 0, s>>>(pp, out, kind, splits);
   else if (D == 64)
-    flash_decode_detail::flash_decode_merge<64><<<rows, 64, 0, s>>>(pp, op, splits);
+    flash_decode_detail::flash_decode_merge<64><<<rows, 64, 0, s>>>(pp, out, kind, splits);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

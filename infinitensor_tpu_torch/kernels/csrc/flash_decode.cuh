@@ -2,22 +2,24 @@
 // query token per (batch, kv head) block over the live rows of a KV cache.
 // flash_decode.cu instantiates it over a dense cache [B, Hkv, S, D],
 // paged_flash_decode.cu over a page pool [N, Hkv, P, D] reached through a
-// block table; the cache element is bf16, or int8 with f32 row scales.
+// block table. q is bf16 or f16 (a run-time kind, staged once as f32) and
+// the output is written in its type; the cache element (the template T)
+// is q's 16-bit type, or int8 with f32 row scales.
 //
 // Design: one block per (batch, kv head), 256 threads, holding the
 // rep = H / Hkv query rows of that head. The block reads pos[b] from device
 // memory (no host sync, so the launch can sit in a CUDA graph) and walks
 // the cache in tiles of 256 rows up to pos inclusive, never reading a row
 // past it. Per tile: each thread scores one row, its K bytes read as
-// independent 16-byte loads (eight for an int8 row, sixteen for bf16; many
-// bytes in flight, no shuffles): s = q.k / sqrt(D), with the int8 row's
+// independent 16-byte loads (eight for an int8 row, sixteen for a 16-bit
+// one; many bytes in flight, no shuffles): s = q.k / sqrt(D), with the int8 row's
 // scale folded in as the TPU kernel does (s = q.k * (ks * 1/sqrt(D)));
 // one warp per query row updates the online softmax (m, l) in shared
 // memory and, for int8, turns p into p * vs, as the TPU kernel does before
 // its PV product; then the 8 warps split the tile's V rows, each lane
 // owning 4 columns (a warp reads whole rows), and meet in shared memory
-// once at the end. Output is acc / l in bf16. A tile's independent loads
-// (a thread's K row, or a bf16 row's first half, its K and V scales, and
+// once at the end. Output is acc / l in q's type. A tile's independent loads
+// (a thread's K row, or a 16-bit row's first half, its K and V scales, and
 // in the dense form a lane's first 16 V rows, 8 at rep > 4) are issued
 // before its first barrier, so their latencies overlap one another and,
 // in the first tile, the staging of q; the V scale waits in shared memory
@@ -47,9 +49,10 @@
 // 256 rows spans 256 / P pages and a page whose first row is past pos is
 // never looked up or read.
 //
-// Everything else (an f16 or f32 q or cache, a head dim other than 64 or
-// 128) takes the any-type body of attention_any.cuh, included here so
-// that the dense and paged kernels share it too.
+// Everything else (an f32 q or cache, a q type other than a 16-bit
+// cache's, a head dim other than 64 or 128) takes the any-type body of
+// attention_any.cuh, included here so that the dense and paged kernels
+// share it too.
 #pragma once
 
 #include "attention_any.cuh"
@@ -64,7 +67,7 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kTile = kThreads;         // cache rows per tile
 
 // The 16-byte words of a cache row that a scoring thread loads before its
-// first barrier: all of an int8 row, the first 64 elements of a bf16 one.
+// first barrier: all of an int8 row, the first 64 elements of a 16-bit one.
 template <typename T, int kD>
 __host__ __device__ constexpr int head_words() {
   return std::is_same<T, int8_t>::value ? kD / 16 : 8;
@@ -97,10 +100,22 @@ __device__ __forceinline__ void row_dots(const uint4 (&w)[kD / 16], const int8_t
   }
 }
 
-// d[r] += q_r . (a bf16 cache row kr), its first 64 elements held in w:
+// Two 16-bit cache elements of a word (T bf16 or f16) as f32, the lower
+// one first.
+template <typename T>
+__device__ __forceinline__ float2 pair_f32(uint32_t u) {
+  if constexpr (std::is_same<T, __half>::value) {
+    return __half22float2(*reinterpret_cast<const __half2*>(&u));
+  } else {
+    return make_float2(__uint_as_float(u << 16), __uint_as_float(u & 0xffff0000u));
+  }
+}
+
+// d[r] += q_r . (a 16-bit cache row kr), its first 64 elements held in w:
 // halves of 64 elements (two at kD = 128), eight 16-byte loads each.
-template <int REP, int kD>
-__device__ __forceinline__ void row_dots(const uint4 (&w0)[8], const __nv_bfloat16* kr,
+template <int REP, int kD, typename T,
+          typename std::enable_if<sizeof(T) == 2, int>::type = 0>
+__device__ __forceinline__ void row_dots(const uint4 (&w0)[8], const T* kr,
                                          const float (*qs)[kD], float (&d)[REP]) {
 #pragma unroll
   for (int half = 0; half < kD / 64; ++half) {
@@ -113,12 +128,12 @@ __device__ __forceinline__ void row_dots(const uint4 (&w0)[8], const __nv_bfloat
       const uint32_t u[4] = {w[j].x, w[j].y, w[j].z, w[j].w};
 #pragma unroll
       for (int t = 0; t < 4; ++t) {
-        const float k0 = __uint_as_float(u[t] << 16), k1 = __uint_as_float(u[t] & 0xffff0000u);
+        const float2 kv = pair_f32<T>(u[t]);
         const int c = half * 64 + j * 8 + t * 2;
 #pragma unroll
         for (int r = 0; r < REP; ++r) {
           const float2 qv = *reinterpret_cast<const float2*>(&qs[r][c]);
-          d[r] += qv.x * k0 + qv.y * k1;
+          d[r] += qv.x * kv.x + qv.y * kv.y;
         }
       }
     }
@@ -136,30 +151,33 @@ __device__ __forceinline__ LaneWord<T> lane_word(const T* vr, int lane) {
   return __ldg(reinterpret_cast<const LaneWord<T>*>(vr) + lane);
 }
 
-__device__ __forceinline__ void lane_cols(uint32_t u, float (&v)[4]) {
-  v[0] = i8_val(u, 0);
-  v[1] = i8_val(u, 8);
-  v[2] = i8_val(u, 16);
-  v[3] = i8_val(u, 24);
+template <typename T>
+__device__ __forceinline__ void lane_cols(LaneWord<T> u, float (&v)[4]) {
+  if constexpr (std::is_same<T, int8_t>::value) {
+    v[0] = i8_val(u, 0);
+    v[1] = i8_val(u, 8);
+    v[2] = i8_val(u, 16);
+    v[3] = i8_val(u, 24);
+  } else {
+    const float2 a = pair_f32<T>(u.x), b = pair_f32<T>(u.y);
+    v[0] = a.x;
+    v[1] = a.y;
+    v[2] = b.x;
+    v[3] = b.y;
+  }
 }
 
-__device__ __forceinline__ void lane_cols(uint2 u, float (&v)[4]) {
-  v[0] = __uint_as_float(u.x << 16);
-  v[1] = __uint_as_float(u.x & 0xffff0000u);
-  v[2] = __uint_as_float(u.y << 16);
-  v[3] = __uint_as_float(u.y & 0xffff0000u);
-}
-
-// T = int8_t: ks / vs are the rows' f32 scales; T = __nv_bfloat16: unused.
+// q / out of q_kind (kXBf16, kXF16). T = int8_t: ks / vs are the rows'
+// f32 scales; T = __nv_bfloat16 or __half (q's type): unused.
 // PAGED: kc / vc / ks / vs are page pools, table is int32 [B, MP] and S is
 // MP * P; else table is unused and P is ignored. SPLIT: blockIdx.x is the
 // split, the partials go to part and out is unused; else part is unused.
 template <int REP, typename T, bool PAGED, bool SPLIT, int kD>
 __global__ void __launch_bounds__(kThreads)
-flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
+flash_decode_kernel(const void* __restrict__ q, int q_kind,
                     const T* __restrict__ kc, const T* __restrict__ vc,
                     const float* __restrict__ ks, const float* __restrict__ vs,
-                    const int* __restrict__ pos, __nv_bfloat16* __restrict__ out,
+                    const int* __restrict__ pos, void* __restrict__ out,
                     float* __restrict__ part, const int* __restrict__ table,
                     int P, int rep, int Hkv, int S, float scale) {
   static_assert(!(PAGED && SPLIT), "the paged kernel is not split");
@@ -196,7 +214,7 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
 
   for (int i = tid; i < REP * kD; i += kThreads) {
     const int r = i / kD;
-    qs[r][i % kD] = r < rep ? bf16_to_f32(q[(head * rep + r) * kD + i % kD]) : 0.f;
+    qs[r][i % kD] = r < rep ? load_kind(q, q_kind, (head * rep + r) * kD + i % kD) : 0.f;
   }
   if (tid < REP) {
     m_s[tid] = neg_inf();
@@ -294,7 +312,7 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
       const int i = i0 + k * kStride;
       if (i < n) {
         float vv[4];
-        lane_cols(vp[k], vv);
+        lane_cols<T>(vp[k], vv);
 #pragma unroll
         for (int r = 0; r < REP; ++r) {
           const float p = sc[r][i];
@@ -306,7 +324,7 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll 4
     for (int i = i0 + kPre * kStride; i < n; i += kStride) {
       float vv[4];
-      lane_cols(lane_word(vt + (size_t)(PAGED ? row_s[i] : i) * kD, quad), vv);
+      lane_cols<T>(lane_word(vt + (size_t)(PAGED ? row_s[i] : i) * kD, quad), vv);
 #pragma unroll
       for (int r = 0; r < REP; ++r) {
         const float p = sc[r][i];
@@ -334,21 +352,22 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
           pr[kD + 1] = l_s[r];
         }
       } else {
-        out[(head * rep + r) * kD + tid] = __float2bfloat16_rn(sum / l_s[r]);
+        store_kind(out, q_kind, (head * rep + r) * kD + tid, sum / l_s[r]);
       }
     }
     __syncthreads();
   }
 }
 
-// Row b * H + hq of out = the merge of that query row's ns <= kD partials:
-// thread j reads split j's (m, l), the block finds M and the weights
-// e^(m_j - M) (0 where l_j = 0) in shared memory, then thread d sums
-// acc_j[d] * w_j over j in order; all loads of a phase are independent.
+// Row b * H + hq of out (of out_kind: kXBf16, kXF16) = the merge of that
+// query row's ns <= kD partials: thread j reads split j's (m, l), the
+// block finds M and the weights e^(m_j - M) (0 where l_j = 0) in shared
+// memory, then thread d sums acc_j[d] * w_j over j in order; all loads of
+// a phase are independent.
 template <int kD>
 __global__ void __launch_bounds__(kD)
-flash_decode_merge(const float* __restrict__ part, __nv_bfloat16* __restrict__ out,
-                   int ns) {
+flash_decode_merge(const float* __restrict__ part, void* __restrict__ out,
+                   int out_kind, int ns) {
   __shared__ float w_s[kD], red[kD / 32];
   const float* pr = part + (size_t)blockIdx.x * ns * (kD + 2);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -373,33 +392,31 @@ flash_decode_merge(const float* __restrict__ part, __nv_bfloat16* __restrict__ o
     l += pj[kD + 1] * w_s[j];
     acc += pj[tid] * w_s[j];
   }
-  out[(size_t)blockIdx.x * kD + tid] = __float2bfloat16_rn(acc / l);
+  store_kind(out, out_kind, (size_t)blockIdx.x * kD + tid, acc / l);
 }
 
 template <int REP, typename T, bool PAGED, int kD>
-cudaError_t launch(const void* q, const void* k, const void* v,
+cudaError_t launch(const void* q, int q_kind, const void* k, const void* v,
                    const void* ks, const void* vs, const void* pos, void* out,
                    void* part, int splits, const void* table, int P, int B,
                    int rep, int Hkv, int S, float scale, cudaStream_t stream) {
-  const auto* qp = static_cast<const __nv_bfloat16*>(q);
   const auto* kp = static_cast<const T*>(k);
   const auto* vp = static_cast<const T*>(v);
   const auto* ksp = static_cast<const float*>(ks);
   const auto* vsp = static_cast<const float*>(vs);
   const auto* pp = static_cast<const int*>(pos);
-  auto* op = static_cast<__nv_bfloat16*>(out);
   const auto* tp = static_cast<const int*>(table);
   if constexpr (!PAGED) {
     if (splits > 1) {
       flash_decode_kernel<REP, T, false, true, kD>
           <<<dim3(splits, Hkv, B), kThreads, 0, stream>>>(
-              qp, kp, vp, ksp, vsp, pp, op, static_cast<float*>(part), tp, P,
-              rep, Hkv, S, scale);
+              q, q_kind, kp, vp, ksp, vsp, pp, out, static_cast<float*>(part), tp,
+              P, rep, Hkv, S, scale);
       return cudaGetLastError();
     }
   }
   flash_decode_kernel<REP, T, PAGED, false, kD><<<dim3(Hkv, B), kThreads, 0, stream>>>(
-      qp, kp, vp, ksp, vsp, pp, op, nullptr, tp, P, rep, Hkv, S, scale);
+      q, q_kind, kp, vp, ksp, vsp, pp, out, nullptr, tp, P, rep, Hkv, S, scale);
   return cudaGetLastError();
 }
 
@@ -407,7 +424,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 // head (at most 16). splits > 1 (dense only): the split form, writing
 // part [B, H, splits, kD + 2] f32 for flash_decode_merge; else out.
 template <typename T, bool PAGED, int kD>
-int dispatch(const void* q, const void* k, const void* v, const void* ks,
+int dispatch(const void* q, int q_kind, const void* k, const void* v, const void* ks,
              const void* vs, const void* pos, void* out, void* part,
              int splits, const void* table, int P, int B, int H, int Hkv,
              int S, float scale, void* stream) {
@@ -418,12 +435,39 @@ int dispatch(const void* q, const void* k, const void* v, const void* ks,
   const int rep = H / Hkv;
 #define ITT_FD_CASE(R)                                                        \
   if (rep <= R)                                                               \
-    return (int)launch<R, T, PAGED, kD>(q, k, v, ks, vs, pos, out, part,      \
-                                        splits, table, P, B, rep, Hkv, S,     \
-                                        scale, s);
+    return (int)launch<R, T, PAGED, kD>(q, q_kind, k, v, ks, vs, pos, out,    \
+                                        part, splits, table, P, B, rep, Hkv,  \
+                                        S, scale, s);
   ITT_FD_CASE(1) ITT_FD_CASE(2) ITT_FD_CASE(4) ITT_FD_CASE(8) ITT_FD_CASE(16)
 #undef ITT_FD_CASE
   return (int)cudaErrorInvalidValue;
+}
+
+// The entries' dispatch on q's kind (kXBf16, kXF16) and D (64 or 128):
+// Q8, an int8 cache with f32 scales; else a cache of q's 16-bit type.
+template <bool Q8, bool PAGED>
+int dispatch_kind(const void* q, int kind, const void* k, const void* v,
+                  const void* ks, const void* vs, const void* pos, void* out,
+                  void* part, int splits, const void* table, int P, int B,
+                  int H, int Hkv, int S, int D, float scale, void* stream) {
+  if ((kind != kXBf16 && kind != kXF16) || (D != 64 && D != 128))
+    return (int)cudaErrorInvalidValue;
+#define ITT_FD_KIND(TYPE, DIM)                                                \
+  return dispatch<TYPE, PAGED, DIM>(q, kind, k, v, ks, vs, pos, out, part,    \
+                                    splits, table, P, B, H, Hkv, S, scale,    \
+                                    stream);
+  if constexpr (Q8) {
+    if (D == 64) ITT_FD_KIND(int8_t, 64)
+    ITT_FD_KIND(int8_t, 128)
+  } else {
+    if (kind == kXF16) {
+      if (D == 64) ITT_FD_KIND(__half, 64)
+      ITT_FD_KIND(__half, 128)
+    }
+    if (D == 64) ITT_FD_KIND(__nv_bfloat16, 64)
+    ITT_FD_KIND(__nv_bfloat16, 128)
+  }
+#undef ITT_FD_KIND
 }
 
 }  // namespace flash_decode_detail

@@ -5,6 +5,8 @@
 // tile, ldmatrix. Both run swap-AB (out^T = W^T x^T: M over output
 // columns, N over activation rows); a block is kWarps warps of 32 output
 // columns each, a ring of kStages stages of kBK packed weight rows.
+// flash_attention.cu takes the copies, ldmatrix, the 16-bit mma.sync
+// (mma16816) and pack_out for its own tiles.
 #pragma once
 
 #include "common.cuh"
@@ -99,6 +101,24 @@ __device__ __forceinline__ void load_weight_tile(uint8_t* base,
                 ok ? 4 : 0);
     }
   }
+}
+
+// d += a * b on the tensor cores, 16-bit operands of the type XK.
+template <int XK>
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  if (XK == kXF16)
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  else
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, "
+        "%3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // Two f32 values as a pair of 16-bit values of the type XK (a in the

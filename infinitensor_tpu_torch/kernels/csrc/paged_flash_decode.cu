@@ -9,7 +9,7 @@
 //   paged_flash_decode_q8  <- _paged_q8_kernel  (:187, via paged_flash_decode_q8 :234)
 //
 // What bounds it on this card: every live row of every slot is read once,
-// 2 * Hkv * (pos[b] + 1) * D * 2 bytes per slot for bf16 pages, or
+// 2 * Hkv * (pos[b] + 1) * D * 2 bytes per slot for 16-bit pages, or
 // 2 * Hkv * (pos[b] + 1) * (D + 4) for int8 pages with their f32 scales,
 // against ~4 * H * (pos[b] + 1) * D flops: device-memory bandwidth. The
 // TPU kernel's grid covers every page of the table and still copies the
@@ -18,44 +18,40 @@
 // device, so the launch sits in a CUDA graph; the page size is a runtime
 // argument. With 8 slots a 7B layer is 256 blocks on 132 SMs.
 //
-// The bf16 kernels take D 64 or 128; paged_flash_decode_any is the
-// any-type form of attention_any.cuh (a bf16, f16 or f32 q, bf16, f16,
-// f32 or int8 pages, D a multiple of 8 from 8 to 256, out in q's type).
+// The fast kernels take a bf16 or f16 q (kind kXBf16, kXF16) over pages of
+// q's type or int8, at D 64 or 128, and write q's type;
+// paged_flash_decode_any is the any-type form of attention_any.cuh (a
+// bf16, f16 or f32 q, bf16, f16, f32 or int8 pages, D a multiple of 8
+// from 8 to 256, out in q's type) for what they do not take.
 #include "flash_decode.cuh"
 
-using flash_decode_detail::dispatch;
+using flash_decode_detail::dispatch_kind;
 
 ITT_DEFINE_ERROR_STRING()
 
-// q bf16 [B, H, 1, D]; k/v pages int8 [N, Hkv, P, D]; ks/vs pages f32
-// [N, Hkv, P]; table int32 [B, MP] (page ids); pos int32 [B] (inclusive);
-// out bf16 [B, H, 1, D]. D must be 64 or 128 and rep = H / Hkv at most
-// 16.
-ITT_EXPORT int paged_flash_decode_q8(const void* q, const void* k,
+// q [B, H, 1, D] of kind (kXBf16, kXF16); k/v pages int8 [N, Hkv, P, D];
+// ks/vs pages f32 [N, Hkv, P]; table int32 [B, MP] (page ids); pos int32
+// [B] (inclusive); out [B, H, 1, D] of kind. D must be 64 or 128 and
+// rep = H / Hkv at most 16.
+ITT_EXPORT int paged_flash_decode_q8(const void* q, int kind, const void* k,
                                      const void* v, const void* ks,
                                      const void* vs, const void* table,
                                      const void* pos, void* out, int B, int H,
                                      int Hkv, int P, int MP, int D,
                                      float scale, void* stream) {
-  if (D == 64)
-    return dispatch<int8_t, true, 64>(q, k, v, ks, vs, pos, out, nullptr, 1, table, P, B, H,
-                                      Hkv, MP * P, scale, stream);
-  if (D != 128) return (int)cudaErrorInvalidValue;
-  return dispatch<int8_t, true, 128>(q, k, v, ks, vs, pos, out, nullptr, 1, table, P, B, H, Hkv,
-                                     MP * P, scale, stream);
+  return dispatch_kind<true, true>(q, kind, k, v, ks, vs, pos, out, nullptr, 1,
+                                   table, P, B, H, Hkv, MP * P, D, scale, stream);
 }
 
-// As paged_flash_decode_q8 over bf16 pages, with no scales.
-ITT_EXPORT int paged_flash_decode(const void* q, const void* k, const void* v,
-                                  const void* table, const void* pos,
-                                  void* out, int B, int H, int Hkv, int P,
-                                  int MP, int D, float scale, void* stream) {
-  if (D == 64)
-    return dispatch<__nv_bfloat16, true, 64>(q, k, v, nullptr, nullptr, pos, out, nullptr, 1,
-                                             table, P, B, H, Hkv, MP * P, scale, stream);
-  if (D != 128) return (int)cudaErrorInvalidValue;
-  return dispatch<__nv_bfloat16, true, 128>(q, k, v, nullptr, nullptr, pos, out, nullptr, 1, table,
-                                            P, B, H, Hkv, MP * P, scale, stream);
+// As paged_flash_decode_q8 over pages of q's kind, with no scales.
+ITT_EXPORT int paged_flash_decode(const void* q, int kind, const void* k,
+                                  const void* v, const void* table,
+                                  const void* pos, void* out, int B, int H,
+                                  int Hkv, int P, int MP, int D, float scale,
+                                  void* stream) {
+  return dispatch_kind<false, true>(q, kind, k, v, nullptr, nullptr, pos, out,
+                                    nullptr, 1, table, P, B, H, Hkv, MP * P, D,
+                                    scale, stream);
 }
 
 // q [B, H, 1, D] of q_kind; pages [N, Hkv, P, D] of cache_kind (kXBf16,

@@ -6,9 +6,9 @@ _flash_kernel; mha_plain, the counterpart of mha_ref, is its plain version.
 The JAX wrapper takes mha_ref when S is not a multiple of its block; the
 kernel here masks the ragged tail itself, so every S takes it.
 
-Two forms on the card: bf16 q, k, v at head dim 64 or 128 take the fast
-kernel; q, k, v of one other float dtype (f16, f32) or any other head dim
-(a multiple of 8 from 8 to 256) take the any-type form,
+Two forms on the card (attention.fast_prefill chooses): bf16 or f16 q, k,
+v at a head dim up to 128 (a multiple of 8) take the tensor-core kernel;
+f32, or a head dim from 136 to 256, take the any-type form,
 csrc/attention_any.cuh (flash_attention_any), as the TPU kernel takes any
 float type and head dim and writes q's dtype. launches["flash_attention"]
 counts both forms and launches["flash_attention_any"] the any-type one
@@ -26,7 +26,7 @@ import torch
 
 from infinitensor_tpu_torch.kernels import _build
 from infinitensor_tpu_torch.kernels.attention import (
-    FAST_HEAD_DIMS, KINDS, check_head_dim)
+    KINDS, check_head_dim, fast_prefill)
 
 launches = collections.Counter()
 
@@ -35,7 +35,7 @@ launches = collections.Counter()
 def _lib() -> ctypes.CDLL:
     P, I, F = _build.P, _build.I, _build.F
     return _build.typed("flash_attention",
-                        flash_attention=[P] * 4 + [I] * 4 + [F, P],
+                        flash_attention=[P] * 4 + [I] * 5 + [F, P],
                         flash_attention_any=[P] * 4 + [I] * 5 + [F, P])
 
 
@@ -56,8 +56,8 @@ def flash_attention(q, k, v, causal: bool = True) -> torch.Tensor:
     """q/k/v [B, H, S, D] -> [B, H, S, D] in q's dtype. CPU tensors take
     the plain version; CUDA tensors launch a kernel or raise: contiguous,
     16-byte aligned q, k and v of one dtype, bf16, f16 or f32, D a
-    multiple of 8 from 8 to 256 (the fast bf16 kernel at D 64 or 128, else
-    the any-type form)."""
+    multiple of 8 from 8 to 256 (the tensor-core kernel for bf16 or f16 at
+    D up to 128, else the any-type form)."""
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError("flash_attention: q, k and v must be [B, H, S, D] "
                          "of one shape")
@@ -78,11 +78,11 @@ def flash_attention(q, k, v, causal: bool = True) -> torch.Tensor:
     out = torch.empty_like(q)
     lib = _lib()
     p = _build.ptr
-    fast = q.dtype == torch.bfloat16 and D in FAST_HEAD_DIMS
+    fast = fast_prefill(q.dtype, D)
     if fast:
-        err = lib.flash_attention(p(q), p(k), p(v), p(out), B * H, S, D,
-                                  bool(causal), 1.0 / math.sqrt(D),
-                                  _build.stream())
+        err = lib.flash_attention(p(q), p(k), p(v), p(out), KINDS[q.dtype],
+                                  B * H, S, D, bool(causal),
+                                  1.0 / math.sqrt(D), _build.stream())
     else:
         err = lib.flash_attention_any(p(q), p(k), p(v), p(out),
                                       KINDS[q.dtype], B * H, S, D,

@@ -9,16 +9,17 @@ PLACE with one indexed assignment (index_put_) at device page ids and
 offsets (the JAX package
 donates the pool instead): no host read, so a decode step can be captured
 in a CUDA graph. The read side is a kernel in csrc/paged_flash_decode.cu:
-paged_flash_decode (bf16 pages) replacing _paged_kernel,
+paged_flash_decode (float pages) replacing _paged_kernel,
 paged_flash_decode_q8 (int8 pages) replacing _paged_q8_kernel;
 paged_decode_plain and paged_decode_q8_plain are their plain versions
 (gather to dense, masked GQA attention), which the CPU takes and nothing on
 the card calls.
 
-Two forms on the card, as for the dense decode attention: a bf16 q over
-bf16 or int8 pages at head dim 64 or 128 takes the fast kernels; any other
-q (bf16, f16, f32), float pages (bf16, f16, f32) or head dim (a multiple of
-8 from 8 to 256) takes the any-type form, csrc/attention_any.cuh
+Two forms on the card, as for the dense decode attention
+(attention.fast_form chooses): a bf16 or f16 q over pages of its own dtype
+or int8 at head dim 64 or 128 takes the fast kernels; an f32 q or pages, a
+q dtype other than 16-bit pages', or another head dim (a multiple of 8
+from 8 to 256) takes the any-type form, csrc/attention_any.cuh
 (paged_flash_decode_any). launches[name] counts both forms and
 launches[name + "_any"] the any-type one again (captures, not CUDA-graph
 replays).
@@ -44,8 +45,10 @@ launches = collections.Counter()
 def _lib() -> ctypes.CDLL:
     P, I, F = _build.P, _build.I, _build.F
     return _build.typed("paged_flash_decode",
-                        paged_flash_decode_q8=[P] * 8 + [I] * 6 + [F, P],
-                        paged_flash_decode=[P] * 6 + [I] * 6 + [F, P],
+                        paged_flash_decode_q8=[P, I] + [P] * 7 + [I] * 6
+                        + [F, P],
+                        paged_flash_decode=[P, I] + [P] * 5 + [I] * 6
+                        + [F, P],
                         paged_flash_decode_any=[P, I] + [P] * 4 + [I]
                         + [P] * 3 + [I] * 6 + [F, P])
 
@@ -193,12 +196,13 @@ def _launch(name, q, k_pages, v_pages, ks_pages, vs_pages, block_table,
             p(out), B, H, Hkv, P, MP, D, 1.0 / math.sqrt(D), _build.stream())
     elif ks_pages is None:
         err = lib.paged_flash_decode(
-            p(q), p(k_pages), p(v_pages), p(block_table), p(pos), p(out), B,
-            H, Hkv, P, MP, D, 1.0 / math.sqrt(D), _build.stream())
+            p(q), KINDS[q.dtype], p(k_pages), p(v_pages), p(block_table),
+            p(pos), p(out), B, H, Hkv, P, MP, D, 1.0 / math.sqrt(D),
+            _build.stream())
     else:
         err = lib.paged_flash_decode_q8(
-            p(q), p(k_pages), p(v_pages), p(ks_pages), p(vs_pages),
-            p(block_table), p(pos), p(out), B, H, Hkv, P, MP, D,
+            p(q), KINDS[q.dtype], p(k_pages), p(v_pages), p(ks_pages),
+            p(vs_pages), p(block_table), p(pos), p(out), B, H, Hkv, P, MP, D,
             1.0 / math.sqrt(D), _build.stream())
     _build.raise_on(lib, err, name)
     launches[name] += 1

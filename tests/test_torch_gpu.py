@@ -150,9 +150,10 @@ def test_flash_decode_kernel(dev, rep):
 
 def test_cuda_wrappers_raise_instead_of_falling_back(dev):
     """What no kernel takes raises (a head dim that is no multiple of 8,
-    or above 256; an int or f64 x); what the bf16 kernels do not take
-    (D 32 or 48, an f32 q or cache) launches the any-type form, never the
-    plain version."""
+    or above 256; an int or f64 x); what the fast kernels do not take
+    (decode at D 32, an f32 q or cache) launches the any-type form, and
+    the prefill at D 48 the tensor-core kernel (zero-padded to 64), never
+    the plain version."""
     pos = torch.zeros(1, dtype=torch.int32, device=dev)
     for D in (12, 272):
         q = torch.zeros(1, 2, 1, D, dtype=torch.bfloat16, device=dev)
@@ -393,20 +394,20 @@ def test_greedy_generate_graph_equals_eager(dev):
                                   torch.stack(want, 1).cpu().numpy())
 
 
-def _paged_case(dev, rep, P, q8, seed):
+def _paged_case(dev, rep, P, q8, seed, B=5, D=128, qdt=torch.bfloat16):
     """A shuffled block table over a pool with spare pages; pos ragged,
-    with 0 and both sides of a page boundary. Every page that no live row
-    of a slot lies in, and every row past pos of a slot's last live page,
-    holds NaN (in the scales for int8 pages)."""
+    with 0 and both sides of a page boundary (B slots, at most 8); q in
+    qdt, float pages in qdt. Every page that no live row of a slot lies
+    in, and every row past pos of a slot's last live page, holds NaN (in
+    the scales for int8 pages)."""
     g = torch.Generator(device=dev).manual_seed(seed)
-    B, Hkv, D, MP = 5, 2, 128, 6
+    Hkv, MP = 2, 6
     N = B * MP + 3
-    pos = torch.tensor([0, P - 1, P, 3 * P + 5, MP * P - 1],
-                       dtype=torch.int32, device=dev)
+    pos = torch.tensor([0, P - 1, P, 3 * P + 5, MP * P - 1, 100, 5,
+                        2 * P + 1][:B], dtype=torch.int32, device=dev)
     table = torch.randperm(N - 1, generator=g, device=dev)[:B * MP].add(1) \
         .reshape(B, MP).to(torch.int32)
-    q = torch.randn(B, Hkv * rep, 1, D, generator=g, device=dev).to(
-        torch.bfloat16)
+    q = torch.randn(B, Hkv * rep, 1, D, generator=g, device=dev).to(qdt)
     live = torch.zeros(N, P, dtype=torch.bool, device=dev)
     for b in range(B):
         for s in range(int(pos[b]) + 1):
@@ -421,8 +422,8 @@ def _paged_case(dev, rep, P, q8, seed):
         ks[dead] = float("nan")
         vs[dead] = float("nan")
         return (q, kp, vp, ks, vs, table, pos)
-    kp, vp = (torch.randn(N, Hkv, P, D, generator=g, device=dev).to(
-        torch.bfloat16) for _ in range(2))
+    kp, vp = (torch.randn(N, Hkv, P, D, generator=g, device=dev).to(qdt)
+              for _ in range(2))
     kp[dead] = float("nan")
     vp[dead] = float("nan")
     return (q, kp, vp, table, pos)
@@ -1152,7 +1153,9 @@ ANY_DECODE = [(torch.float32, 16, torch.float32), (torch.float16, 64,
               (torch.bfloat16, 8, torch.bfloat16),
               (torch.bfloat16, 256, torch.bfloat16),
               (torch.float32, 96, torch.bfloat16),
-              (torch.float16, 128, torch.float32)]
+              (torch.float16, 128, torch.float32),
+              (torch.bfloat16, 128, torch.float16),
+              (torch.float16, 72, torch.float16)]
 
 
 def _any_decode_inputs(dev, qdt, D, cdt, B, H, Hkv, S, seed):
@@ -1173,10 +1176,12 @@ def _any_decode_inputs(dev, qdt, D, cdt, B, H, Hkv, S, seed):
 @pytest.mark.parametrize("splits", [1, 5])
 @pytest.mark.parametrize("qdt,D,cdt", ANY_DECODE)
 def test_flash_decode_any_form(dev, qdt, D, cdt, splits):
-    """flash_decode and flash_decode_q8 outside the bf16 kernels' types
-    and head dims, unsplit and split (with the any-type merge where the
-    fast merge does not take it), against the plain versions; rows past
-    pos hold NaN and are never read; the result is in q's dtype."""
+    """flash_decode and flash_decode_q8 outside the fast kernels' types
+    and head dims (an f32 q or cache, a q dtype other than a 16-bit
+    cache's, D other than 64 and 128), unsplit and split (with the
+    any-type merge where the fast merge does not take it), against the
+    plain versions; rows past pos hold NaN and are never read; the result
+    is in q's dtype."""
     B, H, Hkv, S = 3, 8, 2, 300
     q, (kc, vc), (kq, vq, ks, vs), pos = _any_decode_inputs(
         dev, qdt, D, cdt, B, H, Hkv, S, D + splits)
@@ -1227,9 +1232,14 @@ def test_flash_decode_merge_any(dev, D, odt):
                                      (torch.bfloat16, 96),
                                      (torch.float16, 96),
                                      (torch.bfloat16, 8),
-                                     (torch.float32, 256)])
+                                     (torch.float32, 256),
+                                     (torch.float16, 136),
+                                     (torch.bfloat16, 256)])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_any_form(dev, dtype, D, causal, S):
+    """flash_attention at every float type and head dim against the plain
+    version, in q's dtype; f32 and D 136-256 take the any-type form, a
+    16-bit dtype at D up to 128 the tensor-core kernel."""
     g = torch.Generator().manual_seed(S + D)
     q, k, v = (torch.randn(2, 3, S, D, generator=g).mul(2).to(dtype).to(dev)
                for _ in range(3))
@@ -1238,7 +1248,7 @@ def test_flash_attention_any_form(dev, dtype, D, causal, S):
     assert got.dtype == dtype
     _close(got, fa.mha_plain(q, k, v, causal))
     assert fa.launches["flash_attention_any"] == \
-        before.get("flash_attention_any", 0) + 1
+        before.get("flash_attention_any", 0) + (not att.fast_prefill(dtype, D))
 
 
 def _paged_any_case(dev, rep, P, D, qdt, pdt, seed):
@@ -1270,9 +1280,9 @@ def _paged_any_case(dev, rep, P, D, qdt, pdt, seed):
                                      (torch.float32, torch.float32)])
 @pytest.mark.parametrize("rep", [1, 4])
 def test_paged_kernels_at_head_dim_64(dev, qdt, pdt, rep):
-    """Both paged kernels at head dim 64 (a bf16 q over bf16 or INT8 pages
-    takes the fast kernels, anything else the any-type form) against
-    their plain versions, in q's dtype."""
+    """Both paged kernels at head dim 64 (a bf16 or f16 q over pages of its
+    dtype or INT8 takes the fast kernels, anything else the any-type
+    form) against their plain versions, in q's dtype."""
     for kname, dt, fn, plain in (
             ("paged_flash_decode", pdt, pa.paged_flash_decode,
              pa.paged_decode_plain),
@@ -1285,6 +1295,90 @@ def test_paged_kernels_at_head_dim_64(dev, qdt, pdt, rep):
         assert pa.launches[kname] == before.get(kname, 0) + 1
         assert pa.launches[kname + "_any"] == before.get(
             kname + "_any", 0) + (not att.fast_form(qdt, dt, 64))
+        _close(got, plain(*args))
+
+
+# -- the fast 16-bit forms: the tensor-core prefill at bf16 / f16 and ----
+# -- every head dim up to 128, the f16 dense and paged decode on -----------
+# -- flash_decode.cuh's body -------------------------------------------------
+
+@pytest.mark.parametrize("S", [1, 77, 200, 1025])
+@pytest.mark.parametrize("D", [8, 16, 64, 72, 96, 128])
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_fast_forms(dev, dtype, D, causal, S):
+    """The tensor-core prefill in f16 and bf16 at every head dim up to 128
+    (below 64 / 128 zero-padded in shared memory, through every stage of
+    the ring) against the plain version, in q's dtype; the counters show
+    the fast kernel ran, not the any-type form."""
+    g = torch.Generator().manual_seed(S + D)
+    q, k, v = (torch.randn(2, 3, S, D, generator=g).mul(2).to(dtype).to(dev)
+               for _ in range(3))
+    assert att.fast_prefill(dtype, D)
+    before = dict(fa.launches)
+    got = fa.flash_attention(q, k, v, causal)
+    assert fa.launches["flash_attention"] == \
+        before.get("flash_attention", 0) + 1
+    assert fa.launches["flash_attention_any"] == \
+        before.get("flash_attention_any", 0)
+    _close(got, fa.mha_plain(q, k, v, causal))
+
+
+@pytest.mark.parametrize("splits", [1, 5, None])
+@pytest.mark.parametrize("rep", [1, 4])
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_decode_f16_fast_forms(dev, D, rep, splits):
+    """An f16 q over an f16 and over an INT8 cache on the fast kernels,
+    unsplit, split in 5 and (batch 1) in the count the wrapper picks,
+    with the f16 merge; rows past pos NaN; against the plain versions, in
+    f16, with no any-type launch."""
+    f16 = torch.float16
+    B, Hkv, S = (1, 2, 1100) if splits is None else (3, 2, 300)
+    q, (kc, vc), (kq, vq, ks, vs), pos = _any_decode_inputs(
+        dev, f16, D, f16, B, Hkv * rep, Hkv, S, D + rep + (splits or 0))
+    want = att.flash_decode_plain(q, kc, vc, pos)
+    want8 = att.flash_decode_q8_plain(q, kq, vq, ks, vs, pos)
+    dead = (torch.arange(S, device=dev)[None] > pos[:, None])[:, None] \
+        .expand(B, Hkv, S)
+    for t in (kc, vc, ks, vs):
+        t[dead] = float("nan")
+    split = (splits or att.launch_splits(B, Hkv, S)) > 1
+    assert att.fast_form(f16, f16, D) and att.fast_form(f16, torch.int8, D)
+    before = dict(att.launches)
+    got = att.flash_decode(q, kc, vc, pos, _splits=splits)
+    got8 = att.flash_decode_q8(q, kq, vq, ks, vs, pos, _splits=splits)
+    for kname in ("flash_decode", "flash_decode_q8"):
+        assert att.launches[kname] == before.get(kname, 0) + 1
+    assert att.launches["flash_decode_merge"] == \
+        before.get("flash_decode_merge", 0) + 2 * split
+    for kname in ("flash_decode_any", "flash_decode_q8_any",
+                  "flash_decode_merge_any"):
+        assert att.launches[kname] == before.get(kname, 0)
+    assert torch.isfinite(got.float()).all()
+    assert torch.isfinite(got8.float()).all()
+    _close(got, want)
+    _close(got8, want8)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("rep", [1, 4])
+def test_paged_f16_fast_forms(dev, rep, D):
+    """Both paged kernels at 8 slots with an f16 q over f16 and over INT8
+    pages take the fast kernels (no any-type launch) and agree with their
+    plain versions, in f16; no dead row is read."""
+    for kname, q8, fn, plain in (
+            ("paged_flash_decode", False, pa.paged_flash_decode,
+             pa.paged_decode_plain),
+            ("paged_flash_decode_q8", True, pa.paged_flash_decode_q8,
+             pa.paged_decode_q8_plain)):
+        args = _paged_case(dev, rep, 64, q8, rep + D, B=8, D=D,
+                           qdt=torch.float16)
+        before = dict(pa.launches)
+        got = fn(*args)
+        assert got.dtype == torch.float16
+        assert pa.launches[kname] == before.get(kname, 0) + 1
+        assert pa.launches[kname + "_any"] == before.get(kname + "_any", 0)
+        assert torch.isfinite(got.float()).all()
         _close(got, plain(*args))
 
 

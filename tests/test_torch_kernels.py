@@ -842,7 +842,7 @@ ANY_TYPES = {"f32": (jnp.float32, torch.float32, 1e-5),
 
 @pytest.mark.parametrize("dtype,D", [("f32", 16), ("f16", 64), ("bf16", 8),
                                      ("bf16", 256), ("f32", 96),
-                                     ("f16", 128)])
+                                     ("f16", 128), ("f16", 72), ("f16", 96)])
 def test_flash_decode_any_type_plain_vs_pallas(dtype, D):
     jdt, tdt, tol = ANY_TYPES[dtype]
     rng = np.random.default_rng(80 + D)
@@ -869,7 +869,8 @@ def test_flash_decode_any_type_plain_vs_pallas(dtype, D):
 
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype,D", [("f32", 16), ("f16", 64), ("bf16", 96),
-                                     ("bf16", 8), ("f32", 256)])
+                                     ("bf16", 8), ("f32", 256), ("f16", 72),
+                                     ("f16", 96)])
 def test_flash_attention_any_type_plain_vs_pallas(dtype, D, causal):
     jdt, tdt, tol = ANY_TYPES[dtype]
     rng = np.random.default_rng(90 + D)
@@ -879,6 +880,30 @@ def test_flash_attention_any_type_plain_vs_pallas(dtype, D, causal):
     assert got.dtype == tdt
     _close(got, fa.flash_attention(q, k, v, causal=causal, block_q=64,
                                    block_k=64, interpret=True), tol)
+
+
+# The route of the attention wrappers on the card, read from its
+# predicates (no launch): the fast decode kernels take a bf16 or f16 q over
+# a cache of its own dtype or int8 at D 64 and 128; the tensor-core
+# prefill takes bf16 or f16 at D up to 128; everything else takes the
+# any-type form.
+ROUTE_DTYPES = {"bf16": torch.bfloat16, "f16": torch.float16,
+                "f32": torch.float32}
+OTHER_FLOAT = {"bf16": torch.float16, "f16": torch.bfloat16,
+               "f32": torch.bfloat16}
+FAST_DECODE = {("bf16", "same"), ("bf16", "int8"), ("f16", "same"),
+               ("f16", "int8")}
+
+
+@pytest.mark.parametrize("D", [8, 16, 64, 72, 96, 128, 136, 256])
+@pytest.mark.parametrize("cache", ["same", "int8", "other"])
+@pytest.mark.parametrize("q", ["bf16", "f16", "f32"])
+def test_attention_route(q, cache, D):
+    qdt = ROUTE_DTYPES[q]
+    cdt = {"same": qdt, "int8": torch.int8, "other": OTHER_FLOAT[q]}[cache]
+    assert tatt.fast_form(qdt, cdt, D) == (
+        (q, cache) in FAST_DECODE and D in (64, 128))
+    assert tatt.fast_prefill(qdt, D) == (q in ("bf16", "f16") and D <= 128)
 
 
 @pytest.mark.parametrize("qdt,pdt", [("f16", "f16"), ("f16", "bf16"),
