@@ -45,8 +45,12 @@ Phases, each failing with a nonzero exit, each printing its seconds:
      dim 8, 16, 64, 72, 96, 128, 136, 256 against its plain version (the
      any-type grid, untimed, each reporting its form); the 1-row
      matmuls that take the K split (qmm_group, qmm_slab and
-     qmm_chunk on a short grid) each beside the form before it, forced
-     (qm._SPLITS = 1);
+     qmm_chunk on a short grid, and qmm_group_ln at GPT-2's w_qkv and
+     w_up, LayerNorm and bias inside the split) each beside the form
+     before it, forced (qm._SPLITS = 1); the any-type prefill
+     (csrc/flash_attention_any.cuh) in f32 at causal 1 x 32 x 256 x 128
+     and 1 x 32 x 1024 x 128, held within 1e-5 of max|plain| (f32, TF32
+     off), and in bf16 at 1 x 32 x 256 x 256, each beside SDPA;
   4. the 7B INT4 + INT8-KV decode path with random weights built on the
      card as bench.py builds them: one step with the kernels against the
      same step on the plain versions (CPU), then llama_decode_multi for
@@ -106,7 +110,13 @@ Phases, each failing with a nonzero exit, each printing its seconds:
      64) and flash_decode (or
      flash_decode_q8) 24. Prints generated tok/s over the drain (every
      sample), ms per step at 64 live slots, the stats slices and a
-     torch.profiler window over one chunk;
+     torch.profiler window over one chunk. Then batch 1 (path "gpt2
+     decode bs1"): one eager step after a 64-token prompt launches
+     qmm_group_ln 48 times, all in the K split (qmm_group_ln_split 48);
+     the step captured as one CUDA graph with the split, with only the
+     qmm_group_ln launches unsplit and with every split off
+     (qm._SPLITS = 1), each replay timed in turns, and 16 greedy steps
+     of each graph equal up to a printed near-tie;
   8. Llama-2-7B INT4 decode with paired scales (one scale row per pair of
      split-half groups), INT8 KV, bs=1, ctx 1024: one step with the
      kernels against the plain versions (CPU), 128 graph-replayed steps
@@ -226,6 +236,9 @@ G64, W4A8, SPLIT = "group64 decode", "w4a8 decode", "split-K decode"
 F16_PROMPT = f"f16 prompt {SHORT}"       # phase 14
 F16_PROMPT_Q8 = f"f16 prompt {SHORT} int8"
 F16_PAGED = "f16 paged step"
+GPT2_BS1 = "gpt2 decode bs1"             # phase 7, batch 1
+G_BS1_PROMPT = 64            # ... its prompt tokens
+G_BS1_STEPS = 16             # ... and greedy steps, split and unsplit
 SRC = "infinitensor_tpu_torch/kernels/csrc/"
 TPU = "infinitensor_tpu/kernels/"
 
@@ -566,6 +579,7 @@ def main():
     cases += any_cases(torch, att, fa, pa, cfg, gen, dev, torch.float16)
     cases += prefill_rows(torch, att, fa, pa, cfg, gen, dev)
     cases += any_cases(torch, att, fa, pa, cfg, gen, dev, torch.float32)
+    cases += prefill_any_rows(torch, fa, cfg, gen, dev)
 
     for c in cases:
         with knobs(c.get("env", {})):
@@ -630,6 +644,8 @@ def main():
         for k in (kname, "qmm_group_ln", "qmm_group"):
             if paths[path].get(k, 0) <= 0:
                 fail(f"{k} was never launched on the path {path}")
+    paths[GPT2_BS1] = steps[GPT2_BS1] = gpt2_bs1_path(
+        torch, gpt2, qm, counters, gparams, gcfg, dev, report)
     del gparams
     t_phase = phase(7, t_phase)
 
@@ -768,8 +784,9 @@ def check_and_time(torch, c, counters, flush, bw_copy):
     err = (got.float() - want.float()).abs().max().item()
     ref = want.float().abs().max().item()
     c["max_abs_err"], c["max_abs_ref"] = err, ref
-    if not (math.isfinite(err) and err <= TOL * ref):
-        fail(f"{c['name']} {c['shape']}: max err {err} > {TOL} * {ref}")
+    tol = c.get("tol", TOL)
+    if not (math.isfinite(err) and err <= tol * ref):
+        fail(f"{c['name']} {c['shape']}: max err {err} > {tol} * {ref}")
     c["ms"] = cuda_ms(torch, c["kernel"], 50, flush)
     c["plain_ms"] = cuda_ms(torch, c["plain"], 5, flush)
     c["library_ms"] = cuda_ms(torch, c["library"], 50, flush) \
@@ -781,9 +798,9 @@ def check_and_time(torch, c, counters, flush, bw_copy):
     c["form_ms"], c["form_err"] = {}, {}
     for form, fn in c.get("forms", {}).items():   # the other forms, forced
         e = (fn().float() - want.float()).abs().max().item()
-        if not (math.isfinite(e) and e <= TOL * ref):
+        if not (math.isfinite(e) and e <= tol * ref):
             fail(f"{c['name']} {c['shape']} form {form}: max err {e} > "
-                 f"{TOL} * {ref}")
+                 f"{tol} * {ref}")
         c["form_err"][form] = e
         c["form_ms"][form] = cuda_ms(torch, fn, 50, flush)
     c["bound_ms"] = 1e3 * max(c["bytes"] / HBM_BYTES_S,
@@ -1644,7 +1661,8 @@ def eng_steps(stats):
 def gpt2_cases(torch, qm, att, gcfg, gparams, gen, dev, randn,
                dequantize_weight):
     """Phase 3 rows at the GPT-2 345M serving shapes: qmm_group_ln for
-    w_qkv and w_up at G_SLOTS rows (and w_qkv at 1 row), qmm_group int8 for
+    w_qkv and w_up at G_SLOTS rows and at 1 row (the batch-1 step's K
+    split, beside the unsplit form), qmm_group int8 for
     w_o, w_down and the padded lm_head at G_SLOTS rows, and both dense
     decode-attention kernels at B G_SLOTS, 16 heads of 64, S G_MAXSEQ with
     ragged pos in [16, 313] and NaN (in the scales for int8) past pos."""
@@ -1660,7 +1678,8 @@ def gpt2_cases(torch, qm, att, gcfg, gparams, gen, dev, randn,
     out = []
     for label, rows, wkey, bkey in (("w_qkv", G_SLOTS, "w_qkv", "b_qkv"),
                                     ("w_up", G_SLOTS, "w_up", "b_up"),
-                                    ("w_qkv", 1, "w_qkv", "b_qkv")):
+                                    ("w_qkv", 1, "w_qkv", "b_qkv"),
+                                    ("w_up", 1, "w_up", "b_up")):
         q = layer0[wkey]
         x = randn(rows, dim)
         g, b = vec(0.1, 1.0), vec(0.1, 0.0)
@@ -1668,17 +1687,23 @@ def gpt2_cases(torch, qm, att, gcfg, gparams, gen, dev, randn,
                 * 0.1).to(torch.bfloat16)
         xn, w = qm.layer_norm(x, g, b, eps), dequantize_weight(q)
         mma = qm.ln_form(rows, x.dtype) == "mma"
+
+        def kernel(x=x, g=g, b=b, q=q, bias=bias):
+            return qm.quant_matmul_ln(x, g, b, q, bias=bias, eps=eps)
+
         out.append(dict(
             name="qmm_group_ln_mma" if mma else "qmm_group_ln",
             shape=f"{label} {rows} rows",
-            path=GPT2_BF16, replaces=TPU + "quant_matmul.py:300",
+            path=GPT2_BF16 if mma else GPT2_BS1,
+            replaces=TPU + "quant_matmul.py:300",
             source=SRC + ("quant_matmul_mma.cu" if mma
                           else "quant_matmul_fused.cu"),
-            kernel=lambda x=x, g=g, b=b, q=q, bias=bias:
-                qm.quant_matmul_ln(x, g, b, q, bias=bias, eps=eps),
+            kernel=kernel,
             plain=lambda x=x, g=g, b=b, q=q, bias=bias:
                 qm.qmm_group_ln_plain(x, g, b, q, bias, eps)[
                     :, :q.out_features],
+            # 1 row: the K split, beside the form before it
+            **({} if mma else {"forms": {"unsplit": unsplit(qm, kernel)}}),
             # addmm on rows normalized before the timing; and from the raw
             # rows, F.layer_norm then addmm
             library=lambda xn=xn, w=w, bias=bias: torch.addmm(bias, xn, w),
@@ -2126,6 +2151,110 @@ def gpt2_path(torch, gpt2, sb, counters, gparams, gcfg, dev, report, steps):
         print(f"# {label}: " + json.dumps(res[label]), flush=True)
     report["gpt2_serving"] = res
     return paths
+
+
+def gpt2_bs1_path(torch, gpt2, qm, counters, gparams, gcfg, dev, report):
+    """Phase 7 at batch 1: GPT-2 345M INT8 decode steps after a seeded
+    G_BS1_PROMPT-token prompt, bf16 cache. One eager step launches
+    qmm_group_ln 2L times, each in its K split (qmm_group_ln_split 2L, no
+    tensor-core form); then the step captured as one CUDA graph with the
+    split and with it forced off (qm._SPLITS = 1), each replay timed in
+    turns (split, unsplit, split, unsplit; median of 20 CUDA-event
+    timings, L2 warm as in decode), and G_BS1_STEPS greedy steps of each
+    graph, their tokens equal up to a printed near-tie; a third graph
+    forces only the qmm_group_ln launches unsplit (w_o and w_down keep
+    qmm_group's split). Returns the eager step's launches."""
+    L = gcfg.n_layers
+    gen = torch.Generator(device=dev).manual_seed(SEED + 71)
+    prompt = torch.randint(1, 50000, (1, G_BS1_PROMPT), generator=gen,
+                           device=dev, dtype=torch.int32)
+
+    def start():
+        cache = gpt2.init_gpt2_cache(gcfg, 1, device=dev)
+        logits, _ = gpt2.gpt2_prefill(gparams, gcfg, prompt, cache)
+        tok = torch.argmax(logits[:, -1], -1).to(torch.int32)
+        pos = torch.full((1,), G_BS1_PROMPT, dtype=torch.int32, device=dev)
+        return cache, tok, pos
+
+    cache, tok, pos = start()
+    counters.reset()
+    gpt2.gpt2_decode_step(gparams, gcfg, tok, pos, cache)
+    torch.cuda.synchronize()
+    step = counters.read()
+    if step.get("qmm_group_ln", 0) != 2 * L or \
+            step.get("qmm_group_ln_split", 0) != 2 * L or \
+            step.get("qmm_group_ln_mma", 0):
+        fail(f"{GPT2_BS1}: a step launched {step}; expected qmm_group_ln "
+             f"{2 * L}, all of them split")
+    launch_ln = qm._launch_group_ln
+
+    def ln_unsplit(*args, **kw):
+        qm._SPLITS = 1
+        try:
+            return launch_ln(*args, **kw)
+        finally:
+            qm._SPLITS = None
+
+    def captured(splits, ln_only=False):
+        """(graph, tok, pos, logits) of one decode step captured with
+        qm._SPLITS = splits (ln_only: for the qmm_group_ln launches only),
+        from a fresh prefill."""
+        if ln_only:
+            qm._launch_group_ln = ln_unsplit
+        else:
+            qm._SPLITS = splits
+        try:
+            cache, tok, pos = start()
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                gpt2.gpt2_decode_step(gparams, gcfg, tok, pos, cache)
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                logits, _ = gpt2.gpt2_decode_step(gparams, gcfg, tok, pos,
+                                                  cache)
+        finally:
+            qm._SPLITS = None
+            qm._launch_group_ln = launch_ln
+        return graph, tok, pos, logits
+
+    # "ln_unsplit": qmm_group_ln unsplit, w_o and w_down still split;
+    # "unsplit": every split forced off (qm._SPLITS = 1)
+    forms = {"split": captured(None), "ln_unsplit": captured(1, True),
+             "unsplit": captured(1)}
+    tokens = {}
+    for name, (graph, tok, pos, logits) in forms.items():
+        got = []
+        for _ in range(G_BS1_STEPS):
+            graph.replay()
+            tok.copy_(torch.argmax(logits, -1).to(torch.int32))
+            pos.add_(1)
+            got.append(int(tok))
+        tokens[name] = got
+    ms = {name: [] for name in forms}
+    for _ in range(2):
+        for name, (graph, *_) in forms.items():
+            ms[name].append(cuda_ms(torch, graph.replay, 20))
+    ref_cache = gpt2.init_gpt2_cache(gcfg, 1, device=dev)
+
+    def tie_gap(prefix, a, b):
+        toks = torch.tensor([prefix], dtype=torch.int32, device=dev)
+        last = gpt2.gpt2_prefill(gparams, gcfg, toks, ref_cache)[0][0, -1]
+        return abs(float(last[a] - last[b])) / float(last.abs().max())
+
+    ties = {other: same_up_to_ties(
+        f"{GPT2_BS1}: split vs {other} graph", [tokens["split"]],
+        [tokens[other]], [prompt[0].tolist()], tie_gap, G_TIE)
+        for other in ("ln_unsplit", "unsplit")}
+    res = {"launches_per_step": step,
+           "step_ms": {name: min(v) for name, v in ms.items()},
+           "step_ms_in_turns": ms, "tokens": tokens["split"],
+           "near_ties": ties}
+    print(f"# {GPT2_BS1}: " + json.dumps(res), flush=True)
+    report["gpt2_bs1"] = res
+    del forms
+    return step
 
 
 def variant_path(torch, llama, counters, params, cfg, dev, report, steps,
@@ -2784,6 +2913,8 @@ def longformer_path(torch, GraphHandler, DataType, GraphExecutor, counters,
 ANY_DTYPES = ("bf16", "f16", "f32")
 ANY_HEAD_DIMS = (8, 16, 64, 72, 96, 128, 136, 256)
 ANY_SRC = SRC + "attention_any.cuh"
+PREFILL_ANY_SRC = SRC + "flash_attention_any.cuh"
+F32_TOL = 1e-5               # f32 attention vs its f32 plain version
 NO_PATH = "no main path"     # rows of forms no phase's path runs
 
 
@@ -2936,8 +3067,13 @@ def any_cases(torch, att, fa, pa, cfg, gen, dev, dt):
             forms["any"] = old_body(torch, att, fa, pa, c["kernel"])
         else:
             c["library"] = c["library"] and no_tf32(torch, c["library"])
+        if f32:
+            c["plain"] = no_tf32(torch, c["plain"])
+            if base == "flash_attention":
+                c["tol"] = F32_TOL
         return dict(name=base if fast else base + "_any",
-                    source=SRC + src if fast else ANY_SRC,
+                    source=SRC + src if fast else
+                    PREFILL_ANY_SRC if base == "flash_attention" else ANY_SRC,
                     path=NO_PATH if f32 else path, kind=kind, forms=forms,
                     **c)
 
@@ -3076,6 +3212,37 @@ def prefill_rows(torch, att, fa, pa, cfg, gen, dev):
             bytes=4 * qa.numel() * qa.element_size(),
             ops=4 * H * (SHORT * (SHORT + 1) // 2) * d,
             kind="bf16" if dt == torch.bfloat16 else "f16"))
+    return cases
+
+
+def prefill_any_rows(torch, fa, cfg, gen, dev):
+    """Phase 3 rows of the any-type prefill (flash_attention_any, no main
+    path) beside SDPA: f32 causal 1 x 32 x 1024 x 128 (the 7B prompt's
+    attention in f32; the plain version and SDPA in f32, TF32 off; held
+    within F32_TOL of max|plain|), and bf16 causal 1 x 32 x SHORT x 256,
+    the 16-bit head dims the tensor-core kernel does not take."""
+    H = cfg.n_heads
+    cases = []
+    for dt, S, D in ((torch.float32, PROMPT, cfg.head_dim),
+                     (torch.bfloat16, SHORT, 256)):
+        f32 = dt == torch.float32
+        qa, ka, va = (torch.randn(1, H, S, D, generator=gen, device=dev)
+                      .to(dt) for _ in range(3))
+        plain = lambda qa=qa, ka=ka, va=va: fa.mha_plain(qa, ka, va, True)
+        library = lambda qa=qa, ka=ka, va=va: torch.nn.functional \
+            .scaled_dot_product_attention(qa, ka, va, is_causal=True)
+        cases.append(dict(
+            name="flash_attention_any", path=NO_PATH,
+            shape=f"{'f32' if f32 else 'bf16'} causal 1x{H}x{S}x{D}",
+            replaces=TPU + "flash_attention.py:37", source=PREFILL_ANY_SRC,
+            kernel=lambda qa=qa, ka=ka, va=va: fa.flash_attention(
+                qa, ka, va, causal=True),
+            plain=no_tf32(torch, plain) if f32 else plain,
+            library=no_tf32(torch, library) if f32 else library,
+            bytes=4 * qa.numel() * qa.element_size(),
+            ops=4 * H * (S * (S + 1) // 2) * D,
+            kind="f32" if f32 else "bf16",
+            **({"tol": F32_TOL} if f32 else {})))
     return cases
 
 

@@ -1,17 +1,17 @@
-// The any-type attention body (sm_90a): the form the attention wrappers
-// launch for what the fast 16-bit kernels do not take. In decode
+// The any-type decode attention body (sm_90a): the form the decode
+// wrappers launch for what the fast 16-bit kernels do not take
 // (flash_decode.cuh includes it for the dense and paged kernels,
-// flash_decode.cu, paged_flash_decode.cu) that is an f32 q or cache, a q
-// type other than a 16-bit cache's, and a head dim other than 64 or 128;
-// in prefill (flash_attention.cu) f32 q, k, v and head dims 136 to 256.
+// flash_decode.cu, paged_flash_decode.cu): an f32 q or cache, a q type
+// other than a 16-bit cache's, and a head dim other than 64 or 128. The
+// any-type prefill is flash_attention_any.cuh.
 //
 // What it takes, as the TPU kernels do (infinitensor_tpu/kernels/
-// attention.py:294-345, flash_attention.py:37-86, paged_attention.py:
-// 115-164): q in bf16, f16 or f32 (a run-time kind, read once into shared
-// memory as f32); a float cache (or page pool, or k / v) in bf16, f16 or
-// f32, or int8 with f32 row scales (the template type T); any head dim D
-// from 8 to 256 that is a multiple of 8, at run time. The math is f32 and
-// the result is written in q's type.
+// attention.py:294-345, paged_attention.py:115-164): q in bf16, f16 or
+// f32 (a run-time kind, read once into shared memory as f32); a float
+// cache (or page pool) in bf16, f16 or f32, or int8 with f32 row scales
+// (the template type T); any head dim D from 8 to 256 that is a multiple
+// of 8, at run time. The math is f32 and the result is written in q's
+// type.
 //
 // Design, kept simple (CUDA cores, no tensor cores): a block of kThreads =
 // 128 threads (4 warps) stages a tile of kTile = 32 key rows of K and V in
@@ -33,11 +33,6 @@
 // The INT8 scales fold in as the TPU kernel folds them: score = q . k *
 // (ks * 1/sqrt(D)), p * vs before the PV product, l summed from p.
 //
-// Prefill (flash_attention_any): a block owns kQRows = 16 query rows of
-// one (batch, head), 4 a warp, q pre-scaled by 1/sqrt(D) in shared
-// memory, and walks the key tiles up to its last row when causal; the
-// output is acc / max(l, 1e-30), as in the TPU kernel.
-//
 // What bounds it: the bytes of the live K and V rows, as the fast forms;
 // this form spends more instructions per byte (f32 staging, a shuffle per
 // key per query row) and is timed against them in chip_smoke.py phase 3.
@@ -54,7 +49,6 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kTile = 32;        // key rows a tile (a lane each)
 constexpr int kMaxD = 256;
 constexpr int kCols = kMaxD / 32;   // accumulator columns a lane, at most
-constexpr int kQRows = 16;       // prefill: query rows a block (4 a warp)
 
 // The kind (common.cuh) of a float element type.
 template <typename T>
@@ -366,83 +360,6 @@ int dispatch_decode_kind(const void* q, int q_kind, const void* k, const void* v
   ITT_ANY_KIND(kXF32, float) ITT_ANY_KIND(kCacheI8, int8_t)
 #undef ITT_ANY_KIND
   return (int)cudaErrorInvalidValue;
-}
-
-// q / k / v / o [BH, S, D] of the type T; o = softmax(q k^T * scale
-// (masked to key <= query when CAUSAL)) v, f32 inside.
-template <typename T, bool CAUSAL>
-__global__ void __launch_bounds__(kThreads)
-prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
-               const T* __restrict__ v, T* __restrict__ o, int S, int D,
-               float scale) {
-  constexpr int RPW = kQRows / kWarps;
-  extern __shared__ float smem[];
-  float* qs = smem;                           // [kQRows][D], scaled
-  float* kt = qs + kQRows * D;                // [kTile][D + 1]
-  float* vt = kt + kTile * (D + 1);           // [kTile][D]
-  float* sk = vt + kTile * D;                 // [kTile]: 1
-  const size_t base = (size_t)blockIdx.x * S * D;
-  const int q0 = blockIdx.y * kQRows;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  for (int i = tid; i < kQRows * D; i += kThreads) {
-    const int r = q0 + i / D;
-    qs[i] = r < S ? load_kind(q, kind_of<T>(), base + (size_t)r * D + i % D) * scale : 0.f;
-  }
-  int qrow[RPW], qi[RPW];
-  bool live[RPW];
-  float m[RPW], l[RPW], acc[RPW][kCols];
-#pragma unroll
-  for (int j = 0; j < RPW; ++j) {
-    qrow[j] = warp * RPW + j;
-    qi[j] = q0 + qrow[j];
-    live[j] = qi[j] < S;
-    m[j] = neg_inf();
-    l[j] = 0.f;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[j][c] = 0.f;
-  }
-  const int kend = CAUSAL ? min(S, q0 + kQRows) : S;
-  for (int t0 = 0; t0 < kend; t0 += kTile) {
-    const int n = min(kTile, kend - t0);
-    __syncthreads();
-    stage_tile<T>(k, v, nullptr, nullptr, n, D, 1.f,
-                  [&](int i) -> size_t { return (size_t)blockIdx.x * S + t0 + i; },
-                  kt, vt, sk, nullptr);
-    __syncthreads();
-    attend<RPW, false>(qs, kt, vt, sk, nullptr, n, D, qrow, live,
-                       [&](int key, int j) { return !CAUSAL || t0 + key <= qi[j]; },
-                       m, l, acc);
-  }
-#pragma unroll
-  for (int j = 0; j < RPW; ++j) {
-    if (!live[j]) continue;
-    const float lj = fmaxf(l[j], 1e-30f);
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      const int col = lane + 32 * c;
-      if (col < D) store_kind(o, kind_of<T>(), base + (size_t)qi[j] * D + col, acc[j][c] / lj);
-    }
-  }
-}
-
-__host__ __device__ constexpr size_t prefill_smem_floats(int D) {
-  return (size_t)kQRows * D + (size_t)kTile * (2 * D + 1) + kTile;
-}
-
-template <typename T, bool CAUSAL>
-cudaError_t launch_prefill(const void* q, const void* k, const void* v, void* o,
-                           int BH, int S, int D, float scale, cudaStream_t stream) {
-  static SmemGrant granted;
-  auto kernel = prefill_kernel<T, CAUSAL>;
-  const size_t smem = sizeof(float) * prefill_smem_floats(D);
-  const cudaError_t e = allow_smem(kernel, smem, &granted);
-  if (e != cudaSuccess) return e;
-  const int q_tiles = (S + kQRows - 1) / kQRows;
-  if (q_tiles > 65535) return cudaErrorInvalidValue;
-  kernel<<<dim3(BH, q_tiles), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), S, D, scale);
-  return cudaGetLastError();
 }
 
 }  // namespace attention_any

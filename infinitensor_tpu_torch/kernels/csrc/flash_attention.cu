@@ -69,13 +69,13 @@
 // spills). nvcc -Xptxas -v prints the registers and spills in the build
 // log (chip_smoke.py phase 2).
 //
-// flash_attention_any is the any-type form (attention_any.cuh), on the
-// CUDA cores: q, k and v all bf16, f16 or f32, any head dim from 8 to 256
-// that is a multiple of 8, the output in their type. The wrapper takes it
-// for what the kernel above does not take: f32 (the tensor cores would
+// flash_attention_any is the any-type form (flash_attention_any.cuh), on
+// the CUDA cores: q, k and v all bf16, f16 or f32, any head dim from 8 to
+// 256 that is a multiple of 8, the output in their type. The wrapper takes
+// it for what the kernel above does not take: f32 (the tensor cores would
 // take it only as TF32, not the f32 math of the TPU kernel), and D 136
 // to 256.
-#include "attention_any.cuh"
+#include "flash_attention_any.cuh"
 #include "mma_tile.cuh"
 
 namespace {
@@ -369,7 +369,7 @@ ITT_EXPORT int flash_attention(const void* q, const void* k, const void* v,
 ITT_EXPORT int flash_attention_any(const void* q, const void* k, const void* v,
                                    void* o, int kind, int BH, int S, int D,
                                    int causal, float scale, void* stream) {
-  using attention_any::launch_prefill;
+  using prefill_any::launch_prefill;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (BH <= 0 || S <= 0 || D < 8 || D > attention_any::kMaxD || D % 8)
     return (int)cudaErrorInvalidValue;

@@ -44,10 +44,12 @@
 //    writes its f32 partial sums to part[z]; a second pass sums the
 //    partials in z order and rounds to bf16 once.
 //
-// KSPLIT, the split form of a short grid (the forms without a prologue:
-// kGroupDots for qmm_group / qmm_slab, kDequant for qmm_chunk). At one row
-// wo and w_down (dout 4096) are 32 column tiles: 32 blocks on 132 SMs,
-// each walking all of K, so the launch was held by 32 SMs' load rate.
+// KSPLIT, the split form of a short grid (kGroupDots for qmm_group /
+// qmm_slab, kDequant for qmm_chunk, both without a prologue; kGroupDots
+// with the LayerNorm prologue for qmm_group_ln). At one row wo and w_down
+// (dout 4096) are 32 column tiles: 32 blocks on 132 SMs, each walking all
+// of K, so the launch was held by 32 SMs' load rate (GPT-2's w_qkv and
+// w_up at one row: 24 and 32).
 // Here ns = gridDim.z blocks share one tile of 128 columns and one row
 // block and split K between them: block z takes the work items
 // [z nu / ns, (z + 1) nu / ns) of nu = packed rows / unit, a work item
@@ -61,9 +63,13 @@
 // block of the tile to arrive (a counter per tile, counters[], which that
 // block sets back to 0, so the counters stay zero between launches and
 // one buffer serves every launch on a stream) sums part[0 .. ns - 1] in z
-// order and writes the tile. No atomics on the values: results repeat
-// bit for bit, in one launch. The split count comes from the shapes only
-// (the wrapper's group_splits), so one captured graph serves every step.
+// order and writes the tile. With the LayerNorm prologue every block
+// takes the row's statistics over all of din (a 2 KB row at GPT-2's
+// width, from L2) and normalizes only its own slice of x; the last block
+// rounds the sum to bf16 and adds the bias as write_out does. No atomics
+// on the values: results repeat bit for bit, in one launch. The split
+// count comes from the shapes only (the wrapper's group_splits), so one
+// captured graph serves every step.
 // A thread-block cluster meeting in distributed shared memory was tried
 // first and was slower on the H100: most of the gap was the cluster
 // launch itself (PERF.md §6).
@@ -179,6 +185,48 @@ __device__ __forceinline__ float layer_norm_value(float v, float mu,
       load_scale(nb, norm_bf16, k)));
 }
 
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
+}
+
+// The LayerNorm split form's block, before its prologue: ask L2 for the
+// 128-byte lines it will read after the row statistics and their
+// barriers (its packed weight rows k0 .. k0 + span of columns blockIdx.x
+// * kCols + 128, their scale rows, the gamma and beta of its x slice), so
+// that their device-memory latency overlaps the statistics instead of
+// following them (the forms without a prologue, timed with it on the
+// H100, gained nothing).
+template <int BITS, bool PAIRED>
+__device__ __forceinline__ void prefetch_slice(
+    const int8_t* qw, const void* sc, bool sc_bf16, const void* nw,
+    const void* nb, bool norm_bf16, int dout_p, int krows, int group, int k0,
+    int span, int tid, int nthr) {
+  const int col0 = blockIdx.x * kCols;
+  const int ssz = sc_bf16 ? 2 : 4;
+  const int g0 = k0 / group, ng = (k0 + span - 1) / group - g0 + 1;
+  const int sl = (kCols * ssz + 127) / 128;          // lines a scale row
+  const int nsc = (BITS == 4 && !PAIRED ? 2 : 1) * ng * sl;
+  for (int i = tid; i < span + nsc; i += nthr) {
+    if (i < span) {
+      prefetch_l2(qw + (size_t)(k0 + i) * dout_p + col0);
+    } else {
+      const int j = i - span, c = j / sl % ng, h = j / (sl * ng);
+      const size_t row = (size_t)(h ? krows / group + g0 + c : g0 + c);
+      if (col0 + 128 * (j % sl) / ssz < dout_p)
+        prefetch_l2(static_cast<const char*>(sc) + (row * dout_p + col0) * ssz +
+                    128 * (j % sl));
+    }
+  }
+  const int nsz = norm_bf16 ? 2 : 4;
+  const int nl = (span * nsz + 127) / 128;           // lines a slice
+  const int halves = BITS == 4 ? 2 : 1;
+  for (int i = tid; i < 2 * halves * nl; i += nthr) {
+    const int h = i / (2 * nl), j = i % nl;
+    const char* base = static_cast<const char*>(i / nl % 2 ? nb : nw);
+    prefetch_l2(base + (size_t)(h * krows + k0) * nsz + 128 * j);
+  }
+}
+
 // bf16 of the f32 product of a weight value and its scale (kDequant).
 __device__ __forceinline__ float scaled_bf16(float v, float s) {
   return round_bf16(__fmul_rn(v, s));
@@ -210,8 +258,8 @@ qmm_group_kernel(const void* __restrict__ x,
   static_assert(MODE != kSplitK || PRO == kNoNorm, "split-K has no prologue");
   static_assert(XK == kXBf16 || PRO == kNoNorm,
                 "only a bf16 x takes a prologue");
-  static_assert(!KSPLIT || (PRO == kNoNorm && MODE != kSplitK),
-                "the split form is for the forms without a prologue");
+  static_assert(!KSPLIT || (PRO != kRmsNorm && MODE != kSplitK),
+                "the split form takes no RMSNorm prologue");
   constexpr bool SLICE = MODE == kSplitK || KSPLIT;    // a slice of K
   extern __shared__ float smem[];
   const int krows = BITS == 4 ? din / 2 : din;   // stored (packed) rows
@@ -238,6 +286,9 @@ qmm_group_kernel(const void* __restrict__ x,
   const int tid = warp * kLanes + lane, nthr = kLanes * kWarps;
   const int row0 = blockIdx.y * R;
   const int nrows = min(R, rows - row0);
+  if constexpr (KSPLIT && PRO == kLayerNorm)
+    prefetch_slice<BITS, PAIRED>(qw, sc, sc_bf16, nw, nb, norm_bf16, dout_p,
+                                 krows, group, k0, span, tid, nthr);
 
   for (int r = 0; r < R; ++r) {
     const size_t xr = (size_t)(row0 + r) * din;    // the row's first x
@@ -263,9 +314,9 @@ qmm_group_kernel(const void* __restrict__ x,
       float v = load_x<XK>(x, xr + src);
       if (PRO == kRmsNorm)
         v = round_bf16(round_bf16(v * rinv) *
-                       bf16_to_f32(static_cast<const __nv_bfloat16*>(nw)[k]));
+                       bf16_to_f32(static_cast<const __nv_bfloat16*>(nw)[src]));
       if (PRO == kLayerNorm)
-        v = layer_norm_value(v, mu, rinv, nw, nb, norm_bf16, k);
+        v = layer_norm_value(v, mu, rinv, nw, nb, norm_bf16, src);
       xs[r * xw + k] = v;
     }
   }
@@ -373,6 +424,10 @@ qmm_group_kernel(const void* __restrict__ x,
       float s = 0.f;
       for (int z = 0; z < ns; ++z)
         s += __ldcg(part + ((size_t)z * rows + row0 + r) * dout_p + n);
+      if (PRO == kLayerNorm) {   // as write_out: bf16, + bias in f32
+        const float b = n < nbias ? load_scale(bias, bias_bf16, n) : 0.f;
+        s = __fadd_rn(round_bf16(s), b);
+      }
       store_out<XK>(out, (size_t)(row0 + r) * dout_p + n, s);
     }
     if (tid == 0) *count = 0;
@@ -412,19 +467,25 @@ cudaError_t launch_group(const void* x, const void* nw, const void* nb,
   return cudaGetLastError();
 }
 
-// The split form of a launch of the forms without a prologue: ns blocks
-// (2 to 64) split the packed rows of each 128-column tile and row block;
-// see KSPLIT above. R rows per block (1, 2 or 4); unit rows per work item,
-// halved from the group (while a multiple of 16) until a block holds
-// kWarps items. part f32 [ns, rows, dout_p] is scratch; counters int32
-// [tiles * row blocks] must be zero, and are zero again after the launch.
-template <int BITS, int R, bool PAIRED, int MODE, int XK>
+// The split form of a launch without a prologue or (PRO = kLayerNorm,
+// with gamma nw, beta nb, the bias and eps as for the unsplit form) with
+// the LayerNorm one: ns blocks (2 to 64) split the packed rows of each
+// 128-column tile and row block; see KSPLIT above. R rows per block (1, 2
+// or 4); unit rows per work item, halved from the group (while a multiple
+// of 16) until a block holds kWarps items. part f32 [ns, rows, dout_p] is
+// scratch; counters int32 [tiles * row blocks] must be zero, and are zero
+// again after the launch.
+template <int BITS, int R, bool PAIRED, int MODE, int XK, int PRO = kNoNorm>
 cudaError_t launch_ksplit(const void* x, const void* qw, const void* sc,
                           bool sc_bf16, void* out, int rows, int din,
                           int dout_p, int group, int ns, float* part,
-                          int* counters, cudaStream_t stream) {
+                          int* counters, cudaStream_t stream,
+                          const void* nw = nullptr, const void* nb = nullptr,
+                          bool norm_bf16 = true, const void* bias = nullptr,
+                          bool bias_bf16 = false, int nbias = 0,
+                          float eps = 0.f) {
   static SmemGrant granted;
-  auto kernel = qmm_group_kernel<BITS, R, kNoNorm, PAIRED, MODE, XK, true>;
+  auto kernel = qmm_group_kernel<BITS, R, PRO, PAIRED, MODE, XK, true>;
   const int krows = BITS == 4 ? din / 2 : din;
   if (ns < 2 || ns > 64 || group <= 0 || krows % group || krows / group < ns ||
       !part || !counters)
@@ -439,9 +500,9 @@ cudaError_t launch_ksplit(const void* x, const void* qw, const void* sc,
   if (e != cudaSuccess) return e;
   dim3 grid((dout_p + kCols - 1) / kCols, (rows + R - 1) / R, ns);
   kernel<<<grid, dim3(kLanes, kWarps), smem, stream>>>(
-      x, nullptr, nullptr, true, static_cast<const int8_t*>(qw), sc, sc_bf16,
-      nullptr, false, 0, out, rows, din, dout_p, group, 0.f, kb, unit, part,
-      counters);
+      x, nw, nb, norm_bf16, static_cast<const int8_t*>(qw), sc, sc_bf16,
+      bias, bias_bf16, nbias, out, rows, din, dout_p, group, eps, kb, unit,
+      part, counters);
   return cudaGetLastError();
 }
 

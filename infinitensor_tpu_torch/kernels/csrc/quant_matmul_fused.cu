@@ -9,13 +9,13 @@
 //
 // qmm_group_ln is GPT-2 decode's pre-matmul pattern in one launch:
 // LayerNorm(x; gamma, beta), the int8 (or unpaired int4) group dots, and
-// the output bias. What bounds it on this card: at 64 rows of 1024
-// features the weights are 3-4 MB (w_qkv 3.15 MB, w_up 4.19 MB with f32
-// scales), about 0.001 ms of device memory, and 0.4-0.5 GFLOP, less than
-// that of tensor-core time: a launch is latency-bound, and this kernel runs
-// it as f32 FMAs, 16 blocks of 4 rows re-reading each weight tile from L2
-// with only 8 of the block's 16 warps owning a scale group. Both are left
-// for the redesign (a tensor-core form for tens of rows).
+// the output bias. What bounds it on this card: the weights are 3-4 MB
+// (w_qkv 3.15 MB, w_up 4.19 MB with f32 scales), about 0.001 ms of device
+// memory; at 64 rows 0.4-0.5 GFLOP, less than that of tensor-core time.
+// A launch is latency-bound. From 2 rows the wrapper takes the
+// tensor-core form (quant_matmul_mma.cu); at one row GPT-2's w_qkv and
+// w_up are 24 and 32 column tiles, so this kernel takes the K split of a
+// short grid (quant_matmul.cuh, KSPLIT), LayerNorm and bias included.
 //
 // qmm_slab reads a PAIRED int4 weight (quantize_weight(paired=True): one
 // scale row covers both split halves of a group). The TPU kernel takes one
@@ -34,13 +34,29 @@ ITT_DEFINE_ERROR_STRING()
 // f32; qw int8 [din/2 or din,
 // dout_p]; sc bf16/f32 [ng, dout_p] (int4: ng even, unpaired); bias bf16 or
 // f32 [nbias], nbias <= dout_p, or null with nbias 0; out bf16
-// [rows, dout_p] = bf16(bf16(LN(x) @ W) + bias).
+// [rows, dout_p] = bf16(bf16(LN(x) @ W) + bias). splits > 1: the split
+// form of quant_matmul.cuh (KSPLIT) with the LayerNorm prologue, with
+// part and counters as for qmm_group (GPT-2's w_qkv and w_up at one row).
 ITT_EXPORT int qmm_group_ln(const void* x, const void* gamma, const void* beta,
                             int norm_bf16, const void* qw, const void* sc, int sc_bf16,
                             const void* bias, int bias_bf16, int nbias,
                             void* out, int rows, int din, int dout_p, int bits,
-                            int group, float eps, void* stream) {
+                            int group, float eps, int splits, void* part,
+                            void* counters, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (splits > 1) {
+    const int R = ksplit_rows(rows);
+#define ITT_QMM_LN_KS(B, RR)                                                  \
+  if (bits == B && R == RR)                                                   \
+    return (int)launch_ksplit<B, RR, false, kGroupDots, kXBf16, kLayerNorm>(  \
+        x, qw, sc, sc_bf16, out, rows, din, dout_p, group, splits,            \
+        static_cast<float*>(part), static_cast<int*>(counters), s, gamma,     \
+        beta, norm_bf16, bias, bias_bf16, nbias, eps);
+    ITT_QMM_LN_KS(4, 1) ITT_QMM_LN_KS(4, 2) ITT_QMM_LN_KS(4, 4)
+    ITT_QMM_LN_KS(8, 1) ITT_QMM_LN_KS(8, 2) ITT_QMM_LN_KS(8, 4)
+#undef ITT_QMM_LN_KS
+    return (int)cudaErrorInvalidValue;
+  }
   const int R = rows_per_block(rows, sizeof(float) * din);
   if (group_smem(R, din) > kSmemMax) return (int)cudaErrorInvalidValue;
 #define ITT_QMM_LN(B, RR)                                                     \

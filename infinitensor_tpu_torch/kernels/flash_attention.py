@@ -9,10 +9,10 @@ kernel here masks the ragged tail itself, so every S takes it.
 Two forms on the card (attention.fast_prefill chooses): bf16 or f16 q, k,
 v at a head dim up to 128 (a multiple of 8) take the tensor-core kernel;
 f32, or a head dim from 136 to 256, take the any-type form,
-csrc/attention_any.cuh (flash_attention_any), as the TPU kernel takes any
-float type and head dim and writes q's dtype. launches["flash_attention"]
-counts both forms and launches["flash_attention_any"] the any-type one
-again.
+csrc/flash_attention_any.cuh (flash_attention_any: register-tiled products
+on the CUDA cores), as the TPU kernel takes any float type and head dim
+and writes q's dtype. launches["flash_attention"] counts both forms and
+launches["flash_attention_any"] the any-type one again.
 """
 
 from __future__ import annotations

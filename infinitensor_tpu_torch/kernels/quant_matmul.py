@@ -37,12 +37,14 @@ launches[name] counts both forms of a kernel and launches[name + "_mma"]
 the tensor-core one again (qmm_group_ln_mma for qmm_group_ln).
 
 A CUDA-core launch of qmm_group, qmm_slab or qmm_chunk without a fused
-norm whose grid is short (wo and w_down at one row are 32 blocks on 132
-SMs) takes the split form (csrc/quant_matmul.cuh, KSPLIT): group_splits
-blocks share each tile and split K, and the tile's last block to finish
-sums their partials in a fixed order, in one launch;
-launches[name + "_split"] counts it again. The split count comes from the
-shapes and the SM count only.
+RMSNorm, or of qmm_group_ln, whose grid is short (wo and w_down at one
+row are 32 blocks on 132 SMs, GPT-2's w_qkv and w_up 24 and 32) takes the
+split form (csrc/quant_matmul.cuh, KSPLIT): group_splits blocks share
+each tile and split K (with the LayerNorm, each takes the row's
+statistics and normalizes its own slice), and the tile's last block to
+finish sums their partials in a fixed order (then the bias), in one
+launch; launches[name + "_split"] counts it again. The split count comes
+from the shapes and the SM count only.
 
 Each has a plain PyTorch version here that computes the same function step
 by step (`*_plain`). A wrapper given a CPU tensor runs the plain version;
@@ -125,7 +127,7 @@ MMA_MIN_ROWS = 2
 W4A8_MMA_MIN_ROWS = 3
 SPLIT_MAX = 8                   # blocks a tile of the split form
 _SPLITS = None                  # when set, the split count of every launch
-#                                 of the three kernels (1: the unsplit form)
+#                                 of the four kernels (1: the unsplit form)
 _COUNTERS = {}                  # (device, stream) -> (capture id, counters)
 X_KINDS = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 
@@ -453,7 +455,8 @@ def _lib_fused() -> ctypes.CDLL:
     P, I, F = _build.P, _build.I, _build.F
     return _build.typed(
         "quant_matmul_fused",
-        qmm_group_ln=[P, P, P, I, P, P, I, P, I, I, P, I, I, I, I, I, F, P],
+        qmm_group_ln=[P, P, P, I, P, P, I, P, I, I, P, I, I, I, I, I, F, I, P,
+                      P, P],
         qmm_slab=[P, I, P, P, P, I, P, I, I, I, I, I, F, I, P, P, P])
 
 
@@ -567,10 +570,11 @@ def _split_rows(rows: int) -> int:
 def group_splits(rows: int, dout_p: int, krows: int, group: int, sms: int
                  ) -> int:
     """The split count of a CUDA-core launch of qmm_group, qmm_slab or
-    qmm_chunk without a norm (1: the unsplit form): the largest power of
-    two that keeps column tiles x row blocks x splits within twice the
-    SMs (a 1- or 2-row block fits twice an SM), at most SPLIT_MAX and at
-    most the scale groups (packed rows // group). Past that a second wave
+    qmm_chunk without a norm, or of qmm_group_ln (1: the unsplit form):
+    the largest power of two that keeps column tiles x row blocks x
+    splits within twice the SMs (a 1- or 2-row block fits twice an SM),
+    at most SPLIT_MAX and at most the scale groups (packed rows //
+    group). Past that a second wave
     costs more than the split gains. A 4-row block (4 rows and more) is
     not split: at 8 rows the split lost to the unsplit form on wo and
     w_down (chip_smoke.py phase 3's split crossover), its partials being
@@ -588,7 +592,7 @@ def group_splits(rows: int, dout_p: int, krows: int, group: int, sms: int
 
 
 def _split_plan(x2: torch.Tensor, q: QuantizedLinear) -> tuple:
-    """(splits, part, counters) of a launch of the three kernels on this
+    """(splits, part, counters) of a launch of the four kernels on this
     card: _SPLITS where set, else group_splits; for the split form its
     f32 partials [splits, rows, dout_p] and _counters, else None, None."""
     rows, dout_p = x2.shape[0], q.out_physical
@@ -706,7 +710,8 @@ def _launch_slab(x2, norm_w, q, eps: float, name: str) -> torch.Tensor:
 def _launch_group_ln(x2, gamma, beta, q, bias, eps: float,
                      form: Optional[str] = None) -> torch.Tensor:
     """qmm_group_ln in the form ln_form chooses; `form` forces "mma" or
-    "cuda_core" (tests and chip_smoke.py's side-by-side timing only)."""
+    "cuda_core" (tests and chip_smoke.py's side-by-side timing only). The
+    CUDA-core form takes _split_plan's K split on a short grid."""
     _check_cuda(x2, q)
     for name, t in (("gamma", gamma), ("beta", beta), ("bias", bias)):
         if t is not None and (t.device != x2.device
@@ -719,6 +724,7 @@ def _launch_group_ln(x2, gamma, beta, q, bias, eps: float,
                          f"f32, at most {q.out_physical} columns")
     if (form or ln_form(x2.shape[0], x2.dtype)) == "mma":
         return _launch_group_ln_mma(x2, gamma, beta, q, bias, eps)
+    splits, part, counters = _split_plan(x2, q)
     out, lib, p = _out(x2, q), _lib_fused(), _build.ptr
     err = lib.qmm_group_ln(
         p(x2), p(gamma), p(beta), gamma.dtype == torch.bfloat16,
@@ -726,9 +732,9 @@ def _launch_group_ln(x2, gamma, beta, q, bias, eps: float,
         q.scales.dtype == torch.bfloat16, p(bias),
         bias is not None and bias.dtype == torch.bfloat16,
         0 if bias is None else bias.shape[-1], p(out), x2.shape[0],
-        x2.shape[1], q.out_physical, q.bits, q.group_size, eps,
-        _build.stream())
-    return _launched(lib, err, "qmm_group_ln", out)
+        x2.shape[1], q.out_physical, q.bits, q.group_size, eps, splits,
+        p(part), p(counters), _build.stream())
+    return _launched_split(lib, err, "qmm_group_ln", out, splits)
 
 
 def _launch_group_ln_mma(x2, gamma, beta, q, bias, eps: float

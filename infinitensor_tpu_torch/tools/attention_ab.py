@@ -1,8 +1,10 @@
-"""The bf16 attention kernels of two checkouts timed in one call, on one
-card: the fast decode, merge, paged and prefill kernels at the shapes of
+"""The attention kernels of two checkouts timed in one call, on one card:
+the fast bf16 decode, merge, paged and prefill kernels at the shapes of
 chip_smoke.py phase 3 (Llama-2-7B: decode at pos 1024, batch 1, MHA 32/32
 and GQA 32/8; the paged step of 8 slots; the 1024-token prompt; GPT-2's
-head dim 64 at 64 slots; entry()'s prompt).
+head dim 64 at 64 slots; entry()'s prompt), and the any-type prefill
+(flash_attention_any) at causal 1 x 32 x 256 x 128 and 1 x 32 x 1024 x
+128 in f32 and 1 x 32 x 256 x 256 in bf16.
 
     python -m infinitensor_tpu_torch.tools.attention_ab OLD_ROOT [NEW_ROOT]
 
@@ -10,7 +12,7 @@ Each root (a checkout's top directory; NEW_ROOT defaults to this one) is
 built first, both at once, then timed in its own process (two libraries
 with the same kernel names in one process fail their launches above 48 KB
 of shared memory), in turns: old, new, new, old. Each process calls only
-the wrappers' bf16 interface, which both checkouts share. A time is the
+the wrappers' interface, which both checkouts share. A time is the
 median of 50 CUDA-event timings after a 1 GB memset (cold L2). Prints the
 card (nvidia-smi name and power limit) and one JSON line {row: {"old":
 [ms, ms], "new": [ms, ms]}}.
@@ -28,8 +30,8 @@ BUILD = "from infinitensor_tpu_torch.kernels import _build; _build.build_all()"
 
 
 def time_rows() -> dict:
-    """{row: ms} of the bf16 attention kernels of the checkout on the
-    import path (seeded inputs, rows past pos never read)."""
+    """{row: ms} of the attention kernels of the checkout on the import
+    path (seeded inputs, rows past pos never read)."""
     import torch
 
     from infinitensor_tpu_torch.kernels import attention as att
@@ -99,6 +101,13 @@ def time_rows() -> dict:
     qkv64 = tuple(rnd(2, 8, 64, 64) for _ in range(3))
     rows["flash_attention causal 2x8x64x64"] = \
         lambda: fa.flash_attention(*qkv64, causal=True)
+    for dt, S, D in ((torch.float32, 256, 128), (torch.float32, 1024, 128),
+                     (bf16, 256, 256)):            # the any-type prefill
+        qkv_any = tuple(torch.randn(1, 32, S, D, generator=gen, device=dev)
+                        .to(dt) for _ in range(3))
+        name = "f32" if dt == torch.float32 else "bf16"
+        rows[f"flash_attention_any {name} causal 1x32x{S}x{D}"] = \
+            lambda a=qkv_any: fa.flash_attention(*a, causal=True)
     return {name: _ms(fn, flush) for name, fn in rows.items()}
 
 

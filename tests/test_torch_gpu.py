@@ -253,6 +253,45 @@ def test_group_ln_kernel(dev, rows, bits, bias_dt):
     _close(got, qm.qmm_group_ln_plain(x, gamma, beta, q, bias, 1e-5)[:, :300])
 
 
+@pytest.mark.parametrize("splits", [1, 2, 4, 8])
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("bias_dt", [None, torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("norm_dt", [torch.bfloat16, torch.float32])
+def test_group_ln_kernel_k_split(dev, splits, bits, bias_dt, norm_dt,
+                                 monkeypatch):
+    """qmm_group_ln at one row in its K split (quant_matmul.cuh KSPLIT with
+    the LayerNorm prologue), the split count forced through _SPLITS (1:
+    the unsplit form), against qmm_group_ln_plain: int8 and unpaired int4,
+    gamma / beta in bf16 and f32, a bias in bf16, f32 or none, padded
+    columns. Unforced, GPT-2's w_qkv shape takes the split (8 on the
+    H100's 132 SMs)."""
+    din = 1024 if bits == 8 else 2048          # 8 scale groups of K or more
+    q = _qlin(dev, din, 300, bits, torch.float32, pad_out=128)
+    x = _x(dev, 1, din) * 3 + 0.5
+    gamma, beta = (t.to(norm_dt) for t in _ln_inputs(dev, din))
+    bias = None if bias_dt is None else \
+        _x(dev, 1, 300, seed=5)[0].to(bias_dt)
+    monkeypatch.setattr(qm, "_SPLITS", splits)
+    before = dict(qm.launches)
+    got = qm.quant_matmul_ln(x, gamma, beta, q, bias=bias, eps=1e-5)
+    torch.cuda.synchronize()
+    assert qm.launches["qmm_group_ln"] == before.get("qmm_group_ln", 0) + 1
+    assert qm.launches["qmm_group_ln_split"] == \
+        before.get("qmm_group_ln_split", 0) + (splits > 1)
+    assert qm.launches["qmm_group_ln_mma"] == before.get("qmm_group_ln_mma", 0)
+    want = qm.qmm_group_ln_plain(x, gamma, beta, q, bias, 1e-5)[:, :300]
+    _close(got, want)
+    # the counters are zero again: a second launch gives the same bits
+    again = qm.quant_matmul_ln(x, gamma, beta, q, bias=bias, eps=1e-5)
+    assert torch.equal(got, again)
+    monkeypatch.setattr(qm, "_SPLITS", None)
+    q3 = _qlin(dev, 1024, 3072, 8, torch.float32)
+    n = qm.launches["qmm_group_ln_split"]
+    qm.quant_matmul_ln(_x(dev, 1, 1024), gamma[:1024], beta[:1024], q3)
+    assert qm.launches["qmm_group_ln_split"] == n + (
+        qm.group_splits(1, 3072, 1024, 128, _build.sms(0)) > 1)
+
+
 def test_group_ln_composition_on_the_card(dev):
     """What the fused kernel does not take runs LayerNorm + a matmul kernel
     (qmm_group, qmm_slab, qmm_chunk; above 256 rows the dequant route) +
@@ -1227,26 +1266,42 @@ def test_flash_decode_merge_any(dev, D, odt):
     _close(got, att.flash_decode_merge_plain(part).to(odt))
 
 
-@pytest.mark.parametrize("S", [1, 77, 200])
+@pytest.mark.parametrize("S", [1, 17, 63, 65, 77, 200, 257])
 @pytest.mark.parametrize("dtype,D", [(torch.float32, 16), (torch.float16, 64),
                                      (torch.bfloat16, 96),
                                      (torch.float16, 96),
                                      (torch.bfloat16, 8),
                                      (torch.float32, 256),
                                      (torch.float16, 136),
-                                     (torch.bfloat16, 256)])
+                                     (torch.bfloat16, 256),
+                                     (torch.float32, 8),
+                                     (torch.float32, 72),
+                                     (torch.float32, 128),
+                                     (torch.float32, 136)])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_any_form(dev, dtype, D, causal, S):
     """flash_attention at every float type and head dim against the plain
     version, in q's dtype; f32 and D 136-256 take the any-type form, a
-    16-bit dtype at D up to 128 the tensor-core kernel."""
+    16-bit dtype at D up to 128 the tensor-core kernel. S crosses the
+    any-type form's 64-row query tile and its 64- (D > 128: 32-) row key
+    tile; B * H = 6. f32 is held within 1e-5 of max|plain| (the plain
+    version in f32, TF32 off: both sides f32, sums in another order)."""
     g = torch.Generator().manual_seed(S + D)
     q, k, v = (torch.randn(2, 3, S, D, generator=g).mul(2).to(dtype).to(dev)
                for _ in range(3))
     before = dict(fa.launches)
     got = fa.flash_attention(q, k, v, causal)
     assert got.dtype == dtype
-    _close(got, fa.mha_plain(q, k, v, causal))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        want = fa.mha_plain(q, k, v, causal)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    _close(got, want)
+    if dtype == torch.float32:
+        err = (got - want).abs().max().item()
+        assert err <= 1e-5 * want.abs().max().item(), err
     assert fa.launches["flash_attention_any"] == \
         before.get("flash_attention_any", 0) + (not att.fast_prefill(dtype, D))
 

@@ -90,6 +90,7 @@ def test_kernel_sources_shipped():
     # the tensor-core tile's pieces
     assert (csrc / "flash_decode.cuh").exists()
     assert (csrc / "attention_any.cuh").exists()
+    assert (csrc / "flash_attention_any.cuh").exists()
     assert (csrc / "quant_matmul.cuh").exists()
     assert (csrc / "mma_tile.cuh").exists()
     # the port's own copy of the tuning table: the keys and columns of the

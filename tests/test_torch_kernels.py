@@ -16,6 +16,7 @@ import json
 import pathlib
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -24,6 +25,7 @@ from infinitensor_tpu.kernels import attention as att
 from infinitensor_tpu.kernels import flash_attention as fa
 from infinitensor_tpu.kernels import paged_attention as pa
 from infinitensor_tpu.kernels import quant_matmul as qm
+from infinitensor_tpu.models import gpt2 as jg
 from infinitensor_tpu.quant.weight_only import QuantizedLinear as JQ
 from infinitensor_tpu.quant.weight_only import quantize_weight
 from infinitensor_tpu.utils.config import config
@@ -32,7 +34,9 @@ from infinitensor_tpu_torch.kernels import attention as tatt
 from infinitensor_tpu_torch.kernels import flash_attention as tfa
 from infinitensor_tpu_torch.kernels import paged_attention as tpa
 from infinitensor_tpu_torch.kernels import quant_matmul as tqm
-from infinitensor_tpu_torch.models.convert import params_from_jax_numpy
+from infinitensor_tpu_torch.models import gpt2 as tg
+from infinitensor_tpu_torch.models.convert import (
+    cache_from_jax_numpy, params_from_jax_numpy)
 
 OUT_TOL = 4e-3
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -961,3 +965,116 @@ def test_group_splits(rows, dout_p, krows, group, splits):
     assert got == splits
     assert got & (got - 1) == 0 and got <= tqm.SPLIT_MAX
     assert got <= max(1, krows // group)
+
+
+# -- qmm_group_ln at one row: the K split of a short grid ------------------
+# GPT-2 345M's fused LayerNorm matmuls (int8, group 128, din 1024) at
+# batch 1 take the CUDA-core form, and its K split from the shapes and the
+# SM count alone (132 on the H100); from MMA_MIN_ROWS rows the
+# tensor-core form, whose plan is mma_plan's.
+
+@pytest.mark.parametrize("rows,dout_p,form,splits", [
+    (1, 3072, "cuda_core", 8),      # w_qkv: 24 tiles -> 192 blocks
+    (1, 4096, "cuda_core", 8),      # w_up: 32 tiles -> 256 blocks
+    (4, 3072, "mma", 1),            # 4 rows and more: no split
+    (4, 4096, "mma", 1),
+    (64, 3072, "mma", 1),
+])
+def test_group_ln_split_plan(rows, dout_p, form, splits):
+    assert tqm.ln_form(rows, torch.bfloat16) == form
+    assert tqm.group_splits(rows, dout_p, 1024, 128, 132) == splits
+
+
+class _FakeLib:
+    """Records the arguments of a qmm_group_ln launch (no card here)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def qmm_group_ln(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+@pytest.mark.parametrize("dout,forced,splits", [
+    (3072, None, 8), (4096, None, 8), (3072, 1, 1), (4096, 2, 2)])
+def test_group_ln_launch_takes_the_split_plan(dout, forced, splits,
+                                              monkeypatch):
+    """The CUDA-core launch of qmm_group_ln passes _split_plan's count
+    (group_splits on the card's SMs, or _SPLITS where set), its f32
+    partials [splits, rows, dout_p] and the tile counters, and counts a
+    split launch again as qmm_group_ln_split. Read through a stand-in for
+    the library: the arguments, not the kernel."""
+    lib = _FakeLib()
+    monkeypatch.setattr(tqm, "_lib_fused", lambda: lib)
+    monkeypatch.setattr(tqm._build, "sms", lambda index: 132)
+    monkeypatch.setattr(tqm._build, "stream", lambda: None)
+    counters = torch.zeros(4096, dtype=torch.int32)
+    monkeypatch.setattr(tqm, "_counters", lambda device, need: counters)
+    monkeypatch.setattr(tqm, "_SPLITS", forced)
+    rng = np.random.default_rng(dout)
+    q = quantize_weight(jnp.asarray(rng.standard_normal((1024, dout)),
+                                    jnp.float32), bits=8, group_size=128)
+    q = _port_q(q)
+    x = torch.from_numpy(rng.standard_normal((1, 1024))).to(torch.bfloat16)
+    g = torch.ones(1024, dtype=torch.bfloat16)
+    b = torch.zeros(1024, dtype=torch.bfloat16)
+    bias = torch.zeros(dout, dtype=torch.bfloat16)
+    before = dict(tqm.launches)
+    tqm._launch_group_ln(x, g, b, q, bias, 1e-5)
+    (args,) = lib.calls
+    assert args[17] == splits                 # splits, then part, counters
+    assert (args[18].value is None) == (splits == 1)
+    assert (args[19].value == counters.data_ptr()) == (splits > 1)
+    assert tqm.launches["qmm_group_ln"] == before.get("qmm_group_ln", 0) + 1
+    assert tqm.launches["qmm_group_ln_split"] == \
+        before.get("qmm_group_ln_split", 0) + (splits > 1)
+
+
+GPT2_TINY = dict(vocab_size=256, dim=128, n_layers=2, n_heads=2, max_seq=64)
+
+
+def test_gpt2_decode_step_at_batch_1_vs_jax():
+    """gpt2_decode_step at batch 1 (on the card its w_qkv and w_up take
+    qmm_group_ln's K split) against the JAX decode step, an int8 model at
+    a tiny config, the JAX side's Pallas kernels in interpret mode: three
+    steps from one prefill, each from the JAX cache, logits within 3e-2 of
+    max|logit| (bf16 activations, int8 weights, sums in another order)
+    and the same argmax or a near-tie within that error."""
+    cfg_j = jg.GPT2Config(**GPT2_TINY)
+    dense = jg.init_gpt2_params(cfg_j, jax.random.PRNGKey(3))
+    rng = np.random.default_rng(13)
+    for layer in dense["layers"]:   # biases and LayerNorm vectors off 0 / 1
+        for k in layer:
+            if k.startswith("b_") or k.endswith("_b"):
+                layer[k] = jnp.asarray(
+                    rng.standard_normal(layer[k].shape) * 0.05, jnp.bfloat16)
+            elif k.endswith("_g"):
+                layer[k] = jnp.asarray(
+                    rng.uniform(0.8, 1.2, layer[k].shape), jnp.bfloat16)
+    params_j = jg.quantize_gpt2_params(dense, bits=8, group_size=128)
+    params_t = params_from_jax_numpy(jax.tree.map(np.asarray, params_j),
+                                     "cpu")
+    cfg_t = tg.GPT2Config(**GPT2_TINY)
+    S = 9
+    tokens = rng.integers(0, cfg_j.vocab_size, (1, S)).astype(np.int32)
+    cache_j = jg.init_gpt2_cache(cfg_j, 1)
+    with config.override(pallas_interpret=True):
+        _, cache_j = jg.gpt2_prefill(params_j, cfg_j, jnp.asarray(tokens),
+                                     cache_j)
+    for step in range(3):
+        cache_t = cache_from_jax_numpy(jax.tree.map(np.asarray, cache_j),
+                                       "cpu")
+        tok = rng.integers(0, cfg_j.vocab_size, (1,)).astype(np.int32)
+        pos = np.asarray([S + step], np.int32)
+        with config.override(pallas_interpret=True):
+            lj, cache_j = jg.gpt2_decode_step(
+                params_j, cfg_j, jnp.asarray(tok), jnp.asarray(pos), cache_j)
+        lt, _ = tg.gpt2_decode_step(params_t, cfg_t, torch.from_numpy(tok),
+                                    torch.from_numpy(pos), cache_t)
+        lt, lj = _f32(lt), _f32(lj)
+        assert lt.shape == lj.shape == (1, cfg_t.vocab_size)
+        err = np.max(np.abs(lt - lj))
+        assert err <= 3e-2 * np.max(np.abs(lj)), (step, err)
+        at, aj = int(lt.argmax()), int(lj.argmax())
+        assert lj[0, aj] - lj[0, at] <= err, (step, at, aj)
