@@ -23,7 +23,11 @@ Phases, each failing with a nonzero exit, each printing its seconds:
      (qmm_w4a8_mma) at the lm_head's SLOTS and SHORT rows, and
      qmm_group_ln's (qmm_group_ln_mma) at GPT-2's w_qkv and w_up at 64
      rows (its library row also from the raw rows: F.layer_norm +
-     addmm), each beside the CUDA-core form in the same call; and the
+     addmm), and qmm_group_norm's (qmm_group_norm_mma, an RMSNorm
+     pre-pass then qmm_group_mma's tile) at wqkv and w_gateup at SLOTS,
+     64 and SHORT rows (beside the tile alone on rows normalized
+     beforehand), each beside the CUDA-core form in the same call, with a
+     crossover of both forms at 1-8 rows; and the
      crossover tables of both forms, forced: qmm_group at 1-8 rows,
      qmm_w4a8 at 1-5, 8, 64 and 256 rows, qmm_group_ln at 1, 8 and
      64 rows (with its tile alone on rows normalized beforehand), which
@@ -87,10 +91,15 @@ Phases, each failing with a nonzero exit, each printing its seconds:
      the paged kernel is launched 32 times per decode step and
      flash_attention 32 times per prefill pass; a decode step at 8 rows
      launches qmm_group_mma 4 x 32 times where MMA_MIN_ROWS <= 8 and
-     qmm_w4a8_mma once where W4A8_MMA_MIN_ROWS <= 8. Prints
-     generated tok/s
-     over the drain, decode ms per step at 8 live slots and the engine's
-     stats slices;
+     qmm_w4a8_mma once where W4A8_MMA_MIN_ROWS <= 8, and the dense
+     engine's step qmm_group_norm_mma and qmm_group_mma 2 x 32 times each.
+     Prints generated tok/s over the drain, decode ms per step at 8 live
+     slots and the engine's stats slices; with the INT8 cache the dense
+     engine's step at 8 live slots (one captured step replayed, CUDA
+     events) with qmm_group_norm in its tensor-core form, forced to the
+     CUDA-core form (qm.group_form patched for the capture) and in its own
+     form again, in turns, and 16 greedy tokens of each equal up to a
+     printed near-tie;
   7. GPT-2 345M INT8 continuous batching at full width and depth (dim
      1024, 24 layers, 16 heads of 64, vocab 50257 with the int8 lm_head
      padded to 51200 columns, max_seq 384), weights made on the card from
@@ -118,9 +127,10 @@ Phases, each failing with a nonzero exit, each printing its seconds:
      (qm._SPLITS = 1), each replay timed in turns, and 16 greedy steps
      of each graph equal up to a printed near-tie;
   8. Llama-2-7B INT4 decode with paired scales (one scale row per pair of
-     split-half groups), INT8 KV, bs=1, ctx 1024: one step with the
-     kernels against the plain versions (CPU), 128 graph-replayed steps
-     with tokens equal to an eager loop, tok/s (min of 3) against the
+     split-half groups), INT8 KV, bs=1, ctx 1024: one step of the first
+     4 layers with the kernels against the plain versions (CPU), 128
+     graph-replayed steps with tokens equal to an eager loop, tok/s (min
+     of 3) against the
      copy-rate roofline with the paired byte count; a token launches
      qmm_slab_norm 64 times, qmm_slab 65, flash_decode_q8 32 and no
      qmm_group, qmm_group_norm or qmm_w4a8;
@@ -174,7 +184,8 @@ Phases, each failing with a nonzero exit, each printing its seconds:
      through the old route, read in turns in this call.
 Phase 9 also runs greedy_generate on entry()'s model (head dim 64), whose
 prefill launches flash_attention at D 64.
-Phases 8-11 each check one step against the plain versions on the CPU,
+Phases 8-11 each check one step of their first CPU_LAYERS (4) layers
+against the plain versions on the CPU,
 128 graph-replayed steps equal to an eager loop, and print tok/s (min of
 3) against the copy-rate roofline and a torch.profiler window over one
 graph run (busy share, kernel ms a token). Phase 3 also holds the kernels of
@@ -182,7 +193,8 @@ phases 7-11 against their plain versions at those shapes (64 rows of 1024
 features; B 64, 16 heads of 64, S 384, ragged pos in [16, 313]; the paired
 7B matmuls at 1 row; qmm_chunk at group 64 and qmm_norm_w4a8 at 1 and 8
 rows, qmm_group2d at 1 row), and the graph slice's kernels: rmsnorm at 1,
-8 and 1024 rows of 4096, g2bmm and gbmm at the phase 13 shape (f32, bf16)
+8, 64, 256, 1024 and 4096 rows of 4096 in bf16 and f32 (within 1e-5 of
+max|plain| in f32), g2bmm and gbmm at the phase 13 shape (f32, bf16)
 and at Longformer-base's attention (12 heads of 64, window 256, S 4096,
 bf16), flash_attention at head dim 64 at entry()'s prompt (q, k, v [2, 8,
 64, 64]).
@@ -237,6 +249,11 @@ F16_PROMPT = f"f16 prompt {SHORT}"       # phase 14
 F16_PROMPT_Q8 = f"f16 prompt {SHORT} int8"
 F16_PAGED = "f16 paged step"
 GPT2_BS1 = "gpt2 decode bs1"             # phase 7, batch 1
+DENSE_BF16 = "serving dense bf16"        # phase 6, the dense engine
+DENSE_INT8 = "serving dense int8"
+DENSE_STEPS = 16             # phase 6: greedy steps of each dense form
+CPU_LAYERS = 4               # phases 8-11: layers of the step held against
+#                              the plain versions on the CPU
 G_BS1_PROMPT = 64            # ... its prompt tokens
 G_BS1_STEPS = 16             # ... and greedy steps, split and unsplit
 SRC = "infinitensor_tpu_torch/kernels/csrc/"
@@ -576,6 +593,8 @@ def main():
     cases += graph_cases(torch, norms, band, fa, cfg, gen, dev, randn)
     cases += mma_cases(torch, qm, cfg, params, gparams, randn,
                        dequantize_weight)
+    cases += norm_mma_cases(torch, qm, cfg, layer0, gen, dev, randn,
+                            dequantize_weight)
     cases += any_cases(torch, att, fa, pa, cfg, gen, dev, torch.float16)
     cases += prefill_rows(torch, att, fa, pa, cfg, gen, dev)
     cases += any_cases(torch, att, fa, pa, cfg, gen, dev, torch.float32)
@@ -589,6 +608,8 @@ def main():
                                               randn, flush)
     report["ln_crossover"] = ln_crossover(torch, qm, gparams["layers"][0],
                                           gcfg, gen, randn, flush)
+    report["norm_crossover"] = norm_crossover(torch, qm, layer0, cfg, gen,
+                                              randn, flush)
     report["decode_crossover"] = decode_crossover(torch, att, gen, dev, flush)
     report["any_grid"] = any_grid(torch, att, fa, pa, gen, dev)
     report["split_crossover"] = split_crossover(
@@ -631,6 +652,10 @@ def main():
     for path, kname in (("serving paged bf16", "paged_flash_decode"),
                         ("serving paged int8", "paged_flash_decode_q8")):
         for k in (kname, "flash_attention", "qmm_group", "qmm_w4a8"):
+            if paths[path].get(k, 0) <= 0:
+                fail(f"{k} was never launched on the path {path}")
+    for path in (DENSE_BF16, DENSE_INT8):
+        for k in ("qmm_group_norm_mma", "qmm_group_mma", "flash_attention"):
             if paths[path].get(k, 0) <= 0:
                 fail(f"{k} was never launched on the path {path}")
     t_phase = phase(6, t_phase)
@@ -1306,6 +1331,8 @@ def device_profile(torch, fn):
              ("group_ln_norm_rows", "qmm_group_ln"),
              ("qmm_group_ln_mma_kernel", "qmm_group_ln"),
              ("group_ln_splitk_sum", "qmm_group_ln sum"),
+             ("group_norm_rows", "qmm_group_norm_mma"),
+             ("qmm_group_norm_mma_kernel", "qmm_group_norm_mma"),
              ("qmm_group_kernel", "qmm_group*"),
              ("qmm_w4a8_kernel", "qmm_w4a8"),
              ("qmm_group_mma_kernel", "qmm_group_mma"),
@@ -1314,7 +1341,7 @@ def device_profile(torch, fn):
              ("flash_decode_kernel", "decode attention"),
              ("flash_decode_merge", "decode attention"),
              ("flash_attention_kernel", "flash_attention"),
-             ("rmsnorm_kernel", "rmsnorm"), ("g2bmm_kernel", "g2bmm"),
+             ("rmsnorm_rows_kernel", "rmsnorm"), ("g2bmm_kernel", "g2bmm"),
              ("gbmm_kernel", "gbmm"))
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1604,9 +1631,29 @@ def serving_path(torch, llama, counters, params, cfg, dev, report,
         del eng, snap
 
         # the dense engine on the same stream
+        dense_label = DENSE_INT8 if kv_quant else DENSE_BF16
         dense = ServingEngine(params, cfg, **kw)
+        counters.reset()
         want, dense_s, dense_steps, _, _, _ = drain(dense)
+        paths[dense_label] = counters.read()
         dense_stats = dict(dense.stats)
+        # one eager step at SLOTS rows: wqkv and w_gateup take
+        # qmm_group_norm's tensor-core form, wo and w_down qmm_group_mma
+        counters.reset()
+        llama.llama_decode_step(params, cfg, tok0, pos0, dense.cache)
+        torch.cuda.synchronize()
+        dense_step = counters.read()
+        mma = int(SLOTS >= qm.MMA_MIN_ROWS)
+        for kname, n in (("qmm_group_norm", 2 * n_layers),
+                         ("qmm_group_norm_mma", 2 * n_layers * mma),
+                         ("qmm_group_mma", 2 * n_layers * mma)):
+            if dense_step.get(kname, 0) != n:
+                fail(f"{dense_label}: a decode step launched {kname} "
+                     f"{dense_step.get(kname, 0)} times, expected {n}")
+        res[dense_label] = {"launches": paths[dense_label],
+                            "launches_per_step": dense_step,
+                            **(dense_forms(torch, qm, dense, cfg, dev,
+                                           tie_gap) if kv_quant else {})}
         del dense
         ties = same_up_to_ties(f"{label} vs dense engine", got, want,
                                prompts, tie_gap)
@@ -1651,6 +1698,63 @@ def serving_path(torch, llama, counters, params, cfg, dev, report,
         print(f"# {label}: " + json.dumps(res[label]), flush=True)
     report["serving"] = res
     return paths
+
+
+def dense_forms(torch, qm, dense, cfg, dev, tie_gap):
+    """Phase 6: the dense engine's decode step at SLOTS live slots (INT8
+    cache) with qmm_group_norm in the form its route takes (the tensor
+    cores at SLOTS rows), forced to the CUDA-core form (qm.group_form
+    patched while the step is captured) and in its own form again: ms a step
+    (CUDA events around CHUNK replays of the one captured step from pos
+    640, median of 20, over CHUNK), read in turns; a profiler window over
+    one chunk of each; DENSE_STEPS greedy tokens of each from seeded
+    tokens at pos 0, equal up to a printed near-tie."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 61)
+    tok0 = torch.randint(1, cfg.vocab_size, (SLOTS,), generator=gen,
+                         device=dev, dtype=torch.int32)
+    zero = torch.zeros_like(tok0)
+    programs, route = {}, qm.group_form
+    for form in ("route", "cuda_core"):
+        if form == "cuda_core":
+            qm.group_form = lambda rows, dtype, norm: \
+                "cuda_core" if norm else route(rows, dtype, norm)
+        before = qm.launches["qmm_group_norm_mma"]
+        try:
+            dense._program = None
+            dense._run_program(tok0, zero, 1)        # captures the step
+        finally:
+            qm.group_form = route
+        programs[form] = dense._program
+        n = qm.launches["qmm_group_norm_mma"] - before
+        if (n > 0) != (form == "route" and SLOTS >= qm.MMA_MIN_ROWS):
+            fail(f"{DENSE_INT8}: the {form} step's capture launched "
+                 f"qmm_group_norm_mma {n} times")
+    dense._program = None
+    tokens = {}
+    for form, prog in programs.items():
+        first, tok, pos = prog.run(tok0, zero, CHUNK)
+        rest, _, _ = prog.run(tok, pos, DENSE_STEPS - CHUNK)
+        tokens[form] = torch.cat([first, rest], 1).tolist()
+    ties = same_up_to_ties(
+        f"{DENSE_INT8}: tensor-core vs CUDA-core qmm_group_norm",
+        tokens["route"], tokens["cuda_core"],
+        [[t] for t in tok0.tolist()], tie_gap)
+    pos = torch.full((SLOTS,), 640, dtype=torch.int32, device=dev)
+    ms = {"route": [], "cuda_core": []}
+    for form in ("route", "cuda_core", "route"):
+        ms[form].append(cuda_ms(
+            torch, lambda p=programs[form]: p.run(tok0, pos, CHUNK), 20)
+            / CHUNK)
+    prof = {form: device_profile(torch, lambda p=prog: p.run(tok0, pos,
+                                                             CHUNK))
+            for form, prog in programs.items()}
+    out = {"step_ms": {f: min(v) for f, v in ms.items()},
+           "step_ms_in_turns": ms, "device_profile_chunk": prof,
+           "tokens_from_pos0": tokens["route"][0], "near_ties": ties}
+    print(f"# {DENSE_INT8} step at {SLOTS} live, qmm_group_norm forms: "
+          + json.dumps(out), flush=True)
+    del programs
+    return out
 
 
 def eng_steps(stats):
@@ -1871,6 +1975,67 @@ def mma_cases(torch, qm, cfg, params, gparams, randn, dequantize_weight):
             library=lambda x=x, w=w: torch.matmul(x, w),
             bytes=nbytes(x, q.qweight, q.scales) + 2 * rows * q.out_physical,
             ops=2 * rows * q.in_features * q.out_physical, kind="bf16"))
+    return out
+
+
+def norm_mma_cases(torch, qm, cfg, layer0, gen, dev, randn,
+                   dequantize_weight):
+    """Phase 3 rows of qmm_group_norm's tensor-core form (the route's own
+    call, quant_matmul_norm) on wqkv and w_gateup at SLOTS, 64 and SHORT
+    rows, each beside the CUDA-core form, forced, and the tile alone
+    (qmm_group_mma on rows normalized beforehand: the form minus it is
+    the pre-pass); library: matmul on the normalized rows. SLOTS rows
+    count the launches of the dense engine's drain (INT8 cache)."""
+    eps = cfg.norm_eps
+    nw = (torch.rand(cfg.dim, generator=gen, device=dev) + 0.5).to(
+        torch.bfloat16)
+    out = []
+    for rows, path in ((SLOTS, DENSE_INT8), (64, NO_PATH),
+                       (SHORT, NO_PATH)):
+        for label in ("wqkv", "w_gateup"):
+            q = layer0[label]
+            x = randn(rows, cfg.dim) * 3
+            xn = qm.rmsnorm_bf16(x, nw, eps)
+            w = dequantize_weight(q)
+            n = q.out_features
+            out.append(dict(
+                name="qmm_group_norm_mma", shape=f"{label} {rows} rows",
+                path=path, replaces=TPU + "quant_matmul.py:85",
+                source=SRC + "quant_matmul_mma.cu",
+                kernel=lambda x=x, q=q: qm.quant_matmul_norm(x, nw, q, eps),
+                cuda_core=lambda x=x, q=q, n=n: qm._launch_group(
+                    x, nw, q, eps, "qmm_group_norm", form="cuda_core")[:, :n],
+                forms={"tile_alone": lambda xn=xn, q=q, n=n: qm._launch_group(
+                    xn, None, q, 0.0, "qmm_group", form="mma")[:, :n]},
+                plain=lambda x=x, q=q, n=n: qm.qmm_group_plain(
+                    qm.rmsnorm_bf16(x, nw, eps), q)[:, :n],
+                library=lambda xn=xn, w=w: torch.matmul(xn, w),
+                bytes=sum(t.numel() * t.element_size()
+                          for t in (x, nw, q.qweight, q.scales))
+                + 2 * rows * q.out_physical,
+                ops=2 * rows * cfg.dim * q.out_physical, kind="bf16"))
+    return out
+
+
+def norm_crossover(torch, qm, layer0, cfg, gen, randn, flush):
+    """Both forms of qmm_group_norm, forced, at 1, 2, 4 and 8 rows of the
+    7B layer's wqkv and w_gateup (ms summed over the two), in one call:
+    the times behind MMA_MIN_ROWS for the fused-norm launches. Returns
+    {rows: {form: ms}}."""
+    nw = (torch.rand(cfg.dim, generator=gen, device=flush.device) + 0.5).to(
+        torch.bfloat16)
+    out = {}
+    for rows in (1, 2, 4, 8):
+        out[rows] = {"mma": 0.0, "cuda_core": 0.0}
+        for label in ("wqkv", "w_gateup"):
+            q, x = layer0[label], randn(rows, cfg.dim) * 3
+            for form in ("mma", "cuda_core"):
+                out[rows][form] += cuda_ms(
+                    torch, lambda x=x, q=q, form=form: qm._launch_group(
+                        x, nw, q, cfg.norm_eps, "qmm_group_norm", form=form),
+                    50, flush)
+    print(f"# qmm_group_norm forms, ms summed over wqkv, w_gateup: "
+          f"{json.dumps(out)}; MMA_MIN_ROWS = {qm.MMA_MIN_ROWS}", flush=True)
     return out
 
 
@@ -2260,8 +2425,9 @@ def gpt2_bs1_path(torch, gpt2, qm, counters, gparams, gcfg, dev, report):
 def variant_path(torch, llama, counters, params, cfg, dev, report, steps,
                  label, want_step, weight_b, qm=None):
     """Phases 8-11: decode_path's checks on other weights or knobs. One
-    step must launch exactly want_step; it is held against the plain
-    versions on the CPU (under the same knobs); 128 graph-replayed steps
+    step must launch exactly want_step; the step of its first CPU_LAYERS
+    layers is held against the plain versions on the CPU (under the same
+    knobs); 128 graph-replayed steps
     must equal an eager loop; tok/s is the min of 3 graph runs against the
     copy-rate roofline of weight_b + the INT8 cache's bytes per token.
     With qm, the same region again with the matmuls' K split forced
@@ -2278,14 +2444,22 @@ def variant_path(torch, llama, counters, params, cfg, dev, report, steps,
     if steps[label] != want_step:
         fail(f"{label}: a decode step launched {steps[label]}, expected "
              f"{want_step}")
+    # the first CPU_LAYERS layers' step against the plain versions on the
+    # CPU (all 32 took up to a minute a phase on the CPU)
+    cut = dataclasses.replace(cfg, n_layers=CPU_LAYERS)
+    cut_params = dict(params, layers=params["layers"][:CPU_LAYERS])
+    logits, _ = llama.llama_decode_step(
+        cut_params, cut, token, pos,
+        llama.init_kv_cache(cut, 1, kv_quant=True, device=dev))
     t0 = time.perf_counter()
     ref, _ = llama.llama_decode_step(
-        to_cpu(params), cfg, token.cpu(), pos.cpu(),
-        llama.init_kv_cache(cfg, 1, kv_quant=True, device="cpu"))
-    print(f"# {label}: 7B step on the plain versions (CPU): "
+        to_cpu(cut_params), cut, token.cpu(), pos.cpu(),
+        llama.init_kv_cache(cut, 1, kv_quant=True, device="cpu"))
+    what = f"{label}: {CPU_LAYERS}-layer 7B step"
+    print(f"# {what} on the plain versions (CPU): "
           f"{time.perf_counter() - t0:.1f}s")
-    compare_logits(torch, f"{label}: 7B step, kernels vs plain", logits[0],
-                   ref[0], report)
+    compare_logits(torch, f"{what}, kernels vs plain", logits[0], ref[0],
+                   report)
 
     # the path: llama_decode_multi under a CUDA graph
     fresh(cache)
@@ -2519,8 +2693,9 @@ def band_pairs(S, w):
 
 
 def graph_cases(torch, norms, band, fa, cfg, gen, dev, randn):
-    """Phase 3 rows of the graph slice's kernels: rmsnorm at 1, 8 and 1024
-    rows of 4096 (bf16; library: torch's rms_norm); g2bmm and gbmm at the
+    """Phase 3 rows of the graph slice's kernels: rmsnorm at 1, 8, 64,
+    256, 1024 and 4096 rows of 4096 in bf16 and in f32 (within 1e-5 of
+    max|plain|) (library: torch's rms_norm); g2bmm and gbmm at the
     phase 13 shape (f32 and bf16) and at Longformer-base's attention
     (allenai/longformer-base-4096: 12 heads of 64, one-sided window 256, S
     4096; bf16), library the gather + einsum form; flash_attention at
@@ -2530,17 +2705,22 @@ def graph_cases(torch, norms, band, fa, cfg, gen, dev, randn):
     rms = getattr(torch.nn.functional, "rms_norm", None)
     w_norm = (torch.rand(cfg.dim, generator=gen, device=dev) + 0.5).to(
         torch.bfloat16)
-    for rows in (1, SLOTS, 1024):
-        x = randn(rows, cfg.dim) * 3
-        cases.append(dict(
-            name="rmsnorm", shape=f"{rows}x{cfg.dim} bf16", path=GRAPH,
-            replaces=TPU + "norms.py:27", source=SRC + "rmsnorm.cu",
-            kernel=lambda x=x: norms.rmsnorm(x, w_norm, cfg.norm_eps),
-            plain=lambda x=x: norms.rmsnorm_plain(x, w_norm, cfg.norm_eps),
-            library=None if rms is None else lambda x=x: rms(
-                x, (cfg.dim,), w_norm, cfg.norm_eps),
-            bytes=2 * 2 * rows * cfg.dim + 2 * cfg.dim,
-            ops=4 * rows * cfg.dim, kind="f32"))
+    paths = {1: GRAPH, SLOTS: GRAPH_SERVE}
+    for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        for rows in (1, SLOTS, 64, 256, 1024, 4096):
+            x = (randn(rows, cfg.dim) * 3).to(dt)
+            cases.append(dict(
+                name="rmsnorm", shape=f"{rows}x{cfg.dim} {tag}",
+                path=paths.get(rows, NO_PATH) if tag == "bf16" else NO_PATH,
+                replaces=TPU + "norms.py:27", source=SRC + "rmsnorm.cu",
+                kernel=lambda x=x: norms.rmsnorm(x, w_norm, cfg.norm_eps),
+                plain=lambda x=x: norms.rmsnorm_plain(x, w_norm,
+                                                      cfg.norm_eps),
+                library=None if rms is None else lambda x=x: rms(
+                    x, (cfg.dim,), w_norm.to(x.dtype), cfg.norm_eps),
+                bytes=2 * x.element_size() * rows * cfg.dim + 2 * cfg.dim,
+                ops=4 * rows * cfg.dim, kind="f32",
+                tol=TOL if tag == "bf16" else 1e-5))
     for label, shape, dtype, path in (
             ("phase 13", LF, torch.float32, LONG_F32),
             ("phase 13", LF, torch.bfloat16, LONG_BF16),

@@ -66,18 +66,10 @@ qmm_w4a8_kernel(const void* __restrict__ x,
       if (tid == 0) sx[r] = 0.f;
       continue;
     }
-    float rinv = 1.f;
-    if (NORM) {
-      float ss = 0.f;
-      for (int k = tid; k < din; k += nthr) {
-        const float v = load_x<XK>(x, xr + k);
-        ss += v * v;
-      }
-      rinv = 1.f / sqrtf(block_reduce<false>(ss, part) / (float)din + eps);
-    }
+    const float rinv = NORM ? rms_norm_rinv<XK>(x, xr, din, eps, part) : 1.f;
     auto xn = [&](int k) {
       const float v = load_x<XK>(x, xr + k);
-      return NORM ? round_bf16(round_bf16(v * rinv) * bf16_to_f32(nw[k])) : v;
+      return NORM ? rms_norm_value(v, rinv, nw, k) : v;
     };
     float amax = 0.f;
     for (int k = tid; k < din; k += nthr) amax = fmaxf(amax, fabsf(xn(k)));

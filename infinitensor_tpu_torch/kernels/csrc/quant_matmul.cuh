@@ -174,6 +174,32 @@ __device__ __forceinline__ void layer_norm_stats(const void* x, size_t xr,
   rinv = 1.f / sqrtf(var + eps);
 }
 
+// 1/sqrt(ms + eps) of the f32 mean of squares ms of the row starting at
+// x[xr] (XK: its type), reduced in the order of a kLanes x kWarps block.
+// Every form that normalizes a row with it and rms_norm_value gets the
+// same bits (qmm_group_norm's and qmm_norm_w4a8's prologues and the
+// pre-pass of qmm_group_norm's tensor-core form).
+template <int XK>
+__device__ __forceinline__ float rms_norm_rinv(const void* x, size_t xr,
+                                               int din, float eps,
+                                               float* rpart) {
+  const int tid = threadIdx.y * kLanes + threadIdx.x;
+  float ss = 0.f;
+  for (int k = tid; k < din; k += kLanes * kWarps) {
+    const float v = load_x<XK>(x, xr + k);
+    ss = fmaf(v, v, ss);
+  }
+  return 1.f / sqrtf(block_reduce<false>(ss, rpart) / (float)din + eps);
+}
+
+// The fused kernels' RMSNorm of one value: v * rinv rounded to bf16, times
+// the bf16 weight nw[k], rounded to bf16 again.
+__device__ __forceinline__ float rms_norm_value(float v, float rinv,
+                                                const __nv_bfloat16* nw,
+                                                int k) {
+  return round_bf16(round_bf16(v * rinv) * bf16_to_f32(nw[k]));
+}
+
 // ((v - mu) * rinv) * gamma[k] + beta[k] in f32, rounded to bf16 once;
 // gamma and beta are both bf16 or (norm_bf16 false) both f32.
 __device__ __forceinline__ float layer_norm_value(float v, float mu,
@@ -297,15 +323,7 @@ qmm_group_kernel(const void* __restrict__ x,
       continue;
     }
     float rinv = 1.f, mu = 0.f;
-    if (PRO == kRmsNorm) {
-      float ss = 0.f;
-      for (int k = tid; k < din; k += nthr) {
-        const float v = load_x<XK>(x, xr + k);
-        ss += v * v;
-      }
-      const float ms = block_reduce<false>(ss, rpart) / (float)din;
-      rinv = 1.f / sqrtf(ms + eps);
-    }
+    if (PRO == kRmsNorm) rinv = rms_norm_rinv<XK>(x, xr, din, eps, rpart);
     if (PRO == kLayerNorm) layer_norm_stats(x, xr, din, eps, rpart, mu, rinv);
     for (int k = tid; k < xload; k += nthr) {
       const int src = !SLICE    ? k
@@ -313,8 +331,8 @@ qmm_group_kernel(const void* __restrict__ x,
                                  : krows + k0 + (k - span);
       float v = load_x<XK>(x, xr + src);
       if (PRO == kRmsNorm)
-        v = round_bf16(round_bf16(v * rinv) *
-                       bf16_to_f32(static_cast<const __nv_bfloat16*>(nw)[src]));
+        v = rms_norm_value(v, rinv, static_cast<const __nv_bfloat16*>(nw),
+                           src);
       if (PRO == kLayerNorm)
         v = layer_norm_value(v, mu, rinv, nw, nb, norm_bf16, src);
       xs[r * xw + k] = v;

@@ -2,15 +2,24 @@
 // group-dot matmul for 1 to 256 activation rows of bf16 or f16, with
 // mma.sync m16n8k16 (16-bit operands, f32 sums) fed by a ring of cp.async
 // stages. Python wrapper: kernels/quant_matmul.py (_launch_group, form
-// "mma"; group_form says when a launch takes it; _launch_group_ln for the
-// LayerNorm form, ln_form).
+// "mma"; group_form says when a launch takes it, with or without the
+// RMSNorm; _launch_group_ln for the LayerNorm form, ln_form).
 //
 // Replaces the TPU kernels of infinitensor_tpu/kernels/quant_matmul.py:
-//   qmm_group_mma     <- _kernel_group (:100, body _group_dots :115-166)
-//   qmm_group_ln_mma  <- _kernel_group_ln (:300, via quant_matmul_ln :321)
-// the first for a bf16 or f16 x without a norm, the second for a bf16 x
-// (GPT-2's pre-matmul LayerNorm, then the output bias). The LayerNorm
-// form is a pre-pass and this tile: group_ln_norm_rows writes the rows
+//   qmm_group_mma       <- _kernel_group (:100, body _group_dots :115-166)
+//   qmm_group_norm_mma  <- _kernel_group_norm (:85, via quant_matmul_norm)
+//   qmm_group_ln_mma    <- _kernel_group_ln (:300, via quant_matmul_ln :321)
+// the first for a bf16 or f16 x without a norm, the others for a bf16 x:
+// the Llama decode step's RMSNorm ahead of wqkv and w_gateup, GPT-2's
+// pre-matmul LayerNorm (then the output bias). The RMSNorm form is a
+// pre-pass and this tile: group_norm_rows writes the rows normalized to
+// bf16 [rows, din] (8 x 4096 at the dense 7B serving step: 64 KB) with
+// the arithmetic and reduction order of qmm_group_norm's CUDA-core
+// prologue (quant_matmul.cuh rms_norm_rinv / rms_norm_value), so both
+// forms agree to the bit on the normalized x; the CUDA-core form has each
+// of wqkv's 96 and w_gateup's 176 column blocks normalize the same rows
+// again. The tile is qmm_group_mma's as it is. The LayerNorm form is a
+// pre-pass and this tile too: group_ln_norm_rows writes the rows
 // normalized to bf16 [rows, din] (64 x 1024 at GPT-2's step: 128 KB)
 // with the arithmetic and reduction order of qmm_group_ln's CUDA-core
 // prologue (quant_matmul.cuh layer_norm_stats / layer_norm_value), so
@@ -316,6 +325,22 @@ qmm_group_mma_kernel(const uint16_t* __restrict__ x,
                                       splits);
 }
 
+// The tile of the RMSNorm form, as qmm_group_mma_kernel (a kernel of its
+// own name, so that a profile gives its time to qmm_group_norm): x holds
+// the normalized rows.
+template <int BITS, int NT>
+__global__ void __launch_bounds__(kThreads)
+qmm_group_norm_mma_kernel(const uint16_t* __restrict__ x,
+                          const int8_t* __restrict__ qw,
+                          const void* __restrict__ sc, bool sc_bf16,
+                          void* __restrict__ out, float* __restrict__ part,
+                          int rows, int din, int dout_p, int group,
+                          int splits) {
+  group_mma_tile<BITS, kXBf16, NT, false>(x, qw, sc, sc_bf16, nullptr, false,
+                                          0, out, part, rows, din, dout_p,
+                                          group, splits);
+}
+
 // The tile of the LayerNorm form (a kernel of its own name, so that a
 // profile gives its time to qmm_group_ln): x holds the normalized rows.
 template <int BITS, int NT>
@@ -373,8 +398,8 @@ inline dim3 sum_grid(size_t n) {
   return dim3((unsigned)((n + 255) / 256 < 1024 ? (n + 255) / 256 : 1024));
 }
 
-// Launch the tile `kernel` (qmm_group_mma_kernel or
-// qmm_group_ln_mma_kernel, BR rows per block) on its grid with the
+// Launch the tile `kernel` (qmm_group_mma_kernel, qmm_group_norm_mma_kernel
+// or qmm_group_ln_mma_kernel, BR rows per block) on its grid with the
 // shared memory it needs; `args` are its arguments.
 template <int BITS, int NT, typename K, typename... A>
 cudaError_t launch_tile(K kernel, SmemGrant* granted, int rows, int dout_p,
@@ -389,14 +414,19 @@ cudaError_t launch_tile(K kernel, SmemGrant* granted, int rows, int dout_p,
   return cudaGetLastError();
 }
 
-template <int BITS, int XK, int NT>
+// qmm_group_mma's tile (NORM: under the name qmm_group_norm_mma_kernel,
+// on rows the pre-pass normalized), then the split sum where K is split.
+template <int BITS, int XK, int NT, bool NORM = false>
 cudaError_t launch_mma(const void* x, const void* qw, const void* sc,
                        bool sc_bf16, void* out, float* part, int rows,
                        int din, int dout_p, int group, int splits,
                        cudaStream_t stream) {
+  static_assert(!NORM || XK == kXBf16, "the RMSNorm form is bf16");
   static SmemGrant granted;
+  auto kernel = NORM ? qmm_group_norm_mma_kernel<BITS, NT>
+                     : qmm_group_mma_kernel<BITS, XK, NT>;
   cudaError_t e = launch_tile<BITS, NT>(
-      qmm_group_mma_kernel<BITS, XK, NT>, &granted, rows, dout_p, splits,
+      kernel, &granted, rows, dout_p, splits,
       stream, static_cast<const uint16_t*>(x),
       static_cast<const int8_t*>(qw), sc, sc_bf16, out, part, rows, din,
       dout_p, group, splits);
@@ -423,6 +453,39 @@ group_ln_norm_rows(const void* __restrict__ x, const void* __restrict__ gamma,
     xn[xr + k] = __float2bfloat16_rn(qmm_detail::layer_norm_value(
         qmm_detail::load_x<kXBf16>(x, xr + k), mu, rinv, gamma, beta,
         norm_bf16, k));
+}
+
+// The RMSNorm pre-pass: row blockIdx.x of x bf16 [rows, din] normalized
+// and times nw to xn bf16 [rows, din] (block: qmm_detail's kLanes x kWarps
+// threads, the CUDA-core prologue's reduction order).
+__global__ void __launch_bounds__(qmm_detail::kLanes * qmm_detail::kWarps)
+group_norm_rows(const void* __restrict__ x,
+                const __nv_bfloat16* __restrict__ nw, float eps, int din,
+                __nv_bfloat16* __restrict__ xn) {
+  __shared__ float rpart[qmm_detail::kWarps];
+  const int tid = threadIdx.y * qmm_detail::kLanes + threadIdx.x;
+  const size_t xr = (size_t)blockIdx.x * din;
+  const float rinv = qmm_detail::rms_norm_rinv<kXBf16>(x, xr, din, eps, rpart);
+  const int nthr = qmm_detail::kLanes * qmm_detail::kWarps;
+  for (int k = tid; k < din; k += nthr)
+    xn[xr + k] = __float2bfloat16_rn(qmm_detail::rms_norm_value(
+        qmm_detail::load_x<kXBf16>(x, xr + k), rinv, nw, k));
+}
+
+template <int BITS, int NT>
+cudaError_t launch_norm_mma(const void* x, const void* nw, void* xn,
+                            const void* qw, const void* sc, bool sc_bf16,
+                            void* out, float* part, int rows, int din,
+                            int dout_p, int group, float eps, int splits,
+                            cudaStream_t stream) {
+  group_norm_rows<<<rows, dim3(qmm_detail::kLanes, qmm_detail::kWarps), 0,
+                    stream>>>(x, static_cast<const __nv_bfloat16*>(nw), eps,
+                              din, static_cast<__nv_bfloat16*>(xn));
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  return launch_mma<BITS, kXBf16, NT, true>(xn, qw, sc, sc_bf16, out, part,
+                                            rows, din, dout_p, group, splits,
+                                            stream);
 }
 
 template <int BITS, int NT>
@@ -489,6 +552,31 @@ ITT_EXPORT int qmm_group_mma(const void* x, int x_kind, const void* qw,
   ITT_MMA_TILES(8, kXBf16) ITT_MMA_TILES(8, kXF16)
 #undef ITT_MMA_TILES
 #undef ITT_MMA
+  return (int)cudaErrorInvalidValue;
+}
+
+// x bf16 [rows, din]; nw bf16 [din], the RMSNorm weight; xn bf16 [rows,
+// din] (16-byte aligned) buffer for the normalized rows; qw, sc, part,
+// row_tile, splits as qmm_group_mma; out bf16 [rows, dout_p] =
+// bf16(bf16(bf16(x * 1/sqrt(mean(x^2) + eps)) * nw) @ W).
+ITT_EXPORT int qmm_group_norm_mma(const void* x, const void* nw, void* xn,
+                                  const void* qw, const void* sc, int sc_bf16,
+                                  void* part, void* out, int rows, int din,
+                                  int dout_p, int bits, int group, float eps,
+                                  int row_tile, int splits, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tile_refuses(xn, qw, part, rows, din, dout_p, bits, group, splits) ||
+      !x || !nw)
+    return (int)cudaErrorInvalidValue;
+  float* p = static_cast<float*>(part);
+#define ITT_NORM_MMA(B, NT)                                                   \
+  if (bits == B && row_tile == 8 * NT)                                        \
+    return (int)launch_norm_mma<B, NT>(x, nw, xn, qw, sc, sc_bf16, out, p,    \
+                                       rows, din, dout_p, group, eps, splits, \
+                                       s);
+  ITT_NORM_MMA(4, 1) ITT_NORM_MMA(4, 2) ITT_NORM_MMA(4, 4) ITT_NORM_MMA(4, 8)
+  ITT_NORM_MMA(8, 1) ITT_NORM_MMA(8, 2) ITT_NORM_MMA(8, 4) ITT_NORM_MMA(8, 8)
+#undef ITT_NORM_MMA
   return (int)cudaErrorInvalidValue;
 }
 

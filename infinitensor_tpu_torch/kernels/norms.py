@@ -13,6 +13,10 @@ rmsnorm_ref below 8 rows or for a row count that is no multiple of its
 256-row block (norms.py:48-52): a TPU sublane and tiling rule, dropped
 here, so the kernel takes every row count. `launches` counts kernel
 launches (captures, not CUDA-graph replays).
+
+The kernel (csrc/rmsnorm.cu) takes a warp a row, with 16-byte loads and
+the row held in registers, at every row count: a block a row read slower
+at every row count on the H100 (PERF.md §6 row 14).
 """
 
 from __future__ import annotations

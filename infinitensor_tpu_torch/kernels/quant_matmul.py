@@ -1,8 +1,8 @@
 """Fused weight-only dequant + matmul for decode (counterpart of
 infinitensor_tpu/kernels/quant_matmul.py).
 
-Twelve kernels, CUDA C++; nine over one group-dot body on the CUDA cores
-(csrc/quant_matmul.cuh), three on the tensor cores:
+Thirteen kernels, CUDA C++; nine over one group-dot body on the CUDA cores
+(csrc/quant_matmul.cuh), four on the tensor cores:
   csrc/quant_matmul.cu
     qmm_group       <- _kernel_group       (group-partial dots, scale per group)
     qmm_group_norm  <- _kernel_group_norm  (RMSNorm fused ahead of the dots)
@@ -18,15 +18,19 @@ Twelve kernels, CUDA C++; nine over one group-dot body on the CUDA cores
   csrc/quant_matmul_mma.cu
     qmm_group_mma   <- _kernel_group       (the same group dots on the
                                             tensor cores, mma.sync + cp.async)
+    qmm_group_norm_mma <- _kernel_group_norm (an RMSNorm pre-pass, then
+                                            that tile)
     qmm_group_ln_mma <- _kernel_group_ln   (a LayerNorm pre-pass, then
                                             that tile with the bias behind)
   csrc/quant_matmul_w4a8_mma.cu
     qmm_w4a8_mma    <- _kernel_group_w4a8  (a quantize pre-pass, then the
                                             int8 tensor cores, m16n8k32)
 
-Three kernels have two forms on the card, one function each:
+Four kernels have two forms on the card, one function each:
   qmm_group     a bf16 or f16 x without a norm at MMA_MIN_ROWS rows or
                 more takes qmm_group_mma (group_form);
+  qmm_group_norm  a bf16 x at MMA_MIN_ROWS rows or more takes
+                qmm_group_norm_mma (group_form);
   qmm_group_ln  a bf16 x at MMA_MIN_ROWS rows or more takes
                 qmm_group_ln_mma (ln_form);
   qmm_w4a8      a bf16 or f32 x at W4A8_MMA_MIN_ROWS rows or more takes
@@ -34,7 +38,8 @@ Three kernels have two forms on the card, one function each:
 any other launch takes the CUDA-core form. The thresholds are where the
 two forms' times cross on the card (chip_smoke.py phase 3, PERF.md).
 launches[name] counts both forms of a kernel and launches[name + "_mma"]
-the tensor-core one again (qmm_group_ln_mma for qmm_group_ln).
+the tensor-core one again (qmm_group_ln_mma for qmm_group_ln,
+qmm_group_norm_mma for qmm_group_norm).
 
 A CUDA-core launch of qmm_group, qmm_slab or qmm_chunk without a fused
 RMSNorm, or of qmm_group_ln, whose grid is short (wo and w_down at one
@@ -466,6 +471,8 @@ def _lib_mma() -> ctypes.CDLL:
     return _build.typed(
         "quant_matmul_mma",
         qmm_group_mma=[P, I, P, P, I, P, P, I, I, I, I, I, I, I, P],
+        qmm_group_norm_mma=[P, P, P, P, P, I, P, P, I, I, I, I, I, F, I, I,
+                            P],
         qmm_group_ln_mma=[P, P, P, I, P, P, P, I, P, I, I, P, P, I, I, I, I,
                           I, F, I, I, P])
 
@@ -512,12 +519,13 @@ def _x_kind(x2: torch.Tensor) -> int:
 
 def group_form(rows: int, dtype: torch.dtype, norm: bool) -> str:
     """Which form a qmm_group launch on the card takes: "mma" (the
-    tensor cores, csrc/quant_matmul_mma.cu) for a bf16 or f16 x without a
-    norm at MMA_MIN_ROWS rows or more, else "cuda_core"
-    (csrc/quant_matmul.cuh; an f32 x stays there, as rounding it to 16
-    bits would change its numbers)."""
-    if (dtype in (torch.bfloat16, torch.float16) and not norm
-            and rows >= MMA_MIN_ROWS):
+    tensor cores, csrc/quant_matmul_mma.cu) at MMA_MIN_ROWS rows or more
+    for a bf16 or f16 x without a norm and for a bf16 x with the fused
+    RMSNorm (qmm_group_norm: a pre-pass, then the same tile), else
+    "cuda_core" (csrc/quant_matmul.cuh; an f32 x stays there, as rounding
+    it to 16 bits would change its numbers)."""
+    if rows >= MMA_MIN_ROWS and (dtype == torch.bfloat16 or (
+            dtype == torch.float16 and not norm)):
         return "mma"
     return "cuda_core"
 
@@ -660,13 +668,13 @@ def _launch_group(x2, norm_w, q, eps: float, name: str,
     chooses; `form` forces "mma" or "cuda_core" (tests and chip_smoke.py's
     side-by-side timing only)."""
     _check_cuda(x2, q)
-    form = form or group_form(x2.shape[0], x2.dtype, norm_w is not None)
+    norm = norm_w is not None
+    form = form or group_form(x2.shape[0], x2.dtype, norm)
     if form == "mma":
-        if norm_w is not None:
-            raise ValueError("qmm_group_mma fuses no norm")
+        if norm:
+            return _launch_group_norm_mma(x2, norm_w, q, eps)
         return _launch_group_mma(x2, q, name)
-    splits, part, counters = (1, None, None) if norm_w is not None \
-        else _split_plan(x2, q)
+    splits, part, counters = (1, None, None) if norm else _split_plan(x2, q)
     out, lib, p = _out(x2, q), _lib(), _build.ptr
     err = lib.qmm_group(
         p(x2), _x_kind(x2), p(norm_w), p(q.qweight), p(q.scales),
@@ -691,6 +699,34 @@ def _launch_group_mma(x2, q, name: str) -> torch.Tensor:
         _build.stream())
     _launched(lib, err, name, out)
     launches["qmm_group_mma"] += 1
+    return out
+
+
+def _launch_group_norm_mma(x2, norm_w, q, eps: float,
+                           xn: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """qmm_group_norm's tensor-core form: the RMSNorm pre-pass writes the
+    rows normalized to `xn` (bf16 like x2; a buffer of its own unless
+    given, as a test does to read it), then qmm_group_mma's tile."""
+    if x2.dtype != torch.bfloat16 or norm_w.dtype != torch.bfloat16:
+        raise ValueError(f"qmm_group_norm_mma takes a bf16 x and norm "
+                         f"weight, not {x2.dtype} and {norm_w.dtype}")
+    if norm_w.device != x2.device or not norm_w.is_contiguous():
+        raise ValueError(f"norm_w must be contiguous on {x2.device}")
+    xn = torch.empty_like(x2) if xn is None else xn
+    if xn.shape != x2.shape or xn.dtype != x2.dtype or \
+            not xn.is_contiguous() or xn.data_ptr() % 16:
+        raise ValueError("xn must be a contiguous, 16-byte aligned bf16 "
+                         f"buffer of x's shape {tuple(x2.shape)}")
+    tile, splits, part = _tile_plan(x2, q)
+    out, lib, p = _out(x2, q), _lib_mma(), _build.ptr
+    err = lib.qmm_group_norm_mma(
+        p(x2), p(norm_w), p(xn), p(q.qweight), p(q.scales),
+        q.scales.dtype == torch.bfloat16, p(part), p(out), x2.shape[0],
+        x2.shape[1], q.out_physical, q.bits, q.group_size, eps, tile,
+        splits, _build.stream())
+    _launched(lib, err, "qmm_group_norm", out)
+    launches["qmm_group_norm_mma"] += 1
     return out
 
 

@@ -120,9 +120,11 @@ def _run(root: Path, code: str) -> str:
     return out.stdout
 
 
-def main(argv) -> None:
+def main(argv, tool: str = __file__, doc: str = __doc__) -> None:
+    """Build both roots, then print the rows of `tool`'s time_rows() from
+    each, in turns (tools/step_ab.py runs through this main)."""
     if len(argv) not in (1, 2):
-        sys.exit(__doc__)
+        sys.exit(doc)
     here = Path(__file__).resolve().parents[2]
     roots = {"old": Path(argv[0]).resolve(),
              "new": Path(argv[1]).resolve() if len(argv) == 2 else here}
@@ -130,12 +132,13 @@ def main(argv) -> None:
                                env=dict(os.environ, PYTHONPATH=str(r)))
               for r in roots.values()]
     if any([b.wait() for b in builds]):
-        sys.exit("attention_ab: a build failed")
+        sys.exit(f"{Path(tool).stem}: a build failed")
     code = ("import json, runpy; print(json.dumps(runpy.run_path("
-            f"{str(Path(__file__).resolve())!r})['time_rows']()))")
+            f"{str(Path(tool).resolve())!r})['time_rows']()))")
     got = {}
     for which in ("old", "new", "new", "old"):
-        for row, ms in json.loads(_run(roots[which], code)).items():
+        out = _run(roots[which], code).splitlines()[-1]
+        for row, ms in json.loads(out).items():
             got.setdefault(row, {"old": [], "new": []})[which].append(ms)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -674,27 +674,66 @@ def test_decode_routes_launch_counts(dev, knobs):
         **mma, **merges}
     knobs(table={"512:512:4": {"variant": "group2d", "bn": 128, "kb": 128},
                  "1024:512:4": {"variant": "group2d", "bn": 128, "kb": 256}})
+    # two tokens: the fused-norm launches take qmm_group_norm's
+    # tensor-core form from MMA_MIN_ROWS rows
+    mma = {"qmm_group_norm_mma": 2 * L} if 2 >= qm.MMA_MIN_ROWS else {}
     assert _decode_launches(params, cfg, dev) == {
         "qmm_group_norm": 2 * L, "qmm_group2d": 2 * L + 1,
-        "flash_decode_q8": L, **merges}
+        "flash_decode_q8": L, **mma, **merges}
 
 
 # -- the graph slice: rmsnorm, the band kernels, flash_attention at D 64, --
 # -- f32 activations, and the executor's capture LRU -----------------------
 
-@pytest.mark.parametrize("rows", [1, 8, 13, 1024])
+def _rmsnorm_close(got, want):
+    """Within 1e-2 of max|plain| in bf16 (a bf16 ulp: the f32 sums are
+    taken in another order), 1e-5 in f32."""
+    assert got.shape == want.shape and got.dtype == want.dtype
+    tol = 1e-5 if want.dtype == torch.float32 else TOL
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= tol * want.float().abs().max().item(), err
+
+
+@pytest.mark.parametrize("rows", [1, 8, 13, 64, 1024, 4097])
+@pytest.mark.parametrize("d", [4096, 4104, 520, 1001])
 @pytest.mark.parametrize("xdt,wdt", [(torch.bfloat16, torch.bfloat16),
                                      (torch.bfloat16, torch.float32),
-                                     (torch.float32, torch.float32)])
-def test_rmsnorm_kernel(dev, rows, xdt, wdt):
+                                     (torch.float32, torch.float32),
+                                     (torch.float32, torch.bfloat16)])
+def test_rmsnorm_kernel(dev, rows, d, xdt, wdt):
+    """rmsnorm against rmsnorm_plain, bit for bit across two launches,
+    counted once a launch: widths whose rows the kernel holds in registers
+    (4096 in bf16), reads past them again (4104, f32), fits in one pass
+    (520) or walks with scalar loads (1001, no multiple of a 16-byte
+    chunk)."""
     from infinitensor_tpu_torch.kernels import norms
-    g = torch.Generator().manual_seed(rows)
-    x = (torch.randn(rows, 4096, generator=g) * 3).to(xdt).to(dev)
-    w = (torch.rand(4096, generator=g) + 0.5).to(wdt).to(dev)
+    g = torch.Generator().manual_seed(rows * d)
+    x = (torch.randn(rows, d, generator=g) * 3).to(xdt).to(dev)
+    w = (torch.rand(d, generator=g) + 0.5).to(wdt).to(dev)
+    want = norms.rmsnorm_plain(x, w, 1e-5)
     before = norms.launches["rmsnorm"]
     got = norms.rmsnorm(x, w, 1e-5)
     assert norms.launches["rmsnorm"] == before + 1
-    _close(got, norms.rmsnorm_plain(x, w, 1e-5))
+    _rmsnorm_close(got, want)
+    assert torch.equal(got, norms.rmsnorm(x, w, 1e-5))
+
+
+@pytest.mark.parametrize("rows", [1, 13, 1024])
+@pytest.mark.parametrize("xdt", [torch.bfloat16, torch.float32])
+def test_rmsnorm_kernel_misaligned_view(dev, rows, xdt):
+    """An x that is a contiguous view 2 (bf16) or 4 (f32) bytes past a
+    16-byte boundary: the kernel takes its scalar loads and agrees with
+    rmsnorm_plain, bit for bit across two launches."""
+    from infinitensor_tpu_torch.kernels import norms
+    g = torch.Generator().manual_seed(rows)
+    d = 4096
+    buf = (torch.randn(rows * d + 1, generator=g) * 3).to(xdt).to(dev)
+    x = buf[1:].view(rows, d)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    w = (torch.rand(d, generator=g) + 0.5).to(torch.bfloat16).to(dev)
+    got = norms.rmsnorm(x, w, 1e-5)
+    _rmsnorm_close(got, norms.rmsnorm_plain(x, w, 1e-5))
+    assert torch.equal(got, norms.rmsnorm(x, w, 1e-5))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1050,6 +1089,101 @@ def test_group_ln_mma_kernel(dev, rows, bits, bias_dt, monkeypatch):
             _close(got, want)
             _close(got, qm._launch_group_ln(x, g, b, q, bias, 1e-5,
                                             form="cuda_core"))
+
+
+@pytest.mark.parametrize("rows", [2, 3, 8, 17, 64, 256])
+@pytest.mark.parametrize("bits", [4, 8])
+def test_group_norm_mma_kernel(dev, rows, bits, monkeypatch):
+    """qmm_group_norm's tensor-core form against the plain version
+    (qmm_group_plain on rmsnorm_bf16's rows) and against the CUDA-core
+    form, both forced, with K split (the card's SM count) and not split
+    (one SM), bit for bit across two launches; quant_matmul_norm takes it
+    from MMA_MIN_ROWS rows (counted under qmm_group_norm and again under
+    qmm_group_norm_mma), and a group_form that answers "cuda_core" sends
+    it to the CUDA-core form."""
+    q = _qlin(dev, 1024, 300, bits, torch.bfloat16, pad_out=128)
+    x = _x(dev, rows, 1024) * 3 + 0.5
+    nw = (torch.rand(1024, generator=torch.Generator().manual_seed(2))
+          + 0.5).to(torch.bfloat16).to(dev)
+    want = qm.qmm_group_plain(qm.rmsnorm_bf16(x, nw, 1e-5), q)
+    sms = _build.sms(0)
+    for n_sm, split in ((sms, True), (1, False)):
+        monkeypatch.setattr(_build, "sms", lambda i, n=n_sm: n)
+        plan = qm.mma_plan(rows, q.out_physical, q.qweight.shape[0],
+                           q.group_size, n_sm)
+        assert (plan[1] > 1) == split
+        before = dict(qm.launches)
+        got = qm._launch_group(x, nw, q, 1e-5, "qmm_group_norm", form="mma")
+        assert qm.launches["qmm_group_norm_mma"] == \
+            before.get("qmm_group_norm_mma", 0) + 1
+        _close(got, want)
+        _close(got, qm._launch_group(x, nw, q, 1e-5, "qmm_group_norm",
+                                     form="cuda_core"))
+        assert torch.equal(got, qm._launch_group(
+            x, nw, q, 1e-5, "qmm_group_norm", form="mma"))
+    route = qm.group_form
+    for form_of, mma in ((route, rows >= qm.MMA_MIN_ROWS),
+                         (lambda *a: "cuda_core", 0)):
+        monkeypatch.setattr(qm, "group_form", form_of)
+        before = dict(qm.launches)
+        _close(qm.quant_matmul_norm(x, nw, q)[:, :300],
+               want[:, :300])
+        assert qm.launches["qmm_group_norm"] == \
+            before.get("qmm_group_norm", 0) + 1
+        assert qm.launches["qmm_group_norm_mma"] == \
+            before.get("qmm_group_norm_mma", 0) + mma
+
+
+@pytest.mark.parametrize("rows", [2, 8, 64])
+def test_group_norm_mma_in_a_cuda_graph(dev, rows):
+    """The tensor-core form captured in a CUDA graph (the pre-pass and the
+    tile as two plain launches): replays equal the eager launch bit for
+    bit, also after x changes in place."""
+    q = _qlin(dev, 2048, 640, 4, torch.bfloat16)
+    x = _x(dev, rows, 2048) * 3
+    nw = (torch.rand(2048, generator=torch.Generator().manual_seed(4))
+          + 0.5).to(torch.bfloat16).to(dev)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        qm.quant_matmul_norm(x, nw, q)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = qm.quant_matmul_norm(x, nw, q)
+    for seed in (1, 2):
+        x.copy_(_x(dev, rows, 2048, seed=seed) * 3)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, qm.quant_matmul_norm(x, nw, q))
+        _close(out, qm.qmm_group_plain(qm.rmsnorm_bf16(x, nw, 1e-5), q)[
+            :, :640])
+
+
+@pytest.mark.parametrize("rows", [1, 8, 64, 256])
+def test_group_norm_prepass(dev, rows, monkeypatch):
+    """The tensor-core form's RMSNorm pre-pass: its bf16 rows are
+    rmsnorm_bf16's (within one bf16 ulp, equal but where rsqrt and the sum
+    order move a rounding: at most 1e-3 of the values), and they are the
+    CUDA-core prologue's to the bit as far as the output shows: the
+    CUDA-core form with its prologue equals the CUDA-core form without a
+    norm on the pre-pass's rows, bit for bit (both unsplit)."""
+    monkeypatch.setattr(qm, "_SPLITS", 1)
+    q = _qlin(dev, 4096, 512, 4, torch.bfloat16)
+    x = _x(dev, rows, 4096) * 3 + 0.25
+    nw = (torch.rand(4096, generator=torch.Generator().manual_seed(3))
+          + 0.5).to(torch.bfloat16).to(dev)
+    xn = torch.empty_like(x)
+    qm._launch_group_norm_mma(x, nw, q, 1e-5, xn=xn)
+    ref = qm.rmsnorm_bf16(x, nw, 1e-5)
+    ulp = torch.finfo(torch.bfloat16).eps * ref.float().abs().clamp(
+        min=torch.finfo(torch.bfloat16).tiny)
+    assert ((xn.float() - ref.float()).abs() <= ulp).all()
+    assert (xn != ref).float().mean().item() <= 1e-3
+    fused = qm._launch_group(x, nw, q, 1e-5, "qmm_group_norm",
+                             form="cuda_core")
+    assert torch.equal(fused, qm._launch_group(xn, None, q, 0.0, "qmm_group",
+                                               form="cuda_core"))
 
 
 def test_w4a8_and_ln_mma_launch_counts(dev):

@@ -216,7 +216,7 @@ def test_band_plain_vs_interpreted_kernels(dtype):
     assert not jband.band_kernels_usable(100, 64, 200, 1)
 
 
-@pytest.mark.parametrize("rows", [8, 256])
+@pytest.mark.parametrize("rows", [8, 256, 1024])
 def test_rmsnorm_plain_vs_interpreted_kernel(rows):
     rng = np.random.default_rng(rows)
     x = jnp.asarray(rng.standard_normal((rows, 512)) * 3.0, jnp.bfloat16)

@@ -84,9 +84,15 @@ def test_group_matmul_plain_vs_pallas(rows, sdt):
     _close(got, want)
 
 
-@pytest.mark.parametrize("rows", [1, 3])
+@pytest.mark.parametrize("rows", [1, 3, 8, 64, 256])
 def test_group_norm_matmul_plain_vs_pallas(rows):
+    """qmm_group_plain on rmsnorm_bf16's rows, the function both CUDA
+    forms of qmm_group_norm compute, against the interpreted TPU kernel;
+    8-256 rows are the shapes its tensor-core form serves (the dense
+    serving step's 8 slots up to the kernels' 256 rows)."""
     rng, q, x = _weights(2, sdt=jnp.bfloat16)
+    if rows > 3:
+        x = jnp.asarray(rng.standard_normal((rows, 512)), jnp.bfloat16)
     x = x[:rows] * 3.0
     nw = jnp.asarray(rng.uniform(0.5, 1.5, (512,)), jnp.bfloat16)
     want = qm.quant_matmul_norm(x, nw, q, eps=1e-5, interpret=True)
@@ -737,13 +743,16 @@ def test_f16_quant_matmul_on_the_cpu_vs_jax(variant, bits):
     (256, torch.float16, False, "mma"),
     (256, torch.float32, False, "cuda_core"),
     (64, torch.float32, False, "cuda_core"),
-    (64, torch.bfloat16, True, "cuda_core"),
-    (256, torch.bfloat16, True, "cuda_core"),
+    (64, torch.bfloat16, True, "mma"),
+    (256, torch.bfloat16, True, "mma"),
+    (1, torch.bfloat16, True, "cuda_core"),
+    (tqm.MMA_MIN_ROWS, torch.float32, True, "cuda_core"),
 ])
 def test_group_form(rows, dtype, norm, form):
-    """The form a qmm_group launch on the card takes: the tensor cores for
-    a bf16 or f16 x without a norm from MMA_MIN_ROWS rows, the CUDA cores
-    for an f32 x (its numbers stay f32), a fused norm or fewer rows."""
+    """The form a qmm_group launch on the card takes: the tensor cores
+    from MMA_MIN_ROWS rows for a bf16 or f16 x without a norm and for a
+    bf16 x with the fused RMSNorm (qmm_group_norm_mma); the CUDA cores
+    for an f32 x (its numbers stay f32) or fewer rows."""
     assert 1 <= tqm.MMA_MIN_ROWS <= tqm.KERNEL_MAX_ROWS
     assert tqm.group_form(rows, dtype, norm) == form
 
