@@ -27,11 +27,19 @@ Phases, each failing with a nonzero exit, each printing its seconds:
      pre-pass then qmm_group_mma's tile) at wqkv and w_gateup at SLOTS,
      64 and SHORT rows (beside the tile alone on rows normalized
      beforehand), each beside the CUDA-core form in the same call, with a
-     crossover of both forms at 1-8 rows; and the
+     crossover of both forms at 1-8 rows; qmm_chunk's (qmm_chunk_mma,
+     that tile with each weight scaled and rounded to bf16 before the
+     mma) at group 64 on wqkv, w_gateup, wo, w_down and the lm_head at
+     SLOTS, 64 and SHORT rows, and qmm_norm_w4a8's (qmm_norm_w4a8_mma,
+     the RMSNorm in the int8 tile's quantize pre-pass; no main path) on
+     wqkv and w_gateup at the same rows under phase 10's knobs (beside its
+     tile alone), each beside the CUDA-core form, forced, with a
+     crossover of qmm_chunk's forms at 1-4 rows; and the
      crossover tables of both forms, forced: qmm_group at 1-8 rows,
      qmm_w4a8 at 1-5, 8, 64 and 256 rows, qmm_group_ln at 1, 8 and
      64 rows (with its tile alone on rows normalized beforehand), which
-     set MMA_MIN_ROWS and W4A8_MMA_MIN_ROWS; the dense decode attention
+     set MMA_MIN_ROWS, W4A8_MMA_MIN_ROWS and CHUNK_MMA_MIN_ROWS; the
+     dense decode attention
      (flash_decode, flash_decode_q8) in the split form its wrappers take
      at batch 1 beside the forced unsplit form, the split form's merge
      (flash_decode_merge) on partials of the 7B shape, and the crossover
@@ -139,9 +147,15 @@ Phases, each failing with a nonzero exit, each printing its seconds:
      (wqkv and w_gateup through rmsnorm + quant_matmul), 129 launches a
      token (wqkv, wo and w_down in the K split) and no qmm_group*,
      qmm_w4a8 or qmm_slab*, and the same region with the split forced
-     off; then the port's entry() (infinitensor_tpu_torch/entry.py)
-     once, its launches counted and its logits held against the plain
-     versions on the CPU;
+     off; a seeded 256-token prefill of that model (qmm_chunk_mma 129
+     launches) and the dense ServingEngine's captured step at SLOTS live
+     slots over its weights (INT8 cache; qmm_chunk_mma 129 a step), each
+     read in turns with qmm_chunk's CUDA-core form forced (qm.chunk_form
+     patched; new, forced, new), the prefill's last logits and 16 greedy
+     tokens of the step equal up to a printed near-tie; then the port's
+     entry() (infinitensor_tpu_torch/entry.py) once, its launches
+     (qmm_chunk_mma at its 2 rows) counted and its logits held against
+     the plain versions on the CPU;
  10. the group-128 decode under INFINITPU_QMM_VARIANT=w4a8 with an empty
      tuning table (INFINITPU_QMM_TUNE): qmm_norm_w4a8 64 and qmm_w4a8 65
      launches a token; with the default table the env var changes nothing
@@ -252,6 +266,8 @@ GPT2_BS1 = "gpt2 decode bs1"             # phase 7, batch 1
 DENSE_BF16 = "serving dense bf16"        # phase 6, the dense engine
 DENSE_INT8 = "serving dense int8"
 DENSE_STEPS = 16             # phase 6: greedy steps of each dense form
+G64_PROMPT = f"group64 prompt {SHORT}"   # phase 9: the group-64 prefill
+DENSE_G64 = "serving dense g64 int8"     # ... and its dense 8-slot step
 CPU_LAYERS = 4               # phases 8-11: layers of the step held against
 #                              the plain versions on the CPU
 G_BS1_PROMPT = 64            # ... its prompt tokens
@@ -595,6 +611,9 @@ def main():
                        dequantize_weight)
     cases += norm_mma_cases(torch, qm, cfg, layer0, gen, dev, randn,
                             dequantize_weight)
+    cases += chunk_mma_cases(torch, qm, g64params, randn, dequantize_weight)
+    cases += norm_w4a8_mma_cases(torch, qm, cfg, layer0, envs, gen, dev,
+                                 randn, dequantize_weight)
     cases += any_cases(torch, att, fa, pa, cfg, gen, dev, torch.float16)
     cases += prefill_rows(torch, att, fa, pa, cfg, gen, dev)
     cases += any_cases(torch, att, fa, pa, cfg, gen, dev, torch.float32)
@@ -610,6 +629,8 @@ def main():
                                           gcfg, gen, randn, flush)
     report["norm_crossover"] = norm_crossover(torch, qm, layer0, cfg, gen,
                                               randn, flush)
+    report["chunk_crossover"] = chunk_crossover(torch, qm, g64params, randn,
+                                                flush)
     report["decode_crossover"] = decode_crossover(torch, att, gen, dev, flush)
     report["any_grid"] = any_grid(torch, att, fa, pa, gen, dev)
     report["split_crossover"] = split_crossover(
@@ -699,6 +720,18 @@ def main():
          + split_launches(qm, (g64params["lm_head"],)),
          "flash_decode_q8": L, **merges(cfg, L)},
         weight_bytes(cfg, group=64), qm=qm)
+    t0 = time.perf_counter()
+    paths[G64_PROMPT] = g64_prompt_path(torch, llama, qm, counters,
+                                        g64params, cfg, dev, report)
+    paths[DENSE_G64], forms = g64_dense_path(torch, llama, qm, counters,
+                                             g64params, cfg, dev, report)
+    report["serving"][DENSE_G64] = {
+        "launches_per_step": paths[DENSE_G64], **forms}
+    print(f"# {G64_PROMPT} and {DENSE_G64} (both forms, in turns) took "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    for path in (G64_PROMPT, DENSE_G64):
+        if paths[path].get("qmm_chunk_mma", 0) <= 0:
+            fail(f"qmm_chunk_mma was never launched on the path {path}")
     del g64params
     entry_check(torch, counters, report)
     paths[ENTRY_PROMPT] = entry_prompt_check(torch, llama, counters, report)
@@ -747,7 +780,8 @@ def main():
     t_phase = phase(13, t_phase)
 
     # 14. the 7B model in f16: the fast 16-bit attention on its paths
-    prompts_of = {ENTRY_PROMPT: paths[ENTRY_PROMPT], NO_PATH: {}}
+    prompts_of = {ENTRY_PROMPT: paths[ENTRY_PROMPT],
+                  G64_PROMPT: paths[G64_PROMPT], NO_PATH: {}}
     paths.update(f16_path(torch, llama, counters, (att, fa, pa), params,
                           cfg, dev, report, steps, prompts_of))
     paths[NO_PATH] = steps[NO_PATH] = {}
@@ -757,8 +791,8 @@ def main():
     per_prompt = report["generate"][f"prompt {SHORT}"]["launches_per_prompt"]
     kernels = []
     for c in cases:
-        prefill = c["name"].startswith("flash_attention") or c["path"] == \
-            f"prompt {SHORT}"
+        prefill = c["name"].startswith("flash_attention") or c["path"] in \
+            (f"prompt {SHORT}", G64_PROMPT)
         step = report["serving"][c["path"]]["launches_per_step"] \
             if c["path"].startswith("serving") \
             else steps.get(c["path"], per_token)
@@ -1333,6 +1367,10 @@ def device_profile(torch, fn):
              ("group_ln_splitk_sum", "qmm_group_ln sum"),
              ("group_norm_rows", "qmm_group_norm_mma"),
              ("qmm_group_norm_mma_kernel", "qmm_group_norm_mma"),
+             ("qmm_chunk_mma_kernel", "qmm_chunk_mma"),
+             ("chunk_splitk_sum", "qmm_chunk_mma sum"),
+             ("w4a8_norm_quantize_rows", "qmm_norm_w4a8_mma"),
+             ("qmm_norm_w4a8_mma_kernel", "qmm_norm_w4a8_mma"),
              ("qmm_group_kernel", "qmm_group*"),
              ("qmm_w4a8_kernel", "qmm_w4a8"),
              ("qmm_group_mma_kernel", "qmm_group_mma"),
@@ -1478,6 +1516,20 @@ def teacher_forced(torch, what, got, prompts, logits_along, limit):
     return {"tokens": n, "not_top1": differ, "largest_gap": worst[0]}
 
 
+def prefill_tie_gap(torch, llama, params, cfg, dev):
+    """tie_gap(prefix, a, b): the gap between the logits of tokens a and b
+    after `prefix` (one prefill of the model `params`), relative to
+    max|logit|."""
+    ref_cache = llama.init_kv_cache(cfg, 1, device=dev)
+
+    def tie_gap(prefix, a, b):
+        toks = torch.tensor([prefix], dtype=torch.int32, device=dev)
+        logits, _ = llama.llama_prefill(params, cfg, toks, ref_cache)
+        last = logits[0, -1].float()
+        return (abs(float(last[a] - last[b])) / float(last.abs().max()))
+    return tie_gap
+
+
 def serving_path(torch, llama, counters, params, cfg, dev, report,
                  per_token):
     """Phase 6. Returns the launch counts of the paged engine's drain per
@@ -1489,15 +1541,7 @@ def serving_path(torch, llama, counters, params, cfg, dev, report,
 
     reqs = serving_requests(np, cfg)
     n_layers = cfg.n_layers
-    ref_cache = llama.init_kv_cache(cfg, 1, device=dev)
-
-    def tie_gap(prefix, a, b):
-        """The gap between the logits of tokens a and b after `prefix`
-        (one prefill), relative to max|logit|."""
-        toks = torch.tensor([prefix], dtype=torch.int32, device=dev)
-        logits, _ = llama.llama_prefill(params, cfg, toks, ref_cache)
-        last = logits[0, -1].float()
-        return (abs(float(last[a] - last[b])) / float(last.abs().max()))
+    tie_gap = prefill_tie_gap(torch, llama, params, cfg, dev)
 
     def drain(eng, snap_after=None):
         """Submit the stream and step to the end; returns (tokens per
@@ -1700,35 +1744,45 @@ def serving_path(torch, llama, counters, params, cfg, dev, report,
     return paths
 
 
-def dense_forms(torch, qm, dense, cfg, dev, tie_gap):
-    """Phase 6: the dense engine's decode step at SLOTS live slots (INT8
-    cache) with qmm_group_norm in the form its route takes (the tensor
-    cores at SLOTS rows), forced to the CUDA-core form (qm.group_form
-    patched while the step is captured) and in its own form again: ms a step
+def dense_forms(torch, qm, dense, cfg, dev, tie_gap, label=DENSE_INT8,
+                form_fn="group_form", forced=None, kname="qmm_group_norm_mma",
+                route_mma=None):
+    """Phases 6 and 9: the dense engine's decode step at SLOTS live slots
+    (INT8 cache) with the matmuls in the forms their route takes, with
+    kname's kernel forced to its CUDA-core form (qm.<form_fn> patched to
+    `forced` while the step is captured; by default qmm_group_norm's, the
+    tensor cores at SLOTS rows) and in its own form again: ms a step
     (CUDA events around CHUNK replays of the one captured step from pos
     640, median of 20, over CHUNK), read in turns; a profiler window over
     one chunk of each; DENSE_STEPS greedy tokens of each from seeded
-    tokens at pos 0, equal up to a printed near-tie."""
+    tokens at pos 0, equal up to a printed near-tie. route_mma: whether
+    the route's capture launches kname (by default where SLOTS >=
+    qm.MMA_MIN_ROWS); the forced one must not."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 61)
     tok0 = torch.randint(1, cfg.vocab_size, (SLOTS,), generator=gen,
                          device=dev, dtype=torch.int32)
     zero = torch.zeros_like(tok0)
-    programs, route = {}, qm.group_form
+    route = getattr(qm, form_fn)
+    if forced is None:
+        def forced(rows, dtype, norm):
+            return "cuda_core" if norm else route(rows, dtype, norm)
+    if route_mma is None:
+        route_mma = SLOTS >= qm.MMA_MIN_ROWS
+    programs = {}
     for form in ("route", "cuda_core"):
         if form == "cuda_core":
-            qm.group_form = lambda rows, dtype, norm: \
-                "cuda_core" if norm else route(rows, dtype, norm)
-        before = qm.launches["qmm_group_norm_mma"]
+            setattr(qm, form_fn, forced)
+        before = qm.launches[kname]
         try:
             dense._program = None
             dense._run_program(tok0, zero, 1)        # captures the step
         finally:
-            qm.group_form = route
+            setattr(qm, form_fn, route)
         programs[form] = dense._program
-        n = qm.launches["qmm_group_norm_mma"] - before
-        if (n > 0) != (form == "route" and SLOTS >= qm.MMA_MIN_ROWS):
-            fail(f"{DENSE_INT8}: the {form} step's capture launched "
-                 f"qmm_group_norm_mma {n} times")
+        n = qm.launches[kname] - before
+        if (n > 0) != (form == "route" and route_mma):
+            fail(f"{label}: the {form} step's capture launched {kname} "
+                 f"{n} times")
     dense._program = None
     tokens = {}
     for form, prog in programs.items():
@@ -1736,7 +1790,7 @@ def dense_forms(torch, qm, dense, cfg, dev, tie_gap):
         rest, _, _ = prog.run(tok, pos, DENSE_STEPS - CHUNK)
         tokens[form] = torch.cat([first, rest], 1).tolist()
     ties = same_up_to_ties(
-        f"{DENSE_INT8}: tensor-core vs CUDA-core qmm_group_norm",
+        f"{label}: tensor-core vs CUDA-core {kname[:-4]}",
         tokens["route"], tokens["cuda_core"],
         [[t] for t in tok0.tolist()], tie_gap)
     pos = torch.full((SLOTS,), 640, dtype=torch.int32, device=dev)
@@ -1751,7 +1805,7 @@ def dense_forms(torch, qm, dense, cfg, dev, tie_gap):
     out = {"step_ms": {f: min(v) for f, v in ms.items()},
            "step_ms_in_turns": ms, "device_profile_chunk": prof,
            "tokens_from_pos0": tokens["route"][0], "near_ties": ties}
-    print(f"# {DENSE_INT8} step at {SLOTS} live, qmm_group_norm forms: "
+    print(f"# {label} step at {SLOTS} live, {kname[:-4]} forms: "
           + json.dumps(out), flush=True)
     del programs
     return out
@@ -2036,6 +2090,105 @@ def norm_crossover(torch, qm, layer0, cfg, gen, randn, flush):
                     50, flush)
     print(f"# qmm_group_norm forms, ms summed over wqkv, w_gateup: "
           f"{json.dumps(out)}; MMA_MIN_ROWS = {qm.MMA_MIN_ROWS}", flush=True)
+    return out
+
+
+G64_SHAPES = ("wqkv", "w_gateup", "wo", "w_down", "lm_head")
+
+
+def g64_weight(g64, label):
+    """The group-64 7B weight `label` (the lm_head, or layer 0's)."""
+    return g64[label] if label == "lm_head" else g64["layers"][0][label]
+
+
+def chunk_mma_cases(torch, qm, g64, randn, dequantize_weight):
+    """Phase 3 rows of qmm_chunk's tensor-core form (the route's own call,
+    quant_matmul, at group 64) on wqkv, w_gateup, wo, w_down and the
+    lm_head at SLOTS, 64 and SHORT rows, each beside the CUDA-core form,
+    forced; library: matmul on the dequantized weight. SLOTS rows count
+    the launches of phase 9's dense 8-slot step, SHORT rows those of its
+    prefill."""
+    out = []
+    for label in G64_SHAPES:
+        q = g64_weight(g64, label)
+        w, n = dequantize_weight(q), q.out_features
+        for rows, path in ((SLOTS, DENSE_G64), (64, NO_PATH),
+                           (SHORT, G64_PROMPT)):
+            x = randn(rows, q.in_features)
+            out.append(dict(
+                name="qmm_chunk_mma", shape=f"g64 {label} {rows} rows",
+                path=path, replaces=TPU + "quant_matmul.py:44",
+                source=SRC + "quant_matmul_mma.cu",
+                kernel=lambda x=x, q=q: qm.quant_matmul(x, q),
+                cuda_core=lambda x=x, q=q, n=n: qm._launch_chunk(
+                    x, q, form="cuda_core")[:, :n],
+                plain=lambda x=x, q=q, n=n: qm.qmm_chunk_plain(x, q)[:, :n],
+                library=lambda x=x, w=w: torch.matmul(x, w),
+                bytes=sum(t.numel() * t.element_size()
+                          for t in (x, q.qweight, q.scales))
+                + 2 * rows * q.out_physical,
+                ops=2 * rows * q.in_features * q.out_physical, kind="bf16"))
+    return out
+
+
+def norm_w4a8_mma_cases(torch, qm, cfg, layer0, envs, gen, dev, randn,
+                        dequantize_weight):
+    """Phase 3 rows of qmm_norm_w4a8's tensor-core form (the route's own
+    call, quant_matmul_norm under phase 10's knobs) on wqkv and w_gateup
+    at SLOTS, 64 and SHORT rows, each beside the CUDA-core form, forced,
+    and the int8 tile alone (qmm_w4a8_mma on rows normalized beforehand:
+    the form minus it is the pre-pass); library: matmul on the normalized
+    rows. No phase's path runs it (the W4A8 knob at many rows)."""
+    eps = cfg.norm_eps
+    nw = (torch.rand(cfg.dim, generator=gen, device=dev) + 0.5).to(
+        torch.bfloat16)
+    out = []
+    for rows in (SLOTS, 64, SHORT):
+        for label in ("wqkv", "w_gateup"):
+            q = layer0[label]
+            x = randn(rows, cfg.dim) * 3
+            xn = qm.rmsnorm_bf16(x, nw, eps)
+            w, n = dequantize_weight(q), q.out_features
+            out.append(dict(
+                name="qmm_norm_w4a8_mma", shape=f"{label} {rows} rows",
+                path=NO_PATH, replaces=TPU + "quant_matmul.py:288",
+                source=SRC + "quant_matmul_w4a8_mma.cu", env=envs[W4A8],
+                kernel=lambda x=x, q=q: qm.quant_matmul_norm(x, nw, q, eps),
+                cuda_core=lambda x=x, q=q, n=n: qm._launch_w4a8(
+                    x, q, nw, eps, form="cuda_core")[:, :n],
+                forms={"tile_alone": lambda xn=xn, q=q, n=n: qm._launch_w4a8(
+                    xn, q, form="mma")[:, :n]},
+                plain=lambda x=x, q=q, n=n: qm.qmm_norm_w4a8_plain(
+                    x, nw, q, eps)[:, :n],
+                library=lambda xn=xn, w=w: torch.matmul(xn, w),
+                bytes=sum(t.numel() * t.element_size()
+                          for t in (x, nw, q.qweight, q.scales))
+                + 2 * rows * q.out_physical,
+                ops=2 * rows * cfg.dim * q.out_physical, kind="int8"))
+    return out
+
+
+def chunk_crossover(torch, qm, g64, randn, flush):
+    """Both forms of qmm_chunk (group 64), forced, at 1, 2, 3 and 4 rows of
+    the 7B wqkv, w_gateup, wo, w_down and lm_head (the CUDA-core form in
+    the K split group_splits gives it), in one call: the times that set
+    qm.CHUNK_MMA_MIN_ROWS (the fewest rows at which the tensor-core
+    form's sum over the five is the smaller). Returns {rows: {form: {shape:
+    ms, "sum": ms}}}."""
+    out = {}
+    for rows in (1, 2, 3, 4):
+        out[rows] = {"mma": {}, "cuda_core": {}}
+        for label in G64_SHAPES:
+            q = g64_weight(g64, label)
+            x = randn(rows, q.in_features)
+            for form in ("mma", "cuda_core"):
+                out[rows][form][label] = cuda_ms(
+                    torch, lambda x=x, q=q, form=form: qm._launch_chunk(
+                        x, q, form=form), 50, flush)
+        for form in ("mma", "cuda_core"):
+            out[rows][form]["sum"] = sum(out[rows][form].values())
+    print(f"# qmm_chunk forms at group 64, ms: {json.dumps(out)}; "
+          f"CHUNK_MMA_MIN_ROWS = {qm.CHUNK_MMA_MIN_ROWS}", flush=True)
     return out
 
 
@@ -2528,9 +2681,10 @@ def variant_path(torch, llama, counters, params, cfg, dev, report, steps,
 
 def entry_check(torch, counters, report):
     """The port's entry() once on the card: a decode step of the JAX
-    package's entry configuration (dim 512, 4 layers, group 64): qmm_chunk
-    for every linear but w_down (group 32 dividing no multiple of its 688
-    packed rows: the dequant route), flash_decode_q8 per layer; logits
+    package's entry configuration (dim 512, 4 layers, group 64, batch 2):
+    qmm_chunk for every linear but w_down (group 32 dividing no multiple
+    of its 688 packed rows: the dequant route), in its tensor-core form
+    where chunk_form takes 2 rows, flash_decode_q8 per layer; logits
     against the same step on the plain versions on the CPU."""
     from infinitensor_tpu_torch.entry import entry
     fn, (params, cfg, token, pos, cache) = entry()
@@ -2542,10 +2696,14 @@ def entry_check(torch, counters, report):
     L, B = cfg.n_layers, token.shape[0]
     from infinitensor_tpu_torch.kernels import quant_matmul as qm
     lay = params["layers"][0]
-    want = {"qmm_chunk": 3 * L + 1,
-            "qmm_chunk_split": L * split_launches(
-                qm, (lay["wqkv"], lay["wo"], lay["w_gateup"]), B)
-            + split_launches(qm, (params["lm_head"],), B),
+    # B rows: qmm_chunk's tensor-core form from CHUNK_MMA_MIN_ROWS, else
+    # its CUDA-core form, in the K split on these short grids
+    chunk = {"qmm_chunk_mma": 3 * L + 1} \
+        if qm.chunk_form(B, torch.bfloat16, lay["wo"].group_size) == "mma" \
+        else {"qmm_chunk_split": L * split_launches(
+            qm, (lay["wqkv"], lay["wo"], lay["w_gateup"]), B)
+            + split_launches(qm, (params["lm_head"],), B)}
+    want = {"qmm_chunk": 3 * L + 1, **chunk,
             "dequant_matmul": L, "flash_decode_q8": L, **merges(cfg, L)}
     print(f"# entry(): one decode step launched {got}", flush=True)
     report["entry_launches"] = got
@@ -2554,6 +2712,86 @@ def entry_check(torch, counters, report):
     ref, _ = fn(*cpu_args)
     compare_logits_rows(torch, "entry() step, kernels vs plain", logits, ref,
                         report)
+
+
+def g64_prompt_path(torch, llama, qm, counters, params, cfg, dev, report):
+    """Phase 9 (a): a seeded SHORT-token prefill of the group-64 7B model,
+    whose matmuls are all qmm_chunk at SHORT rows (qmm_chunk_mma 4 L + 1
+    where chunk_form takes it, no other matmul kernel); its ms (min of 3
+    runs) read in turns with the CUDA-core form forced (qm.chunk_form
+    patched): new, forced, new; the last-position logits of the two forms
+    held to each other up to a printed near-tie. Returns the route's
+    launches of one prefill."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 64)
+    prompt = torch.randint(0, cfg.vocab_size, (1, SHORT), generator=gen,
+                           device=dev, dtype=torch.int32)
+    cache = llama.init_kv_cache(cfg, 1, device=dev)
+    n = 4 * cfg.n_layers + 1
+    route = qm.chunk_form
+    counters.reset()
+    llama.llama_prefill(params, cfg, prompt, cache)
+    torch.cuda.synchronize()
+    launches = counters.read()
+    mma = route(SHORT, torch.bfloat16, params["lm_head"].group_size) == "mma"
+    want = {"qmm_chunk": n, "qmm_chunk_mma": n if mma else 0}
+    other = [k for k in launches if k.startswith("qmm_") and k not in want]
+    if other or any(launches.get(k, 0) != v for k, v in want.items()):
+        fail(f"{G64_PROMPT}: a prefill launched {launches}, expected {want}")
+    ms, last = {"route": [], "cuda_core": []}, {}
+    for form in ("route", "cuda_core", "route"):
+        if form == "cuda_core":
+            qm.chunk_form = lambda rows, dtype, group: "cuda_core"
+        try:
+            s, logits = time_prefill(torch, llama, params, cfg, prompt, cache)
+        finally:
+            qm.chunk_form = route
+        ms[form].append(1e3 * s)
+        last[form] = logits[0, -1].float()
+    what = f"{G64_PROMPT}: tensor-core vs CUDA-core qmm_chunk, last logits"
+    rel, top_new, top_old = compare_logits(torch, what, last["route"],
+                                           last["cuda_core"], report)
+    old = last["cuda_core"]
+    gap = float(old[top_old] - old[top_new]) / float(old.abs().max())
+    out = {"prefill_ms": {f: min(v) for f, v in ms.items()},
+           "prefill_ms_in_turns": ms, "launches_per_prompt": launches,
+           "rel_logit_err": rel, "top1": [top_new, top_old],
+           "near_tie_gap": gap}
+    print(f"# {G64_PROMPT}: " + json.dumps(out), flush=True)
+    report[G64_PROMPT.replace(" ", "_")] = out
+    return launches
+
+
+def g64_dense_path(torch, llama, qm, counters, params, cfg, dev, report):
+    """Phase 9 (b): the dense ServingEngine over the group-64 7B weights
+    (SLOTS slots, INT8 cache): one eager step at SLOTS rows launches
+    qmm_chunk 4 L + 1 times, all qmm_chunk_mma where chunk_form takes
+    SLOTS rows; then dense_forms with qm.chunk_form patched to the
+    CUDA-core form. Returns (one step's launches, dense_forms' result)."""
+    from infinitensor_tpu_torch.serving import ServingEngine
+    dense = ServingEngine(params, cfg, max_slots=SLOTS,
+                          prefill_buckets=BUCKETS, decode_chunk=CHUNK,
+                          kv_quant=True)
+    tok0 = torch.zeros(SLOTS, dtype=torch.int32, device=dev)
+    pos0 = torch.full((SLOTS,), 640, dtype=torch.int32, device=dev)
+    counters.reset()
+    llama.llama_decode_step(params, cfg, tok0, pos0, dense.cache)
+    torch.cuda.synchronize()
+    step = counters.read()
+    n = 4 * cfg.n_layers + 1
+    mma = qm.chunk_form(SLOTS, torch.bfloat16,
+                        params["lm_head"].group_size) == "mma"
+    for kname, k in (("qmm_chunk", n), ("qmm_chunk_mma", n if mma else 0)):
+        if step.get(kname, 0) != k:
+            fail(f"{DENSE_G64}: a decode step launched {kname} "
+                 f"{step.get(kname, 0)} times, expected {k}")
+    forms = dense_forms(
+        torch, qm, dense, cfg, dev,
+        prefill_tie_gap(torch, llama, params, cfg, dev), label=DENSE_G64,
+        form_fn="chunk_form",
+        forced=lambda rows, dtype, group: "cuda_core",
+        kname="qmm_chunk_mma", route_mma=mma)
+    del dense
+    return step, forms
 
 
 def split_kb(q, sms=132):
@@ -2596,7 +2834,10 @@ def variant_cases(torch, qm, cfg, g64, params, envs, kbs, randn,
     """Phase 3 rows of the kernels of phases 9-11 at the 7B shapes:
     qmm_chunk (group 64) on wqkv, w_gateup, wo, w_down and the lm_head and
     qmm_norm_w4a8 (under phase 10's knobs) on wqkv and w_gateup, at 1 and
-    SLOTS rows; qmm_group2d (under phase 11's) on wo and w_down at 1 row."""
+    SLOTS rows, in their CUDA-core forms (at SLOTS rows forced: the route
+    takes the tensor-core forms there, chunk_mma_cases and
+    norm_w4a8_mma_cases); qmm_group2d (under phase 11's) on wo and w_down
+    at 1 row."""
     eps = cfg.norm_eps
 
     def nbytes(*ts):
@@ -2626,7 +2867,9 @@ def variant_cases(torch, qm, cfg, g64, params, envs, kbs, randn,
             x, w = randn(rows, q.in_features), dequantize_weight(q)
             c = row(
                 "qmm_chunk", f"g64 {label}", rows, G64, q,
-                lambda x=x, q=q: qm.quant_matmul(x, q),
+                (lambda x=x, q=q: qm.quant_matmul(x, q)) if rows == 1 else
+                (lambda x=x, q=q: qm._launch_chunk(x, q, form="cuda_core")[
+                    :, :q.out_features]),
                 lambda x=x, q=q: qm.qmm_chunk_plain(x, q)[:, :q.out_features],
                 lambda x=x, w=w: torch.matmul(x, w))
             if split_launches(qm, (q,), rows):      # beside the old form
@@ -2640,7 +2883,10 @@ def variant_cases(torch, qm, cfg, g64, params, envs, kbs, randn,
             xn, w = qm.rmsnorm_bf16(x, nw, eps), dequantize_weight(q)
             out.append(row(
                 "qmm_norm_w4a8", label, rows, W4A8, q,
-                lambda x=x, nw=nw, q=q: qm.quant_matmul_norm(x, nw, q, eps),
+                (lambda x=x, nw=nw, q=q: qm.quant_matmul_norm(
+                    x, nw, q, eps)) if rows == 1 else
+                (lambda x=x, nw=nw, q=q: qm._launch_w4a8(
+                    x, q, nw, eps, form="cuda_core")[:, :q.out_features]),
                 lambda x=x, nw=nw, q=q: qm.qmm_norm_w4a8_plain(
                     x, nw, q, eps)[:, :q.out_features],
                 lambda xn=xn, w=w: torch.matmul(xn, w), extra=(nw,),
@@ -2772,8 +3018,9 @@ def graph_cases(torch, norms, band, fa, cfg, gen, dev, randn):
 def entry_prompt_check(torch, llama, counters, report):
     """flash_attention at head dim 64 on a path: greedy_generate on
     entry()'s model (dim 512, 8 heads of 64, INT4 at group 64) from a
-    seeded 64-token prompt with the bf16 cache; its prefill logits held
-    against the plain versions on the CPU. Returns the path's launches."""
+    seeded 64-token prompt with the bf16 cache (its matmuls qmm_chunk at
+    128 and 2 rows, counted exactly); its prefill logits held against the
+    plain versions on the CPU. Returns the path's launches."""
     from infinitensor_tpu_torch.entry import entry
     _, (params, cfg, _, _, _) = entry()
     gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
@@ -2792,6 +3039,18 @@ def entry_prompt_check(torch, llama, counters, report):
     if launches.get("flash_attention", 0) != cfg.n_layers:
         fail(f"{ENTRY_PROMPT}: flash_attention launched "
              f"{launches.get('flash_attention', 0)} times")
+    # the prefill at B * S rows, then the decode graph's warm-up and
+    # capture at B rows: 3 L + 1 qmm_chunk launches each (w_down takes the
+    # dequant route), in the tensor-core form where chunk_form says so
+    from infinitensor_tpu_torch.kernels import quant_matmul as qm
+    n, group = 3 * cfg.n_layers + 1, params["lm_head"].group_size
+    want = {"qmm_chunk": 3 * n, "qmm_chunk_mma": n * sum(
+        qm.chunk_form(rows, torch.bfloat16, group) == "mma"
+        for rows in (B * S, B, B))}
+    for kname, k in want.items():
+        if launches.get(kname, 0) != k:
+            fail(f"{ENTRY_PROMPT}: {kname} launched "
+                 f"{launches.get(kname, 0)} times, expected {k}")
     got, _ = llama.llama_prefill(params, cfg, prompt,
                                  llama.init_kv_cache(cfg, 2, device="cuda"))
     want, _ = llama.llama_prefill(to_cpu(params), cfg, prompt.cpu(),
@@ -3146,9 +3405,9 @@ def f16_params(torch, params):
 def split_crossover(torch, qm, layer0, lay64, randn, flush):
     """The K split forced at 1 (the form before it), 2, 4, 8 and 16
     blocks a tile, beside the count group_splits
-    picks: qmm_group on wo and w_down at 1 row, qmm_chunk (group 64) on
-    wo and w_down at 1 and SLOTS rows and on wo at 4. The times behind
-    qm.SPLIT_MAX and group_splits' unsplit 4-row blocks.
+    picks: qmm_group on wo and w_down at 1 row, qmm_chunk (group 64, its
+    CUDA-core form) on wo and w_down at 1 and SLOTS rows and on wo at 4.
+    The times behind qm.SPLIT_MAX and group_splits' unsplit 4-row blocks.
     Returns [{weight, rows, chosen, ms: {splits: ms}}]."""
     out = []
     for label, q, rows in (("wo", layer0["wo"], 1),
@@ -3165,8 +3424,9 @@ def split_crossover(torch, qm, layer0, lay64, randn, flush):
         for n in (1, 2, 4, 8, 16):
             qm._SPLITS = n
             try:
-                ms[n] = cuda_ms(torch, lambda x=x, q=q: qm.quant_matmul(
-                    x, q), 50, flush)
+                ms[n] = cuda_ms(torch, lambda x=x, q=q: qm._launch_chunk(
+                    x, q, form="cuda_core") if label.startswith("g64")
+                    else qm.quant_matmul(x, q), 50, flush)
             finally:
                 qm._SPLITS = None
         out.append({"weight": label, "rows": rows, "chosen": chosen,

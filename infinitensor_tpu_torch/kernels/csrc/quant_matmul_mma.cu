@@ -9,6 +9,8 @@
 //   qmm_group_mma       <- _kernel_group (:100, body _group_dots :115-166)
 //   qmm_group_norm_mma  <- _kernel_group_norm (:85, via quant_matmul_norm)
 //   qmm_group_ln_mma    <- _kernel_group_ln (:300, via quant_matmul_ln :321)
+//   qmm_chunk_mma       <- _kernel (:44, the chunk kernel; a group that is
+//                          no multiple of 128, as at group 64)
 // the first for a bf16 or f16 x without a norm, the others for a bf16 x:
 // the Llama decode step's RMSNorm ahead of wqkv and w_gateup, GPT-2's
 // pre-matmul LayerNorm (then the output bias). The RMSNorm form is a
@@ -38,6 +40,26 @@
 // s[ngs + c] of packed group c), so no -8 * sum(x) correction is needed.
 // An f32 x keeps the CUDA-core form of quant_matmul.cuh: rounding it to 16
 // bits for the tensor cores would change its numbers.
+//
+// qmm_chunk_mma computes the chunk kernel's function (qmm_chunk_plain):
+// each weight is its exact value times its group's scale in f32, rounded
+// to bf16, and only then multiplied by x; the products summed in f32,
+// rounded once to bf16. That is a bf16 x bf16 mma with f32 sums, so the
+// tile runs as above with two changes. The scale enters each A register
+// before the mma (the rounding point of quant_matmul.cuh's kDequant): a
+// decoded register holds two exact integers of one output column (column
+// ncol + 2f + (e & 1) for register e of M-tile f; int4 lo with s[c], hi
+// with s[ngs + c]); with bf16 scales one fma.rn.bf16x2 by {s, s} (plus
+// -0) rounds the exact product (a 4- or 8-bit integer times an 8-bit
+// significand fits 16 bits) once, as round_bf16(__fmul_rn(v, s)) does;
+// with f32 scales each value goes through __fmul_rn in f32, then
+// cvt.rn.bf16x2, the plain version's two roundings. And there are no
+// per-group partials: the mma sums straight into acc (64 f32 a lane at
+// the 64-row tile, not 192). It takes a bf16 x only (an f16 or f32 x
+// stays on quant_matmul_chunk.cu: the chunk multiplies x as it is by bf16
+// weights in f32, and no 16-bit mma takes an f16 x bf16 pair), a group
+// that is a multiple of 64 (kBK; group 32 stays there too), int4
+// (split-half) or int8, bf16 or f32 scales, dout_p a multiple of 4.
 //
 // What bounds it on this card (H100 SXM: 3.35 TB/s, 989 TFLOP/s bf16):
 // at 8 rows every weight byte feeds 4 (int4) or 2 (int8) multiply-adds
@@ -127,6 +149,38 @@ __device__ __forceinline__ uint32_t int8_pair(uint32_t p) {
   return pack_out<XK>(lo, hi);
 }
 
+// Where a scale enters the tile (group_mma_tile's DEQ): per group, on the
+// f32 partial (the group dots), or on each weight before the mma (the
+// chunk kernel), with bf16 or f32 scales.
+constexpr int kNoDeq = 0, kDeqBf16 = 1, kDeqF32 = 2;
+
+// A pair of exact bf16 weight values v (one output column) times its
+// scale, rounded to bf16: DEQ kDeqBf16, s = {s, s} in bf16, the exact
+// product rounded once (fma with -0, so that 0 * s stays +0);
+// kDeqF32, s an f32 scale's bits, __fmul_rn in f32 then to bf16.
+template <int DEQ>
+__device__ __forceinline__ uint32_t scaled_pair(uint32_t v, uint32_t s) {
+  if (DEQ == kDeqBf16) {
+    uint32_t d;
+    asm("fma.rn.bf16x2 %0, %1, %2, %3;\n"
+        : "=r"(d) : "r"(v), "r"(s), "r"(0x80008000u));
+    return d;
+  }
+  const float f = __uint_as_float(s);
+  return pack_out<kXBf16>(__fmul_rn(__uint_as_float(v << 16), f),
+                          __fmul_rn(__uint_as_float(v & 0xFFFF0000u), f));
+}
+
+// The scale word of element i of sc for scaled_pair<DEQ>.
+template <int DEQ>
+__device__ __forceinline__ uint32_t scale_word(const void* sc, size_t i) {
+  if (DEQ == kDeqBf16) {
+    const uint32_t b = static_cast<const uint16_t*>(sc)[i];
+    return b | (b << 16);
+  }
+  return __float_as_uint(static_cast<const float*>(sc)[i]);
+}
+
 // x [rows, din] 16-bit (XK: kXBf16 or kXF16); qw int8 [krows, dout_p]
 // (split-half int4 or int8, unpaired); sc bf16/f32 [ngs (int4: 2 ngs),
 // dout_p]; out [rows, dout_p] of x's type, or with splits > 1 part f32
@@ -135,7 +189,10 @@ __device__ __forceinline__ uint32_t int8_pair(uint32_t p) {
 // splits) of the packed rows. Warp w: columns w * 32 .. + 32 and all
 // BR = 8 * NT rows of the block's tile. LN (bf16 only): out = bf16(
 // bf16(sum) + bias[n]), bias bf16/f32 [nbias] (0 past nbias, or none).
-template <int BITS, int XK, int NT, bool LN>
+// DEQ kDeqBf16 / kDeqF32 (bf16 x, no LN; sc bf16 / f32 as sc_bf16 says):
+// the chunk kernel's function, each weight scaled and rounded to bf16
+// before the mma, which sums into acc (no per-group partials).
+template <int BITS, int XK, int NT, bool LN, int DEQ = kNoDeq>
 __device__ __forceinline__ void group_mma_tile(
     const uint16_t* __restrict__ x, const int8_t* __restrict__ qw,
     const void* __restrict__ sc, bool sc_bf16, const void* __restrict__ bias,
@@ -143,6 +200,9 @@ __device__ __forceinline__ void group_mma_tile(
     float* __restrict__ part, int rows, int din, int dout_p, int group,
     int splits) {
   static_assert(!LN || XK == kXBf16, "the LayerNorm form is bf16");
+  static_assert(DEQ == kNoDeq || (XK == kXBf16 && !LN),
+                "the chunk form is bf16, without a LayerNorm");
+  constexpr bool kChunk = DEQ != kNoDeq;
   constexpr int BR = 8 * NT;                      // rows per block
   constexpr int kHalves = BITS == 4 ? 2 : 1;      // x tiles: lo (and hi)
   constexpr int kWBytes = kBK * kWStride;
@@ -179,6 +239,7 @@ __device__ __forceinline__ void group_mma_tile(
     }
   };
 
+  // (the chunk form sums into acc alone: its plo and phi are dead)
   float acc[2][NT][4], plo[2][NT][4], phi[2][NT][4];
 #pragma unroll
   for (int f = 0; f < 2; ++f)
@@ -189,6 +250,7 @@ __device__ __forceinline__ void group_mma_tile(
         acc[f][j][e] = plo[f][j][e] = phi[f][j][e] = 0.f;
   const int ncol = col0 + warp * 32 + 4 * g;     // this lane's 4 columns
   float s_lo[4] = {0.f, 0.f, 0.f, 0.f}, s_hi[4] = {0.f, 0.f, 0.f, 0.f};
+  uint32_t w_lo[4] = {0, 0, 0, 0}, w_hi[4] = {0, 0, 0, 0};  // scaled_pair's
 
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
@@ -206,10 +268,15 @@ __device__ __forceinline__ void group_mma_tile(
       const int c = p / group;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        s_lo[j] = load_scale(sc, sc_bf16, (size_t)c * dout_p + ncol + j);
-        if (BITS == 4)
-          s_hi[j] = load_scale(sc, sc_bf16,
-                               (size_t)(ngs + c) * dout_p + ncol + j);
+        const size_t lo = (size_t)c * dout_p + ncol + j;
+        const size_t hi = (size_t)(ngs + c) * dout_p + ncol + j;
+        if (kChunk) {
+          w_lo[j] = scale_word<DEQ>(sc, lo);
+          if (BITS == 4) w_hi[j] = scale_word<DEQ>(sc, hi);
+        } else {
+          s_lo[j] = load_scale(sc, sc_bf16, lo);
+          if (BITS == 4) s_hi[j] = load_scale(sc, sc_bf16, hi);
+        }
       }
     }
     const uint8_t* base = mma_smem + (st % kStages) * kStage;
@@ -242,6 +309,11 @@ __device__ __forceinline__ void group_mma_tile(
           } else {
             alo[f][e] = int8_pair<XK>(q[f][e]);
           }
+          if (kChunk) {                  // column ncol + 2f + (e & 1)
+            alo[f][e] = scaled_pair<DEQ>(alo[f][e], w_lo[2 * f + (e & 1)]);
+            if (BITS == 4)
+              ahi[f][e] = scaled_pair<DEQ>(ahi[f][e], w_hi[2 * f + (e & 1)]);
+          }
         }
 #pragma unroll
       for (int h = 0; h < kHalves; ++h) {
@@ -260,15 +332,16 @@ __device__ __forceinline__ void group_mma_tile(
           for (int jj = 0; jj < 2 && j + jj < NT; ++jj)
 #pragma unroll
             for (int f = 0; f < 2; ++f) {
-              if (BITS == 4 && h == 1)
-                mma16816<XK>(phi[f][j + jj], ahi[f], b[2 * jj], b[2 * jj + 1]);
-              else
-                mma16816<XK>(plo[f][j + jj], alo[f], b[2 * jj], b[2 * jj + 1]);
+              float (&d)[4] = kChunk           ? acc[f][j + jj]
+                              : BITS == 4 && h ? phi[f][j + jj]
+                                               : plo[f][j + jj];
+              mma16816<XK>(d, BITS == 4 && h == 1 ? ahi[f] : alo[f],
+                           b[2 * jj], b[2 * jj + 1]);
             }
         }
       }
     }
-    if ((p + kBK) % group == 0) {              // a group ends: fold it
+    if (!kChunk && (p + kBK) % group == 0) {   // a group ends: fold it
 #pragma unroll
       for (int f = 0; f < 2; ++f)
 #pragma unroll
@@ -341,6 +414,21 @@ qmm_group_norm_mma_kernel(const uint16_t* __restrict__ x,
                                           group, splits);
 }
 
+// The tile of the chunk kernel (a kernel of its own name, so that a
+// profile gives its time to qmm_chunk): bf16 x, bf16 (SC_BF16) or f32
+// scales, each weight scaled and rounded to bf16 before the mma.
+template <int BITS, int NT, bool SC_BF16>
+__global__ void __launch_bounds__(kThreads)
+qmm_chunk_mma_kernel(const uint16_t* __restrict__ x,
+                     const int8_t* __restrict__ qw,
+                     const void* __restrict__ sc, void* __restrict__ out,
+                     float* __restrict__ part, int rows, int din, int dout_p,
+                     int group, int splits) {
+  group_mma_tile<BITS, kXBf16, NT, false, SC_BF16 ? kDeqBf16 : kDeqF32>(
+      x, qw, sc, SC_BF16, nullptr, false, 0, out, part, rows, din, dout_p,
+      group, splits);
+}
+
 // The tile of the LayerNorm form (a kernel of its own name, so that a
 // profile gives its time to qmm_group_ln): x holds the normalized rows.
 template <int BITS, int NT>
@@ -384,6 +472,13 @@ __global__ void mma_splitk_sum(const float* __restrict__ part, int splits,
   splitk_sum_body<XK, false>(part, splits, n, 1, nullptr, false, 0, out);
 }
 
+// The chunk tile's split sum, as mma_splitk_sum<kXBf16> (a kernel of its
+// own name, so that a profile gives its time to qmm_chunk).
+__global__ void chunk_splitk_sum(const float* __restrict__ part, int splits,
+                                 size_t n, void* __restrict__ out) {
+  splitk_sum_body<kXBf16, false>(part, splits, n, 1, nullptr, false, 0, out);
+}
+
 __global__ void group_ln_splitk_sum(const float* __restrict__ part,
                                     int splits, size_t n, int dout_p,
                                     const void* __restrict__ bias,
@@ -398,9 +493,9 @@ inline dim3 sum_grid(size_t n) {
   return dim3((unsigned)((n + 255) / 256 < 1024 ? (n + 255) / 256 : 1024));
 }
 
-// Launch the tile `kernel` (qmm_group_mma_kernel, qmm_group_norm_mma_kernel
-// or qmm_group_ln_mma_kernel, BR rows per block) on its grid with the
-// shared memory it needs; `args` are its arguments.
+// Launch the tile `kernel` (qmm_group_mma_kernel, qmm_group_norm_mma_kernel,
+// qmm_chunk_mma_kernel or qmm_group_ln_mma_kernel, BR rows per block) on
+// its grid with the shared memory it needs; `args` are its arguments.
 template <int BITS, int NT, typename K, typename... A>
 cudaError_t launch_tile(K kernel, SmemGrant* granted, int rows, int dout_p,
                         int splits, cudaStream_t stream, A... args) {
@@ -411,6 +506,17 @@ cudaError_t launch_tile(K kernel, SmemGrant* granted, int rows, int dout_p,
   if (e != cudaSuccess) return e;
   dim3 grid((dout_p + kBN - 1) / kBN, (rows + BR - 1) / BR, splits);
   kernel<<<grid, kThreads, smem, stream>>>(args...);
+  return cudaGetLastError();
+}
+
+// After a tile launch that returned e: where K is split, the sum of its
+// splits' partials into out [n] by the kernel `sum` (mma_splitk_sum<XK>
+// or chunk_splitk_sum).
+template <typename K>
+cudaError_t sum_splits(K sum, cudaError_t e, const float* part, int splits,
+                       size_t n, void* out, cudaStream_t stream) {
+  if (e != cudaSuccess || splits == 1) return e;
+  sum<<<sum_grid(n), 256, 0, stream>>>(part, splits, n, out);
   return cudaGetLastError();
 }
 
@@ -430,10 +536,24 @@ cudaError_t launch_mma(const void* x, const void* qw, const void* sc,
       stream, static_cast<const uint16_t*>(x),
       static_cast<const int8_t*>(qw), sc, sc_bf16, out, part, rows, din,
       dout_p, group, splits);
-  if (e != cudaSuccess || splits == 1) return e;
-  const size_t n = (size_t)rows * dout_p;
-  mma_splitk_sum<XK><<<sum_grid(n), 256, 0, stream>>>(part, splits, n, out);
-  return cudaGetLastError();
+  return sum_splits(mma_splitk_sum<XK>, e, part, splits,
+                    (size_t)rows * dout_p, out, stream);
+}
+
+// qmm_chunk_mma's tile, then the split sum where K is split.
+template <int BITS, int NT, bool SC_BF16>
+cudaError_t launch_chunk_mma(const void* x, const void* qw, const void* sc,
+                             void* out, float* part, int rows, int din,
+                             int dout_p, int group, int splits,
+                             cudaStream_t stream) {
+  static SmemGrant granted;
+  cudaError_t e = launch_tile<BITS, NT>(
+      qmm_chunk_mma_kernel<BITS, NT, SC_BF16>, &granted, rows, dout_p,
+      splits, stream, static_cast<const uint16_t*>(x),
+      static_cast<const int8_t*>(qw), sc, out, part, rows, din, dout_p,
+      group, splits);
+  return sum_splits(chunk_splitk_sum, e, part, splits, (size_t)rows * dout_p,
+                    out, stream);
 }
 
 // The LayerNorm pre-pass: row blockIdx.x of x bf16 [rows, din] normalized
@@ -513,7 +633,7 @@ cudaError_t launch_ln_mma(const void* x, const void* gamma, const void* beta,
   return cudaGetLastError();
 }
 
-// The checks both C entries make on a launch of the tile.
+// The checks the C entries make on a launch of the tile.
 bool tile_refuses(const void* x, const void* qw, const void* part, int rows,
                   int din, int dout_p, int bits, int group, int splits) {
   const int krows = bits == 4 ? din / 2 : din;
@@ -552,6 +672,32 @@ ITT_EXPORT int qmm_group_mma(const void* x, int x_kind, const void* qw,
   ITT_MMA_TILES(8, kXBf16) ITT_MMA_TILES(8, kXF16)
 #undef ITT_MMA_TILES
 #undef ITT_MMA
+  return (int)cudaErrorInvalidValue;
+}
+
+// x bf16 [rows, din], 16-byte aligned; qw, part, row_tile, splits as
+// qmm_group_mma; sc bf16 (sc_bf16) or f32 [ng, dout_p]; out bf16 [rows,
+// dout_p] = bf16(x @ bf16(q * s)), each weight scaled in f32 and rounded
+// to bf16 before its product (the chunk kernel).
+ITT_EXPORT int qmm_chunk_mma(const void* x, const void* qw, const void* sc,
+                             int sc_bf16, void* part, void* out, int rows,
+                             int din, int dout_p, int bits, int group,
+                             int row_tile, int splits, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tile_refuses(x, qw, part, rows, din, dout_p, bits, group, splits))
+    return (int)cudaErrorInvalidValue;
+  float* p = static_cast<float*>(part);
+#define ITT_CHUNK_MMA(B, NT, SB)                                              \
+  if (bits == B && row_tile == 8 * NT && (sc_bf16 != 0) == SB)                \
+    return (int)launch_chunk_mma<B, NT, SB>(x, qw, sc, out, p, rows, din,     \
+                                            dout_p, group, splits, s);
+#define ITT_CHUNK_MMA_TILES(B, SB)                                            \
+  ITT_CHUNK_MMA(B, 1, SB) ITT_CHUNK_MMA(B, 2, SB) ITT_CHUNK_MMA(B, 4, SB)     \
+  ITT_CHUNK_MMA(B, 8, SB)
+  ITT_CHUNK_MMA_TILES(4, true) ITT_CHUNK_MMA_TILES(4, false)
+  ITT_CHUNK_MMA_TILES(8, true) ITT_CHUNK_MMA_TILES(8, false)
+#undef ITT_CHUNK_MMA_TILES
+#undef ITT_CHUNK_MMA
   return (int)cudaErrorInvalidValue;
 }
 

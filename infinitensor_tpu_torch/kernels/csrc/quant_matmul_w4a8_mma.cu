@@ -1,18 +1,26 @@
 // qmm_w4a8 on Hopper's int8 tensor cores (sm_90a): the W4A8 / W8A8
 // group-dot matmul for 2 to 256 activation rows of bf16 or f32, with
 // mma.sync m16n8k32 (s8 x s8 -> s32) fed by the cp.async ring of
-// mma_tile.cuh. Python wrapper: kernels/quant_matmul.py (_launch_w4a8,
-// form "mma"; w4a8_form says when a launch takes it, mma_plan its tile
-// and split).
+// mma_tile.cuh, and the same with the RMSNorm ahead (qmm_norm_w4a8, bf16
+// x). Python wrapper: kernels/quant_matmul.py (_launch_w4a8, form "mma";
+// w4a8_form says when a launch takes it, mma_plan its tile and split).
 //
-// Replaces the TPU kernel of infinitensor_tpu/kernels/quant_matmul.py:
-//   qmm_w4a8_mma  <- _kernel_group_w4a8 (:283; _quantize_rows_i8 :217,
-//                    _group_dots_w4a8 :229)
-// It computes what qmm_w4a8_plain computes: each row quantized to int8
+// Replaces the TPU kernels of infinitensor_tpu/kernels/quant_matmul.py:
+//   qmm_w4a8_mma       <- _kernel_group_w4a8 (:283; _quantize_rows_i8 :217,
+//                         _group_dots_w4a8 :229)
+//   qmm_norm_w4a8_mma  <- _kernel_group_norm_w4a8 (:288, via
+//                         quant_matmul_norm; a bf16 x)
+// The first computes what qmm_w4a8_plain computes: each row quantized to int8
 // (sx = max(amax, 1e-30) * f32(1/127), xq = clip(rint(x / sx), +-127),
 // a true IEEE division, round half to even), exact int32 dots per scale
 // group, each group folded once into an f32 accumulator with its scales,
 // the accumulator times sx once at the end, rounded once to x's type.
+// The second computes qmm_norm_w4a8_plain: the RMSNorm folded into the
+// quantize pre-pass (w4a8_norm_quantize_rows: rms_norm_rinv over the raw
+// row, then the amax and the quantize of rms_norm_value of each element,
+// recomputed for each, as qmm_norm_w4a8's CUDA-core prologue does in
+// quant_matmul.cu, in the same reduction order, so xq and sx equal that
+// prologue's bit for bit), then this tile as it is.
 //
 // What bounds it on this card (H100 SXM: 3.35 TB/s, 1,979 TOPS int8):
 // the Llama lm_head (4096 -> 32000, int4, bf16 scales) at 256 rows is
@@ -97,6 +105,34 @@ w4a8_quantize_rows(const void* __restrict__ x, int din,
   if (threadIdx.x == 0) sx[blockIdx.x] = s;
 }
 
+// As w4a8_quantize_rows, on the row normalized as the CUDA-core
+// prologue of qmm_norm_w4a8 normalizes it (x bf16; nw bf16 [din]; block:
+// qmm_detail's kLanes x kWarps threads, that prologue's reduction order).
+__global__ void __launch_bounds__(qmm_detail::kLanes * qmm_detail::kWarps)
+w4a8_norm_quantize_rows(const void* __restrict__ x,
+                        const __nv_bfloat16* __restrict__ nw, float eps,
+                        int din, int8_t* __restrict__ xq,
+                        float* __restrict__ sx) {
+  namespace qd = qmm_detail;
+  __shared__ float part[qd::kWarps];
+  const int tid = threadIdx.y * qd::kLanes + threadIdx.x;
+  const int nthr = qd::kLanes * qd::kWarps;
+  const size_t xr = (size_t)blockIdx.x * din;
+  const float rinv = qd::rms_norm_rinv<kXBf16>(x, xr, din, eps, part);
+  auto xn = [&](int k) {
+    return qd::rms_norm_value(qd::load_x<kXBf16>(x, xr + k), rinv, nw, k);
+  };
+  float amax = 0.f;
+  for (int k = tid; k < din; k += nthr) amax = fmaxf(amax, fabsf(xn(k)));
+  amax = qd::block_reduce<true>(amax, part);
+  const float s = fmaxf(amax, 1e-30f) * (1.0f / 127.0f);
+  for (int k = tid; k < din; k += nthr) {
+    const float q = rintf(xn(k) / s);
+    xq[xr + k] = (int8_t)fminf(fmaxf(q, -127.f), 127.f);
+  }
+  if (tid == 0) sx[blockIdx.x] = s;
+}
+
 // d += a * b on the int8 tensor cores, s32 sums.
 __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
                                        uint32_t b0, uint32_t b1) {
@@ -114,13 +150,11 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
 // (bx, by, bz): rows [bx * BR, +BR), columns [by * kBN, +kBN), scale
 // groups as in qmm_group_mma_kernel; warps as there.
 template <int BITS, int XK, int NT>
-__global__ void __launch_bounds__(kThreads)
-qmm_w4a8_mma_kernel(const int8_t* __restrict__ xq,
-                    const float* __restrict__ sx,
-                    const int8_t* __restrict__ qw,
-                    const void* __restrict__ sc, bool sc_bf16,
-                    void* __restrict__ out, float* __restrict__ part,
-                    int rows, int din, int dout_p, int group, int splits) {
+__device__ __forceinline__ void w4a8_mma_tile(
+    const int8_t* __restrict__ xq, const float* __restrict__ sx,
+    const int8_t* __restrict__ qw, const void* __restrict__ sc, bool sc_bf16,
+    void* __restrict__ out, float* __restrict__ part, int rows, int din,
+    int dout_p, int group, int splits) {
   constexpr int BR = 8 * NT;                      // rows per block
   constexpr int kHalves = BITS == 4 ? 2 : 1;      // xq tiles: lo (and hi)
   constexpr int kWBytes = kBK * kWStride;
@@ -297,6 +331,33 @@ qmm_w4a8_mma_kernel(const int8_t* __restrict__ xq,
     }
 }
 
+template <int BITS, int XK, int NT>
+__global__ void __launch_bounds__(kThreads)
+qmm_w4a8_mma_kernel(const int8_t* __restrict__ xq,
+                    const float* __restrict__ sx,
+                    const int8_t* __restrict__ qw,
+                    const void* __restrict__ sc, bool sc_bf16,
+                    void* __restrict__ out, float* __restrict__ part,
+                    int rows, int din, int dout_p, int group, int splits) {
+  w4a8_mma_tile<BITS, XK, NT>(xq, sx, qw, sc, sc_bf16, out, part, rows, din,
+                              dout_p, group, splits);
+}
+
+// The tile of the RMSNorm form (a kernel of its own name, so that a
+// profile gives its time to qmm_norm_w4a8): xq, sx of the normalized rows.
+template <int BITS, int NT>
+__global__ void __launch_bounds__(kThreads)
+qmm_norm_w4a8_mma_kernel(const int8_t* __restrict__ xq,
+                         const float* __restrict__ sx,
+                         const int8_t* __restrict__ qw,
+                         const void* __restrict__ sc, bool sc_bf16,
+                         void* __restrict__ out, float* __restrict__ part,
+                         int rows, int din, int dout_p, int group,
+                         int splits) {
+  w4a8_mma_tile<BITS, kXBf16, NT>(xq, sx, qw, sc, sc_bf16, out, part, rows,
+                                  din, dout_p, group, splits);
+}
+
 // out[i] = (the sum over z of part[z][i], z in order) * sx[row of i],
 // rounded to XK.
 template <int XK>
@@ -312,18 +373,30 @@ __global__ void w4a8_splitk_sum(const float* __restrict__ part, int splits,
   }
 }
 
-template <int BITS, int XK, int NT>
+// The quantize pre-pass (NORM: with the RMSNorm of nw, eps; bf16 x), the
+// tile (NORM: under the name qmm_norm_w4a8_mma_kernel), then the split sum
+// where K is split.
+template <int BITS, int XK, int NT, bool NORM = false>
 cudaError_t launch_w4a8_mma(const void* x, int8_t* xq, float* sx,
                             const void* qw, const void* sc, bool sc_bf16,
                             void* out, float* part, int rows, int din,
                             int dout_p, int group, int splits,
-                            cudaStream_t stream) {
+                            cudaStream_t stream, const void* nw = nullptr,
+                            float eps = 0.f) {
+  static_assert(!NORM || XK == kXBf16, "the RMSNorm form is bf16");
   static SmemGrant granted;
   constexpr int BR = 8 * NT;
-  w4a8_quantize_rows<XK><<<rows, kQThreads, 0, stream>>>(x, din, xq, sx);
+  if (NORM)
+    w4a8_norm_quantize_rows<<<rows,
+                              dim3(qmm_detail::kLanes, qmm_detail::kWarps),
+                              0, stream>>>(
+        x, static_cast<const __nv_bfloat16*>(nw), eps, din, xq, sx);
+  else
+    w4a8_quantize_rows<XK><<<rows, kQThreads, 0, stream>>>(x, din, xq, sx);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  auto kernel = qmm_w4a8_mma_kernel<BITS, XK, NT>;
+  auto kernel = NORM ? qmm_norm_w4a8_mma_kernel<BITS, NT>
+                     : qmm_w4a8_mma_kernel<BITS, XK, NT>;
   const size_t smem =
       (size_t)kStages * (kBK * kWStride + (BITS == 4 ? 2 : 1) * BR * kXStride);
   e = allow_smem(kernel, smem, &granted);
@@ -340,6 +413,18 @@ cudaError_t launch_w4a8_mma(const void* x, int8_t* xq, float* sx,
   w4a8_splitk_sum<XK><<<blocks, 256, 0, stream>>>(part, splits, n, dout_p,
                                                   sx, out);
   return cudaGetLastError();
+}
+
+// The checks both C entries make on a launch.
+bool w4a8_refuses(const void* xq, const void* sx, const void* qw,
+                  const void* part, int rows, int din, int dout_p, int bits,
+                  int group, int splits) {
+  const int krows = bits == 4 ? din / 2 : din;
+  return rows < 1 || group <= 0 || group % kBK || krows % group ||
+         dout_p % 4 || splits < 1 || splits > krows / group ||
+         (splits > 1 && !part) || din % 16 || !sx ||
+         reinterpret_cast<uintptr_t>(xq) % 16 ||
+         reinterpret_cast<uintptr_t>(qw) % 16;
 }
 
 }  // namespace
@@ -359,11 +444,7 @@ ITT_EXPORT int qmm_w4a8_mma(const void* x, int x_kind, void* xq, void* sx,
                             int dout_p, int bits, int group, int row_tile,
                             int splits, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int krows = bits == 4 ? din / 2 : din;
-  if (rows < 1 || group <= 0 || group % kBK || krows % group || dout_p % 4 ||
-      splits < 1 || splits > krows / group || (splits > 1 && !part) ||
-      din % 16 || !sx || reinterpret_cast<uintptr_t>(xq) % 16 ||
-      reinterpret_cast<uintptr_t>(qw) % 16)
+  if (w4a8_refuses(xq, sx, qw, part, rows, din, dout_p, bits, group, splits))
     return (int)cudaErrorInvalidValue;
   int8_t* q = static_cast<int8_t*>(xq);
   float* f = static_cast<float*>(sx);
@@ -380,5 +461,33 @@ ITT_EXPORT int qmm_w4a8_mma(const void* x, int x_kind, void* xq, void* sx,
   ITT_W4A8_MMA_TILES(8, kXBf16) ITT_W4A8_MMA_TILES(8, kXF32)
 #undef ITT_W4A8_MMA_TILES
 #undef ITT_W4A8_MMA
+  return (int)cudaErrorInvalidValue;
+}
+
+// x bf16 [rows, din], any alignment; nw bf16 [din], the RMSNorm weight;
+// xq, sx, qw, sc, part, row_tile, splits as qmm_w4a8_mma; out bf16 [rows,
+// dout_p] = qmm_w4a8_mma of bf16(bf16(x * 1/sqrt(mean(x^2) + eps)) * nw).
+ITT_EXPORT int qmm_norm_w4a8_mma(const void* x, const void* nw, void* xq,
+                                 void* sx, const void* qw, const void* sc,
+                                 int sc_bf16, void* part, void* out, int rows,
+                                 int din, int dout_p, int bits, int group,
+                                 float eps, int row_tile, int splits,
+                                 void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (w4a8_refuses(xq, sx, qw, part, rows, din, dout_p, bits, group,
+                   splits) || !x || !nw)
+    return (int)cudaErrorInvalidValue;
+  int8_t* q = static_cast<int8_t*>(xq);
+  float* f = static_cast<float*>(sx);
+  float* p = static_cast<float*>(part);
+#define ITT_NORM_W4A8_MMA(B, NT)                                              \
+  if (bits == B && row_tile == 8 * NT)                                        \
+    return (int)launch_w4a8_mma<B, kXBf16, NT, true>(                         \
+        x, q, f, qw, sc, sc_bf16, out, p, rows, din, dout_p, group, splits,   \
+        s, nw, eps);
+  ITT_NORM_W4A8_MMA(4, 1) ITT_NORM_W4A8_MMA(4, 2) ITT_NORM_W4A8_MMA(4, 4)
+  ITT_NORM_W4A8_MMA(4, 8) ITT_NORM_W4A8_MMA(8, 1) ITT_NORM_W4A8_MMA(8, 2)
+  ITT_NORM_W4A8_MMA(8, 4) ITT_NORM_W4A8_MMA(8, 8)
+#undef ITT_NORM_W4A8_MMA
   return (int)cudaErrorInvalidValue;
 }

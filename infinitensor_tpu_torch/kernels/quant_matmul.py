@@ -1,8 +1,8 @@
 """Fused weight-only dequant + matmul for decode (counterpart of
 infinitensor_tpu/kernels/quant_matmul.py).
 
-Thirteen kernels, CUDA C++; nine over one group-dot body on the CUDA cores
-(csrc/quant_matmul.cuh), four on the tensor cores:
+Fifteen kernels, CUDA C++; nine over one group-dot body on the CUDA cores
+(csrc/quant_matmul.cuh), six on the tensor cores:
   csrc/quant_matmul.cu
     qmm_group       <- _kernel_group       (group-partial dots, scale per group)
     qmm_group_norm  <- _kernel_group_norm  (RMSNorm fused ahead of the dots)
@@ -22,11 +22,16 @@ Thirteen kernels, CUDA C++; nine over one group-dot body on the CUDA cores
                                             that tile)
     qmm_group_ln_mma <- _kernel_group_ln   (a LayerNorm pre-pass, then
                                             that tile with the bias behind)
+    qmm_chunk_mma   <- _kernel             (that tile, each weight scaled
+                                            and rounded to bf16 before the
+                                            mma)
   csrc/quant_matmul_w4a8_mma.cu
     qmm_w4a8_mma    <- _kernel_group_w4a8  (a quantize pre-pass, then the
                                             int8 tensor cores, m16n8k32)
+    qmm_norm_w4a8_mma <- _kernel_group_norm_w4a8 (the RMSNorm folded into
+                                            that pre-pass, then that tile)
 
-Four kernels have two forms on the card, one function each:
+Six kernels have two forms on the card, one function each:
   qmm_group     a bf16 or f16 x without a norm at MMA_MIN_ROWS rows or
                 more takes qmm_group_mma (group_form);
   qmm_group_norm  a bf16 x at MMA_MIN_ROWS rows or more takes
@@ -35,11 +40,16 @@ Four kernels have two forms on the card, one function each:
                 qmm_group_ln_mma (ln_form);
   qmm_w4a8      a bf16 or f32 x at W4A8_MMA_MIN_ROWS rows or more takes
                 qmm_w4a8_mma (w4a8_form);
+  qmm_norm_w4a8 a bf16 x at W4A8_MMA_MIN_ROWS rows or more takes
+                qmm_norm_w4a8_mma (w4a8_form with norm);
+  qmm_chunk     a bf16 x at CHUNK_MMA_MIN_ROWS rows or more, at a group
+                that is a multiple of 64, takes qmm_chunk_mma (chunk_form);
 any other launch takes the CUDA-core form. The thresholds are where the
 two forms' times cross on the card (chip_smoke.py phase 3, PERF.md).
 launches[name] counts both forms of a kernel and launches[name + "_mma"]
 the tensor-core one again (qmm_group_ln_mma for qmm_group_ln,
-qmm_group_norm_mma for qmm_group_norm).
+qmm_group_norm_mma for qmm_group_norm, qmm_norm_w4a8_mma for
+qmm_norm_w4a8, qmm_chunk_mma for qmm_chunk).
 
 A CUDA-core launch of qmm_group, qmm_slab or qmm_chunk without a fused
 RMSNorm, or of qmm_group_ln, whose grid is short (wo and w_down at one
@@ -130,6 +140,11 @@ KERNEL_MAX_ROWS = 256
 # (PERF.md).
 MMA_MIN_ROWS = 2
 W4A8_MMA_MIN_ROWS = 3
+# The fewest rows whose bf16 qmm_chunk launch takes the tensor-core form:
+# chip_smoke.py phase 3's chunk crossover (both forms at 1-4 rows of the
+# 7B shapes at group 64, the CUDA-core form in its K split: a tie at one
+# row, the tensor cores ahead from two; PERF.md).
+CHUNK_MMA_MIN_ROWS = 2
 SPLIT_MAX = 8                   # blocks a tile of the split form
 _SPLITS = None                  # when set, the split count of every launch
 #                                 of the four kernels (1: the unsplit form)
@@ -474,15 +489,18 @@ def _lib_mma() -> ctypes.CDLL:
         qmm_group_norm_mma=[P, P, P, P, P, I, P, P, I, I, I, I, I, F, I, I,
                             P],
         qmm_group_ln_mma=[P, P, P, I, P, P, P, I, P, I, I, P, P, I, I, I, I,
-                          I, F, I, I, P])
+                          I, F, I, I, P],
+        qmm_chunk_mma=[P, P, P, I, P, P, I, I, I, I, I, I, I, P])
 
 
 @functools.cache
 def _lib_w4a8_mma() -> ctypes.CDLL:
-    P, I = _build.P, _build.I
+    P, I, F = _build.P, _build.I, _build.F
     return _build.typed(
         "quant_matmul_w4a8_mma",
-        qmm_w4a8_mma=[P, I, P, P, P, P, I, P, P, I, I, I, I, I, I, I, P])
+        qmm_w4a8_mma=[P, I, P, P, P, P, I, P, P, I, I, I, I, I, I, I, P],
+        qmm_norm_w4a8_mma=[P, P, P, P, P, P, I, P, P, I, I, I, I, I, F, I, I,
+                           P])
 
 
 @functools.cache
@@ -539,28 +557,46 @@ def ln_form(rows: int, dtype: torch.dtype) -> str:
         else "cuda_core"
 
 
-def w4a8_form(rows: int, dtype: torch.dtype) -> str:
+def w4a8_form(rows: int, dtype: torch.dtype, norm: bool = False) -> str:
     """Which form a qmm_w4a8 launch on the card takes: "mma" (the int8
     tensor cores, csrc/quant_matmul_w4a8_mma.cu) for a bf16 or f32 x at
     W4A8_MMA_MIN_ROWS rows or more, else "cuda_core" (csrc/quant_matmul.cu;
-    an f16 x takes qmm_group, route)."""
-    return "mma" if dtype in (torch.bfloat16, torch.float32) \
-        and rows >= W4A8_MMA_MIN_ROWS else "cuda_core"
+    an f16 x takes qmm_group, route). With norm (qmm_norm_w4a8, whose x is
+    bf16): "mma", the RMSNorm folded into that form's quantize pre-pass,
+    at W4A8_MMA_MIN_ROWS rows or more."""
+    kinds = (torch.bfloat16,) if norm else (torch.bfloat16, torch.float32)
+    return "mma" if dtype in kinds and rows >= W4A8_MMA_MIN_ROWS \
+        else "cuda_core"
 
 
 MMA_COLS = 128                  # output columns of a block (kBN)
+MMA_K = 64                      # packed rows of a stage (kBK)
 MMA_ROW_TILES = (8, 16, 32, 64)  # rows of a block the C entries take
+
+
+def chunk_form(rows: int, dtype: torch.dtype, group: int) -> str:
+    """Which form a qmm_chunk launch on the card takes: "mma" (qmm_chunk_mma,
+    qmm_group_mma's tile with each weight scaled and rounded to bf16 before
+    the mma, csrc/quant_matmul_mma.cu) for a bf16 x at CHUNK_MMA_MIN_ROWS
+    rows or more and a group that is a multiple of MMA_K, else "cuda_core"
+    (csrc/quant_matmul_chunk.cu, with its K split on a short grid): an
+    f16 or f32 x stays there, as the chunk multiplies x as it is by the
+    bf16 weights in f32 and no 16-bit mma takes an f16 x bf16 pair, and
+    so does a group of 32."""
+    return "mma" if dtype == torch.bfloat16 and rows >= CHUNK_MMA_MIN_ROWS \
+        and group % MMA_K == 0 else "cuda_core"
 
 
 def mma_plan(rows: int, dout_p: int, krows: int, group: int, sms: int
              ) -> tuple:
     """(row_tile, splits) of a launch of the tensor-core tile
-    (qmm_group_mma, qmm_group_ln_mma, qmm_w4a8_mma), the fastest of the
-    variants timed on the card: rows per block 8 or 16 up to that many
-    rows, 32 up to 64 rows, 64 above; and the number of blocks K is split
-    across, by whole scale groups (at most one split a group), so that
-    column tiles x row tiles x splits reach 2 blocks per SM (1 for the
-    64-row tile, whose partials cost more than its extra blocks gain)."""
+    (qmm_group_mma and its norm forms, qmm_chunk_mma, qmm_w4a8_mma), the
+    fastest of the variants timed on the card: rows per block 8 or 16 up
+    to that many rows, 32 up to 64 rows, 64 above; and the number of
+    blocks K is split across, by whole scale groups (at most one split a
+    group), so that column tiles x row tiles x splits reach 2 blocks per
+    SM (1 for the 64-row tile, whose partials cost more than its extra
+    blocks gain)."""
     tile = 8 if rows <= 8 else 16 if rows <= 16 else 32 if rows <= 64 \
         else 64
     target = sms if tile == 64 else 2 * sms
@@ -794,13 +830,13 @@ def _launch_group_ln_mma(x2, gamma, beta, q, bias, eps: float
 
 def _launch_w4a8(x2, q, norm_w=None, eps: float = 0.0,
                  form: Optional[str] = None) -> torch.Tensor:
-    """qmm_w4a8 in the form w4a8_form chooses (`form` forces "mma" or
-    "cuda_core": tests and chip_smoke.py's side-by-side timing only), or
-    with norm_w qmm_norm_w4a8 (CUDA cores)."""
+    """qmm_w4a8 (qmm_norm_w4a8 with norm_w) in the form w4a8_form chooses
+    (`form` forces "mma" or "cuda_core": tests and chip_smoke.py's
+    side-by-side timing only)."""
     _check_cuda(x2, q)
-    if norm_w is None and (form or w4a8_form(x2.shape[0], x2.dtype)) \
-            == "mma":
-        return _launch_w4a8_mma(x2, q)
+    norm = norm_w is not None
+    if (form or w4a8_form(x2.shape[0], x2.dtype, norm)) == "mma":
+        return _launch_w4a8_mma(x2, q, norm_w, eps)
     out, lib, p = _out(x2, q), _lib(), _build.ptr
     shape = (x2.shape[0], x2.shape[1], q.out_physical, q.bits, q.group_size)
     sc_bf16 = q.scales.dtype == torch.bfloat16
@@ -813,27 +849,58 @@ def _launch_w4a8(x2, q, norm_w=None, eps: float = 0.0,
     return _launched(lib, err, "qmm_norm_w4a8", out)
 
 
-def _launch_w4a8_mma(x2, q) -> torch.Tensor:
-    if x2.dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"qmm_w4a8_mma takes a bf16 or f32 x, not "
-                         f"{x2.dtype}")
+def _launch_w4a8_mma(x2, q, norm_w=None, eps: float = 0.0,
+                     xq: Optional[torch.Tensor] = None,
+                     sx: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """qmm_w4a8's tensor-core form: the quantize pre-pass writes the int8
+    rows to `xq` and their scales to `sx` (buffers of its own unless
+    given, as a test does to read them), then the int8 tile. With norm_w
+    (qmm_norm_w4a8_mma, a bf16 x) the pre-pass quantizes the rows
+    normalized as the CUDA-core prologue normalizes them."""
+    norm = norm_w is not None
+    kinds = (torch.bfloat16,) if norm else (torch.bfloat16, torch.float32)
+    if x2.dtype not in kinds:
+        raise ValueError(f"qmm_{'norm_' if norm else ''}w4a8_mma takes a "
+                         f"{' or '.join(map(str, kinds))} x, not {x2.dtype}")
+    if norm and (norm_w.dtype != torch.bfloat16
+                 or norm_w.device != x2.device
+                 or not norm_w.is_contiguous()):
+        raise ValueError(f"norm_w must be contiguous bf16 on {x2.device}")
     tile, splits, part = _tile_plan(x2, q)
-    # the quantized rows and their scales (pre-pass)
-    xq = torch.empty(x2.shape, dtype=torch.int8, device=x2.device)
-    sx = torch.empty(x2.shape[0], dtype=torch.float32, device=x2.device)
+    xq = torch.empty(x2.shape, dtype=torch.int8, device=x2.device) \
+        if xq is None else xq
+    sx = torch.empty(x2.shape[0], dtype=torch.float32, device=x2.device) \
+        if sx is None else sx
+    if xq.shape != x2.shape or xq.dtype != torch.int8 or \
+            not xq.is_contiguous() or sx.dtype != torch.float32 or \
+            sx.numel() != x2.shape[0]:
+        raise ValueError("xq must be contiguous int8 of x's shape, sx f32 "
+                         "of its rows")
     out, lib, p = _out(x2, q), _lib_w4a8_mma(), _build.ptr
-    err = lib.qmm_w4a8_mma(
-        p(x2), _x_kind(x2), p(xq), p(sx), p(q.qweight), p(q.scales),
-        q.scales.dtype == torch.bfloat16, p(part), p(out), x2.shape[0],
-        x2.shape[1], q.out_physical, q.bits, q.group_size, tile, splits,
-        _build.stream())
-    _launched(lib, err, "qmm_w4a8", out)
-    launches["qmm_w4a8_mma"] += 1
+    shape = (x2.shape[0], x2.shape[1], q.out_physical, q.bits, q.group_size)
+    sc_bf16 = q.scales.dtype == torch.bfloat16
+    if norm:
+        err = lib.qmm_norm_w4a8_mma(
+            p(x2), p(norm_w), p(xq), p(sx), p(q.qweight), p(q.scales),
+            sc_bf16, p(part), p(out), *shape, eps, tile, splits,
+            _build.stream())
+    else:
+        err = lib.qmm_w4a8_mma(
+            p(x2), _x_kind(x2), p(xq), p(sx), p(q.qweight), p(q.scales),
+            sc_bf16, p(part), p(out), *shape, tile, splits, _build.stream())
+    name = "qmm_norm_w4a8" if norm else "qmm_w4a8"
+    _launched(lib, err, name, out)
+    launches[name + "_mma"] += 1
     return out
 
 
-def _launch_chunk(x2, q) -> torch.Tensor:
+def _launch_chunk(x2, q, form: Optional[str] = None) -> torch.Tensor:
+    """qmm_chunk in the form chunk_form chooses; `form` forces "mma" or
+    "cuda_core" (tests and chip_smoke.py's side-by-side timing only). The
+    CUDA-core form takes _split_plan's K split on a short grid."""
     _check_cuda(x2, q)
+    if (form or chunk_form(x2.shape[0], x2.dtype, q.group_size)) == "mma":
+        return _launch_chunk_mma(x2, q)
     splits, part, counters = _split_plan(x2, q)
     out, lib, p = _out(x2, q), _lib_chunk(), _build.ptr
     err = lib.qmm_chunk(p(x2), _x_kind(x2), p(q.qweight), p(q.scales),
@@ -841,6 +908,22 @@ def _launch_chunk(x2, q) -> torch.Tensor:
                         x2.shape[1], q.out_physical, q.bits, q.group_size,
                         splits, p(part), p(counters), _build.stream())
     return _launched_split(lib, err, "qmm_chunk", out, splits)
+
+
+def _launch_chunk_mma(x2, q) -> torch.Tensor:
+    if x2.dtype != torch.bfloat16:
+        raise ValueError(f"qmm_chunk_mma takes a bf16 x, not {x2.dtype}")
+    if x2.data_ptr() % 16:
+        x2 = x2.clone()                 # cp.async reads 16-byte chunks
+    tile, splits, part = _tile_plan(x2, q)
+    out, lib, p = _out(x2, q), _lib_mma(), _build.ptr
+    err = lib.qmm_chunk_mma(
+        p(x2), p(q.qweight), p(q.scales), q.scales.dtype == torch.bfloat16,
+        p(part), p(out), x2.shape[0], x2.shape[1], q.out_physical, q.bits,
+        q.group_size, tile, splits, _build.stream())
+    _launched(lib, err, "qmm_chunk", out)
+    launches["qmm_chunk_mma"] += 1
+    return out
 
 
 def _launch_group2d(x2, q, kb: int) -> torch.Tensor:

@@ -578,12 +578,16 @@ def test_chunk_kernel(dev, bits, group, rows):
 
 
 def test_chunk_kernel_at_an_odd_group_count_per_warp(dev):
-    """w_down's split at group 64 (86 groups on 16 warps), bf16 scales."""
+    """w_down's split at group 64 (86 groups on 16 warps), bf16 scales;
+    at 8 rows the tensor-core form (86 splits of one group) and the
+    CUDA-core form, forced."""
     q = _qlin(dev, 11008, 256, 4, torch.bfloat16, group=64)
     assert q.scales.shape[0] == 172
     for rows in (1, 8):
         x = _x(dev, rows, 11008)
         _close(qm.quant_matmul(x, q), qm.qmm_chunk_plain(x, q))
+        _close(qm._launch_chunk(x, q, form="cuda_core"),
+               qm.qmm_chunk_plain(x, q))
 
 
 @pytest.mark.parametrize("rows", [1, 3, 8])
@@ -657,9 +661,15 @@ def test_decode_routes_launch_counts(dev, knobs):
         token.shape[0], params["lm_head"].out_physical,
         params["lm_head"].qweight.shape[0], params["lm_head"].group_size,
         _build.sms(0)) > 1)
-    assert split > 0
+    # two rows: qmm_chunk's tensor-core form from CHUNK_MMA_MIN_ROWS, else
+    # its CUDA-core form, in the K split on these short grids
+    if qm.chunk_form(token.shape[0], torch.bfloat16, 64) == "mma":
+        chunk = {"qmm_chunk_mma": 3 * L + 1}
+    else:
+        assert split > 0
+        chunk = {"qmm_chunk_split": split}
     assert {**qm.launches, **att.launches} == {
-        "qmm_chunk": 3 * L + 1, "qmm_chunk_split": split,
+        "qmm_chunk": 3 * L + 1, **chunk,
         "dequant_matmul": L, "flash_decode_q8": L,
         **att.merge_launches(L, 1, cfg.n_kv_heads, cfg.max_seq)}
     cfg, params = _small_model(dev)
@@ -667,8 +677,10 @@ def test_decode_routes_launch_counts(dev, knobs):
     merges = att.merge_launches(L, 2, cfg.n_kv_heads, cfg.max_seq)
     knobs(variant="w4a8")
     # two tokens: wo, w_down and the lm_head take qmm_w4a8's tensor-core
-    # form from W4A8_MMA_MIN_ROWS rows, the fused-norm launches stay
-    mma = {"qmm_w4a8_mma": 2 * L + 1} if 2 >= qm.W4A8_MMA_MIN_ROWS else {}
+    # form from W4A8_MMA_MIN_ROWS rows, and the fused-norm launches
+    # qmm_norm_w4a8's
+    mma = {"qmm_w4a8_mma": 2 * L + 1, "qmm_norm_w4a8_mma": 2 * L} \
+        if 2 >= qm.W4A8_MMA_MIN_ROWS else {}
     assert _decode_launches(params, cfg, dev) == {
         "qmm_norm_w4a8": 2 * L, "qmm_w4a8": 2 * L + 1, "flash_decode_q8": L,
         **mma, **merges}
@@ -1186,11 +1198,172 @@ def test_group_norm_prepass(dev, rows, monkeypatch):
                                                form="cuda_core"))
 
 
+# -- qmm_chunk's tensor-core form (csrc/quant_matmul_mma.cu) and -------------
+# -- qmm_norm_w4a8's (csrc/quant_matmul_w4a8_mma.cu) --------------------------
+
+@pytest.mark.parametrize("rows", [2, 3, 8, 17, 64, 256])
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("group", [64, 192])
+@pytest.mark.parametrize("sdt", [torch.bfloat16, torch.float32])
+def test_chunk_mma_kernel(dev, rows, bits, group, sdt, monkeypatch):
+    """qmm_chunk's tensor-core form against qmm_chunk_plain and against
+    the CUDA-core form, both forced, with K split (the card's SM count)
+    and not split (one SM), bit for bit across two launches, on a padded
+    dout; quant_matmul takes it from CHUNK_MMA_MIN_ROWS rows (counted
+    under qmm_chunk and again under qmm_chunk_mma), and a chunk_form that
+    answers "cuda_core" sends it to the CUDA-core form."""
+    q = _qlin(dev, 768, 300, bits, sdt, pad_out=128, group=group)
+    x = _x(dev, rows, 768, seed=rows) * 2
+    want = qm.qmm_chunk_plain(x, q)
+    sms = _build.sms(0)
+    for n_sm, split in ((sms, True), (1, False)):
+        monkeypatch.setattr(_build, "sms", lambda i, n=n_sm: n)
+        plan = qm.mma_plan(rows, q.out_physical, q.qweight.shape[0],
+                           q.group_size, n_sm)
+        assert (plan[1] > 1) == split
+        before = dict(qm.launches)
+        got = qm._launch_chunk(x, q, form="mma")
+        assert qm.launches["qmm_chunk_mma"] == \
+            before.get("qmm_chunk_mma", 0) + 1
+        _close(got, want)
+        _close(got, qm._launch_chunk(x, q, form="cuda_core"))
+        assert torch.equal(got, qm._launch_chunk(x, q, form="mma"))
+    route = qm.chunk_form
+    for form_of, mma in ((route, rows >= qm.CHUNK_MMA_MIN_ROWS),
+                         (lambda *a: "cuda_core", 0)):
+        monkeypatch.setattr(qm, "chunk_form", form_of)
+        assert qm.route(x, q)[0] == "qmm_chunk"
+        before = dict(qm.launches)
+        _close(qm.quant_matmul(x, q), want[:, :300])
+        assert qm.launches["qmm_chunk"] == before.get("qmm_chunk", 0) + 1
+        assert qm.launches["qmm_chunk_mma"] == \
+            before.get("qmm_chunk_mma", 0) + mma
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("sdt", [torch.bfloat16, torch.float32])
+def test_chunk_mma_rounding_point(dev, bits, sdt, monkeypatch):
+    """Each weight is scaled and rounded to bf16 before the mma: with
+    one-hot rows (row r = e_k(r), k over the int4 lo and hi halves alike)
+    every output is one product, x 1 times a weight, so the tensor-core
+    form's rows equal qmm_chunk_plain's bf16 weight rows bit for bit
+    (bf16 scales: one rounding of the exact product; f32 scales: the f32
+    product, then bf16), with K split and not."""
+    q = _qlin(dev, 1024, 384, bits, sdt, group=64)
+    ks = torch.tensor([0, 1, 63, 64, 300, 511, 512, 513, 700, 1023] * 2,
+                      device=dev)
+    ks[10:] = (ks[10:] * 7 + 5) % 1024
+    x = torch.zeros(len(ks), 1024, dtype=torch.bfloat16, device=dev)
+    x[torch.arange(len(ks), device=dev), ks] = 1
+    w = qm._weight_values(q)
+    w = (w.reshape(q.scales.shape[0], 64, -1) * q.scales.float()[:, None]
+         ).reshape(w.shape).to(torch.bfloat16)
+    sms = _build.sms(0)
+    for n_sm, split in ((sms, True), (1, False)):
+        monkeypatch.setattr(_build, "sms", lambda i, n=n_sm: n)
+        plan = qm.mma_plan(len(ks), 384, q.qweight.shape[0], 64, n_sm)
+        assert (plan[1] > 1) == split
+        got = qm._launch_chunk(x, q, form="mma")
+        assert torch.equal(got, w[ks])
+        assert torch.equal(got, qm.qmm_chunk_plain(x, q))
+
+
+@pytest.mark.parametrize("rows", [2, 8, 64])
+def test_chunk_mma_in_a_cuda_graph(dev, rows):
+    """The tensor-core form captured in a CUDA graph (the tile and the
+    split sum as plain launches): replays equal the eager launch bit for
+    bit, also after x changes in place."""
+    q = _qlin(dev, 2048, 640, 4, torch.bfloat16, group=64)
+    x = _x(dev, rows, 2048)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        qm.quant_matmul(x, q)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = qm.launches["qmm_chunk_mma"]
+    with torch.cuda.graph(graph):
+        out = qm.quant_matmul(x, q)
+    assert qm.launches["qmm_chunk_mma"] == before + 1
+    for seed in (1, 2):
+        x.copy_(_x(dev, rows, 2048, seed=seed))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, qm.quant_matmul(x, q))
+        _close(out, qm.qmm_chunk_plain(x, q)[:, :640])
+
+
+@pytest.mark.parametrize("rows", [3, 8, 17, 64, 256])
+@pytest.mark.parametrize("bits", [4, 8])
+def test_norm_w4a8_mma_kernel(dev, rows, bits, knobs, monkeypatch):
+    """qmm_norm_w4a8's tensor-core form (the RMSNorm in the quantize
+    pre-pass, then qmm_w4a8_mma's tile) against qmm_norm_w4a8_plain and
+    against the CUDA-core form, both forced, K split and not, bit for bit
+    across two launches, bf16 and f32 scales, a padded dout;
+    quant_matmul_norm under "w4a8" takes it from W4A8_MMA_MIN_ROWS rows
+    (counted under qmm_norm_w4a8 and qmm_norm_w4a8_mma), and a w4a8_form
+    that answers "cuda_core" sends it to the CUDA-core form."""
+    x = _x(dev, rows, 1024, seed=rows) * 3 + 0.5
+    nw = (torch.rand(1024, generator=torch.Generator().manual_seed(2))
+          + 0.5).to(torch.bfloat16).to(dev)
+    sms = _build.sms(0)
+    for sdt in (torch.bfloat16, torch.float32):
+        q = _qlin(dev, 1024, 300, bits, sdt, pad_out=128)
+        want = qm.qmm_norm_w4a8_plain(x, nw, q, 1e-5)
+        for n_sm in (sms, 1):
+            monkeypatch.setattr(_build, "sms", lambda i, n=n_sm: n)
+            before = dict(qm.launches)
+            got = qm._launch_w4a8(x, q, nw, 1e-5, form="mma")
+            assert qm.launches["qmm_norm_w4a8_mma"] == \
+                before.get("qmm_norm_w4a8_mma", 0) + 1
+            assert qm.launches["qmm_w4a8_mma"] == \
+                before.get("qmm_w4a8_mma", 0)
+            _close(got, want)
+            _close(got, qm._launch_w4a8(x, q, nw, 1e-5, form="cuda_core"))
+            assert torch.equal(got, qm._launch_w4a8(x, q, nw, 1e-5,
+                                                    form="mma"))
+    knobs(variant="w4a8")
+    route = qm.w4a8_form
+    for form_of, mma in ((route, rows >= qm.W4A8_MMA_MIN_ROWS),
+                         (lambda *a: "cuda_core", 0)):
+        monkeypatch.setattr(qm, "w4a8_form", form_of)
+        before = dict(qm.launches)
+        _close(qm.quant_matmul_norm(x, nw, q), want[:, :300])
+        assert qm.launches["qmm_norm_w4a8"] == \
+            before.get("qmm_norm_w4a8", 0) + 1
+        assert qm.launches["qmm_norm_w4a8_mma"] == \
+            before.get("qmm_norm_w4a8_mma", 0) + mma
+
+
+@pytest.mark.parametrize("rows", [3, 8, 64, 256])
+def test_norm_w4a8_prepass(dev, rows):
+    """The RMSNorm quantize pre-pass of qmm_norm_w4a8's tensor-core form:
+    its xq and sx equal, bit for bit, the int8 quantize of the rows that
+    qmm_group_norm's pre-pass writes (the CUDA-core prologue's rows, the
+    same rms_norm_rinv / rms_norm_value): through qmm_w4a8_mma's own
+    pre-pass and through quantize_rows_i8."""
+    q = _qlin(dev, 4096, 512, 4, torch.bfloat16)
+    x = _x(dev, rows, 4096) * 3 + 0.25
+    nw = (torch.rand(4096, generator=torch.Generator().manual_seed(3))
+          + 0.5).to(torch.bfloat16).to(dev)
+    xq = torch.empty(rows, 4096, dtype=torch.int8, device=dev)
+    sx = torch.empty(rows, dtype=torch.float32, device=dev)
+    qm._launch_w4a8_mma(x, q, nw, 1e-5, xq=xq, sx=sx)
+    xn = torch.empty_like(x)
+    qm._launch_group_norm_mma(x, nw, q, 1e-5, xn=xn)
+    xq2, sx2 = torch.empty_like(xq), torch.empty_like(sx)
+    qm._launch_w4a8_mma(xn, q, xq=xq2, sx=sx2)
+    assert torch.equal(xq, xq2) and torch.equal(sx, sx2)
+    xq3, sx3 = qm.quantize_rows_i8(xn)
+    assert torch.equal(xq, xq3) and torch.equal(sx, sx3[:, 0])
+
+
 def test_w4a8_and_ln_mma_launch_counts(dev):
     """quant_matmul under "w4a8" and quant_matmul_ln launch the
     tensor-core forms from their thresholds, counted under the kernel's
     name and again under name + "_mma"; one row the CUDA-core forms only.
-    The fused-norm W4A8 kernel keeps its CUDA-core form at any rows."""
+    The fused-norm W4A8 kernel counts its tensor-core form under
+    qmm_norm_w4a8_mma, not qmm_w4a8_mma."""
     q = _qlin(dev, 2048, 512, 4, torch.bfloat16)
     q8 = _qlin(dev, 1024, 384, 8, torch.float32)
     gamma, beta = _ln_inputs(dev, 1024)
@@ -1215,6 +1388,8 @@ def test_w4a8_and_ln_mma_launch_counts(dev):
     qm._launch_w4a8(_x(dev, 8, 2048), q, nw, 1e-5)
     assert qm.launches["qmm_norm_w4a8"] == \
         before.get("qmm_norm_w4a8", 0) + 1
+    assert qm.launches["qmm_norm_w4a8_mma"] == \
+        before.get("qmm_norm_w4a8_mma", 0) + (8 >= qm.W4A8_MMA_MIN_ROWS)
     assert qm.launches["qmm_w4a8_mma"] == before.get("qmm_w4a8_mma", 0)
 
 
@@ -1596,7 +1771,9 @@ def test_k_split_at_one_row(dev, kind, bits, group, xdt):
     grid takes the split form, once a call: against the plain version,
     bit for bit across two launches, and within the tolerance of the
     unsplit form, forced. At 8 rows (4-row blocks) the call stays
-    unsplit, and the split form, forced at 2, holds to the same checks."""
+    unsplit, and the split form, forced at 2, holds to the same checks.
+    Rows that qmm_group or qmm_chunk sends to its tensor-core form (a
+    bf16 x from the form's threshold) are not the split's."""
     q = _split_weight(dev, kind, bits, group, torch.bfloat16)
     variant = "chunk" if kind == "qmm_chunk" else None
     plain = {"qmm_group": qm.qmm_group_plain, "qmm_chunk": qm.qmm_chunk_plain,
@@ -1605,6 +1782,9 @@ def test_k_split_at_one_row(dev, kind, bits, group, xdt):
         x = _x(dev, rows, 4096, seed=rows).to(xdt)
         if kind == "qmm_group" and \
                 qm.group_form(rows, xdt, False) == "mma":
+            continue
+        if kind == "qmm_chunk" and \
+                qm.chunk_form(rows, xdt, group) == "mma":
             continue
         splits = qm.group_splits(rows, 4096, q.qweight.shape[0],
                                  q.group_size, _build.sms(0))

@@ -466,13 +466,16 @@ def knobs(monkeypatch, tmp_path):
     return set_
 
 
-CHUNK_CASES = [(bits, group, rows) for bits in (4, 8) for group in (32, 64, 128)
-               for rows in (1, 8, 256)]
+CHUNK_CASES = [(bits, group, rows) for bits in (4, 8)
+               for group in (32, 64, 128, 192) for rows in (1, 8, 64, 256)]
 
 
 @pytest.mark.parametrize("bits,group,rows", CHUNK_CASES)
 def test_chunk_matmul_plain_vs_pallas(bits, group, rows):
-    _, q, x = _qweights(70 + group + rows, 512, 384, bits, group, rows)
+    """512 x 384 (768 x 384 at group 192, a multiple of it that the JAX
+    package's chunk of 128-multiples takes: 384 packed rows)."""
+    din = 768 if group == 192 else 512
+    _, q, x = _qweights(70 + group + rows, din, 384, bits, group, rows)
     tq = _port_q(q)
     assert tqm.route(_t(x), tq, "chunk") == ("qmm_chunk", 0)
     want = qm.quant_matmul(x, q, interpret=True, variant="chunk")
@@ -509,7 +512,7 @@ def test_group2d_matmul_plain_vs_pallas(bits, kb, knobs):
 W4A8_FUSED_TOL = 2e-2
 
 
-@pytest.mark.parametrize("rows", [1, 3])
+@pytest.mark.parametrize("rows", [1, 3, 8, 64])
 @pytest.mark.parametrize("bits", [4, 8])
 def test_norm_w4a8_matmul_plain_vs_pallas(bits, rows, knobs):
     """Within one bf16 ulp of the JAX package's composition (its RMSNorm
@@ -761,47 +764,80 @@ def test_group_form(rows, dtype, norm, form):
 @pytest.mark.parametrize("dout_p,krows", [(4096, 2048), (12288, 2048),
                                           (1024, 1024), (51200, 1024),
                                           (260, 512)])
-def test_mma_plan(rows, dout_p, krows):
-    """qmm_group_mma's launch plan: a row tile that the C entry takes and
-    that holds the rows up to 64, at most one split per scale group of
-    128, a split only where the column and row tiles leave blocks short
-    of the target, and then enough splits to reach it where the groups
-    allow."""
+@pytest.mark.parametrize("group", [64, 128])
+def test_mma_plan(rows, dout_p, krows, group):
+    """The tensor-core tile's launch plan (qmm_group_mma at group 128,
+    qmm_chunk_mma at group 64): a row tile that the C entry takes and
+    that holds the rows up to 64, at most one split per scale group, a
+    split only where the column and row tiles leave blocks short of the
+    target, and then enough splits to reach it where the groups allow."""
     sms = 132
-    tile, splits = tqm.mma_plan(rows, dout_p, krows, 128, sms)
+    tile, splits = tqm.mma_plan(rows, dout_p, krows, group, sms)
     assert tile in tqm.MMA_ROW_TILES
     assert tile >= min(rows, 32) and (rows > 64) == (tile == 64)
     blocks = -(-dout_p // tqm.MMA_COLS) * -(-rows // tile)
     target = sms if tile == 64 else 2 * sms
-    assert 1 <= splits <= krows // 128
+    assert 1 <= splits <= krows // group
     assert splits == 1 or blocks < target
-    assert blocks >= target or splits == krows // 128 \
+    assert blocks >= target or splits == krows // group \
         or blocks * splits >= target
 
 
-@pytest.mark.parametrize("rows,dtype,form", [
-    (1, torch.bfloat16, "cuda_core"),
-    (tqm.W4A8_MMA_MIN_ROWS - 1, torch.bfloat16, "cuda_core"),
-    (tqm.W4A8_MMA_MIN_ROWS, torch.bfloat16, "mma"),
-    (tqm.W4A8_MMA_MIN_ROWS, torch.float32, "mma"),
-    (8, torch.bfloat16, "mma"),
-    (256, torch.float32, "mma"),
-    (256, torch.float16, "cuda_core"),
-    (1, torch.float32, "cuda_core"),
+@pytest.mark.parametrize("rows,dtype,norm,form", [
+    (1, torch.bfloat16, False, "cuda_core"),
+    (tqm.W4A8_MMA_MIN_ROWS - 1, torch.bfloat16, False, "cuda_core"),
+    (tqm.W4A8_MMA_MIN_ROWS, torch.bfloat16, False, "mma"),
+    (tqm.W4A8_MMA_MIN_ROWS, torch.float32, False, "mma"),
+    (8, torch.bfloat16, False, "mma"),
+    (256, torch.float32, False, "mma"),
+    (256, torch.float16, False, "cuda_core"),
+    (1, torch.float32, False, "cuda_core"),
+    (1, torch.bfloat16, True, "cuda_core"),
+    (tqm.W4A8_MMA_MIN_ROWS - 1, torch.bfloat16, True, "cuda_core"),
+    (tqm.W4A8_MMA_MIN_ROWS, torch.bfloat16, True, "mma"),
+    (8, torch.bfloat16, True, "mma"),
+    (256, torch.bfloat16, True, "mma"),
+    (256, torch.float32, True, "cuda_core"),
 ])
 @pytest.mark.parametrize("bits", [4, 8])
-def test_w4a8_form(rows, dtype, form, bits):
+def test_w4a8_form(rows, dtype, norm, form, bits):
     """The form a qmm_w4a8 launch on the card takes: the int8 tensor
     cores for a bf16 or f32 x from W4A8_MMA_MIN_ROWS rows (at least 2, so
     the batch-1 decode and the W4A8 knob's 1-row launches keep the
     CUDA-core form), for int4 and int8 weights alike; an f16 x never
-    reaches qmm_w4a8 (route sends it to qmm_group)."""
+    reaches qmm_w4a8 (route sends it to qmm_group). With the RMSNorm
+    (qmm_norm_w4a8, which quant_matmul_norm gives a bf16 x only) the same
+    rows take the RMSNorm quantize pre-pass and that tile."""
     assert 2 <= tqm.W4A8_MMA_MIN_ROWS <= tqm.KERNEL_MAX_ROWS
-    assert tqm.w4a8_form(rows, dtype) == form
+    assert tqm.w4a8_form(rows, dtype, norm) == form
+    if norm:
+        return
     q = _fake(4096, 32000, bits=bits)
     x = torch.zeros(rows, 4096, dtype=dtype, device="meta")
     assert tqm.route(x, q, "w4a8")[0] == (
         "qmm_group" if dtype == torch.float16 else "qmm_w4a8")
+
+
+@pytest.mark.parametrize("rows", [1, tqm.CHUNK_MMA_MIN_ROWS, 256])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("group", [32, 64, 128, 192])
+def test_chunk_form(rows, dtype, group):
+    """The form a qmm_chunk launch on the card takes: qmm_chunk_mma for a
+    bf16 x from CHUNK_MMA_MIN_ROWS rows (at least 2: the batch-1 decode
+    keeps the CUDA-core form's K split) at a group that is a multiple of
+    the tile's 64 packed rows a stage; the CUDA cores for an f16 or f32 x
+    (no 16-bit mma takes an f16 x bf16 pair, and an f32 x keeps its f32
+    products), group 32 or fewer rows. Every group and dtype here routes
+    to qmm_chunk on the card (asked for as "chunk")."""
+    assert 2 <= tqm.CHUNK_MMA_MIN_ROWS <= tqm.KERNEL_MAX_ROWS
+    mma = dtype == torch.bfloat16 and rows >= tqm.CHUNK_MMA_MIN_ROWS \
+        and group != 32
+    assert tqm.chunk_form(rows, dtype, group) == \
+        ("mma" if mma else "cuda_core")
+    q = _fake(768, 512, group=group)
+    x = torch.zeros(rows, 768, dtype=dtype, device="meta")
+    assert tqm.route(x, q, "chunk")[0] == "qmm_chunk"
 
 
 @pytest.mark.parametrize("rows,dtype,form", [
