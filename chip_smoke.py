@@ -34,7 +34,14 @@ Phases, each failing with a nonzero exit, each printing its seconds:
      the RMSNorm in the int8 tile's quantize pre-pass; no main path) on
      wqkv and w_gateup at the same rows under phase 10's knobs (beside its
      tile alone), each beside the CUDA-core form, forced, with a
-     crossover of qmm_chunk's forms at 1-4 rows; and the
+     crossover of qmm_chunk's forms at 1-4 rows; qmm_group_norm at one row
+     in its ring form (qmm_group_norm_ring, csrc/quant_matmul_ring.cu: a
+     balanced persistent grid and a cp.async ring) on wqkv
+     and w_gateup beside the CUDA-core form, forced (which keeps a row of
+     its own), each within one bf16 ulp at max|plain|, and both, with
+     qmm_group's 1-row split on wo and w_down, also read back to back:
+     one launch per layer's copy of the weight, 32 of them captured in one
+     CUDA graph (ms a launch, as the decode graph sees them); and the
      crossover tables of both forms, forced: qmm_group at 1-8 rows,
      qmm_w4a8 at 1-5, 8, 64 and 256 rows, qmm_group_ln at 1, 8 and
      64 rows (with its tile alone on rows normalized beforehand), which
@@ -51,8 +58,11 @@ Phases, each failing with a nonzero exit, each printing its seconds:
      the merge, both paged kernels at the serving shape), each in its
      fast 16-bit form beside the any-type body it replaced
      (csrc/attention_any.cuh, forced through the old route), and the
-     any-type body at the same shapes in f32 (the `_any` names; library
-     calls with torch.backends.cuda.matmul.allow_tf32 False); each of the
+     same in f32 (library calls with torch.backends.cuda.matmul.allow_tf32
+     False; within 1e-5 of max|plain|): the f32 decode (an f32 q over f32
+     or INT8 caches and pages) takes the fast body, beside the
+     any-type body, which keeps rows of its own (the `_any` names); each
+     of the
      five attention wrappers at every q dtype (bf16, f16, f32) and head
      dim 8, 16, 64, 72, 96, 128, 136, 256 against its plain version (the
      any-type grid, untimed, each reporting its form); the 1-row
@@ -71,9 +81,13 @@ Phases, each failing with a nonzero exit, each printing its seconds:
      torch.profiler window over one graph run (busy share, kernel ms a
      token), the same with the decode attention forced unsplit, and each
      kernel's launch count on that path (no tensor-core form at 1 row;
+     qmm_group_norm 64 a token, all of them qmm_group_norm_ring;
      flash_decode_q8 and flash_decode_merge 32 a token; qmm_group_split
-     64: wo and w_down take the K split), and the same region with
-     the matmuls' K split forced off;
+     64: wo and w_down take the K split), the same region with
+     the matmuls' K split forced off, and with qmm_group_norm's CUDA-core
+     form forced (qm.group_form patched for the capture), read in turns
+     with the ring form's graph, its tokens equal up to a printed
+     near-tie;
   5. the prompt -> generate path (greedy_generate) with the same weights
      and a seeded 1024-token prompt, for 128 tokens with the default bf16
      cache and again with an INT8 cache: prefill ms, prompt tok/s, the
@@ -163,12 +177,13 @@ Phases, each failing with a nonzero exit, each printing its seconds:
  11. the group-128 decode with a copy of the port's tuning table whose wo
      and w_down entries read {"variant": "group2d", "bn": 1024, "kb": kb},
      kb chosen so that the split-K grid fills the card's SMs where the
-     packed rows allow it: qmm_group2d 64, qmm_group_norm 64, qmm_w4a8 1.
+     packed rows allow it: qmm_group2d 64, qmm_group_norm 64 (the ring
+     form), qmm_w4a8 1.
  12. the 7B decode of phase 4 built through the graph IR
      (models/graph_llama.py build_llama_decoder, weights bound without a
-     copy, GraphExecutor): one eager step launches qmm_group_norm 64,
-     qmm_group 64, qmm_w4a8 1, flash_decode_q8 32 and rmsnorm 1, its
-     logits held against llama_decode_step's; 128 steps of
+     copy, GraphExecutor): one eager step launches qmm_group_norm 64 (the
+     ring form), qmm_group 64, qmm_w4a8 1, flash_decode_q8 32 and rmsnorm
+     1, its logits held against llama_decode_step's; 128 steps of
      make_fused_greedy_decode (one CUDA graph of 128 steps) equal 128
      eager graph steps and phase 4's tokens up to a printed near-tie;
      tok/s (min of 3) beside phase 4's, the eager ms per step; then
@@ -343,6 +358,31 @@ def cuda_ms(torch, fn, reps, flush=None):
     return statistics.median(times)
 
 
+def bf16_ulp(v):
+    """One bf16 ulp at v > 0 (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(v)) - 7)
+
+
+def graph_launch_ms(torch, fn, weights):
+    """Milliseconds a launch of fn(w) for each w of weights (distinct
+    copies, so that each launch finds its weight cold, as the decode graph
+    does layer after layer), all captured back to back in one CUDA graph:
+    the median of 20 timed replays over len(weights)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for w in weights:
+            fn(w)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for w in weights:
+            fn(w)
+    ms = cuda_ms(torch, graph.replay, 20) / len(weights)
+    del graph
+    return ms
+
+
 def copy_rate(torch):
     """Device-to-device copy_ of 1 GB: bytes read + written per second."""
     n = 1 << 30
@@ -455,6 +495,11 @@ def main():
     # path: the run whose launch counts a case reports (phase 4 "decode",
     # phase 5 "prompt 1024" with the bf16 cache, phase 5 "prompt 256")
     cases = []
+    # qmm_group_norm at 1 row: the route's ring form (the decode's), beside
+    # the CUDA-core form forced, which keeps a row of its own (no main path
+    # takes it at 1 row of int4); both also back to back over the 32
+    # layers' copies of the weight in one CUDA graph (graph_ms), as the
+    # decode graph runs them
     for label, q in (("wqkv", layer0["wqkv"]),
                      ("w_gateup", layer0["w_gateup"])):
         x = randn(1, cfg.dim)
@@ -462,16 +507,34 @@ def main():
             torch.bfloat16)
         xn = qm.rmsnorm_bf16(x, nw, eps)
         w = dequantize_weight(q)
-        cases.append(dict(
-            name="qmm_group_norm", shape=label, path="decode",
-            replaces=TPU + "quant_matmul.py:85",
-            source=SRC + "quant_matmul.cu",
-            kernel=lambda x=x, nw=nw, q=q: qm.quant_matmul_norm(x, nw, q, eps),
-            plain=lambda x=x, nw=nw, q=q: qm.qmm_group_plain(
-                qm.rmsnorm_bf16(x, nw, eps), q)[:, :q.out_features],
+        n = q.out_features
+        layers = [lay[label] for lay in params["layers"]]
+
+        def core(q, x=x, nw=nw, n=n):
+            return qm._launch_group(x, nw, q, eps, "qmm_group_norm",
+                                    form="cuda_core")[:, :n]
+
+        def ring(q, x=x, nw=nw):
+            return qm.quant_matmul_norm(x, nw, q, eps)
+
+        row = dict(
+            shape=label, replaces=TPU + "quant_matmul.py:85",
+            plain=lambda x=x, nw=nw, q=q, n=n: qm.qmm_group_plain(
+                qm.rmsnorm_bf16(x, nw, eps), q)[:, :n],
             library=lambda xn=xn, w=w: torch.matmul(xn, w),
             bytes=nbytes(x, nw, q.qweight, q.scales) + 2 * q.out_physical,
-            ops=2 * cfg.dim * q.out_physical, kind="bf16"))
+            ops=2 * cfg.dim * q.out_physical, kind="bf16", ulp=True,
+            graph_weights=layers)
+        cases.append(dict(
+            row, name="qmm_group_norm_ring", path="decode",
+            source=SRC + "quant_matmul_ring.cu",
+            kernel=lambda q=q, f=ring: f(q),
+            cuda_core=lambda q=q, f=core: f(q),
+            graph={"ring": ring, "cuda_core": core}))
+        cases.append(dict(
+            row, name="qmm_group_norm", path=NO_PATH,
+            source=SRC + "quant_matmul.cu",
+            kernel=lambda q=q, f=core: f(q), graph={"cuda_core": core}))
     decode_mm = (("wo", layer0["wo"], cfg.dim),
                  ("w_down", layer0["w_down"], cfg.intermediate))
     prompt_mm = (("wqkv", layer0["wqkv"], cfg.dim), decode_mm[0],
@@ -489,9 +552,13 @@ def main():
                 shape=label if rows == 1 else f"{label} {rows} rows",
                 path=path, replaces=TPU + "quant_matmul.py:100",
                 source=SRC + "quant_matmul.cu",
-                # 1 row: the K split, beside the form before it
+                # 1 row: the K split, beside the form before it, and back
+                # to back over the 32 layers' copies in one CUDA graph
                 **({"forms": {"unsplit": unsplit(qm, lambda x=x, q=q:
-                                                  qm.quant_matmul(x, q))}}
+                                                  qm.quant_matmul(x, q))},
+                    "graph": {"split": lambda q, x=x: qm.quant_matmul(x, q)},
+                    "graph_weights": [lay[label]
+                                      for lay in params["layers"]]}
                    if rows == 1 else {}),
                 kernel=lambda x=x, q=q: qm.quant_matmul(x, q),
                 plain=lambda x=x, q=q: qm.qmm_group_plain(x, q)[
@@ -642,13 +709,22 @@ def main():
     per_token = decode_path(torch, llama, counters, params, cfg, dev, report)
     step4 = dict(per_token)         # phases 5 and 6 add their kernels
     paths = {"decode": report["launches_main_path"]}
-    for kname in ("qmm_group_norm", "qmm_group", "qmm_group_split",
-                  "qmm_w4a8", "flash_decode_q8", "flash_decode_merge"):
+    for kname in ("qmm_group_norm", "qmm_group_norm_ring", "qmm_group",
+                  "qmm_group_split", "qmm_w4a8", "flash_decode_q8",
+                  "flash_decode_merge"):
         if paths["decode"].get(kname, 0) <= 0:
             fail(f"{kname} was never launched on the main path")
     for kname in ("qmm_group_mma", "qmm_w4a8_mma", "qmm_group_ln_mma"):
         if paths["decode"].get(kname, 0) or step4.get(kname, 0):
             fail(f"the 1-row decode launched {kname}, a tensor-core form")
+    # wqkv and w_gateup: the ring form, and no CUDA-core qmm_group_norm
+    L = cfg.n_layers
+    if step4.get("qmm_group_norm_ring", 0) != 2 * L or \
+            step4.get("qmm_group_norm", 0) != 2 * L:
+        fail(f"a decode step launched qmm_group_norm "
+             f"{step4.get('qmm_group_norm', 0)} times, "
+             f"{step4.get('qmm_group_norm_ring', 0)} of them the ring form; "
+             f"expected {2 * L} and {2 * L}")
     t_phase = phase(4, t_phase)
 
     # 5. the 7B prompt -> generate path
@@ -764,7 +840,8 @@ def main():
     with knobs(envs[SPLIT]):
         paths[SPLIT] = variant_path(
             torch, llama, counters, params, cfg, dev, report, steps, SPLIT,
-            {"qmm_group2d": 2 * L, "qmm_group_norm": 2 * L, "qmm_w4a8": 1,
+            {"qmm_group2d": 2 * L, "qmm_group_norm": 2 * L,
+             "qmm_group_norm_ring": 2 * L, "qmm_w4a8": 1,
              "flash_decode_q8": L, **merges(cfg, L)},
             weight_bytes(cfg))
     t_phase = phase(11, t_phase)
@@ -816,7 +893,8 @@ def main():
                if "library_ln" in c else {}),
             **({"forms": {f: {"ms": ms, "max_abs_err": c["form_err"][f]}
                           for f, ms in c["form_ms"].items()}}
-               if c["form_ms"] else {})})
+               if c["form_ms"] else {}),
+            **({"graph_ms": c["graph_ms"]} if c["graph_ms"] else {})})
     report["kernels"] = kernels
     os.makedirs("chiprun_out", exist_ok=True)
     with open("chiprun_out/chip_smoke_report.json", "w") as f:
@@ -843,7 +921,8 @@ def check_and_time(torch, c, counters, flush, bw_copy):
     err = (got.float() - want.float()).abs().max().item()
     ref = want.float().abs().max().item()
     c["max_abs_err"], c["max_abs_ref"] = err, ref
-    tol = c.get("tol", TOL)
+    # "ulp": one bf16 ulp at max|plain|, else tol of max|plain|
+    tol = bf16_ulp(ref) / ref if c.get("ulp") else c.get("tol", TOL)
     if not (math.isfinite(err) and err <= tol * ref):
         fail(f"{c['name']} {c['shape']}: max err {err} > {tol} * {ref}")
     c["ms"] = cuda_ms(torch, c["kernel"], 50, flush)
@@ -862,6 +941,9 @@ def check_and_time(torch, c, counters, flush, bw_copy):
                  f"{tol} * {ref}")
         c["form_err"][form] = e
         c["form_ms"][form] = cuda_ms(torch, fn, 50, flush)
+    # back to back: one launch per weight copy, captured in one graph
+    c["graph_ms"] = {form: graph_launch_ms(torch, fn, c["graph_weights"])
+                     for form, fn in c.get("graph", {}).items()}
     c["bound_ms"] = 1e3 * max(c["bytes"] / HBM_BYTES_S,
                               c["ops"] / PEAK_OPS[c["kind"]])
     c["bound_by"] = ("bytes" if c["bytes"] / HBM_BYTES_S
@@ -878,6 +960,8 @@ def check_and_time(torch, c, counters, flush, bw_copy):
              if "library_ln" in c else "")
           + "".join(f"{f} form {ms:.4f} ms (err {c['form_err'][f]:.3g})  "
                     for f, ms in c["form_ms"].items())
+          + "".join(f"{f} back to back {ms:.4f} ms  "
+                    for f, ms in c["graph_ms"].items())
           + f"{c['bytes'] / 1e6:.2f} MB", flush=True)
 
 
@@ -1112,10 +1196,12 @@ def decode_path(torch, llama, counters, params, cfg, dev, report):
     # turns (split, unsplit attention, unsplit matmuls, split)
     unsplit_mm["split_again_tok_s_samples"] = time_graph(torch, g, cache,
                                                          token, pos)
+    core_norm = cuda_core_norm_region(torch, llama, qm, params, cfg, token,
+                                      pos, cache, g, toks)
     kv_bytes = 2 * cfg.n_layers * cfg.n_kv_heads * CTX * (cfg.head_dim + 4)
     bytes_tok = weight_bytes(cfg) + kv_bytes
     tok_s = STEPS / dt
-    res = {"unsplit_matmuls": unsplit_mm,
+    res = {"unsplit_matmuls": unsplit_mm, "cuda_core_norm": core_norm,
         "tok_s": tok_s, "ms_per_token": 1e3 * dt / STEPS,
         "tok_s_samples": [STEPS / s for s in samples],
         "decode_multi_call_s": multi_s, "bytes_per_token": bytes_tok,
@@ -1129,6 +1215,69 @@ def decode_path(torch, llama, counters, params, cfg, dev, report):
     report.update(res)
     print("# decode " + json.dumps(res), flush=True)
     return per_token
+
+
+def cuda_core_norm_region(torch, llama, qm, params, cfg, token, pos, cache,
+                          g, toks):
+    """Phase 4's region with qmm_group_norm's CUDA-core form forced where
+    the route takes the ring form (qm.group_form patched while the step is
+    captured: the form before the ring), read in turns with the route's graph
+    g (ring, CUDA-core, ring, CUDA-core; 3 runs each), with a profiler
+    window over one run; its STEPS tokens held against g's (toks) up to a
+    printed near-tie."""
+    route = qm.group_form
+
+    def forced(rows, dtype, norm, bits=4):
+        form = route(rows, dtype, norm, bits)
+        return "cuda_core" if form == "ring" else form
+
+    qm.group_form = forced
+    before = qm.launches["qmm_group_norm_ring"]
+    try:
+        fresh(cache)
+        g1 = llama.DecodeGraph(params, cfg, token, pos, cache, STEPS)
+    finally:
+        qm.group_form = route
+    if qm.launches["qmm_group_norm_ring"] != before:
+        fail("decode: the CUDA-core qmm_group_norm capture launched the "
+             "ring form")
+    samples = {"ring": [], "cuda_core": []}
+    for _ in range(2):
+        samples["ring"] += time_graph(torch, g, cache, token, pos)
+        samples["cuda_core"] += time_graph(torch, g1, cache, token, pos)
+    fresh(cache)
+    g1.reset(token, pos)
+    old = g1.run()[0].tolist()
+    ties = same_up_to_ties(
+        "decode: ring vs CUDA-core qmm_group_norm", [old],
+        [toks[0].tolist()], [[]],
+        decode_tie_gap(torch, llama, params, cfg, token, pos, cache))
+    prof = graph_profile(torch, g1, cache, token, pos)
+    del g1
+    out = {"tok_s": {f: max(v) for f, v in samples.items()},
+           "tok_s_in_turns": samples, "near_ties": ties,
+           "device_profile": prof}
+    print(f"# decode, qmm_group_norm ring vs CUDA-core form: "
+          f"{json.dumps(out['tok_s'])} tok/s (in turns: "
+          f"{json.dumps(samples)})", flush=True)
+    return out
+
+
+def decode_tie_gap(torch, llama, params, cfg, token, pos, cache):
+    """tie_gap(prefix, a, b) of phase 4's greedy decode from (token, pos)
+    over a fresh cache: eager steps along prefix, then the gap between the
+    logits of tokens a and b, relative to max|logit|."""
+    def tie_gap(prefix, a, b):
+        fresh(cache)
+        tok, p = token.clone(), pos.clone()
+        for t in prefix:
+            llama.llama_decode_step(params, cfg, tok, p, cache)
+            tok = torch.full_like(token, t)
+            p = p + 1
+        logits, _ = llama.llama_decode_step(params, cfg, tok, p, cache)
+        last = logits[0].float()
+        return abs(float(last[a] - last[b])) / float(last.abs().max())
+    return tie_gap
 
 
 def time_graph(torch, g, cache, token, pos):
@@ -1359,7 +1508,8 @@ def device_profile(torch, fn):
     it in which some kernel ran, and kernel milliseconds by kind. None
     where the profiler recorded no device event (then: not measured)."""
     from torch.profiler import ProfilerActivity, profile
-    kinds = (("w4a8_quantize_rows", "qmm_w4a8"),
+    kinds = (("qmm_group_norm_ring_kernel", "qmm_group_norm_ring"),
+             ("w4a8_quantize_rows", "qmm_w4a8"),
              ("qmm_w4a8_mma_kernel", "qmm_w4a8"),
              ("w4a8_splitk_sum", "qmm_w4a8 sum"),
              ("group_ln_norm_rows", "qmm_group_ln"),
@@ -1764,8 +1914,8 @@ def dense_forms(torch, qm, dense, cfg, dev, tie_gap, label=DENSE_INT8,
     zero = torch.zeros_like(tok0)
     route = getattr(qm, form_fn)
     if forced is None:
-        def forced(rows, dtype, norm):
-            return "cuda_core" if norm else route(rows, dtype, norm)
+        def forced(rows, dtype, norm, bits=4):
+            return "cuda_core" if norm else route(rows, dtype, norm, bits)
     if route_mma is None:
         route_mma = SLOTS >= qm.MMA_MIN_ROWS
     programs = {}
@@ -3105,7 +3255,8 @@ def graph_path(torch, llama, graph_llama, GraphExecutor, counters, params,
     per_step = counters.read()
     steps[GRAPH] = per_step
     layer0 = params["layers"][0]
-    want = {"qmm_group_norm": 2 * L, "qmm_group": 2 * L, "qmm_w4a8": 1,
+    want = {"qmm_group_norm": 2 * L, "qmm_group_norm_ring": 2 * L,
+            "qmm_group": 2 * L, "qmm_w4a8": 1,
             "qmm_group_split": L * split_launches(
                 qm, (layer0["wo"], layer0["w_down"])),
             "flash_decode_q8": L, "rmsnorm": 1, **merges(cfg, L)}
@@ -3438,12 +3589,12 @@ def split_crossover(torch, qm, layer0, lay64, randn, flush):
 
 @contextlib.contextmanager
 def old_route(torch, att, fa, pa):
-    """The attention route before the f16 forms, for the block: the fast
-    kernels take a bf16 q (over a bf16 or INT8 cache) at D 64 or 128 only,
-    so an f16 launch takes the any-type body's C entries
-    (flash_attention_any, flash_decode_any, flash_decode_merge_any,
-    paged_flash_decode(_q8)_any). The old form, forced, timed beside the
-    new one in the same call."""
+    """The attention route before the fast kernels' f16 forms and f32
+    decode, for the block: the fast kernels take a bf16 q (over a bf16 or
+    INT8 cache) at D 64 or 128 only, so an f16 or f32 launch takes the
+    any-type body's C entries (flash_attention_any, flash_decode_any,
+    flash_decode_merge_any, paged_flash_decode(_q8)_any). The old form,
+    forced, timed beside the new one in the same call."""
     bf16, dims = torch.bfloat16, att.FAST_HEAD_DIMS
     saved = att.fast_form, pa.fast_form, fa.fast_prefill
     att.fast_form = pa.fast_form = lambda q, c, D: (
@@ -3484,10 +3635,12 @@ def any_cases(torch, att, fa, pa, cfg, gen, dev, dt):
     flash_decode_q8 (INT8 cache) with a dt q at pos CTX in the split form
     batch 1 takes, beside the unsplit form, the merge on their partials
     in dt, and both paged kernels at the serving shape (SLOTS slots, a dt
-    q over dt or INT8 pages). In f16 the fast kernels, each beside the
-    any-type body it replaced (old_route, form "any"), on phase 14's
-    paths; in f32 the any-type body (the `_any` names), which no main
-    path runs, its library call in f32 (no_tf32)."""
+    q over dt or INT8 pages). The fast kernels (f16, and the f32 decode),
+    each beside the any-type body it replaced (old_route,
+    form "any"); f16 on phase 14's paths. In f32, which no main path
+    runs: the prefill's any-type body, and the any-type decode body again
+    in rows of its own (the `_any` names); plain versions and library
+    calls in f32 (no_tf32), held to F32_TOL."""
     H, D, S = cfg.n_heads, cfg.head_dim, MAX_SEQ
     f32 = dt == torch.float32
     kind = "f32" if f32 else "f16"
@@ -3500,17 +3653,16 @@ def any_cases(torch, att, fa, pa, cfg, gen, dev, dt):
 
     def row(base, fast, src, path, **c):
         """A case: the base name and source for the fast kernel, the
-        `_any` name and attention_any.cuh for the any-type body; in f16 the
-        old body beside it; in f32 the library call without TF32."""
+        `_any` name and attention_any.cuh for the any-type body; for a
+        fast kernel the old body beside it; in f32 the plain version and
+        the library call without TF32, and the limit F32_TOL."""
         forms = c.pop("forms", {})
-        if not f32:
+        if fast:
             forms["any"] = old_body(torch, att, fa, pa, c["kernel"])
-        else:
-            c["library"] = c["library"] and no_tf32(torch, c["library"])
         if f32:
+            c["library"] = c["library"] and no_tf32(torch, c["library"])
             c["plain"] = no_tf32(torch, c["plain"])
-            if base == "flash_attention":
-                c["tol"] = F32_TOL
+            c["tol"] = F32_TOL
         return dict(name=base if fast else base + "_any",
                     source=SRC + src if fast else
                     PREFILL_ANY_SRC if base == "flash_attention" else ANY_SRC,
@@ -3622,6 +3774,14 @@ def any_cases(torch, att, fa, pa, cfg, gen, dev, dt):
             .scaled_dot_product_attention(qp, kg, vg, attn_mask=mask),
             bytes=Hkv * rows * row_b + 2 * nbytes(qp),
             ops=4 * H * rows * D))
+    if f32:
+        # the any-type body the f32 decode left keeps rows of its own at
+        # the same shapes, forced through the old route
+        cases += [dict(c, name=c["name"] + "_any", source=ANY_SRC,
+                       kernel=c["forms"]["any"],
+                       forms={f: old_body(torch, att, fa, pa, fn)
+                              for f, fn in c["forms"].items() if f != "any"})
+                  for c in cases if "any" in c["forms"]]
     return cases
 
 

@@ -14,12 +14,12 @@ split across decode_splits(...) blocks, which write partial (acc, m, l),
 and flash_decode_merge (a second kernel) combines them; *_split_plain and
 flash_decode_merge_plain are the plain versions of the two steps.
 
-Two forms on the card (fast_form chooses). A bf16 or f16 q over a cache
-of its own dtype or int8 at head dim 64 or 128 takes the fast kernels
-above; an f32 q or cache, a q dtype other than a 16-bit cache's, or
-another head dim D (a multiple of 8 from 8 to 256) takes the any-type
-form, csrc/attention_any.cuh (flash_decode_any, flash_decode_merge_any),
-as the TPU kernels take any float type and head dim and write q's dtype.
+Two forms on the card (fast_form chooses). A bf16, f16 or f32 q over a
+cache of its own dtype or int8 at head dim 64 or 128 takes the fast
+kernels above; a q dtype other than the cache's, or another head dim D (a
+multiple of 8 from 8 to 256) takes the any-type form,
+csrc/attention_any.cuh (flash_decode_any, flash_decode_merge_any), as the
+TPU kernels take any float type and head dim and write q's dtype.
 launches[name] counts both forms and launches[name + "_any"] the any-type
 one again. `launches` counts kernel launches (captures, not CUDA-graph
 replays).
@@ -38,7 +38,8 @@ from infinitensor_tpu_torch.kernels import _build
 
 launches = collections.Counter()
 FAST_HEAD_DIMS = (64, 128)       # the fast kernels of csrc/flash_decode.cu
-FAST_DTYPES = (torch.bfloat16, torch.float16)   # ... and of flash_attention
+FAST_DTYPES = (torch.bfloat16, torch.float16)   # flash_attention's
+FAST_DECODE_DTYPES = FAST_DTYPES + (torch.float32,)   # the fast decode's q
 MAX_FAST_PREFILL_D = 128         # flash_attention's: D a multiple of 8 up to it
 MAX_HEAD_DIM = 256               # the any-type form: D % 8 == 0, 8 <= D <= 256
 MAX_REP = 16                     # query heads a kv head, both forms
@@ -72,10 +73,10 @@ def _lib() -> ctypes.CDLL:
 
 
 def fast_form(q_dtype, cache_dtype, D: int) -> bool:
-    """Whether a decode-attention launch takes the fast kernels (a bf16 or
-    f16 q over a cache of its own dtype or int8, at D 64 or 128), else the
-    any-type form."""
-    return (q_dtype in FAST_DTYPES and D in FAST_HEAD_DIMS
+    """Whether a decode-attention launch takes the fast kernels (a bf16,
+    f16 or f32 q over a cache of its own dtype or int8, at D 64 or 128),
+    else the any-type form."""
+    return (q_dtype in FAST_DECODE_DTYPES and D in FAST_HEAD_DIMS
             and cache_dtype in (q_dtype, torch.int8))
 
 
@@ -287,8 +288,8 @@ def flash_decode_merge(part, dtype=torch.bfloat16):
     [B, H, 1, D] in `dtype` (q's). CPU tensors take
     flash_decode_merge_plain; CUDA tensors launch the kernel or raise: the
     fast merge for a bf16 or f16 out at D 64 or 128 and at most MAX_SPLITS
-    splits, else flash_decode_merge_any (any D from 8 to 256, a multiple
-    of 8)."""
+    splits (f32 too), else flash_decode_merge_any (any D from 8 to 256, a
+    multiple of 8)."""
     B, H, splits, D2 = part.shape
     D = D2 - 2
     if part.device.type == "cpu":
@@ -396,8 +397,9 @@ def flash_decode(q, k_cache, v_cache, pos, *, _splits=None):
     int32. q [B, H, 1, D] -> [B, H, 1, D] in q's dtype. CPU tensors take
     the plain version; CUDA tensors launch a kernel or raise: q in bf16,
     f16 or f32, the cache in bf16, f16 or f32, D a multiple of 8 from 8 to
-    256, H / Hkv <= 16 (the fast kernel for a bf16 or f16 q over a cache of
-    its dtype at D 64 or 128, else the any-type form), in the split form
+    256, H / Hkv <= 16 (the fast kernel for a bf16, f16 or f32 q over a
+    cache of its dtype at D 64 or 128, else the any-type form), in the
+    split form
     with its merge where decode_splits (or the private _splits) is above
     1."""
     _check_shapes("flash_decode", q, k_cache, v_cache)
@@ -416,7 +418,7 @@ def flash_decode_q8(q, k_cache, v_cache, k_scale, v_scale, pos, *,
     q [B, H, 1, D] -> [B, H, 1, D] in q's dtype. CPU tensors take the
     plain version; CUDA tensors launch a kernel or raise: q in bf16, f16
     or f32, D a multiple of 8 from 8 to 256, H / Hkv <= 16 (the fast
-    kernel for a bf16 or f16 q at D 64 or 128, else the any-type form), in
+    kernel at D 64 or 128, else the any-type form), in
     the split form with its merge where decode_splits (or the private
     _splits) is above 1."""
     _check_shapes("flash_decode_q8", q, k_cache, v_cache)

@@ -9,7 +9,8 @@
 //
 // What bounds it on this card: one query token reads every live cache row
 // once. At batch 1 the K and V rows are 2 * Hkv * (pos + 1) * D * 2 bytes
-// for a 16-bit cache (16.8 MB per layer for Llama-2-7B at pos 1024), or
+// for a 16-bit cache (16.8 MB per layer for Llama-2-7B at pos 1024; twice
+// that for f32), or
 // 2 * Hkv * (pos + 1) * (D + 4) bytes for int8 rows with their f32 scales
 // (8.66 MB), against ~4 * H * (pos + 1) * D flops, so device-memory
 // bandwidth is the floor. Unsplit, a 7B layer at batch 1 was 32 blocks on
@@ -27,21 +28,21 @@
 // 384 rows) is 1024 blocks of one or two tiles each. The crossover
 // between the forms is measured in chip_smoke.py phase 3 (PERF.md §6).
 //
-// The fast kernels take a bf16 or f16 q (kind kXBf16, kXF16) over a cache
-// of q's type or int8, at D 64 or 128, and write q's type.
+// The fast kernels take a bf16, f16 or f32 q (kind kXBf16, kXF16, kXF32)
+// over a cache of q's type or int8, at D 64 or 128, and write q's type.
 // flash_decode_any and flash_decode_merge_any are the any-type form
 // (attention_any.cuh): a bf16, f16 or f32 q, a bf16, f16, f32 or int8
 // cache, any head dim from 8 to 256 that is a multiple of 8, the output in
 // q's type. The wrappers take it for what the fast kernels do not take:
-// an f32 q or cache, a q type other than a 16-bit cache's, a head dim
-// other than 64 or 128.
+// a q type other than the cache's (or int8), a head dim other than 64 or
+// 128.
 #include "flash_decode.cuh"
 
 using flash_decode_detail::dispatch_kind;
 
 ITT_DEFINE_ERROR_STRING()
 
-// q [B, H, 1, D] of kind (kXBf16, kXF16); k/v int8 [B, Hkv, S, D]; ks/vs
+// q [B, H, 1, D] of kind (kXBf16, kXF16, kXF32); k/v int8 [B, Hkv, S, D]; ks/vs
 // f32 [B, Hkv, S]; pos int32 [B] (inclusive: the row just appended); out
 // [B, H, 1, D] of kind. D must be 64 or 128 and rep = H / Hkv at most 16.
 // splits > 1: the split form, writing part f32 [B, H, splits, D + 2] (not
@@ -67,11 +68,12 @@ ITT_EXPORT int flash_decode(const void* q, int kind, const void* k,
 }
 
 // part f32 [rows, splits, D + 2] (a split's acc, m, l) -> out [rows, D] of
-// kind (kXBf16, kXF16); D is 64 or 128, splits at most D.
+// kind (kXBf16, kXF16, kXF32); D is 64 or 128, splits at most D.
 ITT_EXPORT int flash_decode_merge(const void* part, void* out, int kind,
                                   int rows, int splits, int D, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (rows <= 0 || splits <= 0 || splits > D || (kind != kXBf16 && kind != kXF16))
+  if (rows <= 0 || splits <= 0 || splits > D ||
+      (kind != kXBf16 && kind != kXF16 && kind != kXF32))
     return (int)cudaErrorInvalidValue;
   const auto* pp = static_cast<const float*>(part);
   if (D == 128)

@@ -2,9 +2,9 @@
 // query token per (batch, kv head) block over the live rows of a KV cache.
 // flash_decode.cu instantiates it over a dense cache [B, Hkv, S, D],
 // paged_flash_decode.cu over a page pool [N, Hkv, P, D] reached through a
-// block table. q is bf16 or f16 (a run-time kind, staged once as f32) and
-// the output is written in its type; the cache element (the template T)
-// is q's 16-bit type, or int8 with f32 row scales.
+// block table. q is bf16, f16 or f32 (a run-time kind, staged once as f32)
+// and the output is written in its type; the cache element (the template
+// T) is q's type, or int8 with f32 row scales.
 //
 // Design: one block per (batch, kv head), 256 threads, holding the
 // rep = H / Hkv query rows of that head. The block reads pos[b] from device
@@ -12,15 +12,18 @@
 // the cache in tiles of 256 rows up to pos inclusive, never reading a row
 // past it. Per tile: each thread scores one row, its K bytes read as
 // independent 16-byte loads (eight for an int8 row, sixteen for a 16-bit
-// one; many bytes in flight, no shuffles): s = q.k / sqrt(D), with the int8 row's
+// one, thirty-two for an f32 one; many bytes in flight, no shuffles):
+// s = q.k / sqrt(D), with the int8 row's
 // scale folded in as the TPU kernel does (s = q.k * (ks * 1/sqrt(D)));
 // one warp per query row updates the online softmax (m, l) in shared
 // memory and, for int8, turns p into p * vs, as the TPU kernel does before
 // its PV product; then the 8 warps split the tile's V rows, each lane
 // owning 4 columns (a warp reads whole rows), and meet in shared memory
 // once at the end. Output is acc / l in q's type. A tile's independent loads
-// (a thread's K row, or a 16-bit row's first half, its K and V scales, and
-// in the dense form a lane's first 16 V rows, 8 at rep > 4) are issued
+// (a thread's K row, or the first 128 bytes of a 16-bit or f32 row, its K
+// and V scales, and in the dense form a lane's first 128 bytes of V rows:
+// 16 rows of a 16-bit or int8 cache, 8 of an f32 one, half that at
+// rep > 4) are issued
 // before its first barrier, so their latencies overlap one another and,
 // in the first tile, the staging of q; the V scale waits in shared memory
 // for the softmax.
@@ -49,10 +52,16 @@
 // 256 rows spans 256 / P pages and a page whose first row is past pos is
 // never looked up or read.
 //
-// Everything else (an f32 q or cache, a q type other than a 16-bit
-// cache's, a head dim other than 64 or 128) takes the any-type body of
-// attention_any.cuh, included here so that the dense and paged kernels
-// share it too.
+// f32 (an f32 q over an f32 or int8 cache): the arithmetic is the 16-bit
+// forms' (f32 scores, the int8 scales folded as above, f32 acc), only the
+// loads change: an f32 row of D 128 is 512 bytes, scored in four quarters
+// of eight 16-byte loads (the first quarter loaded before the barrier, as
+// a 16-bit row's first half is), and a lane's 4 V columns are one 16-byte
+// load.
+//
+// Everything else (a q type other than the cache's or int8, a head dim
+// other than 64 or 128) takes the any-type body of attention_any.cuh,
+// included here so that the dense and paged kernels share it too.
 #pragma once
 
 #include "attention_any.cuh"
@@ -67,7 +76,8 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kTile = kThreads;         // cache rows per tile
 
 // The 16-byte words of a cache row that a scoring thread loads before its
-// first barrier: all of an int8 row, the first 64 elements of a 16-bit one.
+// first barrier: all of an int8 row, the first 128 bytes of a 16-bit or
+// f32 one (64 or 32 elements).
 template <typename T, int kD>
 __host__ __device__ constexpr int head_words() {
   return std::is_same<T, int8_t>::value ? kD / 16 : 8;
@@ -140,11 +150,37 @@ __device__ __forceinline__ void row_dots(const uint4 (&w0)[8], const T* kr,
   }
 }
 
+// d[r] += q_r . (an f32 cache row kr), its first 32 elements held in w:
+// quarters of 32 elements (four at kD = 128), eight 16-byte loads each.
+template <int REP, int kD, typename T,
+          typename std::enable_if<sizeof(T) == 4, int>::type = 0>
+__device__ __forceinline__ void row_dots(const uint4 (&w0)[8], const T* kr,
+                                         const float (*qs)[kD], float (&d)[REP]) {
+#pragma unroll
+  for (int part = 0; part < kD / 32; ++part) {
+    uint4 w[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      w[j] = part == 0 ? w0[j] : __ldg(reinterpret_cast<const uint4*>(kr + part * 32) + j);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float k0 = __uint_as_float(w[j].x), k1 = __uint_as_float(w[j].y),
+                  k2 = __uint_as_float(w[j].z), k3 = __uint_as_float(w[j].w);
+#pragma unroll
+      for (int r = 0; r < REP; ++r) {
+        const float4 qv = reinterpret_cast<const float4*>(qs[r])[part * 8 + j];
+        d[r] += qv.x * k0 + qv.y * k1 + qv.z * k2 + qv.w * k3;
+      }
+    }
+  }
+}
+
 // Columns 4 * lane .. 4 * lane + 3 of one cache row (lane < kD / 4): the
 // raw word(s), loaded ahead of use, then as f32.
 template <typename T>
-using LaneWord = typename std::conditional<std::is_same<T, int8_t>::value, uint32_t,
-                                           uint2>::type;
+using LaneWord = typename std::conditional<
+    std::is_same<T, int8_t>::value, uint32_t,
+    typename std::conditional<sizeof(T) == 4, uint4, uint2>::type>::type;
 
 template <typename T>
 __device__ __forceinline__ LaneWord<T> lane_word(const T* vr, int lane) {
@@ -158,6 +194,11 @@ __device__ __forceinline__ void lane_cols(LaneWord<T> u, float (&v)[4]) {
     v[1] = i8_val(u, 8);
     v[2] = i8_val(u, 16);
     v[3] = i8_val(u, 24);
+  } else if constexpr (sizeof(T) == 4) {
+    v[0] = __uint_as_float(u.x);
+    v[1] = __uint_as_float(u.y);
+    v[2] = __uint_as_float(u.z);
+    v[3] = __uint_as_float(u.w);
   } else {
     const float2 a = pair_f32<T>(u.x), b = pair_f32<T>(u.y);
     v[0] = a.x;
@@ -167,8 +208,8 @@ __device__ __forceinline__ void lane_cols(LaneWord<T> u, float (&v)[4]) {
   }
 }
 
-// q / out of q_kind (kXBf16, kXF16). T = int8_t: ks / vs are the rows'
-// f32 scales; T = __nv_bfloat16 or __half (q's type): unused.
+// q / out of q_kind (kXBf16, kXF16, kXF32). T = int8_t: ks / vs are the
+// rows' f32 scales; T = __nv_bfloat16, __half or float (q's type): unused.
 // PAGED: kc / vc / ks / vs are page pools, table is int32 [B, MP] and S is
 // MP * P; else table is unused and P is ignored. SPLIT: blockIdx.x is the
 // split, the partials go to part and out is unused; else part is unused.
@@ -190,8 +231,8 @@ flash_decode_kernel(const void* __restrict__ q, int q_kind,
   constexpr int kRowsPass = 32 / kQuads;  // V rows a warp takes per pass
   constexpr int kStride = kWarps * kRowsPass;   // V rows of all warps a pass
   // V rows a lane loads ahead (dense; fewer where REP x 4 accumulators
-  // already hold many registers)
-  constexpr int kPre = PAGED ? 0 : REP <= 4 ? 16 : 8;
+  // already hold many registers, half as many 16-byte f32 words)
+  constexpr int kPre = PAGED ? 0 : (REP <= 4 ? 16 : 8) / (sizeof(T) == 4 ? 2 : 1);
   __shared__ float red[kStride][kD];
   __shared__ int row_s[PAGED ? kTile : 1];   // pool row index of a tile row
   const int ns = SPLIT ? gridDim.x : 1, split = SPLIT ? blockIdx.x : 0;
@@ -359,7 +400,7 @@ flash_decode_kernel(const void* __restrict__ q, int q_kind,
   }
 }
 
-// Row b * H + hq of out (of out_kind: kXBf16, kXF16) = the merge of that
+// Row b * H + hq of out (of out_kind: kXBf16, kXF16, kXF32) = the merge of that
 // query row's ns <= kD partials: thread j reads split j's (m, l), the
 // block finds M and the weights e^(m_j - M) (0 where l_j = 0) in shared
 // memory, then thread d sums acc_j[d] * w_j over j in order; all loads of
@@ -443,14 +484,14 @@ int dispatch(const void* q, int q_kind, const void* k, const void* v, const void
   return (int)cudaErrorInvalidValue;
 }
 
-// The entries' dispatch on q's kind (kXBf16, kXF16) and D (64 or 128):
-// Q8, an int8 cache with f32 scales; else a cache of q's 16-bit type.
+// The entries' dispatch on q's kind (kXBf16, kXF16, kXF32) and D (64 or
+// 128): Q8, an int8 cache with f32 scales; else a cache of q's type.
 template <bool Q8, bool PAGED>
 int dispatch_kind(const void* q, int kind, const void* k, const void* v,
                   const void* ks, const void* vs, const void* pos, void* out,
                   void* part, int splits, const void* table, int P, int B,
                   int H, int Hkv, int S, int D, float scale, void* stream) {
-  if ((kind != kXBf16 && kind != kXF16) || (D != 64 && D != 128))
+  if ((kind != kXBf16 && kind != kXF16 && kind != kXF32) || (D != 64 && D != 128))
     return (int)cudaErrorInvalidValue;
 #define ITT_FD_KIND(TYPE, DIM)                                                \
   return dispatch<TYPE, PAGED, DIM>(q, kind, k, v, ks, vs, pos, out, part,    \
@@ -460,6 +501,10 @@ int dispatch_kind(const void* q, int kind, const void* k, const void* v,
     if (D == 64) ITT_FD_KIND(int8_t, 64)
     ITT_FD_KIND(int8_t, 128)
   } else {
+    if (kind == kXF32) {
+      if (D == 64) ITT_FD_KIND(float, 64)
+      ITT_FD_KIND(float, 128)
+    }
     if (kind == kXF16) {
       if (D == 64) ITT_FD_KIND(__half, 64)
       ITT_FD_KIND(__half, 128)

@@ -9,7 +9,8 @@
 //   paged_flash_decode_q8  <- _paged_q8_kernel  (:187, via paged_flash_decode_q8 :234)
 //
 // What bounds it on this card: every live row of every slot is read once,
-// 2 * Hkv * (pos[b] + 1) * D * 2 bytes per slot for 16-bit pages, or
+// 2 * Hkv * (pos[b] + 1) * D * 2 bytes per slot for 16-bit pages (* 4 for
+// f32), or
 // 2 * Hkv * (pos[b] + 1) * (D + 4) for int8 pages with their f32 scales,
 // against ~4 * H * (pos[b] + 1) * D flops: device-memory bandwidth. The
 // TPU kernel's grid covers every page of the table and still copies the
@@ -18,8 +19,8 @@
 // device, so the launch sits in a CUDA graph; the page size is a runtime
 // argument. With 8 slots a 7B layer is 256 blocks on 132 SMs.
 //
-// The fast kernels take a bf16 or f16 q (kind kXBf16, kXF16) over pages of
-// q's type or int8, at D 64 or 128, and write q's type;
+// The fast kernels take a bf16, f16 or f32 q (kind kXBf16, kXF16, kXF32)
+// over pages of q's type or int8, at D 64 or 128, and write q's type;
 // paged_flash_decode_any is the any-type form of attention_any.cuh (a
 // bf16, f16 or f32 q, bf16, f16, f32 or int8 pages, D a multiple of 8
 // from 8 to 256, out in q's type) for what they do not take.
@@ -29,7 +30,7 @@ using flash_decode_detail::dispatch_kind;
 
 ITT_DEFINE_ERROR_STRING()
 
-// q [B, H, 1, D] of kind (kXBf16, kXF16); k/v pages int8 [N, Hkv, P, D];
+// q [B, H, 1, D] of kind (kXBf16, kXF16, kXF32); k/v pages int8 [N, Hkv, P, D];
 // ks/vs pages f32 [N, Hkv, P]; table int32 [B, MP] (page ids); pos int32
 // [B] (inclusive); out [B, H, 1, D] of kind. D must be 64 or 128 and
 // rep = H / Hkv at most 16.

@@ -185,6 +185,7 @@ __device__ __forceinline__ float rms_norm_rinv(const void* x, size_t xr,
                                                float* rpart) {
   const int tid = threadIdx.y * kLanes + threadIdx.x;
   float ss = 0.f;
+#pragma unroll 8   // the loads issue together; the sums keep their order
   for (int k = tid; k < din; k += kLanes * kWarps) {
     const float v = load_x<XK>(x, xr + k);
     ss = fmaf(v, v, ss);

@@ -16,10 +16,10 @@ paged_decode_plain and paged_decode_q8_plain are their plain versions
 the card calls.
 
 Two forms on the card, as for the dense decode attention
-(attention.fast_form chooses): a bf16 or f16 q over pages of its own dtype
-or int8 at head dim 64 or 128 takes the fast kernels; an f32 q or pages, a
-q dtype other than 16-bit pages', or another head dim (a multiple of 8
-from 8 to 256) takes the any-type form, csrc/attention_any.cuh
+(attention.fast_form chooses): a bf16, f16 or f32 q over pages of its own
+dtype or int8 at head dim 64 or 128 takes the fast kernels; a q dtype
+other than the pages', or another head dim (a multiple of 8 from 8 to
+256) takes the any-type form, csrc/attention_any.cuh
 (paged_flash_decode_any). launches[name] counts both forms and
 launches[name + "_any"] the any-type one again (captures, not CUDA-graph
 replays).

@@ -1,8 +1,9 @@
 """Fused weight-only dequant + matmul for decode (counterpart of
 infinitensor_tpu/kernels/quant_matmul.py).
 
-Fifteen kernels, CUDA C++; nine over one group-dot body on the CUDA cores
-(csrc/quant_matmul.cuh), six on the tensor cores:
+Sixteen kernels, CUDA C++; nine over one group-dot body on the CUDA cores
+(csrc/quant_matmul.cuh), six on the tensor cores, one more on the CUDA
+cores for one row:
   csrc/quant_matmul.cu
     qmm_group       <- _kernel_group       (group-partial dots, scale per group)
     qmm_group_norm  <- _kernel_group_norm  (RMSNorm fused ahead of the dots)
@@ -30,12 +31,18 @@ Fifteen kernels, CUDA C++; nine over one group-dot body on the CUDA cores
                                             int8 tensor cores, m16n8k32)
     qmm_norm_w4a8_mma <- _kernel_group_norm_w4a8 (the RMSNorm folded into
                                             that pre-pass, then that tile)
+  csrc/quant_matmul_ring.cu
+    qmm_group_norm_ring <- _kernel_group_norm (one row: a cp.async ring
+                                            over a balanced persistent grid,
+                                            the norm inside)
 
-Six kernels have two forms on the card, one function each:
+Six kernels have two forms on the card (qmm_group_norm three), one
+function each:
   qmm_group     a bf16 or f16 x without a norm at MMA_MIN_ROWS rows or
                 more takes qmm_group_mma (group_form);
   qmm_group_norm  a bf16 x at MMA_MIN_ROWS rows or more takes
-                qmm_group_norm_mma (group_form);
+                qmm_group_norm_mma, one row of a bf16 x over an int4
+                weight qmm_group_norm_ring (group_form);
   qmm_group_ln  a bf16 x at MMA_MIN_ROWS rows or more takes
                 qmm_group_ln_mma (ln_form);
   qmm_w4a8      a bf16 or f32 x at W4A8_MMA_MIN_ROWS rows or more takes
@@ -46,10 +53,11 @@ Six kernels have two forms on the card, one function each:
                 that is a multiple of 64, takes qmm_chunk_mma (chunk_form);
 any other launch takes the CUDA-core form. The thresholds are where the
 two forms' times cross on the card (chip_smoke.py phase 3, PERF.md).
-launches[name] counts both forms of a kernel and launches[name + "_mma"]
+launches[name] counts every form of a kernel and launches[name + "_mma"]
 the tensor-core one again (qmm_group_ln_mma for qmm_group_ln,
 qmm_group_norm_mma for qmm_group_norm, qmm_norm_w4a8_mma for
-qmm_norm_w4a8, qmm_chunk_mma for qmm_chunk).
+qmm_norm_w4a8, qmm_chunk_mma for qmm_chunk), launches["qmm_group_norm_ring"]
+the one-row ring form.
 
 A CUDA-core launch of qmm_group, qmm_slab or qmm_chunk without a fused
 RMSNorm, or of qmm_group_ln, whose grid is short (wo and w_down at one
@@ -146,6 +154,8 @@ W4A8_MMA_MIN_ROWS = 3
 # row, the tensor cores ahead from two; PERF.md).
 CHUNK_MMA_MIN_ROWS = 2
 SPLIT_MAX = 8                   # blocks a tile of the split form
+RING_COLS = 128                 # qmm_group_norm_ring: output columns a tile
+RING_BLOCKS_PER_SM = 1          # ... its persistent grid
 _SPLITS = None                  # when set, the split count of every launch
 #                                 of the four kernels (1: the unsplit form)
 _COUNTERS = {}                  # (device, stream) -> (capture id, counters)
@@ -504,6 +514,14 @@ def _lib_w4a8_mma() -> ctypes.CDLL:
 
 
 @functools.cache
+def _lib_ring() -> ctypes.CDLL:
+    P, I, F = _build.P, _build.I, _build.F
+    return _build.typed(
+        "quant_matmul_ring",
+        qmm_group_norm_ring=[P, P, P, P, I, P, P, P, I, I, I, I, F, P])
+
+
+@functools.cache
 def _lib_chunk() -> ctypes.CDLL:
     P, I = _build.P, _build.I
     return _build.typed(
@@ -535,16 +553,22 @@ def _x_kind(x2: torch.Tensor) -> int:
     return X_KINDS[x2.dtype]
 
 
-def group_form(rows: int, dtype: torch.dtype, norm: bool) -> str:
+def group_form(rows: int, dtype: torch.dtype, norm: bool,
+               bits: int = 4) -> str:
     """Which form a qmm_group launch on the card takes: "mma" (the
     tensor cores, csrc/quant_matmul_mma.cu) at MMA_MIN_ROWS rows or more
     for a bf16 or f16 x without a norm and for a bf16 x with the fused
-    RMSNorm (qmm_group_norm: a pre-pass, then the same tile), else
-    "cuda_core" (csrc/quant_matmul.cuh; an f32 x stays there, as rounding
-    it to 16 bits would change its numbers)."""
+    RMSNorm (qmm_group_norm: a pre-pass, then the same tile); "ring"
+    (qmm_group_norm_ring, csrc/quant_matmul_ring.cu) for one row of a bf16
+    x with the fused RMSNorm over an int4 weight (the batch-1 decode's
+    wqkv and w_gateup); else "cuda_core" (csrc/quant_matmul.cuh: an int8
+    weight at one row, and an f32 x, as rounding it to 16 bits would
+    change its numbers)."""
     if rows >= MMA_MIN_ROWS and (dtype == torch.bfloat16 or (
             dtype == torch.float16 and not norm)):
         return "mma"
+    if rows == 1 and norm and dtype == torch.bfloat16 and bits == 4:
+        return "ring"
     return "cuda_core"
 
 
@@ -604,6 +628,20 @@ def mma_plan(rows: int, dout_p: int, krows: int, group: int, sms: int
     splits = 1 if blocks >= target else min(krows // group,
                                             -(-target // blocks))
     return tile, splits
+
+
+def ring_plan(dout_p: int, krows: int, group: int, sms: int) -> list:
+    """The stream-K plan of qmm_group_norm_ring: its units, (128-column
+    tile t, packed scale group c) flattened t-major as t * (krows // group)
+    + c, split into one contiguous share [start, end) a block, block b of
+    n taking [b U / n, (b + 1) U / n) of the U units (the kernel derives
+    the same shares from its grid), with n = RING_BLOCKS_PER_SM blocks an
+    SM but no more than the units. So the shares differ by at most one
+    unit whatever the tile count. From shapes and the SM count only: one
+    captured graph serves every step."""
+    units = -(-dout_p // RING_COLS) * (krows // group)
+    n = min(units, RING_BLOCKS_PER_SM * sms)
+    return [(b * units // n, (b + 1) * units // n) for b in range(n)]
 
 
 def _split_rows(rows: int) -> int:
@@ -701,11 +739,13 @@ def _launched(lib: ctypes.CDLL, err: int, name: str, out: torch.Tensor
 def _launch_group(x2, norm_w, q, eps: float, name: str,
                   form: Optional[str] = None) -> torch.Tensor:
     """qmm_group (qmm_group_norm with norm_w) in the form group_form
-    chooses; `form` forces "mma" or "cuda_core" (tests and chip_smoke.py's
-    side-by-side timing only)."""
+    chooses; `form` forces "mma", "ring" (with norm_w) or "cuda_core"
+    (tests and chip_smoke.py's side-by-side timing only)."""
     _check_cuda(x2, q)
     norm = norm_w is not None
-    form = form or group_form(x2.shape[0], x2.dtype, norm)
+    form = form or group_form(x2.shape[0], x2.dtype, norm, q.bits)
+    if form == "ring":
+        return _launch_group_norm_ring(x2, norm_w, q, eps)
     if form == "mma":
         if norm:
             return _launch_group_norm_mma(x2, norm_w, q, eps)
@@ -763,6 +803,34 @@ def _launch_group_norm_mma(x2, norm_w, q, eps: float,
         splits, _build.stream())
     _launched(lib, err, "qmm_group_norm", out)
     launches["qmm_group_norm_mma"] += 1
+    return out
+
+
+def _launch_group_norm_ring(x2, norm_w, q, eps: float) -> torch.Tensor:
+    """qmm_group_norm's one-row form: ring_plan's persistent grid, its f32
+    partials [blocks, 2, RING_COLS] for the tiles blocks share, and the
+    tile counters of _counters."""
+    if norm_w is None or x2.shape[0] != 1 or x2.dtype != torch.bfloat16 \
+            or q.bits != 4 or q.paired or norm_w.dtype != torch.bfloat16:
+        raise ValueError(
+            "qmm_group_norm_ring takes one bf16 row and a bf16 norm weight "
+            f"over an unpaired int4 weight, not {tuple(x2.shape)} "
+            f"{x2.dtype}, int{q.bits}{' paired' if q.paired else ''}")
+    if norm_w.device != x2.device or not norm_w.is_contiguous():
+        raise ValueError(f"norm_w must be contiguous on {x2.device}")
+    dout_p, krows = q.out_physical, _packed_rows(q)
+    blocks = len(ring_plan(dout_p, krows, q.group_size,
+                           _build.sms(x2.device.index or 0)))
+    part = torch.empty(blocks, 2, RING_COLS, dtype=torch.float32,
+                       device=x2.device)
+    counters = _counters(x2.device, -(-dout_p // RING_COLS))
+    out, lib, p = _out(x2, q), _lib_ring(), _build.ptr
+    err = lib.qmm_group_norm_ring(
+        p(x2), p(norm_w), p(q.qweight), p(q.scales),
+        q.scales.dtype == torch.bfloat16, p(out), p(part), p(counters),
+        x2.shape[1], dout_p, q.group_size, blocks, eps, _build.stream())
+    _launched(lib, err, "qmm_group_norm", out)
+    launches["qmm_group_norm_ring"] += 1
     return out
 
 

@@ -11,6 +11,7 @@ the paged and the dense serving engine.
 """
 
 import json
+import math
 
 import numpy as np
 import pytest
@@ -151,9 +152,12 @@ def test_flash_decode_kernel(dev, rep):
 def test_cuda_wrappers_raise_instead_of_falling_back(dev):
     """What no kernel takes raises (a head dim that is no multiple of 8,
     or above 256; an int or f64 x); what the fast kernels do not take
-    (decode at D 32, an f32 q or cache) launches the any-type form, and
+    (decode at D 32, an f32 q over a 16-bit cache) launches the any-type
+    form, and
     the prefill at D 48 the tensor-core kernel (zero-padded to 64), never
-    the plain version."""
+    the plain version. An f32 q over an f32 cache at D 64 or 128 takes the
+    fast kernel (test_flash_decode_f32_fast_forms); over a bf16 cache the
+    any-type form."""
     pos = torch.zeros(1, dtype=torch.int32, device=dev)
     for D in (12, 272):
         q = torch.zeros(1, 2, 1, D, dtype=torch.bfloat16, device=dev)
@@ -183,10 +187,11 @@ def test_cuda_wrappers_raise_instead_of_falling_back(dev):
     x32 = torch.randn(1, 2, 8, 128, generator=g, device=dev)
     _close(fa.flash_attention(x32, x32, x32),
            fa.mha_plain(x32, x32, x32))                   # f32
-    _close(att.flash_decode(x32[:, :, :1].contiguous(), x32, x32, pos),
-           att.flash_decode_plain(x32[:, :, :1], x32, x32, pos))  # f32
+    kb16 = x32.bfloat16()
+    _close(att.flash_decode(x32[:, :, :1].contiguous(), kb16, kb16, pos),
+           att.flash_decode_plain(x32[:, :, :1], kb16, kb16, pos))
     assert att.launches["flash_decode_any"] == \
-        before.get("flash_decode_any", 0) + 2
+        before.get("flash_decode_any", 0) + 2       # f32 q, bf16 cache
 
 
 def _ragged_pos(dev, B, S, seed):
@@ -1836,11 +1841,12 @@ def test_k_split_in_a_cuda_graph(dev):
     assert not any(c.any() for _, c in qm._COUNTERS.values())
 
 
-def _on_two_streams(q, xs, rounds=5):
-    """quant_matmul(x, q) for every x of xs on each of two streams, both
-    held behind a sleep while the launches queue, so that the two
-    streams' launches run at the same time. Returns each stream's
+def _on_two_streams(q, xs, rounds=5, call=None):
+    """quant_matmul(x, q) (or call(x)) for every x of xs on each of two
+    streams, both held behind a sleep while the launches queue, so that
+    the two streams' launches run at the same time. Returns each stream's
     outputs."""
+    call = call or (lambda x: qm.quant_matmul(x, q))
     streams = [torch.cuda.Stream(), torch.cuda.Stream()]
     for s in streams:
         s.wait_stream(torch.cuda.current_stream())
@@ -1851,7 +1857,7 @@ def _on_two_streams(q, xs, rounds=5):
                 torch.cuda._sleep(5_000_000)
         for i, s in enumerate(streams):
             with torch.cuda.stream(s):
-                got[i].extend(qm.quant_matmul(x, q) for x in xs)
+                got[i].extend(call(x) for x in xs)
     torch.cuda.synchronize()
     return streams, got
 
@@ -1883,6 +1889,192 @@ def test_k_split_f32_scales_and_padding(dev):
     before = qm.launches["qmm_group_split"]
     _close(qm.quant_matmul(x, q), qm.qmm_group_plain(x, q)[:, :300])
     assert qm.launches["qmm_group_split"] == before + 1
+
+
+# -- the f32 decode on flash_decode.cuh's fast body, and qmm_group_norm's ----
+# -- one-row form (csrc/quant_matmul_ring.cu) --------------------------------
+
+F32_TOL = 1e-5               # f32 attention: of max|plain|
+
+
+def _close_f32(got, want):
+    assert got.shape == want.shape
+    assert got.dtype == want.dtype == torch.float32
+    err = (got - want).abs().max().item()
+    assert err <= F32_TOL * want.abs().max().item(), err
+
+
+@pytest.mark.parametrize("splits", [1, 5, None])
+@pytest.mark.parametrize("rep", [1, 4])
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_decode_f32_fast_forms(dev, D, rep, splits):
+    """An f32 q over an f32 and over an INT8 cache on the fast kernels,
+    unsplit, split in 5 and (batch 1) in the count the wrapper picks,
+    with the f32 merge; ragged pos with 0 and the last row, rows past pos
+    NaN; within 1e-5 of max|plain| (f32), with no any-type launch."""
+    f32 = torch.float32
+    B, Hkv, S = (1, 2, 1100) if splits is None else (3, 2, 300)
+    q, (kc, vc), (kq, vq, ks, vs), pos = _any_decode_inputs(
+        dev, f32, D, f32, B, Hkv * rep, Hkv, S, 2 * D + rep + (splits or 0))
+    want = att.flash_decode_plain(q, kc, vc, pos)
+    want8 = att.flash_decode_q8_plain(q, kq, vq, ks, vs, pos)
+    dead = (torch.arange(S, device=dev)[None] > pos[:, None])[:, None] \
+        .expand(B, Hkv, S)
+    for t in (kc, vc, ks, vs):
+        t[dead] = float("nan")
+    split = (splits or att.launch_splits(B, Hkv, S)) > 1
+    assert att.fast_form(f32, f32, D) and att.fast_form(f32, torch.int8, D)
+    before = dict(att.launches)
+    got = att.flash_decode(q, kc, vc, pos, _splits=splits)
+    got8 = att.flash_decode_q8(q, kq, vq, ks, vs, pos, _splits=splits)
+    for kname in ("flash_decode", "flash_decode_q8"):
+        assert att.launches[kname] == before.get(kname, 0) + 1
+    assert att.launches["flash_decode_merge"] == \
+        before.get("flash_decode_merge", 0) + 2 * split
+    for kname in ("flash_decode_any", "flash_decode_q8_any",
+                  "flash_decode_merge_any"):
+        assert att.launches[kname] == before.get(kname, 0)
+    assert torch.isfinite(got).all() and torch.isfinite(got8).all()
+    _close_f32(got, want)
+    _close_f32(got8, want8)
+
+
+@pytest.mark.parametrize("P", [16, 64])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("rep", [1, 4])
+def test_paged_f32_fast_forms(dev, rep, D, P):
+    """Both paged kernels with an f32 q over f32 and over INT8 pages take
+    the fast kernels (no any-type launch), pos at 0 and on both sides of
+    page edges, dead rows NaN; within 1e-5 of max|plain| (f32)."""
+    for kname, q8, fn, plain in (
+            ("paged_flash_decode", False, pa.paged_flash_decode,
+             pa.paged_decode_plain),
+            ("paged_flash_decode_q8", True, pa.paged_flash_decode_q8,
+             pa.paged_decode_q8_plain)):
+        args = _paged_case(dev, rep, P, q8, rep + D + P,
+                           B=5 if P == 16 else 8, D=D, qdt=torch.float32)
+        before = dict(pa.launches)
+        got = fn(*args)
+        assert pa.launches[kname] == before.get(kname, 0) + 1
+        assert pa.launches[kname + "_any"] == before.get(kname + "_any", 0)
+        assert torch.isfinite(got).all()
+        _close_f32(got, plain(*args))
+
+
+def _within_bf16_ulp(got, want):
+    """Within one bf16 ulp at max|want|."""
+    ref = want.float().abs().max().item()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 2.0 ** (math.floor(math.log2(ref)) - 7), (err, ref)
+
+
+def _norm_w(dev, din, seed=2):
+    return (torch.rand(din, generator=torch.Generator().manual_seed(seed))
+            + 0.5).to(torch.bfloat16).to(dev)
+
+
+# (din, dout, pad_out, group): a padded dout (3 tiles, 4 groups); columns
+# no multiple of 16 (the 4-byte copies); two ring stages a group; wqkv's
+# din over 8 tiles
+RING_CASES = [(1024, 300, 128, 128), (1024, 260, 0, 128),
+              (2048, 640, 0, 256), (4096, 1000, 128, 128)]
+
+
+@pytest.mark.parametrize("sdt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("din,dout,pad,group", RING_CASES)
+def test_group_norm_ring_kernel(dev, din, dout, pad, group, sdt,
+                                monkeypatch):
+    """qmm_group_norm's one-row form against the plain version and the
+    CUDA-core form, each within one bf16 ulp at max|plain|, at the card's
+    SM count and at SM counts that share the tiles out otherwise (1: one
+    block holds every unit; 3, 7: tiles shared by two or three blocks),
+    bit for bit across two launches, the tile counters zero after."""
+    q = _qlin(dev, din, dout, 4, sdt, pad_out=pad, group=group)
+    x = _x(dev, 1, din) * 3 + 0.5
+    nw = _norm_w(dev, din)
+    want = qm.qmm_group_plain(qm.rmsnorm_bf16(x, nw, 1e-5), q)
+    old = qm._launch_group(x, nw, q, 1e-5, "qmm_group_norm",
+                           form="cuda_core")
+    for n_sm in (_build.sms(0), 1, 3, 7):
+        monkeypatch.setattr(_build, "sms", lambda i, n=n_sm: n)
+        before = dict(qm.launches)
+        got = qm._launch_group(x, nw, q, 1e-5, "qmm_group_norm", form="ring")
+        assert qm.launches["qmm_group_norm_ring"] == \
+            before.get("qmm_group_norm_ring", 0) + 1
+        assert got.shape == want.shape and got.dtype == torch.bfloat16
+        _within_bf16_ulp(got, want)
+        _within_bf16_ulp(got, old)
+        assert torch.equal(got, qm._launch_group(
+            x, nw, q, 1e-5, "qmm_group_norm", form="ring"))
+    torch.cuda.synchronize()
+    assert not any(c.any() for _, c in qm._COUNTERS.values())
+
+
+@pytest.mark.parametrize("bits,ring", [(4, True), (8, False)])
+def test_group_norm_ring_route(dev, bits, ring):
+    """quant_matmul_norm at one row of a bf16 x takes the ring form over
+    an int4 weight (counted under qmm_group_norm and qmm_group_norm_ring)
+    and the CUDA-core form over an int8 one; from two rows the
+    tensor-core form."""
+    q = _qlin(dev, 1024, 384, bits, torch.bfloat16)
+    nw = _norm_w(dev, 1024)
+    for rows in (1, 2):
+        x = _x(dev, rows, 1024) * 2
+        before = dict(qm.launches)
+        _within_bf16_ulp(qm.quant_matmul_norm(x, nw, q),
+                         qm.qmm_group_plain(qm.rmsnorm_bf16(x, nw, 1e-5), q))
+        assert qm.launches["qmm_group_norm"] == \
+            before.get("qmm_group_norm", 0) + 1
+        assert qm.launches["qmm_group_norm_ring"] == \
+            before.get("qmm_group_norm_ring", 0) + (ring and rows == 1)
+        assert qm.launches["qmm_group_norm_mma"] == \
+            before.get("qmm_group_norm_mma", 0) + (rows >= qm.MMA_MIN_ROWS)
+
+
+def test_group_norm_ring_in_a_cuda_graph(dev):
+    """The ring form captured in a CUDA graph (8 tiles of 16 groups: 128
+    units, one a block on the card, every tile shared by 16 blocks):
+    replays with new x equal the eager launch bit for bit, and the tile
+    counters stay zero between launches."""
+    q = _qlin(dev, 4096, 1000, 4, torch.bfloat16, pad_out=128)
+    x = _x(dev, 1, 4096) * 3
+    nw = _norm_w(dev, 4096, seed=4)
+    qm.quant_matmul_norm(x, nw, q)        # build, load, counters outside
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = qm.launches["qmm_group_norm_ring"]
+    with torch.cuda.graph(graph):
+        out = qm.quant_matmul_norm(x, nw, q)
+    assert qm.launches["qmm_group_norm_ring"] == before + 1
+    for seed in (3, 4, 5):
+        x.copy_(_x(dev, 1, 4096, seed=seed) * 3)
+        graph.replay()
+        torch.cuda.synchronize()
+        _within_bf16_ulp(out, qm.qmm_group_plain(
+            qm.rmsnorm_bf16(x, nw, 1e-5), q)[:, :1000])
+        assert torch.equal(out, qm.quant_matmul_norm(x, nw, q))
+    assert not any(c.any() for _, c in qm._COUNTERS.values())
+
+
+def test_group_norm_ring_on_two_streams(dev):
+    """Ring launches on two streams at once each have their own tile
+    counters: every output equals the same call made alone, bit for bit,
+    and the counters are zero after."""
+    q = _qlin(dev, 4096, 1000, 4, torch.bfloat16, pad_out=128)
+    nw = _norm_w(dev, 4096, seed=5)
+    xs = [_x(dev, 1, 4096, seed=s) * 2 for s in range(8)]
+
+    def call(x):
+        return qm.quant_matmul_norm(x, nw, q)
+
+    want = [call(x) for x in xs]
+    before = qm.launches["qmm_group_norm_ring"]
+    streams, got = _on_two_streams(q, xs, call=call)
+    assert qm.launches["qmm_group_norm_ring"] == before + 2 * 5 * len(xs)
+    for outs in got:
+        for j, out in enumerate(outs):
+            assert torch.equal(out, want[j % len(xs)])
+    assert not any(c.any() for _, c in qm._COUNTERS.values())
 
 
 # -- the graph corpus on the card --------------------------------------------

@@ -83,9 +83,9 @@ def test_kernel_sources_shipped():
     csrc = PKG / "kernels" / "csrc"
     assert {p.name for p in csrc.glob("*.cu")} == {
         "quant_matmul.cu", "quant_matmul_fused.cu", "quant_matmul_chunk.cu",
-        "quant_matmul_mma.cu", "quant_matmul_w4a8_mma.cu", "flash_decode.cu",
-        "paged_flash_decode.cu", "flash_attention.cu", "rmsnorm.cu",
-        "band.cu"}
+        "quant_matmul_mma.cu", "quant_matmul_w4a8_mma.cu",
+        "quant_matmul_ring.cu", "flash_decode.cu", "paged_flash_decode.cu",
+        "flash_attention.cu", "rmsnorm.cu", "band.cu"}
     # the bodies the decode-attention and the group-dot kernels share, and
     # the tensor-core tile's pieces
     assert (csrc / "flash_decode.cuh").exists()

@@ -12,6 +12,7 @@ dequantized weight, f32 product), and the port's dequant route computes
 the same, so those outputs are held to the same one-ulp bound.
 """
 
+import dataclasses
 import json
 import pathlib
 
@@ -748,16 +749,117 @@ def test_f16_quant_matmul_on_the_cpu_vs_jax(variant, bits):
     (64, torch.float32, False, "cuda_core"),
     (64, torch.bfloat16, True, "mma"),
     (256, torch.bfloat16, True, "mma"),
-    (1, torch.bfloat16, True, "cuda_core"),
+    (1, torch.bfloat16, True, "ring"),
     (tqm.MMA_MIN_ROWS, torch.float32, True, "cuda_core"),
 ])
 def test_group_form(rows, dtype, norm, form):
     """The form a qmm_group launch on the card takes: the tensor cores
     from MMA_MIN_ROWS rows for a bf16 or f16 x without a norm and for a
-    bf16 x with the fused RMSNorm (qmm_group_norm_mma); the CUDA cores
-    for an f32 x (its numbers stay f32) or fewer rows."""
+    bf16 x with the fused RMSNorm (qmm_group_norm_mma); the ring form
+    (qmm_group_norm_ring) for one row of a bf16 x with the norm over an
+    int4 weight; the CUDA cores for an f32 x (its numbers stay f32) or
+    fewer rows otherwise."""
     assert 1 <= tqm.MMA_MIN_ROWS <= tqm.KERNEL_MAX_ROWS
     assert tqm.group_form(rows, dtype, norm) == form
+
+
+@pytest.mark.parametrize("rows,dtype,norm,bits,form", [
+    (1, torch.bfloat16, True, 4, "ring"),
+    (1, torch.bfloat16, True, 8, "cuda_core"),
+    (1, torch.bfloat16, False, 4, "cuda_core"),
+    (1, torch.float16, True, 4, "cuda_core"),
+    (1, torch.float32, True, 4, "cuda_core"),
+    (2, torch.bfloat16, True, 4, "mma"),
+    (2, torch.bfloat16, True, 8, "mma"),
+])
+def test_group_form_one_row_ring(rows, dtype, norm, bits, form):
+    """The one-row ring form is qmm_group_norm's alone (the fused RMSNorm
+    reads a bf16 x) and takes int4 weights only; an int8 weight keeps the
+    CUDA-core form at one row; from MMA_MIN_ROWS rows both bit widths take
+    the tensor cores."""
+    assert tqm.MMA_MIN_ROWS == 2
+    assert tqm.group_form(rows, dtype, norm, bits) == form
+
+
+# The ring form's stream-K plan: the main path's wqkv (96 tiles) and
+# w_gateup (176 tiles) at Llama-2-7B width, a dout of 260 (a partial last
+# tile), few groups (2), one tile, two ring stages a group (group 256).
+RING_SHAPES = [(12288, 2048, 128), (22528, 2048, 128), (260, 512, 128),
+               (1024, 256, 128), (128, 2048, 128), (4096, 2048, 256)]
+
+
+@pytest.mark.parametrize("sms", [132, 7, 1])
+@pytest.mark.parametrize("dout_p,krows,group", RING_SHAPES)
+def test_ring_plan(dout_p, krows, group, sms):
+    """Every unit (128-column tile, packed scale group) lies in exactly
+    one block's share, the shares are contiguous and in block order,
+    within one unit of each other, at most RING_BLOCKS_PER_SM blocks an
+    SM and no empty share; the same shapes give the same plan."""
+    plan = tqm.ring_plan(dout_p, krows, group, sms)
+    units = -(-dout_p // tqm.RING_COLS) * (krows // group)
+    assert 1 <= len(plan) <= min(units, tqm.RING_BLOCKS_PER_SM * sms)
+    assert plan[0][0] == 0 and plan[-1][1] == units
+    assert all(a[1] == b[0] for a, b in zip(plan, plan[1:]))
+    sizes = [e - s for s, e in plan]
+    assert min(sizes) >= 1 and max(sizes) - min(sizes) <= 1
+    covered = [u for s, e in plan for u in range(s, e)]
+    assert covered == list(range(units))
+    assert plan == tqm.ring_plan(dout_p, krows, group, sms)
+    # the block owning unit u, as the kernel finds it from its grid
+    n = len(plan)
+    for b, (s, e) in enumerate(plan):
+        for u in (s, e - 1):
+            assert ((u + 1) * n - 1) // units == b
+
+
+class _FakeRingLib:
+    """Records the arguments of a qmm_group_norm_ring launch."""
+
+    def __init__(self):
+        self.calls = []
+
+    def qmm_group_norm_ring(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+@pytest.mark.parametrize("sdt", [torch.bfloat16, torch.float32])
+def test_group_norm_ring_launch_takes_the_plan(sdt, monkeypatch):
+    """The ring launch of quant_matmul_norm at one row passes ring_plan's
+    block count (132 SMs), f32 partials [blocks, 2, RING_COLS] and the
+    tile counters (one a 128-column tile), and counts itself under
+    qmm_group_norm and qmm_group_norm_ring. Read through a stand-in for
+    the library: the arguments, not the kernel."""
+    lib = _FakeRingLib()
+    monkeypatch.setattr(tqm, "_lib_ring", lambda: lib)
+    monkeypatch.setattr(tqm._build, "sms", lambda index: 132)
+    monkeypatch.setattr(tqm._build, "stream", lambda: None)
+    need = []
+    counters = torch.zeros(4096, dtype=torch.int32)
+    monkeypatch.setattr(tqm, "_counters",
+                        lambda device, n: need.append(n) or counters)
+    rng = np.random.default_rng(7)
+    q = quantize_weight(jnp.asarray(rng.standard_normal((1024, 1000)),
+                                    jnp.float32), bits=4, group_size=128,
+                        pad_out=128)
+    q = _port_q(q)
+    q = dataclasses.replace(q, scales=q.scales.to(sdt))
+    x = torch.from_numpy(rng.standard_normal((1, 1024))).to(torch.bfloat16)
+    nw = torch.ones(1024, dtype=torch.bfloat16)
+    before = dict(tqm.launches)
+    out = tqm._launch_group(x, nw, q, 1e-5, "qmm_group_norm")
+    (args,) = lib.calls
+    plan = tqm.ring_plan(1024, 512, 128, 132)       # 8 tiles x 4 groups
+    assert len(plan) == 32 and args[11] == len(plan)
+    assert args[4] == (sdt == torch.bfloat16)
+    assert args[8:11] == (1024, 1024, 128)          # din, dout_p, group
+    assert need == [1024 // tqm.RING_COLS]
+    assert args[7].value == counters.data_ptr()
+    assert out.shape == (1, 1024) and out.dtype == torch.bfloat16
+    assert tqm.launches["qmm_group_norm"] == \
+        before.get("qmm_group_norm", 0) + 1
+    assert tqm.launches["qmm_group_norm_ring"] == \
+        before.get("qmm_group_norm_ring", 0) + 1
 
 
 @pytest.mark.parametrize("rows", [1, 8, 9, 33, 64, 100, 256])
@@ -932,8 +1034,8 @@ def test_flash_attention_any_type_plain_vs_pallas(dtype, D, causal):
 
 
 # The route of the attention wrappers on the card, read from its
-# predicates (no launch): the fast decode kernels take a bf16 or f16 q over
-# a cache of its own dtype or int8 at D 64 and 128; the tensor-core
+# predicates (no launch): the fast decode kernels take a bf16, f16 or f32 q
+# over a cache of its own dtype or int8 at D 64 and 128; the tensor-core
 # prefill takes bf16 or f16 at D up to 128; everything else takes the
 # any-type form.
 ROUTE_DTYPES = {"bf16": torch.bfloat16, "f16": torch.float16,
@@ -941,7 +1043,7 @@ ROUTE_DTYPES = {"bf16": torch.bfloat16, "f16": torch.float16,
 OTHER_FLOAT = {"bf16": torch.float16, "f16": torch.bfloat16,
                "f32": torch.bfloat16}
 FAST_DECODE = {("bf16", "same"), ("bf16", "int8"), ("f16", "same"),
-               ("f16", "int8")}
+               ("f16", "int8"), ("f32", "same"), ("f32", "int8")}
 
 
 @pytest.mark.parametrize("D", [8, 16, 64, 72, 96, 128, 136, 256])
