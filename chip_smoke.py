@@ -51,7 +51,14 @@ Phases, each failing with a nonzero exit, each printing its seconds:
      at batch 1 beside the forced unsplit form, the split form's merge
      (flash_decode_merge) on partials of the 7B shape, and the crossover
      of the forms at 8-1024 (batch, kv head) blocks, 96-192 among them,
-     where the rule flips; flash_attention at the 7B prompt and at
+     where the rule flips; both paged kernels in the ring form their
+     route takes (csrc/paged_flash_decode_ring.cu: page chunks over a
+     ring of asynchronous page copies, the merge inside) at MHA 32/32 and
+     GQA 32/8, beside the block form (csrc/paged_flash_decode.cu),
+     forced, which keeps a row of its own, and the crossover of both
+     forms at pages of 16 and 64 rows over chunks of 64 rows to the whole
+     table, at ragged positions and at phase 6's uniform pos 640 (sets
+     pa.ring_chunks and pa.paged_form); flash_attention at the 7B prompt and at
      entry()'s; the attention wrappers at the f16 shapes of phase 14
      (flash_attention on its prompt, also in bf16 and in f16 at head dim
      96, flash_decode and flash_decode_q8 at pos CTX split and unsplit,
@@ -110,13 +117,18 @@ Phases, each failing with a nonzero exit, each printing its seconds:
      on the same stream and one request's equal greedy_generate's, each
      up to a first near-tie whose logit gap is printed; a snapshot taken
      mid-stream and restored into a fresh engine ends in the same tokens;
-     the paged kernel is launched 32 times per decode step and
+     the paged kernel is launched 32 times per decode step, every time
+     in its ring form (no flash_decode_merge launch), and
      flash_attention 32 times per prefill pass; a decode step at 8 rows
      launches qmm_group_mma 4 x 32 times where MMA_MIN_ROWS <= 8 and
      qmm_w4a8_mma once where W4A8_MMA_MIN_ROWS <= 8, and the dense
      engine's step qmm_group_norm_mma and qmm_group_mma 2 x 32 times each.
      Prints generated tok/s over the drain, decode ms per step at 8 live
-     slots and the engine's stats slices; with the INT8 cache the dense
+     slots and the engine's stats slices; the paged step at 8 live slots
+     (one captured step replayed, CUDA events) with the paged kernel's
+     block form forced (pa.paged_form patched for the capture) and in its
+     ring form, in turns, and 16 greedy tokens of each equal up to a
+     printed near-tie; with the INT8 cache the dense
      engine's step at 8 live slots (one captured step replayed, CUDA
      events) with qmm_group_norm in its tensor-core form, forced to the
      CUDA-core form (qm.group_form patched for the capture) and in its own
@@ -285,6 +297,8 @@ G64_PROMPT = f"group64 prompt {SHORT}"   # phase 9: the group-64 prefill
 DENSE_G64 = "serving dense g64 int8"     # ... and its dense 8-slot step
 CPU_LAYERS = 4               # phases 8-11: layers of the step held against
 #                              the plain versions on the CPU
+PAGED_POS = (CTX - 331, CTX - 64, CTX - 1, CTX, CTX + 1, CTX + 63,
+             CTX + 200, CTX + 477)  # phase 3's ragged slots (693-1501)
 G_BS1_PROMPT = 64            # ... its prompt tokens
 G_BS1_STEPS = 16             # ... and greedy steps, split and unsplit
 SRC = "infinitensor_tpu_torch/kernels/csrc/"
@@ -699,6 +713,7 @@ def main():
     report["chunk_crossover"] = chunk_crossover(torch, qm, g64params, randn,
                                                 flush)
     report["decode_crossover"] = decode_crossover(torch, att, gen, dev, flush)
+    report["paged_crossover"] = paged_crossover(torch, pa, gen, dev, flush)
     report["any_grid"] = any_grid(torch, att, fa, pa, gen, dev)
     report["split_crossover"] = split_crossover(
         torch, qm, layer0, g64params["layers"][0], randn, flush)
@@ -748,7 +763,8 @@ def main():
                               report, per_token))
     for path, kname in (("serving paged bf16", "paged_flash_decode"),
                         ("serving paged int8", "paged_flash_decode_q8")):
-        for k in (kname, "flash_attention", "qmm_group", "qmm_w4a8"):
+        for k in (kname, kname + "_ring", "flash_attention", "qmm_group",
+                  "qmm_w4a8"):
             if paths[path].get(k, 0) <= 0:
                 fail(f"{k} was never launched on the path {path}")
     for path in (DENSE_BF16, DENSE_INT8):
@@ -969,13 +985,13 @@ def paged_cases(torch, pa, cfg, gen, dev, randn):
     """Phase 3 rows of the two paged kernels at the serving shape: SLOTS
     slots, ragged positions around CTX, a shuffled block table over a pool
     with spare pages, NaN wherever no live row lies (pages for bf16, scale
-    pages for int8)."""
+    pages for int8). The route's ring form (paged_flash_decode_ring.cu)
+    beside the block form (paged_flash_decode.cu, forced), which keeps a
+    row of its own, at MHA 32/32 and GQA 32/8."""
     B, D, P = SLOTS, cfg.head_dim, PAGE
     MP = MAX_SEQ // P
     N = B * MP + 1
-    pos = torch.tensor([CTX - 331, CTX - 64, CTX - 1, CTX, CTX + 1,
-                        CTX + 63, CTX + 200, CTX + 477][:B],
-                       dtype=torch.int32, device=dev)
+    pos = torch.tensor(PAGED_POS[:B], dtype=torch.int32, device=dev)
     table = (torch.randperm(N - 1, generator=gen, device=dev)[:B * MP] + 1
              ).reshape(B, MP).to(torch.int32)
     live_rows = int((pos + 1).sum())
@@ -987,6 +1003,16 @@ def paged_cases(torch, pa, cfg, gen, dev, randn):
     mask = (rows[None] <= pos[:, None])[:, None, None]     # [B, 1, 1, S]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     out = []
+
+    def forms(kname, row):
+        """The ring row (the route's form, the block form beside it) and
+        the block form's own row (forced; no path takes it)."""
+        block = dict(row["forms"])["block"]
+        return [dict(row, name=kname + "_ring",
+                     source=SRC + "paged_flash_decode_ring.cu"),
+                dict(row, name=kname, path=NO_PATH, kernel=block, forms={},
+                     source=SRC + "paged_flash_decode.cu")]
+
     for label, H, Hkv in (("mha 32/32", 32, 32), ("gqa 32/8", 32, 8)):
         rep = H // Hkv
         dead = ~live[:, None, :].expand(N, Hkv, P)
@@ -1005,13 +1031,13 @@ def paged_cases(torch, pa, cfg, gen, dev, randn):
         vs[dead] = float("nan")
         args = (qh, kp, vp, ks, vs, table, pos)
         small = 2 * qh.numel() * 2 + table.numel() * 4 + pos.numel() * 4
-        out.append(dict(
-            name="paged_flash_decode_q8", shape=shape,
-            path="serving paged int8",
+        out += forms("paged_flash_decode_q8", dict(
+            shape=shape, path="serving paged int8",
             replaces=TPU + "paged_attention.py:187",
-            source=SRC + "paged_flash_decode.cu",
             kernel=lambda a=args: pa.paged_flash_decode_q8(*a),
             plain=lambda a=args: pa.paged_decode_q8_plain(*a),
+            forms={"block": lambda a=args: pa.paged_flash_decode_q8(
+                *a, _form="block")},
             library=lambda qh=qh, kf=kf, vf=vf: sdpa(qh, kf, vf,
                                                      attn_mask=mask),
             bytes=2 * Hkv * live_rows * (D + 4) + small,
@@ -1022,17 +1048,74 @@ def paged_cases(torch, pa, cfg, gen, dev, randn):
         kb[dead] = float("nan")
         vb[dead] = float("nan")
         args = (qh, kb, vb, table, pos)
-        out.append(dict(
-            name="paged_flash_decode", shape=shape,
-            path="serving paged bf16",
+        out += forms("paged_flash_decode", dict(
+            shape=shape, path="serving paged bf16",
             replaces=TPU + "paged_attention.py:146",
-            source=SRC + "paged_flash_decode.cu",
             kernel=lambda a=args: pa.paged_flash_decode(*a),
             plain=lambda a=args: pa.paged_decode_plain(*a),
+            forms={"block": lambda a=args: pa.paged_flash_decode(
+                *a, _form="block")},
             library=lambda qh=qh, kr=kr, vr=vr: sdpa(qh, kr, vr,
                                                      attn_mask=mask),
             bytes=2 * Hkv * live_rows * D * 2 + small,
             ops=4 * H * live_rows * D, kind="bf16"))
+    return out
+
+
+def paged_crossover(torch, pa, gen, dev, flush):
+    """Both forms of the two paged kernels, forced, at SLOTS slots of
+    phase 3's ragged positions (PAGED_POS, MAX_SEQ rows a table) with
+    pages of 16 and PAGE rows, and of phase 6's 8-live step (every slot at
+    pos 640, pages of PAGE rows), MHA 32/32 and GQA 32/8: the block form, and
+    the ring form at chunks of 64 to 1024 rows, the whole table (one
+    chunk) and ring_chunks's size (the route's), in one call, the route's
+    form and the block form also in turns (block, ring, ring, block): the
+    times behind pa.ring_chunks and pa.paged_form. Returns [{kind,
+    H, Hkv, P, pos, chosen, in_turns: {form: [ms, ms]}, block_ms,
+    ring_ms: {pages a chunk: ms}}]."""
+    out = []
+    B, D = SLOTS, 128
+    for P, spots in ((16, PAGED_POS), (PAGE, PAGED_POS), (PAGE, (640,) * B)):
+        pos = torch.tensor(spots[:B], dtype=torch.int32, device=dev)
+        MP = MAX_SEQ // P
+        N = B * MP + 1
+        table = (torch.randperm(N - 1, generator=gen, device=dev)[:B * MP]
+                 + 1).reshape(B, MP).to(torch.int32)
+        for H, Hkv in ((32, 32), (32, 8)):
+            q = torch.randn(B, H, 1, D, generator=gen, device=dev).to(
+                torch.bfloat16)
+            kq, vq = (torch.randint(-127, 128, (N, Hkv, P, D), generator=gen,
+                                    device=dev, dtype=torch.int8)
+                      for _ in range(2))
+            sc = [torch.rand(N, Hkv, P, generator=gen, device=dev) * 0.015
+                  + 0.005 for _ in range(2)]
+            kb, vb = (torch.randn(N, Hkv, P, D, generator=gen,
+                                  device=dev).to(torch.bfloat16)
+                      for _ in range(2))
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            chosen = pa.ring_chunks(B, Hkv, MP, sms)[0]
+            sizes = sorted({max(1, r // P) for r in (64, 128, 256, 512, 1024)}
+                           | {MP, chosen})
+            for kind, fn, a in (
+                    ("int8", pa.paged_flash_decode_q8,
+                     (q, kq, vq, *sc, table, pos)),
+                    ("bf16", pa.paged_flash_decode, (q, kb, vb, table, pos))):
+                forms = {"block": lambda: fn(*a, _form="block"),
+                         "ring": lambda: fn(*a)}
+                turns = {"block": [], "ring": []}
+                for f in ("block", "ring", "ring", "block"):
+                    turns[f].append(cuda_ms(torch, forms[f], 50, flush))
+                row = {"kind": kind, "H": H, "Hkv": Hkv, "P": P,
+                       "pos": f"{min(spots)}-{max(spots)}",
+                       "chosen": chosen, "in_turns": turns,
+                       "block_ms": min(turns["block"]),
+                       "ring_ms": {C: cuda_ms(torch, lambda C=C: fn(
+                           *a, _form="ring", _chunk_pages=C), 50, flush)
+                           for C in sizes if -(-MP // C) <= pa.MAX_CHUNKS}}
+                out.append(row)
+            del q, kq, vq, sc, kb, vb
+    print("# paged decode, 8 slots: block form ms and ring form ms by pages "
+          f"a chunk: {json.dumps(out)}", flush=True)
     return out
 
 
@@ -1527,6 +1610,7 @@ def device_profile(torch, fn):
              ("mma_splitk_sum", "qmm_group_mma sum"),
              ("splitk_sum", "qmm_group2d sum"),
              ("flash_decode_kernel", "decode attention"),
+             ("paged_ring_kernel", "decode attention"),
              ("flash_decode_merge", "decode attention"),
              ("flash_attention_kernel", "flash_attention"),
              ("rmsnorm_rows_kernel", "rmsnorm"), ("g2bmm_kernel", "g2bmm"),
@@ -1685,6 +1769,7 @@ def serving_path(torch, llama, counters, params, cfg, dev, report,
     """Phase 6. Returns the launch counts of the paged engine's drain per
     pool type; adds one paged decode step's launches to per_token."""
     import numpy as np
+    from infinitensor_tpu_torch.kernels import paged_attention as pa
     from infinitensor_tpu_torch.kernels import quant_matmul as qm
     from infinitensor_tpu_torch.serving import (PagedServingEngine,
                                                 ServingEngine)
@@ -1759,10 +1844,12 @@ def serving_path(torch, llama, counters, params, cfg, dev, report,
                  "after the drain")
         if eng._program.graph is None:
             fail(f"{label}: the decode step was not captured")
-        # warm-up + capture of the one decode graph; one pass per prefill
-        if paths[label].get(kname, 0) != 2 * n_layers:
-            fail(f"{label}: {paths[label].get(kname, 0)} launches of "
-                 f"{kname}, expected {2 * n_layers}")
+        # warm-up + capture of the one decode graph, all in the ring form
+        # (its merge inside: no flash_decode_merge); one pass per prefill
+        for k in (kname, kname + "_ring"):
+            if paths[label].get(k, 0) != 2 * n_layers:
+                fail(f"{label}: {paths[label].get(k, 0)} launches of "
+                     f"{k}, expected {2 * n_layers}")
         passes = int(stats["prefill_launches"])
         if paths[label].get("flash_attention", 0) != n_layers * passes:
             fail(f"{label}: flash_attention launched "
@@ -1791,15 +1878,25 @@ def serving_path(torch, llama, counters, params, cfg, dev, report,
         # the card's side of two chunks (2 * CHUNK replays of the graph)
         prof = device_profile(torch, lambda: [
             eng._program.run(tok0, pos0, CHUNK) for _ in range(2)])
+        # the same step with the paged kernel's block form forced, in
+        # turns with the ring form (the route's), tokens equal up to ties
+        block = dense_forms(
+            torch, pa, eng, cfg, dev, tie_gap, label=label,
+            form_fn="paged_form", forced=lambda *a: "block",
+            kname=kname + "_ring", route_mma=True,
+            what=f"ring vs block {kname}", alt="block")
         # one eager step on the same cache: launches per decode step
         counters.reset()
         llama.llama_decode_step(params, cfg, tok0, pos0, eng.cache)
         torch.cuda.synchronize()
         step_launches = counters.read()
         per_token[kname] = step_launches.get(kname, 0)
-        if per_token[kname] != n_layers:
-            fail(f"{label}: {per_token[kname]} launches of {kname} in one "
-                 f"decode step, expected {n_layers}")
+        for k in (kname, kname + "_ring"):
+            if step_launches.get(k, 0) != n_layers:
+                fail(f"{label}: {step_launches.get(k, 0)} launches of {k} "
+                     f"in one decode step, expected {n_layers}")
+        if step_launches.get("flash_decode_merge", 0):
+            fail(f"{label}: a decode step launched flash_decode_merge")
         # the step's four matmuls a layer at SLOTS rows: tensor-core form
         # and its lm_head the int8 tensor cores
         want_mma = {"qmm_group_mma": 4 * n_layers
@@ -1875,6 +1972,7 @@ def serving_path(torch, llama, counters, params, cfg, dev, report,
             "decode_ms_per_step_8_live": 1e3 * min(samples),
             "decode_tok_s_8_live": SLOTS / min(samples),
             "decode_device_profile_8_live": prof,
+            "block_form": block,
             "stats": stats, "snapshot_s": snap_s,
             "pool_tokens": pool_tokens,
             "dense_reservation_tokens": SLOTS * cfg.max_seq,
@@ -1896,7 +1994,7 @@ def serving_path(torch, llama, counters, params, cfg, dev, report,
 
 def dense_forms(torch, qm, dense, cfg, dev, tie_gap, label=DENSE_INT8,
                 form_fn="group_form", forced=None, kname="qmm_group_norm_mma",
-                route_mma=None):
+                route_mma=None, what=None, alt="cuda_core"):
     """Phases 6 and 9: the dense engine's decode step at SLOTS live slots
     (INT8 cache) with the matmuls in the forms their route takes, with
     kname's kernel forced to its CUDA-core form (qm.<form_fn> patched to
@@ -1907,7 +2005,10 @@ def dense_forms(torch, qm, dense, cfg, dev, tie_gap, label=DENSE_INT8,
     one chunk of each; DENSE_STEPS greedy tokens of each from seeded
     tokens at pos 0, equal up to a printed near-tie. route_mma: whether
     the route's capture launches kname (by default where SLOTS >=
-    qm.MMA_MIN_ROWS); the forced one must not."""
+    qm.MMA_MIN_ROWS); the forced one must not. Phase 6 also passes the
+    paged engine with the paged kernels' module for qm (paged_form forced
+    to the block form); `what` names the two forms in the print, `alt`
+    the forced one in the report."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 61)
     tok0 = torch.randint(1, cfg.vocab_size, (SLOTS,), generator=gen,
                          device=dev, dtype=torch.int32)
@@ -1919,8 +2020,8 @@ def dense_forms(torch, qm, dense, cfg, dev, tie_gap, label=DENSE_INT8,
     if route_mma is None:
         route_mma = SLOTS >= qm.MMA_MIN_ROWS
     programs = {}
-    for form in ("route", "cuda_core"):
-        if form == "cuda_core":
+    for form in ("route", alt):
+        if form == alt:
             setattr(qm, form_fn, forced)
         before = qm.launches[kname]
         try:
@@ -1939,13 +2040,14 @@ def dense_forms(torch, qm, dense, cfg, dev, tie_gap, label=DENSE_INT8,
         first, tok, pos = prog.run(tok0, zero, CHUNK)
         rest, _, _ = prog.run(tok, pos, DENSE_STEPS - CHUNK)
         tokens[form] = torch.cat([first, rest], 1).tolist()
+    what = what or f"tensor-core vs CUDA-core {kname[:-4]}"
     ties = same_up_to_ties(
-        f"{label}: tensor-core vs CUDA-core {kname[:-4]}",
-        tokens["route"], tokens["cuda_core"],
+        f"{label}: {what}",
+        tokens["route"], tokens[alt],
         [[t] for t in tok0.tolist()], tie_gap)
     pos = torch.full((SLOTS,), 640, dtype=torch.int32, device=dev)
-    ms = {"route": [], "cuda_core": []}
-    for form in ("route", "cuda_core", "route"):
+    ms = {"route": [], alt: []}
+    for form in ("route", alt, "route"):
         ms[form].append(cuda_ms(
             torch, lambda p=programs[form]: p.run(tok0, pos, CHUNK), 20)
             / CHUNK)
@@ -1955,8 +2057,8 @@ def dense_forms(torch, qm, dense, cfg, dev, tie_gap, label=DENSE_INT8,
     out = {"step_ms": {f: min(v) for f, v in ms.items()},
            "step_ms_in_turns": ms, "device_profile_chunk": prof,
            "tokens_from_pos0": tokens["route"][0], "near_ties": ties}
-    print(f"# {label} step at {SLOTS} live, {kname[:-4]} forms: "
-          + json.dumps(out), flush=True)
+    print(f"# {label} step at {SLOTS} live, {what}: " + json.dumps(out),
+          flush=True)
     del programs
     return out
 
@@ -3651,11 +3753,12 @@ def any_cases(torch, att, fa, pa, cfg, gen, dev, dt):
     def nbytes(*ts):
         return sum(t.numel() * t.element_size() for t in ts)
 
-    def row(base, fast, src, path, **c):
-        """A case: the base name and source for the fast kernel, the
-        `_any` name and attention_any.cuh for the any-type body; for a
-        fast kernel the old body beside it; in f32 the plain version and
-        the library call without TF32, and the limit F32_TOL."""
+    def row(base, fast, src, path, fast_name=None, **c):
+        """A case: the base name (or fast_name) and source for the fast
+        kernel, the `_any` name and attention_any.cuh for the any-type
+        body; for a fast kernel the old body beside it; in f32 the plain
+        version and the library call without TF32, and the limit
+        F32_TOL."""
         forms = c.pop("forms", {})
         if fast:
             forms["any"] = old_body(torch, att, fa, pa, c["kernel"])
@@ -3663,7 +3766,8 @@ def any_cases(torch, att, fa, pa, cfg, gen, dev, dt):
             c["library"] = c["library"] and no_tf32(torch, c["library"])
             c["plain"] = no_tf32(torch, c["plain"])
             c["tol"] = F32_TOL
-        return dict(name=base if fast else base + "_any",
+        return dict(name=(fast_name or base) if fast else base + "_any",
+                    any_name=base + "_any",
                     source=SRC + src if fast else
                     PREFILL_ANY_SRC if base == "flash_attention" else ANY_SRC,
                     path=NO_PATH if f32 else path, kind=kind, forms=forms,
@@ -3729,9 +3833,7 @@ def any_cases(torch, att, fa, pa, cfg, gen, dev, dt):
     B, P = SLOTS, PAGE
     MP = MAX_SEQ // P
     N = B * MP + 1
-    ppos = torch.tensor([CTX - 331, CTX - 64, CTX - 1, CTX, CTX + 1,
-                         CTX + 63, CTX + 200, CTX + 477][:B],
-                        dtype=torch.int32, device=dev)
+    ppos = torch.tensor(PAGED_POS[:B], dtype=torch.int32, device=dev)
     table = (torch.randperm(N - 1, generator=gen, device=dev)[:B * MP] + 1) \
         .reshape(B, MP).to(torch.int32)
     Hkv = cfg.n_kv_heads
@@ -3765,11 +3867,13 @@ def any_cases(torch, att, fa, pa, cfg, gen, dev, dt):
         kernel = pa.paged_flash_decode if "q8" not in name \
             else pa.paged_flash_decode_q8
         cases.append(row(
-            name, att.fast_form(dt, cdt, D), "paged_flash_decode.cu",
-            F16_PAGED, shape=f"{kind} q, {B} slots P {P} pos "
-            f"{CTX - 331}-{CTX + 477}", replaces=TPU + replaces,
+            name, att.fast_form(dt, cdt, D), "paged_flash_decode_ring.cu",
+            F16_PAGED, fast_name=name + "_ring", shape=f"{kind} q, {B} "
+            f"slots P {P} pos {PAGED_POS[0]}-{PAGED_POS[-1]}",
+            replaces=TPU + replaces,
             kernel=lambda k=kernel, a=pargs: k(*a),
             plain=lambda f=plain, a=pargs: f(*a),
+            forms={"block": lambda k=kernel, a=pargs: k(*a, _form="block")},
             library=lambda kg=kg, vg=vg: torch.nn.functional
             .scaled_dot_product_attention(qp, kg, vg, attn_mask=mask),
             bytes=Hkv * rows * row_b + 2 * nbytes(qp),
@@ -3777,10 +3881,11 @@ def any_cases(torch, att, fa, pa, cfg, gen, dev, dt):
     if f32:
         # the any-type body the f32 decode left keeps rows of its own at
         # the same shapes, forced through the old route
-        cases += [dict(c, name=c["name"] + "_any", source=ANY_SRC,
+        cases += [dict(c, name=c["any_name"], source=ANY_SRC,
                        kernel=c["forms"]["any"],
                        forms={f: old_body(torch, att, fa, pa, fn)
-                              for f, fn in c["forms"].items() if f != "any"})
+                              for f, fn in c["forms"].items()
+                              if f not in ("any", "block")})
                   for c in cases if "any" in c["forms"]]
     return cases
 
@@ -4078,7 +4183,8 @@ def f16_path(torch, llama, counters, kmods, params, cfg, dev, report, steps,
         lg_p, _ = llama.llama_decode_step(p16, cfg16, token, pos, paged)
         torch.cuda.synchronize()
         got = counters.read()
-        if got.get(kname, 0) != cfg.n_layers:
+        if got.get(kname, 0) != cfg.n_layers or \
+                got.get(kname + "_ring", 0) != cfg.n_layers:
             fail(f"{F16_PAGED}: a step launched {got}")
         no_any(F16_PAGED, got)
         for k, n in got.items():

@@ -227,15 +227,17 @@ def flash_decode_q8_plain(q, k_cache, v_cache, k_scale, v_scale, pos):
     return out.reshape(B, H, 1, D).to(q.dtype)
 
 
-def _split_partials(s, vals, pos, splits):
+def _split_partials(s, vals, pos, splits, rows=None):
     """s [B, Hkv, rep, S] f32 scores (scaled), vals [B, Hkv, S, D] f32 ->
     part [B, H, splits, D + 2]: split j of row b takes rows [j n / splits,
-    (j + 1) n / splits) of n = pos[b] + 1; its unnormalized acc = p . vals,
-    m = the split's max score (-inf if empty), l = sum p (0 if empty)."""
+    (j + 1) n / splits) of n = pos[b] + 1 or, given `rows`, rows [j rows,
+    (j + 1) rows) cut at n; its unnormalized acc = p . vals, m = the
+    split's max score (-inf if empty), l = sum p (0 if empty)."""
     B, G, R, S = s.shape
     n = pos.to(s.device, torch.int64).clamp(0, S - 1) + 1
-    edges = torch.arange(splits + 1, device=s.device)[None] * n[:, None] \
-        // splits                                           # [B, splits+1]
+    j = torch.arange(splits + 1, device=s.device)[None]
+    edges = j * n[:, None] // splits if rows is None \
+        else torch.minimum(j * rows, n[:, None])           # [B, splits+1]
     rows = torch.arange(S, device=s.device)
     inside = (rows >= edges[:, :-1, None]) & (rows < edges[:, 1:, None])
     sj = torch.where(inside[:, None, None], s[:, :, :, None, :],

@@ -1,8 +1,12 @@
-// Paged flash decode: one query token per slot over a pool of fixed-size
-// KV pages reached through a block table, hand-written for Hopper
-// (sm_90a); the kernel body is flash_decode.cuh with PAGED set. Python
-// wrappers: kernels/paged_attention.py paged_flash_decode and
-// paged_flash_decode_q8.
+// Paged flash decode, the block form: one query token per slot over a
+// pool of fixed-size KV pages reached through a block table, hand-written
+// for Hopper (sm_90a); the kernel body is flash_decode.cuh with PAGED set,
+// one block a (slot, kv head). Python wrappers: kernels/paged_attention.py
+// paged_flash_decode and paged_flash_decode_q8, which take the ring form of
+// paged_flash_decode_ring.cu for the same inputs (page chunks over a ring
+// of asynchronous page copies); this form runs only where a caller forces
+// it (_form="block"), as the yardstick beside the ring form
+// (chip_smoke.py phase 3's crossover, phase 6's paged step in turns).
 //
 // Replaces the TPU kernels (infinitensor_tpu/kernels/paged_attention.py)
 //   paged_flash_decode     <- _paged_kernel     (:146, via paged_flash_decode :288)
@@ -17,7 +21,9 @@
 // pages past pos; here the block's loop ends at pos[b], so those pages cost
 // nothing and may hold anything. The block table and pos are read on the
 // device, so the launch sits in a CUDA graph; the page size is a runtime
-// argument. With 8 slots a 7B layer is 256 blocks on 132 SMs.
+// argument. With 8 slots a 7B layer is 256 blocks on 132 SMs (GQA 32/8:
+// 64), and ragged slots end with the longest one's blocks: what the ring
+// form's page chunks answer.
 //
 // The fast kernels take a bf16, f16 or f32 q (kind kXBf16, kXF16, kXF32)
 // over pages of q's type or int8, at D 64 or 128, and write q's type;

@@ -2120,3 +2120,112 @@ def test_graph_corpus_on_the_card(dev, name, captured, monkeypatch):
                 tol * scale + 1e-6, n
         else:
             np.testing.assert_array_equal(g, w, err_msg=n)
+
+
+# -- the paged decode's ring form (csrc/paged_flash_decode_ring.cu) --------
+
+RING_TYPES = [(torch.bfloat16, False), (torch.float16, False),
+              (torch.float32, False), (torch.bfloat16, True)]
+
+
+def _paged_fns(q8):
+    """(name, wrapper, plain version) of the paged kernel over INT8 pages
+    (q8) or pages of q's dtype."""
+    if q8:
+        return ("paged_flash_decode_q8", pa.paged_flash_decode_q8,
+                pa.paged_decode_q8_plain)
+    return "paged_flash_decode", pa.paged_flash_decode, pa.paged_decode_plain
+
+
+def _close_as(got, want):
+    """The tolerance of q's dtype: 1e-5 of max|plain| in f32, else TOL."""
+    if got.dtype == torch.float32:
+        _close_f32(got, want)
+    else:
+        _close(got, want)
+
+
+@pytest.mark.parametrize("qdt,q8", RING_TYPES)
+@pytest.mark.parametrize("P", [16, 64, 128])
+@pytest.mark.parametrize("rep", [1, 2, 4, 8, 16])
+def test_paged_ring_kernel(dev, rep, P, qdt, q8):
+    """The route's ring form (one page a chunk at these shapes: every
+    chunk past a slot's pos empty) against the plain version, NaN in
+    every dead page and row and none in the output; the block form,
+    forced, agrees."""
+    name, fn, plain = _paged_fns(q8)
+    args = _paged_case(dev, rep, P, q8, 300 + rep + P, B=5, qdt=qdt)
+    assert pa.paged_form(qdt, args[1].dtype, args[0].shape[-1]) == "ring"
+    before = dict(pa.launches)
+    got = fn(*args)
+    for k in (name, name + "_ring"):
+        assert pa.launches[k] == before.get(k, 0) + 1
+    assert pa.launches[name + "_any"] == before.get(name + "_any", 0)
+    assert torch.isfinite(got.float()).all()
+    want = plain(*args)
+    _close_as(got, want)
+    block = fn(*args, _form="block")
+    assert pa.launches[name + "_ring"] == before.get(name + "_ring", 0) + 1
+    assert torch.isfinite(block.float()).all()
+    _close_as(block, want)
+
+
+@pytest.mark.parametrize("chunk_pages", [1, 2, 4, 6])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("q8", [False, True])
+def test_paged_ring_chunk_sizes(dev, q8, D, chunk_pages):
+    """Every chunk size from one page to the whole table (one chunk,
+    written without partials), at both head dims."""
+    name, fn, plain = _paged_fns(q8)
+    args = _paged_case(dev, 4, 16, q8, 40 + chunk_pages + D, D=D)
+    got = fn(*args, _chunk_pages=chunk_pages)
+    assert torch.isfinite(got.float()).all()
+    _close(got, plain(*args))
+
+
+@pytest.mark.parametrize("q8", [False, True])
+def test_paged_ring_in_a_cuda_graph(dev, q8):
+    """One captured launch replayed while pos crosses chunk edges (one
+    16-row page a chunk): each replay equals the eager launch at that pos
+    bit for bit, and a second replay gives the same bits."""
+    name, fn, plain = _paged_fns(q8)
+    args = list(_paged_case(dev, 4, 16, q8, 91, B=5))
+    # rows past the case's pos hold NaN; make them finite, as pos moves on
+    args = [torch.nan_to_num(a, nan=0.25) if a.is_floating_point() else a
+            for a in args]
+    pos = torch.tensor([13, 14, 29, 44, 60], dtype=torch.int32, device=dev)
+    args[-1] = pos
+    fn(*args)                               # warm-up: build, smem grant
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn(*args)
+    for step in range(5):                   # crosses 16, 32, 48 and 64
+        pos.copy_(torch.tensor([13, 14, 29, 44, 60], dtype=torch.int32,
+                               device=dev) + step)
+        graph.replay()
+        first = out.clone()
+        graph.replay()
+        assert torch.equal(out, first)
+        eager = fn(*args)
+        assert torch.equal(out, eager)
+        _close(out, plain(*args))
+    del graph
+
+
+def test_paged_ring_refuses_what_it_does_not_take(dev):
+    """A forced form the inputs do not take raises: the ring form for a q
+    dtype other than the pages', the any-type form for what the fast
+    kernels take, a form by another name; as does a chunk size giving
+    more than MAX_CHUNKS chunks."""
+    args = _paged_case(dev, 2, 16, False, 5, B=3)
+    q, kp, vp, table, pos = args
+    with pytest.raises(ValueError):
+        pa.paged_flash_decode(q.half(), kp, vp, table, pos, _form="ring")
+    for form in ("any", "warp"):
+        with pytest.raises(ValueError):
+            pa.paged_flash_decode(*args, _form=form)
+    wide = table.repeat(1, pa.MAX_CHUNKS // table.shape[1] + 1)
+    with pytest.raises(ValueError):
+        pa.paged_flash_decode(q, kp, vp, wide.contiguous(), pos,
+                              _chunk_pages=1)

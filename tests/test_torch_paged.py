@@ -5,7 +5,9 @@ for bit, the page allocator, and a paged decode step of a small INT4
 Llama.
 
 The kernel comparison's tolerance is one bf16 ulp of max|want| (both
-sides sum in f32 in another order and round once to bf16). The model
+sides sum in f32 in another order and round once to bf16). The ring
+form's plain first step (page-chunk partials) merged by
+flash_decode_merge_plain is held to the same tolerance. The model
 comparison holds the tolerance tests/test_torch_llama.py states: logits
 within 3e-2 of max|logit|, argmax equal. There the JAX side (under
 pallas_interpret=True on the CPU) runs rmsnorm + dequantize + matmul for
@@ -28,6 +30,7 @@ from infinitensor_tpu.serving.paged_engine import (
     scatter_prefill_into_pages as j_scatter)
 from infinitensor_tpu.utils.config import config
 
+from infinitensor_tpu_torch.kernels import attention as tatt
 from infinitensor_tpu_torch.kernels import paged_attention as tpa
 from infinitensor_tpu_torch.models import llama as tl
 from infinitensor_tpu_torch.models.convert import (
@@ -130,6 +133,134 @@ def test_plain_versions_never_read_dead_rows(q8):
         args[2] = _bf16(np.where(dead[..., None], np.nan, vp))
         got = tpa.paged_decode_plain(*args)
     assert torch.isfinite(got.float()).all() and torch.equal(got, want)
+
+
+def _merged(part) -> torch.Tensor:
+    """The ring form's second step, plain, rounded to bf16 as the kernel
+    writes q's dtype."""
+    return tatt.flash_decode_merge_plain(part).to(torch.bfloat16)
+
+
+def _split_args(q, kp, vp, ks, vs, table, pos):
+    if ks is None:
+        return (_bf16(q), _bf16(kp), _bf16(vp), torch.from_numpy(table),
+                torch.from_numpy(pos))
+    return (_bf16(q), torch.from_numpy(kp), torch.from_numpy(vp),
+            torch.from_numpy(ks), torch.from_numpy(vs),
+            torch.from_numpy(table), torch.from_numpy(pos))
+
+
+def _split(args, chunk_pages):
+    fn = tpa.paged_decode_split_plain if len(args) == 5 \
+        else tpa.paged_decode_q8_split_plain
+    return fn(*args, chunk_pages)
+
+
+@pytest.mark.parametrize("chunk_pages", [1, 2])
+@pytest.mark.parametrize("q8", [False, True])
+@pytest.mark.parametrize("rep", [1, 2, 4])
+@pytest.mark.parametrize("P", [8, 16])
+def test_paged_split_plain_matches_interpreted_kernel(P, rep, q8,
+                                                      chunk_pages):
+    """The ring form's chunks, merged, against the Pallas kernel: pos 0
+    (every later chunk empty), P - 1 and P (both sides of a one-page chunk
+    edge), the last row of the table."""
+    q, kp, vp, ks, vs, table, pos = _case(P, rep, q8, 30 * P + rep + 7 * q8)
+    if q8:
+        want = jpa.paged_flash_decode_q8(
+            jnp.asarray(q, jnp.bfloat16), jnp.asarray(kp), jnp.asarray(vp),
+            jnp.asarray(ks), jnp.asarray(vs), jnp.asarray(table),
+            jnp.asarray(pos), interpret=True)
+    else:
+        want = jpa.paged_flash_decode(
+            jnp.asarray(q, jnp.bfloat16), jnp.asarray(kp, jnp.bfloat16),
+            jnp.asarray(vp, jnp.bfloat16), jnp.asarray(table),
+            jnp.asarray(pos), interpret=True)
+    want = _f32(want)
+    args = _split_args(q, kp, vp, ks, vs, table, pos)
+    part = _split(args, chunk_pages)
+    MP = table.shape[1]
+    chunks = -(-MP // chunk_pages)
+    B, H, D = q.shape[0], q.shape[1], q.shape[3]
+    assert part.dtype == torch.float32
+    assert tuple(part.shape) == (B, H, chunks, D + 2)
+    # a chunk past pos is empty: acc 0, m -inf, l 0; the others hold rows
+    live = np.arange(chunks)[None] * chunk_pages * P <= pos[:, None]
+    l = part[..., D + 1].numpy()
+    np.testing.assert_array_equal(l > 0, np.broadcast_to(live[:, None],
+                                                         l.shape))
+    empty = torch.from_numpy(~np.broadcast_to(live[:, None], l.shape).copy())
+    assert (part[empty][:, :D] == 0).all()
+    assert torch.isneginf(part[empty][:, D]).all()
+    got = _merged(part)
+    assert got.shape == want.shape
+    assert np.abs(_f32(got) - want).max() <= _one_ulp(want)
+
+
+@pytest.mark.parametrize("q8", [False, True])
+def test_split_plain_never_reads_dead_rows(q8):
+    """NaN in every row no slot owns or past its pos leaves the chunks'
+    partials as they were."""
+    q, kp, vp, ks, vs, table, pos = _case(8, 2, q8, 9)
+    B, P = table.shape[0], 8
+    live = np.zeros((kp.shape[0], P), bool)
+    for b in range(B):
+        for s in range(pos[b] + 1):
+            live[table[b, s // P], s % P] = True
+    dead = np.broadcast_to(~live[:, None, :], kp.shape[:3])
+    args = list(_split_args(q, kp, vp, ks, vs, table, pos))
+    want = _split(args, 1)
+    if q8:
+        for i, a in ((3, ks), (4, vs)):
+            args[i] = torch.from_numpy(np.where(dead, np.nan, a).astype(
+                np.float32))
+    else:
+        for i, a in ((1, kp), (2, vp)):
+            args[i] = _bf16(np.where(dead[..., None], np.nan, a))
+    got = _split(args, 1)
+    assert torch.equal(got, want)
+    assert torch.isfinite(_merged(got).float()).all()
+
+
+@pytest.mark.parametrize("B,Hkv,MP", [(8, 32, 26), (8, 8, 26), (8, 8, 104),
+                                      (4, 2, 3), (64, 16, 24), (1, 1, 4096),
+                                      (4, 32, 26)])
+def test_ring_chunks_come_from_shapes_only(B, Hkv, MP):
+    """The chunk rule: one chunk from as many (slot, kv head) blocks as
+    SMs, else at most MAX_CHUNKS chunks of `pages` pages covering the
+    table, about RING_BLOCKS_PER_SM blocks an SM; the same plan serves any
+    positions."""
+    sms = 132
+    pages, chunks = tpa.ring_chunks(B, Hkv, MP, sms)
+    assert 1 <= chunks <= min(tpa.MAX_CHUNKS, MP)
+    assert (chunks - 1) * pages < MP <= chunks * pages
+    if B * Hkv >= sms:
+        assert (pages, chunks) == (MP, 1)
+    elif B * Hkv * MP <= tpa.RING_BLOCKS_PER_SM * sms:
+        # every page could have a block: chunks as small as the cap allows
+        assert pages == -(-MP // tpa.MAX_CHUNKS)
+    else:
+        assert chunks * B * Hkv >= tpa.RING_BLOCKS_PER_SM * sms \
+            or chunks == tpa.MAX_CHUNKS
+
+
+@pytest.mark.parametrize("q8", [False, True])
+def test_one_chunk_plan_for_two_pos_vectors(q8):
+    """The chunk rule's count, from shapes, gives partials of one shape
+    for two pos vectors (one captured graph serves both); each merges to
+    the plain decode."""
+    q, kp, vp, ks, vs, table, pos = _case(8, 2, q8, 12)
+    B, MP, P, Hkv = table.shape[0], table.shape[1], 8, kp.shape[1]
+    pages, chunks = tpa.ring_chunks(B, Hkv, MP, 132)
+    shapes = set()
+    for p in (pos, np.asarray([MP * P - 1, 3, P + 1, 0], np.int32)):
+        args = _split_args(q, kp, vp, ks, vs, table, p)
+        part = _split(args, pages)
+        shapes.add(tuple(part.shape))
+        plain = tpa.paged_decode_q8_plain if q8 else tpa.paged_decode_plain
+        want = _f32(plain(*args))
+        assert np.abs(_f32(_merged(part)) - want).max() <= _one_ulp(want)
+    assert shapes == {(B, q.shape[1], chunks, q.shape[3] + 2)}
 
 
 def test_gathers_match_jax():
