@@ -45,7 +45,15 @@ Phases, each failing with a nonzero exit, each printing its seconds:
      crossover tables of both forms, forced: qmm_group at 1-8 rows,
      qmm_w4a8 at 1-5, 8, 64 and 256 rows, qmm_group_ln at 1, 8 and
      64 rows (with its tile alone on rows normalized beforehand), which
-     set MMA_MIN_ROWS, W4A8_MMA_MIN_ROWS and CHUNK_MMA_MIN_ROWS; the
+     set MMA_MIN_ROWS, W4A8_MMA_MIN_ROWS and CHUNK_MMA_MIN_ROWS; the W4A8
+     pair at one row in its ring form (csrc/quant_matmul_w4a8_ring.cu: the
+     same grid and ring, the row quantized inside, an integer dp4a
+     consumer): qmm_w4a8_ring on the lm_head (phase 4's) and, under phase
+     10's knobs, on wo and w_down, qmm_norm_w4a8_ring on wqkv and w_gateup,
+     each beside its CUDA-core form, forced (which keeps rows of its own),
+     within one bf16 ulp at max|plain| of the plain version and of that
+     form, both also back to back in one CUDA graph (the lm_head 8 times
+     over its one copy); the
      dense decode attention
      (flash_decode, flash_decode_q8) in the split form its wrappers take
      at batch 1 beside the forced unsplit form, the split form's merge
@@ -88,7 +96,8 @@ Phases, each failing with a nonzero exit, each printing its seconds:
      torch.profiler window over one graph run (busy share, kernel ms a
      token), the same with the decode attention forced unsplit, and each
      kernel's launch count on that path (no tensor-core form at 1 row;
-     qmm_group_norm 64 a token, all of them qmm_group_norm_ring;
+     qmm_group_norm 64 a token, all of them qmm_group_norm_ring; the
+     lm_head's qmm_w4a8 once, in its ring form;
      flash_decode_q8 and flash_decode_merge 32 a token; qmm_group_split
      64: wo and w_down take the K split), the same region with
      the matmuls' K split forced off, and with qmm_group_norm's CUDA-core
@@ -184,18 +193,22 @@ Phases, each failing with a nonzero exit, each printing its seconds:
      the plain versions on the CPU;
  10. the group-128 decode under INFINITPU_QMM_VARIANT=w4a8 with an empty
      tuning table (INFINITPU_QMM_TUNE): qmm_norm_w4a8 64 and qmm_w4a8 65
-     launches a token; with the default table the env var changes nothing
-     (its entries win), so one step then launches what phase 4's does;
+     launches a token, all in their ring forms (qmm_norm_w4a8_ring 64,
+     qmm_w4a8_ring 65); the region read in turns with the CUDA-core forms
+     forced (qm.w4a8_form patched for the capture), its tokens equal up to
+     a printed near-tie; with the default table the env var changes
+     nothing (its entries win), so one step then launches what phase 4's
+     does;
  11. the group-128 decode with a copy of the port's tuning table whose wo
      and w_down entries read {"variant": "group2d", "bn": 1024, "kb": kb},
      kb chosen so that the split-K grid fills the card's SMs where the
      packed rows allow it: qmm_group2d 64, qmm_group_norm 64 (the ring
-     form), qmm_w4a8 1.
+     form), qmm_w4a8 1 (the ring form).
  12. the 7B decode of phase 4 built through the graph IR
      (models/graph_llama.py build_llama_decoder, weights bound without a
      copy, GraphExecutor): one eager step launches qmm_group_norm 64 (the
-     ring form), qmm_group 64, qmm_w4a8 1, flash_decode_q8 32 and rmsnorm
-     1, its logits held against llama_decode_step's; 128 steps of
+     ring form), qmm_group 64, qmm_w4a8 1 (the ring form), flash_decode_q8
+     32 and rmsnorm 1, its logits held against llama_decode_step's; 128 steps of
      make_fused_greedy_decode (one CUDA graph of 128 steps) equal 128
      eager graph steps and phase 4's tokens up to a printed near-tie;
      tok/s (min of 3) beside phase 4's, the eager ms per step; then
@@ -232,8 +245,8 @@ against the plain versions on the CPU,
 graph run (busy share, kernel ms a token). Phase 3 also holds the kernels of
 phases 7-11 against their plain versions at those shapes (64 rows of 1024
 features; B 64, 16 heads of 64, S 384, ragged pos in [16, 313]; the paired
-7B matmuls at 1 row; qmm_chunk at group 64 and qmm_norm_w4a8 at 1 and 8
-rows, qmm_group2d at 1 row), and the graph slice's kernels: rmsnorm at 1,
+7B matmuls at 1 row; qmm_chunk at group 64 and qmm_norm_w4a8's CUDA-core
+form at 1 and 8 rows, qmm_group2d at 1 row), and the graph slice's kernels: rmsnorm at 1,
 8, 64, 256, 1024 and 4096 rows of 4096 in bf16 and f32 (within 1e-5 of
 max|plain| in f32), g2bmm and gbmm at the phase 13 shape (f32, bf16)
 and at Longformer-base's attention (12 heads of 64, window 256, S 4096,
@@ -585,27 +598,42 @@ def main():
     w = dequantize_weight(q)
     if qm.route(randn(1, cfg.dim), q)[0] != "qmm_w4a8":
         fail("the variant table does not route the lm_head to w4a8")
-    # 1 row: the CUDA-core form; SLOTS and SHORT rows: the tensor-core
-    # form (the path's own call), beside the CUDA-core form, forced
+    # 1 row: the ring form (the route's), beside the CUDA-core form, forced,
+    # which keeps a row of its own (no main path takes it at 1 row of
+    # int4), both also back to back in one CUDA graph (the one lm_head, 8
+    # times: its 67.6 MB exceed the 50 MB L2); SLOTS and SHORT rows: the
+    # tensor-core form (the path's own call), beside the CUDA-core form
     for rows, path in ((1, "decode"), (SLOTS, "serving paged bf16"),
                        (SHORT, f"prompt {SHORT}")):
         x = randn(rows, cfg.dim)
-        mma = qm.w4a8_form(rows, x.dtype) == "mma"
-        cases.append(dict(
-            name="qmm_w4a8_mma" if mma else "qmm_w4a8",
+        form = qm.w4a8_form(rows, x.dtype, False, q.bits)
+        row = dict(
             shape="lm_head" if rows == 1 else f"lm_head {rows} rows",
-            path=path, replaces=TPU + "quant_matmul.py:283",
-            source=SRC + ("quant_matmul_w4a8_mma.cu" if mma
-                          else "quant_matmul.cu"),
-            kernel=lambda x=x, q=q: qm.quant_matmul(x, q),
+            replaces=TPU + "quant_matmul.py:283",
             plain=lambda x=x, q=q: qm.qmm_w4a8_plain(x, q)[
                 :, :q.out_features],
             library=lambda x=x, w=w: torch.matmul(x, w),
             bytes=nbytes(x, q.qweight, q.scales) + 2 * rows * q.out_physical,
-            ops=2 * rows * cfg.dim * q.out_physical, kind="int8",
-            **({"cuda_core": lambda x=x, q=q: qm._launch_w4a8(
-                x, q, form="cuda_core")[:, :q.out_features]} if mma
-               else {})))
+            ops=2 * rows * cfg.dim * q.out_physical, kind="int8")
+        core = lambda q, x=x: qm._launch_w4a8(   # noqa: E731
+            x, q, form="cuda_core")[:, :q.out_features]
+        cases.append(dict(
+            row, name={"mma": "qmm_w4a8_mma", "ring": "qmm_w4a8_ring"}.get(
+                form, "qmm_w4a8"), path=path,
+            source=SRC + {"mma": "quant_matmul_w4a8_mma.cu",
+                          "ring": "quant_matmul_w4a8_ring.cu"}.get(
+                form, "quant_matmul.cu"),
+            kernel=lambda x=x, q=q: qm.quant_matmul(x, q),
+            **({"cuda_core": lambda q=q, f=core: f(q)}
+               if form != "cuda_core" else {}),
+            **({"ulp": True, "graph_weights": [q] * 8,
+                "graph": {"ring": lambda q, x=x: qm.quant_matmul(x, q),
+                          "cuda_core": core}} if form == "ring" else {})))
+        if form == "ring":
+            cases.append(dict(
+                row, name="qmm_w4a8", path=NO_PATH,
+                source=SRC + "quant_matmul.cu", ulp=True,
+                kernel=lambda q=q, f=core: f(q)))
     for label, H, Hkv in (("mha 32/32", 32, 32), ("gqa 32/8", 32, 8)):
         D, S = cfg.head_dim, MAX_SEQ
         qh = randn(1, H, 1, D)
@@ -725,8 +753,8 @@ def main():
     step4 = dict(per_token)         # phases 5 and 6 add their kernels
     paths = {"decode": report["launches_main_path"]}
     for kname in ("qmm_group_norm", "qmm_group_norm_ring", "qmm_group",
-                  "qmm_group_split", "qmm_w4a8", "flash_decode_q8",
-                  "flash_decode_merge"):
+                  "qmm_group_split", "qmm_w4a8", "qmm_w4a8_ring",
+                  "flash_decode_q8", "flash_decode_merge"):
         if paths["decode"].get(kname, 0) <= 0:
             fail(f"{kname} was never launched on the main path")
     for kname in ("qmm_group_mma", "qmm_w4a8_mma", "qmm_group_ln_mma"):
@@ -740,6 +768,11 @@ def main():
              f"{step4.get('qmm_group_norm', 0)} times, "
              f"{step4.get('qmm_group_norm_ring', 0)} of them the ring form; "
              f"expected {2 * L} and {2 * L}")
+    # the lm_head: once a token, in the ring form
+    if step4.get("qmm_w4a8", 0) != 1 or step4.get("qmm_w4a8_ring", 0) != 1:
+        fail(f"a decode step launched qmm_w4a8 {step4.get('qmm_w4a8', 0)} "
+             f"times, {step4.get('qmm_w4a8_ring', 0)} of them the ring "
+             "form; expected 1 and 1")
     t_phase = phase(4, t_phase)
 
     # 5. the 7B prompt -> generate path
@@ -835,8 +868,10 @@ def main():
         paths[W4A8] = variant_path(
             torch, llama, counters, params, cfg, dev, report, steps, W4A8,
             {"qmm_norm_w4a8": 2 * L, "qmm_w4a8": 2 * L + 1,
+             "qmm_norm_w4a8_ring": 2 * L, "qmm_w4a8_ring": 2 * L + 1,
              "flash_decode_q8": L, **merges(cfg, L)},
-            weight_bytes(cfg))
+            weight_bytes(cfg), ring_form=("w4a8_form", (
+                "qmm_w4a8_ring", "qmm_norm_w4a8_ring")))
     with knobs({"INFINITPU_QMM_VARIANT": "w4a8"}):
         counters.reset()
         llama.llama_decode_step(
@@ -858,7 +893,7 @@ def main():
             torch, llama, counters, params, cfg, dev, report, steps, SPLIT,
             {"qmm_group2d": 2 * L, "qmm_group_norm": 2 * L,
              "qmm_group_norm_ring": 2 * L, "qmm_w4a8": 1,
-             "flash_decode_q8": L, **merges(cfg, L)},
+             "qmm_w4a8_ring": 1, "flash_decode_q8": L, **merges(cfg, L)},
             weight_bytes(cfg))
     t_phase = phase(11, t_phase)
 
@@ -905,6 +940,8 @@ def main():
             "library_ms": c["library_ms"],
             **({"cuda_core_ms": c["cuda_core_ms"]}
                if "cuda_core" in c else {}),
+            **({"cuda_core_err": c["cuda_core_err"]}
+               if "cuda_core_err" in c else {}),
             **({"library_ln_ms": c["library_ln_ms"]}
                if "library_ln" in c else {}),
             **({"forms": {f: {"ms": ms, "max_abs_err": c["form_err"][f]}
@@ -945,8 +982,14 @@ def check_and_time(torch, c, counters, flush, bw_copy):
     c["plain_ms"] = cuda_ms(torch, c["plain"], 5, flush)
     c["library_ms"] = cuda_ms(torch, c["library"], 50, flush) \
         if c["library"] else None
-    if "cuda_core" in c:            # a tensor-core form: the other form, now
+    if "cuda_core" in c:            # the route's form: the other form, now
         c["cuda_core_ms"] = cuda_ms(torch, c["cuda_core"], 50, flush)
+        if c.get("ulp"):            # ... within one bf16 ulp of this one
+            e = (c["cuda_core"]().float() - got.float()).abs().max().item()
+            c["cuda_core_err"] = e
+            if not (math.isfinite(e) and e <= bf16_ulp(ref)):
+                fail(f"{c['name']} {c['shape']}: {e} from the CUDA-core "
+                     f"form, more than one bf16 ulp at {ref}")
     if "library_ln" in c:           # LayerNorm + addmm from the raw rows
         c["library_ln_ms"] = cuda_ms(torch, c["library_ln"], 50, flush)
     c["form_ms"], c["form_err"] = {}, {}
@@ -1279,8 +1322,9 @@ def decode_path(torch, llama, counters, params, cfg, dev, report):
     # turns (split, unsplit attention, unsplit matmuls, split)
     unsplit_mm["split_again_tok_s_samples"] = time_graph(torch, g, cache,
                                                          token, pos)
-    core_norm = cuda_core_norm_region(torch, llama, qm, params, cfg, token,
-                                      pos, cache, g, toks)
+    core_norm = cuda_core_region(torch, llama, qm, params, cfg, token, pos,
+                                 cache, g, toks, "group_form",
+                                 ("qmm_group_norm_ring",), "decode")
     kv_bytes = 2 * cfg.n_layers * cfg.n_kv_heads * CTX * (cfg.head_dim + 4)
     bytes_tok = weight_bytes(cfg) + kv_bytes
     tok_s = STEPS / dt
@@ -1300,30 +1344,30 @@ def decode_path(torch, llama, counters, params, cfg, dev, report):
     return per_token
 
 
-def cuda_core_norm_region(torch, llama, qm, params, cfg, token, pos, cache,
-                          g, toks):
-    """Phase 4's region with qmm_group_norm's CUDA-core form forced where
-    the route takes the ring form (qm.group_form patched while the step is
-    captured: the form before the ring), read in turns with the route's graph
-    g (ring, CUDA-core, ring, CUDA-core; 3 runs each), with a profiler
-    window over one run; its STEPS tokens held against g's (toks) up to a
-    printed near-tie."""
-    route = qm.group_form
+def cuda_core_region(torch, llama, qm, params, cfg, token, pos, cache, g,
+                     toks, form_fn, rings, label):
+    """A decode region (phase 4's, phase 10's) with the CUDA-core forms
+    forced where the route takes a ring form (qm.<form_fn>, group_form or
+    w4a8_form, patched while the step is captured: the forms before the
+    ring), read in turns with the route's graph g (ring, CUDA-core, ring,
+    CUDA-core; 3 runs each), with a profiler window over one run; its
+    STEPS tokens held against g's (toks) up to a printed near-tie. rings:
+    the ring kernels' counters, which the capture must leave alone."""
+    route = getattr(qm, form_fn)
 
-    def forced(rows, dtype, norm, bits=4):
-        form = route(rows, dtype, norm, bits)
+    def forced(*args, **kw):
+        form = route(*args, **kw)
         return "cuda_core" if form == "ring" else form
 
-    qm.group_form = forced
-    before = qm.launches["qmm_group_norm_ring"]
+    setattr(qm, form_fn, forced)
+    before = [qm.launches[k] for k in rings]
     try:
         fresh(cache)
         g1 = llama.DecodeGraph(params, cfg, token, pos, cache, STEPS)
     finally:
-        qm.group_form = route
-    if qm.launches["qmm_group_norm_ring"] != before:
-        fail("decode: the CUDA-core qmm_group_norm capture launched the "
-             "ring form")
+        setattr(qm, form_fn, route)
+    if [qm.launches[k] for k in rings] != before:
+        fail(f"{label}: the CUDA-core capture launched a ring form")
     samples = {"ring": [], "cuda_core": []}
     for _ in range(2):
         samples["ring"] += time_graph(torch, g, cache, token, pos)
@@ -1332,7 +1376,7 @@ def cuda_core_norm_region(torch, llama, qm, params, cfg, token, pos, cache,
     g1.reset(token, pos)
     old = g1.run()[0].tolist()
     ties = same_up_to_ties(
-        "decode: ring vs CUDA-core qmm_group_norm", [old],
+        f"{label}: ring vs CUDA-core forms", [old],
         [toks[0].tolist()], [[]],
         decode_tie_gap(torch, llama, params, cfg, token, pos, cache))
     prof = graph_profile(torch, g1, cache, token, pos)
@@ -1340,7 +1384,7 @@ def cuda_core_norm_region(torch, llama, qm, params, cfg, token, pos, cache,
     out = {"tok_s": {f: max(v) for f, v in samples.items()},
            "tok_s_in_turns": samples, "near_ties": ties,
            "device_profile": prof}
-    print(f"# decode, qmm_group_norm ring vs CUDA-core form: "
+    print(f"# {label}, {' and '.join(rings)} vs CUDA-core forms: "
           f"{json.dumps(out['tok_s'])} tok/s (in turns: "
           f"{json.dumps(samples)})", flush=True)
     return out
@@ -1592,6 +1636,7 @@ def device_profile(torch, fn):
     where the profiler recorded no device event (then: not measured)."""
     from torch.profiler import ProfilerActivity, profile
     kinds = (("qmm_group_norm_ring_kernel", "qmm_group_norm_ring"),
+             ("qmm_w4a8_ring_kernel", "qmm_w4a8_ring"),
              ("w4a8_quantize_rows", "qmm_w4a8"),
              ("qmm_w4a8_mma_kernel", "qmm_w4a8"),
              ("w4a8_splitk_sum", "qmm_w4a8 sum"),
@@ -1668,11 +1713,17 @@ def group_kernel_kind(name):
 
 def w4a8_kernel_kind(name):
     """qmm_norm_w4a8 for a qmm_w4a8_kernel<BITS, R, NORM, XK>
-    instantiation with NORM set, else None."""
+    instantiation with NORM set, qmm_norm_w4a8_ring for a
+    qmm_w4a8_ring_kernel<SCB, A16, NORM, XK> one, else None."""
     import re
     m = re.search(r"qmm_w4a8_kernel<\D*\d+, \D*\d+, (?:\(bool\))?(true|1)"
                   r"(?:, \D*\d+)?>", name)
-    return "qmm_norm_w4a8" if m else None
+    if m:
+        return "qmm_norm_w4a8"
+    b = r"(?:\(bool\))?(?:true|false|0|1)"
+    m = re.search(rf"qmm_w4a8_ring_kernel<{b}, {b}, (?:\(bool\))?(true|1),",
+                  name)
+    return "qmm_norm_w4a8_ring" if m else None
 
 
 def stale_row_hazards(eng):
@@ -2828,7 +2879,7 @@ def gpt2_bs1_path(torch, gpt2, qm, counters, gparams, gcfg, dev, report):
 
 
 def variant_path(torch, llama, counters, params, cfg, dev, report, steps,
-                 label, want_step, weight_b, qm=None):
+                 label, want_step, weight_b, qm=None, ring_form=None):
     """Phases 8-11: decode_path's checks on other weights or knobs. One
     step must launch exactly want_step; the step of its first CPU_LAYERS
     layers is held against the plain versions on the CPU (under the same
@@ -2836,8 +2887,9 @@ def variant_path(torch, llama, counters, params, cfg, dev, report, steps,
     must equal an eager loop; tok/s is the min of 3 graph runs against the
     copy-rate roofline of weight_b + the INT8 cache's bytes per token.
     With qm, the same region again with the matmuls' K split forced
-    off (qm._SPLITS = 1), in this call. Returns the launch counts of
-    llama_decode_multi; steps[label] gets one decode step's."""
+    off (qm._SPLITS = 1), in this call; with ring_form (the form function's
+    name, the ring kernels) cuda_core_region, in turns. Returns the launch
+    counts of llama_decode_multi; steps[label] gets one decode step's."""
     token = torch.zeros(1, dtype=torch.int32, device=dev)
     pos = torch.full((1,), CTX, dtype=torch.int32, device=dev)
     cache = llama.init_kv_cache(cfg, 1, kv_quant=True, device=dev)
@@ -2915,6 +2967,11 @@ def variant_path(torch, llama, counters, params, cfg, dev, report, steps,
                                                   cfg, token, pos, cache)
         extra["unsplit_matmuls"]["split_again_tok_s_samples"] = time_graph(
             torch, g, cache, token, pos)
+    if ring_form is not None:
+        from infinitensor_tpu_torch.kernels import quant_matmul
+        extra["cuda_core_forms"] = cuda_core_region(
+            torch, llama, quant_matmul, params, cfg, token, pos, cache, g,
+            toks, *ring_form, label)
     kv_bytes = 2 * cfg.n_layers * cfg.n_kv_heads * CTX * (cfg.head_dim + 4)
     bytes_tok = weight_b + kv_bytes
     res = {**extra,
@@ -3088,8 +3145,9 @@ def variant_cases(torch, qm, cfg, g64, params, envs, kbs, randn,
     qmm_norm_w4a8 (under phase 10's knobs) on wqkv and w_gateup, at 1 and
     SLOTS rows, in their CUDA-core forms (at SLOTS rows forced: the route
     takes the tensor-core forms there, chunk_mma_cases and
-    norm_w4a8_mma_cases); qmm_group2d (under phase 11's) on wo and w_down
-    at 1 row."""
+    norm_w4a8_mma_cases; at 1 row forced: the route takes the ring form,
+    w4a8_ring_cases); qmm_group2d (under phase 11's) on wo and w_down at 1
+    row."""
     eps = cfg.norm_eps
 
     def nbytes(*ts):
@@ -3134,15 +3192,15 @@ def variant_cases(torch, qm, cfg, g64, params, envs, kbs, randn,
             nw = (randn(cfg.dim).float() * 0.1 + 1.0).to(torch.bfloat16)
             xn, w = qm.rmsnorm_bf16(x, nw, eps), dequantize_weight(q)
             out.append(row(
-                "qmm_norm_w4a8", label, rows, W4A8, q,
-                (lambda x=x, nw=nw, q=q: qm.quant_matmul_norm(
-                    x, nw, q, eps)) if rows == 1 else
-                (lambda x=x, nw=nw, q=q: qm._launch_w4a8(
-                    x, q, nw, eps, form="cuda_core")[:, :q.out_features]),
+                "qmm_norm_w4a8", label, rows, W4A8 if rows > 1 else NO_PATH,
+                q, lambda x=x, nw=nw, q=q: qm._launch_w4a8(
+                    x, q, nw, eps, form="cuda_core")[:, :q.out_features],
                 lambda x=x, nw=nw, q=q: qm.qmm_norm_w4a8_plain(
                     x, nw, q, eps)[:, :q.out_features],
                 lambda xn=xn, w=w: torch.matmul(xn, w), extra=(nw,),
                 env=envs[W4A8]))
+    out += w4a8_ring_cases(torch, qm, cfg, params, envs, randn,
+                           dequantize_weight)
     for label in ("wo", "w_down"):
         q, kb = layer[label], kbs[label]
         x, w = randn(1, q.in_features), dequantize_weight(q)
@@ -3155,6 +3213,64 @@ def variant_cases(torch, qm, cfg, g64, params, envs, kbs, randn,
     return out
 
 
+
+
+def w4a8_ring_cases(torch, qm, cfg, params, envs, randn, dequantize_weight):
+    """Phase 3 rows of the W4A8 pair's one-row ring forms under phase 10's
+    knobs (quant_matmul_w4a8_ring.cu): qmm_norm_w4a8_ring on wqkv and
+    w_gateup, qmm_w4a8_ring on wo and w_down (the lm_head's row is phase
+    4's), each the route's call beside its CUDA-core form, forced, within
+    one bf16 ulp of it and of the plain version, also back to back over the
+    32 layers' copies in one CUDA graph; and qmm_w4a8's CUDA-core form on
+    wo and w_down, a row of its own (no path takes it at one row)."""
+    eps, layers = cfg.norm_eps, params["layers"]
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    out = []
+    for label in ("wqkv", "w_gateup", "wo", "w_down"):
+        q = layers[0][label]
+        norm = label in ("wqkv", "w_gateup")
+        x, w = randn(1, q.in_features), dequantize_weight(q)
+        nw = (randn(q.in_features).float() * 0.1 + 1.0).to(torch.bfloat16) \
+            if norm else None
+        xn = qm.rmsnorm_bf16(x, nw, eps) if norm else x
+        n = q.out_features
+        name = "qmm_norm_w4a8" if norm else "qmm_w4a8"
+        if norm:
+            def ring(q, x=x, nw=nw):
+                return qm.quant_matmul_norm(x, nw, q, eps)
+            plain = lambda x=x, nw=nw, q=q, n=n: qm.qmm_norm_w4a8_plain(  # noqa
+                x, nw, q, eps)[:, :n]
+        else:
+            def ring(q, x=x):
+                return qm.quant_matmul(x, q)
+            plain = lambda x=x, q=q, n=n: qm.qmm_w4a8_plain(x, q)[:, :n]  # noqa
+
+        def core(q, x=x, nw=nw, n=n):
+            return qm._launch_w4a8(x, q, nw, eps, form="cuda_core")[:, :n]
+
+        row = dict(
+            shape=label, env=envs[W4A8], ulp=True, plain=plain,
+            replaces=TPU + ("quant_matmul.py:288" if norm
+                            else "quant_matmul.py:283"),
+            library=lambda xn=xn, w=w: torch.matmul(xn, w),
+            bytes=nbytes(x, q.qweight, q.scales, *((nw,) if norm else ()))
+            + 2 * q.out_physical,
+            ops=2 * q.in_features * q.out_physical, kind="int8")
+        out.append(dict(
+            row, name=name + "_ring", path=W4A8,
+            source=SRC + "quant_matmul_w4a8_ring.cu",
+            kernel=lambda q=q, f=ring: f(q),
+            cuda_core=lambda q=q, f=core: f(q),
+            graph_weights=[lay[label] for lay in layers],
+            graph={"ring": ring, "cuda_core": core}))
+        if not norm:        # the norm's CUDA-core row is variant_cases'
+            out.append(dict(
+                row, name=name, path=NO_PATH, source=SRC + "quant_matmul.cu",
+                kernel=lambda q=q, f=core: f(q)))
+    return out
 
 
 # -- the graph slice: phase 3 rows, phase 12 (graph-built 7B decode and ----
@@ -3358,7 +3474,7 @@ def graph_path(torch, llama, graph_llama, GraphExecutor, counters, params,
     steps[GRAPH] = per_step
     layer0 = params["layers"][0]
     want = {"qmm_group_norm": 2 * L, "qmm_group_norm_ring": 2 * L,
-            "qmm_group": 2 * L, "qmm_w4a8": 1,
+            "qmm_group": 2 * L, "qmm_w4a8": 1, "qmm_w4a8_ring": 1,
             "qmm_group_split": L * split_launches(
                 qm, (layer0["wo"], layer0["w_down"])),
             "flash_decode_q8": L, "rmsnorm": 1, **merges(cfg, L)}

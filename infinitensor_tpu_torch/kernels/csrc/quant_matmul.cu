@@ -73,12 +73,8 @@ qmm_w4a8_kernel(const void* __restrict__ x,
     };
     float amax = 0.f;
     for (int k = tid; k < din; k += nthr) amax = fmaxf(amax, fabsf(xn(k)));
-    amax = block_reduce<true>(amax, part);
-    const float s = fmaxf(amax, 1e-30f) * (1.0f / 127.0f);
-    for (int k = tid; k < din; k += nthr) {
-      const float q = rintf(xn(k) / s);
-      xq[r * din + k] = (int8_t)fminf(fmaxf(q, -127.f), 127.f);
-    }
+    const float s = w4a8_row_scale(block_reduce<true>(amax, part));
+    for (int k = tid; k < din; k += nthr) xq[r * din + k] = w4a8_code(xn(k), s);
     if (tid == 0) sx[r] = s;
   }
   __syncthreads();

@@ -201,6 +201,20 @@ __device__ __forceinline__ float rms_norm_value(float v, float rinv,
   return round_bf16(round_bf16(v * rinv) * bf16_to_f32(nw[k]));
 }
 
+// _quantize_rows_i8's row scale sx = max(amax, 1e-30) * f32(1/127) of a
+// row whose largest |value| is amax, and a value's int8 code clip(rint(v /
+// sx), +-127) (a true IEEE division, round half to even). Every W4A8 form
+// quantizes with these two (qmm_w4a8's CUDA-core prologue, its ring form
+// and its tensor-core pre-passes), so xq and sx agree to the bit; amax is
+// a max, which no reduction order changes.
+__device__ __forceinline__ float w4a8_row_scale(float amax) {
+  return fmaxf(amax, 1e-30f) * (1.0f / 127.0f);
+}
+
+__device__ __forceinline__ int8_t w4a8_code(float v, float sx) {
+  return (int8_t)fminf(fmaxf(rintf(v / sx), -127.f), 127.f);
+}
+
 // ((v - mu) * rinv) * gamma[k] + beta[k] in f32, rounded to bf16 once;
 // gamma and beta are both bf16 or (norm_bf16 false) both f32.
 __device__ __forceinline__ float layer_norm_value(float v, float mu,

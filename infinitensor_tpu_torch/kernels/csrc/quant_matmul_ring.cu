@@ -21,30 +21,15 @@
 // only its unrolled 32-bit loads in flight.
 //
 // Design:
-//  * a balanced persistent grid (stream-K): the work is the list of units
-//    (128-column tile t, packed scale group c), flattened t-major, U =
-//    tiles x din / (2 group) of them; block b of the nb blocks (one an SM,
-//    ring_plan) takes the contiguous share [b U / nb, (b + 1) U / nb), so
-//    the shares differ by at most one unit whatever the tile count (wqkv
-//    1536 units, 11-12 a block; w_gateup 2816, 21-22). The plan comes from
-//    the shapes and the SM count only, so one captured graph serves every
-//    step;
-//  * a tile whose units lie in one block is written by it; a tile shared
-//    by blocks leaves each block's f32 sum over its units in part[b][0]
-//    (the block's first tile) or part[b][1] (its last), and once a block's
-//    stream is done (one fence, none inside the ring) the last block to
-//    arrive at a tile (a counter per tile, set back to 0 by that block: the
-//    KSPLIT protocol of quant_matmul.cuh) sums them in block order and
-//    writes the bf16 result. No atomics on values: results repeat bit for
-//    bit;
-//  * an asynchronous-copy ring: a stage is one 128-column tile's 128
-//    packed rows (16 KB) and its two scale rows (lo and hi, 0.5 KB in
-//    bf16, 1 KB in f32), 17,408 bytes a slot; kStages = 4 slots, so 3
-//    stages (52,224 bytes) are in flight while the 16 warps decode the
-//    fourth, against the ~25 KB an SM needs at 3.35 TB/s / 132 SMs and
-//    about 1 us of latency. Each of the 512 threads issues its 16-byte
-//    cp.async copies (4-byte ones where the columns are no multiple of 16),
-//    one wait_group and one barrier a stage;
+//  * the grid, the ring and the merge of ring.cuh (shared with
+//    quant_matmul_w4a8_ring.cu): stream-K shares of (128-column tile, packed
+//    scale group) units, one block an SM, a 4-stage ring of 17,408-byte
+//    stages (3 stages, 52,224 bytes, in flight while the 16 warps decode
+//    the fourth, against the ~25 KB an SM needs at 3.35 TB/s / 132 SMs and
+//    about 1 us of latency; TMA copies where the rows are 16-byte aligned,
+//    cp.async else), the shared tiles summed in block order by the last
+//    block to arrive (wqkv 1536 units, 11-12 a block; w_gateup 2816,
+//    21-22);
 //  * the norm inside: a block issues its first 3 stages, then takes the
 //    row's mean of squares with rms_norm_rinv (the 512-thread reduction of
 //    the CUDA-core prologue, so the normalized x is that prologue's to the
@@ -59,39 +44,18 @@
 //    scale group times the scale divided by that power of two (exact) is
 //    the partial of the exact values times the scale, to the bit; the 16
 //    warps' sums meet in shared memory in warp order at the end of a tile.
-#include "mma_tile.cuh"
-#include "quant_matmul.cuh"
+#include "ring.cuh"
 
 namespace {
 
-using mma_tile::cp_async16;
-using mma_tile::cp_async4;
-using mma_tile::cp_async_commit;
-using mma_tile::cp_async_wait;
+using ring::kCols;
+using ring::kRowsWarp;
+using ring::kThreads;
 using qmm_detail::kLanes;
 using qmm_detail::kWarps;
 
-constexpr int kCols = 128;                    // output columns of a tile
-constexpr int kRows = 128;                    // packed rows of a stage
-constexpr int kStages = 4;                    // ring slots
-constexpr int kThreads = kLanes * kWarps;     // 512: the prologue's block
-constexpr int kRowsWarp = kRows / kWarps;     // 8 packed rows a warp
-constexpr int kWBytes = kRows * kCols;        // 16 KB of packed weights
-constexpr int kSBytes = 2 * kCols * 4;        // lo + hi scale rows (f32 max)
-constexpr int kStageBytes = kWBytes + kSBytes;
-
 inline size_t ring_smem(int din) {
-  return (size_t)kStages * kStageBytes + sizeof(float) * ((size_t)din + kWarps * kCols);
-}
-
-// The block that owns unit u of U units over nb blocks (shares [b U / nb,
-// (b + 1) U / nb)).
-__device__ __forceinline__ int owner(int u, int U, int nb) {
-  return (int)(((long long)(u + 1) * nb - 1) / U);
-}
-
-__device__ __forceinline__ int share_start(int b, int U, int nb) {
-  return (int)((long long)b * U / nb);
+  return ring::kAlignPad + ring::kRingBytes + sizeof(float) * ((size_t)din + kWarps * kCols);
 }
 
 // x bf16 [din] (one row); nw bf16 [din]; qw int8 [din / 2, dout_p] (int4,
@@ -107,137 +71,33 @@ qmm_group_norm_ring_kernel(const __nv_bfloat16* __restrict__ x,
                            const void* __restrict__ sc,
                            __nv_bfloat16* __restrict__ out,
                            float* __restrict__ part, int* __restrict__ counters,
-                           int din, int dout_p, int group, float eps) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  unsigned char* ring = smem;
-  float* xs = reinterpret_cast<float*>(smem + kStages * kStageBytes);   // [din]
+                           int din, int dout_p, int group, float eps,
+                           const __grid_constant__ ring::Maps maps) {
+  extern __shared__ __align__(128) unsigned char smem_[];
+  unsigned char* smem = ring::aligned(smem_);
+  float* xs = reinterpret_cast<float*>(smem + ring::kRingBytes);        // [din]
   float* red = xs + din;                                                // [kWarps][kCols]
   __shared__ float rpart[kWarps];
   const int lane = threadIdx.x, warp = threadIdx.y;
   const int tid = warp * kLanes + lane;
-  const int krows = din / 2, ngs = krows / group;   // packed rows, groups
-  const int spg = group / kRows;                   // stages a group
-  const int U = (dout_p + kCols - 1) / kCols * ngs;
-  const int nb = gridDim.x, b = blockIdx.x;
-  const int u0 = share_start(b, U, nb), u1 = share_start(b + 1, U, nb);
-  const int n = (u1 - u0) * spg;                   // this block's stages
-  constexpr int ssz = SCB ? 2 : 4;
+  const ring::Share sh(din, dout_p, group);
+  const int krows = sh.krows;
 
-  // a stage's place: tile t, its packed rows p0 .. p0 + kRows, their scale
-  // group c (sg: the stage within the group). The copies and the consumer
-  // each step through the stages in order, so no division runs a stage.
-  struct Pos {
-    int t, p0, c, sg;
-  };
-  const Pos first{u0 / ngs, u0 % ngs * group, u0 % ngs, 0};
-  auto advance = [&](Pos& s) {
-    s.p0 += kRows;
-    if (++s.sg == spg) s.sg = 0, ++s.c;
-    if (s.p0 == krows) s.p0 = 0, s.c = 0, ++s.t;
-  };
-  // this thread's 16-byte chunks of a stage: rows r16 and r16 + 64, bytes
-  // cb16 .. cb16 + 15
-  const int r16 = tid / (kCols / 16), cb16 = tid % (kCols / 16) * 16;
-  static_assert(kRows * kCols / 16 == 2 * kThreads, "two 16-byte chunks a thread");
-
-  // stage i of the block into slot i % kStages (i = 0, 1, ... in order): packed
-  // rows p0 .. p0 + kRows of tile t, then the lo and hi scale rows of their
-  // group (zero past dout_p)
-  Pos ip = first;
-  auto issue = [&](int i) {
-    if (i >= n) return;
-    const int t = ip.t, p0 = ip.p0, c = ip.c, col0 = t * kCols;
-    advance(ip);
-    unsigned char* st = ring + (i % kStages) * kStageBytes;
-    const char* slo = static_cast<const char*>(sc) + ((size_t)c * dout_p + col0) * ssz;
-    const char* shi = slo + (size_t)ngs * dout_p * ssz;
-    if (A16) {
-      const bool in = col0 + cb16 < dout_p;
-      const int8_t* src = qw + (size_t)(p0 + r16) * dout_p + (in ? col0 + cb16 : 0);
-      cp_async16(st + r16 * kCols + cb16, src, in ? 16 : 0);
-      cp_async16(st + (r16 + kRows / 2) * kCols + cb16, src + (size_t)kRows / 2 * dout_p,
-                 in ? 16 : 0);
-      constexpr int per = kCols * ssz / 16;           // chunks a scale row
-      if (tid < 2 * per) {
-        const int h = tid / per, cb = tid % per * 16;
-        const bool in = col0 + cb / ssz < dout_p;
-        cp_async16(st + kWBytes + h * kCols * ssz + cb, in ? (h ? shi : slo) + cb : slo - col0 * ssz,
-                   in ? 16 : 0);
-      }
-    } else {
-      for (int k = tid; k < kRows * kCols / 4; k += kThreads) {
-        const int r = k / (kCols / 4), cb = k % (kCols / 4) * 4;
-        const bool in = col0 + cb < dout_p;
-        cp_async4(st + r * kCols + cb,
-                  qw + (size_t)(p0 + r) * dout_p + (in ? col0 + cb : 0), in ? 4 : 0);
-      }
-      constexpr int per = kCols * ssz / 4;
-      for (int k = tid; k < 2 * per; k += kThreads) {
-        const int h = k / per, cb = k % per * 4;
-        const bool in = col0 + cb / ssz < dout_p;
-        cp_async4(st + kWBytes + h * kCols * ssz + cb, in ? (h ? shi : slo) + cb : slo - col0 * ssz,
-                  in ? 4 : 0);
-      }
-    }
-  };
-
-  // the first kStages - 1 stages go out before the row statistics
-#pragma unroll
-  for (int i = 0; i < kStages - 1; ++i) {
-    issue(i);
-    cp_async_commit();
-  }
-  const float rinv = qmm_detail::rms_norm_rinv<kXBf16>(x, 0, din, eps, rpart);
-  {
-    // the x columns of this block's groups (a cyclic run of them), lo and hi
-    const int g0 = u0 % ngs, gn = min(u1 - u0, ngs);
+  // the row statistics while the first stages land, then the x columns of
+  // this block's groups (a cyclic run of them), lo and hi
+  auto prologue = [&] {
+    const float rinv = qmm_detail::rms_norm_rinv<kXBf16>(x, 0, din, eps, rpart);
+    const int g0 = sh.u0 % sh.ngs, gn = min(sh.u1 - sh.u0, sh.ngs);
 #pragma unroll 4
     for (int k = tid; k < gn * group; k += kThreads) {
-      const int p = (g0 + k / group) % ngs * group + k % group;
+      const int p = (g0 + k / group) % sh.ngs * group + k % group;
       xs[p] = qmm_detail::rms_norm_value(qmm_detail::load_x<kXBf16>(x, p), rinv, nw, p);
       xs[krows + p] = qmm_detail::rms_norm_value(
           qmm_detail::load_x<kXBf16>(x, krows + p), rinv, nw, krows + p);
     }
-  }
-
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  int shared0 = -1, shared1 = -1;   // this block's tiles other blocks share
-  // the 16 warps' sums of tile t: written (a tile of this block alone) or
-  // left in part[b][slot] (slot 0: the block's first tile, 1: its last)
-  auto flush = [&](int t) {
-    *reinterpret_cast<float4*>(red + warp * kCols + lane * 4) =
-        make_float4(acc[0], acc[1], acc[2], acc[3]);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[j] = 0.f;
-    __syncthreads();
-    const int col = t * kCols + tid;
-    float s = 0.f;
-    if (tid < kCols)
-      for (int w = 0; w < kWarps; ++w) s += red[w * kCols + tid];
-    if (t * ngs >= u0 && (t + 1) * ngs <= u1) {
-      if (tid < kCols && col < dout_p) out[col] = __float2bfloat16_rn(s);
-    } else {
-      const int slot = t == u0 / ngs ? 0 : 1;
-      if (tid < kCols) part[((size_t)b * 2 + slot) * kCols + tid] = s;
-      (slot ? shared1 : shared0) = t;
-    }
-    __syncthreads();
   };
-
-  Pos cpos = first;
-  int tile = first.t;
-  for (int i = 0; i < n; ++i) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();          // stage i landed; slot (i - 1) % kStages is free
-    issue(i + kStages - 1);
-    cp_async_commit();
-    const int t = cpos.t, p = cpos.p0 + warp * kRowsWarp;
-    advance(cpos);
-    if (t != tile) {
-      flush(tile);
-      tile = t;
-    }
-    const unsigned char* st = ring + (i % kStages) * kStageBytes;
+  auto consume = [&](const unsigned char* st, const ring::Pos& at, float (&acc)[4]) {
+    const int p = at.p0 + warp * kRowsWarp;
     uint32_t w[kRowsWarp];
 #pragma unroll
     for (int r = 0; r < kRowsWarp; ++r)
@@ -265,61 +125,18 @@ qmm_group_norm_ring_kernel(const __nv_bfloat16* __restrict__ x,
             fmaf(xh[r], __uint_as_float((v & 0xF000u) ^ 0x4B008000u) - 8421376.f, ph[j + 1]);
       }
     }
-    float sl[4], sh[4];
-    if constexpr (SCB) {
-      const uint2 a = *reinterpret_cast<const uint2*>(st + kWBytes + lane * 8);
-      const uint2 h = *reinterpret_cast<const uint2*>(st + kWBytes + kCols * 2 + lane * 8);
-      sl[0] = __uint_as_float(a.x << 16), sl[1] = __uint_as_float(a.x & 0xffff0000u);
-      sl[2] = __uint_as_float(a.y << 16), sl[3] = __uint_as_float(a.y & 0xffff0000u);
-      sh[0] = __uint_as_float(h.x << 16), sh[1] = __uint_as_float(h.x & 0xffff0000u);
-      sh[2] = __uint_as_float(h.y << 16), sh[3] = __uint_as_float(h.y & 0xffff0000u);
-    } else {
-      const float4 a = *reinterpret_cast<const float4*>(st + kWBytes + lane * 16);
-      const float4 h = *reinterpret_cast<const float4*>(st + kWBytes + kCols * 4 + lane * 16);
-      sl[0] = a.x, sl[1] = a.y, sl[2] = a.z, sl[3] = a.w;
-      sh[0] = h.x, sh[1] = h.y, sh[2] = h.z, sh[3] = h.w;
-    }
+    float sl[4], shs[4];
+    ring::stage_scales<SCB>(st, sl, shs);
     // the partials hold the exact values times 1 or 256 (lo), 16 or 4096
     // (hi) by the column's byte within its pair: undone on the scale
 #pragma unroll
     for (int j = 0; j < 4; ++j)
-      acc[j] = fmaf(ph[j], sh[j] * (j & 1 ? 1.f / 4096.f : 1.f / 16.f),
+      acc[j] = fmaf(ph[j], shs[j] * (j & 1 ? 1.f / 4096.f : 1.f / 16.f),
                     fmaf(pl[j], sl[j] * (j & 1 ? 1.f / 256.f : 1.f), acc[j]));
-  }
-  if (n > 0) flush(tile);
-  cp_async_wait<0>();
-  // the shared tiles, once the stream is done (no fence stalls the ring):
-  // the last of a tile's blocks to arrive sums their partials in block
-  // order and writes the tile
-  if (shared0 < 0 && shared1 < 0) return;
-  // both shared tiles at once: thread 32 h signals the tile of slot h
-  // (after the barrier that orders the block's stores of part, and a fence),
-  // threads 128 h .. 128 h + 127 sum it where this block came last
-  __syncthreads();
-  __shared__ bool last2[2];
-  if (lane == 0 && warp < 2) {
-    const int t = warp ? shared1 : shared0;
-    bool l = false;
-    if (t >= 0) {
-      __threadfence();
-      l = atomicAdd(counters + t, 1) ==
-          owner((t + 1) * ngs - 1, U, nb) - owner(t * ngs, U, nb);
-      if (l) counters[t] = 0;
-    }
-    last2[warp] = l;
-  }
-  __syncthreads();
-  const int h = tid / kCols, c = tid % kCols;
-  if (h < 2 && last2[h]) {
-    const int t = h ? shared1 : shared0;
-    __threadfence();
-    float v = 0.f;
-    for (int o = owner(t * ngs, U, nb); o <= owner((t + 1) * ngs - 1, U, nb); ++o) {
-      const int os = t == share_start(o, U, nb) / ngs ? 0 : 1;
-      v += __ldcg(part + ((size_t)o * 2 + os) * kCols + c);
-    }
-    if (t * kCols + c < dout_p) out[t * kCols + c] = __float2bfloat16_rn(v);
-  }
+  };
+  ring::stream<A16, SCB ? 2 : 4>(
+      smem, red, qw, sc, maps, part, counters, sh, dout_p, prologue, consume,
+      [&](int col, float v) { out[col] = __float2bfloat16_rn(v); });
 }
 
 template <bool SCB, bool A16>
@@ -331,10 +148,14 @@ cudaError_t launch(const void* x, const void* nw, const void* qw, const void* sc
   const size_t smem = ring_smem(din);
   cudaError_t e = allow_smem(kernel, smem, &granted);
   if (e != cudaSuccess) return e;
+  ring::Maps maps{};
+  if (A16 && (e = ring::encode_maps(&maps, qw, sc, SCB ? 2 : 4, din / 2, dout_p,
+                                    din / 2 / group)) != cudaSuccess)
+    return e;
   kernel<<<blocks, dim3(kLanes, kWarps), smem, stream>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(nw),
       static_cast<const int8_t*>(qw), sc, static_cast<__nv_bfloat16*>(out),
-      static_cast<float*>(part), static_cast<int*>(counters), din, dout_p, group, eps);
+      static_cast<float*>(part), static_cast<int*>(counters), din, dout_p, group, eps, maps);
   return cudaGetLastError();
 }
 
@@ -355,7 +176,7 @@ ITT_EXPORT int qmm_group_norm_ring(const void* x, const void* nw, const void* qw
                                    int blocks, float eps, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int krows = din / 2;
-  if (din <= 0 || din % 2 || group <= 0 || group % kRows || krows % group ||
+  if (din <= 0 || din % 2 || group <= 0 || group % ring::kRows || krows % group ||
       dout_p <= 0 || dout_p % 4 || !part || !counters ||
       ring_smem(din) > (size_t)qmm_detail::kSmemMax)
     return (int)cudaErrorInvalidValue;

@@ -97,11 +97,9 @@ w4a8_quantize_rows(const void* __restrict__ x, int din,
   __syncthreads();
   amax = part[0];
   for (int w = 1; w < kQThreads / 32; ++w) amax = fmaxf(amax, part[w]);
-  const float s = fmaxf(amax, 1e-30f) * (1.0f / 127.0f);
-  for (int k = threadIdx.x; k < din; k += kQThreads) {
-    const float q = rintf(qmm_detail::load_x<XK>(x, xr + k) / s);
-    xq[xr + k] = (int8_t)fminf(fmaxf(q, -127.f), 127.f);
-  }
+  const float s = qmm_detail::w4a8_row_scale(amax);
+  for (int k = threadIdx.x; k < din; k += kQThreads)
+    xq[xr + k] = qmm_detail::w4a8_code(qmm_detail::load_x<XK>(x, xr + k), s);
   if (threadIdx.x == 0) sx[blockIdx.x] = s;
 }
 
@@ -124,12 +122,8 @@ w4a8_norm_quantize_rows(const void* __restrict__ x,
   };
   float amax = 0.f;
   for (int k = tid; k < din; k += nthr) amax = fmaxf(amax, fabsf(xn(k)));
-  amax = qd::block_reduce<true>(amax, part);
-  const float s = fmaxf(amax, 1e-30f) * (1.0f / 127.0f);
-  for (int k = tid; k < din; k += nthr) {
-    const float q = rintf(xn(k) / s);
-    xq[xr + k] = (int8_t)fminf(fmaxf(q, -127.f), 127.f);
-  }
+  const float s = qd::w4a8_row_scale(qd::block_reduce<true>(amax, part));
+  for (int k = tid; k < din; k += nthr) xq[xr + k] = qd::w4a8_code(xn(k), s);
   if (tid == 0) sx[blockIdx.x] = s;
 }
 

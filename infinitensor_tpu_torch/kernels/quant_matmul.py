@@ -1,9 +1,9 @@
 """Fused weight-only dequant + matmul for decode (counterpart of
 infinitensor_tpu/kernels/quant_matmul.py).
 
-Sixteen kernels, CUDA C++; nine over one group-dot body on the CUDA cores
-(csrc/quant_matmul.cuh), six on the tensor cores, one more on the CUDA
-cores for one row:
+Eighteen kernels, CUDA C++; nine over one group-dot body on the CUDA cores
+(csrc/quant_matmul.cuh), six on the tensor cores, three more on the CUDA
+cores for one row over one ring (csrc/ring.cuh):
   csrc/quant_matmul.cu
     qmm_group       <- _kernel_group       (group-partial dots, scale per group)
     qmm_group_norm  <- _kernel_group_norm  (RMSNorm fused ahead of the dots)
@@ -32,12 +32,18 @@ cores for one row:
     qmm_norm_w4a8_mma <- _kernel_group_norm_w4a8 (the RMSNorm folded into
                                             that pre-pass, then that tile)
   csrc/quant_matmul_ring.cu
-    qmm_group_norm_ring <- _kernel_group_norm (one row: a cp.async ring
+    qmm_group_norm_ring <- _kernel_group_norm (one row: an async-copy ring
                                             over a balanced persistent grid,
                                             the norm inside)
+  csrc/quant_matmul_w4a8_ring.cu
+    qmm_w4a8_ring   <- _kernel_group_w4a8  (one row: that ring, the row
+                                            quantized inside, an integer
+                                            dp4a consumer)
+    qmm_norm_w4a8_ring <- _kernel_group_norm_w4a8 (the same, the RMSNorm
+                                            ahead of the quantize)
 
-Six kernels have two forms on the card (qmm_group_norm three), one
-function each:
+Six kernels have two forms on the card (qmm_group_norm, qmm_w4a8 and
+qmm_norm_w4a8 three), one function each:
   qmm_group     a bf16 or f16 x without a norm at MMA_MIN_ROWS rows or
                 more takes qmm_group_mma (group_form);
   qmm_group_norm  a bf16 x at MMA_MIN_ROWS rows or more takes
@@ -46,9 +52,11 @@ function each:
   qmm_group_ln  a bf16 x at MMA_MIN_ROWS rows or more takes
                 qmm_group_ln_mma (ln_form);
   qmm_w4a8      a bf16 or f32 x at W4A8_MMA_MIN_ROWS rows or more takes
-                qmm_w4a8_mma (w4a8_form);
+                qmm_w4a8_mma, one row of it over an int4 weight
+                qmm_w4a8_ring (w4a8_form);
   qmm_norm_w4a8 a bf16 x at W4A8_MMA_MIN_ROWS rows or more takes
-                qmm_norm_w4a8_mma (w4a8_form with norm);
+                qmm_norm_w4a8_mma, one row over an int4 weight
+                qmm_norm_w4a8_ring (w4a8_form with norm);
   qmm_chunk     a bf16 x at CHUNK_MMA_MIN_ROWS rows or more, at a group
                 that is a multiple of 64, takes qmm_chunk_mma (chunk_form);
 any other launch takes the CUDA-core form. The thresholds are where the
@@ -56,8 +64,8 @@ two forms' times cross on the card (chip_smoke.py phase 3, PERF.md).
 launches[name] counts every form of a kernel and launches[name + "_mma"]
 the tensor-core one again (qmm_group_ln_mma for qmm_group_ln,
 qmm_group_norm_mma for qmm_group_norm, qmm_norm_w4a8_mma for
-qmm_norm_w4a8, qmm_chunk_mma for qmm_chunk), launches["qmm_group_norm_ring"]
-the one-row ring form.
+qmm_norm_w4a8, qmm_chunk_mma for qmm_chunk), launches[name + "_ring"] the
+one-row ring form (qmm_group_norm_ring, qmm_w4a8_ring, qmm_norm_w4a8_ring).
 
 A CUDA-core launch of qmm_group, qmm_slab or qmm_chunk without a fused
 RMSNorm, or of qmm_group_ln, whose grid is short (wo and w_down at one
@@ -154,7 +162,7 @@ W4A8_MMA_MIN_ROWS = 3
 # row, the tensor cores ahead from two; PERF.md).
 CHUNK_MMA_MIN_ROWS = 2
 SPLIT_MAX = 8                   # blocks a tile of the split form
-RING_COLS = 128                 # qmm_group_norm_ring: output columns a tile
+RING_COLS = 128                 # the ring forms: output columns a tile
 RING_BLOCKS_PER_SM = 1          # ... its persistent grid
 _SPLITS = None                  # when set, the split count of every launch
 #                                 of the four kernels (1: the unsplit form)
@@ -522,6 +530,15 @@ def _lib_ring() -> ctypes.CDLL:
 
 
 @functools.cache
+def _lib_w4a8_ring() -> ctypes.CDLL:
+    P, I, F = _build.P, _build.I, _build.F
+    return _build.typed(
+        "quant_matmul_w4a8_ring",
+        qmm_w4a8_ring=[P, I, P, P, I, P, P, P, I, I, I, I, P],
+        qmm_norm_w4a8_ring=[P, P, P, P, I, P, P, P, I, I, I, I, F, P])
+
+
+@functools.cache
 def _lib_chunk() -> ctypes.CDLL:
     P, I = _build.P, _build.I
     return _build.typed(
@@ -581,16 +598,24 @@ def ln_form(rows: int, dtype: torch.dtype) -> str:
         else "cuda_core"
 
 
-def w4a8_form(rows: int, dtype: torch.dtype, norm: bool = False) -> str:
+def w4a8_form(rows: int, dtype: torch.dtype, norm: bool = False,
+              bits: int = 4) -> str:
     """Which form a qmm_w4a8 launch on the card takes: "mma" (the int8
     tensor cores, csrc/quant_matmul_w4a8_mma.cu) for a bf16 or f32 x at
-    W4A8_MMA_MIN_ROWS rows or more, else "cuda_core" (csrc/quant_matmul.cu;
-    an f16 x takes qmm_group, route). With norm (qmm_norm_w4a8, whose x is
-    bf16): "mma", the RMSNorm folded into that form's quantize pre-pass,
-    at W4A8_MMA_MIN_ROWS rows or more."""
+    W4A8_MMA_MIN_ROWS rows or more; "ring" (qmm_w4a8_ring,
+    csrc/quant_matmul_w4a8_ring.cu) for one row of it over an int4 weight
+    (the batch-1 decode's lm_head, and every matmul of a layer under the
+    W4A8 knob); else "cuda_core" (csrc/quant_matmul.cu: an int8 weight at
+    one row, and 2 rows; an f16 x takes qmm_group, route). With norm
+    (qmm_norm_w4a8, whose x is bf16) the same rows and weights take
+    "mma", the RMSNorm folded into that form's quantize pre-pass, and
+    "ring", the RMSNorm ahead of the ring's quantize."""
     kinds = (torch.bfloat16,) if norm else (torch.bfloat16, torch.float32)
-    return "mma" if dtype in kinds and rows >= W4A8_MMA_MIN_ROWS \
-        else "cuda_core"
+    if dtype not in kinds:
+        return "cuda_core"
+    if rows >= W4A8_MMA_MIN_ROWS:
+        return "mma"
+    return "ring" if rows == 1 and bits == 4 else "cuda_core"
 
 
 MMA_COLS = 128                  # output columns of a block (kBN)
@@ -631,7 +656,8 @@ def mma_plan(rows: int, dout_p: int, krows: int, group: int, sms: int
 
 
 def ring_plan(dout_p: int, krows: int, group: int, sms: int) -> list:
-    """The stream-K plan of qmm_group_norm_ring: its units, (128-column
+    """The stream-K plan of the ring forms (qmm_group_norm_ring,
+    qmm_w4a8_ring, qmm_norm_w4a8_ring; csrc/ring.cuh): its units, (128-column
     tile t, packed scale group c) flattened t-major as t * (krows // group)
     + c, split into one contiguous share [start, end) a block, block b of
     n taking [b U / n, (b + 1) U / n) of the U units (the kernel derives
@@ -806,10 +832,20 @@ def _launch_group_norm_mma(x2, norm_w, q, eps: float,
     return out
 
 
+def _ring_scratch(x2, q) -> tuple:
+    """(blocks, part, counters) of a ring launch on this card: ring_plan's
+    persistent grid, its f32 partials [blocks, 2, RING_COLS] for the tiles
+    blocks share, and the tile counters of _counters (one a tile)."""
+    dout_p = q.out_physical
+    blocks = len(ring_plan(dout_p, _packed_rows(q), q.group_size,
+                           _build.sms(x2.device.index or 0)))
+    part = torch.empty(blocks, 2, RING_COLS, dtype=torch.float32,
+                       device=x2.device)
+    return blocks, part, _counters(x2.device, -(-dout_p // RING_COLS))
+
+
 def _launch_group_norm_ring(x2, norm_w, q, eps: float) -> torch.Tensor:
-    """qmm_group_norm's one-row form: ring_plan's persistent grid, its f32
-    partials [blocks, 2, RING_COLS] for the tiles blocks share, and the
-    tile counters of _counters."""
+    """qmm_group_norm's one-row form over _ring_scratch's grid."""
     if norm_w is None or x2.shape[0] != 1 or x2.dtype != torch.bfloat16 \
             or q.bits != 4 or q.paired or norm_w.dtype != torch.bfloat16:
         raise ValueError(
@@ -818,17 +854,13 @@ def _launch_group_norm_ring(x2, norm_w, q, eps: float) -> torch.Tensor:
             f"{x2.dtype}, int{q.bits}{' paired' if q.paired else ''}")
     if norm_w.device != x2.device or not norm_w.is_contiguous():
         raise ValueError(f"norm_w must be contiguous on {x2.device}")
-    dout_p, krows = q.out_physical, _packed_rows(q)
-    blocks = len(ring_plan(dout_p, krows, q.group_size,
-                           _build.sms(x2.device.index or 0)))
-    part = torch.empty(blocks, 2, RING_COLS, dtype=torch.float32,
-                       device=x2.device)
-    counters = _counters(x2.device, -(-dout_p // RING_COLS))
+    blocks, part, counters = _ring_scratch(x2, q)
     out, lib, p = _out(x2, q), _lib_ring(), _build.ptr
     err = lib.qmm_group_norm_ring(
         p(x2), p(norm_w), p(q.qweight), p(q.scales),
         q.scales.dtype == torch.bfloat16, p(out), p(part), p(counters),
-        x2.shape[1], dout_p, q.group_size, blocks, eps, _build.stream())
+        x2.shape[1], q.out_physical, q.group_size, blocks, eps,
+        _build.stream())
     _launched(lib, err, "qmm_group_norm", out)
     launches["qmm_group_norm_ring"] += 1
     return out
@@ -899,11 +931,14 @@ def _launch_group_ln_mma(x2, gamma, beta, q, bias, eps: float
 def _launch_w4a8(x2, q, norm_w=None, eps: float = 0.0,
                  form: Optional[str] = None) -> torch.Tensor:
     """qmm_w4a8 (qmm_norm_w4a8 with norm_w) in the form w4a8_form chooses
-    (`form` forces "mma" or "cuda_core": tests and chip_smoke.py's
+    (`form` forces "mma", "ring" or "cuda_core": tests and chip_smoke.py's
     side-by-side timing only)."""
     _check_cuda(x2, q)
     norm = norm_w is not None
-    if (form or w4a8_form(x2.shape[0], x2.dtype, norm)) == "mma":
+    form = form or w4a8_form(x2.shape[0], x2.dtype, norm, q.bits)
+    if form == "ring":
+        return _launch_w4a8_ring(x2, q, norm_w, eps)
+    if form == "mma":
         return _launch_w4a8_mma(x2, q, norm_w, eps)
     out, lib, p = _out(x2, q), _lib(), _build.ptr
     shape = (x2.shape[0], x2.shape[1], q.out_physical, q.bits, q.group_size)
@@ -915,6 +950,40 @@ def _launch_w4a8(x2, q, norm_w=None, eps: float = 0.0,
     err = lib.qmm_norm_w4a8(p(x2), p(norm_w), p(q.qweight), p(q.scales),
                             sc_bf16, p(out), *shape, eps, _build.stream())
     return _launched(lib, err, "qmm_norm_w4a8", out)
+
+
+def _launch_w4a8_ring(x2, q, norm_w=None, eps: float = 0.0) -> torch.Tensor:
+    """qmm_w4a8's one-row form (qmm_norm_w4a8_ring with norm_w, a bf16 x)
+    over _ring_scratch's grid: the row quantized inside the kernel, the
+    int8 x int4 dots on the CUDA cores (csrc/quant_matmul_w4a8_ring.cu)."""
+    norm = norm_w is not None
+    name = "qmm_norm_w4a8" if norm else "qmm_w4a8"
+    kinds = (torch.bfloat16,) if norm else (torch.bfloat16, torch.float32)
+    if x2.shape[0] != 1 or x2.dtype not in kinds or q.bits != 4 \
+            or q.paired:
+        raise ValueError(
+            f"{name}_ring takes one {' or '.join(map(str, kinds))} row over "
+            f"an unpaired int4 weight, not {tuple(x2.shape)} {x2.dtype}, "
+            f"int{q.bits}{' paired' if q.paired else ''}")
+    if norm and (norm_w.dtype != torch.bfloat16
+                 or norm_w.device != x2.device
+                 or not norm_w.is_contiguous()):
+        raise ValueError(f"norm_w must be contiguous bf16 on {x2.device}")
+    blocks, part, counters = _ring_scratch(x2, q)
+    out, lib, p = _out(x2, q), _lib_w4a8_ring(), _build.ptr
+    shape = (x2.shape[1], q.out_physical, q.group_size, blocks)
+    sc_bf16 = q.scales.dtype == torch.bfloat16
+    if norm:
+        err = lib.qmm_norm_w4a8_ring(
+            p(x2), p(norm_w), p(q.qweight), p(q.scales), sc_bf16, p(out),
+            p(part), p(counters), *shape, eps, _build.stream())
+    else:
+        err = lib.qmm_w4a8_ring(
+            p(x2), _x_kind(x2), p(q.qweight), p(q.scales), sc_bf16, p(out),
+            p(part), p(counters), *shape, _build.stream())
+    _launched(lib, err, name, out)
+    launches[name + "_ring"] += 1
+    return out
 
 
 def _launch_w4a8_mma(x2, q, norm_w=None, eps: float = 0.0,

@@ -1975,9 +1975,11 @@ def _norm_w(dev, din, seed=2):
 
 # (din, dout, pad_out, group): a padded dout (3 tiles, 4 groups); columns
 # no multiple of 16 (the 4-byte copies); two ring stages a group; wqkv's
-# din over 8 tiles
+# din over 8 tiles; a partial last tile of 16-byte aligned rows (400
+# columns: the TMA boxes reach past dout_p)
 RING_CASES = [(1024, 300, 128, 128), (1024, 260, 0, 128),
-              (2048, 640, 0, 256), (4096, 1000, 128, 128)]
+              (2048, 640, 0, 256), (4096, 1000, 128, 128),
+              (1024, 400, 0, 128)]
 
 
 @pytest.mark.parametrize("sdt", [torch.bfloat16, torch.float32])
@@ -2008,6 +2010,50 @@ def test_group_norm_ring_kernel(dev, din, dout, pad, group, sdt,
             x, nw, q, 1e-5, "qmm_group_norm", form="ring"))
     torch.cuda.synchronize()
     assert not any(c.any() for _, c in qm._COUNTERS.values())
+
+
+# sha256 (first 16 hex digits) of qmm_group_norm_ring's bf16 output bits on
+# the inputs of test_group_norm_ring_kernel, at 132 and 7 SMs, recorded on
+# an NVIDIA H100 from the kernel's first source (cp.async copies, before
+# the grid, copies and merge moved to csrc/ring.cuh and took TMA copies):
+# (din, dout, pad, group, scales, SMs) -> digest
+RING_BITS = {
+    (1024, 300, 128, 128, "bf16", 132): "9bab3a8f33414dce",
+    (1024, 300, 128, 128, "bf16", 7): "a487ee39ee9f5a3a",
+    (1024, 300, 128, 128, "f32", 132): "4731c1f9f8fea715",
+    (1024, 300, 128, 128, "f32", 7): "4731c1f9f8fea715",
+    (1024, 260, 0, 128, "bf16", 132): "4697f6166bea6783",
+    (1024, 260, 0, 128, "f32", 7): "267e42163a66bbab",
+    (2048, 640, 0, 256, "bf16", 132): "fde2f32a646723cf",
+    (2048, 640, 0, 256, "f32", 132): "d2927127e20a37b1",
+    (2048, 640, 0, 256, "f32", 7): "8f5bbcded1bb28bf",
+    (4096, 1000, 128, 128, "bf16", 7): "c42931a55a666e0a",
+    (4096, 1000, 128, 128, "f32", 132): "00affb3cc72529d9",
+    (4096, 12288, 0, 128, "bf16", 132): "d0cb634740f99d61",
+    (4096, 12288, 0, 128, "bf16", 7): "e7771d9ad08584f1",
+    (4096, 12288, 0, 128, "f32", 132): "3c64d69697ee9928",
+    (4096, 22528, 0, 128, "bf16", 132): "0aeb3507f3e11d5c",
+    (4096, 22528, 0, 128, "bf16", 7): "2a92585e122f9e2b",
+    (4096, 22528, 0, 128, "f32", 7): "eec207b061e290ac",
+}
+
+
+@pytest.mark.parametrize("case", sorted(RING_BITS))
+def test_group_norm_ring_bits_unchanged(dev, case, monkeypatch):
+    """qmm_group_norm_ring's outputs are those of its first source bit for
+    bit (RING_BITS): the shared ring header and its TMA copies move the
+    same bytes into the same sums in the same order."""
+    import hashlib
+    din, dout, pad, group, sdt, n_sm = case
+    q = _qlin(dev, din, dout, 4, {"bf16": torch.bfloat16,
+                                  "f32": torch.float32}[sdt],
+              pad_out=pad, group=group)
+    monkeypatch.setattr(_build, "sms", lambda i: n_sm)
+    out = qm._launch_group(_x(dev, 1, din) * 3 + 0.5, _norm_w(dev, din), q,
+                           1e-5, "qmm_group_norm", form="ring")
+    digest = hashlib.sha256(
+        out.cpu().view(torch.int16).numpy().tobytes()).hexdigest()[:16]
+    assert digest == RING_BITS[case]
 
 
 @pytest.mark.parametrize("bits,ring", [(4, True), (8, False)])
@@ -2075,6 +2121,138 @@ def test_group_norm_ring_on_two_streams(dev):
         for j, out in enumerate(outs):
             assert torch.equal(out, want[j % len(xs)])
     assert not any(c.any() for _, c in qm._COUNTERS.values())
+
+
+# -- the W4A8 pair's one-row form (csrc/quant_matmul_w4a8_ring.cu) -----------
+
+# (din, dout, pad_out, group, x): RING_CASES with bf16 and f32 scales
+# beside a bf16 x, an f32 x (qmm_w4a8 only) and the RMSNorm ahead; w_down's
+# 43 groups (11008 in) over a partial last tile
+W4A8_RING_CASES = [(*c, xk) for c in RING_CASES for xk in ("bf16", "norm")] \
+    + [(1024, 260, 0, 128, "f32"), (2048, 640, 0, 256, "f32"),
+       (11008, 1000, 0, 128, "norm"), (11008, 1000, 0, 128, "bf16")]
+
+
+def _w4a8_ring_inputs(dev, din, dout, pad, group, xk, sdt):
+    q = _qlin(dev, din, dout, 4, sdt, pad_out=pad, group=group)
+    x = _x(dev, 1, din) * 3 + 0.5
+    if xk == "f32":
+        x = x.float() * 1.3
+    nw = _norm_w(dev, din) if xk == "norm" else None
+    want = qm.qmm_w4a8_plain(x, q) if nw is None \
+        else qm.qmm_norm_w4a8_plain(x, nw, q, 1e-5)
+    return q, x, nw, want
+
+
+@pytest.mark.parametrize("sdt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("din,dout,pad,group,xk", W4A8_RING_CASES)
+def test_w4a8_ring_kernel(dev, din, dout, pad, group, xk, sdt, monkeypatch):
+    """qmm_w4a8's and qmm_norm_w4a8's one-row form against the plain
+    version and the CUDA-core form, each within one bf16 ulp at max|plain|,
+    in x's type, at the card's SM count and at SM counts that share the
+    tiles out otherwise (1, 3, 7), bit for bit across two launches, the
+    tile counters zero after; counted under the kernel and its _ring
+    name, not under the other forms."""
+    q, x, nw, want = _w4a8_ring_inputs(dev, din, dout, pad, group, xk, sdt)
+    name = "qmm_norm_w4a8" if nw is not None else "qmm_w4a8"
+    old = qm._launch_w4a8(x, q, nw, 1e-5, form="cuda_core")
+    for n_sm in (_build.sms(0), 1, 3, 7):
+        monkeypatch.setattr(_build, "sms", lambda i, n=n_sm: n)
+        before = dict(qm.launches)
+        got = qm._launch_w4a8(x, q, nw, 1e-5, form="ring")
+        assert qm.launches[name] == before.get(name, 0) + 1
+        assert qm.launches[name + "_ring"] == \
+            before.get(name + "_ring", 0) + 1
+        assert qm.launches[name + "_mma"] == before.get(name + "_mma", 0)
+        assert got.shape == want.shape and got.dtype == x.dtype
+        _within_bf16_ulp(got, want)
+        _within_bf16_ulp(got, old)
+        assert torch.equal(got, qm._launch_w4a8(x, q, nw, 1e-5, form="ring"))
+    torch.cuda.synchronize()
+    assert not any(c.any() for _, c in qm._COUNTERS.values())
+
+
+@pytest.mark.parametrize("bits,ring", [(4, True), (8, False)])
+def test_w4a8_ring_route(dev, bits, ring, knobs):
+    """quant_matmul under "w4a8" and quant_matmul_norm under the W4A8 knob
+    take the ring form at one row of a bf16 (and, without the norm, f32) x
+    over an int4 weight, the CUDA-core form over an int8 one and at two
+    rows, the tensor-core form from W4A8_MMA_MIN_ROWS rows."""
+    q = _qlin(dev, 1024, 384, bits, torch.bfloat16)
+    nw = _norm_w(dev, 1024)
+    knobs(variant="w4a8")
+    for rows in (1, 2, qm.W4A8_MMA_MIN_ROWS):
+        for xdt, norm in ((torch.bfloat16, False), (torch.float32, False),
+                          (torch.bfloat16, True)):
+            x = (_x(dev, rows, 1024) * 2).to(xdt)
+            name = "qmm_norm_w4a8" if norm else "qmm_w4a8"
+            before = dict(qm.launches)
+            if norm:
+                got = qm.quant_matmul_norm(x, nw, q)
+                want = qm.qmm_norm_w4a8_plain(x, nw, q, 1e-5)
+            else:
+                got = qm.quant_matmul(x, q)
+                want = qm.qmm_w4a8_plain(x, q)
+            _within_bf16_ulp(got, want)
+            assert qm.launches[name] == before.get(name, 0) + 1
+            assert qm.launches[name + "_ring"] == \
+                before.get(name + "_ring", 0) + (ring and rows == 1)
+            assert qm.launches[name + "_mma"] == before.get(
+                name + "_mma", 0) + (rows >= qm.W4A8_MMA_MIN_ROWS)
+
+
+def test_w4a8_ring_in_a_cuda_graph(dev):
+    """Both ring forms captured in one CUDA graph (wo's 4096 -> 4096 and
+    w_gateup's 4096 -> 11264 halves: tiles shared by blocks): replays with
+    new x equal the eager launches bit for bit, within one bf16 ulp of the
+    plain versions, and the tile counters stay zero between launches."""
+    q1 = _qlin(dev, 4096, 4096, 4, torch.bfloat16)
+    q2 = _qlin(dev, 4096, 11264, 4, torch.bfloat16, seed=3)
+    x = _x(dev, 1, 4096) * 3
+    nw = _norm_w(dev, 4096, seed=4)
+
+    def call():
+        return (qm._launch_w4a8(x, q1), qm._launch_w4a8(x, q2, nw, 1e-5))
+
+    call()                                 # build, load, counters outside
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = dict(qm.launches)
+    with torch.cuda.graph(graph):
+        out = call()
+    for name in ("qmm_w4a8_ring", "qmm_norm_w4a8_ring"):
+        assert qm.launches[name] == before.get(name, 0) + 1
+    for seed in (3, 4, 5):
+        x.copy_(_x(dev, 1, 4096, seed=seed) * 3)
+        graph.replay()
+        torch.cuda.synchronize()
+        _within_bf16_ulp(out[0], qm.qmm_w4a8_plain(x, q1))
+        _within_bf16_ulp(out[1], qm.qmm_norm_w4a8_plain(x, nw, q2, 1e-5))
+        for got, want in zip(out, call()):
+            assert torch.equal(got, want)
+    torch.cuda.synchronize()
+    assert not any(c.any() for _, c in qm._COUNTERS.values())
+
+
+def test_w4a8_ring_refuses_what_it_does_not_take(dev):
+    """A forced ring form the inputs do not take raises, before the launch
+    (two rows, an int8 weight, an f32 x with the norm) or from it (a group
+    of 64 packed rows): no path falls back to another form."""
+    x = _x(dev, 2, 1024)
+    q = _qlin(dev, 1024, 384, 4, torch.bfloat16)
+    nw = _norm_w(dev, 1024)
+    before = dict(qm.launches)
+    with pytest.raises(ValueError, match="one"):
+        qm._launch_w4a8(x, q, form="ring")
+    with pytest.raises(ValueError, match="int4"):
+        qm._launch_w4a8(x[:1], _qlin(dev, 1024, 384, 8, torch.bfloat16),
+                        form="ring")
+    with pytest.raises(ValueError, match="one"):
+        qm._launch_w4a8(x[:1].float(), q, nw, 1e-5, form="ring")
+    with pytest.raises(RuntimeError, match="launch failed"):
+        qm._launch_w4a8(x[:1], _qlin(dev, 1024, 384, 4, torch.bfloat16,
+                                     group=64), form="ring")
+    assert dict(qm.launches) == before
 
 
 # -- the graph corpus on the card --------------------------------------------

@@ -84,7 +84,8 @@ def test_kernel_sources_shipped():
     assert {p.name for p in csrc.glob("*.cu")} == {
         "quant_matmul.cu", "quant_matmul_fused.cu", "quant_matmul_chunk.cu",
         "quant_matmul_mma.cu", "quant_matmul_w4a8_mma.cu",
-        "quant_matmul_ring.cu", "flash_decode.cu", "paged_flash_decode.cu",
+        "quant_matmul_ring.cu", "quant_matmul_w4a8_ring.cu",
+        "flash_decode.cu", "paged_flash_decode.cu",
         "paged_flash_decode_ring.cu", "flash_attention.cu", "rmsnorm.cu",
         "band.cu"}
     # the bodies the decode-attention and the group-dot kernels share, and
@@ -94,6 +95,7 @@ def test_kernel_sources_shipped():
     assert (csrc / "flash_attention_any.cuh").exists()
     assert (csrc / "quant_matmul.cuh").exists()
     assert (csrc / "mma_tile.cuh").exists()
+    assert (csrc / "ring.cuh").exists()
     # the port's own copy of the tuning table: the keys and columns of the
     # JAX package's (docs/qmm_tune.json), read without that package
     table = json.loads((PKG / "kernels" / "qmm_tune.json").read_text())

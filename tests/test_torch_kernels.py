@@ -781,11 +781,14 @@ def test_group_form_one_row_ring(rows, dtype, norm, bits, form):
     assert tqm.group_form(rows, dtype, norm, bits) == form
 
 
-# The ring form's stream-K plan: the main path's wqkv (96 tiles) and
+# The ring forms' stream-K plan: the main path's wqkv (96 tiles) and
 # w_gateup (176 tiles) at Llama-2-7B width, a dout of 260 (a partial last
-# tile), few groups (2), one tile, two ring stages a group (group 256).
+# tile), few groups (2), one tile, two ring stages a group (group 256);
+# the W4A8 ring's wo (32 tiles), w_down (5504 packed rows: 43 groups) and
+# lm_head (250 tiles).
 RING_SHAPES = [(12288, 2048, 128), (22528, 2048, 128), (260, 512, 128),
-               (1024, 256, 128), (128, 2048, 128), (4096, 2048, 256)]
+               (1024, 256, 128), (128, 2048, 128), (4096, 2048, 256),
+               (4096, 2048, 128), (4096, 5504, 128), (32000, 2048, 128)]
 
 
 @pytest.mark.parametrize("sms", [132, 7, 1])
@@ -813,14 +816,17 @@ def test_ring_plan(dout_p, krows, group, sms):
 
 
 class _FakeRingLib:
-    """Records the arguments of a qmm_group_norm_ring launch."""
+    """Records the arguments of a ring launch (qmm_group_norm_ring,
+    qmm_w4a8_ring, qmm_norm_w4a8_ring)."""
 
     def __init__(self):
         self.calls = []
 
-    def qmm_group_norm_ring(self, *args):
+    def _record(self, *args):
         self.calls.append(args)
         return 0
+
+    qmm_group_norm_ring = qmm_w4a8_ring = qmm_norm_w4a8_ring = _record
 
 
 @pytest.mark.parametrize("sdt", [torch.bfloat16, torch.float32])
@@ -860,6 +866,167 @@ def test_group_norm_ring_launch_takes_the_plan(sdt, monkeypatch):
         before.get("qmm_group_norm", 0) + 1
     assert tqm.launches["qmm_group_norm_ring"] == \
         before.get("qmm_group_norm_ring", 0) + 1
+
+
+@pytest.mark.parametrize("sdt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("norm,xdt", [(False, torch.bfloat16),
+                                      (False, torch.float32),
+                                      (True, torch.bfloat16)])
+def test_w4a8_ring_launch_takes_the_plan(norm, xdt, sdt, monkeypatch):
+    """The ring launch of qmm_w4a8 (qmm_norm_w4a8 with a norm weight, a
+    bf16 x) at one row over an int4 weight passes ring_plan's block count
+    (132 SMs), f32 partials [blocks, 2, RING_COLS] and the tile counters
+    (one a 128-column tile), writes x's type and counts itself under
+    qmm_w4a8 and qmm_w4a8_ring (qmm_norm_w4a8, qmm_norm_w4a8_ring). Read
+    through a stand-in for the library: the arguments, not the kernel."""
+    lib = _FakeRingLib()
+    monkeypatch.setattr(tqm, "_lib_w4a8_ring", lambda: lib)
+    monkeypatch.setattr(tqm._build, "sms", lambda index: 132)
+    monkeypatch.setattr(tqm._build, "stream", lambda: None)
+    need = []
+    counters = torch.zeros(4096, dtype=torch.int32)
+    monkeypatch.setattr(tqm, "_counters",
+                        lambda device, n: need.append(n) or counters)
+    rng = np.random.default_rng(8)
+    q = quantize_weight(jnp.asarray(rng.standard_normal((2048, 4000)),
+                                    jnp.float32), bits=4, group_size=128,
+                        pad_out=128)
+    q = _port_q(q)
+    q = dataclasses.replace(q, scales=q.scales.to(sdt))
+    x = torch.from_numpy(rng.standard_normal((1, 2048))).to(xdt)
+    nw = torch.ones(2048, dtype=torch.bfloat16) if norm else None
+    name = "qmm_norm_w4a8" if norm else "qmm_w4a8"
+    before = dict(tqm.launches)
+    out = tqm._launch_w4a8(x, q, nw, 1e-5)
+    (args,) = lib.calls
+    plan = tqm.ring_plan(4096, 1024, 128, 132)      # 32 tiles x 8 groups
+    assert len(plan) == 132 and args[11] == len(plan)
+    assert args[4] == (sdt == torch.bfloat16)
+    assert args[8:11] == (2048, 4096, 128)          # din, dout_p, group
+    assert (args[1].value if norm else args[1]) == \
+        (nw.data_ptr() if norm else tqm.X_KINDS[xdt])
+    assert tuple(tqm._build.ptr(t).value for t in (x, q.qweight, q.scales)) \
+        == (args[0].value, args[2].value, args[3].value)
+    assert need == [4096 // tqm.RING_COLS]
+    assert args[7].value == counters.data_ptr()
+    assert out.shape == (1, 4096) and out.dtype == xdt
+    assert tqm.launches[name] == before.get(name, 0) + 1
+    assert tqm.launches[name + "_ring"] == before.get(name + "_ring", 0) + 1
+    assert not any(tqm.launches[k] != before.get(k, 0) for k in (
+        "qmm_w4a8_mma", "qmm_norm_w4a8_mma", "qmm_group_norm_ring"))
+
+
+def _w4a8_ring_emulated(x2, q, sms, norm_w=None, eps=1e-5):
+    """The arithmetic of qmm_w4a8_ring (qmm_norm_w4a8_ring with norm_w),
+    step by step in torch for one row: the row normalized and quantized
+    (rmsnorm_bf16, quantize_rows_i8); ring_plan's shares of (tile, group)
+    units; in each unit each of the 16 warps' exact integer partials over
+    its 8 packed rows of every stage of the group (lo + 8 and 16 hi times
+    xq, and sum(xq_lo)), folded once in f32 with the group's scales,
+    (il - 8 sxl) s_lo + ih (s_hi / 16), into the warp's column sums; a
+    tile's 16 warp sums added in warp order at the end of the block's run
+    of it; a tile within one share written at once, a shared one's
+    partials added in block order; each times sx, rounded to x's dtype."""
+    xn = x2 if norm_w is None else tqm.rmsnorm_bf16(x2, norm_w, eps)
+    xq, sx = tqm.quantize_rows_i8(xn)
+    xq, sx = xq[0].long(), sx[0, 0]
+    g, kr = q.group_size, q.qweight.shape[0]
+    dout_p, ngs, cols = q.out_physical, kr // g, tqm.RING_COLS
+    tiles = -(-dout_p // cols)
+    u = torch.zeros(kr, tiles * cols, dtype=torch.long)
+    u[:, :dout_p] = q.qweight.long()
+    sc = torch.zeros(2 * ngs, tiles * cols)
+    sc[:, :dout_p] = q.scales.float()
+    lo, hi = u & 15, u & -16                      # lo + 8, 16 hi
+    sum_of = {}                                   # (block, tile) -> sums
+    plan = tqm.ring_plan(dout_p, kr, g, sms)
+    for b, (start, end) in enumerate(plan):
+        for unit in range(start, end):
+            t, c = divmod(unit, ngs)
+            rows, cs = slice(c * g, (c + 1) * g), slice(t * cols,
+                                                        (t + 1) * cols)
+            # packed row c g + 128 k + 8 w + r of the group: warp w
+            xl = xq[rows].reshape(g // 128, 16, 8)
+            xh = xq[kr:][rows].reshape(g // 128, 16, 8)
+            il = torch.einsum("kwr,kwrn->wn", xl,
+                              lo[rows, cs].reshape(g // 128, 16, 8, cols))
+            ih = torch.einsum("kwr,kwrn->wn", xh,
+                              hi[rows, cs].reshape(g // 128, 16, 8, cols))
+            sxl = xl.sum((0, 2))[:, None]
+            fold = (il - 8 * sxl).float() * sc[c, cs] \
+                + ih.float() * (sc[ngs + c, cs] * 0.0625)
+            acc = sum_of.setdefault((b, t), torch.zeros(16, cols))
+            acc += fold
+    out = torch.zeros(tiles * cols)
+    for t in range(tiles):
+        blocks = sorted(b for b, t2 in sum_of if t2 == t)
+        v = torch.zeros(cols)
+        for b in blocks:                          # block order
+            s = torch.zeros(cols)
+            for w in range(16):                   # warp order
+                s = s + sum_of[(b, t)][w]
+            v = s if len(blocks) == 1 else v + s
+        out[t * cols:(t + 1) * cols] = v * sx
+    return out[:dout_p].to(x2.dtype)[None]
+
+
+@pytest.mark.parametrize("sms", [7, 4, 1])
+@pytest.mark.parametrize("pad", [0, 128])
+@pytest.mark.parametrize("sdt,xdt", [(jnp.bfloat16, jnp.bfloat16),
+                                     (jnp.float32, jnp.float32),
+                                     (jnp.float32, jnp.bfloat16)])
+def test_w4a8_ring_arithmetic_vs_jax(sdt, xdt, pad, sms):
+    """The ring's arithmetic (_w4a8_ring_emulated) at din 512 (two groups
+    of 128 packed rows), dout 260 (a partial last tile; padded to 384 with
+    pad 128) over 7, 4 and 1 SMs (every tile shared by two blocks; shares
+    over tile edges; one block holds all): within one bf16 ulp at max|ref|
+    (OUT_TOL; f32 1e-5) of qmm_w4a8_plain, of the JAX package's
+    quant_matmul_w4a8_ref and, where the padded dout has 128-column tiles,
+    of its interpreted W4A8 kernel."""
+    rng = np.random.default_rng(110 + pad + sms)
+    w = rng.standard_normal((512, 260)).astype(np.float32)
+    q = quantize_weight(jnp.asarray(w), bits=4, group_size=128, pad_out=pad)
+    q = JQ(q.qweight, q.scales.astype(sdt), q.bits, q.group_size,
+           q.out_logical)
+    x = jnp.asarray(rng.standard_normal((1, 512)) * 2.0, xdt)
+    tq = _port_q(q)
+    got = _w4a8_ring_emulated(_t(x), tq, sms)[:, :260]
+    tol = OUT_TOL if xdt == jnp.bfloat16 else 1e-5
+    _close(got, tqm.qmm_w4a8_plain(_t(x), tq)[:, :260], tol)
+    _close(got, qm.quant_matmul_w4a8_ref(x, q), tol)
+    if pad:
+        _close(got, qm.quant_matmul(x, q, interpret=True, variant="w4a8"),
+               tol)
+
+
+@pytest.mark.parametrize("sms", [7, 1])
+@pytest.mark.parametrize("group,din", [(128, 512), (256, 1024)])
+def test_norm_w4a8_ring_arithmetic_vs_jax(group, din, sms, knobs):
+    """The ring's arithmetic with the RMSNorm ahead (bf16 x), one and two
+    ring stages a group, dout 260 padded to 384: within one bf16 ulp at
+    max|ref| of qmm_norm_w4a8_plain and of the JAX package's composition
+    (its RMSNorm, then its interpreted W4A8 kernel), within W4A8_FUSED_TOL
+    of its interpreted fused kernel (test_norm_w4a8_matmul_plain_vs_pallas
+    says why)."""
+    import jax
+    rng = np.random.default_rng(120 + group + sms)
+    w = rng.standard_normal((din, 260)).astype(np.float32)
+    q = quantize_weight(jnp.asarray(w), bits=4, group_size=group,
+                        pad_out=128)
+    q = JQ(q.qweight, q.scales.astype(jnp.bfloat16), q.bits, q.group_size,
+           q.out_logical)
+    x = jnp.asarray(rng.standard_normal((1, din)) * 3.0, jnp.bfloat16)
+    nw = jnp.asarray(rng.uniform(0.5, 1.5, (din,)), jnp.bfloat16)
+    tq = _port_q(q)
+    got = _w4a8_ring_emulated(_t(x), tq, sms, _t(nw))[:, :260]
+    _close(got, tqm.qmm_norm_w4a8_plain(_t(x), _t(nw), tq, 1e-5)[:, :260])
+    knobs(variant="w4a8")
+    x32 = x.astype(jnp.float32)
+    ms = jnp.mean(jnp.square(x32), axis=-1, keepdims=True)
+    xn = (x32 * jax.lax.rsqrt(ms + 1e-5)).astype(jnp.bfloat16) * nw
+    _close(got, qm.quant_matmul(xn, q, interpret=True, variant="w4a8"))
+    _close(got, qm.quant_matmul_norm(x, nw, q, eps=1e-5, interpret=True),
+           W4A8_FUSED_TOL)
 
 
 @pytest.mark.parametrize("rows", [1, 8, 9, 33, 64, 100, 256])
@@ -903,15 +1070,22 @@ def test_mma_plan(rows, dout_p, krows, group):
 ])
 @pytest.mark.parametrize("bits", [4, 8])
 def test_w4a8_form(rows, dtype, norm, form, bits):
-    """The form a qmm_w4a8 launch on the card takes: the int8 tensor
-    cores for a bf16 or f32 x from W4A8_MMA_MIN_ROWS rows (at least 2, so
-    the batch-1 decode and the W4A8 knob's 1-row launches keep the
-    CUDA-core form), for int4 and int8 weights alike; an f16 x never
-    reaches qmm_w4a8 (route sends it to qmm_group). With the RMSNorm
+    """The form a qmm_w4a8 launch on the card takes (`form`: over an int8
+    weight): the int8 tensor cores for a bf16 or f32 x from
+    W4A8_MMA_MIN_ROWS rows (at least 2), for int4 and int8 weights alike;
+    at one row of a bf16 or f32 x over an int4 weight the ring form (the
+    batch-1 decode's lm_head and the W4A8 knob's 1-row launches), over an
+    int8 one the CUDA-core form, as at 2 rows; an f16 x never reaches
+    qmm_w4a8 (route sends it to qmm_group). With the RMSNorm
     (qmm_norm_w4a8, which quant_matmul_norm gives a bf16 x only) the same
-    rows take the RMSNorm quantize pre-pass and that tile."""
+    rows and weights take the RMSNorm quantize pre-pass and that tile, and
+    the ring with the RMSNorm ahead of its quantize."""
     assert 2 <= tqm.W4A8_MMA_MIN_ROWS <= tqm.KERNEL_MAX_ROWS
-    assert tqm.w4a8_form(rows, dtype, norm) == form
+    kinds = (torch.bfloat16,) if norm else (torch.bfloat16, torch.float32)
+    if bits == 4 and rows == 1 and dtype in kinds:
+        assert form == "cuda_core"
+        form = "ring"
+    assert tqm.w4a8_form(rows, dtype, norm, bits) == form
     if norm:
         return
     q = _fake(4096, 32000, bits=bits)
