@@ -53,7 +53,16 @@ Phases, each failing with a nonzero exit, each printing its seconds:
      each beside its CUDA-core form, forced (which keeps rows of its own),
      within one bf16 ulp at max|plain| of the plain version and of that
      form, both also back to back in one CUDA graph (the lm_head 8 times
-     over its one copy); the
+     over its one copy); qmm_slab_norm at one row in its ring form
+     (qmm_slab_norm_ring, csrc/quant_matmul_ring.cu: the same ring with
+     one scale row a stage) on phase 8's paired wqkv and w_gateup, and
+     qmm_group2d at one row in its ring form (qmm_group2d_ring, one
+     launch) on wo and w_down under phase 11's table, each beside its old
+     form, forced (the CUDA-core body; the two-launch split and its
+     splitk_sum), which keeps a row of its own, within one bf16 ulp of
+     the plain version and of that form, both also back to back over the
+     32 layers' copies in one CUDA graph, and qmm_group2d_ring with an f16
+     and an f32 x (one f16 ulp, 1e-5 of max|plain|); the
      dense decode attention
      (flash_decode, flash_decode_q8) in the split form its wrappers take
      at batch 1 beside the forced unsplit form, the split form's merge
@@ -94,7 +103,7 @@ Phases, each failing with a nonzero exit, each printing its seconds:
      128 greedy steps under a CUDA graph (tokens equal to an eager loop),
      tok/s (min of 3 fresh runs) against the copy-rate roofline, a
      torch.profiler window over one graph run (busy share, kernel ms a
-     token), the same with the decode attention forced unsplit, and each
+     token), and each
      kernel's launch count on that path (no tensor-core form at 1 row;
      qmm_group_norm 64 a token, all of them qmm_group_norm_ring; the
      lm_head's qmm_w4a8 once, in its ring form;
@@ -175,17 +184,19 @@ Phases, each failing with a nonzero exit, each printing its seconds:
      graph-replayed steps with tokens equal to an eager loop, tok/s (min
      of 3) against the
      copy-rate roofline with the paired byte count; a token launches
-     qmm_slab_norm 64 times, qmm_slab 65, flash_decode_q8 32 and no
-     qmm_group, qmm_group_norm or qmm_w4a8;
+     qmm_slab_norm 64 times, all of them qmm_slab_norm_ring, qmm_slab 65,
+     flash_decode_q8 32 and no qmm_group, qmm_group_norm or qmm_w4a8; the
+     region read in turns with qmm_slab_norm's CUDA-core form forced
+     (qm.slab_form patched for the capture), its tokens equal up to a
+     printed near-tie;
   9. the same decode with INT4 weights at group 64, the quantization of
      __graft_entry__.entry() at 7B width: every linear takes qmm_chunk
      (wqkv and w_gateup through rmsnorm + quant_matmul), 129 launches a
      token (wqkv, wo and w_down in the K split) and no qmm_group*,
-     qmm_w4a8 or qmm_slab*, and the same region with the split forced
-     off; a seeded 256-token prefill of that model (qmm_chunk_mma 129
-     launches) and the dense ServingEngine's captured step at SLOTS live
-     slots over its weights (INT8 cache; qmm_chunk_mma 129 a step), each
-     read in turns with qmm_chunk's CUDA-core form forced (qm.chunk_form
+     qmm_w4a8 or qmm_slab*; a seeded 256-token prefill of that model
+     (qmm_chunk_mma 129 launches) and the dense ServingEngine's captured
+     step at SLOTS live slots over its weights (INT8 cache; qmm_chunk_mma
+     129 a step), each read in turns with qmm_chunk's CUDA-core form forced (qm.chunk_form
      patched; new, forced, new), the prefill's last logits and 16 greedy
      tokens of the step equal up to a printed near-tie; then the port's
      entry() (infinitensor_tpu_torch/entry.py) once, its launches
@@ -202,8 +213,12 @@ Phases, each failing with a nonzero exit, each printing its seconds:
  11. the group-128 decode with a copy of the port's tuning table whose wo
      and w_down entries read {"variant": "group2d", "bn": 1024, "kb": kb},
      kb chosen so that the split-K grid fills the card's SMs where the
-     packed rows allow it: qmm_group2d 64, qmm_group_norm 64 (the ring
-     form), qmm_w4a8 1 (the ring form).
+     packed rows allow it: qmm_group2d 64, all of them qmm_group2d_ring
+     (one launch each: the profiler window shows no splitk_sum),
+     qmm_group_norm 64 (the ring form), qmm_w4a8 1 (the ring form); the
+     region read in turns with the two-launch split forced
+     (qm.group2d_form patched for the capture), its tokens equal up to a
+     printed near-tie.
  12. the 7B decode of phase 4 built through the graph IR
      (models/graph_llama.py build_llama_decoder, weights bound without a
      copy, GraphExecutor): one eager step launches qmm_group_norm 64 (the
@@ -387,7 +402,12 @@ def cuda_ms(torch, fn, reps, flush=None):
 
 def bf16_ulp(v):
     """One bf16 ulp at v > 0 (8 significant bits)."""
-    return 2.0 ** (math.floor(math.log2(v)) - 7)
+    return ulp_at(v, 8)
+
+
+def ulp_at(v, bits):
+    """One ulp at v > 0 of a float type of `bits` significant bits."""
+    return 2.0 ** (math.floor(math.log2(v)) - bits + 1)
 
 
 def graph_launch_ms(torch, fn, weights):
@@ -499,6 +519,9 @@ def main():
     g64params = build_params(
         torch, cfg, torch.Generator(device=dev).manual_seed(SEED + 9), dev,
         QuantizedLinear, group=64)
+    # phase 8's paired weights, also phase 3's (row 10c back to back)
+    pparams = build_params(torch, cfg, torch.Generator(device=dev).manual_seed(
+        SEED + 8), dev, QuantizedLinear, paired=True)
     envs, kbs = variant_envs(qm, _build, cfg, params)
     report["split_kb"] = kbs
     print(f"# split-K: kb {kbs} (packed rows per block; grid = column "
@@ -710,9 +733,7 @@ def main():
     cases += paged_cases(torch, pa, cfg, gen, dev, randn)
     cases += gpt2_cases(torch, qm, att, gcfg, gparams, gen, dev, randn,
                         dequantize_weight)
-    cases += paired_cases(torch, qm, cfg, build_params(
-        torch, dataclasses.replace(cfg, n_layers=1), gen, dev,
-        QuantizedLinear, paired=True), randn, dequantize_weight)
+    cases += paired_cases(torch, qm, cfg, pparams, randn, dequantize_weight)
     cases += variant_cases(torch, qm, cfg, g64params, params, envs, kbs,
                            randn, dequantize_weight)
     cases += graph_cases(torch, norms, band, fa, cfg, gen, dev, randn)
@@ -820,18 +841,19 @@ def main():
     del gparams
     t_phase = phase(7, t_phase)
 
-    # 8. the 7B decode path with paired scales
-    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
-    pparams = build_params(torch, cfg, gen, dev, QuantizedLinear, paired=True)
+    # 8. the 7B decode path with paired scales: wqkv and w_gateup in
+    # qmm_slab_norm's ring form, read in turns with its CUDA-core form
     L = cfg.n_layers
     paths[PAIRED] = variant_path(
         torch, llama, counters, pparams, cfg, dev, report, steps, PAIRED,
-        {"qmm_slab_norm": 2 * L, "qmm_slab": 2 * L + 1,
+        {"qmm_slab_norm": 2 * L, "qmm_slab_norm_ring": 2 * L,
+         "qmm_slab": 2 * L + 1,
          "qmm_slab_split": L * split_launches(
              qm, (pparams["layers"][0]["wo"], pparams["layers"][0]["w_down"]))
          + split_launches(qm, (pparams["lm_head"],)),
          "flash_decode_q8": L, **merges(cfg, L)},
-        weight_bytes(cfg, paired=True))
+        weight_bytes(cfg, paired=True),
+        ring_form=("slab_form", ("qmm_slab_norm_ring",)))
     del pparams
     t_phase = phase(8, t_phase)
 
@@ -844,7 +866,7 @@ def main():
              qm, [lay64[k] for k in ("wqkv", "wo", "w_gateup", "w_down")])
          + split_launches(qm, (g64params["lm_head"],)),
          "flash_decode_q8": L, **merges(cfg, L)},
-        weight_bytes(cfg, group=64), qm=qm)
+        weight_bytes(cfg, group=64))
     t0 = time.perf_counter()
     paths[G64_PROMPT] = g64_prompt_path(torch, llama, qm, counters,
                                         g64params, cfg, dev, report)
@@ -887,14 +909,21 @@ def main():
         fail(f"the env var overrode the default table: {default_table}")
     t_phase = phase(10, t_phase)
 
-    # 11. split-K wo and w_down from a tuning-table entry
+    # 11. split-K wo and w_down from a tuning-table entry: qmm_group2d in its
+    # ring form (one launch, no splitk_sum), read in turns with the
+    # two-launch split
     with knobs(envs[SPLIT]):
         paths[SPLIT] = variant_path(
             torch, llama, counters, params, cfg, dev, report, steps, SPLIT,
-            {"qmm_group2d": 2 * L, "qmm_group_norm": 2 * L,
+            {"qmm_group2d": 2 * L, "qmm_group2d_ring": 2 * L,
+             "qmm_group_norm": 2 * L,
              "qmm_group_norm_ring": 2 * L, "qmm_w4a8": 1,
              "qmm_w4a8_ring": 1, "flash_decode_q8": L, **merges(cfg, L)},
-            weight_bytes(cfg))
+            weight_bytes(cfg),
+            ring_form=("group2d_form", ("qmm_group2d_ring",)))
+    prof = report[SPLIT.replace(" ", "_")]["device_profile"]
+    if prof and prof["kernel_ms_per_token"].get("qmm_group2d sum"):
+        fail(f"{SPLIT}: the decode graph ran splitk_sum kernels")
     t_phase = phase(11, t_phase)
 
     # 12. the 7B decode built through the graph IR, and its serving adapter
@@ -974,8 +1003,10 @@ def check_and_time(torch, c, counters, flush, bw_copy):
     err = (got.float() - want.float()).abs().max().item()
     ref = want.float().abs().max().item()
     c["max_abs_err"], c["max_abs_ref"] = err, ref
-    # "ulp": one bf16 ulp at max|plain|, else tol of max|plain|
-    tol = bf16_ulp(ref) / ref if c.get("ulp") else c.get("tol", TOL)
+    # "ulp": one ulp at max|plain| of bf16 (True or 8 significant bits) or
+    # f16 (11), else tol of max|plain|
+    tol = ulp_at(ref, 8 if c.get("ulp") is True else c["ulp"]) / ref \
+        if c.get("ulp") else c.get("tol", TOL)
     if not (math.isfinite(err) and err <= tol * ref):
         fail(f"{c['name']} {c['shape']}: max err {err} > {tol} * {ref}")
     c["ms"] = cuda_ms(torch, c["kernel"], 50, flush)
@@ -1294,32 +1325,13 @@ def decode_path(torch, llama, counters, params, cfg, dev, report):
             fail("a timed graph run gave other tokens")
     dt = min(samples)
     prof = graph_profile(torch, g, cache, token, pos)
-    # the same region with the decode attention forced unsplit (its form
-    # before the sequence split), in this call: the split's end-to-end
-    # effect on tok/s and on the kernel ms a token
-    from infinitensor_tpu_torch.kernels import attention as att
-    att._SPLITS = 1
-    try:
-        fresh(cache)
-        g1 = llama.DecodeGraph(params, cfg, token, pos, cache, STEPS)
-        unsplit = []
-        for _ in range(3):
-            fresh(cache)
-            g1.reset(token, pos)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            g1.run()
-            torch.cuda.synchronize()
-            unsplit.append(STEPS / (time.perf_counter() - t0))
-        unsplit_prof = graph_profile(torch, g1, cache, token, pos)
-        del g1
-    finally:
-        att._SPLITS = None
+    # (the decode attention's unsplit form is timed beside the split one
+    # kernel by kernel in phase 3, not as a region here: the run's limit)
     from infinitensor_tpu_torch.kernels import quant_matmul as qm
     unsplit_mm = unsplit_region(torch, llama, qm, params, cfg, token, pos,
                                 cache)
     # the main region again, after the forced forms: the same call read in
-    # turns (split, unsplit attention, unsplit matmuls, split)
+    # turns (split, unsplit matmuls, split)
     unsplit_mm["split_again_tok_s_samples"] = time_graph(torch, g, cache,
                                                          token, pos)
     core_norm = cuda_core_region(torch, llama, qm, params, cfg, token, pos,
@@ -1336,9 +1348,7 @@ def decode_path(torch, llama, counters, params, cfg, dev, report):
         "roofline_tok_s_published": HBM_BYTES_S / bytes_tok,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "launches_main_path": report["launches_main_path"],
-        "launches_per_token": per_token, "device_profile": prof,
-        "unsplit_attention": {"tok_s": max(unsplit), "tok_s_samples": unsplit,
-                              "device_profile": unsplit_prof}}
+        "launches_per_token": per_token, "device_profile": prof}
     report.update(res)
     print("# decode " + json.dumps(res), flush=True)
     return per_token
@@ -1346,13 +1356,14 @@ def decode_path(torch, llama, counters, params, cfg, dev, report):
 
 def cuda_core_region(torch, llama, qm, params, cfg, token, pos, cache, g,
                      toks, form_fn, rings, label):
-    """A decode region (phase 4's, phase 10's) with the CUDA-core forms
-    forced where the route takes a ring form (qm.<form_fn>, group_form or
-    w4a8_form, patched while the step is captured: the forms before the
-    ring), read in turns with the route's graph g (ring, CUDA-core, ring,
-    CUDA-core; 3 runs each), with a profiler window over one run; its
-    STEPS tokens held against g's (toks) up to a printed near-tie. rings:
-    the ring kernels' counters, which the capture must leave alone."""
+    """A decode region (phases 4, 8, 10 and 11) with the old forms forced
+    where the route takes a ring form (qm.<form_fn>: group_form,
+    slab_form, w4a8_form or group2d_form, patched while the step is
+    captured: the forms before the ring, CUDA-core or two-launch), read in
+    turns with the route's graph g (one run each, 6 pairs; the median of
+    the pairs' tok/s ratios); its STEPS tokens held against g's (toks) up
+    to a printed near-tie. rings: the ring kernels' counters, which the
+    capture must leave alone."""
     route = getattr(qm, form_fn)
 
     def forced(*args, **kw):
@@ -1368,10 +1379,15 @@ def cuda_core_region(torch, llama, qm, params, cfg, token, pos, cache, g,
         setattr(qm, form_fn, route)
     if [qm.launches[k] for k in rings] != before:
         fail(f"{label}: the CUDA-core capture launched a ring form")
+    # one run of each in turns, 6 pairs: the card's speed moves between
+    # runs of one graph (PERF.md section 7), so each pair's ratio is read
     samples = {"ring": [], "cuda_core": []}
-    for _ in range(2):
-        samples["ring"] += time_graph(torch, g, cache, token, pos)
-        samples["cuda_core"] += time_graph(torch, g1, cache, token, pos)
+    for _ in range(6):
+        samples["ring"] += time_graph(torch, g, cache, token, pos, runs=1)
+        samples["cuda_core"] += time_graph(torch, g1, cache, token, pos,
+                                           runs=1)
+    ratios = sorted(a / b for a, b in zip(samples["ring"],
+                                          samples["cuda_core"]))
     fresh(cache)
     g1.reset(token, pos)
     old = g1.run()[0].tolist()
@@ -1379,13 +1395,14 @@ def cuda_core_region(torch, llama, qm, params, cfg, token, pos, cache, g,
         f"{label}: ring vs CUDA-core forms", [old],
         [toks[0].tolist()], [[]],
         decode_tie_gap(torch, llama, params, cfg, token, pos, cache))
-    prof = graph_profile(torch, g1, cache, token, pos)
     del g1
     out = {"tok_s": {f: max(v) for f, v in samples.items()},
-           "tok_s_in_turns": samples, "near_ties": ties,
-           "device_profile": prof}
+           "tok_s_in_turns": samples,
+           "ring_over_cuda_core_median": statistics.median(ratios),
+           "near_ties": ties}
     print(f"# {label}, {' and '.join(rings)} vs CUDA-core forms: "
-          f"{json.dumps(out['tok_s'])} tok/s (in turns: "
+          f"{json.dumps(out['tok_s'])} tok/s, ring / old in each pair "
+          f"{[round(r, 4) for r in ratios]} (in turns: "
           f"{json.dumps(samples)})", flush=True)
     return out
 
@@ -1407,10 +1424,10 @@ def decode_tie_gap(torch, llama, params, cfg, token, pos, cache):
     return tie_gap
 
 
-def time_graph(torch, g, cache, token, pos):
-    """tok/s of 3 runs of the DecodeGraph g, each from fresh state."""
+def time_graph(torch, g, cache, token, pos, runs=3):
+    """tok/s of `runs` runs of the DecodeGraph g, each from fresh state."""
     samples = []
-    for _ in range(3):
+    for _ in range(runs):
         fresh(cache)
         g.reset(token, pos)
         torch.cuda.synchronize()
@@ -1422,7 +1439,7 @@ def time_graph(torch, g, cache, token, pos):
 
 
 def unsplit_region(torch, llama, qm, params, cfg, token, pos, cache):
-    """The 128-step graph region of phases 4 and 9 with the matmuls'
+    """The 128-step graph region of phase 4 with the matmuls'
     K split forced off (qm._SPLITS = 1, the form before it): tok/s
     (max of 3 runs) and a profiler window, in the same call as the split
     form's."""
@@ -1444,10 +1461,12 @@ def graph_profile(torch, g, cache, token, pos):
     with its kernel ms per token."""
     fresh(cache)
     g.reset(token, pos)
+    t0 = time.perf_counter()
     prof = device_profile(torch, g.run)
     if prof:
         prof["kernel_ms_per_token"] = {
             k: v / STEPS for k, v in prof.pop("kernel_ms").items()}
+        prof["window_s"] = time.perf_counter() - t0   # host seconds it took
     return prof
 
 
@@ -1635,8 +1654,7 @@ def device_profile(torch, fn):
     it in which some kernel ran, and kernel milliseconds by kind. None
     where the profiler recorded no device event (then: not measured)."""
     from torch.profiler import ProfilerActivity, profile
-    kinds = (("qmm_group_norm_ring_kernel", "qmm_group_norm_ring"),
-             ("qmm_w4a8_ring_kernel", "qmm_w4a8_ring"),
+    kinds = (("qmm_w4a8_ring_kernel", "qmm_w4a8_ring"),
              ("w4a8_quantize_rows", "qmm_w4a8"),
              ("qmm_w4a8_mma_kernel", "qmm_w4a8"),
              ("w4a8_splitk_sum", "qmm_w4a8 sum"),
@@ -1664,15 +1682,20 @@ def device_profile(torch, fn):
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    # the profiler's raw events (prof.events() builds a tree of every event
+    # first: about ten times as long a window)
     spans, by_kind = [], {}
-    for e in prof.events():
-        if "CUDA" not in str(e.device_type):
+    for e in prof.profiler.kineto_results.events():
+        if "CUDA" not in str(e.device_type()):
             continue
-        spans.append((e.time_range.start, e.time_range.end))
-        kind = group_kernel_kind(e.name) or w4a8_kernel_kind(e.name) or next(
-            (k for sub, k in kinds if sub in e.name), "torch ops")
-        by_kind[kind] = by_kind.get(kind, 0.0) \
-            + (e.time_range.end - e.time_range.start) / 1e3
+        start = e.start_ns() / 1e3                     # us
+        end = start + e.duration_ns() / 1e3
+        spans.append((start, end))
+        name = e.name()
+        kind = group_kernel_kind(name) or w4a8_kernel_kind(name) or \
+            ring_kernel_kind(name) or next(
+                (k for sub, k in kinds if sub in name), "torch ops")
+        by_kind[kind] = by_kind.get(kind, 0.0) + (end - start) / 1e3
     if not spans:
         return None
     spans.sort()
@@ -1709,6 +1732,22 @@ def group_kernel_kind(name):
     if paired:
         return "qmm_slab_norm" if pro else "qmm_slab"
     return "qmm_group_norm" if pro else "qmm_group"
+
+
+def ring_kernel_kind(name):
+    """Which wrapper a qmm_ring_kernel<SCB, A16, NORM, PAIRED, XK>
+    instantiation (csrc/quant_matmul_ring.cu) serves: qmm_group_norm_ring
+    with NORM, qmm_slab_norm_ring with NORM and PAIRED, qmm_group2d_ring
+    without NORM; None for any other kernel."""
+    import re
+    b = r"(?:\(bool\))?(true|false|0|1)"
+    m = re.search(rf"qmm_ring_kernel<{b}, {b}, {b}, {b},", name)
+    if not m:
+        return None
+    norm, paired = m.group(3) in ("true", "1"), m.group(4) in ("true", "1")
+    if not norm:
+        return "qmm_group2d_ring"
+    return "qmm_slab_norm_ring" if paired else "qmm_group_norm_ring"
 
 
 def w4a8_kernel_kind(name):
@@ -2243,9 +2282,14 @@ def gpt2_cases(torch, qm, att, gcfg, gparams, gen, dev, randn,
 
 def paired_cases(torch, qm, cfg, pparams, randn, dequantize_weight):
     """Phase 3 rows of the slab kernels at the 7B decode shapes (1 row):
-    qmm_slab_norm for wqkv and w_gateup, qmm_slab for wo, w_down and the
-    lm_head; pparams is a one-layer paired build."""
-    layer0, eps = pparams["layers"][0], cfg.norm_eps
+    qmm_slab_norm for wqkv and w_gateup in its ring form (the route's,
+    row 10c: qmm_slab_norm_ring, beside the CUDA-core form, forced, within
+    one bf16 ulp of it and of the plain version, both also back to back
+    over the 32 layers' copies in one CUDA graph) and in its CUDA-core form
+    (a row of its own: no path takes it at one row), qmm_slab for wo,
+    w_down and the lm_head; pparams is phase 8's paired build."""
+    layers, eps = pparams["layers"], cfg.norm_eps
+    layer0 = layers[0]
 
     def nbytes(*ts):
         return sum(t.numel() * t.element_size() for t in ts)
@@ -2258,17 +2302,33 @@ def paired_cases(torch, qm, cfg, pparams, randn, dequantize_weight):
         x = randn(1, cfg.dim)
         nw = (randn(cfg.dim).float() * 0.1 + 1.0).to(torch.bfloat16)
         xn, w = qm.rmsnorm_bf16(x, nw, eps), dequantize_weight(q)
-        out.append(dict(
-            name="qmm_slab_norm", shape=f"paired {label}", path=PAIRED,
-            replaces=TPU + "quant_matmul.py:208",
-            source=SRC + "quant_matmul_fused.cu",
-            kernel=lambda x=x, nw=nw, q=q: qm.quant_matmul_norm(x, nw, q,
-                                                                eps),
-            plain=lambda x=x, nw=nw, q=q: qm.qmm_slab_plain(
-                qm.rmsnorm_bf16(x, nw, eps), q)[:, :q.out_features],
+        n = q.out_features
+
+        def ring(q, x=x, nw=nw):
+            return qm.quant_matmul_norm(x, nw, q, eps)
+
+        def core(q, x=x, nw=nw, n=n):
+            return qm._launch_slab(x, nw, q, eps, "qmm_slab_norm",
+                                   form="cuda_core")[:, :n]
+
+        row = dict(
+            shape=f"paired {label}", replaces=TPU + "quant_matmul.py:208",
+            plain=lambda x=x, nw=nw, q=q, n=n: qm.qmm_slab_plain(
+                qm.rmsnorm_bf16(x, nw, eps), q)[:, :n],
             library=lambda xn=xn, w=w: torch.matmul(xn, w),
             bytes=nbytes(x, nw, q.qweight, q.scales) + 2 * q.out_physical,
-            ops=2 * cfg.dim * q.out_physical, kind="bf16"))
+            ops=2 * cfg.dim * q.out_physical, kind="bf16", ulp=True)
+        out.append(dict(
+            row, name="qmm_slab_norm_ring", path=PAIRED,
+            source=SRC + "quant_matmul_ring.cu",
+            kernel=lambda q=q, f=ring: f(q),
+            cuda_core=lambda q=q, f=core: f(q),
+            graph_weights=[lay[label] for lay in layers],
+            graph={"ring": ring, "cuda_core": core}))
+        out.append(dict(
+            row, name="qmm_slab_norm", path=NO_PATH,
+            source=SRC + "quant_matmul_fused.cu",
+            kernel=lambda q=q, f=core: f(q)))
     for label, q in (("wo", layer0["wo"]), ("w_down", layer0["w_down"]),
                      ("lm_head", pparams["lm_head"])):
         x = randn(1, q.in_features)
@@ -2879,15 +2939,14 @@ def gpt2_bs1_path(torch, gpt2, qm, counters, gparams, gcfg, dev, report):
 
 
 def variant_path(torch, llama, counters, params, cfg, dev, report, steps,
-                 label, want_step, weight_b, qm=None, ring_form=None):
+                 label, want_step, weight_b, ring_form=None):
     """Phases 8-11: decode_path's checks on other weights or knobs. One
     step must launch exactly want_step; the step of its first CPU_LAYERS
     layers is held against the plain versions on the CPU (under the same
     knobs); 128 graph-replayed steps
     must equal an eager loop; tok/s is the min of 3 graph runs against the
     copy-rate roofline of weight_b + the INT8 cache's bytes per token.
-    With qm, the same region again with the matmuls' K split forced
-    off (qm._SPLITS = 1), in this call; with ring_form (the form function's
+    With ring_form (the form function's
     name, the ring kernels) cuda_core_region, in turns. Returns the launch
     counts of llama_decode_multi; steps[label] gets one decode step's."""
     token = torch.zeros(1, dtype=torch.int32, device=dev)
@@ -2962,11 +3021,6 @@ def variant_path(torch, llama, counters, params, cfg, dev, report, steps,
     # the card's side of one graph run: busy share, kernel ms a token
     prof = graph_profile(torch, g, cache, token, pos)
     extra = {}
-    if qm is not None:
-        extra["unsplit_matmuls"] = unsplit_region(torch, llama, qm, params,
-                                                  cfg, token, pos, cache)
-        extra["unsplit_matmuls"]["split_again_tok_s_samples"] = time_graph(
-            torch, g, cache, token, pos)
     if ring_form is not None:
         from infinitensor_tpu_torch.kernels import quant_matmul
         extra["cuda_core_forms"] = cuda_core_region(
@@ -3201,18 +3255,59 @@ def variant_cases(torch, qm, cfg, g64, params, envs, kbs, randn,
                 env=envs[W4A8]))
     out += w4a8_ring_cases(torch, qm, cfg, params, envs, randn,
                            dequantize_weight)
-    for label in ("wo", "w_down"):
-        q, kb = layer[label], kbs[label]
-        x, w = randn(1, q.in_features), dequantize_weight(q)
-        out.append(row(
-            "qmm_group2d", f"{label} kb {kb}", 1, SPLIT, q,
-            lambda x=x, q=q: qm.quant_matmul(x, q),
-            lambda x=x, q=q, kb=kb: qm.qmm_group2d_plain(x, q, kb)[
-                :, :q.out_features],
-            lambda x=x, w=w: torch.matmul(x, w), env=envs[SPLIT]))
+    out += group2d_ring_cases(torch, qm, params, envs, kbs, randn,
+                              dequantize_weight, row)
     return out
 
 
+def group2d_ring_cases(torch, qm, params, envs, kbs, randn,
+                       dequantize_weight, row):
+    """Phase 3 rows of qmm_group2d under phase 11's table (variant_cases'
+    row): at one row its ring form (the route's, row 13c: qmm_group2d_ring,
+    one launch) on wo and w_down with a bf16 x beside the two-launch split
+    at the table's kb, forced, within one bf16 ulp of it and of the plain
+    version, both also back to back over the 32 layers' copies in one CUDA
+    graph, and with an f16 and an f32 x (within one f16 ulp, 1e-5, of
+    max|plain|); the two-launch split, a row of its own (no path takes it
+    at one row)."""
+    out, layers = [], params["layers"]
+    for label in ("wo", "w_down"):
+        q, kb = layers[0][label], kbs[label]
+        w, n = dequantize_weight(q), q.out_features
+
+        def split(q, x, kb=kb, n=n):
+            return qm._launch_group2d(x, q, kb, form="cuda_core")[:, :n]
+
+        for xdt in (torch.bfloat16, torch.float16, torch.float32):
+            x = randn(1, q.in_features).to(xdt)
+            tag = {torch.float16: " f16 x", torch.float32: " f32 x"}
+            c = row("qmm_group2d", f"{label} kb {kb}{tag.get(xdt, '')}",
+                    1, SPLIT, q, lambda x=x, q=q: qm.quant_matmul(x, q),
+                    lambda x=x, q=q, kb=kb, n=n: qm.qmm_group2d_plain(
+                        x, q, kb)[:, :n],
+                    lambda x=x, w=w.to(xdt): torch.matmul(x, w),
+                    env=envs[SPLIT])
+            c.update(name="qmm_group2d_ring",
+                     source=SRC + "quant_matmul_ring.cu",
+                     bytes=c["bytes"] + (x.element_size() - 2) * (
+                         q.in_features + q.out_physical),
+                     kind="f32" if xdt == torch.float32 else "bf16",
+                     ulp={torch.bfloat16: 8, torch.float16: 11}.get(xdt),
+                     tol=1e-5)
+            if xdt == torch.bfloat16:
+                xb = x
+                c.update(cuda_core=lambda q=q, x=x: split(q, x),
+                         graph_weights=[lay[label] for lay in layers],
+                         graph={"ring": lambda q, x=x: qm.quant_matmul(x, q),
+                                "split": lambda q, x=x: split(q, x)})
+            out.append(c)
+        out.append(row(
+            "qmm_group2d", f"{label} kb {kb}", 1, NO_PATH, q,
+            lambda q=q, x=xb: split(q, x),
+            lambda x=xb, q=q, kb=kb, n=n: qm.qmm_group2d_plain(
+                x, q, kb)[:, :n],
+            lambda x=xb, w=w: torch.matmul(x, w), env=envs[SPLIT]))
+    return out
 
 
 def w4a8_ring_cases(torch, qm, cfg, params, envs, randn, dequantize_weight):

@@ -25,11 +25,12 @@
 // flight.
 //
 // Design:
-//  * the grid, the ring and the merge of ring.cuh (one block an SM over
-//    stream-K shares of (128-column tile, packed scale group) units; a
-//    4-stage ring of 17,408-byte stages, each three TMA copies where the
+//  * the grid, the ring, the merge and the launch of ring.cuh (one block an
+//    SM over stream-K shares of (128-column tile, packed scale group) units;
+//    a 4-stage ring of 17,408-byte stages, each three TMA copies where the
 //    rows are 16-byte aligned; the shared tiles summed in block order by
-//    the last block to arrive), as qmm_group_norm_ring;
+//    the last block to arrive; a programmatic dependent launch), as
+//    qmm_group_norm_ring;
 //  * the quantized row inside: a block issues its first 3 stages, then
 //    (with the norm) takes rms_norm_rinv, then the block-wide amax of the
 //    whole (normalized) row and sx = w4a8_row_scale(amax) while they land,
@@ -160,12 +161,11 @@ cudaError_t launch(const void* x, const void* nw, const void* qw, const void* sc
   if (e != cudaSuccess) return e;
   ring::Maps maps{};
   if (A16 && (e = ring::encode_maps(&maps, qw, sc, SCB ? 2 : 4, din / 2, dout_p,
-                                    din / 2 / group)) != cudaSuccess)
+                                    din / group)) != cudaSuccess)
     return e;
-  kernel<<<blocks, dim3(kLanes, kWarps), smem, stream>>>(
-      x, static_cast<const __nv_bfloat16*>(nw), static_cast<const int8_t*>(qw), sc, out,
-      static_cast<float*>(part), static_cast<int*>(counters), din, dout_p, group, eps, maps);
-  return cudaGetLastError();
+  return ring::launch(kernel, blocks, smem, stream, x, static_cast<const __nv_bfloat16*>(nw),
+                      static_cast<const int8_t*>(qw), sc, out, static_cast<float*>(part),
+                      static_cast<int*>(counters), din, dout_p, group, eps, maps);
 }
 
 int w4a8_ring(const void* x, int x_kind, const void* nw, const void* qw, const void* sc,

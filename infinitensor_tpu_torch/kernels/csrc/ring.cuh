@@ -1,9 +1,10 @@
 // The one-row ring of the int4 group-dot matmuls, shared by
-// qmm_group_norm_ring (quant_matmul_ring.cu) and qmm_w4a8_ring /
-// qmm_norm_w4a8_ring (quant_matmul_w4a8_ring.cu): a balanced persistent
-// grid over (128-column tile, packed scale group) units, an
-// asynchronous-copy ring of stages, and the merge of the tiles that
-// blocks share. Python side: kernels/quant_matmul.py ring_plan.
+// qmm_group_norm_ring, qmm_slab_norm_ring and qmm_group2d_ring
+// (quant_matmul_ring.cu) and qmm_w4a8_ring / qmm_norm_w4a8_ring
+// (quant_matmul_w4a8_ring.cu): a balanced persistent grid over (128-column
+// tile, packed scale group) units, an asynchronous-copy ring of stages,
+// the merge of the tiles that blocks share, and the launch. Python side:
+// kernels/quant_matmul.py ring_plan.
 //
 //  * stream-K: the work is the list of units (tile t, packed scale group
 //    c), flattened t-major, U = tiles x din / (2 group) of them; block b of
@@ -12,22 +13,40 @@
 //    whatever the tile count. The plan comes from the shapes and the SM
 //    count only, so one captured graph serves every step;
 //  * a stage is one tile's kRows packed rows (16 KB) and its group's two
-//    scale rows (lo and hi, 0.5 KB in bf16, 1 KB in f32), kStageBytes a
-//    slot; kStages slots, so kStages - 1 stages are in flight while the 16
-//    warps take the last one. Where the rows are 16-byte aligned (dout_p a
-//    multiple of 16) one thread issues a stage as three TMA tensor copies
-//    (the 128 x 128-byte weight box, the two scale rows; columns past
-//    dout_p zero-filled) that complete on the slot's mbarrier; else each of
-//    the 512 threads issues its 4-byte cp.async copies. One wait and one
-//    barrier a stage;
+//    scale rows (lo and hi, 0.5 KB in bf16, 1 KB in f32; PAIRED, the
+//    paired layout of qmm_slab: the one scale row both halves share),
+//    kStageBytes a slot; kStages slots, so kStages - 1 stages are in
+//    flight while the 16 warps take the last one. Where the rows are
+//    16-byte aligned (dout_p a multiple of 16) one thread issues a stage
+//    as TMA tensor copies (the 128 x 128-byte weight box, the scale rows;
+//    columns past dout_p zero-filled) that complete on the slot's
+//    mbarrier; else each of the 512 threads issues its 4-byte cp.async
+//    copies. One wait and one barrier a stage;
 //  * a tile whose units lie in one block is written by it; a tile shared
 //    by blocks leaves each block's f32 sum over its units in part[b][0]
 //    (the block's first tile) or part[b][1] (its last), and once a block's
-//    stream is done (one fence, none inside the ring) the last block to
-//    arrive at a tile (a counter per tile, set back to 0 by that block: the
-//    KSPLIT protocol of quant_matmul.cuh, with acquire-release fences)
-//    sums them in block order and writes the tile. No atomics on values:
-//    results repeat bit for bit.
+//    stream is done (no fence inside the ring) the last block to arrive at
+//    a tile (a counter per tile, set back to 0 by that block: the KSPLIT
+//    protocol of quant_matmul.cuh, with one acquire-release atomic a tile
+//    in place of a release fence, an atomic and an acquire fence: one
+//    round trip to L2 instead of three) sums them in block order and
+//    writes the tile. No atomics on values: results repeat bit for bit;
+//  * the launch (launch below) is a programmatic dependent launch: a block
+//    may start while the kernel before it on the stream still runs, and
+//    does there only what no earlier kernel can change: it initializes its
+//    mbarriers, prefetches its tensor maps and issues its first kStages - 1
+//    weight and scale stages (the model's constants; what the kernel just
+//    before this launch writes need not be visible to these copies yet,
+//    so that kernel must not be the one that writes qw or sc). Then
+//    griddepcontrol.wait (the earlier kernels done, their writes
+//    visible) comes before any read of x or nw and any touch of part,
+//    counters or out, so consecutive ring launches on a stream share the
+//    tile counters safely; and each block lets the next kernel launch
+//    (griddepcontrol.launch_dependents), whose own wait keeps it off this
+//    kernel's results. The fixed cost a launch pays before its first
+//    weight arrives (PERF.md section 6, tools/ring_variants.py) overlaps
+//    the kernel before it. Stream capture takes the launch as a
+//    programmatic edge of the graph; where it refuses, the launch fails.
 #pragma once
 
 #include <cuda.h>
@@ -55,7 +74,8 @@ constexpr size_t kRingBytes = (size_t)kStages * kStageBytes;
 
 // The TMA tensor maps of a launch whose rows are 16-byte aligned: the
 // packed weights qw int8 [krows, dout_p] in boxes of kRows x kCols, and the
-// scales sc [2 ngs, dout_p] in boxes of one row of kCols.
+// scales sc [srows, dout_p] (2 ngs rows, PAIRED ngs) in boxes of one row of
+// kCols.
 struct Maps {
   CUtensorMap w, s;
 };
@@ -64,7 +84,7 @@ struct Maps {
 // launch). cudaErrorNotSupported where no cuTensorMapEncodeTiled entry
 // point is found, cudaErrorInvalidValue where it refuses.
 inline cudaError_t encode_maps(Maps* m, const void* qw, const void* sc, int ssz, int krows,
-                               int dout_p, int ngs) {
+                               int dout_p, int srows) {
   using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                               const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                               const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -81,7 +101,7 @@ inline cudaError_t encode_maps(Maps* m, const void* qw, const void* sc, int ssz,
   const cuuint64_t wdim[2] = {(cuuint64_t)dout_p, (cuuint64_t)krows};
   const cuuint64_t wstride[1] = {(cuuint64_t)dout_p};
   const cuuint32_t wbox[2] = {kCols, kRows};
-  const cuuint64_t sdim[2] = {(cuuint64_t)dout_p, (cuuint64_t)2 * ngs};
+  const cuuint64_t sdim[2] = {(cuuint64_t)dout_p, (cuuint64_t)srows};
   const cuuint64_t sstride[1] = {(cuuint64_t)dout_p * ssz};
   const cuuint32_t sbox[2] = {kCols, 1};
   if (encode(&m->w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(qw), wdim, wstride,
@@ -136,6 +156,22 @@ __device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map, int x,
       : "memory");
 }
 
+// Bring a tensor map (a __grid_constant__ parameter) into the cache of
+// tensor maps ahead of its first copy.
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+// Programmatic dependent launch, device side: wait until the kernels before
+// this one on the stream are done and their writes visible (a no-op in a
+// launch without the attribute), and let the next kernel launch.
+__device__ __forceinline__ void grid_dependency_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
 // The first 128-byte boundary at or after p in shared memory: TMA boxes
 // land on one; a launch asks for kAlignPad bytes beyond its layout.
 constexpr int kAlignPad = 128;
@@ -143,8 +179,16 @@ __device__ __forceinline__ unsigned char* aligned(unsigned char* p) {
   return p + ((kAlignPad - (mma_tile::smem_addr(p) & (kAlignPad - 1))) & (kAlignPad - 1));
 }
 
-// The gpu-scope acquire-release fence of the tile counters' protocol.
-__device__ __forceinline__ void fence_acq_rel() { asm volatile("fence.acq_rel.gpu;\n" ::: "memory"); }
+// *p += 1 at gpu scope with acquire-release order, returning the old value:
+// the tile counters' arrival. Its release side (after the barrier that
+// orders the block's stores) publishes the block's partials; its acquire
+// side (before the barrier that hands them on) lets the last block read
+// the others'.
+__device__ __forceinline__ int arrive_acq_rel(int* p) {
+  int old;
+  asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;\n" : "=r"(old) : "l"(p) : "memory");
+  return old;
+}
 
 // The block that owns unit u of U units over nb blocks (shares [b U / nb,
 // (b + 1) U / nb)).
@@ -189,10 +233,11 @@ struct Share {
 // Stage i of the share (i = 0, 1, ... in order; ip its place, advanced)
 // into slot i % kStages: packed rows p0 .. p0 + kRows of tile t of qw int8
 // [krows, dout_p], then the lo and hi scale rows of their group c of sc
-// [2 ngs, dout_p] (SSZ bytes a scale), zero past dout_p. A16: the rows are
-// 16-byte aligned (dout_p % 16 == 0), and thread 0 copies the stage with
-// TMA (maps) onto the slot's mbarrier full[i % kStages].
-template <bool A16, int SSZ>
+// [2 ngs, dout_p] (PAIRED: the one row c of sc [ngs, dout_p]; SSZ bytes a
+// scale), zero past dout_p. A16: the rows are 16-byte aligned (dout_p % 16
+// == 0), and thread 0 copies the stage with TMA (maps) onto the slot's
+// mbarrier full[i % kStages].
+template <bool A16, int SSZ, bool PAIRED = false>
 __device__ __forceinline__ void issue(unsigned char* slots, int i, const Share& sh, Pos& ip,
                                       const int8_t* __restrict__ qw, const void* __restrict__ sc,
                                       int dout_p, const Maps& maps, uint64_t* full) {
@@ -204,10 +249,10 @@ __device__ __forceinline__ void issue(unsigned char* slots, int i, const Share& 
   if constexpr (A16) {
     if (tid == 0) {
       uint64_t* bar = full + i % kStages;
-      mbar_expect_tx(bar, kWBytes + 2 * kCols * SSZ);
+      mbar_expect_tx(bar, kWBytes + (PAIRED ? 1 : 2) * kCols * SSZ);
       tma_2d(st, &maps.w, col0, p0, bar);
       tma_2d(st + kWBytes, &maps.s, col0, c, bar);
-      tma_2d(st + kWBytes + kCols * SSZ, &maps.s, col0, sh.ngs + c, bar);
+      if (!PAIRED) tma_2d(st + kWBytes + kCols * SSZ, &maps.s, col0, sh.ngs + c, bar);
     }
   } else {
     const char* slo = static_cast<const char*>(sc) + ((size_t)c * dout_p + col0) * SSZ;
@@ -219,7 +264,7 @@ __device__ __forceinline__ void issue(unsigned char* slots, int i, const Share& 
                 in ? 4 : 0);
     }
     constexpr int per = kCols * SSZ / 4;
-    for (int k = tid; k < 2 * per; k += kThreads) {
+    for (int k = tid; k < (PAIRED ? 1 : 2) * per; k += kThreads) {
       const int h = k / per, cb = k % per * 4;
       const bool in = col0 + cb / SSZ < dout_p;
       cp_async4(st + kWBytes + h * kCols * SSZ + cb, in ? (h ? shi : slo) + cb : slo - col0 * SSZ,
@@ -229,24 +274,24 @@ __device__ __forceinline__ void issue(unsigned char* slots, int i, const Share& 
 }
 
 // A stage's lo and hi scale rows at this lane's columns 4 l .. 4 l + 3, as
-// f32 (SCB: stored bf16).
-template <bool SCB>
+// f32 (SCB: stored bf16; PAIRED: its one row, both halves' scale).
+template <bool SCB, bool PAIRED = false>
 __device__ __forceinline__ void stage_scales(const unsigned char* st, float (&sl)[4],
                                              float (&sh)[4]) {
-  const int lane = threadIdx.x;
-  if constexpr (SCB) {
-    const uint2 a = *reinterpret_cast<const uint2*>(st + kWBytes + lane * 8);
-    const uint2 h = *reinterpret_cast<const uint2*>(st + kWBytes + kCols * 2 + lane * 8);
-    sl[0] = __uint_as_float(a.x << 16), sl[1] = __uint_as_float(a.x & 0xffff0000u);
-    sl[2] = __uint_as_float(a.y << 16), sl[3] = __uint_as_float(a.y & 0xffff0000u);
-    sh[0] = __uint_as_float(h.x << 16), sh[1] = __uint_as_float(h.x & 0xffff0000u);
-    sh[2] = __uint_as_float(h.y << 16), sh[3] = __uint_as_float(h.y & 0xffff0000u);
-  } else {
-    const float4 a = *reinterpret_cast<const float4*>(st + kWBytes + lane * 16);
-    const float4 h = *reinterpret_cast<const float4*>(st + kWBytes + kCols * 4 + lane * 16);
-    sl[0] = a.x, sl[1] = a.y, sl[2] = a.z, sl[3] = a.w;
-    sh[0] = h.x, sh[1] = h.y, sh[2] = h.z, sh[3] = h.w;
-  }
+  // row r (0: lo, 1: hi) at this lane's columns into v
+  auto row = [&](int r, float(&v)[4]) {
+    const int lane = threadIdx.x;
+    if constexpr (SCB) {
+      const uint2 a = *reinterpret_cast<const uint2*>(st + kWBytes + r * kCols * 2 + lane * 8);
+      v[0] = __uint_as_float(a.x << 16), v[1] = __uint_as_float(a.x & 0xffff0000u);
+      v[2] = __uint_as_float(a.y << 16), v[3] = __uint_as_float(a.y & 0xffff0000u);
+    } else {
+      const float4 a = *reinterpret_cast<const float4*>(st + kWBytes + r * kCols * 4 + lane * 16);
+      v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+    }
+  };
+  row(0, sl);
+  row(PAIRED ? 0 : 1, sh);
 }
 
 // The 16 warps' sums of tile t (acc: this lane's 4 columns, zeroed), in
@@ -279,7 +324,8 @@ __device__ __forceinline__ void flush(float (&acc)[4], float* red, float* __rest
 }
 
 // The block's whole stream: the first kStages - 1 stages go out, then
-// prologue() runs while they land; each stage i then waits for its slot
+// (after grid_dependency_wait: launch's order) prologue() runs while they
+// land; each stage i then waits for its slot
 // (wait_group, one barrier: slot (i - 1) % kStages is free), issues stage
 // i + kStages - 1 and is consumed by consume(st, pos, acc) (st: its slot;
 // acc: this lane's 4 column sums of the tile), each tile flushed when the
@@ -287,7 +333,8 @@ __device__ __forceinline__ void flush(float (&acc)[4], float* red, float* __rest
 // shared tile's blocks to arrive sums the partials in block order and
 // writes the tile with write(col, sum). part f32 [gridDim.x, 2, kCols];
 // counters int32 [tiles], zero, and zero again after.
-template <bool A16, int SSZ, typename Prologue, typename Consume, typename Write>
+template <bool A16, int SSZ, bool PAIRED = false, typename Prologue, typename Consume,
+          typename Write>
 __device__ __forceinline__ void stream(unsigned char* slots, float* red,
                                        const int8_t* __restrict__ qw,
                                        const void* __restrict__ sc, const Maps& maps,
@@ -299,6 +346,8 @@ __device__ __forceinline__ void stream(unsigned char* slots, float* red,
   __shared__ __align__(8) uint64_t full[kStages];     // the slots' mbarriers (A16)
   if constexpr (A16) {
     if (tid == 0) {
+      prefetch_map(&maps.w);
+      prefetch_map(&maps.s);
       for (int s = 0; s < kStages; ++s) mbar_init(full + s, 1);
       asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -308,9 +357,11 @@ __device__ __forceinline__ void stream(unsigned char* slots, float* red,
   Pos ip = sh.first();
 #pragma unroll
   for (int i = 0; i < kStages - 1; ++i) {
-    issue<A16, SSZ>(slots, i, sh, ip, qw, sc, dout_p, maps, full);
+    issue<A16, SSZ, PAIRED>(slots, i, sh, ip, qw, sc, dout_p, maps, full);
     cp_async_commit();
   }
+  grid_dependency_wait();     // from here the earlier kernels' writes are seen
+  launch_dependents();
   prologue();
 
   float acc[4] = {0.f, 0.f, 0.f, 0.f};
@@ -323,7 +374,7 @@ __device__ __forceinline__ void stream(unsigned char* slots, float* red,
     else
       cp_async_wait<kStages - 2>();
     __syncthreads();          // stage i landed; slot (i - 1) % kStages is free
-    issue<A16, SSZ>(slots, i + kStages - 1, sh, ip, qw, sc, dout_p, maps, full);
+    issue<A16, SSZ, PAIRED>(slots, i + kStages - 1, sh, ip, qw, sc, dout_p, maps, full);
     cp_async_commit();
     const Pos at = cpos;
     sh.advance(cpos);
@@ -337,22 +388,19 @@ __device__ __forceinline__ void stream(unsigned char* slots, float* red,
   cp_async_wait<0>();
   if (shared[0] < 0 && shared[1] < 0) return;
   // both shared tiles at once: thread 32 h signals the tile of slot h
-  // (after the barrier that orders the block's stores of part: a release
-  // fence, then the counter), and where this block came last acquires the
-  // other blocks' partials for threads 128 h .. 128 h + 127 to sum
+  // (after the barrier that orders the block's stores of part: the
+  // counter's acquire-release atomic), and where this block came last the
+  // same atomic acquires the other blocks' partials for threads 128 h ..
+  // 128 h + 127 to sum
   __syncthreads();
   __shared__ bool last2[2];
   if (lane == 0 && warp < 2) {
     const int t = warp ? shared[1] : shared[0];
     bool l = false;
     if (t >= 0) {
-      fence_acq_rel();
-      l = atomicAdd(counters + t, 1) ==
+      l = arrive_acq_rel(counters + t) ==
           owner((t + 1) * sh.ngs - 1, sh.U, sh.nb) - owner(t * sh.ngs, sh.U, sh.nb);
-      if (l) {
-        counters[t] = 0;
-        fence_acq_rel();
-      }
+      if (l) counters[t] = 0;
     }
     last2[warp] = l;
   }
@@ -368,6 +416,27 @@ __device__ __forceinline__ void stream(unsigned char* slots, float* red,
     }
     if (t * kCols + c < dout_p) write(t * kCols + c, v);
   }
+}
+
+// Launch kernel over `blocks` blocks of kLanes x kWarps threads with smem
+// bytes of dynamic shared memory on stream, as a programmatic dependent
+// launch (stream()'s order makes it safe; see above). The error of the
+// launch itself: a refused attribute fails it.
+template <typename... P, typename... A>
+cudaError_t launch(void (*kernel)(P...), int blocks, size_t smem, cudaStream_t stream,
+                   A&&... args) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(kLanes, kWarps);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, static_cast<A&&>(args)...);
+  return e != cudaSuccess ? e : cudaGetLastError();
 }
 
 }  // namespace ring

@@ -1,8 +1,8 @@
 """Fused weight-only dequant + matmul for decode (counterpart of
 infinitensor_tpu/kernels/quant_matmul.py).
 
-Eighteen kernels, CUDA C++; nine over one group-dot body on the CUDA cores
-(csrc/quant_matmul.cuh), six on the tensor cores, three more on the CUDA
+Twenty kernels, CUDA C++; nine over one group-dot body on the CUDA cores
+(csrc/quant_matmul.cuh), six on the tensor cores, five more on the CUDA
 cores for one row over one ring (csrc/ring.cuh):
   csrc/quant_matmul.cu
     qmm_group       <- _kernel_group       (group-partial dots, scale per group)
@@ -31,10 +31,16 @@ cores for one row over one ring (csrc/ring.cuh):
                                             int8 tensor cores, m16n8k32)
     qmm_norm_w4a8_mma <- _kernel_group_norm_w4a8 (the RMSNorm folded into
                                             that pre-pass, then that tile)
-  csrc/quant_matmul_ring.cu
+  csrc/quant_matmul_ring.cu (one kernel template)
     qmm_group_norm_ring <- _kernel_group_norm (one row: an async-copy ring
                                             over a balanced persistent grid,
                                             the norm inside)
+    qmm_slab_norm_ring <- _kernel_group_norm_slab (the same over the
+                                            paired layout: one scale row a
+                                            packed group)
+    qmm_group2d_ring <- _kernel_group2d    (the same without the norm, any
+                                            float x: one launch in place of
+                                            the split and its sum)
   csrc/quant_matmul_w4a8_ring.cu
     qmm_w4a8_ring   <- _kernel_group_w4a8  (one row: that ring, the row
                                             quantized inside, an integer
@@ -42,7 +48,7 @@ cores for one row over one ring (csrc/ring.cuh):
     qmm_norm_w4a8_ring <- _kernel_group_norm_w4a8 (the same, the RMSNorm
                                             ahead of the quantize)
 
-Six kernels have two forms on the card (qmm_group_norm, qmm_w4a8 and
+Eight kernels have two forms on the card (qmm_group_norm, qmm_w4a8 and
 qmm_norm_w4a8 three), one function each:
   qmm_group     a bf16 or f16 x without a norm at MMA_MIN_ROWS rows or
                 more takes qmm_group_mma (group_form);
@@ -59,13 +65,20 @@ qmm_norm_w4a8 three), one function each:
                 qmm_norm_w4a8_ring (w4a8_form with norm);
   qmm_chunk     a bf16 x at CHUNK_MMA_MIN_ROWS rows or more, at a group
                 that is a multiple of 64, takes qmm_chunk_mma (chunk_form);
+  qmm_slab_norm one row of a bf16 x takes qmm_slab_norm_ring (slab_form);
+  qmm_group2d   one row of a bf16, f16 or f32 x over an int4 weight takes
+                qmm_group2d_ring (group2d_form), one launch; the route's
+                `kb` (the table's, as in the JAX package) chooses
+                qmm_group2d, and names only the split of the two-launch
+                form, as the table's `bn` names no CUDA tile;
 any other launch takes the CUDA-core form. The thresholds are where the
 two forms' times cross on the card (chip_smoke.py phase 3, PERF.md).
 launches[name] counts every form of a kernel and launches[name + "_mma"]
 the tensor-core one again (qmm_group_ln_mma for qmm_group_ln,
 qmm_group_norm_mma for qmm_group_norm, qmm_norm_w4a8_mma for
 qmm_norm_w4a8, qmm_chunk_mma for qmm_chunk), launches[name + "_ring"] the
-one-row ring form (qmm_group_norm_ring, qmm_w4a8_ring, qmm_norm_w4a8_ring).
+one-row ring form (qmm_group_norm_ring, qmm_w4a8_ring, qmm_norm_w4a8_ring,
+qmm_slab_norm_ring, qmm_group2d_ring).
 
 A CUDA-core launch of qmm_group, qmm_slab or qmm_chunk without a fused
 RMSNorm, or of qmm_group_ln, whose grid is short (wo and w_down at one
@@ -526,7 +539,9 @@ def _lib_ring() -> ctypes.CDLL:
     P, I, F = _build.P, _build.I, _build.F
     return _build.typed(
         "quant_matmul_ring",
-        qmm_group_norm_ring=[P, P, P, P, I, P, P, P, I, I, I, I, F, P])
+        qmm_group_norm_ring=[P, P, P, P, I, P, P, P, I, I, I, I, F, P],
+        qmm_slab_norm_ring=[P, P, P, P, I, P, P, P, I, I, I, I, F, P],
+        qmm_group2d_ring=[P, I, P, P, I, P, P, P, I, I, I, I, P])
 
 
 @functools.cache
@@ -618,6 +633,28 @@ def w4a8_form(rows: int, dtype: torch.dtype, norm: bool = False,
     return "ring" if rows == 1 and bits == 4 else "cuda_core"
 
 
+def slab_form(rows: int, dtype: torch.dtype, norm: bool) -> str:
+    """Which form a qmm_slab launch (a paired int4 weight) on the card
+    takes: "ring" (qmm_slab_norm_ring, csrc/quant_matmul_ring.cu) for one
+    row of a bf16 x with the fused RMSNorm (the paired batch-1 decode's
+    wqkv and w_gateup); else "cuda_core" (csrc/quant_matmul.cuh's paired
+    body: 2 rows or more, and qmm_slab without the norm, which takes its
+    K split at one row)."""
+    return "ring" if rows == 1 and norm and dtype == torch.bfloat16 \
+        else "cuda_core"
+
+
+def group2d_form(rows: int, dtype: torch.dtype, bits: int) -> str:
+    """Which form a qmm_group2d launch on the card takes: "ring"
+    (qmm_group2d_ring, csrc/quant_matmul_ring.cu: one launch over the
+    stream-K grid, the table's kb unread) for one row of a bf16, f16 or f32
+    x over an int4 weight; else "cuda_core" (csrc/quant_matmul_chunk.cu:
+    the K split into krows / kb blocks and its splitk_sum; 2 rows or more,
+    an int8 weight)."""
+    return "ring" if rows == 1 and bits == 4 and dtype in X_KINDS \
+        else "cuda_core"
+
+
 MMA_COLS = 128                  # output columns of a block (kBN)
 MMA_K = 64                      # packed rows of a stage (kBK)
 MMA_ROW_TILES = (8, 16, 32, 64)  # rows of a block the C entries take
@@ -657,7 +694,8 @@ def mma_plan(rows: int, dout_p: int, krows: int, group: int, sms: int
 
 def ring_plan(dout_p: int, krows: int, group: int, sms: int) -> list:
     """The stream-K plan of the ring forms (qmm_group_norm_ring,
-    qmm_w4a8_ring, qmm_norm_w4a8_ring; csrc/ring.cuh): its units, (128-column
+    qmm_slab_norm_ring, qmm_group2d_ring, qmm_w4a8_ring, qmm_norm_w4a8_ring;
+    csrc/ring.cuh): its units, (128-column
     tile t, packed scale group c) flattened t-major as t * (krows // group)
     + c, split into one contiguous share [start, end) a block, block b of
     n taking [b U / n, (b + 1) U / n) of the U units (the kernel derives
@@ -771,7 +809,7 @@ def _launch_group(x2, norm_w, q, eps: float, name: str,
     norm = norm_w is not None
     form = form or group_form(x2.shape[0], x2.dtype, norm, q.bits)
     if form == "ring":
-        return _launch_group_norm_ring(x2, norm_w, q, eps)
+        return _launch_norm_ring(x2, norm_w, q, eps, "qmm_group_norm")
     if form == "mma":
         if norm:
             return _launch_group_norm_mma(x2, norm_w, q, eps)
@@ -844,30 +882,43 @@ def _ring_scratch(x2, q) -> tuple:
     return blocks, part, _counters(x2.device, -(-dout_p // RING_COLS))
 
 
-def _launch_group_norm_ring(x2, norm_w, q, eps: float) -> torch.Tensor:
-    """qmm_group_norm's one-row form over _ring_scratch's grid."""
+def _launch_norm_ring(x2, norm_w, q, eps: float, name: str
+                      ) -> torch.Tensor:
+    """The one-row form of qmm_group_norm (name; an unpaired int4 weight)
+    or qmm_slab_norm (a paired one) over _ring_scratch's grid."""
+    paired = name == "qmm_slab_norm"
     if norm_w is None or x2.shape[0] != 1 or x2.dtype != torch.bfloat16 \
-            or q.bits != 4 or q.paired or norm_w.dtype != torch.bfloat16:
+            or q.bits != 4 or q.paired != paired \
+            or norm_w.dtype != torch.bfloat16:
         raise ValueError(
-            "qmm_group_norm_ring takes one bf16 row and a bf16 norm weight "
-            f"over an unpaired int4 weight, not {tuple(x2.shape)} "
-            f"{x2.dtype}, int{q.bits}{' paired' if q.paired else ''}")
+            f"{name}_ring takes one bf16 row and a bf16 norm weight over "
+            f"{'a paired' if paired else 'an unpaired'} int4 weight, not "
+            f"{tuple(x2.shape)} {x2.dtype}, "
+            f"int{q.bits}{' paired' if q.paired else ''}")
     if norm_w.device != x2.device or not norm_w.is_contiguous():
         raise ValueError(f"norm_w must be contiguous on {x2.device}")
     blocks, part, counters = _ring_scratch(x2, q)
     out, lib, p = _out(x2, q), _lib_ring(), _build.ptr
-    err = lib.qmm_group_norm_ring(
+    err = getattr(lib, name + "_ring")(
         p(x2), p(norm_w), p(q.qweight), p(q.scales),
         q.scales.dtype == torch.bfloat16, p(out), p(part), p(counters),
         x2.shape[1], q.out_physical, q.group_size, blocks, eps,
         _build.stream())
-    _launched(lib, err, "qmm_group_norm", out)
-    launches["qmm_group_norm_ring"] += 1
+    _launched(lib, err, name, out)
+    launches[name + "_ring"] += 1
     return out
 
 
-def _launch_slab(x2, norm_w, q, eps: float, name: str) -> torch.Tensor:
+def _launch_slab(x2, norm_w, q, eps: float, name: str,
+                 form: Optional[str] = None) -> torch.Tensor:
+    """qmm_slab (qmm_slab_norm with norm_w) in the form slab_form chooses;
+    `form` forces "ring" (with norm_w) or "cuda_core" (tests and
+    chip_smoke.py's side-by-side timing only). The CUDA-core form without
+    a norm takes _split_plan's K split on a short grid."""
     _check_cuda(x2, q)
+    if (form or slab_form(x2.shape[0], x2.dtype, norm_w is not None)) \
+            == "ring":
+        return _launch_norm_ring(x2, norm_w, q, eps, "qmm_slab_norm")
     splits, part, counters = (1, None, None) if norm_w is not None \
         else _split_plan(x2, q)
     out, lib, p = _out(x2, q), _lib_fused(), _build.ptr
@@ -1063,8 +1114,34 @@ def _launch_chunk_mma(x2, q) -> torch.Tensor:
     return out
 
 
-def _launch_group2d(x2, q, kb: int) -> torch.Tensor:
+def _launch_group2d_ring(x2, q) -> torch.Tensor:
+    """qmm_group2d's one-row form over _ring_scratch's grid: one launch,
+    out in x's type."""
+    if x2.shape[0] != 1 or x2.dtype not in X_KINDS or q.bits != 4 \
+            or q.paired:
+        raise ValueError(
+            "qmm_group2d_ring takes one bf16, f16 or f32 row over an "
+            f"unpaired int4 weight, not {tuple(x2.shape)} {x2.dtype}, "
+            f"int{q.bits}{' paired' if q.paired else ''}")
+    blocks, part, counters = _ring_scratch(x2, q)
+    out, lib, p = _out(x2, q), _lib_ring(), _build.ptr
+    err = lib.qmm_group2d_ring(
+        p(x2), _x_kind(x2), p(q.qweight), p(q.scales),
+        q.scales.dtype == torch.bfloat16, p(out), p(part), p(counters),
+        x2.shape[1], q.out_physical, q.group_size, blocks, _build.stream())
+    _launched(lib, err, "qmm_group2d", out)
+    launches["qmm_group2d_ring"] += 1
+    return out
+
+
+def _launch_group2d(x2, q, kb: int, form: Optional[str] = None
+                    ) -> torch.Tensor:
+    """qmm_group2d in the form group2d_form chooses; `form` forces "ring"
+    or "cuda_core" (the two-launch split of kb packed rows a block; tests
+    and chip_smoke.py's side-by-side timing only)."""
     _check_cuda(x2, q)
+    if (form or group2d_form(x2.shape[0], x2.dtype, q.bits)) == "ring":
+        return _launch_group2d_ring(x2, q)
     out, lib, p = _out(x2, q), _lib_chunk(), _build.ptr
     part = torch.empty(_packed_rows(q) // kb, x2.shape[0], q.out_physical,
                        dtype=torch.float32, device=x2.device)

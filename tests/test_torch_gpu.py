@@ -2234,6 +2234,94 @@ def test_w4a8_ring_in_a_cuda_graph(dev):
     assert not any(c.any() for _, c in qm._COUNTERS.values())
 
 
+# (din, dout, pad_out, group, x, scales, SMs): W4A8_RING_CASES' shapes and
+# the batch-1 decode's (wqkv and w_gateup with the norm, wo, w_down and the
+# lm_head without), at the card's 132 SMs and at 7
+W4A8_RING_SHAPES = [(1024, 300, 128, 128, "norm"), (1024, 260, 0, 128, "f32"),
+                    (2048, 640, 0, 256, "bf16"), (1024, 400, 0, 128, "bf16"),
+                    (11008, 1000, 0, 128, "norm"),
+                    (4096, 12288, 0, 128, "norm"),
+                    (4096, 22528, 0, 128, "norm"), (4096, 4096, 0, 128, "f32"),
+                    (11008, 4096, 0, 128, "bf16"),
+                    (4096, 32000, 0, 128, "bf16")]
+
+
+def _w4a8_ring_digest(dev, case):
+    """sha256 (first 16 hex digits) of the ring form's output bits on
+    _w4a8_ring_inputs(case) at case's SM count (_build.sms patched)."""
+    import hashlib
+    din, dout, pad, group, xk, sdt, n_sm = case
+    q, x, nw, _ = _w4a8_ring_inputs(
+        dev, din, dout, pad, group, xk,
+        {"bf16": torch.bfloat16, "f32": torch.float32}[sdt])
+    sms = _build.sms
+    _build.sms = lambda i: n_sm
+    try:
+        out = qm._launch_w4a8(x, q, nw, 1e-5, form="ring")
+    finally:
+        _build.sms = sms
+    bits = out.cpu().view(torch.int32 if out.dtype == torch.float32
+                          else torch.int16)
+    return hashlib.sha256(bits.numpy().tobytes()).hexdigest()[:16]
+
+
+# sha256 (first 16 hex digits, _w4a8_ring_digest) of the outputs of
+# qmm_w4a8_ring (x "bf16", "f32") and qmm_norm_w4a8_ring (x "norm") on
+# W4A8_RING_SHAPES with bf16 and f32 scales at 132 and 7 SMs, recorded on an
+# NVIDIA H100 from the sources before the ring took the paired stage and
+# the programmatic launch: (din, dout, pad, group, x, scales, SMs) -> digest
+W4A8_RING_BITS = {
+    (1024, 300, 128, 128, 'norm', 'bf16', 132): "7702b9993bd7ec77",
+    (1024, 300, 128, 128, 'norm', 'bf16', 7): "7702b9993bd7ec77",
+    (1024, 300, 128, 128, 'norm', 'f32', 132): "14f751e06be2b81e",
+    (1024, 300, 128, 128, 'norm', 'f32', 7): "14f751e06be2b81e",
+    (1024, 260, 0, 128, 'f32', 'bf16', 132): "db572484a28b23e0",
+    (1024, 260, 0, 128, 'f32', 'bf16', 7): "db572484a28b23e0",
+    (1024, 260, 0, 128, 'f32', 'f32', 132): "15fc1e1708806b62",
+    (1024, 260, 0, 128, 'f32', 'f32', 7): "5fd66573efc851e3",
+    (2048, 640, 0, 256, 'bf16', 'bf16', 132): "96e0d31a5e38fa83",
+    (2048, 640, 0, 256, 'bf16', 'bf16', 7): "96e0d31a5e38fa83",
+    (2048, 640, 0, 256, 'bf16', 'f32', 132): "c873149644333ac8",
+    (2048, 640, 0, 256, 'bf16', 'f32', 7): "c873149644333ac8",
+    (1024, 400, 0, 128, 'bf16', 'bf16', 132): "39983e92e10e67bb",
+    (1024, 400, 0, 128, 'bf16', 'bf16', 7): "39983e92e10e67bb",
+    (1024, 400, 0, 128, 'bf16', 'f32', 132): "3e637e5e3f0195bb",
+    (1024, 400, 0, 128, 'bf16', 'f32', 7): "3e637e5e3f0195bb",
+    (11008, 1000, 0, 128, 'norm', 'bf16', 132): "edb343d33cd77ebf",
+    (11008, 1000, 0, 128, 'norm', 'bf16', 7): "edb343d33cd77ebf",
+    (11008, 1000, 0, 128, 'norm', 'f32', 132): "3ee6195cdc9e825d",
+    (11008, 1000, 0, 128, 'norm', 'f32', 7): "a20350828575bc07",
+    (4096, 12288, 0, 128, 'norm', 'bf16', 132): "d84da1b6ab56ff8d",
+    (4096, 12288, 0, 128, 'norm', 'bf16', 7): "d84da1b6ab56ff8d",
+    (4096, 12288, 0, 128, 'norm', 'f32', 132): "a8ce327df2810d76",
+    (4096, 12288, 0, 128, 'norm', 'f32', 7): "81735dfbebf6abf7",
+    (4096, 22528, 0, 128, 'norm', 'bf16', 132): "898da65f06d7f688",
+    (4096, 22528, 0, 128, 'norm', 'bf16', 7): "898da65f06d7f688",
+    (4096, 22528, 0, 128, 'norm', 'f32', 132): "bca50f7e13ec9f68",
+    (4096, 22528, 0, 128, 'norm', 'f32', 7): "c3a6453a771690a9",
+    (4096, 4096, 0, 128, 'f32', 'bf16', 132): "e455ed967ef17f73",
+    (4096, 4096, 0, 128, 'f32', 'bf16', 7): "e455ed967ef17f73",
+    (4096, 4096, 0, 128, 'f32', 'f32', 132): "9ee62d9dbdfc21e2",
+    (4096, 4096, 0, 128, 'f32', 'f32', 7): "533eb8af25ea77b5",
+    (11008, 4096, 0, 128, 'bf16', 'bf16', 132): "b7520dadff0fb20f",
+    (11008, 4096, 0, 128, 'bf16', 'bf16', 7): "b7520dadff0fb20f",
+    (11008, 4096, 0, 128, 'bf16', 'f32', 132): "cc74e1d59b139a07",
+    (11008, 4096, 0, 128, 'bf16', 'f32', 7): "098d3db51968895a",
+    (4096, 32000, 0, 128, 'bf16', 'bf16', 132): "10dc1174be8b553f",
+    (4096, 32000, 0, 128, 'bf16', 'bf16', 7): "10dc1174be8b553f",
+    (4096, 32000, 0, 128, 'bf16', 'f32', 132): "5e53100d60b22d5a",
+    (4096, 32000, 0, 128, 'bf16', 'f32', 7): "7bc9e4e4ef1521a4",
+}
+
+
+@pytest.mark.parametrize("case", sorted(W4A8_RING_BITS))
+def test_w4a8_ring_bits_unchanged(dev, case):
+    """qmm_w4a8_ring's and qmm_norm_w4a8_ring's outputs are those of their
+    sources before the shared ring header changed, bit for bit
+    (W4A8_RING_BITS), as RING_BITS holds qmm_group_norm_ring's."""
+    assert _w4a8_ring_digest(dev, case) == W4A8_RING_BITS[case]
+
+
 def test_w4a8_ring_refuses_what_it_does_not_take(dev):
     """A forced ring form the inputs do not take raises, before the launch
     (two rows, an int8 weight, an f32 x with the norm) or from it (a group
@@ -2253,6 +2341,281 @@ def test_w4a8_ring_refuses_what_it_does_not_take(dev):
         qm._launch_w4a8(x[:1], _qlin(dev, 1024, 384, 4, torch.bfloat16,
                                      group=64), form="ring")
     assert dict(qm.launches) == before
+
+
+# -- qmm_slab_norm and qmm_group2d at one row: their ring forms -------------
+# (csrc/quant_matmul_ring.cu, over csrc/ring.cuh)
+
+# (din, dout, pad_out): RING_CASES' shapes at group 128 (a padded dout; 260
+# columns, no multiple of 16: the 4-byte copies; a partial last tile of
+# 16-byte aligned rows) and the paired 7B decode's wqkv and w_gateup
+SLAB_RING_CASES = [(1024, 300, 128), (1024, 260, 0), (1024, 400, 0),
+                   (4096, 12288, 0), (4096, 22528, 0)]
+
+
+@pytest.mark.parametrize("sdt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("din,dout,pad", SLAB_RING_CASES)
+def test_slab_norm_ring_kernel(dev, din, dout, pad, sdt, monkeypatch):
+    """qmm_slab_norm's one-row form against the plain version (qmm_slab_plain
+    on rmsnorm_bf16's row) and the CUDA-core form, each within one bf16 ulp
+    at max|plain|, at the card's SM count and at 1 and 7 SMs, bit for bit
+    across two launches, the tile counters zero after; counted under
+    qmm_slab_norm and qmm_slab_norm_ring."""
+    q = _paired(dev, din, dout, sdt, pad_out=pad)
+    x = _x(dev, 1, din) * 3 + 0.5
+    nw = _norm_w(dev, din)
+    want = qm.qmm_slab_plain(qm.rmsnorm_bf16(x, nw, 1e-5), q)
+    old = qm._launch_slab(x, nw, q, 1e-5, "qmm_slab_norm", form="cuda_core")
+    for n_sm in (_build.sms(0), 1, 7):
+        monkeypatch.setattr(_build, "sms", lambda i, n=n_sm: n)
+        before = dict(qm.launches)
+        got = qm._launch_slab(x, nw, q, 1e-5, "qmm_slab_norm")
+        assert qm.launches["qmm_slab_norm"] == \
+            before.get("qmm_slab_norm", 0) + 1
+        assert qm.launches["qmm_slab_norm_ring"] == \
+            before.get("qmm_slab_norm_ring", 0) + 1
+        assert got.shape == want.shape and got.dtype == torch.bfloat16
+        _within_bf16_ulp(got, want)
+        _within_bf16_ulp(got, old)
+        assert torch.equal(got, qm._launch_slab(x, nw, q, 1e-5,
+                                                "qmm_slab_norm"))
+    torch.cuda.synchronize()
+    assert not any(c.any() for _, c in qm._COUNTERS.values())
+
+
+def _within_ulp_of(got, want):
+    """Within one ulp of x's type at max|want| (bf16: 8 significant bits,
+    f16: 11), an f32 output within 1e-5 of max|want|: the ring sums K in
+    another order than the split's partials."""
+    ref = want.float().abs().max().item()
+    err = (got.float() - want.float()).abs().max().item()
+    bits = {torch.bfloat16: 8, torch.float16: 11}.get(want.dtype)
+    limit = 1e-5 * ref if bits is None else \
+        2.0 ** (math.floor(math.log2(ref)) - bits + 1)
+    assert err <= limit, (err, ref, want.dtype)
+
+
+# (din, dout, pad_out, kb): the split-K table's wo and w_down at 7B width
+# (kb 256 and 128), a padded dout, 260 columns (the 4-byte copies), a
+# partial last tile of 16-byte aligned rows
+GROUP2D_RING_CASES = [(4096, 4096, 0, 256), (11008, 4096, 0, 128),
+                      (2048, 300, 128, 256), (1024, 260, 0, 128),
+                      (1024, 400, 0, 256)]
+
+
+@pytest.mark.parametrize("sdt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("xdt", [torch.bfloat16, torch.float16,
+                                 torch.float32])
+@pytest.mark.parametrize("din,dout,pad,kb", GROUP2D_RING_CASES)
+def test_group2d_ring_kernel(dev, din, dout, pad, kb, xdt, sdt, knobs,
+                             monkeypatch):
+    """quant_matmul at one row routed to qmm_group2d (a table entry) takes
+    the ring form in one launch: against qmm_group2d_plain at the table's
+    kb and the two-launch form, forced, within one ulp of x's type at
+    max|plain| (f32: 1e-5 of it), in x's type, at the card's SM count and
+    at 1 and 7 SMs, bit for bit across two launches, the counters zero
+    after; counted under qmm_group2d and qmm_group2d_ring."""
+    q = _qlin(dev, din, dout, 4, sdt, pad_out=pad)
+    # bn: a TPU tile that divides the physical columns, as the route asks
+    knobs(table={f"{din}:{dout}:4": {"variant": "group2d",
+                                     "bn": q.out_physical, "kb": kb}})
+    x = (_x(dev, 1, din) * 2).to(xdt)
+    assert qm.route(x, q) == ("qmm_group2d", kb)
+    want = qm.qmm_group2d_plain(x, q, kb)[:, :dout]
+    old = qm._launch_group2d(x, q, kb, form="cuda_core")[:, :dout]
+    _within_ulp_of(old, want)
+    for n_sm in (_build.sms(0), 1, 7):
+        monkeypatch.setattr(_build, "sms", lambda i, n=n_sm: n)
+        before = dict(qm.launches)
+        got = qm.quant_matmul(x, q)
+        assert qm.launches["qmm_group2d"] == before.get("qmm_group2d", 0) + 1
+        assert qm.launches["qmm_group2d_ring"] == \
+            before.get("qmm_group2d_ring", 0) + 1
+        assert got.shape == want.shape and got.dtype == xdt
+        _within_ulp_of(got, want)
+        _within_ulp_of(got, old)
+        assert torch.equal(got, qm.quant_matmul(x, q))
+    torch.cuda.synchronize()
+    assert not any(c.any() for _, c in qm._COUNTERS.values())
+
+
+def test_slab_and_group2d_ring_routes(dev, knobs):
+    """At one row the ring forms, from two rows the CUDA-core forms:
+    quant_matmul_norm over a paired weight (qmm_slab_norm_ring), and
+    quant_matmul under a group2d table entry (qmm_group2d_ring over int4,
+    the two-launch split over int8); qmm_slab without the norm keeps its
+    CUDA-core form, in the K split where group_splits takes it."""
+    qp = _paired(dev, 1024, 384, torch.bfloat16)
+    nw = _norm_w(dev, 1024)
+    knobs(table={"1024:384:4": {"variant": "group2d", "bn": 128, "kb": 128},
+                 "1024:384:8": {"variant": "group2d", "bn": 128, "kb": 128}})
+    for rows in (1, 2):
+        x = _x(dev, rows, 1024) * 2
+        before = dict(qm.launches)
+        _within_bf16_ulp(qm.quant_matmul_norm(x, nw, qp), qm.qmm_slab_plain(
+            qm.rmsnorm_bf16(x, nw, 1e-5), qp))
+        _close(qm.quant_matmul(x, qp), qm.qmm_slab_plain(x, qp))
+        assert qm.launches["qmm_slab_norm_ring"] == \
+            before.get("qmm_slab_norm_ring", 0) + (rows == 1)
+        assert qm.launches["qmm_slab_norm"] == \
+            before.get("qmm_slab_norm", 0) + 1
+        assert qm.launches["qmm_slab_split"] == \
+            before.get("qmm_slab_split", 0) + (qm.group_splits(
+                rows, 384, 512, 128, _build.sms(0)) > 1)
+        for bits in (4, 8):
+            q = _qlin(dev, 1024, 384, bits, torch.bfloat16)
+            before = dict(qm.launches)
+            _close(qm.quant_matmul(x, q), qm.qmm_group2d_plain(x, q, 128))
+            assert qm.launches["qmm_group2d"] == \
+                before.get("qmm_group2d", 0) + 1
+            assert qm.launches["qmm_group2d_ring"] == \
+                before.get("qmm_group2d_ring", 0) + (rows == 1 and bits == 4)
+
+
+def test_rings_back_to_back_in_a_cuda_graph(dev, knobs):
+    """Every ring form captured back to back in one CUDA graph, each launch
+    a programmatic dependent launch of the one before (qmm_group_norm_ring,
+    qmm_slab_norm_ring reading its output, qmm_group2d_ring reading that,
+    qmm_norm_w4a8_ring, qmm_w4a8_ring): replays with new x equal the eager
+    launches bit for bit and the plain versions within one bf16 ulp, and
+    the tile counters they share stay zero between replays."""
+    qg = _qlin(dev, 4096, 4096, 4, torch.bfloat16)
+    qp = _paired(dev, 4096, 4096, torch.bfloat16, seed=3)
+    q2 = _qlin(dev, 4096, 1000, 4, torch.float32, pad_out=128, seed=5)
+    nw = _norm_w(dev, 4096, seed=4)
+    knobs(table={"4096:1000:4": {"variant": "group2d", "bn": 128,
+                                 "kb": 256}})
+    x = _x(dev, 1, 4096) * 3
+
+    def call():
+        a = qm.quant_matmul_norm(x, nw, qg)
+        b = qm.quant_matmul_norm(a * 4, nw, qp)
+        c = qm.quant_matmul(b, q2)
+        d = qm._launch_w4a8(x, qg, nw, 1e-5)
+        e = qm._launch_w4a8(a, qg)
+        return a, b, c, d, e
+
+    call()                                 # build, load, counters outside
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = dict(qm.launches)
+    with torch.cuda.graph(graph):
+        out = call()
+    for name in ("qmm_group_norm_ring", "qmm_slab_norm_ring",
+                 "qmm_group2d_ring", "qmm_norm_w4a8_ring", "qmm_w4a8_ring"):
+        assert qm.launches[name] == before.get(name, 0) + 1
+    for seed in (3, 4, 5):
+        x.copy_(_x(dev, 1, 4096, seed=seed) * 3)
+        graph.replay()
+        torch.cuda.synchronize()
+        a, b, c, d, e = out
+        _within_bf16_ulp(a, qm.qmm_group_plain(qm.rmsnorm_bf16(x, nw, 1e-5),
+                                               qg))
+        _within_bf16_ulp(b, qm.qmm_slab_plain(
+            qm.rmsnorm_bf16(a * 4, nw, 1e-5), qp))
+        _within_bf16_ulp(c, qm.qmm_group2d_plain(b, q2, 256)[:, :1000])
+        _within_bf16_ulp(d, qm.qmm_norm_w4a8_plain(x, nw, qg, 1e-5))
+        _within_bf16_ulp(e, qm.qmm_w4a8_plain(a, qg))
+        for got, want in zip(out, call()):
+            assert torch.equal(got, want)
+    torch.cuda.synchronize()
+    assert not any(c.any() for _, c in qm._COUNTERS.values())
+
+
+def test_slab_norm_and_group2d_rings_on_two_streams(dev, knobs):
+    """Both new ring forms on two streams at once, each stream with its
+    own tile counters: every output equals the same call made alone, bit
+    for bit, and the counters are zero after."""
+    qp = _paired(dev, 4096, 1024, torch.bfloat16)
+    q2 = _qlin(dev, 4096, 1024, 4, torch.bfloat16, seed=2)
+    knobs(table={"4096:1024:4": {"variant": "group2d", "bn": 128,
+                                 "kb": 256}})
+    nw = _norm_w(dev, 4096, seed=5)
+    xs = [_x(dev, 1, 4096, seed=s) * 2 for s in range(8)]
+
+    def call(x):
+        return qm.quant_matmul(qm.quant_matmul_norm(x, nw, qp)
+                               .repeat(1, 4), q2)
+
+    want = [call(x) for x in xs]
+    before = dict(qm.launches)
+    streams, got = _on_two_streams(None, xs, call=call)
+    for name in ("qmm_slab_norm_ring", "qmm_group2d_ring"):
+        assert qm.launches[name] == before.get(name, 0) + 2 * 5 * len(xs)
+    for outs in got:
+        for j, out in enumerate(outs):
+            assert torch.equal(out, want[j % len(xs)])
+    assert not any(c.any() for _, c in qm._COUNTERS.values())
+
+
+def test_slab_norm_and_group2d_rings_refuse_what_they_do_not_take(dev):
+    """A forced ring form the inputs do not take raises, before the launch
+    (two rows, an unpaired weight for the slab ring, a paired or int8 one
+    for qmm_group2d's, an f32 x with the norm) or from it (a group of 64
+    packed rows): no path falls back to another form."""
+    x = _x(dev, 2, 1024)
+    qp = _paired(dev, 1024, 384, torch.bfloat16)
+    q = _qlin(dev, 1024, 384, 4, torch.bfloat16)
+    nw = _norm_w(dev, 1024)
+    before = dict(qm.launches)
+    with pytest.raises(ValueError, match="one"):
+        qm._launch_slab(x, nw, qp, 1e-5, "qmm_slab_norm", form="ring")
+    with pytest.raises(ValueError, match="paired"):
+        qm._launch_slab(x[:1], nw, q, 1e-5, "qmm_slab_norm", form="ring")
+    with pytest.raises(ValueError, match="one"):
+        qm._launch_slab(x[:1].float(), nw, qp, 1e-5, "qmm_slab_norm",
+                        form="ring")
+    with pytest.raises(ValueError, match="one"):
+        qm._launch_group2d(x, q, 128, form="ring")
+    with pytest.raises(ValueError, match="unpaired int4"):
+        qm._launch_group2d(x[:1], qp, 128, form="ring")
+    with pytest.raises(ValueError, match="unpaired int4"):
+        qm._launch_group2d(x[:1], _qlin(dev, 1024, 384, 8, torch.bfloat16),
+                           128, form="ring")
+    with pytest.raises(RuntimeError, match="launch failed"):
+        qm._launch_group2d(x[:1], _qlin(dev, 1024, 384, 4, torch.bfloat16,
+                                        group=64), 128, form="ring")
+    assert dict(qm.launches) == before
+
+
+def test_slab_norm_and_group2d_ring_step_launch_counts(dev, knobs):
+    """One eager decode step at batch 1 of a small model, as phases 8 and
+    11 of chip_smoke.py count it: paired weights launch qmm_slab_norm 2 L
+    times, all qmm_slab_norm_ring, and qmm_slab 2 L + 1 (no qmm_group*);
+    a split-K table for wo and w_down launches qmm_group2d 2 L + 1 times
+    (the lm_head shares wo's key), all qmm_group2d_ring."""
+    cfg = llama.LlamaConfig(vocab_size=512, dim=512, n_layers=2, n_heads=4,
+                            n_kv_heads=2, intermediate=1024, max_seq=128)
+    L = cfg.n_layers
+    gen = torch.Generator(device=dev).manual_seed(0)
+    raw = llama.init_llama_params(cfg, gen, device=dev)
+    tok = torch.tensor([3], dtype=torch.int32, device=dev)
+    pos = torch.tensor([5], dtype=torch.int32, device=dev)
+    merges = att.merge_launches(L, 1, cfg.n_kv_heads, cfg.max_seq)
+
+    def step(params):
+        qm.launches.clear()
+        att.launches.clear()
+        logits, _ = llama.llama_decode_step(
+            params, cfg, tok, pos,
+            llama.init_kv_cache(cfg, 1, kv_quant=True, device=dev))
+        torch.cuda.synchronize()
+        assert torch.isfinite(logits.float()).all()
+        return {k: v for k, v in {**qm.launches, **att.launches}.items()
+                if v}
+
+    paired = llama.quantize_llama_params(raw, bits=4, group_size=128,
+                                         paired=True)
+    got = step(paired)
+    assert got["qmm_slab_norm"] == got["qmm_slab_norm_ring"] == 2 * L
+    assert got["qmm_slab"] == 2 * L + 1
+    assert not [k for k in got if k.startswith("qmm_group")]
+    knobs(table={"512:512:4": {"variant": "group2d", "bn": 128, "kb": 128},
+                 "1024:512:4": {"variant": "group2d", "bn": 128, "kb": 256}})
+    got = step(llama.quantize_llama_params(raw, bits=4, group_size=128))
+    assert got == {"qmm_group_norm": 2 * L, "qmm_group_norm_ring": 2 * L,
+                   "qmm_group2d": 2 * L + 1, "qmm_group2d_ring": 2 * L + 1,
+                   "flash_decode_q8": L, **merges}
 
 
 # -- the graph corpus on the card --------------------------------------------

@@ -38,6 +38,7 @@ from infinitensor_tpu_torch.kernels import quant_matmul as tqm
 from infinitensor_tpu_torch.models import gpt2 as tg
 from infinitensor_tpu_torch.models.convert import (
     cache_from_jax_numpy, params_from_jax_numpy)
+from infinitensor_tpu_torch.quant import weight_only
 
 OUT_TOL = 4e-3
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -817,7 +818,8 @@ def test_ring_plan(dout_p, krows, group, sms):
 
 class _FakeRingLib:
     """Records the arguments of a ring launch (qmm_group_norm_ring,
-    qmm_w4a8_ring, qmm_norm_w4a8_ring)."""
+    qmm_slab_norm_ring, qmm_group2d_ring, qmm_w4a8_ring,
+    qmm_norm_w4a8_ring)."""
 
     def __init__(self):
         self.calls = []
@@ -827,6 +829,7 @@ class _FakeRingLib:
         return 0
 
     qmm_group_norm_ring = qmm_w4a8_ring = qmm_norm_w4a8_ring = _record
+    qmm_slab_norm_ring = qmm_group2d_ring = _record
 
 
 @pytest.mark.parametrize("sdt", [torch.bfloat16, torch.float32])
@@ -1027,6 +1030,210 @@ def test_norm_w4a8_ring_arithmetic_vs_jax(group, din, sms, knobs):
     _close(got, qm.quant_matmul(xn, q, interpret=True, variant="w4a8"))
     _close(got, qm.quant_matmul_norm(x, nw, q, eps=1e-5, interpret=True),
            W4A8_FUSED_TOL)
+
+
+@pytest.mark.parametrize("rows,dtype,norm,form", [
+    (1, torch.bfloat16, True, "ring"),
+    (1, torch.bfloat16, False, "cuda_core"),
+    (1, torch.float32, True, "cuda_core"),
+    (1, torch.float16, True, "cuda_core"),
+    (2, torch.bfloat16, True, "cuda_core"),
+    (256, torch.bfloat16, True, "cuda_core"),
+])
+def test_slab_form(rows, dtype, norm, form):
+    """qmm_slab_norm at one row of a bf16 x takes the ring form
+    (qmm_slab_norm_ring); 2 rows and more, and qmm_slab without the norm
+    (whose one row takes the K split), the CUDA-core body."""
+    assert tqm.slab_form(rows, dtype, norm) == form
+
+
+@pytest.mark.parametrize("rows,dtype,bits,form", [
+    (1, torch.bfloat16, 4, "ring"),
+    (1, torch.float16, 4, "ring"),
+    (1, torch.float32, 4, "ring"),
+    (1, torch.bfloat16, 8, "cuda_core"),
+    (1, torch.float64, 4, "cuda_core"),
+    (2, torch.bfloat16, 4, "cuda_core"),
+    (8, torch.float32, 4, "cuda_core"),
+])
+def test_group2d_form(rows, dtype, bits, form):
+    """qmm_group2d at one row of a bf16, f16 or f32 x over an int4 weight
+    takes the ring form (one launch, no splitk_sum); an int8 weight and 2
+    rows or more the two-launch K split."""
+    assert tqm.group2d_form(rows, dtype, bits) == form
+
+
+def _fake_ring(monkeypatch):
+    """A stand-in ring library, 132 SMs, and the tile counters it is
+    handed: (lib, [counts asked for], counters)."""
+    lib = _FakeRingLib()
+    monkeypatch.setattr(tqm, "_lib_ring", lambda: lib)
+    monkeypatch.setattr(tqm._build, "sms", lambda index: 132)
+    monkeypatch.setattr(tqm._build, "stream", lambda: None)
+    need = []
+    counters = torch.zeros(4096, dtype=torch.int32)
+    monkeypatch.setattr(tqm, "_counters",
+                        lambda device, n: need.append(n) or counters)
+    return lib, need, counters
+
+
+@pytest.mark.parametrize("sdt", [torch.bfloat16, torch.float32])
+def test_slab_norm_ring_launch_takes_the_plan(sdt, monkeypatch):
+    """The ring launch of quant_matmul_norm at one row over a paired int4
+    weight passes ring_plan's block count (132 SMs; a unit is a tile and a
+    packed group of the one scale row), the tile counters (one a
+    128-column tile), and counts itself under qmm_slab_norm and
+    qmm_slab_norm_ring, not under qmm_slab. Read through a stand-in for
+    the library: the arguments, not the kernel."""
+    lib, need, counters = _fake_ring(monkeypatch)
+    rng, c, q = _paired("512x200_padded", 54, jnp.float32)
+    tq = _port_q(q)
+    tq = dataclasses.replace(tq, scales=tq.scales.to(sdt))
+    x = torch.from_numpy(rng.standard_normal((1, 512))).to(torch.bfloat16)
+    nw = torch.ones(512, dtype=torch.bfloat16)
+    before = dict(tqm.launches)
+    out = tqm._launch_slab(x, nw, tq, 1e-5, "qmm_slab_norm")
+    (args,) = lib.calls
+    plan = tqm.ring_plan(256, 256, 128, 132)        # 2 tiles x 2 groups
+    assert len(plan) == 4 and args[11] == len(plan)
+    assert args[4] == (sdt == torch.bfloat16)
+    assert args[8:11] == (512, 256, 128)            # din, dout_p, group
+    assert tuple(tqm._build.ptr(t).value for t in (x, nw, tq.qweight,
+                                                    tq.scales)) \
+        == tuple(a.value for a in args[:4])
+    assert need == [256 // tqm.RING_COLS]
+    assert args[7].value == counters.data_ptr()
+    assert out.shape == (1, 256) and out.dtype == torch.bfloat16
+    assert tqm.launches["qmm_slab_norm"] == before.get("qmm_slab_norm", 0) + 1
+    assert tqm.launches["qmm_slab_norm_ring"] == \
+        before.get("qmm_slab_norm_ring", 0) + 1
+    assert tqm.launches["qmm_slab"] == before.get("qmm_slab", 0)
+
+
+@pytest.mark.parametrize("xdt", [torch.bfloat16, torch.float16,
+                                 torch.float32])
+def test_group2d_ring_launch_takes_the_plan(xdt, monkeypatch, knobs):
+    """quant_matmul at one row routed to qmm_group2d (a table entry's kb)
+    launches the ring form once: ring_plan's block count (132 SMs), x's
+    kind, the tile counters, x's type out; counted under qmm_group2d and
+    qmm_group2d_ring. The table's kb is the route's and reaches no launch
+    argument."""
+    lib, need, counters = _fake_ring(monkeypatch)
+    _, q, _ = _qweights(55, 2048, 4000, 4, 128, 1, pad=128)
+    tq = _port_q(q)
+    knobs(table={"2048:4000:4": {"variant": "group2d", "bn": 128,
+                                 "kb": 256}})
+    x = torch.randn(1, 2048, generator=torch.Generator().manual_seed(5)
+                    ).to(xdt)
+    # (on the CPU a non-bf16 x takes the JAX package's off-chip route)
+    assert tqm.route(x.to(torch.bfloat16), tq) == ("qmm_group2d", 256)
+    before = dict(tqm.launches)
+    out = tqm._launch_group2d(x, tq, 256)
+    (args,) = lib.calls
+    plan = tqm.ring_plan(4096, 1024, 128, 132)      # 32 tiles x 8 groups
+    assert len(plan) == 132 and args[11] == len(plan)
+    assert args[1] == tqm.X_KINDS[xdt] and args[4] == 0     # f32 scales
+    assert args[8:11] == (2048, 4096, 128)          # din, dout_p, group
+    assert need == [4096 // tqm.RING_COLS]
+    assert args[7].value == counters.data_ptr()
+    assert out.shape == (1, 4096) and out.dtype == xdt
+    assert tqm.launches["qmm_group2d"] == before.get("qmm_group2d", 0) + 1
+    assert tqm.launches["qmm_group2d_ring"] == \
+        before.get("qmm_group2d_ring", 0) + 1
+
+
+def _f32_ring_emulated(x2, q, sms, norm_w=None, eps=1e-5):
+    """The arithmetic of the f32 rings (qmm_group2d_ring; with norm_w
+    qmm_group_norm_ring, or over a paired weight qmm_slab_norm_ring), step
+    by step in torch for one row: the row normalized (rmsnorm_bf16) or as
+    it is; ring_plan's shares of (tile, group) units; in each stage of 128
+    packed rows each of the 16 warps' f32 partials over its 8 rows, lo and
+    hi, folded into the warp's column sums as (acc + pl s_lo) + ph s_hi
+    (paired: s_lo = s_hi = the group's one scale); a tile's 16 warp sums
+    added in warp order at the end of the block's run of it; a tile within
+    one share written at once, a shared one's partials added in block
+    order; rounded to x's dtype."""
+    xs = (x2 if norm_w is None else tqm.rmsnorm_bf16(x2, norm_w, eps))
+    xs = xs[0].double()
+    g, kr = q.group_size, q.qweight.shape[0]
+    dout_p, ngs, cols = q.out_physical, kr // g, tqm.RING_COLS
+    tiles = -(-dout_p // cols)
+    lo, hi = (torch.zeros(kr, tiles * cols, dtype=torch.float64)
+              for _ in range(2))
+    lo[:, :dout_p], hi[:, :dout_p] = weight_only._unpack_nibbles(q.qweight)
+    sc = torch.zeros(q.scales.shape[0], tiles * cols)
+    sc[:, :dout_p] = q.scales.float()
+    s_lo, s_hi = (sc, sc) if q.paired else (sc[:ngs], sc[ngs:])
+    sum_of = {}                                   # (block, tile) -> sums
+    for b, (start, end) in enumerate(tqm.ring_plan(dout_p, kr, g, sms)):
+        for unit in range(start, end):
+            t, c = divmod(unit, ngs)
+            cs = slice(t * cols, (t + 1) * cols)
+            acc = sum_of.setdefault((b, t), torch.zeros(16, cols))
+            for p0 in range(c * g, (c + 1) * g, 128):   # its stages
+                r = slice(p0, p0 + 128)                 # warp w: 8 w + 0..7
+                pl = torch.einsum("wr,wrn->wn", xs[r].reshape(16, 8),
+                                  lo[r, cs].reshape(16, 8, cols)).float()
+                ph = torch.einsum("wr,wrn->wn",
+                                  xs[kr:][r].reshape(16, 8),
+                                  hi[r, cs].reshape(16, 8, cols)).float()
+                acc = (acc + pl * s_lo[c, cs]) + ph * s_hi[c, cs]
+            sum_of[(b, t)] = acc
+    out = torch.zeros(tiles * cols)
+    for t in range(tiles):
+        blocks = sorted(b for b, t2 in sum_of if t2 == t)
+        v = torch.zeros(cols)
+        for b in blocks:                          # block order
+            s = torch.zeros(cols)
+            for w in range(16):                   # warp order
+                s = s + sum_of[(b, t)][w]
+            v = s if len(blocks) == 1 else v + s
+        out[t * cols:(t + 1) * cols] = v
+    return out[:dout_p].to(x2.dtype)[None]
+
+
+@pytest.mark.parametrize("sms", [7, 4, 1])
+@pytest.mark.parametrize("sdt", [jnp.bfloat16, jnp.float32])
+def test_slab_norm_ring_arithmetic_vs_jax(sdt, sms):
+    """qmm_slab_norm_ring's arithmetic (_f32_ring_emulated over a paired
+    weight) at din 512 (two packed groups of 128 rows, one scale row
+    each), dout 260 padded to 384 over 7, 4 and 1 SMs: within one bf16
+    ulp at max|ref| (OUT_TOL) of qmm_slab_plain on rmsnorm_bf16's rows and
+    of the JAX package's interpreted _kernel_group_norm_slab."""
+    rng = np.random.default_rng(130 + sms)
+    w = rng.standard_normal((512, 260)).astype(np.float32)
+    q = quantize_weight(jnp.asarray(w), bits=4, group_size=128, pad_out=128,
+                        paired=True)
+    q = JQ(q.qweight, q.scales.astype(sdt), q.bits, q.group_size,
+           q.out_logical)
+    assert q.paired and q.scales.shape == (2, 384)
+    x = jnp.asarray(rng.standard_normal((1, 512)) * 3.0, jnp.bfloat16)
+    nw = jnp.asarray(rng.uniform(0.5, 1.5, (512,)), jnp.bfloat16)
+    tq = _port_q(q)
+    got = _f32_ring_emulated(_t(x), tq, sms, _t(nw))[:, :260]
+    _close(got, tqm.qmm_slab_plain(tqm.rmsnorm_bf16(_t(x), _t(nw), 1e-5),
+                                   tq)[:, :260])
+    _close(got, qm.quant_matmul_norm(x, nw, q, eps=1e-5, interpret=True))
+
+
+@pytest.mark.parametrize("sms", [7, 4, 1])
+@pytest.mark.parametrize("kb", [128, 256])
+@pytest.mark.parametrize("xdt", [jnp.bfloat16, jnp.float32])
+def test_group2d_ring_arithmetic_vs_jax(xdt, kb, sms):
+    """qmm_group2d_ring's arithmetic (_f32_ring_emulated, no norm) at din
+    1024 (four groups of 128 packed rows), dout 260 padded to 384 over 7,
+    4 and 1 SMs: within one bf16 ulp at max|ref| (OUT_TOL; an f32 x
+    1e-5) of qmm_group2d_plain at the table's kb and of the JAX package's
+    interpreted quant_matmul_2d (bn 128)."""
+    rng = np.random.default_rng(140 + kb + sms)
+    w = rng.standard_normal((1024, 260)).astype(np.float32)
+    q = quantize_weight(jnp.asarray(w), bits=4, group_size=128, pad_out=128)
+    x = jnp.asarray(rng.standard_normal((1, 1024)) * 2.0, xdt)
+    tq = _port_q(q)
+    got = _f32_ring_emulated(_t(x), tq, sms)[:, :260]
+    tol = OUT_TOL if xdt == jnp.bfloat16 else 1e-5
+    _close(got, tqm.qmm_group2d_plain(_t(x), tq, kb)[:, :260], tol)
+    _close(got, qm.quant_matmul_2d(x, q, 128, kb, interpret=True), tol)
 
 
 @pytest.mark.parametrize("rows", [1, 8, 9, 33, 64, 100, 256])
