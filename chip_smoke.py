@@ -236,8 +236,10 @@ Phases, each failing with a nonzero exit, each printing its seconds:
      form through GraphHandler (G2BMM, scale, edge mask, Softmax, GBMM), in
      f32 and bf16, against the dense masked S x S attention in plain torch
      (relative error against f64 within 1e-4 in f32, 4e-2 in bf16; the
-     same check must fail with one row of v moved), launching g2bmm and
-     gbmm once each;
+     same check must fail with one row of v moved), launching the ring
+     forms of g2bmm and gbmm once each; the captured block's ms in 6
+     pairs of single runs with the same block captured with the first
+     forms;
  14. the 7B model of phase 4 as an f16 model (the same INT4 codes, scales
      rescaled to weights of rms 1/sqrt(din) so that the residual fits f16;
      f16 embedding, norms, activations and cache): greedy_generate on a
@@ -260,12 +262,14 @@ against the plain versions on the CPU,
 graph run (busy share, kernel ms a token). Phase 3 also holds the kernels of
 phases 7-11 against their plain versions at those shapes (64 rows of 1024
 features; B 64, 16 heads of 64, S 384, ragged pos in [16, 313]; the paired
-7B matmuls at 1 row; qmm_chunk at group 64 and qmm_norm_w4a8's CUDA-core
-form at 1 and 8 rows, qmm_group2d at 1 row), and the graph slice's kernels: rmsnorm at 1,
+7B matmuls at 1 row, and their CUDA-core body at 8, 64 and 256 rows;
+qmm_chunk at group 64 and qmm_norm_w4a8's CUDA-core form at 1, 2 and 8
+rows, qmm_group2d at 1 row), and the graph slice's kernels: rmsnorm at 1,
 8, 64, 256, 1024 and 4096 rows of 4096 in bf16 and f32 (within 1e-5 of
-max|plain| in f32), g2bmm and gbmm at the phase 13 shape (f32, bf16)
-and at Longformer-base's attention (12 heads of 64, window 256, S 4096,
-bf16), flash_attention at head dim 64 at entry()'s prompt (q, k, v [2, 8,
+max|plain| in f32), g2bmm and gbmm (the ring form beside the first
+form forced; 1e-5 of max|plain| in f32) at the phase 13 shape (f32,
+bf16) and at Longformer-base's attention (12 heads of 64, window 256, S
+4096, bf16), flash_attention at head dim 64 at entry()'s prompt (q, k, v [2, 8,
 64, 64]).
 The last lines are the kernels JSON (every kernel, the any-type forms
 and the K split's forms among them), nvidia-smi's name and power
@@ -734,6 +738,8 @@ def main():
     cases += gpt2_cases(torch, qm, att, gcfg, gparams, gen, dev, randn,
                         dequantize_weight)
     cases += paired_cases(torch, qm, cfg, pparams, randn, dequantize_weight)
+    cases += paired_rows_cases(torch, qm, cfg, pparams, envs, layer0, gen,
+                               dev, randn, dequantize_weight)
     cases += variant_cases(torch, qm, cfg, g64params, params, envs, kbs,
                            randn, dequantize_weight)
     cases += graph_cases(torch, norms, band, fa, cfg, gen, dev, randn)
@@ -933,7 +939,8 @@ def main():
 
     # 13. Longformer band attention through the graph IR
     paths.update(longformer_path(torch, GraphHandler, DataType,
-                                 GraphExecutor, counters, dev, report, steps))
+                                 GraphExecutor, band, counters, dev, report,
+                                 steps))
     t_phase = phase(13, t_phase)
 
     # 14. the 7B model in f16: the fast 16-bit attention on its paths
@@ -1676,7 +1683,9 @@ def device_profile(torch, fn):
              ("paged_ring_kernel", "decode attention"),
              ("flash_decode_merge", "decode attention"),
              ("flash_attention_kernel", "flash_attention"),
-             ("rmsnorm_rows_kernel", "rmsnorm"), ("g2bmm_kernel", "g2bmm"),
+             ("rmsnorm_rows_kernel", "rmsnorm"),
+             ("g2bmm_ring_kernel", "g2bmm_ring"),
+             ("gbmm_ring_kernel", "gbmm_ring"), ("g2bmm_kernel", "g2bmm"),
              ("gbmm_kernel", "gbmm"))
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -2346,6 +2355,73 @@ def paired_cases(torch, qm, cfg, pparams, randn, dequantize_weight):
             library=lambda x=x, w=w: torch.matmul(x, w),
             bytes=nbytes(x, q.qweight, q.scales) + 2 * q.out_physical,
             ops=2 * q.in_features * q.out_physical, kind="bf16"))
+    return out
+
+
+def paired_rows_cases(torch, qm, cfg, pparams, envs, layer0, gen, dev, randn,
+                      dequantize_weight):
+    """Phase 3 rows of the CUDA-core bodies that every launch above one
+    row takes where no tensor-core form exists: qmm_slab_norm (wqkv,
+    w_gateup) and qmm_slab (wqkv, wo, w_gateup, w_down) over phase 8's
+    paired 7B weights at SLOTS, 64 and SHORT rows of bf16, and
+    qmm_norm_w4a8 (the W4A8 knob, wqkv and w_gateup) at 2 rows, under
+    its W4A8_MMA_MIN_ROWS; library: matmul on the (normalized) rows. No
+    phase's path runs them."""
+    eps, lay = cfg.norm_eps, pparams["layers"][0]
+    nw = (torch.rand(cfg.dim, generator=gen, device=dev) + 0.5).to(
+        torch.bfloat16)
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    out = []
+    for rows in (SLOTS, 64, SHORT):
+        for label in ("wqkv", "w_gateup"):
+            q = lay[label]
+            x = randn(rows, cfg.dim) * 3
+            xn, w, n = qm.rmsnorm_bf16(x, nw, eps), dequantize_weight(q), \
+                q.out_features
+            out.append(dict(
+                name="qmm_slab_norm", shape=f"paired {label} {rows} rows",
+                path=NO_PATH, replaces=TPU + "quant_matmul.py:208",
+                source=SRC + "quant_matmul_fused.cu",
+                kernel=lambda x=x, q=q: qm.quant_matmul_norm(x, nw, q, eps),
+                plain=lambda x=x, q=q, n=n: qm.qmm_slab_plain(
+                    qm.rmsnorm_bf16(x, nw, eps), q)[:, :n],
+                library=lambda xn=xn, w=w: torch.matmul(xn, w),
+                bytes=nbytes(x, nw, q.qweight, q.scales)
+                + 2 * rows * q.out_physical,
+                ops=2 * rows * cfg.dim * q.out_physical, kind="bf16"))
+        for label in ("wqkv", "wo", "w_gateup", "w_down"):
+            q = lay[label]
+            x = randn(rows, q.in_features)
+            w = dequantize_weight(q)
+            out.append(dict(
+                name="qmm_slab", shape=f"paired {label} {rows} rows",
+                path=NO_PATH, replaces=TPU + "quant_matmul.py:203",
+                source=SRC + "quant_matmul_fused.cu",
+                kernel=lambda x=x, q=q: qm.quant_matmul(x, q),
+                plain=lambda x=x, q=q: qm.qmm_slab_plain(x, q)[
+                    :, :q.out_features],
+                library=lambda x=x, w=w: torch.matmul(x, w),
+                bytes=nbytes(x, q.qweight, q.scales)
+                + 2 * rows * q.out_physical,
+                ops=2 * rows * q.in_features * q.out_physical, kind="bf16"))
+    for label in ("wqkv", "w_gateup"):
+        q = layer0[label]
+        x = randn(2, cfg.dim) * 3
+        xn, w, n = qm.rmsnorm_bf16(x, nw, eps), dequantize_weight(q), \
+            q.out_features
+        out.append(dict(
+            name="qmm_norm_w4a8", shape=f"{label} 2 rows", path=NO_PATH,
+            replaces=TPU + "quant_matmul.py:288",
+            source=SRC + "quant_matmul.cu", env=envs[W4A8],
+            kernel=lambda x=x, q=q: qm.quant_matmul_norm(x, nw, q, eps),
+            plain=lambda x=x, q=q, n=n: qm.qmm_norm_w4a8_plain(
+                x, nw, q, eps)[:, :n],
+            library=lambda xn=xn, w=w: torch.matmul(xn, w),
+            bytes=nbytes(x, nw, q.qweight, q.scales) + 2 * 2 * q.out_physical,
+            ops=2 * 2 * cfg.dim * q.out_physical, kind="int8"))
     return out
 
 
@@ -3407,7 +3483,10 @@ def graph_cases(torch, norms, band, fa, cfg, gen, dev, randn):
     max|plain|) (library: torch's rms_norm); g2bmm and gbmm at the
     phase 13 shape (f32 and bf16) and at Longformer-base's attention
     (allenai/longformer-base-4096: 12 heads of 64, one-sided window 256, S
-    4096; bf16), library the gather + einsum form; flash_attention at
+    4096; bf16), within 1e-5 of max|plain| in f32, library the gather +
+    einsum form: the route's form (the ring, csrc/band_ring.cu, named
+    <op>_ring) beside the old form (csrc/band.cu) forced, which keeps a
+    row of its own (no path takes it at these shapes); flash_attention at
     D 64 at the shape the entry-prompt path gives it (q, k, v [2, 8, 64,
     64])."""
     cases = []
@@ -3445,24 +3524,34 @@ def graph_cases(torch, norms, band, fa, cfg, gen, dev, randn):
         kind = "bf16" if dtype == torch.bfloat16 else "f32"
         tag = f"{label} {bz}x{S}x{D} w{w} {kind}"
         pairs = bz * band_pairs(S, w)
-        cases.append(dict(
-            name="g2bmm", shape=tag, path=path,
-            replaces=TPU + "band.py:44", source=SRC + "band.cu",
-            kernel=lambda q=q, k=k, w=w: band.g2bmm_band(q, k, w),
-            plain=lambda q=q, k=k, w=w: band.g2bmm_plain(q, k, w),
-            library=lambda q=q, k=k, idx=idx, valid=valid: torch.where(
-                valid, torch.einsum("bmk,bmnk->bmn", q, k[:, idx]), 0),
-            bytes=el * (2 * bz * S * D + bz * S * (2 * w + 1)),
-            ops=2 * pairs * D, kind=kind))
-        cases.append(dict(
-            name="gbmm", shape=tag, path=path,
-            replaces=TPU + "band.py:68", source=SRC + "band.cu",
-            kernel=lambda wts=wts, v=v, w=w: band.gbmm_band(wts, v, w),
-            plain=lambda wts=wts, v=v, w=w: band.gbmm_plain(wts, v, w),
-            library=lambda wts=wts, v=v, idx=idx, valid=valid: torch.einsum(
-                "bmn,bmnk->bmk", torch.where(valid, wts, 0), v[:, idx]),
-            bytes=el * (2 * bz * S * D + bz * S * (2 * w + 1)),
-            ops=2 * pairs * D, kind=kind))
+        form = band.band_form(dtype, dtype, D)
+        for name, op, first, b, plain, library, line in (
+                ("g2bmm", band.g2bmm_band, q, k, band.g2bmm_plain,
+                 lambda q=q, k=k, idx=idx, valid=valid: torch.where(
+                     valid, torch.einsum("bmk,bmnk->bmn", q, k[:, idx]), 0),
+                 44),
+                ("gbmm", band.gbmm_band, wts, v, band.gbmm_plain,
+                 lambda wts=wts, v=v, idx=idx, valid=valid: torch.einsum(
+                     "bmn,bmnk->bmk", torch.where(valid, wts, 0), v[:, idx]),
+                 68)):
+            row = dict(
+                shape=tag, replaces=TPU + f"band.py:{line}",
+                plain=lambda f=first, b=b, w=w, pl=plain: pl(f, b, w),
+                library=library,
+                bytes=el * (2 * bz * S * D + bz * S * (2 * w + 1)),
+                ops=2 * pairs * D, kind=kind,
+                tol=1e-5 if dtype == torch.float32 else TOL)
+            old = lambda f=first, b=b, w=w, op=op: op(  # noqa: E731
+                f, b, w, form="simt")
+            if form == "ring":
+                cases.append(dict(
+                    row, name=name + "_ring", path=path,
+                    source=SRC + "band_ring.cu",
+                    kernel=lambda f=first, b=b, w=w, op=op: op(f, b, w),
+                    forms={"simt": old}))
+            cases.append(dict(
+                row, name=name, path=path if form == "simt" else NO_PATH,
+                source=SRC + "band.cu", kernel=old))
     B, H, S, D = ENTRY_PROMPT_SHAPE
     qa, ka, va = (randn(B, H, S, D) for _ in range(3))
     cases.append(dict(
@@ -3711,8 +3800,8 @@ def graph_path(torch, llama, graph_llama, GraphExecutor, counters, params,
     return {GRAPH: launches, GRAPH_SERVE: serve_launches}
 
 
-def longformer_path(torch, GraphHandler, DataType, GraphExecutor, counters,
-                    dev, report, steps):
+def longformer_path(torch, GraphHandler, DataType, GraphExecutor, band,
+                    counters, dev, report, steps):
     """Phase 13: the Longformer block of tools/rewrite_speedup.py:164-170
     (batch 1, 8 heads, S 2048, head dim 128, w 64) in the band form the
     JAX package's band mutator makes (optimizer/mutator.py:177-260), built
@@ -3721,7 +3810,11 @@ def longformer_path(torch, GraphHandler, DataType, GraphExecutor, counters,
     in f32 and in bf16, against the dense masked S x S attention in plain
     torch in f64 on the same rounded inputs (and in f32, printed, with the
     share of elements that equal it bit for bit); the check must fail on
-    an input with one row of v moved. Returns {path: launches}."""
+    an input with one row of v moved. One eager run launches the ring
+    form of g2bmm and gbmm once each. The captured block's ms is read in
+    turns with the same block captured with band.band_form patched to the
+    old form (6 pairs of single runs; held to the same limit). Returns
+    {path: launches}."""
     B, H, S, D, W = (LF["batch"], LF["heads"], LF["seq"], LF["head_dim"],
                      LF["w"])
     bz = B * H
@@ -3745,8 +3838,8 @@ def longformer_path(torch, GraphHandler, DataType, GraphExecutor, counters,
                       for n in ("q", "k", "v"))
         scale = h.weight_placeholder((1,), act, name="scale")
         mask = h.weight_placeholder((S, 2 * W + 1), act, name="edge_mask")
-        band = h.g2bmm(qi, ki, width=W)
-        probs = h.softmax(h.add(h.mul(band, scale), mask), axis=-1)
+        scores = h.g2bmm(qi, ki, width=W)
+        probs = h.softmax(h.add(h.mul(scores, scale), mask), axis=-1)
         h.gbmm(probs, vi)
         h.graph.infer_output_roles()
         feeds = {"q": q.to(dt), "k": k.to(dt), "v": v.to(dt)}
@@ -3761,9 +3854,9 @@ def longformer_path(torch, GraphHandler, DataType, GraphExecutor, counters,
         torch.cuda.synchronize()
         paths[label] = counters.read()
         steps[label] = paths[label]
-        if paths[label] != {"g2bmm": 1, "gbmm": 1}:
-            fail(f"{label}: launched {paths[label]}, expected g2bmm 1, "
-                 "gbmm 1")
+        want = {"g2bmm": 1, "g2bmm_ring": 1, "gbmm": 1, "gbmm_ring": 1}
+        if paths[label] != want:
+            fail(f"{label}: launched {paths[label]}, expected {want}")
         qf, kf, vf = (t.float() for t in feeds.values())
         ref = dense(qf, kf, vf)
         ref64 = dense(*(t.double() for t in feeds.values()))
@@ -3791,21 +3884,54 @@ def longformer_path(torch, GraphHandler, DataType, GraphExecutor, counters,
         if not err_p > LF_TOL[label]:
             fail(f"{label}: a perturbed v gives rel err {err_p}, within "
                  f"the limit {LF_TOL[label]}: the check sees nothing")
-        del ref64, out_p, v_p
         ex = GraphExecutor(h.graph, device=dev)
         for n, t in weights.items():
             ex.set_weight(n, t)
+        # the same block captured with the old form of both kernels
+        route = band.band_form
+        band.band_form = lambda *a: "simt"
+        try:
+            counters.reset()
+            ex_old = GraphExecutor(h.graph, device=dev)
+            for n, t in weights.items():
+                ex_old.set_weight(n, t)
+            (out_old,) = ex_old.run(feeds).values()
+            torch.cuda.synchronize()
+            old_launches = counters.read()
+        finally:
+            band.band_form = route
+        err_old = (out_old.double() - ref64).abs().max().item() / top
+        if old_launches.get("g2bmm_ring", 0) or \
+                old_launches.get("gbmm_ring", 0) or \
+                not old_launches.get("g2bmm", 0) or \
+                not old_launches.get("gbmm", 0) or \
+                not math.isfinite(err_old) or err_old > LF_TOL[label]:
+            fail(f"{label}: the old forms' capture launched {old_launches},"
+                 f" rel err {err_old}")
+        # one run of each in turns, 6 pairs: the card's speed moves between
+        # runs (PERF.md section 7), so each pair's ratio is read
+        turns = {"ring": [], "old": []}
+        for _ in range(6):
+            turns["ring"].append(ex.time_ms(feeds, iters=20))
+            turns["old"].append(ex_old.time_ms(feeds, iters=20))
+        ratios = sorted(a / b for a, b in zip(turns["ring"], turns["old"]))
+        del ref64, out_p, v_p, out_old
         res[label] = {"rel_err_vs_dense_f64": err,
                       "rel_err_vs_dense_f32": err32,
                       "bit_equal_share_vs_dense_f32": equal,
                       "rel_err_perturbed_v": err_p, "pairs": pairs,
                       "launches": paths[label],
-                      "captured_ms": ex.time_ms(feeds, iters=20),
+                      "captured_ms": statistics.median(turns["ring"]),
+                      "captured_ms_old_forms": statistics.median(
+                          turns["old"]),
+                      "captured_ms_in_turns": turns,
+                      "ring_over_old_median": statistics.median(ratios),
+                      "rel_err_old_forms_vs_dense_f64": err_old,
                       "eager_ms": eager.time_ms(feeds, iters=5),
                       "dense_ms": cuda_ms(torch, lambda qf=qf, kf=kf, vf=vf:
                                           dense(qf, kf, vf), 5)}
         print(f"# {label}: " + json.dumps(res[label]), flush=True)
-        del ex, eager, ref
+        del ex, ex_old, eager, ref
     report["longformer"] = res
     return paths
 

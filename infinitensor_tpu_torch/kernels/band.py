@@ -7,19 +7,29 @@ with j in [0, 2w], terms whose row i + (j - w) d falls outside [0, m)
 left out (g2bmm writes 0 there), f32 sums rounded to A's (g2bmm) or B's
 (gbmm) dtype.
 
-g2bmm_band and gbmm_band launch the kernels of csrc/band.cu, replacing
-_g2bmm_kernel and _gbmm_kernel; g2bmm_plain and gbmm_plain are their plain
-versions (one f32 multiply-reduce per diagonal). A CPU tensor takes the
-plain version; a CUDA tensor launches the kernel (bf16 or f32 inputs) or
-raises. `launches` counts kernel launches.
+g2bmm_band and gbmm_band launch a kernel that replaces _g2bmm_kernel and
+_gbmm_kernel, in one of two forms that band_form chooses:
+  "ring": csrc/band_ring.cu, both operands bf16 or both f32 and k a
+          multiple of 8 from 8 to 256 (any m, any w): B's window streams
+          through a cp.async ring of 64-row tiles; mma.sync in bf16, a
+          register-tiled FMA consumer in f32;
+  "simt": csrc/band.cu, the first CUDA form (the window staged whole, one
+          FMA per two shared loads), for a mixed bf16 / f32 pair and any
+          other k; it raises where that window does not fit a block's
+          shared memory.
+`form=` forces either (the ring only where it applies). g2bmm_plain and
+gbmm_plain are the plain versions (one f32 multiply-reduce per
+diagonal). A CPU tensor takes the plain version; a CUDA tensor launches
+the kernel of its form (bf16 or f32 inputs) or raises. `launches` counts
+kernel launches: "g2bmm" / "gbmm" every form, "g2bmm_ring" / "gbmm_ring"
+the ring form again.
 
 band_kernels_usable keeps only the semantic part of the JAX gate
 (band.py:157-163): dilation 1 (a dilated band stays on the lowering's
 gather or shift-scan path, as in the JAX package). Dropped are the TPU's
 predicates: k % 128 == 0 (lanes), w <= 128 (the kernel's static unroll of
 the diagonals) and a row block that is a multiple of 8 dividing m (VMEM
-blocks). The CUDA kernels take any k, w and m whose staged window of B
-fits a block's shared memory (csrc/band.cu), and raise beyond that.
+blocks).
 """
 
 from __future__ import annotations
@@ -27,6 +37,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
@@ -34,6 +45,7 @@ from infinitensor_tpu_torch.kernels import _build
 
 launches = collections.Counter()
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+RING_MAX_K = 256               # the ring form: k a multiple of 8 up to this
 
 
 @functools.cache
@@ -41,6 +53,21 @@ def _lib() -> ctypes.CDLL:
     P, I = _build.P, _build.I
     sig = [P, I, P, I, P, I, I, I, I, P]
     return _build.typed("band", g2bmm=sig, gbmm=sig)
+
+
+@functools.cache
+def _lib_ring() -> ctypes.CDLL:
+    P, I = _build.P, _build.I
+    sig = [P, P, P, I, I, I, I, I, P]
+    return _build.typed("band_ring", g2bmm_ring=sig, gbmm_ring=sig)
+
+
+def band_form(a_dtype: torch.dtype, b_dtype: torch.dtype, k: int) -> str:
+    """Which form a g2bmm / gbmm launch on the card takes: "ring"
+    (csrc/band_ring.cu) when both operands are bf16 or both f32 and k is
+    a multiple of 8 from 8 to RING_MAX_K; else "simt" (csrc/band.cu)."""
+    return "ring" if a_dtype == b_dtype and a_dtype in KERNEL_DTYPES \
+        and k % 8 == 0 and 8 <= k <= RING_MAX_K else "simt"
 
 
 def shifted_rows(b: torch.Tensor, off: int) -> torch.Tensor:
@@ -80,8 +107,14 @@ def band_kernels_usable(m: int, k: int, w: int, d: int) -> bool:
     return d == 1
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t, or a copy of it that starts on 16 bytes (the ring form copies
+    rows of A and B 16 bytes at a time)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _launch(name: str, first: torch.Tensor, b: torch.Tensor, w: int,
-            out: torch.Tensor) -> torch.Tensor:
+            out: torch.Tensor, form) -> torch.Tensor:
     for what, t in (("first operand", first), ("b", b)):
         if t.device != b.device or t.dtype not in KERNEL_DTYPES:
             raise ValueError(f"{name} kernel takes {what} in "
@@ -89,11 +122,28 @@ def _launch(name: str, first: torch.Tensor, b: torch.Tensor, w: int,
                              f"{t.dtype} on {t.device}")
     first, b = first.contiguous(), b.contiguous()
     bz, m, k = b.shape
-    lib, p = _lib(), _build.ptr
-    err = getattr(lib, name)(
-        p(first), first.dtype == torch.float32, p(b),
-        b.dtype == torch.float32, p(out), bz, m, k, w, _build.stream())
-    _build.raise_on(lib, err, name)
+    route = band_form(first.dtype, b.dtype, k)
+    form = form or route
+    if form not in ("ring", "simt") or (form == "ring" and route != "ring"):
+        raise ValueError(f"{name}: no form {form!r} for {first.dtype} x "
+                         f"{b.dtype} at k {k} (its route: {route!r})")
+    p = _build.ptr
+    if form == "ring":
+        lib = _lib_ring()
+        b = _aligned(b)
+        if name == "g2bmm":
+            first = _aligned(first)
+        err = getattr(lib, name + "_ring")(
+            p(first), p(b), p(out), b.dtype == torch.float32, bz, m, k, w,
+            _build.stream())
+        _build.raise_on(lib, err, name + "_ring")
+        launches[name + "_ring"] += 1
+    else:
+        lib = _lib()
+        err = getattr(lib, name)(
+            p(first), first.dtype == torch.float32, p(b),
+            b.dtype == torch.float32, p(out), bz, m, k, w, _build.stream())
+        _build.raise_on(lib, err, name)
     launches[name] += 1
     return out
 
@@ -108,9 +158,10 @@ def _check(name, a, b, d):
         raise ValueError(f"unsupported device {a.device}")
 
 
-def g2bmm_band(a: torch.Tensor, b: torch.Tensor, w: int, d: int = 1
-               ) -> torch.Tensor:
-    """A [bz, m, k] x B [bz, m, k] -> band scores [bz, m, 2w + 1]."""
+def g2bmm_band(a: torch.Tensor, b: torch.Tensor, w: int, d: int = 1,
+               form: Optional[str] = None) -> torch.Tensor:
+    """A [bz, m, k] x B [bz, m, k] -> band scores [bz, m, 2w + 1]; on the
+    card in the form band_form chooses, or `form` ("ring", "simt")."""
     _check("g2bmm", a, b, d)
     if a.shape != b.shape:
         raise ValueError(f"g2bmm: A {tuple(a.shape)} and B "
@@ -119,16 +170,17 @@ def g2bmm_band(a: torch.Tensor, b: torch.Tensor, w: int, d: int = 1
         return g2bmm_plain(a, b, w, d)
     out = torch.empty(a.shape[0], a.shape[1], 2 * w + 1, dtype=a.dtype,
                       device=a.device)
-    return _launch("g2bmm", a, b, w, out)
+    return _launch("g2bmm", a, b, w, out, form)
 
 
-def gbmm_band(wts: torch.Tensor, b: torch.Tensor, w: int, d: int = 1
-              ) -> torch.Tensor:
-    """Band weights [bz, m, 2w + 1] x B [bz, m, k] -> [bz, m, k]."""
+def gbmm_band(wts: torch.Tensor, b: torch.Tensor, w: int, d: int = 1,
+              form: Optional[str] = None) -> torch.Tensor:
+    """Band weights [bz, m, 2w + 1] x B [bz, m, k] -> [bz, m, k]; on the
+    card in the form band_form chooses, or `form` ("ring", "simt")."""
     _check("gbmm", wts, b, d)
     if wts.shape[2] != 2 * w + 1:
         raise ValueError(f"gbmm: {wts.shape[2]} band columns for w = {w}")
     if wts.device.type == "cpu":
         return gbmm_plain(wts, b, w, d)
     out = torch.empty(b.shape, dtype=b.dtype, device=b.device)
-    return _launch("gbmm", wts, b, w, out)
+    return _launch("gbmm", wts, b, w, out, form)

@@ -1,5 +1,8 @@
 // Band matmuls of Longformer local attention, hand-written for Hopper
-// (sm_90a). Python wrappers: kernels/band.py g2bmm_band, gbmm_band.
+// (sm_90a): the first form. Python wrappers: kernels/band.py g2bmm_band,
+// gbmm_band with form "simt" (band_form's route for a mixed bf16 / f32
+// pair and for k not a multiple of 8 from 8 to 256; forced elsewhere only
+// as the yardstick of band_ring.cu, the ring form).
 //
 // Replaces the TPU kernels of infinitensor_tpu/kernels/band.py:
 //   g2bmm <- _g2bmm_kernel (:44, via g2bmm_band :109-130)

@@ -753,23 +753,133 @@ def test_rmsnorm_kernel_misaligned_view(dev, rows, xdt):
     assert torch.equal(got, norms.rmsnorm(x, w, 1e-5))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("bz,m,k,w", [(2, 64, 128, 6), (3, 100, 64, 20),
-                                      (1, 300, 32, 130), (8, 2048, 128, 64)])
-def test_band_kernels(dev, dtype, bz, m, k, w):
-    from infinitensor_tpu_torch.kernels import band
-    g = torch.Generator().manual_seed(m)
+_BAND_W = (0, 1, 7, 64, 130, 256)
+_BAND_M = (1, 17, 63, 64, 65, 300, 2048)
+_BAND_K = (8, 24, 64, 96, 128, 256)
+# every w and m (m < w included), each k and bz 1-12 in turn; then the
+# shapes the first form was tested at
+_BAND_SHAPES = [(1 + (7 * i + j) % 12, m, _BAND_K[(i + j) % 6], w)
+                for i, w in enumerate(_BAND_W)
+                for j, m in enumerate(_BAND_M)] + [
+    (2, 64, 128, 6), (3, 100, 64, 20), (1, 300, 32, 130), (8, 2048, 128, 64)]
+
+
+def _band_inputs(dev, dtype, bz, m, k, w):
+    g = torch.Generator().manual_seed(m * 1000 + k + w)
     a = torch.randn(bz, m, k, generator=g).to(dtype).to(dev)
     b = torch.randn(bz, m, k, generator=g).to(dtype).to(dev)
     wts = torch.softmax(torch.randn(bz, m, 2 * w + 1, generator=g),
                         -1).to(dtype).to(dev)
+    return a, b, wts
+
+
+def _band_close(got, want):
+    """Within 1e-2 of max|plain| in bf16, 1e-5 in f32 (f32 sums taken in
+    another order)."""
+    assert got.shape == want.shape and got.dtype == want.dtype
+    tol = 1e-5 if want.dtype == torch.float32 else TOL
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= tol * want.float().abs().max().item(), err
+
+
+def _band_old_form_fits(dtype, k, w):
+    """Whether csrc/band.cu (which stages the whole window) takes (k, w):
+    its smallest block, one row, within 232,448 bytes of shared memory."""
+    el = torch.empty(0, dtype=dtype).element_size()
+    ld = (k | 1) if el == 4 else ((k + (k & 1)) if (k + (k & 1)) % 4 == 2
+                                  else k + (k & 1) + 2)
+    g2 = ld * el + 16 + (1 + 2 * w) * ld * el
+    g = (2 * w + 1) * el + 16 + (1 + 2 * w) * k * el
+    return max(g2, g) <= 232448
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bz,m,k,w", _BAND_SHAPES)
+def test_band_kernels(dev, dtype, bz, m, k, w):
+    """g2bmm / gbmm in their ring form (the route's: both operands bf16 or
+    both f32, k a multiple of 8 up to 256) against the plain versions,
+    counted under <op> and <op>_ring, equal bits across two calls; the
+    old form forced (csrc/band.cu) where its window fits."""
+    from infinitensor_tpu_torch.kernels import band
+    a, b, wts = _band_inputs(dev, dtype, bz, m, k, w)
+    assert band.band_form(dtype, dtype, k) == "ring"
     before = dict(band.launches)
-    _close(band.g2bmm_band(a, b, w), band.g2bmm_plain(a, b, w))
-    _close(band.gbmm_band(wts, b, w), band.gbmm_plain(wts, b, w))
-    assert band.launches["g2bmm"] == before.get("g2bmm", 0) + 1
-    assert band.launches["gbmm"] == before.get("gbmm", 0) + 1
+    s = band.g2bmm_band(a, b, w)
+    o = band.gbmm_band(wts, b, w)
+    _band_close(s, band.g2bmm_plain(a, b, w))
+    _band_close(o, band.gbmm_plain(wts, b, w))
+    for name in ("g2bmm", "g2bmm_ring", "gbmm", "gbmm_ring"):
+        assert band.launches[name] == before.get(name, 0) + 1, name
+    assert torch.equal(s, band.g2bmm_band(a, b, w))
+    assert torch.equal(o, band.gbmm_band(wts, b, w))
+    if _band_old_form_fits(dtype, k, w):
+        _band_close(band.g2bmm_band(a, b, w, form="simt"),
+                    band.g2bmm_plain(a, b, w))
+        _band_close(band.gbmm_band(wts, b, w, form="simt"),
+                    band.gbmm_plain(wts, b, w))
     with pytest.raises(ValueError, match="dilation"):
         band.g2bmm_band(a, b, w, d=2)
+
+
+@pytest.mark.parametrize("case", ["mixed", "k20"])
+def test_band_old_form_route(dev, case):
+    """A mixed bf16 / f32 pair and k = 20 take the old form (csrc/band.cu):
+    counted under g2bmm / gbmm and not under <op>_ring; forcing the ring
+    form on them raises."""
+    from infinitensor_tpu_torch.kernels import band
+    k = 20 if case == "k20" else 64
+    a, b, wts = _band_inputs(dev, torch.bfloat16, 2, 130, k, 9)
+    if case == "mixed":
+        a, wts = a.float(), wts.float()
+    assert band.band_form(a.dtype, b.dtype, k) == "simt"
+    before = dict(band.launches)
+    got_s, got_o = band.g2bmm_band(a, b, 9), band.gbmm_band(wts, b, 9)
+    _band_close(got_s, band.g2bmm_plain(a, b, 9))
+    _band_close(got_o, band.gbmm_plain(wts, b, 9))
+    for name, n in (("g2bmm", 1), ("gbmm", 1), ("g2bmm_ring", 0),
+                    ("gbmm_ring", 0)):
+        assert band.launches[name] == before.get(name, 0) + n, name
+    with pytest.raises(ValueError, match="no form 'ring'"):
+        band.g2bmm_band(a, b, 9, form="ring")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_band_ring_in_a_cuda_graph(dev, dtype):
+    """The ring forms captured in a CUDA graph give the eager bits, at the
+    phase 13 shape and at a wide band whose tile is not staged."""
+    from infinitensor_tpu_torch.kernels import band
+    for bz, m, k, w in ((8, 2048, 128, 64), (1, 300, 64, 1000)):
+        a, b, wts = _band_inputs(dev, dtype, bz, m, k, w)
+        want = (band.g2bmm_band(a, b, w), band.gbmm_band(wts, b, w))
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            band.g2bmm_band(a, b, w), band.gbmm_band(wts, b, w)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            got = (band.g2bmm_band(a, b, w), band.gbmm_band(wts, b, w))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
+def test_band_ring_unaligned_views(dev):
+    """Operands that start 2 bytes past a 16-byte boundary (views into a
+    larger buffer): the ring form takes aligned copies of A and B and
+    reads W and writes out at any offset, as the plain versions say."""
+    from infinitensor_tpu_torch.kernels import band
+    g = torch.Generator().manual_seed(5)
+    bz, m, k, w = 3, 77, 64, 9
+    buf = torch.randn(1 + 3 * bz * m * k + bz * m * (2 * w + 1),
+                      generator=g).to(torch.bfloat16).to(dev)
+    a = buf[1:1 + bz * m * k].view(bz, m, k)
+    b = buf[1 + bz * m * k:1 + 2 * bz * m * k].view(bz, m, k)
+    wts = buf[1 + 2 * bz * m * k:1 + 2 * bz * m * k + bz * m * (2 * w + 1)
+              ].view(bz, m, 2 * w + 1)
+    assert a.data_ptr() % 16 and wts.data_ptr() % 16
+    _band_close(band.g2bmm_band(a, b, w), band.g2bmm_plain(a, b, w))
+    _band_close(band.gbmm_band(wts, b, w), band.gbmm_plain(wts, b, w))
 
 
 @pytest.mark.parametrize("S", [1, 77, 1024])

@@ -87,7 +87,7 @@ def test_kernel_sources_shipped():
         "quant_matmul_ring.cu", "quant_matmul_w4a8_ring.cu",
         "flash_decode.cu", "paged_flash_decode.cu",
         "paged_flash_decode_ring.cu", "flash_attention.cu", "rmsnorm.cu",
-        "band.cu"}
+        "band.cu", "band_ring.cu"}
     # the bodies the decode-attention and the group-dot kernels share, and
     # the tensor-core tile's pieces
     assert (csrc / "flash_decode.cuh").exists()
