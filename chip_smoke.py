@@ -62,7 +62,13 @@ Phases, each failing with a nonzero exit, each printing its seconds:
      splitk_sum), which keeps a row of its own, within one bf16 ulp of
      the plain version and of that form, both also back to back over the
      32 layers' copies in one CUDA graph, and qmm_group2d_ring with an f16
-     and an f32 x (one f16 ulp, 1e-5 of max|plain|); the
+     and an f32 x (one f16 ulp, 1e-5 of max|plain|); the paired
+     tensor-core forms (qmm_slab_norm_mma on wqkv and w_gateup,
+     qmm_slab_mma on wqkv, wo, w_gateup and w_down: qmm_group_mma's tile
+     over one scale row a packed group) at SLOTS, 64 and SHORT rows of
+     phase 8's paired weights, each beside the CUDA-core body, forced,
+     and the unpaired tile on the same shape (the group-128 build), with
+     a crossover of both paired forms at 1-8 rows; the
      dense decode attention
      (flash_decode, flash_decode_q8) in the split form its wrappers take
      at batch 1 beside the forced unsplit form, the split form's merge
@@ -188,6 +194,13 @@ Phases, each failing with a nonzero exit, each printing its seconds:
      flash_decode_q8 32 and no qmm_group, qmm_group_norm or qmm_w4a8; the
      region read in turns with qmm_slab_norm's CUDA-core form forced
      (qm.slab_form patched for the capture), its tokens equal up to a
+     printed near-tie; then a seeded SHORT-token prefill of that model
+     (its norm unfused: qmm_slab_mma 4 L + 1 launches, no
+     qmm_slab_norm_mma) and the dense ServingEngine's captured step at
+     SLOTS live slots over its weights (INT8 cache; qmm_slab_norm_mma 2 L
+     and qmm_slab_mma 2 L + 1 a step), each read in turns with the
+     CUDA-core body forced (qm.slab_form patched; new, forced, new), the
+     prefill's last logits and 16 greedy tokens of the step equal up to a
      printed near-tie;
   9. the same decode with INT4 weights at group 64, the quantization of
      __graft_entry__.entry() at 7B width: every linear takes qmm_chunk
@@ -239,7 +252,10 @@ Phases, each failing with a nonzero exit, each printing its seconds:
      same check must fail with one row of v moved), launching the ring
      forms of g2bmm and gbmm once each; the captured block's ms in 6
      pairs of single runs with the same block captured with the first
-     forms;
+     forms; then G2BMM -> GBMM in f32 at shapes no band kernel takes (k
+     512 and w 128, whose window no block's shared memory holds; bz
+     65536), which the lowering's gate sends to its gather or shift-scan
+     path: no band launch, within 1e-4 of max|plain|;
  14. the 7B model of phase 4 as an f16 model (the same INT4 codes, scales
      rescaled to weights of rms 1/sqrt(din) so that the residual fits f16;
      f16 embedding, norms, activations and cache): greedy_generate on a
@@ -262,7 +278,7 @@ against the plain versions on the CPU,
 graph run (busy share, kernel ms a token). Phase 3 also holds the kernels of
 phases 7-11 against their plain versions at those shapes (64 rows of 1024
 features; B 64, 16 heads of 64, S 384, ragged pos in [16, 313]; the paired
-7B matmuls at 1 row, and their CUDA-core body at 8, 64 and 256 rows;
+7B matmuls at 1 row;
 qmm_chunk at group 64 and qmm_norm_w4a8's CUDA-core form at 1, 2 and 8
 rows, qmm_group2d at 1 row), and the graph slice's kernels: rmsnorm at 1,
 8, 64, 256, 1024 and 4096 rows of 4096 in bf16 and f32 (within 1e-5 of
@@ -327,6 +343,8 @@ DENSE_INT8 = "serving dense int8"
 DENSE_STEPS = 16             # phase 6: greedy steps of each dense form
 G64_PROMPT = f"group64 prompt {SHORT}"   # phase 9: the group-64 prefill
 DENSE_G64 = "serving dense g64 int8"     # ... and its dense 8-slot step
+PAIRED_PROMPT = f"paired prompt {SHORT}"  # phase 8: the paired prefill
+DENSE_PAIRED = "serving dense paired int8"  # ... and its dense 8-slot step
 CPU_LAYERS = 4               # phases 8-11: layers of the step held against
 #                              the plain versions on the CPU
 PAGED_POS = (CTX - 331, CTX - 64, CTX - 1, CTX, CTX + 1, CTX + 63,
@@ -767,6 +785,8 @@ def main():
                                               randn, flush)
     report["chunk_crossover"] = chunk_crossover(torch, qm, g64params, randn,
                                                 flush)
+    report["slab_crossover"] = slab_crossover(torch, qm, pparams, cfg, gen,
+                                              randn, flush)
     report["decode_crossover"] = decode_crossover(torch, att, gen, dev, flush)
     report["paged_crossover"] = paged_crossover(torch, pa, gen, dev, flush)
     report["any_grid"] = any_grid(torch, att, fa, pa, gen, dev)
@@ -860,6 +880,36 @@ def main():
          "flash_decode_q8": L, **merges(cfg, L)},
         weight_bytes(cfg, paired=True),
         ring_form=("slab_form", ("qmm_slab_norm_ring",)))
+    # the paired prefill (unfused norm: qmm_slab at SHORT rows) and the
+    # dense 8-slot step (qmm_slab_norm and qmm_slab at SLOTS rows) in the
+    # paired tensor-core forms, each read in turns with the CUDA-core body
+    # forced (qm.slab_form patched)
+    t0 = time.perf_counter()
+    mma = {r: qm.slab_form(r, torch.bfloat16, False) == "mma"
+           for r in (SHORT, SLOTS)}
+    paths[PAIRED_PROMPT] = forms_prompt_path(
+        torch, llama, qm, counters, pparams, cfg, dev, report, PAIRED_PROMPT,
+        "slab_form", lambda rows, dtype, norm: "cuda_core",
+        {"qmm_slab": 4 * L + 1,
+         "qmm_slab_mma": (4 * L + 1) * mma[SHORT]}, SEED + 80)
+    paths[DENSE_PAIRED], forms = forms_dense_path(
+        torch, llama, qm, counters, pparams, cfg, dev, report, DENSE_PAIRED,
+        "slab_form", lambda rows, dtype, norm: "cuda_core",
+        {"qmm_slab_norm": 2 * L, "qmm_slab_norm_mma": 2 * L * mma[SLOTS],
+         "qmm_slab": 2 * L + 1, "qmm_slab_mma": (2 * L + 1) * mma[SLOTS]},
+        "qmm_slab_norm_mma")
+    report["serving"][DENSE_PAIRED] = {
+        "launches_per_step": paths[DENSE_PAIRED], **forms}
+    print(f"# {PAIRED_PROMPT} and {DENSE_PAIRED} (both forms, in turns) "
+          f"took {time.perf_counter() - t0:.1f}s", flush=True)
+    # the prefill's norm is unfused (as in the JAX package), so only the
+    # step launches qmm_slab_norm_mma
+    for path, knames in ((PAIRED_PROMPT, ("qmm_slab_mma",)),
+                         (DENSE_PAIRED, ("qmm_slab_mma",
+                                         "qmm_slab_norm_mma"))):
+        for kname in knames:
+            if paths[path].get(kname, 0) <= 0:
+                fail(f"{kname} was never launched on the path {path}")
     del pparams
     t_phase = phase(8, t_phase)
 
@@ -873,11 +923,21 @@ def main():
          + split_launches(qm, (g64params["lm_head"],)),
          "flash_decode_q8": L, **merges(cfg, L)},
         weight_bytes(cfg, group=64))
+    # the prefill and the dense 8-slot step (qmm_chunk at SHORT and SLOTS
+    # rows), each read in turns with qmm_chunk's CUDA-core form forced
+    group = g64params["lm_head"].group_size
+    n = 4 * L + 1
     t0 = time.perf_counter()
-    paths[G64_PROMPT] = g64_prompt_path(torch, llama, qm, counters,
-                                        g64params, cfg, dev, report)
-    paths[DENSE_G64], forms = g64_dense_path(torch, llama, qm, counters,
-                                             g64params, cfg, dev, report)
+    paths[G64_PROMPT] = forms_prompt_path(
+        torch, llama, qm, counters, g64params, cfg, dev, report, G64_PROMPT,
+        "chunk_form", lambda rows, dtype, group: "cuda_core",
+        {"qmm_chunk": n, "qmm_chunk_mma": n if qm.chunk_form(
+            SHORT, torch.bfloat16, group) == "mma" else 0}, SEED + 64)
+    paths[DENSE_G64], forms = forms_dense_path(
+        torch, llama, qm, counters, g64params, cfg, dev, report, DENSE_G64,
+        "chunk_form", lambda rows, dtype, group: "cuda_core",
+        {"qmm_chunk": n, "qmm_chunk_mma": n if qm.chunk_form(
+            SLOTS, torch.bfloat16, group) == "mma" else 0}, "qmm_chunk_mma")
     report["serving"][DENSE_G64] = {
         "launches_per_step": paths[DENSE_G64], **forms}
     print(f"# {G64_PROMPT} and {DENSE_G64} (both forms, in turns) took "
@@ -941,11 +1001,14 @@ def main():
     paths.update(longformer_path(torch, GraphHandler, DataType,
                                  GraphExecutor, band, counters, dev, report,
                                  steps))
+    band_gate_check(torch, GraphHandler, GraphExecutor, band, counters, dev,
+                    report)
     t_phase = phase(13, t_phase)
 
     # 14. the 7B model in f16: the fast 16-bit attention on its paths
     prompts_of = {ENTRY_PROMPT: paths[ENTRY_PROMPT],
-                  G64_PROMPT: paths[G64_PROMPT], NO_PATH: {}}
+                  G64_PROMPT: paths[G64_PROMPT],
+                  PAIRED_PROMPT: paths[PAIRED_PROMPT], NO_PATH: {}}
     paths.update(f16_path(torch, llama, counters, (att, fa, pa), params,
                           cfg, dev, report, steps, prompts_of))
     paths[NO_PATH] = steps[NO_PATH] = {}
@@ -956,7 +1019,7 @@ def main():
     kernels = []
     for c in cases:
         prefill = c["name"].startswith("flash_attention") or c["path"] in \
-            (f"prompt {SHORT}", G64_PROMPT)
+            (f"prompt {SHORT}", G64_PROMPT, PAIRED_PROMPT)
         step = report["serving"][c["path"]]["launches_per_step"] \
             if c["path"].startswith("serving") \
             else steps.get(c["path"], per_token)
@@ -980,6 +1043,8 @@ def main():
                if "cuda_core_err" in c else {}),
             **({"library_ln_ms": c["library_ln_ms"]}
                if "library_ln" in c else {}),
+            **({"yardstick_ms": c["yardstick_ms"]}
+               if c["yardstick_ms"] else {}),
             **({"forms": {f: {"ms": ms, "max_abs_err": c["form_err"][f]}
                           for f, ms in c["form_ms"].items()}}
                if c["form_ms"] else {}),
@@ -1028,6 +1093,9 @@ def check_and_time(torch, c, counters, flush, bw_copy):
             if not (math.isfinite(e) and e <= bf16_ulp(ref)):
                 fail(f"{c['name']} {c['shape']}: {e} from the CUDA-core "
                      f"form, more than one bf16 ulp at {ref}")
+    # other kernels on the same shape, timed only (yardsticks)
+    c["yardstick_ms"] = {f: cuda_ms(torch, fn, 50, flush)
+                         for f, fn in c.get("yardsticks", {}).items()}
     if "library_ln" in c:           # LayerNorm + addmm from the raw rows
         c["library_ln_ms"] = cuda_ms(torch, c["library_ln"], 50, flush)
     c["form_ms"], c["form_err"] = {}, {}
@@ -1055,6 +1123,8 @@ def check_and_time(torch, c, counters, flush, bw_copy):
              if "cuda_core" in c else "")
           + (f"layer_norm + addmm {c['library_ln_ms']:.4f} ms  "
              if "library_ln" in c else "")
+          + "".join(f"{f} {ms:.4f} ms (x{c['ms'] / ms:.2f})  "
+                    for f, ms in c["yardstick_ms"].items())
           + "".join(f"{f} form {ms:.4f} ms (err {c['form_err'][f]:.3g})  "
                     for f, ms in c["form_ms"].items())
           + "".join(f"{f} back to back {ms:.4f} ms  "
@@ -1668,16 +1738,20 @@ def device_profile(torch, fn):
              ("group_ln_norm_rows", "qmm_group_ln"),
              ("qmm_group_ln_mma_kernel", "qmm_group_ln"),
              ("group_ln_splitk_sum", "qmm_group_ln sum"),
-             ("group_norm_rows", "qmm_group_norm_mma"),
+             # the RMSNorm pre-pass and the split sum are shared by the
+             # unpaired and the paired tensor-core forms
+             ("group_norm_rows", "mma rmsnorm pre-pass"),
              ("qmm_group_norm_mma_kernel", "qmm_group_norm_mma"),
              ("qmm_chunk_mma_kernel", "qmm_chunk_mma"),
+             ("qmm_slab_norm_mma_kernel", "qmm_slab_norm_mma"),
+             ("qmm_slab_mma_kernel", "qmm_slab_mma"),
              ("chunk_splitk_sum", "qmm_chunk_mma sum"),
              ("w4a8_norm_quantize_rows", "qmm_norm_w4a8_mma"),
              ("qmm_norm_w4a8_mma_kernel", "qmm_norm_w4a8_mma"),
              ("qmm_group_kernel", "qmm_group*"),
              ("qmm_w4a8_kernel", "qmm_w4a8"),
              ("qmm_group_mma_kernel", "qmm_group_mma"),
-             ("mma_splitk_sum", "qmm_group_mma sum"),
+             ("mma_splitk_sum", "mma split sum"),
              ("splitk_sum", "qmm_group2d sum"),
              ("flash_decode_kernel", "decode attention"),
              ("paged_ring_kernel", "decode attention"),
@@ -2360,13 +2434,17 @@ def paired_cases(torch, qm, cfg, pparams, randn, dequantize_weight):
 
 def paired_rows_cases(torch, qm, cfg, pparams, envs, layer0, gen, dev, randn,
                       dequantize_weight):
-    """Phase 3 rows of the CUDA-core bodies that every launch above one
-    row takes where no tensor-core form exists: qmm_slab_norm (wqkv,
-    w_gateup) and qmm_slab (wqkv, wo, w_gateup, w_down) over phase 8's
-    paired 7B weights at SLOTS, 64 and SHORT rows of bf16, and
-    qmm_norm_w4a8 (the W4A8 knob, wqkv and w_gateup) at 2 rows, under
-    its W4A8_MMA_MIN_ROWS; library: matmul on the (normalized) rows. No
-    phase's path runs them."""
+    """Phase 3 rows of the paired tensor-core forms, the route's own call
+    from MMA_MIN_ROWS rows: qmm_slab_norm_mma (wqkv, w_gateup) and
+    qmm_slab_mma (wqkv, wo, w_gateup, w_down) over phase 8's paired 7B
+    weights at SLOTS, 64 and SHORT rows of bf16, each beside the
+    CUDA-core body, forced (cuda_core), and the unpaired tile on the same
+    shape (yardstick: qmm_group_norm_mma / qmm_group_mma over layer0, the
+    group-128 build); SLOTS rows count the launches of phase 8's dense
+    8-slot step, SHORT rows of qmm_slab those of its prefill (whose norm
+    is unfused). Then qmm_norm_w4a8 (the W4A8 knob, wqkv and w_gateup) at
+    2 rows, under its W4A8_MMA_MIN_ROWS. Library: matmul on the
+    (normalized) rows."""
     eps, lay = cfg.norm_eps, pparams["layers"][0]
     nw = (torch.rand(cfg.dim, generator=gen, device=dev) + 0.5).to(
         torch.bfloat16)
@@ -2382,10 +2460,16 @@ def paired_rows_cases(torch, qm, cfg, pparams, envs, layer0, gen, dev, randn,
             xn, w, n = qm.rmsnorm_bf16(x, nw, eps), dequantize_weight(q), \
                 q.out_features
             out.append(dict(
-                name="qmm_slab_norm", shape=f"paired {label} {rows} rows",
-                path=NO_PATH, replaces=TPU + "quant_matmul.py:208",
-                source=SRC + "quant_matmul_fused.cu",
+                name="qmm_slab_norm_mma", shape=f"paired {label} {rows} rows",
+                path=DENSE_PAIRED if rows == SLOTS else NO_PATH,
+                replaces=TPU + "quant_matmul.py:208",
+                source=SRC + "quant_matmul_mma.cu",
                 kernel=lambda x=x, q=q: qm.quant_matmul_norm(x, nw, q, eps),
+                cuda_core=lambda x=x, q=q, n=n: qm._launch_slab(
+                    x, nw, q, eps, "qmm_slab_norm", form="cuda_core")[:, :n],
+                yardsticks={"unpaired_tile": lambda x=x, u=layer0[label]:
+                            qm._launch_group(x, nw, u, eps, "qmm_group_norm",
+                                             form="mma")},
                 plain=lambda x=x, q=q, n=n: qm.qmm_slab_plain(
                     qm.rmsnorm_bf16(x, nw, eps), q)[:, :n],
                 library=lambda xn=xn, w=w: torch.matmul(xn, w),
@@ -2397,10 +2481,18 @@ def paired_rows_cases(torch, qm, cfg, pparams, envs, layer0, gen, dev, randn,
             x = randn(rows, q.in_features)
             w = dequantize_weight(q)
             out.append(dict(
-                name="qmm_slab", shape=f"paired {label} {rows} rows",
-                path=NO_PATH, replaces=TPU + "quant_matmul.py:203",
-                source=SRC + "quant_matmul_fused.cu",
+                name="qmm_slab_mma", shape=f"paired {label} {rows} rows",
+                path={SLOTS: DENSE_PAIRED, SHORT: PAIRED_PROMPT}.get(
+                    rows, NO_PATH),
+                replaces=TPU + "quant_matmul.py:203",
+                source=SRC + "quant_matmul_mma.cu",
                 kernel=lambda x=x, q=q: qm.quant_matmul(x, q),
+                cuda_core=lambda x=x, q=q: qm._launch_slab(
+                    x, None, q, 0.0, "qmm_slab", form="cuda_core")[
+                        :, :q.out_features],
+                yardsticks={"unpaired_tile": lambda x=x, u=layer0[label]:
+                            qm._launch_group(x, None, u, 0.0, "qmm_group",
+                                             form="mma")},
                 plain=lambda x=x, q=q: qm.qmm_slab_plain(x, q)[
                     :, :q.out_features],
                 library=lambda x=x, w=w: torch.matmul(x, w),
@@ -2422,6 +2514,37 @@ def paired_rows_cases(torch, qm, cfg, pparams, envs, layer0, gen, dev, randn,
             library=lambda xn=xn, w=w: torch.matmul(xn, w),
             bytes=nbytes(x, nw, q.qweight, q.scales) + 2 * 2 * q.out_physical,
             ops=2 * 2 * cfg.dim * q.out_physical, kind="int8"))
+    return out
+
+
+def slab_crossover(torch, qm, pparams, cfg, gen, randn, flush):
+    """Both forms of the paired matmuls, forced, at 1, 2, 3, 4 and 8 rows
+    of the 7B layer (phase 8's weights): qmm_slab_norm on wqkv and
+    w_gateup (also its ring form at 1 row, the route's there), qmm_slab on
+    wqkv, wo, w_gateup and w_down (the CUDA-core form with its K split
+    where the route takes it); ms summed over the shapes, in one call: the
+    times behind slab_form's MMA_MIN_ROWS. Returns {kernel: {rows:
+    {form: ms}}}."""
+    lay, eps = pparams["layers"][0], cfg.norm_eps
+    nw = (torch.rand(cfg.dim, generator=gen, device=flush.device) + 0.5).to(
+        torch.bfloat16)
+    out = {"qmm_slab_norm": {}, "qmm_slab": {}}
+    for rows in (1, 2, 3, 4, 8):
+        for kname, labels, norm_w in (
+                ("qmm_slab_norm", ("wqkv", "w_gateup"), nw),
+                ("qmm_slab", ("wqkv", "wo", "w_gateup", "w_down"), None)):
+            forms = ("mma", "cuda_core") + (
+                ("ring",) if rows == 1 and norm_w is not None else ())
+            res = out[kname][rows] = dict.fromkeys(forms, 0.0)
+            for label in labels:
+                q = lay[label]
+                x = randn(rows, q.in_features) * 3
+                for form in forms:
+                    res[form] += cuda_ms(
+                        torch, lambda x=x, q=q, form=form: qm._launch_slab(
+                            x, norm_w, q, eps, kname, form=form), 50, flush)
+    print(f"# paired forms, ms summed over the layer's shapes: "
+          f"{json.dumps(out)}; MMA_MIN_ROWS = {qm.MMA_MIN_ROWS}", flush=True)
     return out
 
 
@@ -3153,40 +3276,38 @@ def entry_check(torch, counters, report):
                         report)
 
 
-def g64_prompt_path(torch, llama, qm, counters, params, cfg, dev, report):
-    """Phase 9 (a): a seeded SHORT-token prefill of the group-64 7B model,
-    whose matmuls are all qmm_chunk at SHORT rows (qmm_chunk_mma 4 L + 1
-    where chunk_form takes it, no other matmul kernel); its ms (min of 3
-    runs) read in turns with the CUDA-core form forced (qm.chunk_form
-    patched): new, forced, new; the last-position logits of the two forms
-    held to each other up to a printed near-tie. Returns the route's
-    launches of one prefill."""
-    gen = torch.Generator(device=dev).manual_seed(SEED + 64)
+def forms_prompt_path(torch, llama, qm, counters, params, cfg, dev, report,
+                      label, form_fn, forced, want, seed):
+    """Phases 8 and 9 (a): a seeded SHORT-token prefill of `params` whose
+    qmm_* launches must be exactly `want` (the matmuls at SHORT rows in
+    the forms their route takes); its ms (min of 3 runs) read in turns
+    with qm.<form_fn> patched to `forced`, the CUDA-core form: new,
+    forced, new; the last-position logits of the two forms held to each
+    other up to a printed near-tie. Returns the route's launches of one
+    prefill."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
     prompt = torch.randint(0, cfg.vocab_size, (1, SHORT), generator=gen,
                            device=dev, dtype=torch.int32)
     cache = llama.init_kv_cache(cfg, 1, device=dev)
-    n = 4 * cfg.n_layers + 1
-    route = qm.chunk_form
+    route = getattr(qm, form_fn)
     counters.reset()
     llama.llama_prefill(params, cfg, prompt, cache)
     torch.cuda.synchronize()
     launches = counters.read()
-    mma = route(SHORT, torch.bfloat16, params["lm_head"].group_size) == "mma"
-    want = {"qmm_chunk": n, "qmm_chunk_mma": n if mma else 0}
     other = [k for k in launches if k.startswith("qmm_") and k not in want]
     if other or any(launches.get(k, 0) != v for k, v in want.items()):
-        fail(f"{G64_PROMPT}: a prefill launched {launches}, expected {want}")
+        fail(f"{label}: a prefill launched {launches}, expected {want}")
     ms, last = {"route": [], "cuda_core": []}, {}
     for form in ("route", "cuda_core", "route"):
         if form == "cuda_core":
-            qm.chunk_form = lambda rows, dtype, group: "cuda_core"
+            setattr(qm, form_fn, forced)
         try:
             s, logits = time_prefill(torch, llama, params, cfg, prompt, cache)
         finally:
-            qm.chunk_form = route
+            setattr(qm, form_fn, route)
         ms[form].append(1e3 * s)
         last[form] = logits[0, -1].float()
-    what = f"{G64_PROMPT}: tensor-core vs CUDA-core qmm_chunk, last logits"
+    what = f"{label}: tensor-core vs CUDA-core forms, last logits"
     rel, top_new, top_old = compare_logits(torch, what, last["route"],
                                            last["cuda_core"], report)
     old = last["cuda_core"]
@@ -3195,17 +3316,19 @@ def g64_prompt_path(torch, llama, qm, counters, params, cfg, dev, report):
            "prefill_ms_in_turns": ms, "launches_per_prompt": launches,
            "rel_logit_err": rel, "top1": [top_new, top_old],
            "near_tie_gap": gap}
-    print(f"# {G64_PROMPT}: " + json.dumps(out), flush=True)
-    report[G64_PROMPT.replace(" ", "_")] = out
+    print(f"# {label}: " + json.dumps(out), flush=True)
+    report[label.replace(" ", "_")] = out
     return launches
 
 
-def g64_dense_path(torch, llama, qm, counters, params, cfg, dev, report):
-    """Phase 9 (b): the dense ServingEngine over the group-64 7B weights
-    (SLOTS slots, INT8 cache): one eager step at SLOTS rows launches
-    qmm_chunk 4 L + 1 times, all qmm_chunk_mma where chunk_form takes
-    SLOTS rows; then dense_forms with qm.chunk_form patched to the
-    CUDA-core form. Returns (one step's launches, dense_forms' result)."""
+def forms_dense_path(torch, llama, qm, counters, params, cfg, dev, report,
+                     label, form_fn, forced, want, kname):
+    """Phases 8 and 9 (b): the dense ServingEngine over `params` (SLOTS
+    slots, INT8 cache): one eager step at SLOTS rows must launch `want`
+    (each name's count exactly); then dense_forms with qm.<form_fn>
+    patched to `forced`, the CUDA-core form, kname the tensor-core kernel
+    the route's capture launches (where want has it) and the forced one
+    must not. Returns (one step's launches, dense_forms' result)."""
     from infinitensor_tpu_torch.serving import ServingEngine
     dense = ServingEngine(params, cfg, max_slots=SLOTS,
                           prefill_buckets=BUCKETS, decode_chunk=CHUNK,
@@ -3216,19 +3339,15 @@ def g64_dense_path(torch, llama, qm, counters, params, cfg, dev, report):
     llama.llama_decode_step(params, cfg, tok0, pos0, dense.cache)
     torch.cuda.synchronize()
     step = counters.read()
-    n = 4 * cfg.n_layers + 1
-    mma = qm.chunk_form(SLOTS, torch.bfloat16,
-                        params["lm_head"].group_size) == "mma"
-    for kname, k in (("qmm_chunk", n), ("qmm_chunk_mma", n if mma else 0)):
-        if step.get(kname, 0) != k:
-            fail(f"{DENSE_G64}: a decode step launched {kname} "
-                 f"{step.get(kname, 0)} times, expected {k}")
+    for k, n in want.items():
+        if step.get(k, 0) != n:
+            fail(f"{label}: a decode step launched {k} {step.get(k, 0)} "
+                 f"times, expected {n}")
     forms = dense_forms(
         torch, qm, dense, cfg, dev,
-        prefill_tie_gap(torch, llama, params, cfg, dev), label=DENSE_G64,
-        form_fn="chunk_form",
-        forced=lambda rows, dtype, group: "cuda_core",
-        kname="qmm_chunk_mma", route_mma=mma)
+        prefill_tie_gap(torch, llama, params, cfg, dev), label=label,
+        form_fn=form_fn, forced=forced, kname=kname,
+        route_mma=want.get(kname, 0) > 0)
     del dense
     return step, forms
 
@@ -3934,6 +4053,47 @@ def longformer_path(torch, GraphHandler, DataType, GraphExecutor, band,
         del ex, ex_old, eager, ref
     report["longformer"] = res
     return paths
+
+
+def band_gate_check(torch, GraphHandler, GraphExecutor, band, counters, dev,
+                    report):
+    """Phase 13, the band lowering's gate: G2BMM -> GBMM in f32 through
+    GraphHandler and GraphExecutor (eager) at shapes no band kernel form
+    takes, an f32 window too wide for the first form's shared memory (k
+    512, w 128) and bz 65536 (past a launch's grid): band_kernels_usable
+    refuses both, so the lowering takes its gather or shift-scan path,
+    launches no band kernel and matches g2bmm_plain / gbmm_plain within
+    1e-4 of max|plain|."""
+    res = {}
+    for bz, m, k, w in ((2, 64, 512, 128), (65536, 4, 8, 1)):
+        if band.band_kernels_usable("g2bmm", torch.float32, torch.float32,
+                                    bz, m, k, w, 1):
+            fail(f"the band gate passes f32 bz {bz} k {k} w {w}")
+        h = GraphHandler(name="band_gate")
+        a_in, b_in = (h.input((bz, m, k), name=n) for n in ("a", "b"))
+        h.gbmm(h.g2bmm(a_in, b_in, width=w), b_in)
+        h.graph.infer_output_roles()
+        gen = torch.Generator(device=dev).manual_seed(SEED + 130 + k)
+        a, b = (torch.randn(bz, m, k, generator=gen, device=dev)
+                for _ in range(2))
+        counters.reset()
+        (out,) = GraphExecutor(h.graph, device=dev,
+                               use_cuda_graph=False).run(
+            {"a": a, "b": b}).values()
+        torch.cuda.synchronize()
+        launched = counters.read()
+        want = band.gbmm_plain(band.g2bmm_plain(a, b, w), b, w)
+        err = (out - want).abs().max().item()
+        top = want.abs().max().item()
+        key = f"bz {bz} m {m} k {k} w {w}"
+        res[key] = {"max_abs_err": err, "max_abs_ref": top,
+                    "launches": launched}
+        print(f"# band gate, f32 {key}: err {err:.3g} (max|plain| "
+              f"{top:.3g}), launches {launched}", flush=True)
+        if launched.get("g2bmm", 0) or launched.get("gbmm", 0) or \
+                out.shape != want.shape or not err <= 1e-4 * top:
+            fail(f"band gate, {key}: launched {launched}, err {err}")
+    report["band_gate"] = res
 
 
 # -- the any-type attention form and the K split of the matmuls: ----------

@@ -15,8 +15,9 @@ _gbmm_kernel, in one of two forms that band_form chooses:
           register-tiled FMA consumer in f32;
   "simt": csrc/band.cu, the first CUDA form (the window staged whole, one
           FMA per two shared loads), for a mixed bf16 / f32 pair and any
-          other k; it raises where that window does not fit a block's
-          shared memory.
+          other k; called directly it raises where that window does not
+          fit a block's shared memory, a shape the lowerings' gate
+          (band_kernels_usable, below) keeps from it.
 `form=` forces either (the ring only where it applies). g2bmm_plain and
 gbmm_plain are the plain versions (one f32 multiply-reduce per
 diagonal). A CPU tensor takes the plain version; a CUDA tensor launches
@@ -24,12 +25,19 @@ the kernel of its form (bf16 or f32 inputs) or raises. `launches` counts
 kernel launches: "g2bmm" / "gbmm" every form, "g2bmm_ring" / "gbmm_ring"
 the ring form again.
 
-band_kernels_usable keeps only the semantic part of the JAX gate
-(band.py:157-163): dilation 1 (a dilated band stays on the lowering's
-gather or shift-scan path, as in the JAX package). Dropped are the TPU's
-predicates: k % 128 == 0 (lanes), w <= 128 (the kernel's static unroll of
-the diagonals) and a row block that is a multiple of 8 dividing m (VMEM
-blocks).
+band_kernels_usable is the lowerings' gate, as the JAX package's
+(band.py:157-163) is theirs: dilation 1 (a dilated band stays on the
+lowering's gather or shift-scan path, as in the JAX package), and
+band_launches, a pure function of the op, the two dtypes and the shapes
+that is true exactly where the form band_form picks launches: both
+operands bf16 or f32, bz at most GRID_Y_MAX (a launch's grid y), and for
+the first form a window that fits a block's shared memory (csrc/band.cu
+pick_rows; f32 G2BMM at k 512, w 128 needs 529,432 bytes for one row).
+What it refuses takes the gather or shift-scan path; it is decided before
+any launch, and a launch that fails at a shape it passes raises. Dropped
+are the TPU's predicates: k % 128 == 0 (lanes), w <= 128 (the kernel's
+static unroll of the diagonals) and a row block that is a multiple of 8
+dividing m (VMEM blocks).
 """
 
 from __future__ import annotations
@@ -46,6 +54,9 @@ from infinitensor_tpu_torch.kernels import _build
 launches = collections.Counter()
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 RING_MAX_K = 256               # the ring form: k a multiple of 8 up to this
+RING_MAX_W = 1 << 20           # ... and w up to this (band_ring.cu kMaxW)
+GRID_Y_MAX = 65535             # the most bz a launch takes (grid y)
+SIMT_SMEM = 232448             # the first form's shared memory (kSmemMax)
 
 
 @functools.cache
@@ -102,9 +113,57 @@ def gbmm_plain(wts: torch.Tensor, b: torch.Tensor, w: int, d: int = 1
     return acc.to(b.dtype)
 
 
-def band_kernels_usable(m: int, k: int, w: int, d: int) -> bool:
-    """The lowerings' gate: dilation 1 (see the module docstring)."""
-    return d == 1
+def _simt_stride(k: int, itemsize: int) -> int:
+    """csrc/band.cu padded<T>: the row stride (elements) of a staged tile
+    of k columns of a type of `itemsize` bytes."""
+    if itemsize == 4:
+        return k | 1
+    s = k + (k & 1)
+    return s if s % 4 == 2 else s + 2
+
+
+def _simt_rows(m: int, w: int, row_bytes: int, win_row_bytes: int) -> int:
+    """csrc/band.cu pick_rows: the first form's rows a block, 64 halved
+    until its tiles fit SIMT_SMEM, at most m; 0 where one row does not
+    fit."""
+    def need(r):
+        return r * row_bytes + 16 + (r + 2 * w) * win_row_bytes
+
+    r = 64
+    while r > 1 and need(r) > SIMT_SMEM:
+        r //= 2
+    r = min(r, m)
+    return r if need(r) <= SIMT_SMEM else 0
+
+
+def band_launches(op: str, first_dtype: torch.dtype, b_dtype: torch.dtype,
+                  bz: int, m: int, k: int, w: int) -> bool:
+    """True exactly where g2bmm_band (op "g2bmm", first operand A [bz, m,
+    k]) or gbmm_band ("gbmm", first operand W [bz, m, 2w + 1]) over B [bz,
+    m, k] launches on the card in the form band_form picks: both operands
+    in KERNEL_DTYPES and bz at most GRID_Y_MAX; the ring form w up to
+    RING_MAX_W; the first form its window staged whole (_simt_rows)."""
+    if op not in ("g2bmm", "gbmm"):
+        raise ValueError(f"no band op {op!r}")
+    if first_dtype not in KERNEL_DTYPES or b_dtype not in KERNEL_DTYPES \
+            or not (0 < bz <= GRID_Y_MAX and m > 0 and k > 0 and w >= 0):
+        return False
+    if band_form(first_dtype, b_dtype, k) == "ring":
+        return w <= RING_MAX_W
+    fs, bs = first_dtype.itemsize, b_dtype.itemsize
+    if op == "g2bmm":
+        row, win_row = _simt_stride(k, fs) * fs, _simt_stride(k, bs) * bs
+    else:
+        row, win_row = (2 * w + 1) * fs, k * bs
+    return _simt_rows(m, w, row, win_row) > 0
+
+
+def band_kernels_usable(op: str, first_dtype: torch.dtype,
+                        b_dtype: torch.dtype, bz: int, m: int, k: int,
+                        w: int, d: int) -> bool:
+    """The lowerings' gate: dilation 1 and band_launches (see the module
+    docstring)."""
+    return d == 1 and band_launches(op, first_dtype, b_dtype, bz, m, k, w)
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:

@@ -3,7 +3,8 @@
 // mma.sync m16n8k16 (16-bit operands, f32 sums) fed by a ring of cp.async
 // stages. Python wrapper: kernels/quant_matmul.py (_launch_group, form
 // "mma"; group_form says when a launch takes it, with or without the
-// RMSNorm; _launch_group_ln for the LayerNorm form, ln_form).
+// RMSNorm; _launch_group_ln for the LayerNorm form, ln_form; _launch_slab
+// for the paired forms, slab_form).
 //
 // Replaces the TPU kernels of infinitensor_tpu/kernels/quant_matmul.py:
 //   qmm_group_mma       <- _kernel_group (:100, body _group_dots :115-166)
@@ -11,7 +12,11 @@
 //   qmm_group_ln_mma    <- _kernel_group_ln (:300, via quant_matmul_ln :321)
 //   qmm_chunk_mma       <- _kernel (:44, the chunk kernel; a group that is
 //                          no multiple of 128, as at group 64)
-// the first for a bf16 or f16 x without a norm, the others for a bf16 x:
+//   qmm_slab_mma        <- _kernel_group_slab (:203, body _group_dots_slab
+//                          :170-200; a paired int4 weight)
+//   qmm_slab_norm_mma   <- _kernel_group_norm_slab (:208)
+// the first and qmm_slab_mma for a bf16 or f16 x without a norm, the
+// others for a bf16 x:
 // the Llama decode step's RMSNorm ahead of wqkv and w_gateup, GPT-2's
 // pre-matmul LayerNorm (then the output bias). The RMSNorm form is a
 // pre-pass and this tile: group_norm_rows writes the rows normalized to
@@ -61,6 +66,20 @@
 // that is a multiple of 64 (kBK; group 32 stays there too), int4
 // (split-half) or int8, bf16 or f32 scales, dout_p a multiple of 4.
 //
+// qmm_slab_mma computes _group_dots_slab's function over a paired int4
+// weight (quantize_weight(paired=True): the split halves as above, but
+// one scale row [krows / group, dout_p] for both halves of a packed
+// group): per packed group c, one f32 partial over both halves' exact
+// nibble values, times the one scale s[c], added to acc. So the tile runs
+// with PAIRED: both halves' mma.sync sum into the same partial fragment
+// (plo), which is folded once a group, acc += plo * s[c]. The TPU
+// kernel's -8 * sum(x_lo) correction and its x_hi / 16 step vanish, as
+// the nibbles decode to their signed values. phi is dead, so the 64-row
+// tile keeps 2 x 64 f32 sums a lane, not 3 x 64. qmm_slab_norm_mma is
+// group_norm_rows' pre-pass (_kernel_group_norm_slab normalizes as
+// _kernel_group_norm does), then that tile. An f32 x stays on the CUDA
+// cores here too (quant_matmul.cuh's paired body).
+//
 // What bounds it on this card (H100 SXM: 3.35 TB/s, 989 TFLOP/s bf16):
 // at 8 rows every weight byte feeds 4 (int4) or 2 (int8) multiply-adds
 // per row, far below the ~295 ops/byte ridge, so the packed weights and
@@ -103,7 +122,9 @@
 // What still holds it back at 256 rows (2-3.6x the library call, PERF.md):
 // the 64-row tile keeps 3 x 64 f32 sums a lane (acc, plo, phi: 255
 // registers, 2 blocks an SM), too few warps to hide the latency of the
-// decode -> mma chain; the mma.sync rate itself is not reached. Later:
+// decode -> mma chain; the mma.sync rate itself is not reached. (The
+// paired tile keeps 2 x 64, 203 registers, and takes 12-15 % less time
+// than the unpaired one at 256 rows of the 7B shapes.) Later:
 // wgmma with TMA (A from registers, a producer warp), and decoding with
 // byte permutes straight from global memory.
 #include "mma_tile.cuh"
@@ -191,8 +212,11 @@ __device__ __forceinline__ uint32_t scale_word(const void* sc, size_t i) {
 // bf16(sum) + bias[n]), bias bf16/f32 [nbias] (0 past nbias, or none).
 // DEQ kDeqBf16 / kDeqF32 (bf16 x, no LN; sc bf16 / f32 as sc_bf16 says):
 // the chunk kernel's function, each weight scaled and rounded to bf16
-// before the mma, which sums into acc (no per-group partials).
-template <int BITS, int XK, int NT, bool LN, int DEQ = kNoDeq>
+// before the mma, which sums into acc (no per-group partials). PAIRED
+// (int4, no LN, no DEQ): sc [ngs, dout_p] holds one scale row a packed
+// group, and both halves sum into one partial (plo).
+template <int BITS, int XK, int NT, bool LN, int DEQ = kNoDeq,
+          bool PAIRED = false>
 __device__ __forceinline__ void group_mma_tile(
     const uint16_t* __restrict__ x, const int8_t* __restrict__ qw,
     const void* __restrict__ sc, bool sc_bf16, const void* __restrict__ bias,
@@ -202,6 +226,8 @@ __device__ __forceinline__ void group_mma_tile(
   static_assert(!LN || XK == kXBf16, "the LayerNorm form is bf16");
   static_assert(DEQ == kNoDeq || (XK == kXBf16 && !LN),
                 "the chunk form is bf16, without a LayerNorm");
+  static_assert(!PAIRED || (BITS == 4 && !LN && DEQ == kNoDeq),
+                "the paired form is int4, without a LayerNorm or DEQ");
   constexpr bool kChunk = DEQ != kNoDeq;
   constexpr int BR = 8 * NT;                      // rows per block
   constexpr int kHalves = BITS == 4 ? 2 : 1;      // x tiles: lo (and hi)
@@ -239,7 +265,8 @@ __device__ __forceinline__ void group_mma_tile(
     }
   };
 
-  // (the chunk form sums into acc alone: its plo and phi are dead)
+  // (the chunk form sums into acc alone: its plo and phi are dead; the
+  // paired form sums both halves into plo: its phi is dead)
   float acc[2][NT][4], plo[2][NT][4], phi[2][NT][4];
 #pragma unroll
   for (int f = 0; f < 2; ++f)
@@ -275,7 +302,7 @@ __device__ __forceinline__ void group_mma_tile(
           if (BITS == 4) w_hi[j] = scale_word<DEQ>(sc, hi);
         } else {
           s_lo[j] = load_scale(sc, sc_bf16, lo);
-          if (BITS == 4) s_hi[j] = load_scale(sc, sc_bf16, hi);
+          if (BITS == 4 && !PAIRED) s_hi[j] = load_scale(sc, sc_bf16, hi);
         }
       }
     }
@@ -332,9 +359,9 @@ __device__ __forceinline__ void group_mma_tile(
           for (int jj = 0; jj < 2 && j + jj < NT; ++jj)
 #pragma unroll
             for (int f = 0; f < 2; ++f) {
-              float (&d)[4] = kChunk           ? acc[f][j + jj]
-                              : BITS == 4 && h ? phi[f][j + jj]
-                                               : plo[f][j + jj];
+              float (&d)[4] = kChunk ? acc[f][j + jj]
+                              : BITS == 4 && h && !PAIRED ? phi[f][j + jj]
+                                                          : plo[f][j + jj];
               mma16816<XK>(d, BITS == 4 && h == 1 ? ahi[f] : alo[f],
                            b[2 * jj], b[2 * jj + 1]);
             }
@@ -350,7 +377,7 @@ __device__ __forceinline__ void group_mma_tile(
           for (int e = 0; e < 4; ++e) {
             // C element e: column 4g + 2f + e / 2, row 2t + e % 2
             const int sj = 2 * f + e / 2;
-            acc[f][j][e] += BITS == 4
+            acc[f][j][e] += BITS == 4 && !PAIRED
                 ? plo[f][j][e] * s_lo[sj] + phi[f][j][e] * s_hi[sj]
                 : plo[f][j][e] * s_lo[sj];
             plo[f][j][e] = phi[f][j][e] = 0.f;
@@ -426,6 +453,35 @@ qmm_chunk_mma_kernel(const uint16_t* __restrict__ x,
                      int group, int splits) {
   group_mma_tile<BITS, kXBf16, NT, false, SC_BF16 ? kDeqBf16 : kDeqF32>(
       x, qw, sc, SC_BF16, nullptr, false, 0, out, part, rows, din, dout_p,
+      group, splits);
+}
+
+// The paired tile (a kernel of its own name, so that a profile gives its
+// time to qmm_slab): one scale row a packed group for both halves.
+template <int XK, int NT>
+__global__ void __launch_bounds__(kThreads)
+qmm_slab_mma_kernel(const uint16_t* __restrict__ x,
+                    const int8_t* __restrict__ qw,
+                    const void* __restrict__ sc, bool sc_bf16,
+                    void* __restrict__ out, float* __restrict__ part,
+                    int rows, int din, int dout_p, int group, int splits) {
+  group_mma_tile<4, XK, NT, false, kNoDeq, true>(
+      x, qw, sc, sc_bf16, nullptr, false, 0, out, part, rows, din, dout_p,
+      group, splits);
+}
+
+// The paired tile of the RMSNorm form (qmm_slab_norm): x holds the
+// normalized rows.
+template <int NT>
+__global__ void __launch_bounds__(kThreads)
+qmm_slab_norm_mma_kernel(const uint16_t* __restrict__ x,
+                         const int8_t* __restrict__ qw,
+                         const void* __restrict__ sc, bool sc_bf16,
+                         void* __restrict__ out, float* __restrict__ part,
+                         int rows, int din, int dout_p, int group,
+                         int splits) {
+  group_mma_tile<4, kXBf16, NT, false, kNoDeq, true>(
+      x, qw, sc, sc_bf16, nullptr, false, 0, out, part, rows, din, dout_p,
       group, splits);
 }
 
@@ -521,16 +577,24 @@ cudaError_t sum_splits(K sum, cudaError_t e, const float* part, int splits,
 }
 
 // qmm_group_mma's tile (NORM: under the name qmm_group_norm_mma_kernel,
-// on rows the pre-pass normalized), then the split sum where K is split.
-template <int BITS, int XK, int NT, bool NORM = false>
+// on rows the pre-pass normalized; PAIRED: the paired tile, under the
+// name qmm_slab_mma_kernel or qmm_slab_norm_mma_kernel), then the split
+// sum where K is split.
+template <int BITS, int XK, int NT, bool NORM = false, bool PAIRED = false>
 cudaError_t launch_mma(const void* x, const void* qw, const void* sc,
                        bool sc_bf16, void* out, float* part, int rows,
                        int din, int dout_p, int group, int splits,
                        cudaStream_t stream) {
   static_assert(!NORM || XK == kXBf16, "the RMSNorm form is bf16");
+  static_assert(!PAIRED || BITS == 4, "the paired form is int4");
   static SmemGrant granted;
-  auto kernel = NORM ? qmm_group_norm_mma_kernel<BITS, NT>
-                     : qmm_group_mma_kernel<BITS, XK, NT>;
+  auto kernel = [] {
+    if constexpr (PAIRED)
+      return NORM ? qmm_slab_norm_mma_kernel<NT> : qmm_slab_mma_kernel<XK, NT>;
+    else
+      return NORM ? qmm_group_norm_mma_kernel<BITS, NT>
+                  : qmm_group_mma_kernel<BITS, XK, NT>;
+  }();
   cudaError_t e = launch_tile<BITS, NT>(
       kernel, &granted, rows, dout_p, splits,
       stream, static_cast<const uint16_t*>(x),
@@ -592,7 +656,8 @@ group_norm_rows(const void* __restrict__ x,
         qmm_detail::load_x<kXBf16>(x, xr + k), rinv, nw, k));
 }
 
-template <int BITS, int NT>
+// The RMSNorm pre-pass, then launch_mma's tile (PAIRED: the paired one).
+template <int BITS, int NT, bool PAIRED = false>
 cudaError_t launch_norm_mma(const void* x, const void* nw, void* xn,
                             const void* qw, const void* sc, bool sc_bf16,
                             void* out, float* part, int rows, int din,
@@ -603,9 +668,9 @@ cudaError_t launch_norm_mma(const void* x, const void* nw, void* xn,
                               din, static_cast<__nv_bfloat16*>(xn));
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  return launch_mma<BITS, kXBf16, NT, true>(xn, qw, sc, sc_bf16, out, part,
-                                            rows, din, dout_p, group, splits,
-                                            stream);
+  return launch_mma<BITS, kXBf16, NT, true, PAIRED>(
+      xn, qw, sc, sc_bf16, out, part, rows, din, dout_p, group, splits,
+      stream);
 }
 
 template <int BITS, int NT>
@@ -751,5 +816,54 @@ ITT_EXPORT int qmm_group_ln_mma(const void* x, const void* gamma,
   ITT_LN_MMA(4, 1) ITT_LN_MMA(4, 2) ITT_LN_MMA(4, 4) ITT_LN_MMA(4, 8)
   ITT_LN_MMA(8, 1) ITT_LN_MMA(8, 2) ITT_LN_MMA(8, 4) ITT_LN_MMA(8, 8)
 #undef ITT_LN_MMA
+  return (int)cudaErrorInvalidValue;
+}
+
+// x [rows, din] bf16 or f16 (x_kind kXBf16 or kXF16), 16-byte aligned; qw
+// int8 [din/2, dout_p], a paired int4 weight; sc bf16/f32 [din/2/group,
+// dout_p], one scale row a packed group for both halves; part, row_tile,
+// splits as qmm_group_mma; out [rows, dout_p] in x's type.
+ITT_EXPORT int qmm_slab_mma(const void* x, int x_kind, const void* qw,
+                            const void* sc, int sc_bf16, void* part,
+                            void* out, int rows, int din, int dout_p,
+                            int group, int row_tile, int splits,
+                            void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tile_refuses(x, qw, part, rows, din, dout_p, 4, group, splits))
+    return (int)cudaErrorInvalidValue;
+  float* p = static_cast<float*>(part);
+#define ITT_SLAB_MMA(XF, NT)                                                  \
+  if (x_kind == XF && row_tile == 8 * NT)                                     \
+    return (int)launch_mma<4, XF, NT, false, true>(                           \
+        x, qw, sc, sc_bf16, out, p, rows, din, dout_p, group, splits, s);
+  ITT_SLAB_MMA(kXBf16, 1) ITT_SLAB_MMA(kXBf16, 2) ITT_SLAB_MMA(kXBf16, 4)
+  ITT_SLAB_MMA(kXBf16, 8) ITT_SLAB_MMA(kXF16, 1) ITT_SLAB_MMA(kXF16, 2)
+  ITT_SLAB_MMA(kXF16, 4) ITT_SLAB_MMA(kXF16, 8)
+#undef ITT_SLAB_MMA
+  return (int)cudaErrorInvalidValue;
+}
+
+// x bf16 [rows, din]; nw bf16 [din]; xn bf16 [rows, din] (16-byte
+// aligned) buffer for the normalized rows; qw, sc, part, row_tile, splits
+// as qmm_slab_mma; out bf16 [rows, dout_p] = the paired tile over
+// bf16(bf16(x * 1/sqrt(mean(x^2) + eps)) * nw).
+ITT_EXPORT int qmm_slab_norm_mma(const void* x, const void* nw, void* xn,
+                                 const void* qw, const void* sc, int sc_bf16,
+                                 void* part, void* out, int rows, int din,
+                                 int dout_p, int group, float eps,
+                                 int row_tile, int splits, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tile_refuses(xn, qw, part, rows, din, dout_p, 4, group, splits) ||
+      !x || !nw)
+    return (int)cudaErrorInvalidValue;
+  float* p = static_cast<float*>(part);
+#define ITT_SLAB_NORM_MMA(NT)                                                 \
+  if (row_tile == 8 * NT)                                                     \
+    return (int)launch_norm_mma<4, NT, true>(x, nw, xn, qw, sc, sc_bf16, out, \
+                                             p, rows, din, dout_p, group,     \
+                                             eps, splits, s);
+  ITT_SLAB_NORM_MMA(1) ITT_SLAB_NORM_MMA(2) ITT_SLAB_NORM_MMA(4)
+  ITT_SLAB_NORM_MMA(8)
+#undef ITT_SLAB_NORM_MMA
   return (int)cudaErrorInvalidValue;
 }

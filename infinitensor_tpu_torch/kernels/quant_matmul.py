@@ -1,9 +1,9 @@
 """Fused weight-only dequant + matmul for decode (counterpart of
 infinitensor_tpu/kernels/quant_matmul.py).
 
-Twenty kernels, CUDA C++; nine over one group-dot body on the CUDA cores
-(csrc/quant_matmul.cuh), six on the tensor cores, five more on the CUDA
-cores for one row over one ring (csrc/ring.cuh):
+Twenty-two kernels, CUDA C++; nine over one group-dot body on the CUDA
+cores (csrc/quant_matmul.cuh), eight on the tensor cores, five more on the
+CUDA cores for one row over one ring (csrc/ring.cuh):
   csrc/quant_matmul.cu
     qmm_group       <- _kernel_group       (group-partial dots, scale per group)
     qmm_group_norm  <- _kernel_group_norm  (RMSNorm fused ahead of the dots)
@@ -26,6 +26,12 @@ cores for one row over one ring (csrc/ring.cuh):
     qmm_chunk_mma   <- _kernel             (that tile, each weight scaled
                                             and rounded to bf16 before the
                                             mma)
+    qmm_slab_mma    <- _kernel_group_slab  (that tile over the paired
+                                            layout: one scale row a packed
+                                            group, both halves summed into
+                                            one partial)
+    qmm_slab_norm_mma <- _kernel_group_norm_slab (the RMSNorm pre-pass,
+                                            then that paired tile)
   csrc/quant_matmul_w4a8_mma.cu
     qmm_w4a8_mma    <- _kernel_group_w4a8  (a quantize pre-pass, then the
                                             int8 tensor cores, m16n8k32)
@@ -48,8 +54,8 @@ cores for one row over one ring (csrc/ring.cuh):
     qmm_norm_w4a8_ring <- _kernel_group_norm_w4a8 (the same, the RMSNorm
                                             ahead of the quantize)
 
-Eight kernels have two forms on the card (qmm_group_norm, qmm_w4a8 and
-qmm_norm_w4a8 three), one function each:
+Nine kernels have two forms on the card (qmm_group_norm, qmm_w4a8,
+qmm_norm_w4a8 and qmm_slab_norm three), one function each:
   qmm_group     a bf16 or f16 x without a norm at MMA_MIN_ROWS rows or
                 more takes qmm_group_mma (group_form);
   qmm_group_norm  a bf16 x at MMA_MIN_ROWS rows or more takes
@@ -65,7 +71,11 @@ qmm_norm_w4a8 three), one function each:
                 qmm_norm_w4a8_ring (w4a8_form with norm);
   qmm_chunk     a bf16 x at CHUNK_MMA_MIN_ROWS rows or more, at a group
                 that is a multiple of 64, takes qmm_chunk_mma (chunk_form);
-  qmm_slab_norm one row of a bf16 x takes qmm_slab_norm_ring (slab_form);
+  qmm_slab      a bf16 or f16 x at MMA_MIN_ROWS rows or more takes
+                qmm_slab_mma (slab_form);
+  qmm_slab_norm a bf16 x at MMA_MIN_ROWS rows or more takes
+                qmm_slab_norm_mma, one row of it qmm_slab_norm_ring
+                (slab_form);
   qmm_group2d   one row of a bf16, f16 or f32 x over an int4 weight takes
                 qmm_group2d_ring (group2d_form), one launch; the route's
                 `kb` (the table's, as in the JAX package) chooses
@@ -76,7 +86,8 @@ two forms' times cross on the card (chip_smoke.py phase 3, PERF.md).
 launches[name] counts every form of a kernel and launches[name + "_mma"]
 the tensor-core one again (qmm_group_ln_mma for qmm_group_ln,
 qmm_group_norm_mma for qmm_group_norm, qmm_norm_w4a8_mma for
-qmm_norm_w4a8, qmm_chunk_mma for qmm_chunk), launches[name + "_ring"] the
+qmm_norm_w4a8, qmm_chunk_mma for qmm_chunk, qmm_slab_mma for qmm_slab,
+qmm_slab_norm_mma for qmm_slab_norm), launches[name + "_ring"] the
 one-row ring form (qmm_group_norm_ring, qmm_w4a8_ring, qmm_norm_w4a8_ring,
 qmm_slab_norm_ring, qmm_group2d_ring).
 
@@ -521,7 +532,9 @@ def _lib_mma() -> ctypes.CDLL:
                             P],
         qmm_group_ln_mma=[P, P, P, I, P, P, P, I, P, I, I, P, P, I, I, I, I,
                           I, F, I, I, P],
-        qmm_chunk_mma=[P, P, P, I, P, P, I, I, I, I, I, I, I, P])
+        qmm_chunk_mma=[P, P, P, I, P, P, I, I, I, I, I, I, I, P],
+        qmm_slab_mma=[P, I, P, P, I, P, P, I, I, I, I, I, I, P],
+        qmm_slab_norm_mma=[P, P, P, P, P, I, P, P, I, I, I, I, F, I, I, P])
 
 
 @functools.cache
@@ -635,11 +648,18 @@ def w4a8_form(rows: int, dtype: torch.dtype, norm: bool = False,
 
 def slab_form(rows: int, dtype: torch.dtype, norm: bool) -> str:
     """Which form a qmm_slab launch (a paired int4 weight) on the card
-    takes: "ring" (qmm_slab_norm_ring, csrc/quant_matmul_ring.cu) for one
-    row of a bf16 x with the fused RMSNorm (the paired batch-1 decode's
-    wqkv and w_gateup); else "cuda_core" (csrc/quant_matmul.cuh's paired
-    body: 2 rows or more, and qmm_slab without the norm, which takes its
-    K split at one row)."""
+    takes: "mma" (qmm_slab_mma, or with the fused RMSNorm
+    qmm_slab_norm_mma: the tensor-core tile over the paired layout,
+    csrc/quant_matmul_mma.cu) at MMA_MIN_ROWS rows or more for a bf16 or
+    f16 x without a norm and for a bf16 x with it; "ring"
+    (qmm_slab_norm_ring, csrc/quant_matmul_ring.cu) for one row of a bf16
+    x with the fused RMSNorm (the paired batch-1 decode's wqkv and
+    w_gateup); else "cuda_core" (csrc/quant_matmul.cuh's paired body:
+    qmm_slab without the norm at one row, in its K split, and an f32 x,
+    as rounding it to 16 bits would change its numbers)."""
+    if rows >= MMA_MIN_ROWS and (dtype == torch.bfloat16 or (
+            dtype == torch.float16 and not norm)):
+        return "mma"
     return "ring" if rows == 1 and norm and dtype == torch.bfloat16 \
         else "cuda_core"
 
@@ -676,7 +696,8 @@ def chunk_form(rows: int, dtype: torch.dtype, group: int) -> str:
 def mma_plan(rows: int, dout_p: int, krows: int, group: int, sms: int
              ) -> tuple:
     """(row_tile, splits) of a launch of the tensor-core tile
-    (qmm_group_mma and its norm forms, qmm_chunk_mma, qmm_w4a8_mma), the
+    (qmm_group_mma and its norm forms, qmm_chunk_mma, qmm_slab_mma and its
+    norm form, qmm_w4a8_mma), the
     fastest of the variants timed on the card: rows per block 8 or 16 up
     to that many rows, 32 up to 64 rows, 64 above; and the number of
     blocks K is split across, by whole scale groups (at most one split a
@@ -842,15 +863,14 @@ def _launch_group_mma(x2, q, name: str) -> torch.Tensor:
     return out
 
 
-def _launch_group_norm_mma(x2, norm_w, q, eps: float,
-                           xn: Optional[torch.Tensor] = None
-                           ) -> torch.Tensor:
-    """qmm_group_norm's tensor-core form: the RMSNorm pre-pass writes the
-    rows normalized to `xn` (bf16 like x2; a buffer of its own unless
-    given, as a test does to read it), then qmm_group_mma's tile."""
+def _norm_buffer(x2, norm_w, xn, name: str) -> torch.Tensor:
+    """The checks of a tensor-core launch with the RMSNorm pre-pass
+    (`name`): a bf16 x and norm weight; `xn`, the buffer the pre-pass
+    writes the normalized rows to, made here unless given (as a test does
+    to read it)."""
     if x2.dtype != torch.bfloat16 or norm_w.dtype != torch.bfloat16:
-        raise ValueError(f"qmm_group_norm_mma takes a bf16 x and norm "
-                         f"weight, not {x2.dtype} and {norm_w.dtype}")
+        raise ValueError(f"{name} takes a bf16 x and norm weight, not "
+                         f"{x2.dtype} and {norm_w.dtype}")
     if norm_w.device != x2.device or not norm_w.is_contiguous():
         raise ValueError(f"norm_w must be contiguous on {x2.device}")
     xn = torch.empty_like(x2) if xn is None else xn
@@ -858,6 +878,15 @@ def _launch_group_norm_mma(x2, norm_w, q, eps: float,
             not xn.is_contiguous() or xn.data_ptr() % 16:
         raise ValueError("xn must be a contiguous, 16-byte aligned bf16 "
                          f"buffer of x's shape {tuple(x2.shape)}")
+    return xn
+
+
+def _launch_group_norm_mma(x2, norm_w, q, eps: float,
+                           xn: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """qmm_group_norm's tensor-core form: the RMSNorm pre-pass writes the
+    rows normalized to `xn` (_norm_buffer), then qmm_group_mma's tile."""
+    xn = _norm_buffer(x2, norm_w, xn, "qmm_group_norm_mma")
     tile, splits, part = _tile_plan(x2, q)
     out, lib, p = _out(x2, q), _lib_mma(), _build.ptr
     err = lib.qmm_group_norm_mma(
@@ -912,13 +941,15 @@ def _launch_norm_ring(x2, norm_w, q, eps: float, name: str
 def _launch_slab(x2, norm_w, q, eps: float, name: str,
                  form: Optional[str] = None) -> torch.Tensor:
     """qmm_slab (qmm_slab_norm with norm_w) in the form slab_form chooses;
-    `form` forces "ring" (with norm_w) or "cuda_core" (tests and
+    `form` forces "mma", "ring" (with norm_w) or "cuda_core" (tests and
     chip_smoke.py's side-by-side timing only). The CUDA-core form without
     a norm takes _split_plan's K split on a short grid."""
     _check_cuda(x2, q)
-    if (form or slab_form(x2.shape[0], x2.dtype, norm_w is not None)) \
-            == "ring":
+    form = form or slab_form(x2.shape[0], x2.dtype, norm_w is not None)
+    if form == "ring":
         return _launch_norm_ring(x2, norm_w, q, eps, "qmm_slab_norm")
+    if form == "mma":
+        return _launch_slab_mma(x2, norm_w, q, eps)
     splits, part, counters = (1, None, None) if norm_w is not None \
         else _split_plan(x2, q)
     out, lib, p = _out(x2, q), _lib_fused(), _build.ptr
@@ -928,6 +959,40 @@ def _launch_slab(x2, norm_w, q, eps: float, name: str,
         q.out_physical, q.group_size, norm_w is not None, eps, splits,
         p(part), p(counters), _build.stream())
     return _launched_split(lib, err, name, out, splits)
+
+
+def _launch_slab_mma(x2, norm_w, q, eps: float,
+                     xn: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """qmm_slab's tensor-core form over a paired int4 weight (a bf16 or
+    f16 x): qmm_slab_mma's tile; with norm_w (a bf16 x) qmm_slab_norm_mma,
+    the RMSNorm pre-pass into `xn` (_norm_buffer), then that tile."""
+    norm = norm_w is not None
+    name = "qmm_slab_norm" if norm else "qmm_slab"
+    if q.bits != 4 or not q.paired:
+        raise ValueError(f"{name}_mma takes a paired int4 weight, not "
+                         f"int{q.bits}{' paired' if q.paired else ''}")
+    if norm:
+        xn = _norm_buffer(x2, norm_w, xn, name + "_mma")
+    elif x2.dtype not in (torch.bfloat16, torch.float16):
+        raise ValueError(f"qmm_slab_mma takes a bf16 or f16 x, not "
+                         f"{x2.dtype}")
+    elif x2.data_ptr() % 16:
+        x2 = x2.clone()                 # cp.async reads 16-byte chunks
+    tile, splits, part = _tile_plan(x2, q)
+    out, lib, p = _out(x2, q), _lib_mma(), _build.ptr
+    sc_bf16 = q.scales.dtype == torch.bfloat16
+    shape = (x2.shape[0], x2.shape[1], q.out_physical, q.group_size)
+    if norm:
+        err = lib.qmm_slab_norm_mma(
+            p(x2), p(norm_w), p(xn), p(q.qweight), p(q.scales), sc_bf16,
+            p(part), p(out), *shape, eps, tile, splits, _build.stream())
+    else:
+        err = lib.qmm_slab_mma(
+            p(x2), _x_kind(x2), p(q.qweight), p(q.scales), sc_bf16,
+            p(part), p(out), *shape, tile, splits, _build.stream())
+    _launched(lib, err, name, out)
+    launches[name + "_mma"] += 1
+    return out
 
 
 def _launch_group_ln(x2, gamma, beta, q, bias, eps: float,

@@ -341,7 +341,8 @@ def _g2bmm(op, ins, ctx):
     w = int(op.attrs["width"])
     d = int(op.attrs.get("dilation", 1))
     bsz, m, k = a.shape
-    if ctx.use_kernels and band_kernels_usable(m, k, w, d):
+    if ctx.use_kernels and band_kernels_usable("g2bmm", a.dtype, b.dtype,
+                                               bsz, m, k, w, d):
         return g2bmm_band(a, b, w, d)
     if bsz * m * (2 * w + 1) * k <= _BAND_GATHER_LIMIT:
         idx, valid = _band_index(m, w, d, a.device)
@@ -362,7 +363,8 @@ def _gbmm(op, ins, ctx):
     w = (n - 1) // 2
     d = int(op.attrs.get("dilation", 1))
     bsz, m, k = b.shape
-    if ctx.use_kernels and band_kernels_usable(m, k, w, d):
+    if ctx.use_kernels and band_kernels_usable("gbmm", a.dtype, b.dtype,
+                                               bsz, m, k, w, d):
         return gbmm_band(a, b, w, d)
     if bsz * m * n * k <= _BAND_GATHER_LIMIT:
         idx, valid = _band_index(m, w, d, b.device)

@@ -332,3 +332,59 @@ def test_band_ring_refuses_what_it_does_not_take(monkeypatch):
     band._launch("g2bmm", a, a, 2, torch.zeros(1), None)
     (_, args), = ring.calls
     assert args[0].value % 16 == 0 and args[1].value % 16 == 0
+
+
+@pytest.mark.parametrize("op,dts,bz,m,k,w,usable", [
+    # the ring form: any m and w, bz up to a launch's grid
+    ("g2bmm", (torch.bfloat16,) * 2, 8, 2048, 128, 64, True),
+    ("gbmm", (torch.float32,) * 2, 12, 4096, 256, 4096, True),
+    ("g2bmm", (torch.float32,) * 2, 65535, 4, 8, 1, True),
+    ("g2bmm", (torch.float32,) * 2, 65536, 4, 8, 1, False),
+    ("gbmm", (torch.bfloat16,) * 2, 65536, 4, 8, 1, False),
+    # the first form: its window staged whole in one block
+    ("g2bmm", (torch.float32,) * 2, 2, 64, 512, 128, False),
+    ("gbmm", (torch.float32,) * 2, 2, 64, 512, 128, False),
+    ("g2bmm", (torch.float32,) * 2, 2, 64, 512, 32, True),
+    ("g2bmm", (torch.bfloat16, torch.float32), 3, 100, 64, 20, True),
+    ("gbmm", (torch.float32, torch.bfloat16), 1, 300, 20, 130, True),
+    ("g2bmm", (torch.bfloat16,) * 2, 1, 1, 1000, 0, True),
+    ("g2bmm", (torch.bfloat16,) * 2, 65536, 4, 20, 1, False),
+    # types no form takes
+    ("g2bmm", (torch.float16,) * 2, 1, 8, 64, 2, False),
+])
+def test_band_gate(op, dts, bz, m, k, w, usable):
+    """band_kernels_usable, the lowerings' gate, is true exactly where the
+    form band_form picks launches: bz at most 65535 (a launch's grid y),
+    and for the first form a window that fits a block's shared memory (an
+    f32 G2BMM at k 512, w 128 needs 529,432 bytes for one row against
+    232,448; at w 32 it fits). Dilation 2 is always refused."""
+    assert band.band_kernels_usable(op, *dts, bz, m, k, w, 1) == usable
+    assert not band.band_kernels_usable(op, *dts, bz, m, k, w, 2)
+
+
+@pytest.mark.parametrize("op", ["g2bmm", "gbmm"])
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("k", [20, 36, 300, 512, 1000])
+def test_band_gate_mirrors_pick_rows(op, dt, k):
+    """The first form's half of the gate against csrc/band.cu's pick_rows
+    and padded<T> written out here once more: one row and its 2w + 1
+    window rows, each tile's rows padded as the kernel pads them, within
+    232,448 bytes; the widest w that fits passes and the next one does
+    not."""
+    el = torch.empty(0, dtype=dt).element_size()
+
+    def ld(k):
+        if el == 4:
+            return k | 1
+        s = k + (k & 1)
+        return s if s % 4 == 2 else s + 2
+
+    def fits(w):
+        row, win = ((ld(k) * el, ld(k) * el) if op == "g2bmm"
+                    else ((2 * w + 1) * el, k * el))
+        return row + 16 + (1 + 2 * w) * win <= 232448
+
+    widest = max(w for w in range(0, 4096) if fits(w))
+    assert band.band_form(dt, dt, k) == "simt"
+    assert band.band_kernels_usable(op, dt, dt, 2, 64, k, widest, 1)
+    assert not band.band_kernels_usable(op, dt, dt, 2, 64, k, widest + 1, 1)

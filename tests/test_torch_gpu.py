@@ -1887,8 +1887,9 @@ def test_k_split_at_one_row(dev, kind, bits, group, xdt):
     bit for bit across two launches, and within the tolerance of the
     unsplit form, forced. At 8 rows (4-row blocks) the call stays
     unsplit, and the split form, forced at 2, holds to the same checks.
-    Rows that qmm_group or qmm_chunk sends to its tensor-core form (a
-    bf16 x from the form's threshold) are not the split's."""
+    Rows that qmm_group, qmm_chunk or qmm_slab sends to its tensor-core
+    form (a bf16 or f16 x from the form's threshold) are not the
+    split's."""
     q = _split_weight(dev, kind, bits, group, torch.bfloat16)
     variant = "chunk" if kind == "qmm_chunk" else None
     plain = {"qmm_group": qm.qmm_group_plain, "qmm_chunk": qm.qmm_chunk_plain,
@@ -1900,6 +1901,8 @@ def test_k_split_at_one_row(dev, kind, bits, group, xdt):
             continue
         if kind == "qmm_chunk" and \
                 qm.chunk_form(rows, xdt, group) == "mma":
+            continue
+        if kind == "qmm_slab" and qm.slab_form(rows, xdt, False) == "mma":
             continue
         splits = qm.group_splits(rows, 4096, q.qweight.shape[0],
                                  q.group_size, _build.sms(0))
@@ -2550,11 +2553,13 @@ def test_group2d_ring_kernel(dev, din, dout, pad, kb, xdt, sdt, knobs,
 
 
 def test_slab_and_group2d_ring_routes(dev, knobs):
-    """At one row the ring forms, from two rows the CUDA-core forms:
-    quant_matmul_norm over a paired weight (qmm_slab_norm_ring), and
-    quant_matmul under a group2d table entry (qmm_group2d_ring over int4,
-    the two-launch split over int8); qmm_slab without the norm keeps its
-    CUDA-core form, in the K split where group_splits takes it."""
+    """At one row the ring forms: quant_matmul_norm over a paired weight
+    (qmm_slab_norm_ring), and quant_matmul under a group2d table entry
+    (qmm_group2d_ring over int4, the two-launch split over int8); from
+    two rows the paired weight takes the tensor-core forms
+    (qmm_slab_norm_mma, qmm_slab_mma) and group2d its CUDA-core form.
+    qmm_slab without the norm at one row keeps its CUDA-core form, in the
+    K split where group_splits takes it."""
     qp = _paired(dev, 1024, 384, torch.bfloat16)
     nw = _norm_w(dev, 1024)
     knobs(table={"1024:384:4": {"variant": "group2d", "bn": 128, "kb": 128},
@@ -2569,9 +2574,12 @@ def test_slab_and_group2d_ring_routes(dev, knobs):
             before.get("qmm_slab_norm_ring", 0) + (rows == 1)
         assert qm.launches["qmm_slab_norm"] == \
             before.get("qmm_slab_norm", 0) + 1
+        for name in ("qmm_slab_norm_mma", "qmm_slab_mma"):
+            assert qm.launches[name] == before.get(name, 0) + (rows == 2)
+        split = rows == 1 and qm.group_splits(
+            rows, 384, 512, 128, _build.sms(0)) > 1
         assert qm.launches["qmm_slab_split"] == \
-            before.get("qmm_slab_split", 0) + (qm.group_splits(
-                rows, 384, 512, 128, _build.sms(0)) > 1)
+            before.get("qmm_slab_split", 0) + split
         for bits in (4, 8):
             q = _qlin(dev, 1024, 384, bits, torch.bfloat16)
             before = dict(qm.launches)
@@ -2880,3 +2888,173 @@ def test_paged_ring_refuses_what_it_does_not_take(dev):
     with pytest.raises(ValueError):
         pa.paged_flash_decode(q, kp, vp, wide.contiguous(), pos,
                               _chunk_pages=1)
+
+
+# -- the paired tensor-core form (qmm_slab_mma, qmm_slab_norm_mma) -----------
+
+SLAB_MMA_SHAPES = [(1024, 300, 128), (1024, 260, 0), (768, 256, 0)]
+
+
+@pytest.mark.parametrize("rows", [2, 3, 8, 17, 64, 256])
+@pytest.mark.parametrize("xdt", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("sdt", [torch.bfloat16, torch.float32])
+def test_slab_mma_kernel(dev, rows, xdt, sdt, monkeypatch):
+    """qmm_slab's tensor-core form (and, for a bf16 x, qmm_slab_norm's)
+    against the plain version and against the CUDA-core body, both
+    forced, at a padded dout, a dout with no multiple of 16 columns (its
+    4-byte copies) and three packed groups (din 768), with K split (the
+    card's SM count) and not split (one SM), bit for bit across two
+    launches; counted under qmm_slab(_norm) and again under
+    qmm_slab(_norm)_mma."""
+    nw = _norm_w(dev, 1024)
+    sms = _build.sms(0)
+    for din, dout, pad in SLAB_MMA_SHAPES:
+        q = _paired(dev, din, dout, sdt, pad_out=pad)
+        x = (_x(dev, rows, din, seed=rows) * 3 + 0.5).to(xdt)
+        norms = [None] + ([nw[:din].contiguous()]
+                          if xdt == torch.bfloat16 else [])
+        for n_sm in (sms, 1):
+            monkeypatch.setattr(_build, "sms", lambda i, n=n_sm: n)
+            for norm_w in norms:
+                name = "qmm_slab" if norm_w is None else "qmm_slab_norm"
+                want = qm.qmm_slab_plain(
+                    x if norm_w is None
+                    else qm.rmsnorm_bf16(x, norm_w, 1e-5), q)
+                before = dict(qm.launches)
+                got = qm._launch_slab(x, norm_w, q, 1e-5, name, form="mma")
+                assert qm.launches[name] == before.get(name, 0) + 1
+                assert qm.launches[name + "_mma"] == \
+                    before.get(name + "_mma", 0) + 1
+                assert got.dtype == xdt
+                _close(got, want)
+                _close(got, qm._launch_slab(x, norm_w, q, 1e-5, name,
+                                            form="cuda_core"))
+                assert torch.equal(got, qm._launch_slab(
+                    x, norm_w, q, 1e-5, name, form="mma"))
+
+
+@pytest.mark.parametrize("rows", [2, 8, 64])
+def test_slab_mma_in_a_cuda_graph(dev, rows):
+    """Both paired tensor-core forms captured in one CUDA graph: replays
+    equal the eager launches bit for bit, also after x changes in place."""
+    q = _paired(dev, 2048, 640, torch.bfloat16)
+    x = _x(dev, rows, 2048) * 3
+    nw = _norm_w(dev, 2048)
+
+    def both():
+        return qm.quant_matmul(x, q), qm.quant_matmul_norm(x, nw, q)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        both()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = dict(qm.launches)
+    with torch.cuda.graph(graph):
+        outs = both()
+    for name in ("qmm_slab_mma", "qmm_slab_norm_mma"):
+        assert qm.launches[name] == before.get(name, 0) + 1
+    for seed in (1, 2):
+        x.copy_(_x(dev, rows, 2048, seed=seed) * 3)
+        graph.replay()
+        torch.cuda.synchronize()
+        again = both()
+        for out, eager in zip(outs, again):
+            assert torch.equal(out, eager)
+        _close(outs[0], qm.qmm_slab_plain(x, q)[:, :640])
+        _close(outs[1], qm.qmm_slab_plain(qm.rmsnorm_bf16(x, nw, 1e-5),
+                                          q)[:, :640])
+
+
+def test_slab_mma_step_launch_counts(dev):
+    """One eager decode step of a small paired model at 4 rows (the dense
+    engine's step, as phase 8 of chip_smoke.py counts it) launches
+    qmm_slab_norm 2 L times, all qmm_slab_norm_mma, and qmm_slab 2 L + 1,
+    all qmm_slab_mma; a 64-token prefill (the norm unfused) qmm_slab
+    4 L + 1 times, all qmm_slab_mma. No qmm_group* and no ring."""
+    cfg = llama.LlamaConfig(vocab_size=512, dim=512, n_layers=2, n_heads=4,
+                            n_kv_heads=2, intermediate=1024, max_seq=128)
+    L = cfg.n_layers
+    params = llama.quantize_llama_params(
+        llama.init_llama_params(cfg, torch.Generator(device=dev).manual_seed(
+            0), device=dev), bits=4, group_size=128, paired=True)
+    tok = torch.tensor([3, 4, 5, 6], dtype=torch.int32, device=dev)
+    pos = torch.tensor([5, 9, 0, 40], dtype=torch.int32, device=dev)
+    qm.launches.clear()
+    logits, _ = llama.llama_decode_step(
+        params, cfg, tok, pos,
+        llama.init_kv_cache(cfg, 4, kv_quant=True, device=dev))
+    torch.cuda.synchronize()
+    assert torch.isfinite(logits.float()).all()
+    got = {k: v for k, v in qm.launches.items() if v}
+    assert got == {"qmm_slab_norm": 2 * L, "qmm_slab_norm_mma": 2 * L,
+                   "qmm_slab": 2 * L + 1, "qmm_slab_mma": 2 * L + 1}
+    qm.launches.clear()
+    prompt = torch.randint(0, cfg.vocab_size, (1, 64),
+                           generator=torch.Generator().manual_seed(1),
+                           dtype=torch.int32).to(dev)
+    logits, _ = llama.llama_prefill(params, cfg, prompt,
+                                    llama.init_kv_cache(cfg, 1, device=dev))
+    torch.cuda.synchronize()
+    assert torch.isfinite(logits.float()).all()
+    got = {k: v for k, v in qm.launches.items() if v}
+    assert got == {"qmm_slab": 4 * L + 1, "qmm_slab_mma": 4 * L + 1}
+
+
+def test_slab_mma_refuses_what_it_does_not_take(dev):
+    """The paired tensor-core form, forced, raises before any launch on an
+    f32 x (with the norm an f16 x too) and on an unpaired weight: no path
+    falls back to the CUDA-core body."""
+    x = _x(dev, 8, 1024)
+    qp = _paired(dev, 1024, 384, torch.bfloat16)
+    q = _qlin(dev, 1024, 384, 4, torch.bfloat16)
+    nw = _norm_w(dev, 1024)
+    before = dict(qm.launches)
+    with pytest.raises(ValueError, match="bf16 or f16"):
+        qm._launch_slab(x.float(), None, qp, 0.0, "qmm_slab", form="mma")
+    with pytest.raises(ValueError, match="bf16 x"):
+        qm._launch_slab(x.half(), nw, qp, 1e-5, "qmm_slab_norm", form="mma")
+    for norm_w in (None, nw):
+        with pytest.raises(ValueError, match="paired int4"):
+            qm._launch_slab(x, norm_w, q, 1e-5, "qmm_slab", form="mma")
+    assert dict(qm.launches) == before
+    assert qm.slab_form(8, torch.float32, False) == "cuda_core"
+
+
+# -- the band lowering's gate (ops/lowering.py G2BMM / GBMM) ------------------
+
+@pytest.mark.parametrize("bz,m,k,w,launched", [
+    (2, 64, 512, 128, False),     # f32 k 512 w 128: the window does not fit
+    (65536, 4, 8, 1, False),      # bz above a launch's grid
+    (2, 64, 128, 6, True),        # the ring form takes it
+])
+def test_band_lowering_gate_on_the_card(dev, bz, m, k, w, launched):
+    """G2BMM -> GBMM through GraphHandler and GraphExecutor in f32 on the
+    card: where band_kernels_usable refuses (a first-form window too wide
+    for a block's shared memory, or bz above 65535) the lowering takes its
+    gather or shift-scan path and launches no band kernel; where it passes
+    the ring form launches once each. Within 1e-4 of max|plain| of
+    g2bmm_plain / gbmm_plain either way."""
+    from infinitensor_tpu_torch.core import GraphHandler
+    from infinitensor_tpu_torch.kernels import band
+    from infinitensor_tpu_torch.runtime.executor import GraphExecutor
+    assert band.band_kernels_usable("g2bmm", torch.float32, torch.float32,
+                                    bz, m, k, w, 1) == launched
+    h = GraphHandler()
+    a_in, b_in = (h.input((bz, m, k), name=n) for n in ("a", "b"))
+    h.gbmm(h.g2bmm(a_in, b_in, width=w), b_in)
+    h.graph.infer_output_roles()
+    g = torch.Generator().manual_seed(bz + m + k + w)
+    a, b = (torch.randn(bz, m, k, generator=g).to(dev) for _ in range(2))
+    before = dict(band.launches)
+    (out,) = GraphExecutor(h.graph, device=dev, use_cuda_graph=False).run(
+        {"a": a, "b": b}).values()
+    torch.cuda.synchronize()
+    n = 1 if launched else 0
+    assert band.launches["g2bmm"] == before.get("g2bmm", 0) + n
+    assert band.launches["gbmm"] == before.get("gbmm", 0) + n
+    want = band.gbmm_plain(band.g2bmm_plain(a, b, w), b, w)
+    assert out.shape == want.shape and out.dtype == torch.float32
+    err = (out - want).abs().max().item()
+    assert err <= 1e-4 * want.abs().max().item(), err

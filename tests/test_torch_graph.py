@@ -209,10 +209,12 @@ def test_band_plain_vs_interpreted_kernels(dtype):
         assert got.dtype == t(a).dtype and got.shape == want.shape
         err = np.abs(got.float().numpy() - want).max()
         assert err <= tol * np.abs(want).max(), err
-    assert tband.band_kernels_usable(m, k, w, 1)
-    assert not tband.band_kernels_usable(m, k, w, 2)
-    # the dropped TPU predicates: k % 128, w <= 128, row blocks
-    assert tband.band_kernels_usable(100, 64, 200, 1)
+    tdt = t(a).dtype
+    for op in ("g2bmm", "gbmm"):
+        assert tband.band_kernels_usable(op, tdt, tdt, 2, m, k, w, 1)
+        assert not tband.band_kernels_usable(op, tdt, tdt, 2, m, k, w, 2)
+        # the dropped TPU predicates: k % 128, w <= 128, row blocks
+        assert tband.band_kernels_usable(op, tdt, tdt, 2, 100, 64, 200, 1)
     assert not jband.band_kernels_usable(100, 64, 200, 1)
 
 

@@ -1037,13 +1037,23 @@ def test_norm_w4a8_ring_arithmetic_vs_jax(group, din, sms, knobs):
     (1, torch.bfloat16, False, "cuda_core"),
     (1, torch.float32, True, "cuda_core"),
     (1, torch.float16, True, "cuda_core"),
-    (2, torch.bfloat16, True, "cuda_core"),
-    (256, torch.bfloat16, True, "cuda_core"),
+    (1, torch.float16, False, "cuda_core"),
+    (2, torch.bfloat16, True, "mma"),
+    (2, torch.bfloat16, False, "mma"),
+    (2, torch.float16, False, "mma"),
+    (2, torch.float16, True, "cuda_core"),
+    (8, torch.float32, False, "cuda_core"),
+    (8, torch.float32, True, "cuda_core"),
+    (256, torch.bfloat16, True, "mma"),
+    (256, torch.float16, False, "mma"),
 ])
 def test_slab_form(rows, dtype, norm, form):
     """qmm_slab_norm at one row of a bf16 x takes the ring form
-    (qmm_slab_norm_ring); 2 rows and more, and qmm_slab without the norm
-    (whose one row takes the K split), the CUDA-core body."""
+    (qmm_slab_norm_ring); from MMA_MIN_ROWS rows a bf16 x, and an f16 x
+    without the norm, the paired tensor-core tile (qmm_slab_mma,
+    qmm_slab_norm_mma); qmm_slab at one row (its K split) and an f32 x the
+    CUDA-core body."""
+    assert tqm.MMA_MIN_ROWS == 2
     assert tqm.slab_form(rows, dtype, norm) == form
 
 
@@ -1214,6 +1224,67 @@ def test_slab_norm_ring_arithmetic_vs_jax(sdt, sms):
     _close(got, tqm.qmm_slab_plain(tqm.rmsnorm_bf16(_t(x), _t(nw), 1e-5),
                                    tq)[:, :260])
     _close(got, qm.quant_matmul_norm(x, nw, q, eps=1e-5, interpret=True))
+
+
+def _slab_mma_emulated(x2, q, sms, norm_w=None, eps=1e-5):
+    """The arithmetic of the paired tensor-core tile (qmm_slab_mma; with
+    norm_w qmm_slab_norm_mma, on rmsnorm_bf16's rows), step by step in
+    torch: the exact nibble values (lo = (u & 15) - 8, hi = (u << 24) >>
+    28); mma_plan's K split by whole packed groups; in each split, per
+    packed group c one f32 partial summed over its k16 steps, the lo half's
+    then the hi half's product each step (one mma.sync each), folded into
+    the f32 accumulator as acc += p * s[c] with the group's one scale; the
+    splits' accumulators summed in z order; rounded once to x's dtype."""
+    xs = (x2 if norm_w is None else tqm.rmsnorm_bf16(x2, norm_w, eps))
+    xs = xs.float()
+    g, kr, dout_p = q.group_size, q.qweight.shape[0], q.out_physical
+    lo, hi = (t.float() for t in weight_only._unpack_nibbles(q.qweight))
+    sc = q.scales.float()
+    ngs = kr // g
+    _, splits = tqm.mma_plan(xs.shape[0], dout_p, kr, g, sms)
+    out = torch.zeros(xs.shape[0], dout_p)
+    for z in range(splits):
+        acc = torch.zeros(xs.shape[0], dout_p)
+        for c in range(z * ngs // splits, (z + 1) * ngs // splits):
+            p = torch.zeros(xs.shape[0], dout_p)
+            for k0 in range(c * g, (c + 1) * g, 16):
+                r = slice(k0, k0 + 16)
+                p = p + xs[:, r] @ lo[r]
+                p = p + xs[:, kr:][:, r] @ hi[r]
+            acc = acc + p * sc[c]
+        out = acc if splits == 1 else out + acc
+    return out.to(x2.dtype)
+
+
+@pytest.mark.parametrize("norm", [False, True])
+@pytest.mark.parametrize("sms", [132, 1])
+@pytest.mark.parametrize("rows", [2, 8, 17])
+@pytest.mark.parametrize("sdt", [jnp.bfloat16, jnp.float32])
+def test_slab_mma_arithmetic_vs_jax(sdt, rows, sms, norm):
+    """qmm_slab_mma's arithmetic (_slab_mma_emulated; with the norm
+    qmm_slab_norm_mma's) at din 512 (two packed groups of 128 rows, one
+    scale row each), dout 260 padded to 384, with K split in two (132
+    SMs) and unsplit (one SM): within one bf16 ulp at max|ref| (OUT_TOL)
+    of qmm_slab_plain and of the JAX package's interpreted
+    _kernel_group_slab / _kernel_group_norm_slab."""
+    rng = np.random.default_rng(150 + rows + sms)
+    w = rng.standard_normal((512, 260)).astype(np.float32)
+    q = quantize_weight(jnp.asarray(w), bits=4, group_size=128, pad_out=128,
+                        paired=True)
+    q = JQ(q.qweight, q.scales.astype(sdt), q.bits, q.group_size,
+           q.out_logical)
+    assert q.paired and q.scales.shape == (2, 384)
+    x = jnp.asarray(rng.standard_normal((rows, 512)) * 3.0, jnp.bfloat16)
+    nw = jnp.asarray(rng.uniform(0.5, 1.5, (512,)), jnp.bfloat16)
+    tq = _port_q(q)
+    splits = tqm.mma_plan(rows, 384, 256, 128, sms)[1]
+    assert splits == (2 if sms == 132 else 1)
+    got = _slab_mma_emulated(_t(x), tq, sms, _t(nw) if norm else None)
+    xs = tqm.rmsnorm_bf16(_t(x), _t(nw), 1e-5) if norm else _t(x)
+    _close(got[:, :260], tqm.qmm_slab_plain(xs, tq)[:, :260])
+    want = qm.quant_matmul_norm(x, nw, q, eps=1e-5, interpret=True) \
+        if norm else qm.quant_matmul(x, q, interpret=True)
+    _close(got[:, :260], want)
 
 
 @pytest.mark.parametrize("sms", [7, 4, 1])

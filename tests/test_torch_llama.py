@@ -381,6 +381,48 @@ def test_quantize_llama_params_variants_match_jax(case):
         assert dict(tqm.launches) == before     # no dequant route at 2 rows
 
 
+def test_paired_prefill_and_generate_match_jax():
+    """A paired-weight model (quantize_llama_params(paired=True), by the
+    JAX package, bytes handed to the port) through llama_prefill (a
+    40-token prompt of batch 2 into a bf16 cache: every matmul at 80 rows,
+    which the card sends to qmm_slab_mma) and greedy_generate (a 12-token
+    prompt, 4 tokens: decode steps at 2 rows, which the card sends to
+    qmm_slab_norm_mma and qmm_slab_mma). The port runs qmm_slab_plain
+    for every paired matmul, the JAX side its interpreted slab kernels
+    (_kernel_group_norm_slab) for the fused wqkv and w_gateup and
+    dequantize + matmul for the rest: logits within 3e-2 of max|logit|
+    with equal argmax or a near-tie, caches as in test_prefill_matches_jax,
+    greedy tokens equal."""
+    cfg_j = jl.LlamaConfig(dtype=jnp.bfloat16, **SHAPE)
+    params_j = jl.quantize_llama_params(
+        jl.init_llama_params(cfg_j, jax.random.PRNGKey(5)), bits=4,
+        group_size=128, paired=True)
+    params_t = params_from_jax_numpy(jax.tree.map(np.asarray, params_j),
+                                     "cpu")
+    cfg_t = tl.LlamaConfig(**SHAPE)
+    assert params_t["lm_head"].paired and params_t["layers"][0]["wo"].paired
+    cache_j, cache_t = _caches(cfg_j, cfg_t, 2, False)
+    prompt = _prompt(2, 40, seed=11)
+    with config.override(pallas_interpret=True):
+        lj, cache_j = jl.llama_prefill(params_j, cfg_j, jnp.asarray(prompt),
+                                       cache_j)
+    before = dict(tqm.launches)
+    lt, _ = tl.llama_prefill(params_t, cfg_t, torch.from_numpy(prompt),
+                             cache_t)
+    assert dict(tqm.launches) == before     # the slab route, not dequant
+    _close_logits(lt, lj, ties=True)
+    _close_caches(cache_t, cache_j)
+    prompt = _prompt(2, 12, seed=12)
+    with config.override(pallas_interpret=True):
+        want, cache_j = jl.greedy_generate(params_j, cfg_j,
+                                           jnp.asarray(prompt), 4)
+    got, cache_t = tl.greedy_generate(params_t, cfg_t,
+                                      torch.from_numpy(prompt), 4)
+    assert got.shape == (2, 4)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    _close_caches(cache_t, cache_j)
+
+
 def test_llama2_70b_config_matches_jax():
     got, want = tl.LlamaConfig.llama2_70b(), jl.LlamaConfig.llama2_70b()
     for f in ("vocab_size", "dim", "n_layers", "n_heads", "n_kv_heads",

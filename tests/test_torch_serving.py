@@ -570,3 +570,58 @@ def test_kv_slot_functions_match_jax(kv_quant):
         for tj, tt in zip(cache_j[key], cache_t[key]):
             np.testing.assert_array_equal(tt.float().numpy(),
                                           np.asarray(tj, np.float32))
+
+
+PAIRED_SHAPE = dict(vocab_size=512, dim=512, n_layers=2, n_heads=4,
+                    n_kv_heads=2, intermediate=1024, max_seq=64)
+
+
+def test_paired_engine_tokens_match_jax():
+    """A paired-weight model (quantize_llama_params(paired=True), by the
+    JAX package, bytes handed to the port) through the dense
+    ServingEngine with an INT8 cache: 4 requests over 2 slots, so its
+    decode steps run 2 rows (on the card qmm_slab_norm_mma for wqkv and
+    w_gateup, qmm_slab_mma for wo, w_down and the lm_head; on the CPU
+    qmm_slab_plain) against the JAX engine on the same stream (on the CPU
+    it dequantizes each paired weight to bf16, so logits differ by a few
+    bf16 ulps): tokens equal, or a request parts at a near-tie, where each
+    side's pick is within the two sides' measured logit error of the
+    other's (as test_torch_llama.py's _close_logits holds it); steps and
+    stats equal."""
+    cfg_j = jl.LlamaConfig(**PAIRED_SHAPE)
+    params_j = jl.quantize_llama_params(
+        jl.init_llama_params(cfg_j, jax.random.PRNGKey(4)), bits=4,
+        group_size=128, paired=True)
+    params_t = params_from_jax_numpy(jax.tree.map(np.asarray, params_j),
+                                     "cpu")
+    assert params_t["layers"][0]["wqkv"].paired
+    model = (cfg_j, params_j, tl.LlamaConfig(**PAIRED_SHAPE), params_t)
+    rng = np.random.default_rng(21)
+    reqs = [(rng.integers(1, 512, int(p)).tolist(), int(m))
+            for p, m in zip(rng.integers(4, 20, 4), rng.integers(4, 8, 4))]
+    je, te = _pair(model, False, max_slots=2, prefill_buckets=(8, 24),
+                   kv_quant=True)
+    want, got = _run(je, reqs), _run(te, reqs)
+    equal = 0
+    for (prompt, _), g, w in zip(reqs, got, want):
+        if g == w:
+            equal += 1
+            continue
+        j = next(j for j, (x, y) in enumerate(zip(g, w)) if x != y)
+        toks = [list(prompt) + g[:j]]
+        lt, _ = tl.llama_prefill(
+            params_t, model[2], torch.tensor(toks, dtype=torch.int32),
+            tl.init_kv_cache(model[2], 1, device="cpu"))
+        lj, _ = jl.llama_prefill(params_j, cfg_j,
+                                 jax.numpy.asarray(toks, np.int32),
+                                 jl.init_kv_cache(cfg_j, 1))
+        lt = lt[0, -1].float().numpy()
+        lj = np.asarray(lj[0, -1], np.float32)
+        err = np.abs(lt - lj).max()
+        assert lt[g[j]] - lt[w[j]] <= err and lj[w[j]] - lj[g[j]] <= err, \
+            (prompt, j, g, w, err)
+    assert equal >= len(reqs) - 2
+    assert te.steps == je.steps and te.tokens_out == je.tokens_out
+    for key in ("prefill_launches", "decode_launches", "slot_steps_active",
+                "decode_tokens"):
+        assert te.stats.get(key, 0) == je.stats.get(key, 0), key
