@@ -268,7 +268,40 @@ Phases, each failing with a nonzero exit, each printing its seconds:
      pages and over INT8 pages (the fast paged kernels, 32 launches each,
      no any-type form) against the same step over a dense cache, its ms
      (one CUDA graph); each time beside the any-type body's, forced
-     through the old route, read in turns in this call.
+     through the old route, read in turns in this call;
+ 15. OPT-1.3B (dim 2048, 24 layers, 32 heads of 64, FFN 8192, vocab
+     50272; random weights from a seed), bf16 activations and cache, with
+     bf16 weights and with INT8 weights at group 128: the first CPU_LAYERS
+     layers against the CPU plain path (a 256-token prompt's last logits
+     and the next step's), then at full depth the prompt (ms; 96
+     qmm_group_mma with INT8 weights, no kernel in bf16), a decode step
+     against the prefill's logits, and 64 greedy steps eager and from one
+     captured step (24 flash_decode and 24 flash_decode_merge a step, with
+     INT8 96 qmm_group, all in the K split; ms a step, tok/s against the
+     copy-rate roofline of the bytes a token reads); INT8 also a batch of
+     8 prompts of 17-256 tokens, one batched step at each prompt's own
+     position against its batch-1 step (96 qmm_group_mma, 24
+     flash_decode);
+ 16. BERT-base (12 layers, dim 768, 12 heads; B 2, S 128; f32):
+     bert_encode against the CPU, the FP32 and dynamic-INT8 graphs
+     (build_bert_graph) through GraphExecutor eager and captured, the FP32
+     graph against the CPU (1e-3 of max|h|), INT8 against FP32 (mean|dh|
+     / rms(h) < 5 %), and the INT8 graph exported to ONNX, re-imported
+     and run, bit for bit the in-memory graph's output; ms of each;
+ 17. ResNet-18-v2, DenseNet-121, Inception-v2 and EfficientNet-Lite4 at
+     224 x 224, batch 1, 1000 classes, f32: each exported to ONNX bytes,
+     re-imported and run captured on the card, within 1e-3 of max|ref| of
+     the CPU's eager run of the directly built graph and bit for bit the
+     directly built graph's output on the card; ms an image, the ONNX MB,
+     and the error with cuDNN's TF32 left on, for the record;
+ 18. the graph corpus's kernel cases (tests/torch_graph_cases.py
+     case_matmul_woq, case_attention_kvcache) through ONNX: the imported
+     graph launches the direct graph's kernels (each nonzero) and gives
+     its outputs bit for bit.
+Phase 3 also holds qmm_group at OPT-1.3B's four shapes (int8, group 128
+at 1, 8 and 256 rows, and one group of din at 1 and 256 rows),
+flash_decode at 32 heads of 64 at batch 1 and 8, and the merge of its
+split.
 Phase 9 also runs greedy_generate on entry()'s model (head dim 64), whose
 prefill launches flash_attention at D 64.
 Phases 8-11 each check one step of their first CPU_LAYERS (4) layers
@@ -503,7 +536,7 @@ def main():
     from infinitensor_tpu_torch.runtime.executor import GraphExecutor
     from infinitensor_tpu_torch.tools import serving_bench
     from infinitensor_tpu_torch.quant.weight_only import (
-        QuantizedLinear, dequant_matmul, dequantize_weight)
+        QuantizedLinear, dequant_matmul, dequantize_weight, quantize_weight)
 
     smi = smi_line()
     dev = torch.device("cuda", 0)
@@ -772,6 +805,8 @@ def main():
     cases += prefill_rows(torch, att, fa, pa, cfg, gen, dev)
     cases += any_cases(torch, att, fa, pa, cfg, gen, dev, torch.float32)
     cases += prefill_any_rows(torch, fa, cfg, gen, dev)
+    cases += opt_cases(torch, qm, att, gen, dev, randn, quantize_weight,
+                       dequantize_weight)
 
     for c in cases:
         with knobs(c.get("env", {})):
@@ -1015,11 +1050,51 @@ def main():
     del params
     t_phase = phase(14, t_phase)
 
+    # 15. OPT-1.3B prompt and decode, bf16 and INT8 weights
+    import numpy as np
+    from infinitensor_tpu_torch import onnx as tonnx
+    from infinitensor_tpu_torch.models import bert, opt, vision
+    from infinitensor_tpu_torch.native import onnx_wire
+    from infinitensor_tpu_torch.ops import lowering
+    from infinitensor_tpu_torch.runtime.runtime import cuda_runtime
+    from infinitensor_tpu_torch.serving import kvcache
+    paths.update(opt_path(torch, opt, kvcache, qm, att, counters, dev,
+                          report, steps, bw_copy))
+    prompts_of[OPT_PROMPT] = paths[OPT_PROMPT]
+    for path, knames in ((OPT_DECODE, ("qmm_group", "qmm_group_split",
+                                       "flash_decode", "flash_decode_merge")),
+                         (OPT_PROMPT, ("qmm_group_mma",)),
+                         (OPT_BATCH, ("qmm_group_mma", "flash_decode"))):
+        for kname in knames:
+            if paths[path].get(kname, 0) <= 0:
+                fail(f"{kname} was never launched on the path {path}")
+    t_phase = phase(15, t_phase)
+
+    # 16. BERT-base, FP32 and dynamic INT8, and its ONNX round trip
+    parser = "native scan" if onnx_wire.native_available() else \
+        f"pure-Python parse ({onnx_wire._LIB_ERR})"
+    print(f"# ONNX initializers: {parser}", flush=True)
+    report["onnx_parser"] = parser
+    bert_path(torch, np, bert, tonnx, GraphExecutor, cuda_runtime, dev,
+              report)
+    t_phase = phase(16, t_phase)
+
+    # 17. the vision parity set through ONNX
+    vision_path(torch, np, vision, tonnx, lowering, GraphExecutor,
+                cuda_runtime, dev, report)
+    t_phase = phase(17, t_phase)
+
+    # 18. the corpus's kernel cases through ONNX
+    paths[ONNX_KERNELS] = onnx_kernel_path(
+        torch, np, GraphHandler, tonnx, GraphExecutor, cuda_runtime,
+        counters, dev, report)
+    t_phase = phase(18, t_phase)
+
     per_prompt = report["generate"][f"prompt {SHORT}"]["launches_per_prompt"]
     kernels = []
     for c in cases:
         prefill = c["name"].startswith("flash_attention") or c["path"] in \
-            (f"prompt {SHORT}", G64_PROMPT, PAIRED_PROMPT)
+            (f"prompt {SHORT}", G64_PROMPT, PAIRED_PROMPT, OPT_PROMPT)
         step = report["serving"][c["path"]]["launches_per_step"] \
             if c["path"].startswith("serving") \
             else steps.get(c["path"], per_token)
@@ -1050,6 +1125,7 @@ def main():
                if c["form_ms"] else {}),
             **({"graph_ms": c["graph_ms"]} if c["graph_ms"] else {})})
     report["kernels"] = kernels
+    report["launches_by_path"] = paths
     os.makedirs("chiprun_out", exist_ok=True)
     with open("chiprun_out/chip_smoke_report.json", "w") as f:
         json.dump(report, f, indent=1)
@@ -1725,11 +1801,13 @@ def serving_requests(np, cfg):
                             rng.integers(32, 129, REQUESTS))]
 
 
-def device_profile(torch, fn):
+def device_profile(torch, fn, extra_kinds=()):
     """Run fn() under torch.profiler and read the card's side of it: the
     span from the first kernel's start to the last one's end, the share of
-    it in which some kernel ran, and kernel milliseconds by kind. None
-    where the profiler recorded no device event (then: not measured)."""
+    it in which some kernel ran, and kernel milliseconds by kind (the
+    port's kernels, then extra_kinds' (name part, kind) pairs, else
+    "torch ops"). None where the profiler recorded no device event (then:
+    not measured)."""
     from torch.profiler import ProfilerActivity, profile
     kinds = (("qmm_w4a8_ring_kernel", "qmm_w4a8_ring"),
              ("w4a8_quantize_rows", "qmm_w4a8"),
@@ -1760,7 +1838,7 @@ def device_profile(torch, fn):
              ("rmsnorm_rows_kernel", "rmsnorm"),
              ("g2bmm_ring_kernel", "g2bmm_ring"),
              ("gbmm_ring_kernel", "gbmm_ring"), ("g2bmm_kernel", "g2bmm"),
-             ("gbmm_kernel", "gbmm"))
+             ("gbmm_kernel", "gbmm")) + tuple(extra_kinds)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
@@ -4543,14 +4621,7 @@ def step_ms(torch, fn):
     """Milliseconds of one replay of fn captured in a CUDA graph (after a
     warm-up run on a side stream, as the serving engine captures its
     step; median of 20 CUDA-event timings)."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        fn()
+    graph = capture(torch, fn)
     ms = cuda_ms(torch, graph.replay, 20)
     del graph
     return ms
@@ -4703,6 +4774,594 @@ def f16_path(torch, llama, counters, kmods, params, cfg, dev, report, steps,
     steps[F16_PAGED] = paths[F16_PAGED]
     report["f16"] = res
     return paths
+
+
+# -- phases 15-18: the other models and the ONNX frontend ---------------------
+
+OPT_STEPS = 64               # phase 15: greedy decode steps after a prompt
+OPT_GROUP = 128              # INT8 grouping (tools/serving_bench.py:49)
+OPT_LENS = (256, 200, 131, 64, 240, 17, 100, 180)   # the batch of 8's prompts
+OPT_DECODE = "opt int8 decode"
+OPT_PROMPT = f"opt int8 prompt {SHORT}"
+OPT_BATCH = "opt int8 batch 8"
+OPT_MATMULS = (("w_qkv", 2048, 6144), ("w_o", 2048, 2048),
+               ("w_up", 2048, 8192), ("w_down", 8192, 2048))
+BERT_SHAPE = (2, 128)        # phase 16: tools/bert_parity.py:46-47
+BERT_TOL = 1e-3              # phase 16: card against the CPU, of max|h|
+BERT_INT8_GATE = 0.05        # mean|dh| / rms(h), tools/bert_parity.py:5-14
+VISION_IMAGE = 224           # phase 17: tools/vision_parity.py
+VISION_TOL = 1e-3            # ... rtol = atol = 1e-3 x max|ref| (:102-104)
+ONNX_KERNELS = "onnx kernels"     # phase 18
+#: cuBLAS's kernels in phase 15's profile (the tied lm_head, bf16 weights;
+#: its Hopper kernels are named nvjet_*, its split-K sum cublasLt::*)
+CUBLAS_KINDS = (("nvjet", "cuBLAS"), ("cublas", "cuBLAS"), ("gemm", "cuBLAS"),
+                ("gemv", "cuBLAS"))
+
+
+def opt_cases(torch, qm, att, gen, dev, randn, quantize_weight,
+              dequantize_weight):
+    """Phase 3 rows at OPT-1.3B's shapes (phase 15's path): the int8
+    qmm_group on w_qkv, w_o, w_up and w_down at group 128 at 1 row (the K
+    split, beside the unsplit form), 8 rows (the batch of 8) and SHORT rows
+    (qmm_group_mma, the prompt), and at group None (one group of din) at 1
+    and SHORT rows (no path); flash_decode at 32 heads of 64 over a 2048-row
+    bf16 cache at batch 1 (the split form, beside the unsplit) and batch 8
+    (ragged pos), and flash_decode_merge on the batch-1 partials."""
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    out = []
+    for label, din, dout in OPT_MATMULS:
+        w = torch.randn(din, dout, generator=gen, device=dev) * 0.02
+        for group, rows_paths in ((OPT_GROUP, ((1, OPT_DECODE),
+                                               (SLOTS, OPT_BATCH),
+                                               (SHORT, OPT_PROMPT))),
+                                  (None, ((1, NO_PATH), (SHORT, NO_PATH)))):
+            q = quantize_weight(w, 8, group)
+            wd = dequantize_weight(q)
+            for rows, path in rows_paths:
+                x = randn(rows, din)
+                mma = rows >= qm.MMA_MIN_ROWS
+                split = split_launches(qm, (q,), rows) > 0
+
+                def kernel(x=x, q=q):
+                    return qm.quant_matmul(x, q)
+
+                out.append(dict(
+                    name="qmm_group_mma" if mma else "qmm_group",
+                    shape=f"opt {label} int8 group {q.group_size} "
+                          f"{rows} rows",
+                    path=path, replaces=TPU + "quant_matmul.py:100",
+                    source=SRC + ("quant_matmul_mma.cu" if mma
+                                  else "quant_matmul.cu"),
+                    kernel=kernel,
+                    plain=lambda x=x, q=q: qm.qmm_group_plain(x, q)[
+                        :, :q.out_features],
+                    **({"forms": {"unsplit": unsplit(qm, kernel)}}
+                       if split else {}),
+                    library=lambda x=x, w=wd: torch.matmul(x, w),
+                    bytes=nbytes(x, q.qweight, q.scales)
+                    + 2 * rows * q.out_physical,
+                    ops=2 * rows * din * q.out_physical, kind="bf16"))
+    H, S, D = 32, 2048, 64
+    for B, path in ((1, OPT_DECODE), (SLOTS, OPT_BATCH)):
+        q = randn(B, H, 1, D)
+        kc, vc = randn(B, H, S, D), randn(B, H, S, D)
+        pos = torch.tensor([SHORT + OPT_STEPS - 1 - 37 * i for i in range(B)],
+                           dtype=torch.int32, device=dev)
+        live = pos + 1
+        cols = torch.arange(S, device=dev)
+        mask = (cols[None] <= pos[:, None])[:, None, None]
+        args = (q, kc, vc, pos)
+        out.append(dict(
+            name="flash_decode", shape=f"opt {B}x{H}x{S}x{D} pos "
+                                      f"{int(pos.min())}-{int(pos.max())}",
+            path=path, replaces=TPU + "attention.py:294",
+            source=SRC + "flash_decode.cu",
+            kernel=lambda a=args: att.flash_decode(*a),
+            plain=lambda a=args: att.flash_decode_plain(*a),
+            **({"forms": {"unsplit": lambda a=args: att.flash_decode(
+                *a, _splits=1)}} if att.launch_splits(B, H, S) > 1 else {}),
+            library=lambda q=q, kc=kc, vc=vc, mask=mask:
+                torch.nn.functional.scaled_dot_product_attention(
+                    q, kc, vc, attn_mask=mask),
+            bytes=2 * H * int(live.sum()) * D * 2 + 2 * nbytes(q)
+            + nbytes(pos),
+            ops=4 * H * int(live.sum()) * D, kind="bf16"))
+        if B == 1:
+            splits = att.launch_splits(1, H, S)
+            part = att.flash_decode_split_plain(q, kc, vc, pos,
+                                                splits).contiguous()
+            out.append(dict(
+                name="flash_decode_merge", shape=f"opt {H} heads x {splits} "
+                                                 f"splits of D {D}",
+                path=path, replaces=TPU + "attention.py:294",
+                source=SRC + "flash_decode.cu",
+                kernel=lambda part=part: att.flash_decode_merge(part),
+                plain=lambda part=part: att.flash_decode_merge_plain(part),
+                library=None, bytes=nbytes(part) + 2 * H * D,
+                ops=3 * H * splits * D, kind="f32"))
+    return out
+
+
+def capture(torch, fn):
+    """fn captured in a CUDA graph after a warm-up run on a side stream
+    (whose writes the caller undoes); replay() runs it again."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return graph
+
+
+def opt_step_bytes(cfg, params, pos):
+    """Bytes one decode step at batch 1 must read: every layer tensor once
+    (int8 codes and their scales, or the bf16 weights; biases and norms),
+    the tied wte once for the lm_head, and the live K and V rows [0, pos]
+    of every layer."""
+    def size(v):
+        if hasattr(v, "qweight"):
+            return size(v.qweight) + size(v.scales)
+        return v.numel() * v.element_size()
+
+    layers = sum(size(v) for lay in params["layers"] for v in lay.values())
+    wte = size(params["wte"])
+    kv = 2 * cfg.n_layers * cfg.n_heads * (pos + 1) * cfg.head_dim * 2
+    return layers + wte + kv, layers, wte, kv
+
+
+def opt_prefill_step(torch, opt, params, cfg, prompt, dev):
+    """(last prefill logits row, the next decode step's logits) of params
+    on dev from the prompt, greedy."""
+    cache = opt.init_opt_cache(cfg, prompt.shape[0], device=dev)
+    lp, cache = opt.opt_prefill(params, cfg, prompt.to(dev), cache)
+    tok = lp[:, -1].argmax(-1).int()
+    pos = torch.full((prompt.shape[0],), prompt.shape[1], dtype=torch.int32,
+                     device=dev)
+    ld, _ = opt.opt_decode_step(params, cfg, tok, pos, cache)
+    return lp[:, -1].float().cpu(), ld.float().cpu()
+
+
+def opt_path(torch, opt, kvcache, qm, att, counters, dev, report, steps,
+             bw_copy):
+    """Phase 15: OPT-1.3B (OPTConfig.opt_1b3(): dim 2048, 24 layers, 32
+    heads of 64, FFN 8192, vocab 50272), random weights from a seed, bf16
+    activations and cache, in bf16 and with INT8 weights at group
+    OPT_GROUP. Each form: its first CPU_LAYERS layers against the CPU
+    plain path (the SHORT-token prompt's last logits and the next step's);
+    at full depth the prefill of SHORT tokens (ms, launches pinned), the
+    decode of the prompt's last token against the prefill's logits, then
+    OPT_STEPS greedy steps eager and from one captured step (tokens equal
+    up to a near-tie; ms a step, tok/s against the copy-rate roofline of
+    opt_step_bytes); INT8 also a batch of 8 prompts of OPT_LENS tokens,
+    its first batched step against each prompt's batch-1 step. Returns
+    {path: launches}."""
+    cfg = opt.OPTConfig.opt_1b3()
+    L = cfg.n_layers
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    dense = opt.init_opt_params(cfg, gen, device=dev)
+    forms = {"bf16": dense,
+             "int8": opt.quantize_opt_params(dense, 8, OPT_GROUP)}
+    prompt = torch.randint(0, cfg.vocab_size, (1, SHORT), generator=gen,
+                           device=dev, dtype=torch.int32)
+    ccfg = dataclasses.replace(cfg, n_layers=CPU_LAYERS)
+    cpu = torch.device("cpu")
+    res, paths = {}, {}
+    for label, params in forms.items():
+        r = res[label] = {}
+        t0 = time.perf_counter()
+        cut = dict(params, layers=params["layers"][:CPU_LAYERS])
+        got = opt_prefill_step(torch, opt, cut, ccfg, prompt, dev)
+        want = opt_prefill_step(torch, opt, to_cpu(cut), ccfg, prompt, cpu)
+        for i, what in enumerate(("prefill", "decode")):
+            compare_logits(torch, f"opt {label} {what} {CPU_LAYERS} layers "
+                           "vs cpu", got[i][0], want[i][0], report)
+        r["cpu_check_s"] = time.perf_counter() - t0
+
+        # the prompt at full depth: launches, ms (min of 3)
+        cache = opt.init_opt_cache(cfg, 1, device=dev)
+        counters.reset()
+        logits, _ = opt.opt_prefill(params, cfg, prompt, cache)
+        torch.cuda.synchronize()
+        pre = counters.read()
+        pre = {k: v for k, v in pre.items() if v}
+        want_pre = {"qmm_group": 4 * L, "qmm_group_mma": 4 * L} \
+            if label == "int8" else {}
+        if pre != want_pre:
+            fail(f"opt {label} prefill launched {pre}, expected {want_pre}")
+        samples = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            opt.opt_prefill(params, cfg, prompt, cache)
+            torch.cuda.synchronize()
+            samples.append(time.perf_counter() - t1)
+        r["prefill_ms"] = 1e3 * min(samples)
+        r["prefill_ms_samples"] = [1e3 * t for t in samples]
+        r["prefill_launches"] = pre
+        # decode at t against the prefill at t
+        c2 = opt.init_opt_cache(cfg, 1, device=dev)
+        opt.opt_prefill(params, cfg, prompt[:, :-1], c2)
+        ld, _ = opt.opt_decode_step(
+            params, cfg, prompt[:, -1], torch.full(
+                (1,), SHORT - 1, dtype=torch.int32, device=dev), c2)
+        compare_logits(torch, f"opt {label} decode vs prefill at {SHORT - 1}",
+                       ld[0], logits[0, -1], report)
+        del c2
+
+        # OPT_STEPS greedy steps, eager
+        opt.opt_prefill(params, cfg, prompt, cache)
+        first = logits[:, -1].argmax(-1).int()
+        tok, pos = first.clone(), torch.full((1,), SHORT, dtype=torch.int32,
+                                             device=dev)
+        eager_toks, eager_logits = [], []
+        counters.reset()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(OPT_STEPS):
+            lg, _ = opt.opt_decode_step(params, cfg, tok, pos, cache)
+            tok = lg.argmax(-1).int()
+            pos = pos + 1
+            eager_toks.append(tok)
+            eager_logits.append(lg[0])
+        torch.cuda.synchronize()
+        r["eager_ms_per_step"] = 1e3 * (time.perf_counter() - t1) / OPT_STEPS
+        run = {k: v for k, v in counters.read().items() if v}
+        if any(v % OPT_STEPS for v in run.values()):
+            fail(f"opt {label}: {OPT_STEPS} steps launched {run}")
+        step = {k: v // OPT_STEPS for k, v in run.items()}
+        want_step = {"flash_decode": L,
+                     **att.merge_launches(L, 1, cfg.n_heads, cfg.max_seq)}
+        if label == "int8":
+            lay = params["layers"][0]
+            want_step.update(qmm_group=4 * L, qmm_group_split=L * split_launches(
+                qm, [lay[k] for k in ("w_qkv", "w_o", "w_up", "w_down")]))
+            want_step = {k: v for k, v in want_step.items() if v}
+        if step != want_step:
+            fail(f"opt {label}: a decode step launched {step}, expected "
+                 f"{want_step}")
+        r["step_launches"] = step
+
+        # the same steps from one captured step
+        opt.opt_prefill(params, cfg, prompt, cache)
+        tok_s = first.clone()
+        pos_s = torch.full((1,), SHORT, dtype=torch.int32, device=dev)
+
+        def one():
+            lg, _ = opt.opt_decode_step(params, cfg, tok_s, pos_s, cache)
+            tok_s.copy_(lg.argmax(-1))
+            pos_s.add_(1)
+
+        graph = capture(torch, one)
+
+        def reset():
+            opt.opt_prefill(params, cfg, prompt, cache)
+            tok_s.copy_(first)
+            pos_s.fill_(SHORT)
+
+        reset()
+        cap_toks = []
+        for _ in range(OPT_STEPS):
+            graph.replay()
+            cap_toks.append(tok_s.clone())
+        ct = torch.cat(cap_toks).tolist()
+        et = torch.cat(eager_toks).tolist()
+        if ct != et:
+            i = next(j for j in range(OPT_STEPS) if ct[j] != et[j])
+            lg = eager_logits[i].float()
+            gap = float(lg[et[i]] - lg[ct[i]]) / float(lg.abs().max())
+            print(f"# opt {label}: captured and eager tokens part at step "
+                  f"{i} (near-tie, gap {gap:.3g} of max|logit|)", flush=True)
+            if gap > TIE:
+                fail(f"opt {label}: captured tokens {ct[:i + 1]} vs eager "
+                     f"{et[:i + 1]}, gap {gap}")
+        times = []
+        for _ in range(3):
+            reset()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            for _ in range(OPT_STEPS):
+                graph.replay()
+            e1.record()
+            e1.synchronize()
+            times.append(e0.elapsed_time(e1) / OPT_STEPS)
+        reset()
+        prof = device_profile(torch, lambda: [graph.replay()
+                                              for _ in range(OPT_STEPS)],
+                              CUBLAS_KINDS)
+        if prof:
+            prof["kernel_ms_per_token"] = {
+                k: v / OPT_STEPS for k, v in prof.pop("kernel_ms").items()}
+        r["device_profile"] = prof
+        del graph
+        nbytes, wbytes, wte, kv = opt_step_bytes(cfg, params,
+                                                 SHORT + OPT_STEPS // 2)
+        r.update(graph_ms_per_step=min(times), graph_ms_samples=times,
+                 tok_s=1e3 / min(times), bytes_per_token=nbytes,
+                 layer_bytes=wbytes, wte_bytes=wte, kv_bytes=kv,
+                 roofline_tok_s=bw_copy / nbytes)
+        print(f"# opt-1.3b {label}: prefill {SHORT} {r['prefill_ms']:.2f} ms "
+              f"(samples {r['prefill_ms_samples']}); decode {OPT_STEPS} steps "
+              f"eager {r['eager_ms_per_step']:.3f} ms a step, captured "
+              f"{r['graph_ms_per_step']:.3f} ms ({r['tok_s']:.1f} tok/s, "
+              f"samples {times}); {nbytes / 1e9:.4f} GB a token (layers "
+              f"{wbytes / 1e9:.4f}, wte {wte / 1e9:.4f}, KV {kv / 1e9:.4f}) "
+              f"-> copy-rate roofline {r['roofline_tok_s']:.1f} tok/s "
+              f"({100 * r['tok_s'] / r['roofline_tok_s']:.1f} %); launches "
+              f"a step {step}, a prompt {pre}; profile {prof}", flush=True)
+        if label == "int8":
+            paths[OPT_DECODE] = run
+            steps[OPT_DECODE] = step
+            paths[OPT_PROMPT] = pre
+            paths[OPT_BATCH] = steps[OPT_BATCH] = opt_batch(
+                torch, opt, kvcache, att, params, cfg, counters, dev, report,
+                r)
+        res[label]["seconds"] = time.perf_counter() - t0
+    report["opt_1b3"] = res
+    del dense, forms
+    return paths
+
+
+def opt_batch(torch, opt, kvcache, att, params, cfg, counters, dev, report,
+              r):
+    """Phase 15's batch of 8: each prompt of OPT_LENS tokens prefilled
+    alone and written into its slot of one batch cache; one batched step
+    at the prompts' own positions against each prompt's batch-1 step
+    (compare_logits_rows); its launches and eager / captured ms."""
+    B = len(OPT_LENS)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 151)
+    cache = opt.init_opt_cache(cfg, B, device=dev)
+    toks, singles = [], []
+    for i, n in enumerate(OPT_LENS):
+        p = torch.randint(0, cfg.vocab_size, (1, n), generator=gen,
+                          device=dev, dtype=torch.int32)
+        one = opt.init_opt_cache(cfg, 1, device=dev)
+        lp, one = opt.opt_prefill(params, cfg, p, one)
+        kvcache.merge_prefill_into_slot(cache, one, i)
+        tok = lp[:, -1].argmax(-1).int()
+        ld, _ = opt.opt_decode_step(
+            params, cfg, tok, torch.full((1,), n, dtype=torch.int32,
+                                         device=dev), one)
+        toks.append(tok)
+        singles.append(ld[0].float())
+        del one
+    tok = torch.cat(toks)
+    pos = torch.tensor(OPT_LENS, dtype=torch.int32, device=dev)
+    state = [c.clone() for c in cache["k"] + cache["v"]]
+    counters.reset()
+    lg, _ = opt.opt_decode_step(params, cfg, tok, pos, cache)
+    torch.cuda.synchronize()
+    step = {k: v for k, v in counters.read().items() if v}
+    L = cfg.n_layers
+    want = {"qmm_group": 4 * L, "qmm_group_mma": 4 * L, "flash_decode": L,
+            **att.merge_launches(L, B, cfg.n_heads, cfg.max_seq)}
+    if step != want:
+        fail(f"{OPT_BATCH}: a step launched {step}, expected {want}")
+    compare_logits_rows(torch, f"{OPT_BATCH} vs batch-1 steps", lg.float(),
+                        torch.stack(singles), report)
+
+    def restore():
+        for c, s in zip(cache["k"] + cache["v"], state):
+            c.copy_(s)
+
+    def eager():
+        restore()
+        opt.opt_decode_step(params, cfg, tok, pos, cache)
+
+    r["batch8_eager_ms"] = cuda_ms(torch, eager, 10)
+    r["batch8_graph_ms"] = step_ms(torch, lambda: opt.opt_decode_step(
+        params, cfg, tok, pos, cache))
+    restore()
+    print(f"# {OPT_BATCH} (prompts {OPT_LENS}): a step eager "
+          f"{r['batch8_eager_ms']:.3f} ms (with a cache restore), captured "
+          f"{r['batch8_graph_ms']:.3f} ms; launches {step}", flush=True)
+    return step
+
+
+def rel_err(np, got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if got.shape != want.shape or not np.isfinite(got).all():
+        return math.inf
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def bert_path(torch, np, bert, onnx, GraphExecutor, cuda_runtime, dev,
+              report):
+    """Phase 16: BERT-base (BertConfig(): 12 layers, dim 768, 12 heads, f32)
+    at BERT_SHAPE, random weights from a seed: bert_encode on the card
+    against the CPU; build_bert_graph FP32 and dynamic-INT8 through
+    GraphExecutor on the card, eager and captured (ms each); the FP32
+    graph against the CPU's eager executor and bert_encode (BERT_TOL of
+    max|h|); INT8 against FP32 (mean|dh| / rms(h) < BERT_INT8_GATE); the
+    INT8 graph exported with export_onnx, re-imported with OnnxStub and run
+    on the card, bit for bit the in-memory graph's output."""
+    cfg = bert.BertConfig()
+    B, S = BERT_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+    params = bert.init_bert_params(cfg, gen, device=dev)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                           device=dev, dtype=torch.int32)
+    r = {}
+    h_card = bert.bert_encode(params, cfg, tokens)
+    h_cpu = bert.bert_encode(to_cpu(params), cfg, tokens.cpu())
+    r["encode_rel_err"] = rel_err(np, h_card.cpu(), h_cpu)
+    if r["encode_rel_err"] > BERT_TOL:
+        fail(f"bert_encode: {r['encode_rel_err']} of max|h| from the CPU")
+    r["encode_ms"] = cuda_ms(torch, lambda: bert.bert_encode(params, cfg,
+                                                             tokens), 10)
+    feeds = {"tokens": tokens.cpu().numpy()}
+    outs = {}
+    for label, dq in (("fp32", False), ("int8", True)):
+        h = bert.build_bert_graph(cfg, params, B, S, dynamic_quant=dq)
+        eager = GraphExecutor(h.graph, device=dev, use_cuda_graph=False)
+        cap = GraphExecutor(h.graph, device=dev)
+        (oe,) = eager.run(feeds, return_numpy=True).values()
+        (oc,) = cap.run(feeds, return_numpy=True).values()
+        r[f"{label}_eager_vs_captured"] = rel_err(np, oc, oe)
+        if r[f"{label}_eager_vs_captured"] > 1e-5:
+            fail(f"bert {label}: captured {r[f'{label}_eager_vs_captured']} "
+                 "of max|h| from eager")
+        r[f"{label}_eager_ms"] = eager.time_ms(feeds)
+        r[f"{label}_graph_ms"] = cap.time_ms(feeds)
+        r[f"{label}_ops"] = len(h.graph.operators)
+        outs[label] = (h, oc)
+    h32, o32 = outs["fp32"]
+    (want,) = GraphExecutor(h32.graph, device="cpu").run(
+        feeds, return_numpy=True).values()
+    r["fp32_graph_rel_err"] = rel_err(np, o32, want)
+    r["fp32_graph_vs_encode"] = rel_err(np, o32, h_card.cpu())
+    if max(r["fp32_graph_rel_err"], r["fp32_graph_vs_encode"]) > BERT_TOL:
+        fail(f"bert fp32 graph: {r['fp32_graph_rel_err']} of max|h| from "
+             f"the CPU, {r['fp32_graph_vs_encode']} from bert_encode")
+    h8, o8 = outs["int8"]
+    dh = np.abs(o8.astype(np.float64) - o32)
+    r["int8_vs_fp32"] = float(dh.mean() / np.sqrt((o32.astype(
+        np.float64) ** 2).mean()))
+    if not r["int8_vs_fp32"] < BERT_INT8_GATE:
+        fail(f"bert int8: mean|dh| / rms(h) {r['int8_vs_fp32']}")
+    t0 = time.perf_counter()
+    data = onnx.export_onnx(h8.graph, "bert_base_int8").serialize()
+    stub = onnx.OnnxStub(data, cuda_runtime())
+    r["onnx_round_trip_s"] = time.perf_counter() - t0
+    (got,) = stub.run(feeds, return_numpy=True).values()
+    if not np.array_equal(got, o8):
+        fail(f"bert int8 ONNX round trip: {rel_err(np, got, o8)} of max|h| "
+             "from the in-memory graph")
+    r["onnx_graph_ms"] = stub.handler.executor().time_ms(feeds)
+    r["onnx_mb"] = len(data) / 1e6
+    report["bert_base"] = r
+    print(f"# bert-base B{B} S{S}: encode {r['encode_ms']:.3f} ms (rel err "
+          f"{r['encode_rel_err']:.3g} vs cpu); fp32 graph eager "
+          f"{r['fp32_eager_ms']:.3f} / captured {r['fp32_graph_ms']:.3f} ms "
+          f"(vs cpu {r['fp32_graph_rel_err']:.3g}, vs encode "
+          f"{r['fp32_graph_vs_encode']:.3g}); int8 graph eager "
+          f"{r['int8_eager_ms']:.3f} / captured {r['int8_graph_ms']:.3f} ms, "
+          f"mean|dh|/rms(h) {r['int8_vs_fp32']:.4f}; ONNX "
+          f"{r['onnx_mb']:.1f} MB, round trip bit-exact, captured "
+          f"{r['onnx_graph_ms']:.3f} ms", flush=True)
+
+
+def vision_path(torch, np, vision, onnx, lowering, GraphExecutor,
+                cuda_runtime, dev, report):
+    """Phase 17: ResNet-18-v2, DenseNet-121, Inception-v2 and
+    EfficientNet-Lite4 at VISION_IMAGE, batch 1, 1000 classes, f32, random
+    weights from a seed: each built, exported to ONNX bytes, re-imported
+    with OnnxStub and run on the card (captured), within VISION_TOL of
+    max|ref| of the directly built graph on the CPU's eager executor and
+    bit for bit the directly built graph's output on the card; ms an image
+    (captured replays), the exported MB, and, for the record, the error
+    of the same graph with cuDNN's TF32 left on (the lowering turns it off
+    for its f32 convolutions)."""
+    import contextlib
+    models = {"resnet18_v2": (vision.init_resnet18_params,
+                              vision.build_resnet18),
+              "densenet121": (vision.init_densenet_params,
+                              vision.build_densenet),
+              "inception_v2": (vision.init_inception_v2_params,
+                               vision.build_inception_v2),
+              "efficientnet_lite4": (vision.init_efficientnet_lite4_params,
+                                     vision.build_efficientnet_lite4)}
+    res = {}
+    for name, (init, build) in models.items():
+        rng = np.random.default_rng(SEED)
+        h = build(init(rng), batch=1, image=VISION_IMAGE)
+        h.runtime = cuda_runtime()
+        img = {"input": rng.standard_normal(
+            (1, 3, VISION_IMAGE, VISION_IMAGE)).astype(np.float32)}
+        t0 = time.perf_counter()
+        (ref,) = GraphExecutor(h.graph, device="cpu").run(
+            img, return_numpy=True).values()
+        cpu_s = time.perf_counter() - t0
+        (direct,) = h.run(img, return_numpy=True).values()
+        t0 = time.perf_counter()
+        data = onnx.export_onnx(h.graph, name).serialize()
+        stub = onnx.OnnxStub(data, cuda_runtime())
+        trip_s = time.perf_counter() - t0
+        (got,) = stub.run(img, return_numpy=True).values()
+        err = rel_err(np, got, ref)
+        if not err <= VISION_TOL:
+            fail(f"{name}: {err} of max|ref| from the CPU")
+        if not np.array_equal(got, direct):
+            fail(f"{name}: the ONNX round trip is {rel_err(np, got, direct)}"
+                 " of max|out| from the directly built graph")
+        saved = lowering._exact_f32_conv
+        lowering._exact_f32_conv = lambda x: contextlib.nullcontext()
+        try:
+            (tf32,) = GraphExecutor(h.graph, device=dev, use_cuda_graph=False
+                                    ).run(img, return_numpy=True).values()
+        finally:
+            lowering._exact_f32_conv = saved
+        res[name] = dict(
+            rel_err=err, tf32_rel_err=rel_err(np, tf32, ref),
+            ms=stub.handler.executor().time_ms(img), onnx_mb=len(data) / 1e6,
+            ops=len(h.graph.operators), cpu_s=cpu_s, round_trip_s=trip_s,
+            top5=np.argsort(got[0])[-5:][::-1].tolist())
+        r = res[name]
+        print(f"# {name} {VISION_IMAGE}x{VISION_IMAGE}: {r['ms']:.3f} ms an "
+              f"image (captured), ONNX {r['onnx_mb']:.1f} MB, {r['ops']} ops, "
+              f"rel err {err:.3g} vs cpu (TF32 on: "
+              f"{r['tf32_rel_err']:.3g}), round trip bit-exact", flush=True)
+    report["vision"] = res
+
+
+def onnx_kernel_path(torch, np, GraphHandler, onnx, GraphExecutor,
+                     cuda_runtime, counters, dev, report):
+    """Phase 18: the graph corpus's kernel cases (tests/torch_graph_cases.py
+    case_matmul_woq, case_attention_kvcache) exported and re-imported on
+    the card: one eager run of the imported graph launches what the
+    directly built graph's does (qmm_group / qmm_group_norm,
+    flash_decode(_q8), each nonzero) and gives its outputs bit for bit;
+    the imported graph captured within 1e-5 of max|out|. Returns the
+    imported graphs' launches."""
+    import importlib.util
+    here = os.path.dirname(os.path.abspath(__file__))
+    spec = importlib.util.spec_from_file_location(
+        "torch_graph_cases", os.path.join(here, "tests",
+                                          "torch_graph_cases.py"))
+    corpus = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(corpus)
+    total, res = {}, {}
+    for name, kernel in (("matmul_woq", "qmm_group"),
+                         ("attention_kvcache", "flash_decode")):
+        h = GraphHandler(cuda_runtime())
+        feeds = getattr(corpus, "case_" + name)(h, np.random.default_rng(0))
+        h.graph.infer_output_roles()
+        stub = onnx.OnnxStub(onnx.export_onnx(h.graph, name).serialize(),
+                             cuda_runtime())
+        runs = {}
+        for label, graph in (("direct", h.graph),
+                             ("onnx", stub.handler.graph)):
+            counters.reset()
+            out = GraphExecutor(graph, device=dev, use_cuda_graph=False).run(
+                feeds, return_numpy=True)
+            torch.cuda.synchronize()
+            runs[label] = (out, {k: v for k, v in counters.read().items()
+                                 if v})
+        (d_out, d_n), (o_out, o_n) = runs["direct"], runs["onnx"]
+        if o_n != d_n or o_n.get(kernel, 0) <= 0:
+            fail(f"onnx {name}: the imported graph launched {o_n}, the "
+                 f"direct one {d_n}")
+        if set(o_out) != set(d_out) or not all(
+                np.array_equal(np.asarray(o_out[k]), np.asarray(d_out[k]))
+                for k in d_out):
+            fail(f"onnx {name}: the imported graph's outputs differ")
+        cap = stub.run(feeds, return_numpy=True)
+        err = max(rel_err(np, cap[k], d_out[k]) for k in d_out
+                  if np.asarray(d_out[k]).dtype.kind == "f")
+        if err > 1e-5:
+            fail(f"onnx {name}: captured {err} of max|out| from eager")
+        res[name] = {"launches": o_n, "captured_rel_err": err}
+        for k, v in o_n.items():
+            total[k] = total.get(k, 0) + v
+        print(f"# onnx {name}: imported graph launches {o_n} (as the direct "
+              f"graph), outputs bit-exact; captured {err:.3g}", flush=True)
+    report["onnx_kernels"] = res
+    return total
 
 
 if __name__ == "__main__":

@@ -16,7 +16,9 @@ tools/serving_bench.py); the graph IR (core/: GraphHandler, Graph;
 ops/: shape rules and the torch lowering of every op) and its executor
 (runtime/executor.py GraphExecutor: eager on the CPU, one captured CUDA
 graph per input signature on the card), with the graph-built Llama
-(models/graph_llama.py) and the band ops of Longformer attention.
+(models/graph_llama.py) and the band ops of Longformer attention; the
+other models (models/opt.py, bert.py, vision.py, moe.py) and the ONNX
+frontend (onnx/: OnnxStub / import_onnx, export_onnx, the wire codec).
 """
 
 from infinitensor_tpu_torch.utils.platform import resolve_device
@@ -33,7 +35,15 @@ from infinitensor_tpu_torch.models.gpt2 import (
     init_gpt2_params, quantize_gpt2_params,
 )
 from infinitensor_tpu_torch.models.loader import (
-    load_gpt2_params, load_llama_params,
+    load_bert_params, load_gpt2_params, load_llama_params, load_opt_params,
+)
+from infinitensor_tpu_torch.models.opt import (
+    OPTConfig, init_opt_cache, init_opt_params, opt_decode_step, opt_prefill,
+    quantize_opt_params,
+)
+from infinitensor_tpu_torch.models.bert import (
+    BertConfig, bert_encode, build_bert_graph, build_bert_layer_graph,
+    init_bert_params,
 )
 from infinitensor_tpu_torch.models.convert import params_from_jax_numpy
 from infinitensor_tpu_torch.serving import (
@@ -45,6 +55,7 @@ from infinitensor_tpu_torch.runtime.executor import GraphExecutor
 from infinitensor_tpu_torch.runtime.runtime import (
     Runtime, cpu_runtime, cuda_runtime,
 )
+from infinitensor_tpu_torch.onnx import OnnxStub, export_onnx, import_onnx
 
 __all__ = [
     "resolve_device", "INT4_PACK_VERSION", "QuantizedLinear",
@@ -56,6 +67,11 @@ __all__ = [
     "ModelDraft", "PromptLookupDraft", "GPT2Config", "gpt2_decode_step",
     "gpt2_prefill", "init_gpt2_cache", "init_gpt2_params",
     "quantize_gpt2_params", "load_gpt2_params", "load_llama_params",
+    "load_bert_params", "load_opt_params", "OPTConfig", "init_opt_cache",
+    "init_opt_params", "opt_decode_step", "opt_prefill",
+    "quantize_opt_params", "BertConfig", "bert_encode", "build_bert_graph",
+    "build_bert_layer_graph", "init_bert_params", "OnnxStub", "export_onnx",
+    "import_onnx",
     "DataType", "Graph", "GraphHandler", "GraphExecutor", "Runtime",
     "cpu_runtime", "cuda_runtime",
 ]

@@ -1,6 +1,10 @@
 """Carry parameters (or a KV cache, dense or paged) from the JAX package
-into the port: the Llama tree, and the GPT-2 tree with its "lm_head_q"
-QuantizedLinear, "wte", "wpe", biases and LayerNorm vectors.
+into the port: the Llama tree, the GPT-2 tree with its "lm_head_q"
+QuantizedLinear, "wte", "wpe", biases and LayerNorm vectors, the OPT tree
+(the same keys as GPT-2's but no "lm_head_q", QuantizedLinear leaves
+after quantize_opt_params) and the BERT tree ("tok", "pos", "type", the
+embedding LayerNorm, per layer wq / wk / wv / wo with their biases, the
+two LayerNorms, w_up / w_down).
 
 The input is the JAX pytree after ``jax.tree.map(np.asarray, tree)``:
 dicts, lists, numpy arrays, and quantized leaves (any object with

@@ -131,11 +131,26 @@ def quantize_gpt2_params(params: dict, bits: int = 8,
     return out
 
 
+def _dense(x, w):
+    """x [..., din] @ w [din, dout] -> f32 [..., dout]: the products of
+    x's and w's values summed in f32 (jnp.matmul(...,
+    preferred_element_type=float32)). On the card a 16-bit pair is one
+    cuBLAS call with an f32 result, so w is read as it is stored."""
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    if x.device.type == "cuda" and x.dtype == w.dtype and \
+            x.dtype in (torch.bfloat16, torch.float16):
+        out = torch.mm(x2, w, out_dtype=torch.float32)
+    else:
+        out = torch.mm(x2.float(), w.float())
+    return out.reshape(*lead, w.shape[-1])
+
+
 def _linear(x, w, b=None):
     if isinstance(w, QuantizedLinear):
         y = wo_matmul(x, w)
     else:
-        y = torch.matmul(x.float(), w.float()).to(x.dtype)
+        y = _dense(x, w).to(x.dtype)
     if b is not None:
         y = y + b
     return y

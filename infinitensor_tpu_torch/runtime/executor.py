@@ -46,8 +46,9 @@ INPLACE_INPUTS = {"AttentionKVCache": (0, 1),
 
 
 def _host_tensor(arr: np.ndarray) -> torch.Tensor:
-    """numpy -> torch on the CPU, bf16 / fp8 numpy (ml_dtypes) by bits."""
-    arr = np.ascontiguousarray(arr)
+    """numpy -> torch on the CPU, bf16 / fp8 numpy (ml_dtypes) by bits;
+    a 0-d array stays 0-d (np.ascontiguousarray alone returns 1-d)."""
+    arr = np.ascontiguousarray(arr).reshape(np.shape(arr))
     name = arr.dtype.name
     if name == "bfloat16":
         return torch.from_numpy(arr.view(np.int16).copy()).view(

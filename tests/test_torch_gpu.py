@@ -3058,3 +3058,209 @@ def test_band_lowering_gate_on_the_card(dev, bz, m, k, w, launched):
     assert out.shape == want.shape and out.dtype == torch.float32
     err = (out - want).abs().max().item()
     assert err <= 1e-4 * want.abs().max().item(), err
+
+
+# -- the other models and the ONNX frontend (models/opt.py, bert.py, -------
+# -- vision.py; onnx/*) ------------------------------------------------------
+
+#: OPT-1.3B's four matmuls (din, dout): w_qkv, w_o, w_up, w_down
+OPT_SHAPES = {"w_qkv": (2048, 6144), "w_o": (2048, 2048),
+              "w_up": (2048, 8192), "w_down": (8192, 2048)}
+
+
+@pytest.mark.parametrize("rows", [1, 8, 256])
+@pytest.mark.parametrize("group", [128, None])
+@pytest.mark.parametrize("name", list(OPT_SHAPES))
+def test_group_int8_at_opt_shapes(dev, name, group, rows):
+    """The int8 qmm_group at OPT-1.3B's shapes, at group 128 and at group
+    None (one group of din): the K split at 1 row where group_splits
+    gives one, qmm_group_mma from 2 rows; within 1e-2 of max|plain|."""
+    din, dout = OPT_SHAPES[name]
+    q = _qlin(dev, din, dout, 8, torch.float32, group=group or din)
+    assert q.group_size == (group or din)
+    x = _x(dev, rows, din, seed=rows)
+    before = dict(qm.launches)
+    _close(qm.quant_matmul(x, q), qm.qmm_group_plain(x, q))
+    new = {k: v - before.get(k, 0) for k, v in qm.launches.items()
+           if v != before.get(k, 0)}
+    split = qm.group_splits(rows, q.out_physical, q.qweight.shape[0],
+                            q.group_size, _build.sms(0)) > 1
+    want = {"qmm_group": 1}
+    if rows >= qm.MMA_MIN_ROWS:
+        want["qmm_group_mma"] = 1
+    elif split:
+        want["qmm_group_split"] = 1
+    assert new == want
+    assert split == (rows == 1 and group == 128)
+
+
+@pytest.mark.parametrize("B", [1, 8])
+def test_flash_decode_at_opt_shape(dev, B):
+    """flash_decode at OPT-1.3B's attention (32 heads of D 64, bf16 cache
+    of 2048 rows): the split form and its merge at batch 1, one launch at
+    batch 8; within 1e-2 of max|plain|."""
+    g = torch.Generator(device=dev).manual_seed(64 + B)
+    H, S, D = 32, 2048, 64
+    q = torch.randn(B, H, 1, D, generator=g, device=dev).to(torch.bfloat16)
+    kc, vc = (torch.randn(B, H, S, D, generator=g, device=dev).to(
+        torch.bfloat16) for _ in range(2))
+    pos = torch.tensor([255 + 97 * i for i in range(B)], dtype=torch.int32,
+                       device=dev)
+    before = dict(att.launches)
+    _close(att.flash_decode(q, kc, vc, pos),
+           att.flash_decode_plain(q, kc, vc, pos))
+    new = {k: v - before.get(k, 0) for k, v in att.launches.items()
+           if v != before.get(k, 0)}
+    assert new == {"flash_decode": 1,
+                   **att.merge_launches(1, B, H, S)}
+    assert ("flash_decode_merge" in new) == (B == 1)
+
+
+def _opt_small(dtype=torch.bfloat16):
+    from infinitensor_tpu_torch.models import opt
+    return opt, opt.OPTConfig(vocab_size=512, dim=512, n_layers=2,
+                              n_heads=8, ffn_dim=1024, max_seq=128,
+                              dtype=dtype)
+
+
+def test_opt_step_launches_and_logits(dev):
+    """A 512-wide, 2-layer OPT (8 heads of D 64) with INT8 weights at group
+    128: one eager decode step at batch 1 launches qmm_group 8 (4 a
+    layer), flash_decode 2 and its merges, nothing else; its prefill of 32
+    tokens 8 qmm_group_mma; the logits of both within 5e-2 of max|logit|
+    of the same step on the CPU, same top-1 or a near-tie."""
+    opt, cfg = _opt_small()
+    params = opt.quantize_opt_params(opt.init_opt_params(
+        cfg, torch.Generator().manual_seed(0), device="cpu"), 8, 128)
+    on = {"wte": params["wte"].to(dev), "wpe": params["wpe"].to(dev),
+          "lnf_g": params["lnf_g"].to(dev), "lnf_b": params["lnf_b"].to(dev),
+          "layers": [{k: (QuantizedLinear(v.qweight.to(dev),
+                                          v.scales.to(dev), v.bits,
+                                          v.group_size, v.out_logical)
+                          if isinstance(v, QuantizedLinear) else v.to(dev))
+                      for k, v in lay.items()} for lay in params["layers"]]}
+    tokens = torch.arange(3, 35, dtype=torch.int32)[None]
+    outs = {}
+    for d, p in (("cpu", params), (dev, on)):
+        cache = opt.init_opt_cache(cfg, 1, device=d)
+        for m in (qm, att):
+            m.launches.clear()
+        lp, cache = opt.opt_prefill(p, cfg, tokens.to(d), cache)
+        pre = {k: v for m in (qm, att) for k, v in m.launches.items() if v}
+        for m in (qm, att):
+            m.launches.clear()
+        ld, cache = opt.opt_decode_step(
+            p, cfg, tokens[:, -1].to(d), torch.full((1,), 32,
+                                                    dtype=torch.int32,
+                                                    device=d), cache)
+        torch.cuda.synchronize()
+        step = {k: v for m in (qm, att) for k, v in m.launches.items() if v}
+        outs[str(d)] = (lp[0, -1].float().cpu(), ld[0].float().cpu(), pre,
+                        step)
+    cpu, card = outs["cpu"], outs[str(dev)]
+    assert cpu[2] == {} and cpu[3] == {}
+    assert card[2] == {"qmm_group": 8, "qmm_group_mma": 8}
+    L = cfg.n_layers
+    split = sum(qm.group_splits(1, d_out, d_in, 128, _build.sms(0)) > 1
+                for d_in, d_out in ((512, 1536), (512, 512), (512, 1024),
+                                    (1024, 512))) * L
+    assert card[3] == {"qmm_group": 4 * L, "flash_decode": L,
+                       **({"qmm_group_split": split} if split else {}),
+                       **att.merge_launches(L, 1, cfg.n_heads, cfg.max_seq)}
+    for got, want in ((card[0], cpu[0]), (card[1], cpu[1])):
+        err = (got - want).abs().max().item()
+        ref = want.abs().max().item()
+        assert err <= 5e-2 * ref, (err, ref)
+        a, b = int(got.argmax()), int(want.argmax())
+        assert a == b or float(want[b] - want[a]) <= 2 * err
+
+
+def test_bert_int8_layer_onnx_round_trip_bit_exact(dev):
+    """A BERT-base-wide layer (768, 12 heads, B 2, S 128) as its dynamic
+    INT8 graph: exported to ONNX, re-imported and run on the card (one
+    captured graph) equals the directly built graph on the card bit for
+    bit, and the CPU's within 1e-3 of max|h|."""
+    from infinitensor_tpu_torch.models import bert
+    from infinitensor_tpu_torch.onnx import OnnxStub, export_onnx
+    from infinitensor_tpu_torch.runtime.runtime import (
+        cpu_runtime, cuda_runtime)
+    cfg = bert.BertConfig(n_layers=1)
+    params = bert.init_bert_params(cfg, torch.Generator().manual_seed(0),
+                                   device="cpu")
+    h = bert.build_bert_layer_graph(cfg, params["layers"][0], 2, 128,
+                                    dynamic_quant=True)
+    x = np.random.default_rng(0).standard_normal((2, 128, 768)).astype(
+        np.float32)
+    direct = list(h.run({"x": x}, return_numpy=True).values())[0]
+    stub = OnnxStub(export_onnx(h.graph).serialize(), cuda_runtime())
+    got = list(stub.run({"x": x}, return_numpy=True).values())[0]
+    assert np.array_equal(got, direct)
+    h.runtime, h._executor = cpu_runtime(), None
+    want = list(h.run({"x": x}, return_numpy=True).values())[0]
+    assert np.abs(direct - want).max() <= 1e-3 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("block", ["mbconv", "inception"])
+def test_vision_block_onnx_round_trip(dev, block):
+    """An MBConv and an Inception block re-imported from ONNX and run on
+    the card equal the directly built graph on the card bit for bit, and
+    the CPU's eager run within 1e-3 of max|ref| (tools/vision_parity.py's
+    bound)."""
+    from infinitensor_tpu_torch.core.handler import GraphHandler
+    from infinitensor_tpu_torch.models import vision
+    from infinitensor_tpu_torch.onnx import OnnxStub, export_onnx
+    from infinitensor_tpu_torch.runtime.executor import GraphExecutor
+    from infinitensor_tpu_torch.runtime.runtime import cuda_runtime
+    rng = np.random.default_rng(3)
+    h = GraphHandler(cuda_runtime())
+    if block == "mbconv":
+        p = vision.init_mbconv_params(rng, cin=32, cout=32, expand=6, k=5)
+        x = h.input((1, 32, 56, 56), name="input")
+        vision.build_mbconv(h, x, {k: h.weight(v, name=k)
+                                   for k, v in p.items()})
+    else:
+        p = vision.init_inception_block_params(rng, 192, 64, 96, 128, 16,
+                                               32, 32)
+        x = h.input((1, 192, 28, 28), name="input")
+        vision.build_inception_block(h, x, {k: h.weight(v, name=k)
+                                            for k, v in p.items()})
+    h.graph.infer_output_roles()
+    img = rng.standard_normal(x.shape).astype(np.float32)
+    direct = list(h.run({"input": img}, return_numpy=True).values())[0]
+    stub = OnnxStub(export_onnx(h.graph).serialize(), cuda_runtime())
+    got = list(stub.run({"input": img}, return_numpy=True).values())[0]
+    assert np.array_equal(got, direct)
+    want = list(GraphExecutor(h.graph, device="cpu").run(
+        {"input": img}, return_numpy=True).values())[0]
+    assert np.abs(got - want).max() <= 1e-3 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("name", ["matmul_woq", "attention_kvcache"])
+def test_corpus_kernel_cases_through_onnx(dev, name):
+    """The corpus's kernel cases exported and re-imported, run on the card
+    eagerly: the imported graph launches the same kernels as the directly
+    built one (each nonzero) and gives its outputs bit for bit."""
+    from infinitensor_tpu_torch.core.handler import GraphHandler
+    from infinitensor_tpu_torch.onnx import OnnxStub, export_onnx
+    from infinitensor_tpu_torch.runtime.executor import GraphExecutor
+    from infinitensor_tpu_torch.runtime.runtime import cuda_runtime
+    h = GraphHandler(cuda_runtime())
+    feeds = CASES[name](h, np.random.default_rng(0))
+    h.graph.infer_output_roles()
+    stub = OnnxStub(export_onnx(h.graph).serialize(), cuda_runtime())
+    runs = {}
+    for label, graph in (("direct", h.graph), ("onnx", stub.handler.graph)):
+        for m in (qm, att):
+            m.launches.clear()
+        out = GraphExecutor(graph, device=dev, use_cuda_graph=False).run(
+            feeds, return_numpy=True)
+        torch.cuda.synchronize()
+        runs[label] = (out, {k: v for m in (qm, att)
+                             for k, v in m.launches.items() if v})
+    (d_out, d_n), (o_out, o_n) = runs["direct"], runs["onnx"]
+    assert d_n == o_n and d_n
+    kernel = "qmm_group" if name == "matmul_woq" else "flash_decode"
+    assert d_n.get(kernel, 0) > 0
+    assert set(d_out) == set(o_out)
+    for k in d_out:
+        assert np.array_equal(np.asarray(o_out[k]), np.asarray(d_out[k])), k

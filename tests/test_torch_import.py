@@ -47,6 +47,15 @@ def test_sources_name_no_jax():
     assert not hits
 
 
+def test_port_examples_name_no_jax():
+    """The port's examples (examples/torch_*.py) import the port only."""
+    pat = re.compile(r"^\s*(import|from)\s+(jax|infinitensor_tpu)\b",
+                     re.MULTILINE)
+    files = sorted((ROOT / "examples").glob("torch_*.py"))
+    assert len(files) >= 2
+    assert not [str(p) for p in files if pat.search(p.read_text())]
+
+
 def test_entry_points_refuse_without_cuda_device(monkeypatch):
     from infinitensor_tpu_torch import LlamaConfig, init_kv_cache
     from infinitensor_tpu_torch.utils.platform import resolve_device
