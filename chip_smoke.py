@@ -297,7 +297,20 @@ Phases, each failing with a nonzero exit, each printing its seconds:
  18. the graph corpus's kernel cases (tests/torch_graph_cases.py
      case_matmul_woq, case_attention_kvcache) through ONNX: the imported
      graph launches the direct graph's kernels (each nonzero) and gives
-     its outputs bit for bit.
+     its outputs bit for bit;
+ 19. the optimizer and the tuner on the card: the Longformer block of
+     tools/rewrite_speedup.py (masked S x S attention in standard ops,
+     through ONNX, phase 13's shape) in f32 and bf16, searched with a
+     fresh PerfEngine (each candidate's per-op cost sum printed): the
+     winner holds G2BMM and GBMM, launches g2bmm_ring and gbmm_ring once
+     each, meets phase 13's limits against the f64 dense attention and the
+     standard-op graph (and fails them on a moved v row); both graphs
+     captured, in turns; the qkv workload (12 layers, batch 8, dim 2048)
+     through optimize_graph(2) and the search, held to the unoptimized
+     graph; the tuner's three sweeps at the 7B and OPT-1.3B decode shapes
+     and 7B's wo / w_down (each candidate's ms beside the default rule's
+     choice; a second pass times nothing); memory_report of the 2-layer
+     graph-built 7B beside max_memory_allocated of a captured step.
 Phase 3 also holds qmm_group at OPT-1.3B's four shapes (int8, group 128
 at 1, 8 and 256 rows, and one group of din at 1 and 256 rows),
 flash_decode at 32 heads of 64 at batch 1 and 8, and the merge of its
@@ -1090,19 +1103,36 @@ def main():
         counters, dev, report)
     t_phase = phase(18, t_phase)
 
+    # 19. the optimizer's search for the band form, the qkv merge, the
+    # tuner's sweeps, the memory planner's report
+    paths.update(search_path(torch, np, GraphHandler, tonnx, GraphExecutor,
+                             cuda_runtime, counters, dev, report, steps))
+    qkv_path(torch, np, GraphHandler, GraphExecutor, cuda_runtime, dev,
+             report)
+    tpaths, trows = tuner_path(torch, att, qm, QuantizedLinear,
+                               dequantize_weight, counters, dev, report,
+                               steps, bw_copy)
+    paths.update(tpaths)
+    cases += trows
+    memory_path(torch, llama, graph_llama, GraphExecutor, QuantizedLinear,
+                dev, report)
+    t_phase = phase(19, t_phase)
+
     per_prompt = report["generate"][f"prompt {SHORT}"]["launches_per_prompt"]
     kernels = []
-    for c in cases:
-        prefill = c["name"].startswith("flash_attention") or c["path"] in \
+    # a row measured in phase 3 stands once for each path that runs its
+    # kernel at its shape (phase 19's paths repeat earlier shapes)
+    for c, path in ((c, p) for c in cases
+                    for p in [c["path"]] + c.get("also_paths", [])):
+        prefill = c["name"].startswith("flash_attention") or path in \
             (f"prompt {SHORT}", G64_PROMPT, PAIRED_PROMPT, OPT_PROMPT)
-        step = report["serving"][c["path"]]["launches_per_step"] \
-            if c["path"].startswith("serving") \
-            else steps.get(c["path"], per_token)
-        per_prompt_c = prompts_of.get(c["path"], per_prompt)
+        step = report["serving"][path]["launches_per_step"] \
+            if path.startswith("serving") else steps.get(path, per_token)
+        per_prompt_c = prompts_of.get(path, per_prompt)
         kernels.append({
             "name": c["name"], "shape": c["shape"], "route": "cuda",
             "source": c["source"], "replaces": c["replaces"],
-            "path": c["path"], "launches": paths[c["path"]].get(c["name"], 0),
+            "path": path, "launches": paths[path].get(c["name"], 0),
             "launches_per_token": None if prefill
             else step.get(c["name"], 0),
             "launches_per_prompt": per_prompt_c.get(c["name"], 0)
@@ -3706,10 +3736,10 @@ def graph_cases(torch, norms, band, fa, cfg, gen, dev, randn):
                 bytes=2 * x.element_size() * rows * cfg.dim + 2 * cfg.dim,
                 ops=4 * rows * cfg.dim, kind="f32",
                 tol=TOL if tag == "bf16" else 1e-5))
-    for label, shape, dtype, path in (
-            ("phase 13", LF, torch.float32, LONG_F32),
-            ("phase 13", LF, torch.bfloat16, LONG_BF16),
-            ("longformer-base", LF_BASE, torch.bfloat16, LONG_BF16)):
+    for label, shape, dtype, path, also in (
+            ("phase 13", LF, torch.float32, LONG_F32, [SEARCH_F32]),
+            ("phase 13", LF, torch.bfloat16, LONG_BF16, [SEARCH_BF16]),
+            ("longformer-base", LF_BASE, torch.bfloat16, LONG_BF16, [])):
         q, k, v, wts = band_inputs(torch, shape, dtype, gen, dev)
         bz, S, D = q.shape
         w = shape["w"]
@@ -3742,7 +3772,7 @@ def graph_cases(torch, norms, band, fa, cfg, gen, dev, randn):
                 f, b, w, form="simt")
             if form == "ring":
                 cases.append(dict(
-                    row, name=name + "_ring", path=path,
+                    row, name=name + "_ring", path=path, also_paths=also,
                     source=SRC + "band_ring.cu",
                     kernel=lambda f=first, b=b, w=w, op=op: op(f, b, w),
                     forms={"simt": old}))
@@ -5362,6 +5392,496 @@ def onnx_kernel_path(torch, np, GraphHandler, onnx, GraphExecutor,
               f"graph), outputs bit-exact; captured {err:.3g}", flush=True)
     report["onnx_kernels"] = res
     return total
+
+
+# -- phase 19: the optimizer's search on the card, the qkv merge, the -------
+# -- tuner's sweeps and the memory planner's report --------------------------
+
+SEARCH_F32, SEARCH_BF16 = "search longformer f32", "search longformer bf16"
+TUNED, TUNED_OPT = "tuned decode", "tuned opt decode"
+QKV = dict(layers=12, batch=8, dim=2048)   # tools/rewrite_speedup.py defaults
+QKV_TOL = 1e-4                             # of max|out| of the unoptimized
+PAIRS = 6                                  # captured timings in turns
+
+
+def longformer_block(np, GraphHandler, onnx, cuda_runtime, dtype):
+    """tools/rewrite_speedup.py build_longformer at LF in `dtype` ("float32"
+    or "bfloat16": inputs and the 0 / -1e9 band mask): the masked S x S
+    attention in standard ops, exported to ONNX bytes and imported twice
+    (the graph as it stands, and the one the search rewrites)."""
+    bz, S, D, W = LF["batch"] * LF["heads"], LF["seq"], LF["head_dim"], \
+        LF["w"]
+    i = np.arange(S)
+    mask = np.where(np.abs(i[:, None] - i[None, :]) <= W, np.float32(0),
+                    np.float32(-1e9))
+    if dtype == "bfloat16":
+        import ml_dtypes
+        mask = mask.astype(ml_dtypes.bfloat16)
+    h = GraphHandler(cuda_runtime(), name="longformer_block")
+    q, k, v = (h.input((bz, S, D), dtype=dtype, name=n) for n in "qkv")
+    m = h.weight(mask, name="band_mask")
+    scores = h.matmul(q, h.transpose(k, perm=[0, 2, 1]))
+    h.matmul(h.softmax(h.add(scores, m), axis=-1), v)
+    h.graph.infer_output_roles()
+    data = onnx.export_onnx(h.graph, "longformer").serialize()
+
+    def imported():
+        g = onnx.OnnxStub(data, cuda_runtime()).handler.graph
+        g.infer_output_roles()
+        return g
+    return imported(), imported()
+
+
+def op_values(ex, feeds):
+    """[(op type, first output)] of an eager run of ex's graph, op by op
+    through the lowering, on the values GraphExecutor.profile gives each
+    op."""
+    from infinitensor_tpu_torch.ops.lowering import lower_op
+    inputs = ex._materialize_inputs(feeds)
+    env = {t.guid: inputs[t.name] for t in ex._inputs}
+    for name, arr in ex.bound_weights().items():
+        env[ex._weights[name].guid] = arr
+    env.update(ex._constants(env))
+    out = []
+    for op in ex.graph.operators:
+        outs = lower_op(op, [env[t.guid] if t is not None else None
+                             for t in op.inputs], ex.ctx)
+        for t, v in zip(op.outputs, outs):
+            env[t.guid] = v
+        out.append((op.op_type, outs[0]))
+    return out
+
+
+def band_agreement(torch, ex_band, ex_dense, feeds, W):
+    """Where the band graph and the standard-op graph agree, op by op: the
+    dense scores, masked scores and Softmax gathered at the band's
+    positions (rows i - W .. i + W that lie in [0, S)) against the band
+    form's G2BMM, Add and Softmax, then the outputs; for each, the share
+    of positions that are equal bit for bit and the largest difference.
+    Also whether the dense Softmax is exactly 0 off the band."""
+    band = [(t, v) for t, v in op_values(ex_band, feeds)
+            if t in ("G2BMM", "Add", "Softmax", "GBMM")]
+    dense = [(t, v) for t, v in op_values(ex_dense, feeds)
+             if t in ("MatMul", "Add", "Softmax")]
+    (_, b_sc), (_, b_add), (_, b_p), (_, b_out) = band
+    (_, d_sc), (_, d_add), (_, d_p), (_, d_out) = dense
+    S = d_sc.shape[-1]
+    i = torch.arange(S, device=d_sc.device)
+    idx = i[:, None] - W + torch.arange(2 * W + 1, device=d_sc.device)
+    valid = ((idx >= 0) & (idx < S)).expand(b_sc.shape)
+    idx = idx.clamp(0, S - 1).expand(b_sc.shape)
+    out = {}
+    for name, b, d in (("scores", b_sc, d_sc), ("masked", b_add, d_add),
+                       ("softmax", b_p, d_p)):
+        g = d.gather(-1, idx)
+        same = (g == b) & valid
+        out[name] = {"equal_share": same.sum().item() / valid.sum().item(),
+                     "max_abs_diff": ((g.double() - b.double()).abs()
+                                      * valid).max().item()}
+    on = torch.zeros_like(d_p, dtype=torch.int32)
+    on.scatter_add_(-1, idx, valid.int())
+    out["softmax_zero_off_band"] = bool((d_p[on == 0] == 0).all().item())
+    out["output"] = {"equal_share": (b_out == d_out).float().mean().item(),
+                     "max_abs_diff": (b_out.double() - d_out.double()).abs()
+                     .max().item()}
+    return out
+
+
+def search_path(torch, np, GraphHandler, onnx, GraphExecutor, cuda_runtime,
+                counters, dev, report, steps):
+    """Phase 19a: the Longformer block of tools/rewrite_speedup.py:164-190
+    (standard ops through ONNX, batch 1, 8 heads, S 2048, D 128, w 64) in
+    f32 and bf16, searched on the card with a fresh PerfEngine
+    (SearchEngine, RuleBasedMutator's band rule; each candidate's per-op
+    cost sum printed). The winner must hold G2BMM and GBMM; one eager run
+    of it launches g2bmm_ring and gbmm_ring once each; captured, it is held
+    to the standard-op graph on the same inputs and to the dense masked
+    attention in f64 within phase 13's limits, and the check must fail on
+    an input with one row of v moved; both graphs captured are timed in
+    turns (PAIRS pairs of 20 replays). Returns {path: launches}."""
+    from infinitensor_tpu_torch.optimizer.search import SearchEngine
+    from infinitensor_tpu_torch.runtime.perf import PerfEngine
+    bz, S, D, W = LF["batch"] * LF["heads"], LF["seq"], LF["head_dim"], \
+        LF["w"]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 19)
+    q, k, v = (torch.randn(bz, S, D, generator=gen, device=dev) * 0.5
+               for _ in range(3))
+    i = torch.arange(S, device=dev)
+    band_mask = (i[:, None] - i[None, :]).abs() <= W
+
+    def dense64(q, k, v):
+        q, k, v = (t.double() for t in (q, k, v))
+        sc = torch.where(band_mask, q @ k.transpose(1, 2), -math.inf)
+        return torch.softmax(sc, -1) @ v
+
+    paths, res = {}, {}
+    want = {"g2bmm": 1, "g2bmm_ring": 1, "gbmm": 1, "gbmm_ring": 1}
+    for label, dt, tdt in ((SEARCH_F32, "float32", torch.float32),
+                           (SEARCH_BF16, "bfloat16", torch.bfloat16)):
+        tol = LF_TOL[LONG_F32 if tdt == torch.float32 else LONG_BF16]
+        t0 = time.perf_counter()
+        base, cand = longformer_block(np, GraphHandler, onnx, cuda_runtime,
+                                      dt)
+        engine = SearchEngine(perf=PerfEngine(), device=dev)
+        win = engine.run(cand)
+        search_s = time.perf_counter() - t0
+        costs = [{"kind": h["kind"], "cost_ms": h["cost_ms"],
+                  "ops": h["ops"]} for h in engine.history]
+        for c in costs:
+            print(f"# {label}: {c['kind']} {c['ops']}: per-op cost sum "
+                  f"{c['cost_ms']:.4f} ms", flush=True)
+        kinds = {op.op_type for op in win.operators}
+        if not {"G2BMM", "GBMM"} <= kinds:
+            fail(f"{label}: the search kept {sorted(kinds)}, not the band "
+                 "form")
+        feeds = {"q": q.to(tdt), "k": k.to(tdt), "v": v.to(tdt)}
+        counters.reset()
+        (out,) = GraphExecutor(win, device=dev, use_cuda_graph=False).run(
+            feeds).values()
+        torch.cuda.synchronize()
+        paths[label] = steps[label] = counters.read()
+        if paths[label] != want:
+            fail(f"{label}: the winner launched {paths[label]}, expected "
+                 f"{want}")
+        ex_win, ex_base = (GraphExecutor(g, device=dev) for g in (win, base))
+        (got,) = ex_win.run(feeds).values()
+        (dense,) = ex_base.run(feeds).values()
+        ref = dense64(*feeds.values())
+        top = ref.abs().max().item()
+        err = (got.double() - ref).abs().max().item() / top
+        err_dense = (dense.double() - ref).abs().max().item() / top
+        err_pair = (got.double() - dense.double()).abs().max().item() / top
+        equal = torch.equal(got, dense)
+        agree = band_agreement(torch, ex_win, ex_base, feeds, W)
+        print(f"# {label}: op by op, band against the standard-op graph: "
+              + json.dumps(agree), flush=True)
+        v_p = feeds["v"].clone()
+        v_p[0, S // 2] += 8
+        (got_p,) = ex_win.run({**feeds, "v": v_p}).values()
+        err_p = (got_p.double() - ref).abs().max().item() / top
+        print(f"# {label}: searched in {search_s:.1f}s; winner "
+              f"{[op.op_type for op in win.operators]}; captured rel err "
+              f"{err:.3g} against f64 dense (limit {tol}), {err_pair:.3g} "
+              f"against the standard-op graph (whose own is "
+              f"{err_dense:.3g}; bit for bit equal: {equal}); with v "
+              f"perturbed {err_p:.3g}", flush=True)
+        if got.dtype != tdt or got.shape != (bz, S, D) or \
+                not math.isfinite(err) or err > tol or err_pair > tol:
+            fail(f"{label}: {got.dtype} {tuple(got.shape)}, rel err {err} "
+                 f"against f64, {err_pair} against the standard-op graph")
+        if not err_p > tol:
+            fail(f"{label}: a perturbed v gives rel err {err_p}, within "
+                 f"the limit {tol}: the check sees nothing")
+        turns = {"band": [], "dense": []}
+        for _ in range(PAIRS):
+            turns["band"].append(ex_win.time_ms(feeds, iters=20))
+            turns["dense"].append(ex_base.time_ms(feeds, iters=20))
+        ratios = sorted(a / b for a, b in zip(turns["band"],
+                                              turns["dense"]))
+        res[label] = {
+            "search_s": search_s, "candidates": costs,
+            "winner": [op.op_type for op in win.operators],
+            "launches": paths[label], "rel_err_vs_dense_f64": err,
+            "rel_err_vs_standard_graph": err_pair,
+            "bit_equal_to_standard_graph": equal,
+            "op_by_op_agreement": agree,
+            "standard_graph_rel_err_vs_dense_f64": err_dense,
+            "rel_err_perturbed_v": err_p,
+            "captured_ms_band": statistics.median(turns["band"]),
+            "captured_ms_dense": statistics.median(turns["dense"]),
+            "captured_ms_in_turns": turns,
+            "band_over_dense_median": statistics.median(ratios)}
+        print(f"# {label}: " + json.dumps({k: res[label][k] for k in (
+            "captured_ms_band", "captured_ms_dense",
+            "band_over_dense_median")}), flush=True)
+        del ex_win, ex_base, ref, got, dense, got_p, v_p, engine
+    report["search_longformer"] = res
+    return paths
+
+
+def qkv_graph(np, GraphHandler, cuda_runtime, layers, batch, dim):
+    """tools/rewrite_speedup.py build_graph: per layer q, k, v = x @ W,
+    relu(q + k + v) @ transpose(Wo), identity; f32, weights seeded."""
+    rng = np.random.default_rng(SEED)
+    h = GraphHandler(cuda_runtime(), name="rewrite_bench")
+    x = h.input((batch, dim), name="x")
+    for i in range(layers):
+        ws = [h.weight(rng.standard_normal((dim, dim), np.float32)
+                       * np.float32(dim ** -0.5), name=f"w{n}_{i}")
+              for n in "qkv"]
+        q, k, v = (h.matmul(x, w) for w in ws)
+        s = h.relu(h.add(h.add(q, k), v))
+        wo = h.weight(rng.standard_normal((dim, dim), np.float32)
+                      * np.float32(dim ** -0.5), name=f"wo_{i}")
+        x = h.identity(h.matmul(s, h.transpose(wo)))
+    h.graph.infer_output_roles()
+    return h.graph
+
+
+def qkv_path(torch, np, GraphHandler, GraphExecutor, cuda_runtime, dev,
+             report):
+    """Phase 19b: the qkv workload of tools/rewrite_speedup.py:33-52 (QKV
+    layers, batch 8, dim 2048, f32): optimize_graph(level=2), then the
+    search with a fresh PerfEngine on the card (the merge variants and
+    their per-op cost sums printed, the winner's MatMul count); the
+    winner's captured output within QKV_TOL of max|out| of the
+    unoptimized graph's, captured."""
+    from infinitensor_tpu_torch.optimizer import optimize_graph
+    from infinitensor_tpu_torch.optimizer.search import SearchEngine
+    from infinitensor_tpu_torch.runtime.perf import PerfEngine
+    t0 = time.perf_counter()
+    base = qkv_graph(np, GraphHandler, cuda_runtime, **QKV)
+    opt = optimize_graph(base.clone(), level=2)
+    engine = SearchEngine(perf=PerfEngine(), device=dev)
+    win = engine.run(opt)
+    search_s = time.perf_counter() - t0
+    variants = [h for h in engine.history if h["kind"] == "variant"]
+    for h in variants:
+        print(f"# qkv: variant {h['index']} ({h['ops'].get('MatMul', 0)} "
+              f"MatMul, {h['ops'].get('Split', 0)} Split): per-op cost sum "
+              f"{h['cost_ms']:.4f} ms", flush=True)
+    mm = sum(op.op_type == "MatMul" for op in win.operators)
+    x = torch.randn(QKV["batch"], QKV["dim"],
+                    generator=torch.Generator(device=dev).manual_seed(
+                        SEED + 191), device=dev)
+    ((_, got),) = GraphExecutor(win, device=dev).run({"x": x}).items()
+    ((_, want),) = GraphExecutor(base, device=dev).run({"x": x}).items()
+    top = want.abs().max().item()
+    err = (got - want).abs().max().item() / top
+    took = time.perf_counter() - t0
+    print(f"# qkv ({QKV}): {len(base.operators)} ops -> "
+          f"{len(opt.operators)} after optimize_graph(2) -> "
+          f"{len(win.operators)} in the winner ({mm} MatMul) of "
+          f"{len(variants)} variants; searched in {search_s:.1f}s, "
+          f"{took:.1f}s in all; rel err against the unoptimized graph "
+          f"{err:.3g} (limit {QKV_TOL})", flush=True)
+    if not math.isfinite(err) or err > QKV_TOL or got.shape != want.shape:
+        fail(f"qkv: the winner's output is {err} of max|out| from the "
+             "unoptimized graph's")
+    report["qkv_search"] = {
+        "config": QKV, "ops": [len(base.operators), len(opt.operators),
+                               len(win.operators)],
+        "variants": variants, "winner_matmuls": mm, "rel_err": err,
+        "search_s": search_s, "seconds": took}
+
+
+def tuner_path(torch, att, qm, QuantizedLinear, dequantize_weight,
+               counters, dev, report, steps, bw_copy):
+    """Phase 19c: the tuner's sweeps with a fresh PerfEngine:
+    tuned_flash_decode_q8 and tuned_flash_decode at the 7B decode (B 1, 32
+    heads, S MAX_SEQ, D 128, pos CTX) and at OPT-1.3B's (32 heads, S 2048,
+    D 64, pos 319), tuned_quant_matmul at 7B's wo and w_down (1 row bf16,
+    int4 group 128). Each candidate's ms (cold, captured: the tuner's
+    timer) and the pick beside the default rule's count (launch_splits,
+    group_splits); every candidate must run; each tuned output within TOL
+    of max|plain| of the kernel's plain version and of the default
+    launch's output; a second pass over the same engine must time
+    nothing. The second pass's launches are the paths TUNED and
+    TUNED_OPT, and their rows are this phase's own: each kernel at the
+    launch the tuner picked, and the merge where it picked a split,
+    checked against its plain version and timed as phase 3 times its
+    rows; every kernel the paths launched must have a row. Returns
+    ({path: launches}, rows)."""
+    from infinitensor_tpu_torch.runtime import tuner
+    from infinitensor_tpu_torch.runtime.perf import PerfEngine
+    gen = torch.Generator(device=dev).manual_seed(SEED + 192)
+    timed = []
+    time_call = tuner._time_call
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def counting(fn, args, *a):
+        timed.append(1)
+        return time_call(fn, args, *a)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    def int8(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device=dev,
+                             dtype=torch.int8)
+
+    def scales(*shape):
+        return torch.rand(*shape, generator=gen, device=dev) * 0.015 + 0.005
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    cases = []
+    for path, H, S, D, pos in ((TUNED, 32, MAX_SEQ, 128, CTX),
+                               (TUNED_OPT, 32, 2048, 64, 319)):
+        p = torch.full((1,), pos, dtype=torch.int32, device=dev)
+        live = pos + 1
+        qh = randn(1, H, 1, D)
+        kc, vc, ks, vs = int8(1, H, S, D), int8(1, H, S, D), \
+            scales(1, H, S), scales(1, H, S)
+        kf = (kc[:, :, :live].float() * ks[:, :, :live, None]).to(
+            torch.bfloat16)
+        vf = (vc[:, :, :live].float() * vs[:, :, :live, None]).to(
+            torch.bfloat16)
+        kb, vb = randn(1, H, S, D), randn(1, H, S, D)
+        shape = f"{H}x{S}x{D} pos {pos}"
+        default = att.launch_splits(1, H, S)
+        cases.append(dict(
+            path=path, name="flash_decode_q8", shape=shape,
+            tuned=tuner.tuned_flash_decode_q8, kernel=att.flash_decode_q8,
+            plain=att.flash_decode_q8_plain,
+            split_plain=att.flash_decode_q8_split_plain,
+            args=(qh, kc, vc, ks, vs, p), default=default,
+            replaces=TPU + "attention.py:345", source="flash_decode.cu",
+            library=lambda qh=qh, kf=kf, vf=vf: sdpa(qh, kf, vf),
+            bytes=2 * H * live * (D + 4) + 2 * nbytes(qh),
+            ops=4 * H * live * D, kind="bf16", heads=H, D=D))
+        cases.append(dict(
+            path=path, name="flash_decode", shape=shape,
+            tuned=tuner.tuned_flash_decode, kernel=att.flash_decode,
+            plain=att.flash_decode_plain,
+            split_plain=att.flash_decode_split_plain,
+            args=(qh, kb, vb, p), default=default,
+            replaces=TPU + "attention.py:294", source="flash_decode.cu",
+            library=lambda qh=qh, kb=kb, vb=vb, n=live: sdpa(
+                qh, kb[:, :, :n], vb[:, :, :n]),
+            bytes=2 * H * live * D * 2 + 2 * nbytes(qh),
+            ops=4 * H * live * D, kind="bf16", heads=H, D=D))
+    for label, din in (("wo", 4096), ("w_down", 11008)):
+        w = QuantizedLinear(int8(din // 2, 4096), (torch.rand(
+            din // 128, 4096, generator=gen, device=dev) * 0.019 + 0.001).to(
+            torch.bfloat16), 4, 128)
+        x = randn(1, din)
+        cases.append(dict(
+            path=TUNED, name="qmm_group", shape=f"{label} 1 row",
+            tuned=tuner.tuned_quant_matmul, kernel=qm.quant_matmul,
+            plain=lambda x, w: qm.qmm_group_plain(x, w)[:, :w.out_features],
+            args=(x, w), replaces=TPU + "quant_matmul.py:100",
+            source="quant_matmul.cu",
+            default=qm.group_splits(1, 4096, din // 2, 128,
+                                    qm._build.sms(dev.index or 0)),
+            library=lambda x=x, wd=dequantize_weight(w): torch.matmul(x, wd),
+            bytes=nbytes(x, w.qweight, w.scales) + 2 * w.out_physical,
+            ops=2 * din * w.out_physical, kind="bf16"))
+    tuned_name = {"flash_decode_q8": "flash_decode_q8",
+                  "flash_decode": "flash_decode",
+                  "qmm_group": "quant_matmul"}
+    pe = PerfEngine()
+    res, paths = {}, {TUNED: {}, TUNED_OPT: {}}
+    tuner._time_call = counting
+    try:
+        for c in cases:
+            args = c["args"]
+            got = c["tuned"](*args, perf_engine=pe)
+            want, plain = c["kernel"](*args), c["plain"](*args)
+            rec = tuner.record(tuned_name[c["name"]], args, pe)
+            top = plain.float().abs().max().item()
+            err = (got.float() - want.float()).abs().max().item()
+            err_plain = (got.float() - plain.float()).abs().max().item()
+            key = f"{c['name']} {c['shape']}"
+            c["pick"] = rec["config"]
+            res[key] = {"default_splits": c["default"], **rec,
+                        "max_abs_err_vs_default": err,
+                        "max_abs_err_vs_plain": err_plain}
+            print(f"# tuner {key}: " + ", ".join(
+                f"{r['config']} {r['ms']:.4f} ms" for r in
+                rec["candidates"]) + f" (cold, captured); picks "
+                f"{rec['config']}, the default rule takes {c['default']} "
+                f"splits; err {err:.3g} against the default launch, "
+                f"{err_plain:.3g} against the plain version, of max "
+                f"{top:.3g}", flush=True)
+            if rec["skipped"] or len(rec["candidates"]) < 1 or \
+                    got.shape != plain.shape or not err <= TOL * top or \
+                    not err_plain <= TOL * top:
+                fail(f"tuner {key}: skipped {rec['skipped']}, err {err} "
+                     f"against the default launch, {err_plain} against "
+                     "the plain version")
+        n = len(timed)
+        for c in cases:
+            counters.reset()
+            c["tuned"](*c["args"], perf_engine=pe)
+            torch.cuda.synchronize()
+            for k, v in counters.read().items():
+                paths[c["path"]][k] = paths[c["path"]].get(k, 0) + v
+    finally:
+        tuner._time_call = time_call
+    if len(timed) != n:
+        fail(f"tuner: the second pass timed {len(timed) - n} candidates")
+    rows = []
+    for c in cases:
+        splits = c["pick"].get("_splits", 1)
+        rows.append(dict(
+            name=c["name"], path=c["path"], replaces=c["replaces"],
+            shape=f"{c['shape']}, the tuner's {splits} splits",
+            source=SRC + c["source"],
+            kernel=lambda c=c: c["kernel"](*c["args"], **c["pick"]),
+            plain=lambda c=c: c["plain"](*c["args"]),
+            library=c["library"], bytes=c["bytes"], ops=c["ops"],
+            kind=c["kind"]))
+        if c["name"] != "qmm_group" and splits > 1:
+            H, D = c["heads"], c["D"]
+            part = c["split_plain"](*c["args"], splits).contiguous()
+            rows.append(dict(
+                name="flash_decode_merge", path=c["path"],
+                shape=f"{H} heads x {splits} splits of D {D} "
+                      f"({c['name']})",
+                replaces=c["replaces"], source=SRC + "flash_decode.cu",
+                kernel=lambda part=part: att.flash_decode_merge(part),
+                plain=lambda part=part: att.flash_decode_merge_plain(part),
+                library=None, bytes=nbytes(part) + 2 * H * D,
+                ops=3 * H * splits * D, kind="f32"))
+    for path in (TUNED, TUNED_OPT):
+        steps[path] = paths[path]
+        have = {r["name"] for r in rows if r["path"] == path}
+        for kname, k in paths[path].items():
+            if k and kname not in have and kname != "qmm_group_split" \
+                    and not kname.endswith("_any"):
+                fail(f"the path {path} launched {kname}, which has no row")
+        for kname in have:
+            if paths[path].get(kname, 0) <= 0:
+                fail(f"{kname} was never launched on the path {path}")
+    print(f"# tuner: {n} candidates timed; the second pass timed none and "
+          f"launched {paths}", flush=True)
+    flush = torch.empty(1 << 30, dtype=torch.uint8, device=dev)
+    for r in rows:
+        check_and_time(torch, r, counters, flush, bw_copy)
+    del flush
+    report["tuner"] = res
+    return paths, rows
+
+
+def memory_path(torch, llama, graph_llama, GraphExecutor, QuantizedLinear,
+                dev, report):
+    """Phase 19d: memory_report (the native planner over the graph IR) of
+    the graph-built 7B decode at 2 layers, printed beside
+    torch.cuda.max_memory_allocated over one captured step of it (not
+    asserted: the planner plans the IR's tensors, the executor allocates
+    through PyTorch's caching allocator and the graph's pool)."""
+    from infinitensor_tpu_torch.runtime.profiling import memory_report
+    cfg2 = dataclasses.replace(llama.LlamaConfig(max_seq=MAX_SEQ),
+                               n_layers=2)
+    params2 = build_params(torch, cfg2, torch.Generator(
+        device=dev).manual_seed(SEED + 193), dev, QuantizedLinear)
+    dec = graph_llama.build_llama_decoder(params2, cfg2, batch=1,
+                                          max_seq=MAX_SEQ, kv_quant=True,
+                                          external_weights=True)
+    plan = {k: v for k, v in memory_report(dec.graph).items()
+            if k != "offsets"}
+    ex = GraphExecutor(dec.graph, device=dev)
+    graph_llama.bind_llama_weights(dec, ex, params2)
+    step = ex.stepper(dec.state_map())
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step({dec.token_name: torch.zeros(1, dtype=torch.int32, device=dev),
+          dec.pos_name: torch.full((1,), CTX, dtype=torch.int32,
+                                   device=dev)})
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    out = {"memory_report": plan, "max_memory_allocated": peak,
+           "allocated_before": before, "peak_over_before": peak - before}
+    print(f"# memory, graph-built 7B at 2 layers ({len(dec.graph.operators)}"
+          f" ops): memory_report {plan}; captured step: "
+          f"max_memory_allocated {peak} B ({before} B before it)",
+          flush=True)
+    report["memory"] = out
+    del ex, step, params2, dec
 
 
 if __name__ == "__main__":

@@ -4,8 +4,8 @@ export it to ONNX bytes with the built-in codec, re-import it, run it and
 check it against the directly built graph.
 
 Runs on the CUDA card; --cpu runs it on the CPU, --image a smaller image.
-The JAX example's memory plan waits for the memory planner (ROADMAP.md
-Queue 1 item 12).
+Prints the graph's memory plan (the native planner's peak, arena and
+weight bytes; runtime/profiling.py memory_report).
 
 Usage:
     python examples/torch_resnet_onnx_inference.py [--image 224] [--cpu]
@@ -33,6 +33,7 @@ def main(argv=None):
         build_resnet18, init_resnet18_params)
     from infinitensor_tpu_torch.onnx.exporter import export_onnx
     from infinitensor_tpu_torch.onnx.importer import OnnxStub
+    from infinitensor_tpu_torch.runtime.profiling import memory_report
     from infinitensor_tpu_torch.runtime.runtime import (
         cpu_runtime, default_runtime)
 
@@ -43,6 +44,8 @@ def main(argv=None):
     h.runtime = runtime
     print("graph:", h.graph.stats()["ops"], "ops;",
           {k: v for k, v in sorted(h.graph.stats()["op_types"].items())})
+    print("memory plan:", {k: v for k, v in memory_report(h.graph).items()
+                           if k != "offsets"})
 
     data = export_onnx(h.graph, "resnet18v2").serialize()
     print(f"exported ONNX: {len(data) / 1e6:.1f} MB")

@@ -8,10 +8,9 @@ forward to the executor (runtime/executor.py): eager per-op dispatch on the
 CPU, and on the card one captured CUDA graph per input signature, in an LRU
 (the reference's CUDA-Graph replay cache).
 
-Copy of infinitensor_tpu/core/handler.py, but for two things: optimize()
-raises, as the optimizer is not ported yet (ROADMAP.md Queue 1 item 13);
-and the executor runs on the handler's runtime's device when it has one
-(GraphHandler(runtime=cpu_runtime()) runs on the CPU), else on the card.
+Copy of infinitensor_tpu/core/handler.py, but the executor runs on the
+handler's runtime's device when it has one (GraphHandler(runtime=
+cpu_runtime()) runs on the CPU), else on the card.
 """
 
 from __future__ import annotations
@@ -465,9 +464,9 @@ class GraphHandler:
         self._executor = None
 
     def optimize(self, level: int = 1) -> None:
-        raise NotImplementedError(
-            "the graph optimizer is not ported yet (ROADMAP.md Queue 1 "
-            "item 13)")
+        from infinitensor_tpu_torch.optimizer.rewrite import optimize_graph
+        self.graph = optimize_graph(self.graph, level=level)
+        self._executor = None
 
     def data_malloc(self) -> None:
         # The executor allocates each op's outputs with the caching

@@ -189,7 +189,11 @@ SPLIT_MAX = 8                   # blocks a tile of the split form
 RING_COLS = 128                 # the ring forms: output columns a tile
 RING_BLOCKS_PER_SM = 1          # ... its persistent grid
 _SPLITS = None                  # when set, the split count of every launch
-#                                 of the four kernels (1: the unsplit form)
+#                                 of the four kernels (1: the unsplit form),
+#                                 for a whole model run; quant_matmul's
+#                                 private _splits= sets one call's (the
+#                                 tuner's). One of the two is to retire
+#                                 (ROADMAP.md Queue 3).
 _COUNTERS = {}                  # (device, stream) -> (capture id, counters)
 X_KINDS = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 
@@ -758,14 +762,16 @@ def group_splits(rows: int, dout_p: int, krows: int, group: int, sms: int
     return splits
 
 
-def _split_plan(x2: torch.Tensor, q: QuantizedLinear) -> tuple:
+def _split_plan(x2: torch.Tensor, q: QuantizedLinear,
+                splits: Optional[int] = None) -> tuple:
     """(splits, part, counters) of a launch of the four kernels on this
-    card: _SPLITS where set, else group_splits; for the split form its
-    f32 partials [splits, rows, dout_p] and _counters, else None, None."""
+    card: `splits` where given, else _SPLITS where set, else group_splits;
+    for the split form its f32 partials [splits, rows, dout_p] and
+    _counters, else None, None."""
     rows, dout_p = x2.shape[0], q.out_physical
-    splits = _SPLITS or group_splits(rows, dout_p, _packed_rows(q),
-                                     q.group_size,
-                                     _build.sms(x2.device.index or 0))
+    splits = splits or _SPLITS or group_splits(
+        rows, dout_p, _packed_rows(q), q.group_size,
+        _build.sms(x2.device.index or 0))
     if splits == 1:
         return 1, None, None
     part = torch.empty(splits, rows, dout_p, dtype=torch.float32,
@@ -822,10 +828,12 @@ def _launched(lib: ctypes.CDLL, err: int, name: str, out: torch.Tensor
 
 
 def _launch_group(x2, norm_w, q, eps: float, name: str,
-                  form: Optional[str] = None) -> torch.Tensor:
+                  form: Optional[str] = None,
+                  splits: Optional[int] = None) -> torch.Tensor:
     """qmm_group (qmm_group_norm with norm_w) in the form group_form
     chooses; `form` forces "mma", "ring" (with norm_w) or "cuda_core"
-    (tests and chip_smoke.py's side-by-side timing only)."""
+    (tests and chip_smoke.py's side-by-side timing only); `splits` the K
+    split of the CUDA-core form without a norm (runtime/tuner.py)."""
     _check_cuda(x2, q)
     norm = norm_w is not None
     form = form or group_form(x2.shape[0], x2.dtype, norm, q.bits)
@@ -835,7 +843,8 @@ def _launch_group(x2, norm_w, q, eps: float, name: str,
         if norm:
             return _launch_group_norm_mma(x2, norm_w, q, eps)
         return _launch_group_mma(x2, q, name)
-    splits, part, counters = (1, None, None) if norm else _split_plan(x2, q)
+    splits, part, counters = (1, None, None) if norm else _split_plan(
+        x2, q, splits)
     out, lib, p = _out(x2, q), _lib(), _build.ptr
     err = lib.qmm_group(
         p(x2), _x_kind(x2), p(norm_w), p(q.qweight), p(q.scales),
@@ -1226,12 +1235,16 @@ def _dispatch(x2: torch.Tensor, plain, launch):
 
 
 def quant_matmul(x: torch.Tensor, q: QuantizedLinear,
-                 variant: Optional[str] = None) -> torch.Tensor:
+                 variant: Optional[str] = None, *,
+                 _splits: Optional[int] = None) -> torch.Tensor:
     """x [..., din] (bf16, f16 or f32) @ q -> [..., out_features] in x's
     dtype.
 
     variant: one of VARIANTS or None (the table entry for the shape, then
-    INFINITPU_QMM_VARIANT, then "group"); `route` says what runs."""
+    INFINITPU_QMM_VARIANT, then "group"); `route` says what runs. The
+    private _splits sets the K split of qmm_group's CUDA-core form on the
+    card (group_splits' count otherwise; runtime/tuner.py sweeps it);
+    other routes and the plain versions ignore it."""
     *lead, din = x.shape
     name, kb = route(x, q, variant)
     if name == "dequant_matmul":
@@ -1245,7 +1258,8 @@ def quant_matmul(x: torch.Tensor, q: QuantizedLinear,
                         lambda: _launch_slab(x2, None, q, 0.0, name))
     elif name == "qmm_group":
         out = _dispatch(x2, lambda: qmm_group_plain(x2, q),
-                        lambda: _launch_group(x2, None, q, 0.0, name))
+                        lambda: _launch_group(x2, None, q, 0.0, name,
+                                              splits=_splits))
     elif name == "qmm_w4a8":
         out = _dispatch(x2, lambda: qmm_w4a8_plain(x2, q),
                         lambda: _launch_w4a8(x2, q))

@@ -1,2 +1,7 @@
 """ctypes bindings of the native C++ components under native/ (the graph
-scheduler; the memory planner comes with ROADMAP.md Queue 1 item 12)."""
+scheduler, the ONNX wire scanner and the memory planner)."""
+from infinitensor_tpu_torch.native.planner import (
+    MemoryPlanner, plan_graph_memory, native_available,
+)
+
+__all__ = ["MemoryPlanner", "plan_graph_memory", "native_available"]

@@ -12,16 +12,14 @@ takes its Python sort. Copy of infinitensor_tpu/native/graph_core.py.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
 import subprocess
 from typing import Optional
 
 import numpy as np
 
-_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))))
-_SRC = os.path.join(_REPO_ROOT, "native", "graph_core.cc")
+from infinitensor_tpu_torch.native._load import load, source
+
+_SRC = source("graph_core.cc")
 _LIB: Optional[ctypes.CDLL] = None
 _LIB_ERR: Optional[str] = None
 
@@ -31,22 +29,11 @@ def _lib() -> Optional[ctypes.CDLL]:
     if _LIB is not None or _LIB_ERR is not None:
         return _LIB
     try:
-        if not os.path.exists(_SRC):
-            _LIB_ERR = "source missing"
-            return None
-        with open(_SRC, "rb") as f:
-            digest = hashlib.sha256(f.read()).hexdigest()[:16]
-        path = os.path.join(os.path.dirname(_SRC),
-                            f"libgraphcore-{digest}.so")
-        if not os.path.exists(path):
-            subprocess.run(["g++", "-O2", "-shared", "-fPIC", "-std=c++17",
-                            _SRC, "-o", path], check=True,
-                           capture_output=True)
-        lib = ctypes.CDLL(path)
+        lib = load(_SRC, "graphcore")
         lib.graph_topo_sort.restype = ctypes.c_int64
         lib.workload_hash.restype = ctypes.c_uint64
         _LIB = lib
-    except Exception as e:  # pragma: no cover
+    except (OSError, subprocess.CalledProcessError) as e:
         _LIB_ERR = str(e)
     return _LIB
 

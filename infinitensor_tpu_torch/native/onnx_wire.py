@@ -10,25 +10,21 @@ cached next to the source.
 
 Copy of infinitensor_tpu/native/onnx_wire.py. It sits at the same depth
 below the repo root, so it binds the same native/onnx_wire.cc and the same
-library. Where that library is absent or does not load (another process
-may be writing it), it builds its own under a temporary name, loads that
-and renames it into place.
+library (native/_load.py builds and loads it).
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-import hashlib
-import os
 import subprocess
 from typing import Optional
 
 import numpy as np
 
-_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))))
-_SRC = os.path.join(_REPO_ROOT, "native", "onnx_wire.cc")
+from infinitensor_tpu_torch.native._load import load, source
+
+_SRC = source("onnx_wire.cc")
 _LIB: Optional[ctypes.CDLL] = None
 _LIB_ERR: Optional[str] = None
 
@@ -50,27 +46,12 @@ def _lib() -> Optional[ctypes.CDLL]:
     if _LIB is not None or _LIB_ERR is not None:
         return _LIB
     try:
-        if not os.path.exists(_SRC):
-            _LIB_ERR = "source missing"
-            return None
-        with open(_SRC, "rb") as f:
-            digest = hashlib.sha256(f.read()).hexdigest()[:16]
-        path = os.path.join(os.path.dirname(_SRC),
-                            f"libonnxwire-{digest}.so")
-        try:
-            lib = ctypes.CDLL(path)
-        except OSError:         # absent, or half-written by another build
-            tmp = f"{path}.{os.getpid()}.tmp"
-            subprocess.run(["g++", "-O2", "-shared", "-fPIC", "-std=c++17",
-                            _SRC, "-o", tmp], check=True,
-                           capture_output=True)
-            lib = ctypes.CDLL(tmp)
-            os.replace(tmp, path)
+        lib = load(_SRC, "onnxwire")
         lib.onnx_locate_graph.restype = ctypes.c_int
         lib.onnx_count_initializers.restype = ctypes.c_int64
         lib.onnx_scan_initializers.restype = ctypes.c_int64
         _LIB = lib
-    except Exception as e:  # pragma: no cover
+    except (OSError, subprocess.CalledProcessError) as e:
         _LIB_ERR = str(e)
     return _LIB
 

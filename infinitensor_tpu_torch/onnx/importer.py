@@ -13,8 +13,7 @@ weights, per-node lowering to GraphHandler calls. Two departures:
   (onnx.py:50) happen here natively.
 
 Copy of infinitensor_tpu/onnx/importer.py bound to this package's
-GraphHandler, quant.weight_only and serving.kvcache; OnnxStub.tune raises
-until the profiler is ported (ROADMAP.md Queue 1 item 12).
+GraphHandler, quant.weight_only, serving.kvcache and runtime.perf.
 """
 
 from __future__ import annotations
@@ -1078,9 +1077,8 @@ class OnnxStub:
         self.handler.optimize(level)
 
     def tune(self) -> None:
-        raise NotImplementedError(
-            "OnnxStub.tune: the per-op profiler (runtime/perf.py) is not "
-            "ported yet (ROADMAP.md Queue 1 item 12)")
+        from infinitensor_tpu_torch.runtime.perf import PerfEngine
+        self.handler.executor().profile(perf_engine=PerfEngine.instance())
 
     def get_perf_time(self) -> float:
         return self.handler.get_perf_time()

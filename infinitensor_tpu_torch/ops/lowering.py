@@ -24,10 +24,12 @@ they are given and return them (the JAX package returns new arrays from
 donated buffers): a decode step copies no cache. The executor keeps the
 caller's inputs unchanged (see runtime/executor.py).
 
-Not ported here, each raising NotImplementedError with its ROADMAP.md
-item: the collectives (AllReduce*, AllGather, ReduceScatterSum, AllToAll,
-Broadcast, Send, Recv: a process group, Queue 1 item 14) and the
-expression op MemBound (nnet/evaluator.py, Queue 1 item 13).
+Not ported here, each raising utils/errors.py Refused (a
+NotImplementedError) with its ROADMAP.md item: the collectives
+(AllReduce*, AllGather, ReduceScatterSum, AllToAll, Broadcast, Send,
+Recv: a process group, Queue 1 item 14) and the expression op MemBound
+(its evaluator comes with the port of nnet/*, Queue 1 item 13). An op
+type with no lowering and an unknown Pad mode raise Refused too.
 
 Random ops (RandomNormal(Like), RandomUniform(Like), Bernoulli) draw from a
 torch.Generator seeded with the op's seed; their bits differ from the JAX
@@ -60,6 +62,7 @@ from infinitensor_tpu_torch.kernels.quant_matmul import (
     quant_matmul, quant_matmul_norm,
 )
 from infinitensor_tpu_torch.quant.weight_only import QuantizedLinear
+from infinitensor_tpu_torch.utils.errors import Refused
 
 LOWERINGS: dict[str, Callable] = {}
 
@@ -100,7 +103,7 @@ def lower_op(op: Operator, ins: list, ctx: LowerCtx = DEFAULT_CTX) -> list:
     try:
         fn = LOWERINGS[op.op_type]
     except KeyError:
-        raise NotImplementedError(
+        raise Refused(
             f"no lowering for op type {op.op_type!r}") from None
     out = fn(op, ins, ctx)
     return list(out) if isinstance(out, (list, tuple)) else [out]
@@ -754,7 +757,7 @@ def _pad_l(op, ins, ctx):
                     x = x.index_select(a, _pad_index(x.shape[a], lo, hi,
                                                      mode, x.device))
         else:
-            raise NotImplementedError(f"Pad mode {mode}")
+            raise Refused(f"Pad mode {mode}")
     if any(n != (0, 0) for n in neg):
         slicer = tuple(slice(-nb, x.shape[i] + ne if ne < 0 else None)
                        for i, (nb, ne) in enumerate(neg))
@@ -1077,16 +1080,16 @@ def _dynamic_quantize_linear_l(op, ins, ctx):
           "AllReduceAvg", "AllGather", "ReduceScatterSum", "AllToAll",
           "Broadcast", "Send", "Recv")
 def _collective_l(op, ins, ctx):
-    raise NotImplementedError(
+    raise Refused(
         f"{op.op_type}: the collectives need a torch.distributed process "
         "group and are not ported yet (ROADMAP.md Queue 1 item 14)")
 
 
 @register("MemBound")
 def _membound_l(op, ins, ctx):
-    raise NotImplementedError(
-        "MemBound: the expression evaluator (nnet/evaluator.py) is not "
-        "ported yet (ROADMAP.md Queue 1 item 13)")
+    raise Refused(
+        "MemBound: the expression evaluator comes with the port of "
+        "nnet/* (nnet/evaluator.py; ROADMAP.md Queue 1 item 13)")
 
 
 # ---------------------------------------------------------------------------

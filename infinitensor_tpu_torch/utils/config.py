@@ -5,9 +5,9 @@ One typed registry backs both programmatic overrides and `INFINITPU_*`
 environment variables, read from the same variables as in the JAX
 package, so every knob is discoverable in one place (`config.snapshot()`).
 The port carries the knobs it reads: `executable_cache_capacity` (the
-executor's capture LRU) and `log_level`. The memory planner's two
-knobs (`naive_allocator`, `validate_memory`) come with native/planner.py
-(ROADMAP.md Queue 1 item 12). `pallas_interpret` has no counterpart: the
+executor's capture LRU), the memory planner's two (`naive_allocator`,
+`validate_memory`, read by native/planner.py) and `log_level`.
+`pallas_interpret` has no counterpart: the
 port has no interpret mode, and a CPU tensor always takes a kernel's plain
 version.
 
@@ -40,6 +40,13 @@ _KNOBS = [
     _Knob("executable_cache_capacity", "INFINITPU_EXEC_CACHE", 16, int,
           "LRU capacity of GraphExecutor's captured-CUDA-graph cache "
           "(reference CUDA-Graph capture cache capacity)."),
+    _Knob("naive_allocator", "INFINITPU_NAIVE_ALLOC", False, bool,
+          "Memory planner gives every activation its own region (no "
+          "reuse) — the reference's allocator debug mode "
+          "(graph.cc:371-380)."),
+    _Knob("validate_memory", "INFINITPU_VALIDATE_MEMORY", False, bool,
+          "Cross-check planned offsets against liveness after planning "
+          "(reference validateMemory, graph.cc:605-622)."),
     _Knob("log_level", "INFINITPU_LOG", "WARNING", str,
           "Log level for infinitensor_tpu_torch structured logs."),
 ]

@@ -3264,3 +3264,146 @@ def test_corpus_kernel_cases_through_onnx(dev, name):
     assert set(d_out) == set(o_out)
     for k in d_out:
         assert np.array_equal(np.asarray(o_out[k]), np.asarray(d_out[k])), k
+
+
+# -- the optimizer and the tuner on the card (optimizer/search.py, ---------
+# -- runtime/tuner.py, runtime/profiling.py) ---------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_search_picks_the_band_form_on_the_card(dev, dtype):
+    """The masked S x S attention in standard ops (bz 4, S 2048, D 64, w
+    32), searched on the card with a fresh PerfEngine: the winner holds
+    G2BMM and GBMM, one eager run launches both rings once, and its output
+    is within 1e-4 (f32) / 4e-2 (bf16) of max|f64 dense attention|."""
+    import ml_dtypes
+    from infinitensor_tpu_torch.core import GraphHandler
+    from infinitensor_tpu_torch.kernels import band
+    from infinitensor_tpu_torch.optimizer.search import SearchEngine
+    from infinitensor_tpu_torch.runtime.executor import GraphExecutor
+    from infinitensor_tpu_torch.runtime.perf import PerfEngine
+    bz, S, D, w = 4, 2048, 64, 32
+    i = np.arange(S)
+    mask = np.where(np.abs(i[:, None] - i[None, :]) <= w, np.float32(0),
+                    np.float32(-1e9))
+    if dtype == "bfloat16":
+        mask = mask.astype(ml_dtypes.bfloat16)
+    h = GraphHandler()
+    q, k, v = (h.input((bz, S, D), dtype=dtype, name=n) for n in "qkv")
+    scores = h.matmul(q, h.transpose(k, perm=[0, 2, 1]))
+    h.matmul(h.softmax(h.add(scores, h.weight(mask)), axis=-1), v)
+    h.graph.infer_output_roles()
+    win = SearchEngine(perf=PerfEngine(), device=dev).run(h.graph)
+    assert {"G2BMM", "GBMM"} <= {op.op_type for op in win.operators}
+    g = torch.Generator().manual_seed(23)
+    tdt = torch.float32 if dtype == "float32" else torch.bfloat16
+    feeds = {n: (torch.randn(bz, S, D, generator=g) * 0.5).to(tdt).to(dev)
+             for n in "qkv"}
+    before = dict(band.launches)
+    (out,) = GraphExecutor(win, device=dev, use_cuda_graph=False).run(
+        feeds).values()
+    torch.cuda.synchronize()
+    for name in ("g2bmm_ring", "gbmm_ring"):
+        assert band.launches[name] == before.get(name, 0) + 1, name
+    qd, kd, vd = (feeds[n].double() for n in "qkv")
+    idx = torch.arange(S, device=dev)
+    sc = torch.where((idx[:, None] - idx[None, :]).abs() <= w,
+                     qd @ kd.transpose(1, 2), -math.inf)
+    ref = torch.softmax(sc, -1) @ vd
+    assert out.dtype == tdt
+    err = (out.double() - ref).abs().max().item()
+    tol = 1e-4 if dtype == "float32" else 4e-2
+    assert err <= tol * ref.abs().max().item(), err
+
+
+def test_tuned_sweeps_against_the_default_launch(dev):
+    """tuned_flash_decode(_q8) and tuned_quant_matmul at one row on the
+    card: every candidate runs, the tuned output is within TOL of the
+    default launch's and of the kernel's plain version, and a second call
+    times nothing."""
+    from infinitensor_tpu_torch.runtime import tuner
+    from infinitensor_tpu_torch.runtime.perf import PerfEngine
+    g = torch.Generator().manual_seed(24)
+    B, H, S, D = 1, 8, 1024, 128
+    pos = torch.full((B,), 700, dtype=torch.int32, device=dev)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g).to(torch.bfloat16).to(dev)
+
+    def int8(*shape):
+        return torch.randint(-127, 128, shape, generator=g,
+                             dtype=torch.int8).to(dev)
+
+    ks, vs = ((torch.rand(B, H, S, generator=g) * 0.01 + 0.005).to(dev)
+              for _ in range(2))
+    q = randn(B, H, 1, D)
+    cases = [(tuner.tuned_flash_decode, att.flash_decode,
+              att.flash_decode_plain, "flash_decode",
+              (q, randn(B, H, S, D), randn(B, H, S, D), pos)),
+             (tuner.tuned_flash_decode_q8, att.flash_decode_q8,
+              att.flash_decode_q8_plain, "flash_decode_q8",
+              (q, int8(B, H, S, D), int8(B, H, S, D), ks, vs, pos)),
+             (tuner.tuned_quant_matmul, qm.quant_matmul,
+              lambda x, w: qm.qmm_group_plain(x, w)[:, :w.out_features],
+              "quant_matmul", (_x(dev, 1, 4096),
+                               _qlin(dev, 4096, 4096, 4, torch.bfloat16)))]
+    pe, timed = PerfEngine(), []
+    time_call = tuner._time_call
+    try:
+        tuner._time_call = lambda *a: timed.append(1) or time_call(*a)
+        for tuned, default, plain, name, args in cases:
+            got = tuned(*args, perf_engine=pe)
+            _close(got, default(*args))
+            _close(got, plain(*args))
+            rec = tuner.record(name, args, pe)
+            assert rec["skipped"] == [] and len(rec["candidates"]) > 1
+        n = len(timed)
+        for tuned, default, plain, name, args in cases:
+            tuned(*args, perf_engine=pe)
+        assert len(timed) == n
+    finally:
+        tuner._time_call = time_call
+
+
+def test_timeit_times_the_card_with_cuda_events(dev, monkeypatch):
+    """profiling.timeit on CUDA outputs records CUDA events, and reads
+    about what the events around the same calls read."""
+    from infinitensor_tpu_torch.runtime import profiling
+    made = []
+    real = torch.cuda.Event
+
+    def event(*a, **k):
+        made.append(1)
+        return real(*a, **k)
+
+    monkeypatch.setattr(torch.cuda, "Event", event)
+    a = torch.randn(2048, 2048, device=dev)
+    ms = profiling.timeit(lambda x: x @ x, a, warmup=2, rounds=10)
+    assert len(made) == 2 and ms > 0.0
+    e0, e1 = real(enable_timing=True), real(enable_timing=True)
+    e0.record()
+    for _ in range(10):
+        a @ a
+    e1.record()
+    e1.synchronize()
+    assert 0.5 < ms / (e0.elapsed_time(e1) / 10) < 2.0
+
+
+def test_captured_ms_cycles_cold_copies(dev):
+    """profiling.captured_ms copies the operands until the copies hold
+    COLD_L2_TIMES times the L2, captures one call a copy in turn, and
+    reads a positive time; the caller's tensors are not written."""
+    from infinitensor_tpu_torch.runtime import profiling
+    a = torch.randn(1024, 1024, device=dev)       # 4 MiB
+    keep = a.clone()
+    seen = set()
+
+    def fn(x):
+        seen.add(x.data_ptr())
+        return x @ x
+
+    ms = profiling.captured_ms(fn, (a,), warmup=1, iters=5)
+    l2 = torch.cuda.get_device_properties(dev).L2_cache_size
+    n = min(profiling.MAX_COPIES,
+            -(-profiling.COLD_L2_TIMES * l2 // (a.numel() * 4)))
+    assert len(seen) == n and ms > 0.0
+    assert torch.equal(a, keep)

@@ -311,9 +311,11 @@ def test_cache_capacity_knob_and_mutation_clears():
 
 def test_config_holds_the_knobs_the_port_reads():
     """The port's registry holds what its code reads (the executor's LRU
-    capacity, the log level), from the JAX package's env vars."""
+    capacity, the memory planner's two knobs, the log level), from the
+    JAX package's env vars."""
     snap = tconfig.snapshot()
-    assert set(snap) == {"executable_cache_capacity", "log_level"}
+    assert set(snap) == {"executable_cache_capacity", "log_level",
+                         "naive_allocator", "validate_memory"}
     for name, knob in snap.items():
         assert knob["env"] == jconfig.snapshot()[name]["env"]
     with tconfig.override(executable_cache_capacity=3):
@@ -398,8 +400,12 @@ def test_unported_ops_raise_with_their_roadmap_item():
         build(h, x)
         with pytest.raises(NotImplementedError, match=item):
             h.run({"x": np.ones((2, 2), np.float32)})
-    with pytest.raises(NotImplementedError, match="item 13"):
-        THandler().optimize()
+    # the optimizer is ported: optimize() rewrites the graph
+    h = THandler(runtime=cpu_runtime())
+    h.relu(h.identity(h.input((2, 2), name="x")))
+    h.graph.infer_output_roles()
+    h.optimize()
+    assert [op.op_type for op in h.graph.operators] == ["Relu"]
 
 
 def test_lowering_registry_matches_jax():

@@ -39,6 +39,37 @@ def test_import_loads_no_jax():
     assert out.stdout.strip() == "[]", out.stdout
 
 
+#: the tuner, the profiler and the optimizer, ported with their names
+TOOL_MODULES = [
+    "infinitensor_tpu_torch.runtime.perf",
+    "infinitensor_tpu_torch.runtime.profiling",
+    "infinitensor_tpu_torch.runtime.tuner",
+    "infinitensor_tpu_torch.runtime.workspace",
+    "infinitensor_tpu_torch.runtime.cache",
+    "infinitensor_tpu_torch.runtime.operator_timer",
+    "infinitensor_tpu_torch.native.planner",
+    "infinitensor_tpu_torch.utils.watchdog",
+    "infinitensor_tpu_torch.optimizer.graph_match",
+    "infinitensor_tpu_torch.optimizer.rewrite",
+    "infinitensor_tpu_torch.optimizer.mutator",
+    "infinitensor_tpu_torch.optimizer.merge",
+    "infinitensor_tpu_torch.optimizer.search",
+]
+
+
+def test_tool_modules_are_in_the_no_jax_check():
+    """The 13 modules are among those test_import_loads_no_jax imports
+    and test_sources_name_no_jax reads, each beside its JAX counterpart's
+    path."""
+    mods = _modules()
+    for m in TOOL_MODULES:
+        assert m in mods, m
+        jax_path = ROOT / (m.replace("infinitensor_tpu_torch",
+                                     "infinitensor_tpu").replace(".", "/")
+                           + ".py")
+        assert jax_path.exists(), jax_path
+
+
 def test_sources_name_no_jax():
     pat = re.compile(r"^\s*(import|from)\s+(jax|infinitensor_tpu)\b",
                      re.MULTILINE)

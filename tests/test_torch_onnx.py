@@ -17,7 +17,7 @@ on the CPU, alone and against the JAX package's.
   reproduces it.
 * utils: the bf16 / f16 converters, DataGenerator and the tensor dump
   files equal the JAX package's bit for bit.
-* OnnxStub.tune raises, naming ROADMAP.md Queue 1 item 12.
+* OnnxStub.tune profiles every op into PerfEngine.instance().
 """
 
 import numpy as np
@@ -268,14 +268,17 @@ def test_import_cycle_diagnostics():
 
 
 def test_stub_surface():
-    """tune raises until the profiler is ported; clone_KV / free_heap act
-    on the port's slot cache in place; to_onnx exports the stub's graph."""
+    """tune records a time for every op in PerfEngine.instance();
+    clone_KV / free_heap act on the port's slot cache in place; to_onnx
+    exports the stub's graph."""
+    from infinitensor_tpu_torch.runtime.perf import PerfEngine
     h = _h()
     feeds = _mlp(h, np.random.default_rng(0))
     h.graph.infer_output_roles()
     stub = _stub(export_onnx(h.graph).serialize())
-    with pytest.raises(NotImplementedError, match="item 12"):
-        stub.tune()
+    stub.tune()
+    for op in stub.handler.graph.operators:
+        assert PerfEngine.instance().get(op.workload_key()) >= 0.0
     cache = {"k": [torch.arange(12.0).reshape(3, 4)],
              "v": [torch.ones(3, 4)]}
     stub.clone_KV(cache, 0, 2)
