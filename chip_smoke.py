@@ -310,7 +310,20 @@ Phases, each failing with a nonzero exit, each printing its seconds:
      graph; the tuner's three sweeps at the 7B and OPT-1.3B decode shapes
      and 7B's wo / w_down (each candidate's ms beside the default rule's
      choice; a second pass times nothing); memory_report of the 2-layer
-     graph-built 7B beside max_memory_allocated of a captured step.
+     graph-built 7B beside max_memory_allocated of a captured step;
+ 20. NNET (nnet/*) on the card: the three conv families of
+     tools/derivation_bench.py (the ResNet stem, the dilated 3x3, the
+     Inception 1x1) at full width in f32, each conv + relu: NMutator
+     derives mutants with its oracle's evaluations on the card (the
+     candidate count and each mutant's op types printed; one must hold
+     a MatMul and a MemBound, the im2col form); every mutant, captured,
+     within 1e-4 of max|base| of the Conv graph's output, and past it
+     with one filter of W moved; SearchEngine(mutator=NMutator()) with a
+     fresh PerfEngine (each candidate's per-op cost sum printed), its
+     pick held to the same limit; the base graph and each mutant
+     captured in turns; every op of each mutant timed alone (the stem's
+     im2col gather is the standalone MemBound); the phase's peak of
+     max_memory_allocated and its seconds.
 Phase 3 also holds qmm_group at OPT-1.3B's four shapes (int8, group 128
 at 1, 8 and 256 rows, and one group of din at 1 and 256 rows),
 flash_decode at 32 heads of 64 at batch 1 and 8, and the merge of its
@@ -1117,6 +1130,11 @@ def main():
     memory_path(torch, llama, graph_llama, GraphExecutor, QuantizedLinear,
                 dev, report)
     t_phase = phase(19, t_phase)
+
+    # 20. NNET: the three conv families derived, run and searched
+    nnet_path(torch, np, GraphHandler, GraphExecutor, cuda_runtime, dev,
+              report)
+    t_phase = phase(20, t_phase)
 
     per_prompt = report["generate"][f"prompt {SHORT}"]["launches_per_prompt"]
     kernels = []
@@ -5882,6 +5900,178 @@ def memory_path(torch, llama, graph_llama, GraphExecutor, QuantizedLinear,
           flush=True)
     report["memory"] = out
     del ex, step, params2, dec
+
+
+# -- phase 20: NNET, the conv families of tools/derivation_bench.py ---------
+
+#: tools/derivation_bench.py:167-177 at full width, f32
+NNET_FAMILIES = {
+    "stem": dict(n=8, c=3, hw=224, f=64, r=7, stride=2, dil=1, pad=3),
+    "dilated": dict(n=8, c=256, hw=28, f=256, r=3, stride=1, dil=2, pad=2),
+    "conv1x1": dict(n=32, c=192, hw=28, f=64, r=1, stride=1, dil=1, pad=0),
+}
+NNET_TOL = 1e-4                 # of max|base|: the derivator oracle's rtol
+
+
+def conv_relu_graph(np, GraphHandler, runtime, fam, seed):
+    """relu(conv(x, W)) of one family: x [n, c, hw, hw] an input, W
+    [f, c, r, r] a weight named "W", seeded, scaled by fan_in^-1/2."""
+    rng = np.random.default_rng(seed)
+    h = GraphHandler(runtime, name="nnet_conv")
+    x = h.input((fam["n"], fam["c"], fam["hw"], fam["hw"]), name="x")
+    w = rng.standard_normal((fam["f"], fam["c"], fam["r"], fam["r"]),
+                            np.float32)
+    w *= np.float32((fam["c"] * fam["r"] ** 2) ** -0.5)
+    p, st, d = fam["pad"], fam["stride"], fam["dil"]
+    h.relu(h.conv(x, h.weight(w, name="W"), pads=(p, p), strides=(st, st),
+                  dilations=(d, d)))
+    h.graph.infer_output_roles()
+    return h.graph
+
+
+def conv_out_hw(fam):
+    return (fam["hw"] + 2 * fam["pad"] - fam["dil"] * (fam["r"] - 1) - 1) \
+        // fam["stride"] + 1
+
+
+def nnet_path(torch, np, GraphHandler, GraphExecutor, cuda_runtime, dev,
+              report):
+    """Phase 20: for each of NNET_FAMILIES, relu(conv) built through
+    GraphHandler on the card; NMutator(max_depth=2) on the card (its
+    oracle's feeds there): the candidate count and each mutant's op
+    types, one of them holding a MatMul and a MemBound; every mutant run
+    captured within NNET_TOL of max|base| of the Conv graph's output,
+    and past it with one filter of W moved by +1; SearchEngine with
+    NMutator and a fresh PerfEngine (each candidate's per-op cost sum),
+    its pick within NNET_TOL; the base and every mutant captured in turns
+    (PAIRS rounds of single runs), and each mutant's ops timed alone
+    (GraphExecutor.profile: captured, cold copies). Prints the phase's
+    peak max_memory_allocated and its seconds."""
+    from infinitensor_tpu_torch.nnet import NMutator
+    from infinitensor_tpu_torch.optimizer.search import SearchEngine
+    from infinitensor_tpu_torch.runtime.perf import PerfEngine
+    t_start = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    res = {}
+
+    def rel(got, want, top):
+        if got.shape != want.shape or got.dtype != want.dtype:
+            fail(f"nnet: {got.dtype} {tuple(got.shape)} against "
+                 f"{want.dtype} {tuple(want.shape)}")
+        return (got.double() - want.double()).abs().max().item() / top
+
+    for i, (label, fam) in enumerate(NNET_FAMILIES.items()):
+        t0 = time.perf_counter()
+        base = conv_relu_graph(np, GraphHandler, cuda_runtime(), fam,
+                               SEED + 200 + i)
+        muts = NMutator(max_depth=2, device=dev).run(base)
+        torch.cuda.synchronize()
+        derive_s = time.perf_counter() - t0
+        kinds = [[op.op_type for op in m.operators] for m in muts]
+        print(f"# nnet {label} ({fam}): {len(muts)} mutants, derived and "
+              f"verified on the card in {derive_s:.2f}s: {kinds}",
+              flush=True)
+        if not any({"MatMul", "MemBound"} <= set(k) for k in kinds):
+            fail(f"nnet {label}: no mutant holds a MatMul and a MemBound")
+        x = torch.randn(fam["n"], fam["c"], fam["hw"], fam["hw"],
+                        generator=torch.Generator(device=dev).manual_seed(
+                            SEED + 210 + i), device=dev)
+        feeds = {"x": x}
+        ex_base = GraphExecutor(base, device=dev)
+        (want,) = ex_base.run(feeds).values()
+        oh = conv_out_hw(fam)
+        if tuple(want.shape) != (fam["n"], fam["f"], oh, oh) or \
+                not torch.isfinite(want).all():
+            fail(f"nnet {label}: the Conv graph gave {tuple(want.shape)}")
+        top = want.abs().max().item()
+        w = next(t for t in base.weights() if t.name == "W").numpy()
+        w_moved = w.copy()
+        w_moved[fam["f"] // 2] += 1.0
+        exs, errs = [], []
+        for m, k in zip(muts, kinds):
+            ex = GraphExecutor(m, device=dev)
+            (got,) = ex.run(feeds).values()
+            err = rel(got, want, top)
+            bad = GraphExecutor(m, device=dev)
+            bad.set_weight("W", w_moved)
+            (got_p,) = bad.run(feeds).values()
+            err_p = rel(got_p, want, top)
+            print(f"# nnet {label}: mutant {k}: captured rel err {err:.3g} "
+                  f"(limit {NNET_TOL}); W moved {err_p:.3g}", flush=True)
+            if not math.isfinite(err) or err > NNET_TOL:
+                fail(f"nnet {label}: a mutant is {err} of max|base| from "
+                     "the Conv graph")
+            if not err_p > NNET_TOL:
+                fail(f"nnet {label}: a moved W gives {err_p}, within the "
+                     f"limit {NNET_TOL}: the check sees nothing")
+            exs.append(ex)
+            errs.append({"ops": k, "rel_err": err, "rel_err_w_moved": err_p})
+            del bad, got, got_p
+        t1 = time.perf_counter()
+        engine = SearchEngine(mutator=NMutator(device=dev), perf=PerfEngine(),
+                              device=dev)
+        win = engine.run(base)
+        torch.cuda.synchronize()
+        search_s = time.perf_counter() - t1
+        costs = [{"kind": h["kind"], "cost_ms": h["cost_ms"],
+                  "ops": h["ops"]} for h in engine.history]
+        for c in costs:
+            print(f"# nnet {label}: {c['kind']} {c['ops']}: per-op cost sum "
+                  f"{c['cost_ms']:.4f} ms", flush=True)
+        (got,) = GraphExecutor(win, device=dev).run(feeds).values()
+        err_win = rel(got, want, top)
+        pick = [op.op_type for op in win.operators]
+        print(f"# nnet {label}: searched in {search_s:.2f}s; pick {pick}; "
+              f"captured rel err {err_win:.3g} (limit {NNET_TOL})",
+              flush=True)
+        if not math.isfinite(err_win) or err_win > NNET_TOL:
+            fail(f"nnet {label}: the search's pick is {err_win} of "
+                 "max|base| from the Conv graph")
+        turns = {"base": [], **{f"mutant {j}": [] for j in range(len(exs))}}
+        for _ in range(PAIRS):
+            turns["base"].append(ex_base.time_ms(feeds, iters=1, warmup=1))
+            for j, ex in enumerate(exs):
+                turns[f"mutant {j}"].append(ex.time_ms(feeds, iters=1,
+                                                       warmup=1))
+        ms = {k: statistics.median(v) for k, v in turns.items()}
+        best = min((k for k in ms if k != "base"), key=ms.get)
+        ops = [[(op_type, round(t, 4)) for _, op_type, t in
+                ex.profile(feeds)] for ex in exs]
+        print(f"# nnet {label}: captured ms in turns (median of {PAIRS}) "
+              f"{json.dumps(ms)}; best {best}; each mutant's ops alone "
+              f"(captured, cold) {ops}", flush=True)
+        flops = 2 * fam["n"] * fam["f"] * oh * oh * fam["c"] * fam["r"] ** 2
+        res[label] = {
+            "family": fam, "mutants": errs, "derive_s": derive_s,
+            "candidates": costs, "pick": pick, "pick_rel_err": err_win,
+            "search_s": search_s, "captured_ms": ms,
+            "captured_ms_in_turns": turns, "best_mutant": best,
+            "ops_alone_ms": ops, "flops": flops,
+            "f32_ops_bound_ms": flops / PEAK_OPS["f32"] * 1e3,
+            "seconds": time.perf_counter() - t0}
+        del ex_base, exs, engine, want, got, x
+    gather = next(t for mut in res["stem"]["ops_alone_ms"] for op, t in mut
+                  if op == "MemBound")
+    fam = NNET_FAMILIES["stem"]
+    oh = conv_out_hw(fam)
+    gather_bytes = 4 * (fam["n"] * fam["c"] * fam["hw"] ** 2 +
+                        fam["n"] * oh * oh * fam["c"] * fam["r"] ** 2)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    took = time.perf_counter() - t_start
+    out = {"families": res, "standalone_membound_ms": gather,
+           "standalone_membound_bytes": gather_bytes,
+           "standalone_membound_bound_ms": gather_bytes / HBM_BYTES_S * 1e3,
+           "max_memory_allocated": peak, "allocated_before": before,
+           "seconds": took}
+    print(f"# nnet: the stem's im2col gather (MemBound) alone, captured "
+          f"cold: {gather:.4f} ms ({gather_bytes} B, bound "
+          f"{out['standalone_membound_bound_ms']:.4f} ms); "
+          f"max_memory_allocated over the phase {peak} B ({before} B "
+          f"before it); {took:.1f}s", flush=True)
+    report["nnet"] = out
 
 
 if __name__ == "__main__":

@@ -27,9 +27,12 @@ caller's inputs unchanged (see runtime/executor.py).
 Not ported here, each raising utils/errors.py Refused (a
 NotImplementedError) with its ROADMAP.md item: the collectives
 (AllReduce*, AllGather, ReduceScatterSum, AllToAll, Broadcast, Send,
-Recv: a process group, Queue 1 item 14) and the expression op MemBound
-(its evaluator comes with the port of nnet/*, Queue 1 item 13). An op
-type with no lowering and an unknown Pad mode raise Refused too.
+Recv: a process group, Queue 1 item 14). An op type with no lowering and
+an unknown Pad mode raise Refused too.
+
+MemBound (the expression op) computes through nnet/evaluator.py
+evaluate_expr, as in the JAX package: index grids and gathers in eager
+torch, captured with the graph on the card.
 
 Random ops (RandomNormal(Like), RandomUniform(Like), Bernoulli) draw from a
 torch.Generator seeded with the op's seed; their bits differ from the JAX
@@ -1073,7 +1076,7 @@ def _dynamic_quantize_linear_l(op, ins, ctx):
 
 
 # ---------------------------------------------------------------------------
-# collectives and the expression op: not ported yet
+# collectives: not ported yet
 # ---------------------------------------------------------------------------
 
 @register("AllReduceSum", "AllReduceProd", "AllReduceMin", "AllReduceMax",
@@ -1085,11 +1088,14 @@ def _collective_l(op, ins, ctx):
         "group and are not ported yet (ROADMAP.md Queue 1 item 14)")
 
 
+# ---------------------------------------------------------------------------
+# expression op (EinNet analog)
+# ---------------------------------------------------------------------------
+
 @register("MemBound")
 def _membound_l(op, ins, ctx):
-    raise Refused(
-        "MemBound: the expression evaluator comes with the port of "
-        "nnet/* (nnet/evaluator.py; ROADMAP.md Queue 1 item 13)")
+    from infinitensor_tpu_torch.nnet.evaluator import evaluate_expr
+    return evaluate_expr(op.attrs["expr"], ins, _out_device(ins, ctx))
 
 
 # ---------------------------------------------------------------------------

@@ -2,7 +2,7 @@
 
 ``Refused`` is what a lowering or a launch raises for an op, an
 attribute or a launch config it does not offer (an op type with no
-lowering, a Pad mode, the collectives, MemBound). The search scores a
+lowering, a Pad mode, the collectives). The search scores a
 candidate that raises it as inf and the tuner skips a config that raises
 it. Every other error propagates: a shape check's ValueError on the card
 (the G2BMM / GBMM lowerings already send the shapes the band kernels do

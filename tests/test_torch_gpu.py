@@ -3407,3 +3407,117 @@ def test_captured_ms_cycles_cold_copies(dev):
             -(-profiling.COLD_L2_TIMES * l2 // (a.numel() * 4)))
     assert len(seen) == n and ms > 0.0
     assert torch.equal(a, keep)
+
+
+# -- nnet/*: the evaluator, MemBound and NMutator on the card ---------------
+
+def _nnet_comps():
+    """Comprehensions of tests/test_torch_nnet.py's kinds (no jax here): a
+    padded, strided, dilated conv; every Func; /, //, % on index grids
+    through a padded access; unpadded reads out of range at both ends and
+    at negative indices, alone and summed."""
+    from infinitensor_tpu_torch.nnet import derivation
+    from infinitensor_tpu_torch.nnet.expr import (
+        Comprehension, Func, TensorRef, fresh_var)
+    out = {"conv": derivation.conv_expr(2, 3, 9, 9, 4, 3, 3, pad=3,
+                                        stride=2, dilation=2),
+           "matmul": derivation.matmul_expr(7, 12, 5, True, True)}
+    for fn in ("relu", "tanh", "exp", "sigmoid"):
+        i, j = fresh_var("i"), fresh_var("j")
+        X = TensorRef("X", (5, 7))
+        out[fn] = Comprehension([(i, 5), (j, 7)], [],
+                                Func(fn, X[i, j] * 0.5 + 0.25))
+    i, j = fresh_var("i"), fresh_var("j")
+    X = TensorRef("X", (6, 8), paddings=(2, 2))
+    out["index_math"] = Comprehension(
+        [(i, 6), (j, 8)], [],
+        X[(i - 3) // 2 + 1, (j - 5) % 4 + j // -3] + (i - 2) / 4.0)
+    i, j = fresh_var("i"), fresh_var("j")
+    X = TensorRef("X", (5, 4))
+    out["out_of_range"] = Comprehension(
+        [(i, 9), (j, 7)], [], X[i * 2 - 8, j - 3] + X[-1, j + 9] * X[i, -6])
+    i, k = fresh_var("i"), fresh_var("k")
+    X = TensorRef("X", (4, 6))
+    out["summed_oob"] = Comprehension([(i, 5)], [(k, 9)],
+                                      X[i - 1, k - 2] * (k - 4))
+    return out
+
+
+@pytest.mark.parametrize("budget", [None, 64])
+def test_nnet_evaluator_on_the_card(dev, budget, monkeypatch):
+    """Every comprehension on the card within 1e-5 of max|CPU| (f32, sums
+    in another order), whole and in chunks of 64 grid elements."""
+    from infinitensor_tpu_torch.nnet import evaluator
+    for name, comp in _nnet_comps().items():
+        rng = np.random.default_rng(0)
+        feeds = {t.name: rng.standard_normal(t.shape).astype(np.float32)
+                 for t in comp.inputs()}
+        want = evaluator.evaluate(comp, feeds, device="cpu")
+        if budget is not None:
+            monkeypatch.setattr(evaluator, "ELEMENT_BUDGET", budget)
+        got = evaluator.evaluate(comp, feeds, device=dev)
+        monkeypatch.undo()
+        assert got.is_cuda and got.dtype == want.dtype, name
+        err = (got.cpu().double() - want.double()).abs().max().item()
+        assert err <= 1e-5 * want.abs().max().item(), (name, err)
+
+
+def _membound_graph(comp, x_shape):
+    from infinitensor_tpu_torch.core import GraphHandler
+    from infinitensor_tpu_torch.core import dtype
+    h = GraphHandler()
+    x = h.input(x_shape, name="x")
+    h._add("MemBound", [x], {"expr": comp,
+                             "out_specs": [(comp.shape, dtype.FLOAT32)]})
+    h.graph.infer_output_roles()
+    return h.graph
+
+
+def test_membound_out_of_range_captured(dev):
+    """An unpadded MemBound reading out of range at both ends and at
+    negative indices, captured and replayed on new inputs: the CPU's
+    values (JAX's wrap-then-clamp rule), no device-side assert, and the
+    card still runs after it."""
+    from infinitensor_tpu_torch.runtime.executor import GraphExecutor
+    g = _membound_graph(_nnet_comps()["out_of_range"], (5, 4))
+    ex = GraphExecutor(g, device=dev)
+    assert ex.use_cuda_graph
+    for seed in (0, 1):
+        feeds = {"x": np.random.default_rng(seed).standard_normal(
+            (5, 4)).astype(np.float32)}
+        want = GraphExecutor(g, device="cpu").run(feeds, return_numpy=True)
+        got = ex.run(feeds, return_numpy=True)
+        torch.cuda.synchronize()
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k])
+    assert (torch.ones(4, device=dev) * 2).sum().item() == 8.0
+
+
+def test_nmutator_mutant_captured_against_conv(dev, monkeypatch):
+    """NMutator on the card (its oracle there) derives the im2col mutant
+    (MatMul + MemBound) of a padded, strided, dilated conv + relu; run
+    captured, it is within 1e-4 of max|base| of the Conv graph's
+    output."""
+    from infinitensor_tpu_torch.core import GraphHandler
+    from infinitensor_tpu_torch.nnet import NMutator
+    from infinitensor_tpu_torch.runtime.executor import GraphExecutor
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    rng = np.random.default_rng(5)
+    h = GraphHandler()
+    x = h.input((2, 16, 20, 20), name="x")
+    w = h.weight((rng.standard_normal((32, 16, 3, 3)) / 12).astype(
+        np.float32), name="W")
+    h.relu(h.conv(x, w, pads=(2, 2), strides=(2, 2), dilations=(2, 2)))
+    h.graph.infer_output_roles()
+    muts = NMutator(device=dev).run(h.graph)
+    im2col = [m for m in muts
+              if {"MatMul", "MemBound"} <= {op.op_type for op in m.operators}]
+    assert im2col
+    feeds = {"x": torch.from_numpy(rng.standard_normal(
+        (2, 16, 20, 20)).astype(np.float32)).to(dev)}
+    (want,) = GraphExecutor(h.graph, device=dev).run(feeds).values()
+    for m in im2col:
+        (got,) = GraphExecutor(m, device=dev).run(feeds).values()
+        assert got.shape == want.shape
+        err = (got - want).abs().max().item()
+        assert err <= 1e-4 * want.abs().max().item(), err

@@ -390,11 +390,7 @@ def test_runtime_handle():
 def test_unported_ops_raise_with_their_roadmap_item():
     for build, item in ((lambda h, x: h.all_reduce_sum(x), "item 14"),
                         (lambda h, x: h.broadcast(x), "item 14"),
-                        (lambda h, x: h.send(x, 0, 1), "item 14"),
-                        (lambda h, x: _op(h, "MemBound", [x], {
-                            "expr": None,
-                            "out_specs": [((2, 2), tdt.FLOAT32)]}),
-                         "item 13")):
+                        (lambda h, x: h.send(x, 0, 1), "item 14")):
         h = THandler(runtime=cpu_runtime())
         x = h.input((2, 2), name="x")
         build(h, x)

@@ -70,6 +70,33 @@ def test_tool_modules_are_in_the_no_jax_check():
         assert jax_path.exists(), jax_path
 
 
+#: nnet/*, ported with its names
+NNET_MODULES = [
+    "infinitensor_tpu_torch.nnet",
+    "infinitensor_tpu_torch.nnet.expr",
+    "infinitensor_tpu_torch.nnet.visitors",
+    "infinitensor_tpu_torch.nnet.iterator_table",
+    "infinitensor_tpu_torch.nnet.evaluator",
+    "infinitensor_tpu_torch.nnet.rules",
+    "infinitensor_tpu_torch.nnet.derivation",
+    "infinitensor_tpu_torch.nnet.derivator",
+    "infinitensor_tpu_torch.nnet.nmutator",
+]
+
+
+def test_nnet_modules_are_in_the_no_jax_check():
+    """The nine nnet modules are among those test_import_loads_no_jax
+    imports and test_sources_name_no_jax reads, each beside its JAX
+    counterpart's path."""
+    mods = _modules()
+    for m in NNET_MODULES:
+        assert m in mods, m
+        rel = m.replace("infinitensor_tpu_torch", "infinitensor_tpu").replace(
+            ".", "/")
+        assert (ROOT / (rel + ".py")).exists() or \
+            (ROOT / rel / "__init__.py").exists(), rel
+
+
 def test_sources_name_no_jax():
     pat = re.compile(r"^\s*(import|from)\s+(jax|infinitensor_tpu)\b",
                      re.MULTILINE)

@@ -14,8 +14,9 @@ on the same graphs, built from the same numpy arrays in both.
   file (so neither times anything) picks the same graph op for op, with
   outputs within 1e-5 of the JAX winner's; an unseeded CPU search returns
   a graph equal in output to its input.
-* GraphHandler.optimize and OnnxStub.optimize / tune run; MemBound still
-  raises, naming nnet/*.
+* GraphHandler.optimize and OnnxStub.optimize / tune run; MemBound
+  computes through nnet/evaluator.py (tests/test_torch_nnet_graph.py
+  holds it and NMutator's search against the JAX package's).
 """
 
 import os
@@ -495,8 +496,7 @@ def test_lowering_refusals_are_refused():
     from infinitensor_tpu_torch.core.tensor import TensorObj
     from infinitensor_tpu_torch.ops.lowering import lower_op
     x = torch.ones(2, 2)
-    for op_type, attrs in (("NoSuchOp", {}), ("MemBound", {"expr": None}),
-                           ("AllReduceSum", {}),
+    for op_type, attrs in (("NoSuchOp", {}), ("AllReduceSum", {}),
                            ("Pad", {"pads": [0, 1, 0, 1], "mode": "wrap"})):
         op = Operator(op_type, [TensorObj((2, 2), tdt.FLOAT32)],
                       [TensorObj((2, 2), tdt.FLOAT32)], attrs)
@@ -505,13 +505,23 @@ def test_lowering_refusals_are_refused():
 
 
 def test_membound_still_raises():
+    """MemBound, which raised until nnet/* was ported, now computes: the
+    op this test built, with an expression attached (out = relu(2 x^T)),
+    runs through the handler and gives the numpy value."""
     from infinitensor_tpu_torch.core.operator import Operator
     from infinitensor_tpu_torch.core.tensor import TensorObj
+    from infinitensor_tpu_torch.nnet.expr import (
+        Comprehension, Func, TensorRef, fresh_var)
+    i, j = fresh_var("i"), fresh_var("j")
+    X = TensorRef("X", (2, 3))
+    expr = Comprehension([(i, 3), (j, 2)], [], Func("relu", X[j, i] * 2.0))
     h = THandler(runtime=cpu_runtime())
-    x = h.input((2, 2), name="x")
-    out = TensorObj((2, 2), tdt.FLOAT32)
+    x = h.input((2, 3), name="x")
+    out = TensorObj((3, 2), tdt.FLOAT32)
     h.graph.add_tensor(out)
-    h.graph.add_op(Operator("MemBound", [x], [out], {"expr": None}))
+    h.graph.add_op(Operator("MemBound", [x], [out], {"expr": expr}))
     h.graph.infer_output_roles()
-    with pytest.raises(NotImplementedError, match=r"nnet/\*"):
-        h.run({"x": np.ones((2, 2), np.float32)})
+    x_np = np.random.default_rng(0).standard_normal((2, 3)).astype(
+        np.float32)
+    got = list(h.run({"x": x_np}, return_numpy=True).values())[0]
+    np.testing.assert_array_equal(got, np.maximum(2.0 * x_np.T, 0.0))
